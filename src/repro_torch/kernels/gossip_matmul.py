@@ -1,0 +1,58 @@
+"""Dense push-sum mix ``Y = P @ X`` over the (n, D) bank, f32 accumulation,
+stored in X's dtype.
+
+Replaces the TPU kernel ``repro.kernels.gossip_matmul.gossip_matmul_pallas``
+with the CUDA C++ kernel in ``csrc/gossip_matmul.cu``: a tiled f32 SIMT
+product (no TF32, no tensor cores — the reference mixes at
+``Precision.HIGHEST``).  At the slice's n = 100 it is bound by f32
+operations (2 n^2 D flops over 2 n D elements, n/4 flop per byte); one
+128-row tile covers every client, so X streams from device memory once.
+
+``gossip_matmul`` is the wrapper: a CPU tensor goes to
+:func:`gossip_matmul_plain`; a CUDA tensor goes to the kernel, or the
+wrapper raises.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import DTYPE_CODES, check, load_library
+
+__all__ = ["gossip_matmul", "gossip_matmul_plain", "launches"]
+
+launches = 0
+
+
+def gossip_matmul_plain(P, X):
+    """``(P @ X)`` in float32, cast to X's dtype (TF32 must be off on CUDA)."""
+    return (P.float() @ X.float()).to(X.dtype)
+
+
+def gossip_matmul(P, X):
+    global launches
+    if X.device.type == "cpu":
+        return gossip_matmul_plain(P, X)
+    if X.device.type != "cuda":
+        raise ValueError(f"no gossip_matmul kernel for device {X.device}")
+    if X.dim() != 2 or X.dtype not in DTYPE_CODES:
+        raise ValueError(
+            f"X must be a float32/bfloat16 (n, D) bank, got {X.dtype} "
+            f"{tuple(X.shape)}"
+        )
+    n, d = X.shape
+    if P.shape != (n, n) or P.dtype != torch.float32:
+        raise ValueError(f"P must be float32 of shape ({n}, {n})")
+    if P.device != X.device:
+        raise ValueError(f"P is on {P.device}, X on {X.device}")
+    if not (P.is_contiguous() and X.is_contiguous()):
+        raise ValueError("P and X must be contiguous")
+    lib = load_library()
+    Y = torch.empty_like(X)
+    with torch.cuda.device(X.device):
+        rc = lib.gossip_matmul_launch(
+            DTYPE_CODES[X.dtype], P.data_ptr(), X.data_ptr(), Y.data_ptr(), n, d,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(rc, "gossip_matmul")
+    launches += 1
+    return Y
