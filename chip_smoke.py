@@ -21,8 +21,9 @@ Phases, each fatal on failure:
    with the sparse mix, with loss, accuracy, push-sum mass, wall time and
    kernel launches per round, peak memory, and a ``torch.profiler``
    breakdown of each mix's last round (device time by kernel, busy share);
-6. crossover: the dense mix against the sparse mix at n = 32, 64, 128 and
-   the same D, the measured floor of the density rule.
+6. crossover: the dense mix against the sparse mix at the same D, n from 4
+   to 128 and k_max from 1 to n, and the density rule's CUDA constants
+   those times give, beside the ones ``kernels/ops.py`` ships.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -401,28 +402,70 @@ def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
 
 # -- phase 6: dense against sparse mix ----------------------------------------
 
-def crossover(dev, d: int, ns=(32, 64, 128), iters: int = 10):
-    from repro_torch.core import topology
+K_LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
+
+
+def rule_losses(times: dict, floor, density: float) -> dict:
+    """For each mix, the worst slowdown against the faster mix over the
+    timed (n, k_max) pairs that the rule "sparse iff n >= floor and k_max
+    <= density * n" sends to it, with that pair (``floor`` None: never
+    sparse)."""
+    worst = {"sparse": (1.0, None), "dense": (1.0, None)}
+    for (n, k), (dense, sparse) in times.items():
+        use = floor is not None and n >= floor and k <= density * n
+        mix, t = ("sparse", sparse) if use else ("dense", dense)
+        if t / min(dense, sparse) > worst[mix][0]:
+            worst[mix] = (t / min(dense, sparse), (n, k))
+    return worst
+
+
+def crossover(dev, d: int, ns=(4, 8, 16, 32, 64, 128), iters: int = 10):
+    """Time the dense mix against the gather at every n in ``ns`` and every
+    k_max of ``K_LADDER`` up to n, at the main path's D.  The density rule's
+    CUDA constants follow from the times: the density limit is the largest
+    timed k_max/n below which the gather won every timed pair, and the floor
+    the least n that k_max = 1 passes.  So the rule sends no timed pair to
+    the slower gather: a gather pick loses without bound as k_max grows, a
+    dense pick at most the dense kernel's own time."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    floor = None
+    times = {}  # (n, k_max) -> (dense ms, sparse ms)
     for n in ns:
         X = torch.randn(n, d, generator=gen, device=dev)
-        P = topology.sample_kout(gen, n, 10)
-        nl = topology.sample_kout_neighbors(gen, n, 10)
+        P = torch.rand(n, n, generator=gen, device=dev)
+        P = P / P.sum(0)
         dense = timed_ms(lambda: ops.gossip_mix(P, X), dev, iters)
-        sparse = timed_ms(lambda: ops.gossip_mix_sparse(nl.idx, nl.wgt, X),
-                          dev, iters)
-        print(f"  n={n} D={d} k_max=11: dense {dense:.4f} ms, sparse "
-              f"{sparse:.4f} ms, sparse/dense {sparse / dense:.3f}")
-        if floor is None and sparse < dense:
-            floor = n
+        cells = []
+        for k in (k for k in K_LADDER if k <= n):
+            # k distinct senders per receiver: the time depends on neither
+            # the weights nor which rows they are.
+            idx = torch.rand(n, n, generator=gen, device=dev).argsort(
+                dim=1)[:, :k].to(torch.int32).contiguous()
+            wgt = torch.full((n, k), 1.0 / k, device=dev)
+            sparse = timed_ms(lambda: ops.gossip_mix_sparse(idx, wgt, X), dev,
+                              iters)
+            times[n, k] = (dense, sparse)
+            cells.append(f"{k}:{sparse:.4f}({sparse / dense:.3f})")
+        print(f"  n={n} D={d}: dense {dense:.4f} ms; sparse by k_max, ms "
+              f"(sparse/dense): {' '.join(cells)}")
         del X
-    print(f"  measured sparse floor: n >= {floor} "
-          f"(ops._SPARSE_GOSSIP_MIN_CLIENTS_CUDA = "
-          f"{ops._SPARSE_GOSSIP_MIN_CLIENTS_CUDA})")
-    return floor
+    density = max((r for r in sorted({k / n for n, k in times})
+                   if all(sparse < dense
+                          for (n, k), (dense, sparse) in times.items()
+                          if k <= r * n)), default=None)
+    floor = None if density is None else math.ceil(1 / density)
+    shipped = (ops._SPARSE_GOSSIP_MIN_CLIENTS_CUDA,
+               ops._SPARSE_GOSSIP_MAX_DENSITY_CUDA)
+    for what, (f, r) in (("from these times", (floor, density)),
+                         ("ops constants", shipped)):
+        rule = ("never sparse" if f is None
+                else f"sparse iff n >= {f} and k_max <= {r:.6g} n")
+        loss = ", ".join(
+            f"{mix} picks {slow:.3f}x"
+            + (f" at (n, k_max) = {at}" if at else "")
+            for mix, (slow, at) in rule_losses(times, f, r).items())
+        print(f"  {what}: {rule}; worst against the faster mix: {loss}")
 
 
 REPLACES = {

@@ -4,9 +4,8 @@ Every ``.cu`` file has a plain C interface, so no PyTorch header is
 compiled: each source goes through its own ``nvcc -c`` (all started
 together), one more ``nvcc -shared`` links them into one library, and
 ``ctypes`` loads it.  The library is built at first use, never at import,
-into ``build/`` at the repository root (``REPRO_TORCH_BUILD_DIR``
-overrides it); its file name carries a hash of the sources and flags, so a
-changed source never loads a stale build.  Pointers and the stream cross
+into ``build/`` at the repository root; its file name carries a hash of
+the sources and flags, so a changed source never loads a stale build.  Pointers and the stream cross
 as ``c_void_p``, sizes as ``c_int64``; every entry point returns the
 ``cudaError_t`` of its launch.
 """
@@ -26,6 +25,7 @@ import torch
 __all__ = ["CSRC", "DTYPE_CODES", "check", "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = CSRC.parents[3] / "build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
@@ -55,13 +55,6 @@ def nvcc_path() -> str:
         "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels of "
         "repro_torch are built from source at first use"
     )
-
-
-def _build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return CSRC.parents[3] / "build"
 
 
 def _build(sources: list[Path], out: Path) -> None:
@@ -102,7 +95,7 @@ def load_library() -> ctypes.CDLL:
         h = hashlib.sha256(" ".join(_FLAGS).encode())
         for s in sources:
             h.update(s.name.encode() + s.read_bytes())
-        out = _build_dir() / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
+        out = BUILD / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
         if not out.exists():
             _build(sources, out)
         lib = ctypes.CDLL(str(out))

@@ -24,27 +24,30 @@ __all__ = [
 ]
 
 # Sparse-vs-dense representation dispatch (the reference's rule at
-# repro/kernels/ops.py:57-67, with the port's own floors).  The CUDA floor
-# is the smallest n at which the gather kernel beats the dense kernel at the
-# main path's D (cifar_cnn, 1,756,426), timed by chip_smoke.py's crossover
-# phase: on an H100 80GB HBM3 at its 700 W limit the gather won at every n
-# timed (32, 64, 128; 0.57x the dense time at n = 32), so the floor is the
-# smallest n timed.  The CPU floor is the reference's.
-_SPARSE_GOSSIP_MIN_CLIENTS_CUDA = 32
+# repro/kernels/ops.py:57-67, with the port's own constants per device).
+# The CUDA pair comes from chip_smoke.py's crossover phase, which times the
+# dense kernel against the gather kernel at the main path's D (cifar_cnn,
+# 1,756,426) over n = 4..128 and k_max = 1..n.  On an H100 80GB HBM3 at its
+# 700 W limit the gather won every pair with k_max <= n/8 and lost at
+# n = 128 from k_max = 24 (3/16 n) on; the floor is the least n that
+# k_max = 1 passes.  The CPU pair is the reference's.
+_SPARSE_GOSSIP_MIN_CLIENTS_CUDA = 8
+_SPARSE_GOSSIP_MAX_DENSITY_CUDA = 0.125
 _SPARSE_GOSSIP_MIN_CLIENTS_CPU = 128
-_SPARSE_GOSSIP_MAX_DENSITY = 0.25
+_SPARSE_GOSSIP_MAX_DENSITY_CPU = 0.25
 
 
 def use_sparse_gossip(n: int, k_max: int, device="cuda") -> bool:
     """THE density rule: neighbor-list gossip iff ``n`` is at least the
     device's ``_SPARSE_GOSSIP_MIN_CLIENTS_*`` floor and ``k_max / n`` is at
-    most ``_SPARSE_GOSSIP_MAX_DENSITY``."""
-    floor = (
-        _SPARSE_GOSSIP_MIN_CLIENTS_CUDA
-        if torch.device(device).type == "cuda"
-        else _SPARSE_GOSSIP_MIN_CLIENTS_CPU
-    )
-    return n >= floor and k_max <= _SPARSE_GOSSIP_MAX_DENSITY * n
+    most its ``_SPARSE_GOSSIP_MAX_DENSITY_*``."""
+    if torch.device(device).type == "cuda":
+        floor, density = (_SPARSE_GOSSIP_MIN_CLIENTS_CUDA,
+                          _SPARSE_GOSSIP_MAX_DENSITY_CUDA)
+    else:
+        floor, density = (_SPARSE_GOSSIP_MIN_CLIENTS_CPU,
+                          _SPARSE_GOSSIP_MAX_DENSITY_CPU)
+    return n >= floor and k_max <= density * n
 
 
 def gossip_mix(P, M):

@@ -286,9 +286,12 @@ def test_density_rule_on_cpu_matches_reference(n, k_max):
 
 def test_density_rule_on_cuda_uses_its_own_floor():
     floor = ops._SPARSE_GOSSIP_MIN_CLIENTS_CUDA
-    assert ops.use_sparse_gossip(floor, 1, "cuda")
+    density = ops._SPARSE_GOSSIP_MAX_DENSITY_CUDA
+    assert ops.use_sparse_gossip(floor, max(1, int(density * floor)), "cuda")
     assert not ops.use_sparse_gossip(floor - 1, 1, "cuda")
-    assert not ops.use_sparse_gossip(4 * floor, 4 * floor // 4 + 1, "cuda")
+    n = 4 * floor
+    assert ops.use_sparse_gossip(n, int(density * n), "cuda")
+    assert not ops.use_sparse_gossip(n, int(density * n) + 1, "cuda")
 
 
 @pytest.mark.parametrize("wrapper,args", [
