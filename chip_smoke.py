@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path (DFedSGPSM rounds on the flat bank) on
-one CUDA card, through its hand-written Hopper kernels.
+"""Drive the PyTorch port's main paths on one CUDA card, through its
+hand-written Hopper kernels: DFedSGPSM rounds on the flat bank, and serving
+gemma3-12b (prefill, then greedy decode).
 
     python3 chip_smoke.py
 
@@ -12,7 +13,10 @@ Phases, each fatal on failure:
    full-width ``cifar_cnn``), f32 and bf16, plus ragged shapes and pad
    slots, every kernel against its plain PyTorch version on the card with
    the stated tolerance; then its time (CUDA events) beside its bound, the
-   plain version's time and one PyTorch library call's;
+   plain version's time and one PyTorch library call's.  The flash kernel
+   runs at gemma3-12b's prefill shapes (B = 4, 16 on 8 heads, S = 2048,
+   hd = 256, bf16, windows 1024 and 0) and at edge cases, and is timed
+   beside SDPA on the same inputs and mask;
 4. small parity: one round of every mix on the card against the same
    round on the CPU (the plain versions), on the same draws;
 5. main path: ``FLTrainer`` with DFedSGPSM (5 local steps, batch 32,
@@ -23,7 +27,15 @@ Phases, each fatal on failure:
    breakdown of each mix's last round (device time by kernel, busy share);
 6. crossover: the dense mix against the sparse mix at the same D, n from 4
    to 128 and k_max from 1 to n, and the density rule's CUDA constants
-   those times give, beside the ones ``kernels/ops.py`` ships.
+   those times give, beside the ones ``kernels/ops.py`` ships;
+7. serving: reduced gemma3-12b in f32, prefill and 4 greedy decode steps on
+   the card against the same on the CPU (logits within tolerance, equal
+   tokens); then the serving main path, ``repro_torch.launch.serve.main``
+   with gemma3-12b at full width in bf16 (parameters drawn on the card), 4
+   requests of 2048 prompt tokens and 16 new tokens: prefill time, decode
+   ms/step and tokens/s, peak memory, flash launches per prefill (one per
+   layer: 48), finite logits, and a profiled prefill split into the
+   attention kernel, matmuls and the rest.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -48,6 +60,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 
 N_CLIENTS = 100  # the paper's client count
 CIFAR_CNN_DIM = 1_756_426
@@ -92,9 +105,10 @@ def timed_ms(fn, dev, iters: int = 10, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float,
+             flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -124,7 +138,7 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
 
     # fused_update_bank: the same IEEE operations in the same order as the
     # plain version (no contraction), so it must match bit for bit.
-    err = 0.0
+    err, err_row = 0.0, 0.0
     for (n_, d_) in [(n, d), (7, 1001), (5, 3), (1, d)]:
         for dt in (torch.float32, torch.bfloat16):
             X, G = bank(n_, d_, dt), bank(n_, d_, dt)
@@ -139,6 +153,8 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
             check(e == 0.0, f"fused_update_bank disagrees ({n_}, {d_}, {dt})")
             if (n_, d_) == (n, d) and dt == torch.float32:
                 err = e
+            if (n_, d_) == (1, d) and dt == torch.float32:
+                err_row = e
     X, G, V = bank(n, d, torch.float32), bank(n, d, torch.float32), bank(
         n, d, torch.float32)
     w = torch.rand(n, generator=gen, device=dev) + 0.5
@@ -156,10 +172,13 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
     row1 = timed_ms(lambda: fu.fused_update_bank(*one_row), dev, iters)
     row1_plain = timed_ms(lambda: fu.fused_update_bank_plain(*one_row), dev,
                           iters)
-    b1, _ = bound_ms(24.0 * d + 4, 5.0 * d)
+    b1, b1_by = bound_ms(24.0 * d + 4, 5.0 * d)
     print(f"  fused_update (one row, the n = 1 case) D={d}: {row1:.4f} ms, "
           f"bound {b1:.4f} ms, {100 * b1 / row1:.1f}% of bound; plain "
           f"{row1_plain:.4f} ms")
+    rows["fused_update"] = dict(max_abs_err=err_row, ms=row1,
+                                plain_ms=row1_plain, bound_ms=b1,
+                                bound_by=b1_by, library_ms=None)
     del X, G, V
 
     # gossip_matmul: f32 sums in the kernel's own order.
@@ -231,6 +250,7 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
             lambda: torch.einsum("nk,nkd->nd", nl.wgt, X[nl.idx.long()]),
             dev, iters),
     )
+    rows["flash_attention"] = flash_phase(dev, iters=iters)
     for name, r in rows.items():
         print(f"  {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of "
@@ -238,6 +258,112 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
               + ("none" if r["library_ms"] is None
                  else f"{r['library_ms']:.4f} ms"))
     return rows
+
+
+# gemma3-12b's attention at phase 7's prefill: 4 requests of 2048 tokens, 16
+# query heads on 8 kv heads of hd = 256, bf16.  40 of its 48 layers are local
+# (a 1024-token window), 8 are global.
+FLASH_SHAPE = (4, 16, 8, 2048, 256)
+LOCAL_WINDOW = 1024
+
+
+def open_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the causal and window masks leave open, per
+    (batch, head): the pairs the attention needs on these inputs."""
+    total = 0
+    for i in range(s):
+        lo = max(0, i - window + 1) if window else 0
+        total += (i + 1 if causal else s) - lo
+    return total
+
+
+def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
+                iters: int = 10) -> dict:
+    """The flash kernel against its plain version: at gemma3-12b's prefill
+    shapes (local and global layers) and at edge cases (hd 64 and 128, GQA
+    groups 1, 2 and 4, non-causal, ragged S, f32); then its time beside its
+    bound, the plain version's and SDPA's on the same bf16 inputs.
+
+    Tolerance: the kernel sums scores, the softmax denominator and P.V in
+    its own (online, tile by tile) order, so in f32 it may differ from the
+    plain version by 2e-5 on outputs of magnitude about 1, and in bf16 by one
+    more ulp of the output (2^-7 of it), where the f32 result sits on a
+    rounding boundary."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, kv, s, hd = shape
+    cases = [
+        (shape, torch.bfloat16, True, window),  # a local layer
+        (shape, torch.bfloat16, True, 0),  # a global layer
+        (shape, torch.float32, True, window),
+        ((2, 8, 8, 1000, 128), torch.float32, True, 0),  # group 1, ragged
+        ((2, 8, 4, 100, 64), torch.bfloat16, False, 0),  # group 2
+        ((2, 8, 2, 12, 128), torch.bfloat16, True, 5),  # group 4
+        ((2, 16, 4, 1000, 64), torch.float32, False, 100),
+        ((1, 4, 1, 100, 256), torch.float32, True, 33),
+    ]
+
+    def qkv(shp, dt):
+        b_, h_, kv_, s_, hd_ = shp
+        return [torch.randn(b_, n_, s_, hd_, generator=gen, device=dev).to(dt)
+                for n_ in (h_, kv_, kv_)]
+
+    errs = {}
+    for shp, dt, causal, win in cases:
+        q, k, v = qkv(shp, dt)
+        got = fa.flash_attention(q, k, v, causal, win)
+        want = fa.flash_attention_plain(q, k, v, causal, win)
+        sync(dev)
+        err = (got.float() - want.float()).abs()
+        tol = 2e-5 + (2.0 ** -7 * want.float().abs() if dt == torch.bfloat16
+                      else 0.0)
+        e = max_err(got, want)
+        print(f"  flash_attention (B,H,KV,S,hd)={shp} {str(dt)[6:]} "
+              f"causal={causal} window={win}: max|err| {e:.3e} (tolerance "
+              f"2e-5{' + 2^-7 |out|' if dt == torch.bfloat16 else ''})")
+        check(bool((err <= tol).all()),
+              f"flash_attention disagrees ({shp}, {dt}, {causal}, {win})")
+        errs[shp, dt, causal, win] = e
+        del q, k, v, got, want, err, tol
+
+    q, k, v = qkv(shape, torch.bfloat16)
+    n_bytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, o
+    ar = torch.arange(s, device=dev)
+    row = None
+    for win in (window, 0):  # the local layers' row goes to the JSON line
+        flops = 4.0 * hd * b * h * open_pairs(s, True, win)
+        bound, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+        if win:
+            mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :]
+                                                   < win)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        r = dict(
+            max_abs_err=errs[shape, torch.bfloat16, True, win],
+            ms=timed_ms(lambda: fa.flash_attention(q, k, v, True, win), dev,
+                        iters),
+            plain_ms=timed_ms(
+                lambda: fa.flash_attention_plain(q, k, v, True, win), dev,
+                max(iters // 5, 1)),
+            bound_ms=bound, bound_by=by,
+            library_ms=timed_ms(lib, dev, iters),
+        )
+        lib_err = max_err(lib(), fa.flash_attention_plain(q, k, v, True, win))
+        print(f"  flash_attention {'local' if win else 'global'} layer "
+              f"(window {win}): {r['ms']:.4f} ms for {flops:.4g} FLOP "
+              f"({flops / r['ms'] / 1e9:.2f} TFLOP/s), bound {bound:.4f} ms at "
+              f"the bf16 tensor-core peak ({by}; "
+              f"{flops / F32_FLOP_PER_S * 1e3:.4f} ms at the f32 SIMT peak); "
+              f"plain {r['plain_ms']:.4f} ms; SDPA {r['library_ms']:.4f} ms "
+              f"(max|SDPA - plain| {lib_err:.3e})")
+        row = row or r
+    return row
 
 
 # -- phase 4: the card's round against the CPU's, same draws ------------------
@@ -322,11 +448,13 @@ def print_profile(prof, wall_s: float, top: int = 12) -> None:
 
 
 def counters():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import gossip_gather as gg
     from repro_torch.kernels import gossip_matmul as gm
 
-    return {"fused_update_bank": fu, "gossip_matmul": gm, "gossip_gather": gg}
+    return {"fused_update_bank": fu, "gossip_matmul": gm, "gossip_gather": gg,
+            "flash_attention": fa}
 
 
 def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
@@ -395,8 +523,8 @@ def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"  peak device memory {peak:.2f} GiB")
-    for k, v in launches.items():
-        check(v > 0, f"{k} was never launched on the main path")
+    for k in ("fused_update_bank", "gossip_matmul", "gossip_gather"):
+        check(launches[k] > 0, f"{k} was never launched on the main path")
     return launches
 
 
@@ -468,6 +596,173 @@ def crossover(dev, d: int, ns=(4, 8, 16, 32, 64, 128), iters: int = 10):
         print(f"  {what}: {rule}; worst against the faster mix: {loss}")
 
 
+# -- phase 7: serving gemma3-12b ----------------------------------------------
+
+SERVE_ARGV = ["--arch", "gemma3-12b", "--no-smoke", "--batch", "4",
+              "--prompt-len", "2048", "--new-tokens", "16", "--seed", "0"]
+
+
+def serving_parity(dev, s: int = 100, steps: int = 4) -> None:
+    """Reduced gemma3-12b in f32 (a 32-token window on layer 0, a global
+    layer 1, hd = 64): prefill and ``steps`` greedy decode steps on ``dev``
+    against the same on the CPU, with the same parameters and prompts.  Both
+    sides compute in f32 (TF32 off) with sums in their own orders (cuBLAS,
+    the flash kernel's online softmax), so the logits agree to 1e-4 of their
+    magnitude; the greedy tokens must be equal."""
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.core.flat import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import get_model_api
+
+    cfg = get_config("gemma3-12b", smoke=True)
+    api = get_model_api(cfg)
+    params = api.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = make_batch(cfg, 2, s, seed=1)["tokens"]
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        p = tree_map(lambda t, d=d: t.to(d), params)
+        before = fa.launches
+        with torch.no_grad():
+            logits, cache = api.prefill(p, {"tokens": tokens.to(d)},
+                                        s + steps + 1)
+            out, toks = [logits.cpu()], []
+            tok = logits[:, -1].argmax(-1).to(torch.int32)
+            for i in range(steps):
+                toks.append(tok.cpu())
+                logits, cache = api.decode_step(p, cache, tok, s + i)
+                out.append(logits.cpu())
+                tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok.cpu())
+        runs[d.type] = (out, toks, fa.launches - before)
+    (want, want_toks, _), (got, got_toks, used) = runs["cpu"], runs[dev.type]
+    for i, (g, w) in enumerate(zip(got, want)):
+        e, tol = max_err(g, w), 1e-4 * float(w.abs().max())
+        print(f"  {'prefill' if i == 0 else f'decode step {i}'} logits "
+              f"{tuple(g.shape)}: max|err| {e:.3e} (tolerance {tol:.3e})")
+        check(e <= tol, f"card and CPU logits disagree ({i})")
+    check(all(torch.equal(a, b) for a, b in zip(got_toks, want_toks)),
+          "card and CPU greedy tokens differ")
+    print(f"  greedy tokens equal; flash launches on the card: {used} "
+          f"(one per layer of the prefill)")
+    if dev.type == "cuda":
+        check(used == cfg.n_layers, f"flash launches {used}")
+
+
+def serving(dev, argv=SERVE_ARGV) -> dict:
+    """The serving main path through its entry point, ``serve.main``: full
+    width gemma3-12b in bf16, parameters drawn on the card, 4 requests of
+    2048 prompt tokens, then greedy decode (16 new tokens: one from the
+    prefill and 15 decode steps, cache of 2048 + 16).  Then a second,
+    steady prefill, a profiled third one split by kind, steady decode
+    steps and one profiled decode step."""
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.registry import get_model_api
+
+    args = serve.build_parser().parse_args(argv)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    api = get_model_api(cfg)
+    print(f"  {cfg.name}: {api.num_params() / 1e9:.2f} B parameters, "
+          f"{cfg.n_layers} layers, windows "
+          f"{sorted(set(cfg.window_for_layer(i) for i in range(cfg.n_layers)))}")
+    mods = counters()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():  # the serving path's counts start here
+        m.launches = 0
+    t = time.perf_counter()
+    rec = serve.main(argv + ["--device", dev.type])
+    wall = time.perf_counter() - t
+    launches = {k: m.launches for k, m in mods.items()}
+    steps = rec["steps"]
+    print(f"  serve.main {wall:.1f} s (parameter init included); prefill "
+          f"{rec['prefill_s']:.4f} s (first call); decode "
+          f"{1e3 * rec['decode_s'] / steps:.2f} ms/step, "
+          f"{args.batch * steps / rec['decode_s']:.1f} tokens/s; launches "
+          f"{launches}")
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB)")
+    check(rec["finite"], "a prefill or decode logit is not finite")
+    check(tuple(rec["tokens"].shape) == (args.batch, args.new_tokens),
+          f"tokens {tuple(rec['tokens'].shape)}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash launches per prefill {launches['flash_attention']}, "
+          f"expected {cfg.n_layers}")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"the FL kernels ran on the serving path: {launches}")
+
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
+    batch = make_batch(cfg, args.batch, args.prompt_len, seed=args.seed + 1,
+                       device=dev)
+    cache_len = args.prompt_len + args.new_tokens
+    step = make_serve_step(api)
+    with torch.no_grad():
+        sync(dev)
+        t = time.perf_counter()
+        out = api.prefill(params, batch, cache_len)
+        sync(dev)
+        steady = time.perf_counter() - t
+        del out
+        with torch.profiler.profile() as prof:
+            t = time.perf_counter()
+            logits, cache = api.prefill(params, batch, cache_len)
+            sync(dev)
+            wall = time.perf_counter() - t
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        del logits
+        print(f"  steady prefill {steady:.4f} s; profiled prefill {wall:.4f} s:")
+        print_split(prof, wall, "prefill")
+        # Decode steps after the first (which serve.main's mean includes).
+        pos, n_steady = args.prompt_len, min(4, args.new_tokens - 3)
+        logits, cache = step(params, cache, tok, pos)
+        tok = logits.argmax(-1).to(torch.int32)
+        sync(dev)
+        t = time.perf_counter()
+        for i in range(1, 1 + n_steady):
+            logits, cache = step(params, cache, tok, pos + i)
+            tok = logits.argmax(-1).to(torch.int32)
+        sync(dev)
+        per_step = (time.perf_counter() - t) / n_steady
+        with torch.profiler.profile() as prof:
+            t = time.perf_counter()
+            step(params, cache, tok, pos + 1 + n_steady)
+            sync(dev)
+            wall = time.perf_counter() - t
+    print(f"  steady decode {1e3 * per_step:.2f} ms/step "
+          f"({args.batch / per_step:.1f} tokens/s) over {n_steady} steps; "
+          f"profiled step {1e3 * wall:.2f} ms:")
+    print_split(prof, wall, "decode step")
+    return launches
+
+
+def print_split(prof, wall_s: float, what: str) -> None:
+    """``print_profile``, then the device time by kind: the flash kernel,
+    matmuls (cuBLAS / CUTLASS kernels) and the rest."""
+    from torch.autograd import DeviceType
+
+    print_profile(prof, wall_s, top=8)
+    split = {"attention kernel": 0.0, "matmuls": 0.0, "rest": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        name = e.key.lower()
+        if "flash_attention_kernel" in name:
+            kind = "attention kernel"
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma",
+                                     "sm90_", "cublas")):
+            kind = "matmuls"
+        else:
+            kind = "rest"
+        split[kind] += e.self_device_time_total / 1e3
+    total = sum(split.values())
+    print(f"  {what} device time by kind: " + ", ".join(
+        f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f}%)"
+        for k, v in split.items()))
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -475,6 +770,10 @@ REPLACES = {
                       "src/repro/kernels/gossip_matmul.py:27"),
     "gossip_gather": ("src/repro_torch/kernels/csrc/gossip_gather.cu",
                       "src/repro/kernels/gossip_gather.py:58"),
+    "fused_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                     "src/repro/kernels/fused_update.py:33"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:70"),
 }
 
 
@@ -502,6 +801,13 @@ def main() -> int:
     launches = main_path(dev)
     print("[6] crossover: dense against sparse mix")
     crossover(dev, CIFAR_CNN_DIM)
+    print("[7] serving: reduced gemma3-12b, card against CPU, f32")
+    serving_parity(dev)
+    print("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
+    launches["flash_attention"] = serving(dev)["flash_attention"]
+    # The one-row update is the (1, D) launch of the bank kernel, which no
+    # path driven here makes (the FL path updates the whole bank).
+    launches["fused_update"] = 0
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -1,8 +1,10 @@
 """Carry weights and state across from the JAX reference, as numpy arrays.
 
 The reference's pytrees hold the same leaves in the same layouts as the
-port's parameter dicts (dense ``(n_in, n_out)``, conv HWIO), and a bank row
-orders leaves the same way, so the conversion is a copy.  The caller turns
+port's parameter dicts (dense ``(n_in, n_out)``, conv HWIO; the LLM zoo's
+nested trees with every layer's leaves stacked on a leading axis, and its
+``{"k", "v"}`` KV caches), and a bank row orders leaves the same way, so the
+conversion is a copy.  The caller turns
 JAX arrays into numpy first (``jax.device_get``); this module imports
 neither ``jax`` nor ``repro``.  bfloat16 numpy arrays (``ml_dtypes``) cross
 bit for bit.

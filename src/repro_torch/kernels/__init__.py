@@ -3,6 +3,7 @@
   gossip_matmul  — dense push-sum mix P @ X (tiled f32 SIMT product)
   gossip_gather  — sparse neighbor-list mix, O(n * k_max * D)
   fused_update   — Algorithm-1 inner loop (momentum + descent + de-bias)
+  flash_attention — causal / sliding-window GQA attention, online softmax
 
 ``ops`` holds the public entry points, ``ref`` the plain PyTorch oracles,
 ``build`` the lazy ``nvcc`` build of ``csrc/*.cu``.  Nothing is compiled or

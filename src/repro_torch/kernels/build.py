@@ -41,6 +41,10 @@ _SIGNATURES = {
     "gossip_matmul_launch": (_I, _P, _P, _P, _I64, _I64, _P),
     # dtype, idx, wgt, X, Y, n, k_max, D, stream
     "gossip_gather_launch": (_I, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # dtype, hd, q, k, v, o, B, H, KV, S, the (b, head, s) strides of q, k,
+    # v and o, causal, window, stream
+    "flash_attention_launch": (_I, _I, _P, _P, _P, _P, *(_I64,) * 16, _I,
+                               _I64, _P),
 }
 
 _lock = threading.Lock()

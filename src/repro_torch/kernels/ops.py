@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.fused_update import fused_update_bank as _bank_kernel
 from repro_torch.kernels.gossip_gather import gossip_gather
 from repro_torch.kernels.gossip_matmul import gossip_matmul
@@ -21,6 +22,7 @@ __all__ = [
     "use_sparse_gossip",
     "fused_update",
     "fused_update_bank",
+    "flash_attention",
 ]
 
 # Sparse-vs-dense representation dispatch (the reference's rule at
@@ -78,3 +80,11 @@ def fused_update(x, v, g, alpha, eta, w):
     w1 = torch.full((1,), float(w), dtype=torch.float32, device=x.device)
     xo, vo, zo = fused_update_bank(x[None], v[None], g[None], alpha, eta, w1)
     return xo[0], vo[0], zo[0]
+
+
+def flash_attention(q, k, v, causal=True, window=0):
+    """Causal / sliding-window GQA attention, the counterpart of the
+    reference's ``ops.flash_attention``: q is (B,H,S,hd), k and v are
+    (B,KV,S,hd), any S.  Views with a contiguous head dim pass through
+    without a copy (the kernel reads strides)."""
+    return _flash_kernel(q, k, v, causal=bool(causal), window=int(window))

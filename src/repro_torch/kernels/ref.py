@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the kernels on the main path — the port's
-counterpart of ``repro.kernels.ref`` (ground truth, not the hot path).
+"""Plain PyTorch oracles for the port's kernels — the counterpart of
+``repro.kernels.ref`` (ground truth, not the hot path).
 
 ``fused_update_bank_ref`` divides by ``w`` exactly as the reference oracle
 does; the kernels multiply by a precomputed ``1 / w`` (their plain
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["gossip_matmul_ref", "gossip_gather_ref", "fused_update_ref",
-           "fused_update_bank_ref"]
+           "fused_update_bank_ref", "flash_attention_ref"]
 
 
 def gossip_matmul_ref(P: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -39,3 +39,23 @@ def fused_update_bank_ref(X, V, G, alpha, eta, w):
     x_new = X.float() - float(eta) * v_new
     z_new = x_new / w.float()[:, None]
     return x_new.to(X.dtype), v_new, z_new.to(X.dtype)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
+    """q: (B,H,S,hd), k/v: (B,KV,S,hd) -> (B,H,S,hd).  GQA by repeating
+    the kv heads, f32 scores scaled by hd^-0.5 after the product, masked
+    scores set to -1e30, softmax, P.V in f32, cast to q's dtype."""
+    b, h, s, hd = q.shape
+    g = h // k.shape[1]
+    k = k.repeat_interleave(g, dim=1)
+    v = v.repeat_interleave(g, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * hd ** -0.5
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    ok = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ki <= qi
+    if window > 0:
+        ok = ok & (qi - ki < window)
+    probs = scores.masked_fill(~ok, -1e30).softmax(-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)

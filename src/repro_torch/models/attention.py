@@ -1,0 +1,167 @@
+"""Grouped-query attention with causal and sliding-window masks — the GQA
+part of ``repro.models.attention`` (MLA waits for ROADMAP queue 1 item 13).
+
+Full-sequence mode (:func:`gqa_forward`, used by prefill) computes its
+attention core through the hand-written flash kernel
+(:func:`repro_torch.kernels.ops.flash_attention`); decode mode
+(:func:`gqa_decode`) stays plain PyTorch, one query against the cache, as in
+the reference, which has no Pallas kernel there either.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, rms_norm, rope, shard_act
+from repro_torch.models.pdefs import PDef
+
+__all__ = ["gqa_defs", "gqa_cache_defs", "gqa_forward", "gqa_decode"]
+
+_NEG = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# Parameter / cache definitions.
+# ---------------------------------------------------------------------------
+
+def gqa_defs(cfg: ArchConfig, stacked: tuple = ()) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    L, Lax = (stacked, ("layers",) * len(stacked)) if stacked else ((), ())
+    dt = cfg.dtype
+    defs = {
+        "wq": PDef(L + (d, h, hd), Lax + ("embed", "heads", "head_dim"), dt, fan_in=d),
+        "wk": PDef(L + (d, kv, hd), Lax + ("embed", "kv_heads", "head_dim"), dt, fan_in=d),
+        "wv": PDef(L + (d, kv, hd), Lax + ("embed", "kv_heads", "head_dim"), dt, fan_in=d),
+        "wo": PDef(L + (h, hd, d), Lax + ("heads", "head_dim", "embed"), dt, fan_in=h * hd),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = PDef(L + (hd,), Lax + (None,), torch.float32, "zeros")
+        defs["k_norm"] = PDef(L + (hd,), Lax + (None,), torch.float32, "zeros")
+    return defs
+
+
+def gqa_cache_defs(cfg: ArchConfig, batch: int, length: int, stacked: tuple = ()) -> dict:
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    L, Lax = (stacked, ("layers",) * len(stacked)) if stacked else ((), ())
+    shape = L + (batch, length, kv, hd)
+    axes = Lax + ("batch", "seq", "kv_heads", "head_dim")
+    return {"k": PDef(shape, axes, cfg.dtype, "zeros"),
+            "v": PDef(shape, axes, cfg.dtype, "zeros")}
+
+
+# ---------------------------------------------------------------------------
+# Masking + core dot-product attention (the decode path).
+# ---------------------------------------------------------------------------
+
+def _full_mask(q_pos, k_pos, window: int, causal: bool):
+    """Additive f32 bias (..., Sq, Sk); window 0 = full.  A non-causal
+    model gets no mask at all: the window is ignored, as in the reference."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    ok = torch.ones(torch.broadcast_shapes(dq.shape, dk.shape), dtype=torch.bool,
+                    device=dq.device)
+    if causal:
+        ok = dk <= dq
+        if window > 0:
+            ok = ok & (dq - dk < window)
+    return torch.where(ok, 0.0, _NEG).float()
+
+
+def _dot_attn(q, k, v, bias, scale):
+    """q: (B,Sq,KV,G,hd)  k,v: (B,Sk,KV,hd)  bias: (B,1,1,Sq,Sk) or None.
+    q is scaled in its own dtype before the f32 product, as the reference."""
+    qf = (q * scale).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    if bias is not None:
+        scores = scores + bias
+    probs = scores.softmax(-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.to(v.dtype)
+
+
+def _split_heads(x, kv, g):
+    b, s = x.shape[:2]
+    return x.reshape(b, s, kv, g, -1)
+
+
+def _project(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
+    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# GQA.
+# ---------------------------------------------------------------------------
+
+def _gqa_qkv(p, x, cfg: ArchConfig, positions, theta):
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if theta is not None:
+        sin, cos = rope(positions, cfg.resolved_head_dim, theta)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    return q, k, v
+
+
+def _out_proj(out, wo):
+    """``einsum("bshk,hkd->bsd", out, wo)`` as one matmul."""
+    return out.flatten(2) @ wo.flatten(0, 1)
+
+
+def gqa_forward(p, x, cfg: ArchConfig, window: int = 0, theta=None,
+                positions=None, return_kv: bool = False):
+    """Full-sequence attention (prefill).  ``positions`` feeds the rope; the
+    kernel's mask takes query and key i at position i, which is what every
+    caller passes (``arange(S)`` per row).
+
+    The attention core is the flash kernel on the ``transpose(1, 2)`` views
+    of the (B,S,H,hd) q and (B,S,KV,hd) k/v projections, read through their
+    strides with no copy; its output comes back laid out like q's view, so
+    transposing it again gives (B,S,H,hd) contiguous on the card.
+
+    Against the reference's ``_dot_attn``: masked scores are replaced by
+    -1e30 where the reference adds -2e38, the same softmax as long as each
+    row keeps an open key (causal rows keep their diagonal).  The kernel
+    scales q by hd^-0.5 in f32, the reference in q's dtype: the same in
+    f32 and whenever hd^-0.5 is a power of two (hd 64, 256); at hd 128 in
+    bf16 the reference's scaled q carries one more bf16 rounding."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _gqa_qkv(p, x, cfg, positions, theta)
+    q = shard_act(q, ("batch", "seq", "heads", None))
+    # The kernel applies a window with or without the causal mask, while the
+    # reference's mask ignores it for a non-causal model: pass it only when
+    # the model is causal.
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=cfg.causal,
+                              window=window if cfg.causal else 0)
+    out = _out_proj(out.transpose(1, 2), p["wo"])
+    return (out, (k, v)) if return_kv else out
+
+
+def gqa_decode(p, x, cache, cfg: ArchConfig, pos: int, window: int = 0,
+               theta=None):
+    """One-token decode.  x: (B,1,D); cache slice {"k","v"}: (B,S,kv,hd).
+
+    Writes the new key and value into the cache IN PLACE at ``pos`` (the
+    reference returns an updated copy) and returns that same dict."""
+    b = x.shape[0]
+    kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, device=x.device)
+    q, k_new, v_new = _gqa_qkv(p, x, cfg, positions, theta)
+    k, v = cache["k"], cache["v"]
+    k[:, pos] = k_new[:, 0].to(k.dtype)
+    v[:, pos] = v_new[:, 0].to(v.dtype)
+    k_pos = torch.arange(k.shape[1], device=x.device).expand(b, k.shape[1])
+    bias = _full_mask(positions, k_pos, window, True)[:, None, None]
+    out = _dot_attn(_split_heads(q, kv, g), k, v, bias, hd ** -0.5)
+    out = out.reshape(b, 1, cfg.n_heads, hd)
+    return _out_proj(out, p["wo"]), cache

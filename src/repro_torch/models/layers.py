@@ -1,0 +1,54 @@
+"""Shared model layers: norms, rotary embeddings, loss — the port of
+``repro.models.layers``.  ``shard_act`` is the identity: sharding waits for
+ROADMAP queue 1 item 12."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["rms_norm", "rope", "apply_rope", "softmax_xent", "shard_act"]
+
+
+def shard_act(x, logical: tuple):
+    """Activation sharding hook of the reference; one device: the identity."""
+    return x
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last dim, in
+    f32, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+
+
+def rope(positions, dim: int, theta) -> tuple:
+    """(sin, cos) of shape positions.shape + (dim // 2,), in f32."""
+    half = dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(-log_theta * ar / half)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x, sin, cos):
+    """Half-split rotation.  x: (..., seq, heads, head_dim); sin/cos:
+    (..., seq, head_dim // 2).  Computed in f32, cast to x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    s = sin[..., None, :].float()
+    c = cos[..., None, :].float()
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean CE over (optionally masked) positions; returns (loss, acc)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    correct = (logits.argmax(-1) == labels).float()
+    if mask is None:
+        return -ll.mean(), correct.mean()
+    mask = mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    return -(ll * mask).sum() / denom, (correct * mask).sum() / denom

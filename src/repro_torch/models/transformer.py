@@ -1,0 +1,168 @@
+"""Config-driven decoder stack — the port of ``repro.models.transformer``
+for the dense GQA decoders (the ``lm`` task).
+
+Parameters stay stacked on a leading layer axis as in the reference, so a
+reference parameter tree carries across as a copy; the reference's
+``lax.scan`` over layers becomes a Python loop over the layer views.
+Per-layer heterogeneity (gemma3's 5:1 sliding-window pattern, dual rope
+thetas) comes from :func:`_layer_meta` as plain Python numbers.  The
+``loss``, and the ``vlm`` and ``masked_lm`` tasks, wait for ROADMAP queue 1
+item 13.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import rms_norm, shard_act
+from repro_torch.models.pdefs import PDef
+
+__all__ = [
+    "param_defs",
+    "cache_defs",
+    "forward",
+    "prefill",
+    "decode_step",
+]
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.attn_type != "gqa" or cfg.n_experts or cfg.task != "lm":
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA decoders of the lm task are ported "
+            "(MLA, MoE and the vlm / masked_lm tasks: ROADMAP queue 1 item 13)")
+
+
+def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
+    """(window, rope theta) of every layer; window 0 = full attention."""
+    windows = [cfg.window_for_layer(i) for i in range(cfg.n_layers)]
+    if cfg.global_rope_theta:
+        thetas = [cfg.global_rope_theta if w == 0 else cfg.rope_theta
+                  for w in windows]
+    else:
+        thetas = [cfg.rope_theta] * cfg.n_layers
+    return windows, thetas
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s view of a layer-stacked tree (no copy)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Parameter / cache declarations.
+# ---------------------------------------------------------------------------
+
+def param_defs(cfg: ArchConfig) -> dict:
+    _check_supported(cfg)
+    L, d, v = (cfg.n_layers,), cfg.d_model, cfg.padded_vocab
+    layers = {
+        "attn": attn.gqa_defs(cfg, stacked=L),
+        "mlp": moe_lib.swiglu_defs(cfg, stacked=L),
+        "ln1": PDef(L + (d,), ("layers", None), torch.float32, "zeros"),
+        "ln2": PDef(L + (d,), ("layers", None), torch.float32, "zeros"),
+    }
+    defs = {
+        "layers": layers,
+        "final_norm": PDef((d,), (None,), torch.float32, "zeros"),
+        "embed": PDef((v, d), ("vocab", "embed"), cfg.dtype, fan_in=d),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = PDef((d, v), ("embed", "vocab"), cfg.dtype, fan_in=d)
+    return defs
+
+
+def cache_defs(cfg: ArchConfig, batch: int, length: int) -> dict:
+    _check_supported(cfg)
+    return attn.gqa_cache_defs(cfg, batch, length, stacked=(cfg.n_layers,))
+
+
+# ---------------------------------------------------------------------------
+# Embedding and head.
+# ---------------------------------------------------------------------------
+
+def _embed_tokens(params, tokens, cfg: ArchConfig):
+    """Embedding rows times sqrt(d_model), the constant rounded to the model
+    dtype first as the reference does (sqrt(3840) = 61.97 is 62.0 in bf16)."""
+    x = params["embed"][tokens.long()]
+    return x * torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.dtype)
+
+
+def embed_inputs(params, batch, cfg: ArchConfig):
+    """(x, loss_mask) of an ``lm`` batch ``{"tokens": (B,S)}``."""
+    _check_supported(cfg)
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    mask = torch.ones(batch["tokens"].shape, dtype=torch.float32,
+                      device=x.device)
+    return shard_act(x, ("batch", "seq", "embed")), mask
+
+
+def _logits(params, x, cfg: ArchConfig):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+# ---------------------------------------------------------------------------
+# Layer body + stack.
+# ---------------------------------------------------------------------------
+
+def _block(pl, x, cfg: ArchConfig, window, theta, positions, return_kv=False):
+    h = attn.gqa_forward(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps), cfg,
+                         window=window, theta=theta, positions=positions,
+                         return_kv=return_kv)
+    h, kv = h if return_kv else (h, None)
+    x = x + shard_act(h, ("batch", "seq", "embed"))
+    y = moe_lib.swiglu_forward(pl["mlp"], rms_norm(x, pl["ln2"], cfg.norm_eps))
+    return x + shard_act(y, ("batch", "seq", "embed")), kv
+
+
+def forward(params, batch, cfg: ArchConfig):
+    """Full-sequence forward -> (logits, aux)."""
+    x, mask = embed_inputs(params, batch, cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
+        x, _ = _block(_layer(params["layers"], i), x, cfg, win, th, positions)
+    logits = shard_act(_logits(params, x, cfg), ("batch", "seq", "vocab"))
+    aux = {"moe_aux": torch.zeros((), device=x.device), "loss_mask": mask}
+    return logits, aux
+
+
+def prefill(params, batch, cfg: ArchConfig, cache_len: int):
+    """Full-sequence forward that also fills the KV cache (zero-padded to
+    ``cache_len``) -> (logits for every position, cache)."""
+    x, _ = embed_inputs(params, batch, cfg)
+    b, s = x.shape[:2]
+    if s > cache_len:
+        raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=x.device)
+             for k, d in cache_defs(cfg, b, cache_len).items()}
+    for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
+        x, (k, v) = _block(_layer(params["layers"], i), x, cfg, win, th,
+                           positions, return_kv=True)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    return _logits(params, x, cfg), cache
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig):
+    """One-token decode: tokens (B,), cache from :func:`cache_defs` ->
+    (logits (B, V), cache).  The cache is updated IN PLACE at ``pos`` and
+    returned (the reference returns a new cache)."""
+    x = _embed_tokens(params, tokens[:, None], cfg)
+    x = shard_act(x, ("batch", None, "embed"))
+    for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
+        pl = _layer(params["layers"], i)
+        h, _ = attn.gqa_decode(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps),
+                               _layer(cache, i), cfg, pos, window=win, theta=th)
+        x = x + h
+        y = moe_lib.swiglu_forward(pl["mlp"], rms_norm(x, pl["ln2"], cfg.norm_eps))
+        x = x + y
+    return _logits(params, x, cfg)[:, 0], cache

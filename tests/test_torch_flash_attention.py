@@ -1,0 +1,100 @@
+"""The port's flash attention on the CPU against the JAX reference.
+
+The port's oracle ``repro_torch.kernels.ref.flash_attention_ref`` and its
+public op ``repro_torch.kernels.ops.flash_attention`` (on a CPU tensor, the
+kernel's plain version: no launch) take the same numpy inputs as the
+reference's ``repro.kernels.ref.flash_attention_ref`` and its Pallas kernel
+``repro.kernels.ops.flash_attention``, which runs in interpret mode here
+(S = 128 in 64-row blocks, so the window closes whole tiles there too).
+
+Tolerances: in f32 both sides sum in their own orders, 2e-5 absolute on
+outputs of magnitude about 1 (the reference's own kernel tests allow
+2e-4).  hd^-0.5 is a power of two at hd = 64 and 256, so scaling q before
+or after the product rounds the same.  In bf16 both compute in f32 from
+the same bf16 inputs and round the output once, so a result may land one
+bf16 ulp apart: 2^-7 of its magnitude, plus the f32 2e-5.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro_torch.interop import tensor_from_numpy
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+MODES = [(True, 0), (True, 64), (False, 0)]
+HEADS = [(4, 4), (4, 2), (8, 1)]
+F32_TOL = 2e-5
+BF16_RTOL = 2.0 ** -7
+
+
+def _inputs(b, h, kv, s, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, h, s, hd), (b, kv, s, hd), (b, kv, s, hd))]
+    jx = [jnp.asarray(a, dtype) for a in arrs]
+    th = [tensor_from_numpy(np.asarray(a)) for a in jx]  # same bits
+    return jx, th
+
+
+def _assert_close(got, want, bf16):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want, np.float32),
+        rtol=BF16_RTOL if bf16 else 0.0, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("h,kv", HEADS)
+@pytest.mark.parametrize("causal,window", MODES)
+def test_flash_attention_matches_the_reference(causal, window, h, kv, hd, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(2, h, kv, 128, hd, getattr(jnp, dtype))
+    bf16 = dtype == "bfloat16"
+    want = ref_ref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    want_kernel = ref_ops.flash_attention(jq, jk, jv, causal=causal,
+                                          window=window, block_q=64, block_k=64)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got_ref = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert fa.launches == before  # a CPU tensor takes the plain version
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert got_ref.dtype == q.dtype
+    _assert_close(got_ref, want, bf16)
+    _assert_close(got, want, bf16)
+    _assert_close(got, want_kernel, bf16)
+
+
+@pytest.mark.parametrize("s", [12, 100])
+@pytest.mark.parametrize("causal,window", MODES)
+def test_flash_attention_takes_a_ragged_length(s, causal, window):
+    """Any S, not only multiples of a block: the reference oracle is the
+    yardstick (its kernel needs block multiples)."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, 4, 2, s, 64, jnp.float32, seed=1)
+    want = ref_ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                       window=min(window, 7) if window else 0)
+    got = ops.flash_attention(q, k, v, causal=causal,
+                              window=min(window, 7) if window else 0)
+    _assert_close(got, want, False)
+
+
+def test_flash_attention_reads_transposed_views():
+    """gqa_forward passes the (B,S,H,hd) projections as their
+    ``transpose(1, 2)`` views: the same values as contiguous inputs."""
+    _, (q, k, v) = _inputs(2, 4, 2, 40, 64, jnp.float32, seed=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    assert not qt.is_contiguous()
+    for causal, window in MODES:
+        torch.testing.assert_close(
+            ops.flash_attention(qt, kt, vt, causal, window),
+            ops.flash_attention(q, k, v, causal, window), rtol=0, atol=0)
+
+
+def test_flash_attention_refuses_inputs_that_require_grad():
+    _, (q, k, v) = _inputs(1, 2, 1, 8, 64, jnp.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)

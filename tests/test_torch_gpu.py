@@ -7,7 +7,10 @@ runs on a machine with only PyTorch:
 Tolerances: the fused update and the gather do the plain versions' IEEE
 operations in the same order, so they must match bit for bit; the dense
 mix sums its n products in its own order, 1e-6 of the output's magnitude
-in f32 and one bf16 ulp with a bf16 bank.
+in f32 and one bf16 ulp with a bf16 bank.  Flash attention sums scores,
+its softmax denominator and P.V in its own order (online, tile by tile):
+2e-5 absolute in f32 on outputs of magnitude about 1, and in bf16 one ulp
+of the output (2^-7 of it) on top.
 """
 import pytest
 import torch
@@ -15,6 +18,7 @@ import torch
 from repro_torch.core import FLTrainer, TopologyConfig, make_algo
 from repro_torch.data.dirichlet import dirichlet_partition, stack_client_data
 from repro_torch.data.synthetic import make_dataset
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import gossip_gather as gg
 from repro_torch.kernels import gossip_matmul as gm
@@ -100,3 +104,64 @@ def test_cuda_round_launches_the_kernels_and_keeps_the_mass(cuda_device,
     assert (fu.launches - before[0], mix.launches - before[1]) == (3, 1)
     assert torch.isfinite(metrics["loss"])
     assert abs(float(tr.state.w.sum()) - 8.0) <= 1e-5
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_cuda_flash_attention_matches_its_plain_version(cuda_device, dt, hd):
+    """Every head dim, GQA groups 1, 2 and 4, causal with and without a
+    window and non-causal, at ragged lengths (keys past S closed, rows past
+    S not stored) and at block multiples."""
+    g = torch.Generator(device=cuda_device).manual_seed(hd)
+    for s in (1, 12, 100, 128, 200):
+        for h, kv in ((4, 4), (4, 2), (8, 2)):
+            q = torch.randn(2, h, s, hd, generator=g, device=cuda_device).to(dt)
+            k = torch.randn(2, kv, s, hd, generator=g, device=cuda_device).to(dt)
+            v = torch.randn(2, kv, s, hd, generator=g, device=cuda_device).to(dt)
+            for causal, window in ((True, 0), (True, 33), (False, 0),
+                                   (False, 70)):
+                got = fa.flash_attention(q, k, v, causal, window)
+                want = fa.flash_attention_plain(q, k, v, causal, window)
+                err = (got.float() - want.float()).abs()
+                tol = 2e-5 + (2.0 ** -7 * want.float().abs()
+                              if dt == torch.bfloat16 else 0.0)
+                assert got.dtype == dt and got.shape == q.shape
+                assert bool((err <= tol).all()), (s, h, kv, causal, window,
+                                                  float(err.max()))
+    torch.cuda.synchronize()
+
+
+def test_cuda_flash_attention_reads_strided_views(cuda_device):
+    """The (B,S,H,hd) projections' transpose(1, 2) views give the same
+    output as contiguous copies, laid out like q's view."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn(2, 70, 8, 128, generator=g, device=cuda_device)
+    kv = torch.randn(2, 70, 2, 128, generator=g, device=cuda_device)
+    qt, kt = q.transpose(1, 2), kv.transpose(1, 2)
+    got = fa.flash_attention(qt, kt, kt, True, 16)
+    want = fa.flash_attention(qt.contiguous(), kt.contiguous(),
+                              kt.contiguous(), True, 16)
+    assert got.stride() == qt.stride()
+    assert torch.equal(got, want)
+
+
+def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
+    """No backward and no kernel for other head dims: the wrapper raises
+    and launches nothing, it never falls back to the plain version."""
+    q = torch.randn(1, 2, 8, 64, device=cuda_device)
+    refused = [
+        lambda: fa.flash_attention(q.clone().requires_grad_(), q, q),
+        lambda: fa.flash_attention(torch.randn(1, 2, 8, 96, device=cuda_device),
+                                   *(torch.randn(1, 2, 8, 96,
+                                                 device=cuda_device),) * 2),
+        lambda: fa.flash_attention(q, q[:, :1].cpu(), q[:, :1]),
+        lambda: fa.flash_attention(q.half(), q.half(), q.half()),
+        lambda: fa.flash_attention(q, q[:, :, :4], q[:, :, :4]),
+        lambda: fa.flash_attention(torch.randn(1, 3, 8, 64, device=cuda_device),
+                                   q, q),
+    ]
+    before = fa.launches
+    for call in refused:
+        with pytest.raises((RuntimeError, TypeError, ValueError)):
+            call()
+    assert fa.launches == before
