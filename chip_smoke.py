@@ -34,8 +34,11 @@ Phases, each fatal on failure:
    with gemma3-12b at full width in bf16 (parameters drawn on the card), 4
    requests of 2048 prompt tokens and 16 new tokens: prefill time, decode
    ms/step and tokens/s, peak memory, flash launches per prefill (one per
-   layer: 48), finite logits, and a profiled prefill split into the
-   attention kernel, matmuls and the rest.
+   layer: 48), finite logits; then, on the model that run built, a steady
+   second run, a profiled prefill and decode step split into the attention
+   kernel, matmuls and the rest, and the decode check: the logits each new
+   token was picked from against ``forward`` on the prompt extended by the
+   new tokens, in bf16 at positions past the 1024-token window.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -447,14 +450,28 @@ def print_profile(prof, wall_s: float, top: int = 12) -> None:
               f"{e.key[:90]}")
 
 
-def counters():
+def counters() -> dict:
+    """Each kernel's launch counter, as (wrapper module, attribute).  The
+    one-row update is the (1, D) launch of the bank kernel: both counts go
+    up for it."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import gossip_gather as gg
     from repro_torch.kernels import gossip_matmul as gm
 
-    return {"fused_update_bank": fu, "gossip_matmul": gm, "gossip_gather": gg,
-            "flash_attention": fa}
+    return {"fused_update_bank": (fu, "launches"),
+            "fused_update": (fu, "row_launches"),
+            "gossip_matmul": (gm, "launches"), "gossip_gather": (gg, "launches"),
+            "flash_attention": (fa, "launches")}
+
+
+def zero_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
 def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
@@ -481,18 +498,16 @@ def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
     algo = make_algo("dfedsgpsm", local_steps=local_steps, batch_size=32,
                      lr=0.01)
     topo = TopologyConfig(kind="kout", n_clients=n_clients, k_out=10)
-    mods = counters()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():  # the main path's counts start here
-        m.launches = 0
+    zero_counts()  # the main path's counts start here
     for gossip in ("dense", "sparse"):
         tr = FLTrainer(model.loss, model.init, cdata, algo, topo, seed=0,
                        gossip=gossip, device=dev)
         check(tr.spec.dim == CIFAR_CNN_DIM, f"cifar_cnn D = {tr.spec.dim}")
         mix = "gossip_gather" if gossip == "sparse" else "gossip_matmul"
         for r in range(rounds):
-            before = {k: m.launches for k, m in mods.items()}
+            before = read_counts()
             profiled = r == rounds - 1
             sync(dev)
             with (torch.profiler.profile() if profiled
@@ -503,7 +518,7 @@ def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
                 mass = float(tr.state.w.sum())
                 sync(dev)
                 wall = time.perf_counter() - t
-            used = {k: m.launches - before[k] for k, m in mods.items()}
+            used = {k: v - before[k] for k, v in read_counts().items()}
             print(f"  {gossip} round {r}: loss {loss:.4f} acc {acc:.4f} "
                   f"mass {mass:.6f} wall {wall:.3f} s"
                   f"{' (profiled)' if profiled else ''} launches {used}")
@@ -519,7 +534,7 @@ def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
               "rounds")
         check(math.isfinite(tl), f"{gossip}: test loss {tl}")
         del tr
-    launches = {k: m.launches for k, m in mods.items()}
+    launches = read_counts()
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"  peak device memory {peak:.2f} GiB")
@@ -652,30 +667,26 @@ def serving(dev, argv=SERVE_ARGV) -> dict:
     """The serving main path through its entry point, ``serve.main``: full
     width gemma3-12b in bf16, parameters drawn on the card, 4 requests of
     2048 prompt tokens, then greedy decode (16 new tokens: one from the
-    prefill and 15 decode steps, cache of 2048 + 16).  Then a second,
-    steady prefill, a profiled third one split by kind, steady decode
-    steps and one profiled decode step."""
-    from repro_torch.configs.registry import get_config, make_batch
+    prefill and 15 decode steps, cache of 2048 + 16).  Then, on the model,
+    parameters and prompts that run built: a second, steady
+    ``serve.generate``, one profiled prefill and one profiled decode step,
+    and :func:`decode_check` of what the first run decoded."""
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models.registry import get_model_api
 
     args = serve.build_parser().parse_args(argv)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    api = get_model_api(cfg)
-    print(f"  {cfg.name}: {api.num_params() / 1e9:.2f} B parameters, "
-          f"{cfg.n_layers} layers, windows "
-          f"{sorted(set(cfg.window_for_layer(i) for i in range(cfg.n_layers)))}")
-    mods = counters()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():  # the serving path's counts start here
-        m.launches = 0
+    zero_counts()  # the serving path's counts start here
     t = time.perf_counter()
     rec = serve.main(argv + ["--device", dev.type])
     wall = time.perf_counter() - t
-    launches = {k: m.launches for k, m in mods.items()}
-    steps = rec["steps"]
+    launches = read_counts()
+    api, params, batch = rec["api"], rec["params"], rec["batch"]
+    cfg, steps = api.cfg, rec["steps"]
+    print(f"  {cfg.name}: {api.num_params() / 1e9:.2f} B parameters, "
+          f"{cfg.n_layers} layers, windows "
+          f"{sorted(set(cfg.window_for_layer(i) for i in range(cfg.n_layers)))}")
     print(f"  serve.main {wall:.1f} s (parameter init included); prefill "
           f"{rec['prefill_s']:.4f} s (first call); decode "
           f"{1e3 * rec['decode_s'] / steps:.2f} ms/step, "
@@ -694,48 +705,81 @@ def serving(dev, argv=SERVE_ARGV) -> dict:
     check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
           f"the FL kernels ran on the serving path: {launches}")
 
-    params = api.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
-    batch = make_batch(cfg, args.batch, args.prompt_len, seed=args.seed + 1,
-                       device=dev)
-    cache_len = args.prompt_len + args.new_tokens
-    step = make_serve_step(api)
+    warm = serve.generate(api, params, batch, args.new_tokens)
+    print(f"  steady serve.generate: prefill {warm['prefill_s']:.4f} s; decode "
+          f"{1e3 * warm['decode_s'] / steps:.2f} ms/step, "
+          f"{args.batch * steps / warm['decode_s']:.1f} tokens/s")
+    del warm
     with torch.no_grad():
-        sync(dev)
-        t = time.perf_counter()
-        out = api.prefill(params, batch, cache_len)
-        sync(dev)
-        steady = time.perf_counter() - t
-        del out
         with torch.profiler.profile() as prof:
             t = time.perf_counter()
-            logits, cache = api.prefill(params, batch, cache_len)
+            logits, cache = api.prefill(params, batch,
+                                        args.prompt_len + args.new_tokens)
             sync(dev)
             wall = time.perf_counter() - t
         tok = logits[:, -1].argmax(-1).to(torch.int32)
         del logits
-        print(f"  steady prefill {steady:.4f} s; profiled prefill {wall:.4f} s:")
+        print(f"  profiled prefill {wall:.4f} s:")
         print_split(prof, wall, "prefill")
-        # Decode steps after the first (which serve.main's mean includes).
-        pos, n_steady = args.prompt_len, min(4, args.new_tokens - 3)
-        logits, cache = step(params, cache, tok, pos)
-        tok = logits.argmax(-1).to(torch.int32)
-        sync(dev)
-        t = time.perf_counter()
-        for i in range(1, 1 + n_steady):
-            logits, cache = step(params, cache, tok, pos + i)
-            tok = logits.argmax(-1).to(torch.int32)
-        sync(dev)
-        per_step = (time.perf_counter() - t) / n_steady
         with torch.profiler.profile() as prof:
             t = time.perf_counter()
-            step(params, cache, tok, pos + 1 + n_steady)
+            make_serve_step(api)(params, cache, tok, args.prompt_len)
             sync(dev)
             wall = time.perf_counter() - t
-    print(f"  steady decode {1e3 * per_step:.2f} ms/step "
-          f"({args.batch / per_step:.1f} tokens/s) over {n_steady} steps; "
-          f"profiled step {1e3 * wall:.2f} ms:")
+        del cache
+    print(f"  profiled decode step {1e3 * wall:.2f} ms:")
     print_split(prof, wall, "decode step")
+    decode_check(api, params, batch, rec)
     return launches
+
+
+def decode_check(api, params, batch, rec) -> None:
+    """Holds what ``serve.generate`` decoded against ``forward`` on the
+    prompt extended by the decoded tokens: the logits each new token was
+    picked from must be the forward's at positions S-1 .. S+N-2.  At full
+    width the decode steps run at positions 2048 .. 2062, where the local
+    layers' 1024-token window closes keys, so this covers the decode
+    attention's mask, its reads of the cache and every step's cache write.
+
+    Tolerance: in f32, 1e-4 of the logits' magnitude (as the parity step);
+    in bf16, 2^-4 of it: the two sides round every layer's bf16 activations
+    from sums taken in their own orders (the flash kernel against the plain
+    decode attention, cuBLAS at M = B*S against M = B).
+
+    To show that the check sees a fault there, the decode steps run once
+    more, from a fresh prefill, with the window left open at decode (the
+    same model but a window as long as the cache, so the same rope thetas):
+    that run must miss the tolerance."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_model_api
+
+    cfg, prompt = api.cfg, batch["tokens"]
+    got = rec["logits"]
+    s, n = prompt.shape[1], got.shape[1]
+    new = rec["tokens"][:, :n - 1].to(prompt.device, prompt.dtype)
+    with torch.no_grad():
+        want = api.forward(params, {"tokens": torch.cat([prompt, new], 1)})[0]
+        want = want[:, s - 1:].clone()  # frees the other positions' logits
+        open_api = get_model_api(dataclasses.replace(cfg,
+                                                     sliding_window=s + n))
+        logits, cache = api.prefill(params, batch, s + n)
+        mutant = [logits[:, -1].clone()]
+        del logits
+        for i in range(n - 1):
+            mutant.append(open_api.decode_step(params, cache, new[:, i],
+                                               s + i)[0])
+        del cache
+    scale = float(want.float().abs().max())
+    tol = (1e-4 if cfg.dtype == torch.float32 else 2.0 ** -4) * scale
+    err = max_err(got, want)
+    err_mut = max_err(torch.stack(mutant, 1), want)
+    print(f"  decode check: {n} positions from {s - 1}, logits {tuple(got.shape)}"
+          f" against forward on the extended prompt: max|err| {err:.4e} "
+          f"(tolerance {tol:.4e}, {tol / scale:.3g} of max|logit| "
+          f"{scale:.4e}); with the window left open at decode: {err_mut:.4e}")
+    check(err <= tol, "decode disagrees with forward on the extended prompt")
+    check(err_mut > tol, "the decode check does not see an open window")
 
 
 def print_split(prof, wall_s: float, what: str) -> None:
@@ -798,16 +842,16 @@ def main() -> int:
     print("[4] card round against CPU round, same draws")
     small_parity(dev)
     print("[5] main path: DFedSGPSM, cifar_cnn, 100 clients, kout k_out=10")
-    launches = main_path(dev)
+    fl = main_path(dev)
     print("[6] crossover: dense against sparse mix")
     crossover(dev, CIFAR_CNN_DIM)
     print("[7] serving: reduced gemma3-12b, card against CPU, f32")
     serving_parity(dev)
     print("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
-    launches["flash_attention"] = serving(dev)["flash_attention"]
-    # The one-row update is the (1, D) launch of the bank kernel, which no
-    # path driven here makes (the FL path updates the whole bank).
-    launches["fused_update"] = 0
+    served = serving(dev)
+    # Each path's counts run from 0 just before it to just after it.
+    launches = {k: fl[k] + served[k] for k in fl}
+    print(f"launches: FL path {fl}; serving path {served}")
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

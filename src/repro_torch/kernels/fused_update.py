@@ -10,7 +10,8 @@ note for the design.
 
 ``fused_update_bank`` is the wrapper: a CPU tensor goes to
 :func:`fused_update_bank_plain`; a CUDA tensor goes to the kernel, or the
-wrapper raises.  ``launches`` counts kernel launches.
+wrapper raises.  ``launches`` counts kernel launches; ``row_launches``
+counts those of one row (n = 1), the case that replaces ``fused_update_pallas``.
 """
 from __future__ import annotations
 
@@ -18,9 +19,11 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, load_library
 
-__all__ = ["fused_update_bank", "fused_update_bank_plain", "launches"]
+__all__ = ["fused_update_bank", "fused_update_bank_plain", "launches",
+           "row_launches"]
 
 launches = 0
+row_launches = 0
 
 
 def fused_update_bank_plain(X, V, G, alpha, eta, w):
@@ -53,7 +56,7 @@ def _check_cuda_args(X, V, G, w):
 
 def fused_update_bank(X, V, G, alpha, eta, w):
     """Returns ``(X', V', Z')``: X' and Z' in X's dtype, V' in float32."""
-    global launches
+    global launches, row_launches
     if X.device.type == "cpu":
         return fused_update_bank_plain(X, V, G, alpha, eta, w)
     if X.device.type != "cuda":
@@ -73,4 +76,6 @@ def fused_update_bank(X, V, G, alpha, eta, w):
         )
     check(rc, "fused_update_bank")
     launches += 1
+    if n == 1:
+        row_launches += 1
     return Xo, Vo, Zo

@@ -59,9 +59,11 @@ def _finite(t: torch.Tensor) -> torch.Tensor:
 def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
     """Prefill ``batch``, then greedy-decode; prints the reference's lines.
 
-    Returns ``tokens`` (B, new_tokens) on the CPU, ``prefill_s`` and
-    ``decode_s`` (host clock, synchronized with the device), ``steps`` and
-    ``finite`` (every prefill and decode logit finite)."""
+    Returns ``tokens`` (B, new_tokens) on the CPU, ``logits`` (B,
+    new_tokens, V) on the device (the last-position logits each token was
+    picked from), ``prefill_s`` and ``decode_s`` (host clock, synchronized
+    with the device), ``steps`` and ``finite`` (every prefill and decode
+    logit finite)."""
     tokens = batch["tokens"]
     device = tokens.device
     b, s = tokens.shape
@@ -71,7 +73,8 @@ def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = api.prefill(params, batch, cache_len)
-    toks = logits[:, -1].argmax(-1).to(torch.int32)
+    last = [logits[:, -1].clone()]  # a view would keep all of them alive
+    toks = last[0].argmax(-1).to(torch.int32)
     finite = _finite(logits)
     del logits
     _sync(device)
@@ -85,17 +88,22 @@ def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
         logits_i, cache = serve_step(params, cache, toks, s + i)
         toks = logits_i.argmax(-1).to(torch.int32)
         finite = finite & _finite(logits_i)
+        last.append(logits_i)
         out.append(toks)
     _sync(device)
     decode_s = time.perf_counter() - t0
     print(f"[serve] {steps} steps: {1e3 * decode_s / max(steps, 1):.1f} ms/step")
     tokens_out = torch.stack(out, dim=1).cpu()
     print(tokens_out)
-    return {"tokens": tokens_out, "prefill_s": prefill_s, "decode_s": decode_s,
-            "steps": steps, "finite": bool(finite)}
+    return {"tokens": tokens_out, "logits": torch.stack(last, dim=1),
+            "prefill_s": prefill_s, "decode_s": decode_s, "steps": steps,
+            "finite": bool(finite)}
 
 
 def main(argv=None) -> dict:
+    """Build the model, its parameters and the prompts, then
+    :func:`generate`; returns its record together with the ``api``,
+    ``params`` and ``batch`` it served."""
     args = build_parser().parse_args(argv)
     if args.clients:
         raise NotImplementedError(
@@ -111,7 +119,8 @@ def main(argv=None) -> dict:
         params = api.init(gen, device)
     batch = make_batch(cfg, args.batch, args.prompt_len, seed=args.seed + 1,
                        device=device)
-    return generate(api, params, batch, args.new_tokens)
+    rec = generate(api, params, batch, args.new_tokens)
+    return {**rec, "api": api, "params": params, "batch": batch}
 
 
 if __name__ == "__main__":

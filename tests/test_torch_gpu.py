@@ -87,6 +87,20 @@ def test_cuda_wrappers_raise_on_what_their_kernels_do_not_take(cuda_device):
     assert (fu.launches, gm.launches, gg.launches) == before
 
 
+def test_cuda_one_row_update_counts_a_row_launch(cuda_device):
+    """The one-row update is the (1, D) launch of the bank kernel: it moves
+    both counts, a launch over several rows only the bank's."""
+    from repro_torch.kernels import ops
+
+    x = torch.randn(1001, device=cuda_device)
+    before = (fu.launches, fu.row_launches)
+    ops.fused_update(x, x, x, 0.9, 0.1, 0.7)
+    assert (fu.launches - before[0], fu.row_launches - before[1]) == (1, 1)
+    X = torch.randn(3, 1001, device=cuda_device)
+    fu.fused_update_bank(X, X, X, 0.9, 0.1, torch.ones(3, device=cuda_device))
+    assert (fu.launches - before[0], fu.row_launches - before[1]) == (2, 1)
+
+
 @pytest.mark.parametrize("gossip", ["dense", "sparse"])
 def test_cuda_round_launches_the_kernels_and_keeps_the_mass(cuda_device,
                                                             gossip):

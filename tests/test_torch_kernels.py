@@ -155,6 +155,16 @@ def test_single_row_fused_update_is_the_n1_bank_case():
     _close(_np(port_oracle[2]), want_oracle[2], F32_ULP, "port oracle Z'")
 
 
+def test_cpu_updates_count_no_launch():
+    """On the CPU both update entry points take the plain version: neither
+    the bank count nor the one-row count moves."""
+    x = torch.ones(7)
+    before = (fu.launches, fu.row_launches)
+    ops.fused_update(x, x, x, 0.9, 0.1, 0.7)
+    ops.fused_update_bank(x[None], x[None], x[None], 0.9, 0.1, torch.ones(1))
+    assert (fu.launches, fu.row_launches) == before
+
+
 def test_ops_fused_update_bank_casts_g_to_the_bank_dtype():
     """G is cast to the bank dtype before the kernel, as the reference's
     gridded ``pallas_call`` path does (``pad(G, X.dtype)``).  Explicit

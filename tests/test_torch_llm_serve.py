@@ -241,8 +241,27 @@ def test_serve_main_runs_on_the_cpu(arch, capsys):
     assert fa.launches == before
     assert out["tokens"].shape == (2, 3) and out["steps"] == 2
     assert out["finite"]
+    assert out["api"].cfg.name == registry.get_config(arch).name
+    assert out["batch"]["tokens"].shape == (2, 40)
     printed = capsys.readouterr().out
     assert "[serve] prefill 2x40:" in printed and "[serve] 2 steps:" in printed
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generated_logits_are_the_reference_forward_on_the_extended_prompt(
+        arch, capsys):
+    """The logits each new token was picked from, prefill's last row and
+    one row per decode step, are the reference's ``forward`` on the prompt
+    extended by the new tokens, at positions S-1 .. S+NEW-2."""
+    ref_api, api, ref_params, params, tokens = _setup(arch)
+    out = serve.generate(api, params, {"tokens": torch.from_numpy(tokens)}, NEW)
+    capsys.readouterr()
+    assert out["logits"].shape == (B, NEW, api.cfg.padded_vocab)
+    assert torch.equal(out["logits"].argmax(-1).to(torch.int32), out["tokens"])
+    ext = np.concatenate([tokens, out["tokens"][:, :-1].numpy()], axis=1)
+    ref_logits, _ = ref_api.forward(ref_params, {"tokens": jnp.asarray(ext)})
+    _close(out["logits"], np.asarray(ref_logits)[:, S - 1:],
+           "generated logits against forward")
 
 
 def test_serve_refuses_clients_until_the_delta_bank_is_ported():
