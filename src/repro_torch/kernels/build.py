@@ -5,7 +5,10 @@ compiled: each source goes through its own ``nvcc -c`` (all started
 together), one more ``nvcc -shared`` links them into one library, and
 ``ctypes`` loads it.  The library is built at first use, never at import,
 into ``build/`` at the repository root; its file name carries a hash of
-the sources and flags, so a changed source never loads a stale build.  Pointers and the stream cross
+the sources and flags, so a changed source never loads a stale build.
+Each source compiles with ``-Xptxas -v``; what ``nvcc`` printed (each
+kernel's registers, shared memory and spills) is kept beside the library
+as ``<library>.log`` (:func:`build_log`).  Pointers and the stream cross
 as ``c_void_p``, sizes as ``c_int64``; every entry point returns the
 ``cudaError_t`` of its launch.
 """
@@ -22,12 +25,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "DTYPE_CODES", "check", "load_library", "nvcc_path"]
+__all__ = ["CSRC", "DTYPE_CODES", "build_log", "check", "library_path",
+           "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = CSRC.parents[3] / "build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # The ``dtype`` argument of every entry point: the bank's element type.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,9 +76,10 @@ def _build(sources: list[Path], out: Path) -> None:
                              text=True)
             for s, o in zip(sources, objs)
         ]
-        errors = []
+        logs, errors = [], []
         for s, p in zip(sources, procs):
             log, _ = p.communicate()
+            logs.append(f"== {s.name}\n{log}")
             if p.returncode:
                 errors.append(f"{s.name}:\n{log}")
         if errors:
@@ -86,7 +91,22 @@ def _build(sources: list[Path], out: Path) -> None:
         )
         if link.returncode:
             raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+        Path(str(out) + ".log").write_text("\n".join(logs))
         os.replace(tmp_lib, out)  # atomic: a concurrent loader sees all or none
+
+
+def library_path() -> Path:
+    """Where the library of the current sources and flags is built."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for s in sorted(CSRC.glob("*.cu")):
+        h.update(s.name.encode() + s.read_bytes())
+    return BUILD / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """What ``nvcc -Xptxas -v`` printed when the library was built."""
+    log = Path(str(library_path()) + ".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load_library() -> ctypes.CDLL:
@@ -95,13 +115,9 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        sources = sorted(CSRC.glob("*.cu"))
-        h = hashlib.sha256(" ".join(_FLAGS).encode())
-        for s in sources:
-            h.update(s.name.encode() + s.read_bytes())
-        out = BUILD / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
+        out = library_path()
         if not out.exists():
-            _build(sources, out)
+            _build(sorted(CSRC.glob("*.cu")), out)
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,43 +1,68 @@
 // Flash attention (online softmax) with a causal mask, a sliding window and
 // grouped-query heads: o[b,h] = softmax(mask(q[b,h] k[b,g]^T * hd^-0.5)) v[b,g]
-// with kv head g = h / (H / KV), computed in f32 and stored in q's dtype.
+// with kv head g = h / (H / KV), stored in q's dtype.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention_pallas, _kernel).  It computes the same function: scores
-// scaled by hd^-0.5 (q is scaled in f32 before the product, as there),
-// masked scores replaced by -1e30, a running max, denominator and f32
-// accumulator over key tiles, the denominator clamped at 1e-20.
+// (flash_attention_pallas, _kernel).  It computes the same function: masked
+// scores replaced by -1e30, a running max, denominator and f32 accumulator
+// over key tiles, the denominator clamped at 1e-20.
 //
 // Bound: operations.  4 hd FLOP per open (query, key) pair against
-// (2 q + 2 kv reads + o) hd elements per row, so at S = 2048 the kernel
-// does hundreds of FLOP per byte and the card's arithmetic, not its memory,
-// is the limit: 989 TFLOP/s on the bf16 tensor cores, 67 TFLOP/s for the
-// f32 SIMT arithmetic this first version uses (scores and P.V in f32 FMAs,
-// for bf16 and f32 inputs alike, so it equals the plain version up to the
-// order of its sums).
+// (2 q + 2 kv reads + o) hd elements per row, so at S = 2048 the kernel does
+// hundreds of FLOP per byte: the card's arithmetic, not its memory, is the
+// limit, 989 TFLOP/s on the bf16 tensor cores.
 //
-// Design, for the card rather than block by block from the TPU kernel:
-// - One block per (b, h, 64-row query tile); a loop inside the block walks
-//   the key tiles and replaces the TPU grid's sequential kj axis.  Blocks
-//   are numbered so that the tiles with the most open keys start first.
-// - The loop visits only key tiles that the causal and window masks leave
-//   at least partly open; the TPU kernel sweeps all of them.  Every row meets
-//   an open key in the first tile it visits or in a later one, so a row whose
-//   first tiles are closed carries p = 1 on -1e30 scores exactly as the TPU
-//   kernel does, and the first open score wipes them (alpha = 0).
-// - Q (pre-scaled), the K and V tiles and the warp's probabilities live in
-//   shared memory as f32: 211 KB at hd = 256, so the kernel takes dynamic
-//   shared memory after cudaFuncSetAttribute and runs one block per SM.
-// - Each of the 8 warps owns 8 query rows: a row's max and sum are warp
-//   shuffles, and P needs only __syncwarp before P.V.  A lane owns 2 key
-//   columns of the score tile and hd / 32 columns of the output rows.
-// - K rows are padded by 4 floats so the float4 reads of 8 lanes hit 32
-//   distinct banks; Q and P reads are warp-wide broadcasts.
-// - The ragged S edge is masked here: keys at or past S are closed (and
-//   staged as 0), rows at or past S are computed but not stored.
-// - Inputs are read through their (b, h, s) strides with hd contiguous, so a
-//   (B, S, H, hd) projection is attended as (B, H, S, hd) without a copy, and
-//   GQA reads the shared kv head with no repeat.
+// bf16 inputs: a warp-specialised tensor-core kernel (namespace tc).
+// - Tiles.  One block per (b, h, 128-row query tile).  Blocks are numbered
+//   in chunks of 8 (b, h) pairs and, within a chunk, so that the query tiles
+//   with the most open keys start first: a chunk's K and V (at most 8 x 2 MB
+//   at hd 256) stay in the 50 MB L2 while its blocks run.  Numbering all
+//   heads of a query tile together, as the SIMT kernel does, spreads one
+//   wave over every head, whose K and V (134 MB at B = 4, S = 2048 and 32 kv
+//   heads of hd 128) do not fit in L2.  Three warpgroups: two
+//   consumers, each owning 64 query rows, and one producer.  setmaxnreg
+//   moves registers from the producer (24 a thread) to the consumers (240),
+//   whose f32 output accumulator alone is hd / 2 registers (128 at hd 256).
+// - Copies.  The producer's first thread loads the Q tile once and streams
+//   64-row K and V tiles through a ring of STAGES slots by TMA; each slot
+//   has a full mbarrier (the copies' bytes) and an empty one (one arrival
+//   per consumer warp).  The tensor maps are 4-D, (hd, S, heads, B), built
+//   on the host from the (b, head, s) strides, so the (B, S, H, hd)
+//   projections' transposed views load with no copy and GQA reads the kv
+//   head by index.  A box is 64 columns (128 bytes) wide, in the 128-byte
+//   swizzle that the wgmma descriptors read; TMA zero-fills rows past S.
+//   Shared memory at hd 256: Q 64 KB + 2 stages of K and V (32 KB each) =
+//   192 KB; at hd 64 and 128 the ring has 4 stages.
+// - Products.  S = Q K^T is wgmma m64n64k16 with both operands in shared
+//   memory, K-major.  O += P V is wgmma m64n{hd}k16 with P in registers: the
+//   f32 score fragment is the A fragment's layout, so P is rounded to bf16
+//   and packed in place, never staged; V is read MN-major through the
+//   descriptor's transpose bit.  Products of bf16 values are exact and
+//   summed in f32, as in the plain version; the one new rounding is P to
+//   bf16 before P.V (relative 2^-8 at most), so the output differs from
+//   the plain f32 softmax by at most 2^-8 sum_j p_j |v_j| / sum_j p_j, which
+//   is under 2^-8 max|v| over the row's open keys (kernels/flash_attention.py
+//   states the tolerance).
+// - Softmax.  The scale hd^-0.5 is applied to the f32 scores, folded with
+//   log2 e into the exponent of ex2 (one FMA a score on interior tiles).  A
+//   row's max and sum reduce over the four lanes that hold it; the sum stays
+//   per lane until the end; a warp whose rows kept their max skips the
+//   rescaling of O.
+// - Masks.  The block visits only the key tiles that the causal and window
+//   masks leave at least partly open for its 128 rows.  Each consumer then
+//   sorts a tile for its own 64 rows: closed (no wgmma; it only releases the
+//   slot), interior (open for every row: no mask arithmetic) or an edge
+//   (the diagonal, the window's far edge, keys past S: masked).  A row whose
+//   first tiles are closed to it carries p = 1 on -1e30 scores, and its
+//   first open score wipes them (alpha = 0), as in the TPU kernel.  Rows at
+//   or past S are computed but not stored.
+//
+// f32 inputs: the SIMT kernel (namespace simt), 64-row query tiles with Q,
+// K, V and P staged in f32 shared memory and f32 FMAs.  It is the path of
+// the f32 parity checks, which hold the kernel to the plain version within
+// 2e-5: TF32 tensor cores would round every product to 10 mantissa bits,
+// and nothing serves in f32.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -46,17 +71,29 @@
 
 namespace {
 
+// The f32 SIMT kernel:
+// - One block per (b, h, 64-row query tile), numbered so that the tiles with
+//   the most open keys start first; a loop inside the block walks the key
+//   tiles that the masks leave open.
+// - Q (scaled by hd^-0.5 in f32 before the product), the K and V tiles and
+//   the warp's probabilities live in shared memory as f32: 211 KB at
+//   hd = 256, so one block runs per SM.
+// - Each of the 8 warps owns 8 query rows: a row's max and sum are warp
+//   shuffles, and P needs only __syncwarp before P.V.  A lane owns 2 key
+//   columns of the score tile and hd / 32 columns of the output rows.
+// - K rows are padded by 4 floats so the float4 reads of 8 lanes hit 32
+//   distinct banks; Q and P reads are warp-wide broadcasts.
+// - Keys at or past S are closed (and staged as 0); rows at or past S are
+//   computed but not stored.
+namespace simt {
+
 constexpr int BQ = 64, BK = 64, WARPS = 8, THREADS = WARPS * 32;
 constexpr int ROWS = BQ / WARPS;  // query rows per warp
 constexpr float NEG = -1.0e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared-memory layout, in floats.
 template <int HD>
@@ -243,12 +280,515 @@ int launch_hd(int hd, const Args& a, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+
+}  // namespace simt
+
+namespace tc {
+
+constexpr int BQ = 128, BK = 64, CONSUMERS = 2, THREADS = (CONSUMERS + 1) * 128;
+constexpr int CHUNK = 8;          // (b, h) pairs whose blocks run together
+constexpr int PANEL = 64;         // bf16 columns of one 128-byte swizzled panel
+constexpr int ROW_BYTES = 128;    // a panel row
+constexpr float NEG = -1.0e30f;
+
+// Shared memory, in bytes from a 1024-byte aligned base: Q as hd / 64 panels
+// of 128 rows, then STAGES K tiles and STAGES V tiles, each hd / 64 panels of
+// 64 rows, then the mbarriers (Q's, STAGES full, STAGES empty).
+template <int HD>
+struct Plan {
+  static constexpr int STAGES = HD == 256 ? 2 : 4;
+  static constexpr int PANELS = HD / PANEL;
+  static constexpr int Q_PANEL = BQ * ROW_BYTES, KV_PANEL = BK * ROW_BYTES;
+  static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int K = Q_BYTES, V = K + STAGES * KV_BYTES;
+  static constexpr int BARS = V + STAGES * KV_BYTES;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+};
+
+struct Args {
+  void* o;
+  int B, H, group, S, n_qt, causal, window;
+  float scale_log2;  // hd^-0.5 log2(e)
+  int64_t o_sb, o_sh, o_ss;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-D map, coordinates (column, s, head, b), into shared
+// memory at dst; its bytes complete on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for the 128-byte swizzle: start address,
+// leading and stride byte offsets (in 16-byte units), layout 1 (B128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes, so that the
+// compiler moves no access to them across the wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+      "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+      "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+      "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+      "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+      "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+      "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 64) wgmma_rs_m64n64(o, a, db);
+  if constexpr (HD == 128) wgmma_rs_m64n128(o, a, db);
+  if constexpr (HD == 256) wgmma_rs_m64n256(o, a, db);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Args a) {
+  using P = Plan<HD>;
+  constexpr int STAGES = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + P::K, sV = base + P::V;
+  const uint32_t bar_q = base + P::BARS;
+  const auto full = [&](int st) { return bar_q + 8u * (1 + st); };
+  const auto empty = [&](int st) { return bar_q + 8u * (1 + STAGES + st); };
+
+  // Blocks run in chunks of CHUNK (b, h) pairs, the query tiles with the
+  // most open keys first within a chunk; the chunk's K and V stay in L2.
+  const int n_bh = a.B * a.H, chunk = blockIdx.x / (CHUNK * a.n_qt);
+  const int pos = blockIdx.x % (CHUNK * a.n_qt), here = min(CHUNK, n_bh - chunk * CHUNK);
+  const int bh = chunk * CHUNK + pos % here;
+  const int qt = a.n_qt - 1 - pos / here;
+  const int b = bh / a.H, h = bh % a.H, g = h / a.group;
+  const int q0 = qt * BQ;
+  // Key tiles that the masks leave at least partly open for some row.
+  const int q_last = min(q0 + BQ, a.S) - 1;
+  const int k_end = a.causal ? q_last + 1 : a.S;
+  const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt_begin = k_begin / BK, n_kt = (k_end + BK - 1) / BK - kt_begin;
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // Producer: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(bar_q, P::Q_BYTES);
+#pragma unroll
+      for (int p = 0; p < P::PANELS; ++p)
+        tma_load(sQ + p * P::Q_PANEL, &tq, bar_q, p * PANEL, q0, h, b);
+      for (int i = 0; i < n_kt; ++i) {
+        const int st = i % STAGES, k0 = (kt_begin + i) * BK;
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * P::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < P::PANELS; ++p) {
+          const uint32_t off = st * P::KV_BYTES + p * P::KV_PANEL;
+          tma_load(sK + off, &tk, full(st), p * PANEL, k0, g, b);
+          tma_load(sV + off, &tv, full(st), p * PANEL, k0, g, b);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows qa .. qa + 63 of the tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row = 16 * (t / 32) + lane / 4;  // this thread's rows: row, row + 8
+    const int col = 2 * (lane % 4);            // and columns 8 j + col, + 1
+    const int qa = q0 + 64 * wg;
+    const float c = a.scale_log2;
+    float o[HD / 2], s[32] = {};
+    uint32_t pa[4][4];
+    float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    const uint32_t sQw = sQ + 64 * wg * ROW_BYTES;
+    mbar_wait(bar_q, 0);
+
+    for (int i = 0; i < n_kt; ++i) {
+      const int st = i % STAGES, k0 = (kt_begin + i) * BK;
+      const bool closed = k0 >= a.S || (a.causal && k0 > qa + 63) ||
+                          (a.window > 0 && qa - (k0 + BK - 1) >= a.window);
+      const bool edge = k0 + BK > a.S || (a.causal && k0 + BK - 1 > qa) ||
+                        (a.window > 0 && qa + 63 - k0 >= a.window);
+      mbar_wait(full(st), (i / STAGES) & 1);
+      if (!closed) {
+        // S = Q K^T over hd in steps of 16 (32 bytes inside a panel row).
+        const uint32_t sKs = sK + st * P::KV_BYTES;
+        pin(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_m64n64(s, sw128_desc(sQw + (kk / 4) * P::Q_PANEL + off, 16, 1024),
+                          sw128_desc(sKs + (kk / 4) * P::KV_PANEL + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(s);
+
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = qa + row + 8 * (e / 2), ki = k0 + 8 * j + col + (e % 2);
+              bool ok = ki < a.S;
+              if (a.causal) ok = ok && ki <= qi;
+              if (a.window > 0) ok = ok && (qi - ki < a.window);
+              if (!ok) s[4 * j + e] = NEG;
+            }
+        }
+
+        // Online softmax: new row max over the four lanes of a row.
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          alpha[r] = ex2((m[r] - mx[r]) * c);
+          m[r] = mx[r];
+          l[r] *= alpha[r];
+        }
+        // p = 2^((s - m) c).  On an edge tile a row that has met no open key
+        // yet has m = -1e30 and gets p = 1 on its masked keys, exactly
+        // (s - m = 0); an interior tile's scores are all open, so m is a
+        // score and one FMA computes the exponent.
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[4 * j + e] = ex2((s[4 * j + e] - mx[e / 2]) * c);
+        } else {
+          const float mc[2] = {mx[0] * c, mx[1] * c};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -mc[e / 2]));
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          l[0] += s[4 * j] + s[4 * j + 1];
+          l[1] += s[4 * j + 2] + s[4 * j + 3];
+        }
+        // P as the A fragment of k-step kk: keys 16 kk .. 16 kk + 15.
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j) {
+            o[4 * j] *= alpha[0];
+            o[4 * j + 1] *= alpha[0];
+            o[4 * j + 2] *= alpha[1];
+            o[4 * j + 3] *= alpha[1];
+          }
+        }
+
+        // O += P V: 16 keys (16 rows of 128 bytes) per step, V MN-major with
+        // its 64-column panels KV_PANEL bytes apart.
+        const uint32_t sVs = sV + st * P::KV_BYTES;
+        pin(o);
+        pin(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_pv<HD>(o, pa[kk], sw128_desc(sVs + kk * 16 * ROW_BYTES, P::KV_PANEL, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(o);
+        pin(pa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    // Epilogue: the row sums over their four lanes, then o / max(l, 1e-20).
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float inv = 1.0f / fmaxf(l[r], 1e-20f);
+      const int qi = qa + row + 8 * r;
+      if (qi >= a.S) continue;
+      __nv_bfloat16* orow = ob + qi * a.o_ss + col;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (hd, S, heads, B) of a bf16 tensor given by its (b, head, s)
+// element strides, hd contiguous; boxes of 64 columns by `rows` rows.  A
+// dimension of extent 1 is never stepped, so its stride is replaced by the
+// tensor's span (TMA wants every stride a multiple of 16 bytes).
+int make_map(CUtensorMap* map, const void* ptr, int64_t hd, int64_t S, int64_t heads,
+             int64_t B, int64_t sb, int64_t sh, int64_t ss, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int64_t span = 2 * hd * S * heads * B;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(S > 1 ? 2 * ss : span),
+                                 (cuuint64_t)(heads > 1 ? 2 * sh : span),
+                                 (cuuint64_t)(B > 1 ? 2 * sb : span)};
+  const cuuint32_t box[4] = {(cuuint32_t)PANEL, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+struct Launch {
+  const void *q, *k, *v;
+  int64_t KV;
+  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+};
+
+template <int HD>
+int launch(const Launch& L, const Args& a, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int e = make_map(&mq, L.q, HD, a.S, a.H, a.B, L.q_sb, L.q_sh, L.q_ss, BQ);
+  if (e == 0) e = make_map(&mk, L.k, HD, a.S, L.KV, a.B, L.k_sb, L.k_sh, L.k_ss, BK);
+  if (e == 0) e = make_map(&mv, L.v, HD, a.S, L.KV, a.B, L.v_sb, L.v_sh, L.v_ss, BK);
+  if (e != 0) return e;
+  const auto kernel = flash_attention_kernel<HD>;
+  cudaError_t r = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Plan<HD>::BYTES);
+  if (r != cudaSuccess) return (int)r;
+  const int64_t blocks = (int64_t)a.n_qt * a.B * a.H;
+  kernel<<<(unsigned)blocks, THREADS, Plan<HD>::BYTES, stream>>>(mq, mk, mv, a);
+  return (int)cudaGetLastError();
+}
+
+int launch_hd(int hd, const Launch& L, const Args& a, cudaStream_t stream) {
+  if (hd == 64) return launch<64>(L, a, stream);
+  if (hd == 128) return launch<128>(L, a, stream);
+  if (hd == 256) return launch<256>(L, a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, for q, k, v and o alike.  q and o are
-// (B, H, S, hd), k and v (B, KV, S, hd), each given by its (b, head, s)
-// element strides with hd contiguous.  hd is 64, 128 or 256; H is a multiple
-// of KV.  Returns a cudaError_t.
+// dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the tensor-core
+// kernel), for q, k, v and o alike.  q and o are (B, H, S, hd), k and v
+// (B, KV, S, hd), each given by its (b, head, s) element strides with hd
+// contiguous; for bf16, q, k and v start on 16 bytes and their strides are
+// multiples of 8 elements (TMA).  hd is 64, 128 or 256; H is a multiple of
+// KV.  Returns a cudaError_t.
 extern "C" int flash_attention_launch(
     int dtype, int hd, const void* q, const void* k, const void* v, void* o,
     int64_t B, int64_t H, int64_t KV, int64_t S,
@@ -257,14 +797,25 @@ extern "C" int flash_attention_launch(
     int64_t o_sh, int64_t o_ss, int causal, int64_t window, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0 || window < 0) return (int)cudaErrorInvalidValue;
-  const int64_t n_qt = (S + BQ - 1) / BQ;
-  if (n_qt * B * H > 0x7fffffff || S > 0x3fffffff) return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, (int)B, (int)H, (int)(H / KV), (int)S, (int)n_qt,
-         causal ? 1 : 0, (int)(window > S ? S : window),
-         (float)(1.0 / std::sqrt((double)hd)),
-         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  if (S > 0x3fffffff) return (int)cudaErrorInvalidValue;
+  const int win = (int)(window > S ? S : window);
+  const double scale = 1.0 / std::sqrt((double)hd);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_hd<float>(hd, a, s);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(hd, a, s);
+  if (dtype == 0) {
+    const int64_t n_qt = (S + simt::BQ - 1) / simt::BQ;
+    if (n_qt * B * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    simt::Args a{q, k, v, o, (int)B, (int)H, (int)(H / KV), (int)S, (int)n_qt,
+                 causal ? 1 : 0, win, (float)scale,
+                 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+    return simt::launch_hd<float>(hd, a, s);
+  }
+  if (dtype == 1) {
+    const int64_t n_qt = (S + tc::BQ - 1) / tc::BQ;
+    if (n_qt * B * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    tc::Args a{o, (int)B, (int)H, (int)(H / KV), (int)S, (int)n_qt, causal ? 1 : 0, win,
+               (float)(scale * 1.4426950408889634), o_sb, o_sh, o_ss};
+    tc::Launch L{q, k, v, KV, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+    return tc::launch_hd(hd, L, a, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

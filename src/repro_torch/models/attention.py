@@ -126,10 +126,14 @@ def gqa_forward(p, x, cfg: ArchConfig, window: int = 0, theta=None,
 
     Against the reference's ``_dot_attn``: masked scores are replaced by
     -1e30 where the reference adds -2e38, the same softmax as long as each
-    row keeps an open key (causal rows keep their diagonal).  The kernel
-    scales q by hd^-0.5 in f32, the reference in q's dtype: the same in
-    f32 and whenever hd^-0.5 is a power of two (hd 64, 256); at hd 128 in
-    bf16 the reference's scaled q carries one more bf16 rounding."""
+    row keeps an open key (causal rows keep their diagonal).  Where the
+    scale hd^-0.5 is applied differs: the reference scales q in q's dtype;
+    the f32 kernel scales q in f32; the bf16 kernel scales the f32 scores
+    (folded with log2 e into its exponent) and rounds P to bf16 before
+    P.V (``kernels.flash_attention.bf16_tolerance``).  All agree whenever
+    hd^-0.5 is a power of two (hd 64, 256); at hd 128 in bf16 the
+    reference's scaled q carries one more bf16 rounding, which neither
+    kernel has."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)

@@ -13,7 +13,16 @@ outputs of magnitude about 1 (the reference's own kernel tests allow
 or after the product rounds the same.  In bf16 both compute in f32 from
 the same bf16 inputs and round the output once, so a result may land one
 bf16 ulp apart: 2^-7 of its magnitude, plus the f32 2e-5.
+
+The CUDA kernel for bf16 inputs also rounds P to bf16 before P.V on the
+tensor cores.  No CUDA kernel runs here, so ``_emulate_bf16_kernel`` redoes
+its arithmetic tile by tile in PyTorch, and the tests hold it to
+``flash_attention.bf16_tolerance`` (2e-5 + 2^-8 max|v| over the row's open
+keys + 2^-7 |out|) against the plain version; a mask one key off must miss
+that tolerance.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +35,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
 MODES = [(True, 0), (True, 64), (False, 0)]
+BQ, BK = 128, 64  # the bf16 kernel's query and key tiles
 HEADS = [(4, 4), (4, 2), (8, 1)]
 F32_TOL = 2e-5
 BF16_RTOL = 2.0 ** -7
@@ -98,3 +108,78 @@ def test_flash_attention_refuses_inputs_that_require_grad():
     _, (q, k, v) = _inputs(1, 2, 1, 8, 64, jnp.float32)
     with pytest.raises(RuntimeError, match="no backward"):
         ops.flash_attention(q.requires_grad_(), k, v)
+
+
+def _emulate_bf16_kernel(q, k, v, causal, window, diagonal=0):
+    """The bf16 CUDA kernel's arithmetic in PyTorch on the CPU: 128-row
+    query tiles, the 64-key tiles that the masks leave partly open for the
+    tile, f32 scores of the bf16 inputs, masked scores -1e30, the online
+    max, p = 2^((s - m) hd^-0.5 log2 e), P rounded to bf16 per tile before
+    P.V, f32 accumulators, the denominator clamped at 1e-20.  ``diagonal``
+    moves the causal diagonal that many keys later: a mask fault."""
+    b, h, s, hd = q.shape
+    group = h // k.shape[1]
+    pad = (0, 0, 0, BQ + BK)  # zero rows past S, as TMA fills them
+    qf = torch.nn.functional.pad(q.float(), pad)
+    kf = torch.nn.functional.pad(k.float(), pad).repeat_interleave(group, 1)
+    vf = torch.nn.functional.pad(v.float(), pad).repeat_interleave(group, 1)
+    c = hd ** -0.5 * math.log2(math.e)
+    out = torch.empty(b, h, s, hd)
+    for q0 in range(0, s, BQ):
+        rows = torch.arange(q0, q0 + BQ)[:, None]
+        k_end = min(q0 + BQ, s) if causal else s
+        k_begin = max(0, q0 - window + 1) if window else 0
+        m = torch.full((b, h, BQ), -1e30)
+        l = torch.zeros(b, h, BQ)
+        acc = torch.zeros(b, h, BQ, hd)
+        for k0 in range(k_begin // BK * BK, k_end, BK):
+            keys = torch.arange(k0, k0 + BK)[None, :]
+            x = qf[:, :, q0:q0 + BQ] @ kf[:, :, k0:k0 + BK].transpose(-1, -2)
+            ok = keys < s
+            if causal:
+                ok = ok & (keys <= rows + diagonal)
+            if window:
+                ok = ok & (rows - keys < window)
+            x = x.masked_fill(~ok, -1e30)
+            mx = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2((m - mx) * c)
+            p = torch.exp2((x - mx[..., None]) * c)
+            l = alpha * l + p.sum(-1)
+            acc = alpha[..., None] * acc + p.bfloat16().float() @ vf[:, :, k0:k0 + BK]
+            m = mx
+        o = acc / l.clamp_min(1e-20)[..., None]
+        out[:, :, q0:q0 + BQ] = o[:, :, :min(BQ, s - q0)]
+    return out.to(q.dtype)
+
+
+# (B, H, KV, S, hd), causal, window: gemma3's hd 256 with a window; a causal
+# GQA group of 4 at hd 128 and a ragged S; hd 64, non-causal, windowed.
+EMULATED = [((1, 4, 2, 300, 256), True, 64), ((1, 8, 2, 200, 128), True, 0),
+            ((2, 4, 4, 150, 64), False, 50)]
+
+
+def _beyond_tolerance(got, want, v, causal, window):
+    """The largest |got - want| over its bf16 tolerance."""
+    tol = fa.bf16_tolerance(v, want, causal, window)
+    return float(((got.float() - want.float()).abs() / tol).max())
+
+
+@pytest.mark.parametrize("shape,causal,window", EMULATED)
+def test_bf16_kernel_arithmetic_lies_within_the_stated_tolerance(shape, causal,
+                                                                  window):
+    _, (q, k, v) = _inputs(*shape, jnp.bfloat16, seed=3)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    got = _emulate_bf16_kernel(q, k, v, causal, window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _beyond_tolerance(got, want, v, causal, window) <= 1.0
+
+
+@pytest.mark.parametrize("shape,causal,window",
+                         [c for c in EMULATED if c[1]])
+def test_bf16_tolerance_sees_a_diagonal_one_key_off(shape, causal, window):
+    """A mask fault that moves the rows with few open keys (each row also
+    sees the next key) misses the tolerance: it is not too loose."""
+    _, (q, k, v) = _inputs(*shape, jnp.bfloat16, seed=3)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    mutant = _emulate_bf16_kernel(q, k, v, causal, window, diagonal=1)
+    assert _beyond_tolerance(mutant, want, v, causal, window) > 1.0

@@ -9,8 +9,10 @@ operations in the same order, so they must match bit for bit; the dense
 mix sums its n products in its own order, 1e-6 of the output's magnitude
 in f32 and one bf16 ulp with a bf16 bank.  Flash attention sums scores,
 its softmax denominator and P.V in its own order (online, tile by tile):
-2e-5 absolute in f32 on outputs of magnitude about 1, and in bf16 one ulp
-of the output (2^-7 of it) on top.
+2e-5 absolute in f32 on outputs of magnitude about 1.  In bf16 the kernel
+also rounds P to bf16 before P.V on the tensor cores:
+``flash_attention.bf16_tolerance`` (2e-5 + 2^-8 max|v| over the row's open
+keys + 2^-7 |out|; its docstring derives it).
 """
 import pytest
 import torch
@@ -120,6 +122,16 @@ def test_cuda_round_launches_the_kernels_and_keeps_the_mass(cuda_device,
     assert abs(float(tr.state.w.sum()) - 8.0) <= 1e-5
 
 
+def _flash_within_tolerance(q, k, v, causal, window):
+    got = fa.flash_attention(q, k, v, causal, window)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    err = (got.float() - want.float()).abs()
+    tol = (fa.bf16_tolerance(v, want, causal, window)
+           if q.dtype == torch.bfloat16 else 2e-5)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    return bool((err <= tol).all()), float(err.max())
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_cuda_flash_attention_matches_its_plain_version(cuda_device, dt, hd):
@@ -134,23 +146,51 @@ def test_cuda_flash_attention_matches_its_plain_version(cuda_device, dt, hd):
             v = torch.randn(2, kv, s, hd, generator=g, device=cuda_device).to(dt)
             for causal, window in ((True, 0), (True, 33), (False, 0),
                                    (False, 70)):
-                got = fa.flash_attention(q, k, v, causal, window)
-                want = fa.flash_attention_plain(q, k, v, causal, window)
-                err = (got.float() - want.float()).abs()
-                tol = 2e-5 + (2.0 ** -7 * want.float().abs()
-                              if dt == torch.bfloat16 else 0.0)
-                assert got.dtype == dt and got.shape == q.shape
-                assert bool((err <= tol).all()), (s, h, kv, causal, window,
-                                                  float(err.max()))
+                ok, err = _flash_within_tolerance(q, k, v, causal, window)
+                assert ok, (s, h, kv, causal, window, err)
     torch.cuda.synchronize()
 
 
-def test_cuda_flash_attention_reads_strided_views(cuda_device):
+@pytest.mark.parametrize("s", [300, 1000])
+def test_cuda_flash_attention_bf16_group16_ragged(cuda_device, s):
+    """glm4-9b's GQA group of 16 at hd 128, at lengths that are no multiple
+    of the 128-row query tile, causal with and without a window."""
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    q = torch.randn(1, 32, s, 128, generator=g, device=cuda_device).bfloat16()
+    k = torch.randn(1, 2, s, 128, generator=g, device=cuda_device).bfloat16()
+    v = torch.randn(1, 2, s, 128, generator=g, device=cuda_device).bfloat16()
+    for causal, window in ((True, 0), (True, 100), (False, 0)):
+        ok, err = _flash_within_tolerance(q, k, v, causal, window)
+        assert ok, (s, causal, window, err)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dt,kernel", [(torch.float32, "simt::"),
+                                       (torch.bfloat16, "tc::")])
+def test_cuda_flash_attention_runs_the_kernel_of_its_dtype(cuda_device, dt,
+                                                           kernel):
+    """bf16 runs the tensor-core kernel (namespace tc) and f32 the SIMT one,
+    by the names of the device kernels that the profiler sees."""
+    from torch.autograd import DeviceType
+
+    q = torch.randn(1, 2, 200, 128, device=cuda_device).to(dt)
+    with torch.profiler.profile() as prof:
+        fa.flash_attention(q, q[:, :1], q[:, :1], True, 0)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and "flash_attention_kernel" in e.key]
+    assert names and all(kernel + "flash_attention_kernel" in n
+                         for n in names), names
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_reads_strided_views(cuda_device, dt):
     """The (B,S,H,hd) projections' transpose(1, 2) views give the same
     output as contiguous copies, laid out like q's view."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    q = torch.randn(2, 70, 8, 128, generator=g, device=cuda_device)
-    kv = torch.randn(2, 70, 2, 128, generator=g, device=cuda_device)
+    q = torch.randn(2, 70, 8, 128, generator=g, device=cuda_device).to(dt)
+    kv = torch.randn(2, 70, 2, 128, generator=g, device=cuda_device).to(dt)
     qt, kt = q.transpose(1, 2), kv.transpose(1, 2)
     got = fa.flash_attention(qt, kt, kt, True, 16)
     want = fa.flash_attention(qt.contiguous(), kt.contiguous(),
@@ -160,9 +200,15 @@ def test_cuda_flash_attention_reads_strided_views(cuda_device):
 
 
 def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
-    """No backward and no kernel for other head dims: the wrapper raises
-    and launches nothing, it never falls back to the plain version."""
+    """No backward, no kernel for other head dims, and no bf16 input that
+    TMA cannot load (an s-stride that is no multiple of 8 elements, a base
+    off 16 bytes): the wrapper raises and launches nothing, it never falls
+    back to the plain version."""
     q = torch.randn(1, 2, 8, 64, device=cuda_device)
+    # s-stride 68 elements: hd = 64 contiguous inside rows of 68.
+    odd = torch.randn(1, 2, 8, 68, device=cuda_device).bfloat16()[..., :64]
+    flat = torch.randn(2 * 8 * 64 + 1, device=cuda_device).bfloat16()
+    shifted = flat[1:].view(1, 2, 8, 64)  # starts 2 bytes past 16
     refused = [
         lambda: fa.flash_attention(q.clone().requires_grad_(), q, q),
         lambda: fa.flash_attention(torch.randn(1, 2, 8, 96, device=cuda_device),
@@ -173,6 +219,8 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
         lambda: fa.flash_attention(q, q[:, :, :4], q[:, :, :4]),
         lambda: fa.flash_attention(torch.randn(1, 3, 8, 64, device=cuda_device),
                                    q, q),
+        lambda: fa.flash_attention(odd, odd, odd),
+        lambda: fa.flash_attention(shifted, shifted, shifted),
     ]
     before = fa.launches
     for call in refused:
