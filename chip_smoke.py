@@ -11,12 +11,19 @@ Phases, each fatal on failure:
 2. build the kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``), and
    show what the flash kernels compiled to: ``-Xptxas -v``'s registers and
    spills, and the ``HGMMA`` (tensor-core) instructions in each one's SASS
-   (``cuobjdump -sass``), which every bf16 instantiation must hold;
+   (``cuobjdump -sass``), which every bf16 instantiation must hold; then
+   the two gossip mixes' registers and spills (none may spill), and the
+   dense mix's SASS, which must hold FFMA and no HMMA or HGMMA;
 3. kernels: at the main path's shapes (n = 100 clients, D = 1,756,426, the
    full-width ``cifar_cnn``), f32 and bf16, plus ragged shapes and pad
    slots, every kernel against its plain PyTorch version on the card with
    the stated tolerance; then its time (CUDA events) beside its bound, the
-   plain version's time and one PyTorch library call's.  The flash kernel
+   plain version's time and one PyTorch library call's.  Both gossip mixes
+   also run at the shapes their tilings straddle (n = 1, 9, 100, 128, 129;
+   D = 3 and 4097 to 4099, rows 1, 2 and 3 mod 4 elements apart; banks at
+   and a row past their allocation's start) and at the shapes that take
+   their second kernels (dense n = 512, gather n = 8192, D = 64), and are
+   timed at n = 8 and 100 in f32 and bf16.  The flash kernel
    runs at gemma3-12b's prefill shapes (B = 4, 16 on 8 heads, S = 2048,
    hd = 256, bf16, windows 1024 and 0), at the other dense decoders' (hd
    128, GQA groups 1, 4 and 16) and at edge cases, with its bf16 tolerance
@@ -131,6 +138,75 @@ def sync(dev):
 
 # -- phase 3: kernels against their plain versions ----------------------------
 
+# The mixes' tilings straddle n = 1, 9 (rows padded to 8), 100, 128 (the
+# last n of the dense mix's resident kernel) and 129; D = 3, 4097, 4098 and
+# 4099 start the rows 3, 1, 2 and 3 (mod 4) elements apart, so off 16 bytes.
+MIX_SHAPES = [(n, d) for n in (1, 9, 100, 128, 129)
+              for d in (3, 4097, 4098, 4099)]
+
+
+def mix_banks(gen, n, d, dt, dev):
+    """An (n, d) bank at the start of its allocation, and one a row in."""
+    whole = torch.randn(n + 1, d, generator=gen, device=dev).to(dt)
+    return whole[:n], whole[1:]
+
+
+def matmul_path(dev, n: int) -> str:
+    from repro_torch.kernels import build
+
+    if dev.type != "cuda":
+        return "plain version"
+    if n <= build.load_library().gossip_matmul_resident_max_n():
+        return "resident kernel"
+    return "tiled kernel"
+
+
+def gather_path(dev, n: int, k_max: int, dt) -> str:
+    from repro_torch.kernels import build
+
+    if dev.type != "cuda":
+        return "plain version"
+    cols = build.load_library().gossip_gather_panel_cols(
+        0 if dt == torch.float32 else 1, n, k_max)
+    return f"panel kernel, {cols} columns" if cols else "row kernel"
+
+
+def mix_times(dev, gen, d: int, iters: int) -> None:
+    """Both mixes at n = 8 and 100 (kout, k_out = min(10, n - 1)), f32 and
+    bf16, at the main path's D: time beside the bound (dense: the larger of
+    its bytes and its f32 FLOP over the f32 peak; gather: its bytes) and
+    the library call (``torch.matmul`` in f32, the ``einsum`` over
+    ``X[idx]``)."""
+    from repro_torch.core import topology
+    from repro_torch.kernels import gossip_gather as gg
+    from repro_torch.kernels import gossip_matmul as gm
+
+    for n in (8, 100):
+        P = topology.sample_kout(gen, n, min(10, n - 1))
+        nl = topology.sample_kout_neighbors(gen, n, min(10, n - 1))
+        k = nl.idx.shape[1]
+        for dt in (torch.float32, torch.bfloat16):
+            X = torch.randn(n, d, generator=gen, device=dev).to(dt)
+            es = X.element_size()
+            mm = timed_ms(lambda: gm.gossip_matmul(P, X), dev, iters)
+            mm_lib = timed_ms(lambda: torch.matmul(P, X.float()), dev, iters)
+            mm_b, mm_by = bound_ms(4.0 * n * n + 2.0 * es * n * d,
+                                   2.0 * n * n * d)
+            ga = timed_ms(lambda: gg.gossip_gather(nl.idx, nl.wgt, X), dev,
+                          iters)
+            ga_lib = timed_ms(lambda: torch.einsum(
+                "nk,nkd->nd", nl.wgt, X[nl.idx.long()].float()), dev, iters)
+            ga_b, ga_by = bound_ms(2.0 * es * n * d + 8.0 * n * k,
+                                   2.0 * n * k * d)
+            print(f"  mix times n={n} D={d} {str(dt)[6:]}: gossip_matmul "
+                  f"{mm:.4f} ms, bound {mm_b:.4f} ({mm_by}), "
+                  f"{100 * mm_b / mm:.1f}% of it, torch.matmul (f32) "
+                  f"{mm_lib:.4f}; gossip_gather k_max={k} {ga:.4f} ms, bound "
+                  f"{ga_b:.4f} ({ga_by}), {100 * ga_b / ga:.1f}% of it, "
+                  f"einsum {ga_lib:.4f}")
+            del X
+
+
 def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
     from repro_torch.core import topology
     from repro_torch.kernels import fused_update as fu
@@ -189,22 +265,28 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
                                 bound_by=b1_by, library_ms=None)
     del X, G, V
 
-    # gossip_matmul: f32 sums in the kernel's own order.
+    # gossip_matmul: f32 sums in the kernel's own order (ascending k, one
+    # FMA each); gossip_gather: the plain version's slot loop, bit for bit.
+    # Both at the main path's shape, at the shapes their tilings straddle
+    # (both kernels of each mix) and on banks whose rows start off 16 bytes.
     err = 0.0
-    for (n_, d_) in [(n, d), (512, 4099), (3, 5)]:
+    for (n_, d_) in [(n, d), (3, 5), *MIX_SHAPES, (512, 4099)]:
         P = topology.sample_kout(gen, n_, min(10, n_ - 1))
+        cells = []
         for dt in (torch.float32, torch.bfloat16):
-            X = bank(n_, d_, dt)
-            got, want = gm.gossip_matmul(P, X), gm.gossip_matmul_plain(P, X)
-            sync(dev)
-            e = max_err(got, want)
-            scale = float(want.float().abs().max())
-            tol = (1e-6 if dt == torch.float32 else bf16_ulp) * scale
-            print(f"  gossip_matmul n={n_} D={d_} {str(dt)[6:]}: max|err| "
-                  f"{e:.3e} (tolerance {tol:.3e})")
-            check(e <= tol, f"gossip_matmul disagrees ({n_}, {d_}, {dt})")
-            if (n_, d_) == (n, d) and dt == torch.float32:
-                err = e
+            for X in mix_banks(gen, n_, d_, dt, dev):
+                got, want = gm.gossip_matmul(P, X), gm.gossip_matmul_plain(P, X)
+                sync(dev)
+                e = max_err(got, want)
+                scale = float(want.float().abs().max())
+                tol = (1e-6 if dt == torch.float32 else bf16_ulp) * scale
+                cells.append(f"{str(dt)[6:]} {e / tol if tol else e:.3f}")
+                check(e <= tol, f"gossip_matmul disagrees ({n_}, {d_}, {dt})")
+                if (n_, d_) == (n, d) and dt == torch.float32:
+                    err = max(err, e)
+        print(f"  gossip_matmul n={n_} D={d_} ({matmul_path(dev, n_)}): max|err| / "
+              f"tolerance (1e-6 max|Y| in f32, 2^-7 max|Y| in bf16; own bank, "
+              f"one row in) {', '.join(cells)}")
     P = topology.sample_kout(gen, n, min(10, n - 1))
     X = bank(n, d, torch.float32)
     b, b_by = bound_ms(4.0 * n * n + 8.0 * n * d, 2.0 * n * n * d)
@@ -216,7 +298,6 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
         library_ms=timed_ms(lambda: torch.matmul(P, X), dev, iters),
     )
 
-    # gossip_gather: the plain version's slot loop, bit for bit.
     err = 0.0
     nl = topology.sample_kout_neighbors(gen, n, min(10, n - 1))
     padded = topology.sample_symmetric_neighbors(gen, n, 5)  # pads: weight 0
@@ -232,19 +313,25 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
             want = gg.gossip_gather_plain(lists.idx, lists.wgt, X)
             sync(dev)
             e = max_err(got, want)
-            print(f"  gossip_gather n={n} D={d} {what} {str(dt)[6:]}: "
-                  f"max|err| {e:.3e} (tolerance 0, bitwise)")
+            print(f"  gossip_gather n={n} D={d} {what} {str(dt)[6:]} "
+                  f"({gather_path(dev, n, lists.idx.shape[1], dt)}): max|err| "
+                  f"{e:.3e} (tolerance 0, bitwise)")
             check(e == 0.0, f"gossip_gather disagrees ({what}, {dt})")
             if what.startswith("kout k") and dt == torch.float32:
                 err = e
-    for (n_, d_) in [(512, 4099), (3, 5)]:
+    for (n_, d_) in [(3, 5), *MIX_SHAPES, (512, 4099), (8192, 64)]:
         small = topology.sample_kout_neighbors(gen, n_, min(10, n_ - 1))
-        X = bank(n_, d_, torch.float32)
-        e = max_err(gg.gossip_gather(small.idx, small.wgt, X),
-                    gg.gossip_gather_plain(small.idx, small.wgt, X))
-        print(f"  gossip_gather n={n_} D={d_} float32: max|err| {e:.3e} "
-              "(tolerance 0, bitwise)")
-        check(e == 0.0, f"gossip_gather disagrees ({n_}, {d_})")
+        cells = []
+        for dt in (torch.float32, torch.bfloat16):
+            for X in mix_banks(gen, n_, d_, dt, dev):
+                e = max_err(gg.gossip_gather(small.idx, small.wgt, X),
+                            gg.gossip_gather_plain(small.idx, small.wgt, X))
+                cells.append(f"{str(dt)[6:]} {e:.1e}")
+                check(e == 0.0, f"gossip_gather disagrees ({n_}, {d_}, {dt})")
+        print(f"  gossip_gather n={n_} D={d_} k_max={small.idx.shape[1]} "
+              f"({gather_path(dev, n_, small.idx.shape[1], torch.float32)} in f32): "
+              f"max|err| (tolerance 0, bitwise; own bank, one row in) "
+              f"{', '.join(cells)}")
     X = bank(n, d, torch.float32)
     k_max = nl.idx.shape[1]
     b, b_by = bound_ms(8.0 * n * d + 8.0 * n * k_max, 2.0 * n * k_max * d)
@@ -258,6 +345,8 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
             lambda: torch.einsum("nk,nkd->nd", nl.wgt, X[nl.idx.long()]),
             dev, iters),
     )
+    del X
+    mix_times(dev, gen, d, iters)
     rows["flash_attention"] = flash_phase(dev, iters=iters)
     for name, r in rows.items():
         print(f"  {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -454,6 +543,74 @@ def flash_build_evidence() -> None:
             check(n > 0, f"no HGMMA in {fn}")
     check(any("2tc22flash" in fn for fn in counts),
           "no tensor-core flash kernel in the library's SASS")
+
+
+MIX_KERNELS = ("mix_resident_kernel", "mix_tiled_kernel", "gather_panels_kernel",
+               "gather_rows_kernel")
+
+
+def mix_build_evidence() -> None:
+    """What the two mixes compiled to: ``nvcc -Xptxas -v``'s registers and
+    spills for every instantiation of their kernels (none may spill), and
+    the FFMA and tensor-core (HMMA, HGMMA) instructions in each dense-mix
+    kernel's SASS: the dense mix is a true f32 product, so every one of its
+    kernels must hold FFMA and no tensor-core instruction."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    def short(fn):
+        kind = next((k for k in MIX_KERNELS if k in fn), None)
+        if kind is None:
+            return None
+        dt = "bf16" if "nv_bfloat16" in fn else "f32"
+        args = re.findall(r"Li(\d+)E", fn.split(kind, 1)[1])
+        return f"{kind}<{', '.join([dt, *args])}>"
+
+    kernels, fn = {}, None
+    for line in build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = short(m.group(1))
+            if fn:
+                kernels[fn] = [None, None]
+        elif fn and "spill stores" in line:
+            kernels[fn][1] = sum(int(x) for x in re.findall(
+                r"(\d+) bytes spill", line))
+        elif fn and "Used" in line and "registers" in line:
+            kernels[fn][0] = int(re.search(r"Used (\d+) registers",
+                                           line).group(1))
+    check(bool(kernels), "no ptxas lines for the mix kernels in the build log")
+    by_kind = {}
+    for fn, (regs, spill) in kernels.items():
+        by_kind.setdefault(fn.split("<")[0], []).append(
+            f"{fn[fn.index('<'):]} {regs} regs, {spill} B spilled")
+    for kind, lines in by_kind.items():
+        print(f"  ptxas {kind}: " + "; ".join(lines))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(tool), "cuobjdump not found: no SASS count")
+    sass = subprocess.run([tool, "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = short(m.group(1))
+            fn = fn if fn and fn.startswith("mix_") else None
+            if fn:
+                counts[fn] = [0, 0]
+        elif fn:
+            counts[fn][0] += "FFMA" in line
+            counts[fn][1] += "HMMA" in line or "HGMMA" in line
+    check(bool(counts), "no dense-mix kernel in the library's SASS")
+    print("  SASS of the dense mix (FFMA, tensor-core instructions): " + "; ".join(
+        f"{fn} {ffma}, {tc}" for fn, (ffma, tc) in counts.items()))
+    for fn, (regs, spill) in kernels.items():
+        check(spill == 0, f"{fn} spills {spill} bytes")
+    for fn, (ffma, tc) in counts.items():
+        check(ffma > 0 and tc == 0, f"{fn}: {ffma} FFMA, {tc} HMMA/HGMMA")
 
 
 # -- phase 4: the card's round against the CPU's, same draws ------------------
@@ -926,6 +1083,8 @@ def main() -> int:
     print(f"[2] kernels built and loaded in {time.perf_counter() - t:.1f} s; "
           "the flash kernels:")
     flash_build_evidence()
+    print("[2] the gossip mixes' kernels:")
+    mix_build_evidence()
     print(f"[3] kernels at n={N_CLIENTS} D={CIFAR_CNN_DIM}")
     rows = kernel_phase(dev, N_CLIENTS, CIFAR_CNN_DIM)
     print("[4] card round against CPU round, same draws")

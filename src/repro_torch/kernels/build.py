@@ -5,12 +5,14 @@ compiled: each source goes through its own ``nvcc -c`` (all started
 together), one more ``nvcc -shared`` links them into one library, and
 ``ctypes`` loads it.  The library is built at first use, never at import,
 into ``build/`` at the repository root; its file name carries a hash of
-the sources and flags, so a changed source never loads a stale build.
+the sources (``.cu`` and the ``.cuh`` headers they share) and flags, so a
+changed source never loads a stale build.
 Each source compiles with ``-Xptxas -v``; what ``nvcc`` printed (each
 kernel's registers, shared memory and spills) is kept beside the library
 as ``<library>.log`` (:func:`build_log`).  Pointers and the stream cross
-as ``c_void_p``, sizes as ``c_int64``; every entry point returns the
-``cudaError_t`` of its launch.
+as ``c_void_p``, sizes as ``c_int64``; every launch entry point returns
+the ``cudaError_t`` of its launch, and two queries return which of its
+kernels a gossip mix takes at a shape.
 """
 from __future__ import annotations
 
@@ -45,11 +47,19 @@ _SIGNATURES = {
     "gossip_matmul_launch": (_I, _P, _P, _P, _I64, _I64, _P),
     # dtype, idx, wgt, X, Y, n, k_max, D, stream
     "gossip_gather_launch": (_I, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # dtype, n, k_max -> the gather's panel width (0: the row kernel)
+    "gossip_gather_panel_cols": (_I, _I64, _I64),
+    # -> the largest n of the dense mix's resident kernel
+    "gossip_matmul_resident_max_n": (),
     # dtype, hd, q, k, v, o, B, H, KV, S, the (b, head, s) strides of q, k,
     # v and o, causal, window, stream
     "flash_attention_launch": (_I, _I, _P, _P, _P, _P, *(_I64,) * 16, _I,
                                _I64, _P),
 }
+
+# Entry points that return something else than a cudaError_t.
+_RESTYPES = {"gossip_gather_panel_cols": _I64,
+             "gossip_matmul_resident_max_n": _I64}
 
 _lock = threading.Lock()
 _lib = None
@@ -98,7 +108,7 @@ def _build(sources: list[Path], out: Path) -> None:
 def library_path() -> Path:
     """Where the library of the current sources and flags is built."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for s in sorted(CSRC.glob("*.cu")):
+    for s in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(s.name.encode() + s.read_bytes())
     return BUILD / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
@@ -122,7 +132,7 @@ def load_library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
         return lib
 

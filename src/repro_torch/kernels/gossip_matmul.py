@@ -2,11 +2,17 @@
 stored in X's dtype.
 
 Replaces the TPU kernel ``repro.kernels.gossip_matmul.gossip_matmul_pallas``
-with the CUDA C++ kernel in ``csrc/gossip_matmul.cu``: a tiled f32 SIMT
-product (no TF32, no tensor cores — the reference mixes at
-``Precision.HIGHEST``).  At the slice's n = 100 it is bound by f32
-operations (2 n^2 D flops over 2 n D elements, n/4 flop per byte); one
-128-row tile covers every client, so X streams from device memory once.
+with the CUDA C++ kernels in ``csrc/gossip_matmul.cu``: f32 SIMT products
+(no TF32, no tensor cores — the reference mixes at ``Precision.HIGHEST``),
+each output summing its n products in ascending order.  At the slice's
+n = 100 it is bound by f32 operations (2 n^2 D flops over 2 n D elements,
+n/4 flop per byte; 0.52 ms at D = 1,756,426), at n = 8 by bytes.  For
+n <= 128 the resident kernel keeps P whole in shared memory and streams
+X in 192-column panels (128 past n = 104) through a ring that a producer
+warp fills with TMA bulk copies (``csrc/panel_ring.cuh``, whole aligned
+16-byte chunks whatever the rows' alignment), with rows padded only to a
+multiple of 8 and at most 13 x 6 accumulators a thread; larger n takes the
+tiled kernel (128 x 128 tiles of Y).
 
 ``gossip_matmul`` is the wrapper: a CPU tensor goes to
 :func:`gossip_matmul_plain`; a CUDA tensor goes to the kernel, or the

@@ -30,11 +30,14 @@ __all__ = [
 # The CUDA pair comes from chip_smoke.py's crossover phase, which times the
 # dense kernel against the gather kernel at the main path's D (cifar_cnn,
 # 1,756,426) over n = 4..128 and k_max = 1..n.  On an H100 80GB HBM3 at its
-# 700 W limit the gather won every pair with k_max <= n/8 and lost at
-# n = 128 from k_max = 24 (3/16 n) on; the floor is the least n that
+# 700 W limit, with both mixes' Hopper kernels (TMA-fed panels in shared
+# memory), the gather won every pair with k_max <= 3n/16 (by 4-50%: at
+# n <= 32 both mixes move the same bytes, at n = 128 the dense one does
+# 16x the FMAs) and lost at n = 4 with k_max = 1 (1.22x the dense time)
+# and from k_max = n/4 on at n >= 32; the floor is the least n that
 # k_max = 1 passes.  The CPU pair is the reference's.
-_SPARSE_GOSSIP_MIN_CLIENTS_CUDA = 8
-_SPARSE_GOSSIP_MAX_DENSITY_CUDA = 0.125
+_SPARSE_GOSSIP_MIN_CLIENTS_CUDA = 6
+_SPARSE_GOSSIP_MAX_DENSITY_CUDA = 0.1875
 _SPARSE_GOSSIP_MIN_CLIENTS_CPU = 128
 _SPARSE_GOSSIP_MAX_DENSITY_CPU = 0.25
 

@@ -6,8 +6,8 @@ runs on a machine with only PyTorch:
 
 Tolerances: the fused update and the gather do the plain versions' IEEE
 operations in the same order, so they must match bit for bit; the dense
-mix sums its n products in its own order, 1e-6 of the output's magnitude
-in f32 and one bf16 ulp with a bf16 bank.  Flash attention sums scores,
+mix sums its n products in its own order (ascending k, one FMA each), 1e-6
+of the output's magnitude in f32 and one bf16 ulp of it with a bf16 bank.  Flash attention sums scores,
 its softmax denominator and P.V in its own order (online, tile by tile):
 2e-5 absolute in f32 on outputs of magnitude about 1.  In bf16 the kernel
 also rounds P to bf16 before P.V on the tensor cores:
@@ -20,6 +20,7 @@ import torch
 from repro_torch.core import FLTrainer, TopologyConfig, make_algo
 from repro_torch.data.dirichlet import dirichlet_partition, stack_client_data
 from repro_torch.data.synthetic import make_dataset
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import gossip_gather as gg
@@ -63,6 +64,58 @@ def test_cuda_kernels_match_their_plain_versions(cuda_device, dt):
         assert torch.equal(gg.gossip_gather(idx, wgt, X),
                            gg.gossip_gather_plain(idx, wgt, X))
     torch.cuda.synchronize()
+
+
+# The mixes' tilings straddle n = 1, 9 (rows padded to 8), 100 (the paper's),
+# 128 (the last n of the dense mix's resident kernel) and 129 (the first
+# past it); D = 3, 4097, 4098 and 4099 puts the rows' starts at 1, 2 and 3
+# (mod 4) elements, so off 16 bytes.  Each shape runs on a bank that
+# starts at its allocation and on one that starts a row later (a view).
+MIX_SHAPES = [(n, d) for n in (1, 9, 100, 128, 129)
+              for d in (3, 4097, 4098, 4099)]
+
+
+def _banks(g, n, d, dt, device):
+    whole = torch.randn(n + 1, d, generator=g, device=device).to(dt)
+    return whole[:n], whole[1:]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", MIX_SHAPES + [(512, 4099)])  # 512: tiled
+def test_cuda_gossip_matmul_at_tiling_boundaries(cuda_device, dt, n, d):
+    g = torch.Generator(device=cuda_device).manual_seed(n * 10007 + d)
+    P = torch.rand(n, n, generator=g, device=cuda_device)
+    P = P / P.sum(0, keepdim=True)
+    for X in _banks(g, n, d, dt, cuda_device):
+        want = gm.gossip_matmul_plain(P, X).float()
+        scale = want.abs().max()
+        err = (gm.gossip_matmul(P, X).float() - want).abs().max()
+        assert err <= (1e-6 if dt == torch.float32 else BF16_ULP) * scale
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", MIX_SHAPES + [(8192, 64)])  # 8192: row kernel
+def test_cuda_gossip_gather_at_tiling_boundaries(cuda_device, dt, n, d):
+    g = torch.Generator(device=cuda_device).manual_seed(n * 10007 + d)
+    idx = torch.randint(0, n, (n, 11), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    wgt = torch.rand(n, 11, generator=g, device=cuda_device)
+    wgt[:, -2:] = 0.0
+    for X in _banks(g, n, d, dt, cuda_device):
+        assert torch.equal(gg.gossip_gather(idx, wgt, X),
+                           gg.gossip_gather_plain(idx, wgt, X))
+
+
+def test_cuda_mix_shapes_select_both_kernels_of_each_mix(cuda_device):
+    """The shapes above reach both kernels of each mix: the gather's panel
+    kernel at n = 100 (a panel width) and its row kernel at n = 8192 (0);
+    the dense mix's resident kernel up to n = 128, its tiled one above."""
+    lib = build.load_library()
+    for dtype in (0, 1):  # f32, bf16
+        assert lib.gossip_gather_panel_cols(dtype, 100, 11) > 0
+        assert lib.gossip_gather_panel_cols(dtype, 129, 11) > 0
+        assert lib.gossip_gather_panel_cols(dtype, 8192, 11) == 0
+    assert lib.gossip_matmul_resident_max_n() == 128
 
 
 def test_cuda_wrappers_raise_on_what_their_kernels_do_not_take(cuda_device):
