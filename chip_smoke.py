@@ -38,8 +38,9 @@ Phases, each fatal on failure:
    kernel launches per round, peak memory, and a ``torch.profiler``
    breakdown of each mix's last round (device time by kernel, busy share);
 6. crossover: the dense mix against the sparse mix at the same D, n from 4
-   to 128 and k_max from 1 to n, and the density rule's CUDA constants
-   those times give, beside the ones ``kernels/ops.py`` ships;
+   to 128 and k_max from 1 to n (device time, the median of 5 repeats),
+   and the density rule's CUDA constants those times give, beside the ones
+   ``kernels/ops.py`` ships;
 7. serving: reduced gemma3-12b in f32, prefill and 4 greedy decode steps on
    the card against the same on the CPU (logits within tolerance, equal
    tokens); then the serving main path, ``repro_torch.launch.serve.main``
@@ -62,6 +63,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -152,13 +154,10 @@ def mix_banks(gen, n, d, dt, dev):
 
 
 def matmul_path(dev, n: int) -> str:
-    from repro_torch.kernels import build
-
     if dev.type != "cuda":
         return "plain version"
-    if n <= build.load_library().gossip_matmul_resident_max_n():
-        return "resident kernel"
-    return "tiled kernel"
+    # gossip_matmul.cu's RESIDENT_MAX_N
+    return "resident kernel, n <= 128" if n <= 128 else "tiled kernel, n > 128"
 
 
 def gather_path(dev, n: int, k_max: int, dt) -> str:
@@ -806,23 +805,57 @@ def rule_losses(times: dict, floor, density: float) -> dict:
     return worst
 
 
-def crossover(dev, d: int, ns=(4, 8, 16, 32, 64, 128), iters: int = 10):
+# A pair counts as lost by the gather only if its median time exceeds the
+# dense mix's by more than this share, so that a near tie does not move
+# the rule with a run's noise.  On an H100 the pairs read either at most
+# 1.050x (the widest spread of a pair over its repeats: 0.031) or at
+# least 1.19x; phase 6 prints the median nearest the limit.
+CROSSOVER_MARGIN = 0.10
+# Device cycles (about 5 ms on an H100) the card spins before a timed
+# batch, so the host has queued every call of the batch when it starts.
+QUEUE_CYCLES = 10_000_000
+
+
+def queued_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of one call: CUDA events around ``iters`` calls
+    queued behind a device spin, so the calls run back to back and the
+    host's launch time (which differs between the two mixes' wrappers, and
+    matches a small mix's own time) is not in it."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def crossover(dev, d: int, ns=(4, 8, 16, 32, 64, 128), iters: int = 10,
+              repeats: int = 5):
     """Time the dense mix against the gather at every n in ``ns`` and every
-    k_max of ``K_LADDER`` up to n, at the main path's D.  The density rule's
-    CUDA constants follow from the times: the density limit is the largest
-    timed k_max/n below which the gather won every timed pair, and the floor
-    the least n that k_max = 1 passes.  So the rule sends no timed pair to
-    the slower gather: a gather pick loses without bound as k_max grows, a
+    k_max of ``K_LADDER`` up to n, at the main path's D: each pair
+    ``repeats`` times, the two mixes side by side in alternating order,
+    each by :func:`queued_ms`, and the median of each kept.  The density
+    rule's CUDA constants follow from the medians: the density limit is the
+    largest timed k_max/n at and below which the gather lost no timed pair
+    by more than ``CROSSOVER_MARGIN``, and the floor the least n that
+    k_max = 1 passes.  So the rule sends no timed pair to a gather that is
+    clearly slower: a gather pick loses without bound as k_max grows, a
     dense pick at most the dense kernel's own time."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    times = {}  # (n, k_max) -> (dense ms, sparse ms)
+    times = {}  # (n, k_max) -> (median dense ms, median sparse ms)
+    spread = (0.0, None)  # the widest sparse/dense ratio range of a pair
     for n in ns:
         X = torch.randn(n, d, generator=gen, device=dev)
         P = torch.rand(n, n, generator=gen, device=dev)
         P = P / P.sum(0)
-        dense = timed_ms(lambda: ops.gossip_mix(P, X), dev, iters)
         cells = []
         for k in (k for k in K_LADDER if k <= n):
             # k distinct senders per receiver: the time depends on neither
@@ -830,15 +863,30 @@ def crossover(dev, d: int, ns=(4, 8, 16, 32, 64, 128), iters: int = 10):
             idx = torch.rand(n, n, generator=gen, device=dev).argsort(
                 dim=1)[:, :k].to(torch.int32).contiguous()
             wgt = torch.full((n, k), 1.0 / k, device=dev)
-            sparse = timed_ms(lambda: ops.gossip_mix_sparse(idx, wgt, X), dev,
-                              iters)
+            mixes = (lambda: ops.gossip_mix(P, X),
+                     lambda: ops.gossip_mix_sparse(idx, wgt, X))
+            runs = []  # (dense, sparse) per repeat
+            for r in range(repeats):
+                order = (0, 1) if r % 2 == 0 else (1, 0)
+                ms = {i: queued_ms(mixes[i], iters) for i in order}
+                runs.append((ms[0], ms[1]))
+            dense, sparse = (statistics.median(col) for col in zip(*runs))
+            ratios = [s / dd for dd, s in runs]
+            if max(ratios) - min(ratios) > spread[0]:
+                spread = (max(ratios) - min(ratios), (n, k))
             times[n, k] = (dense, sparse)
-            cells.append(f"{k}:{sparse:.4f}({sparse / dense:.3f})")
-        print(f"  n={n} D={d}: dense {dense:.4f} ms; sparse by k_max, ms "
-              f"(sparse/dense): {' '.join(cells)}")
+            cells.append(f"{k}:{dense:.4f}/{sparse:.4f}({sparse / dense:.3f})")
+        print(f"  n={n} D={d}, medians of {repeats}: dense/sparse ms by "
+              f"k_max (sparse/dense): {' '.join(cells)}")
         del X
+    limit = 1 + CROSSOVER_MARGIN
+    near = min(times, key=lambda nk: abs(times[nk][1] / times[nk][0] - limit))
+    print(f"  widest sparse/dense range over the {repeats} repeats of a pair: "
+          f"{spread[0]:.3f} at (n, k_max) = {spread[1]}; a pair is lost "
+          f"beyond {limit:.2f}x, and the median nearest that is "
+          f"{times[near][1] / times[near][0]:.3f}x at {near}")
     density = max((r for r in sorted({k / n for n, k in times})
-                   if all(sparse < dense
+                   if all(sparse <= dense * limit
                           for (n, k), (dense, sparse) in times.items()
                           if k <= r * n)), default=None)
     floor = None if density is None else math.ceil(1 / density)

@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
 """What holds the two gossip mixes' kernels back, measured: each kernel
-beside two variants of itself built from edited copies of its sources.
+beside two variants of itself, built from the same sources with one of
+the diagnosis defines of ``csrc/panel_ring.cuh``.
 
     python3 mix_diagnose.py
 
-* ``kernel``: the kernels as ``src/repro_torch/kernels/csrc`` builds them;
-* ``copy only``: the consumers skip the arithmetic and only release each
-  panel, so the block moves X into shared memory and nothing else (no Y);
-* ``compute only``: the producer copies nothing (it only arrives on each
-  stage's barrier), so the consumers mix whatever shared memory holds and
-  store Y: the arithmetic from shared memory and the stores alone.
+* ``kernel``: the library as the port builds it;
+* ``copy only`` (``PANEL_DIAG_COPY_ONLY``): the consumers release each
+  panel unread, so the block moves X into shared memory and nothing else
+  (no Y);
+* ``compute only`` (``PANEL_DIAG_COMPUTE_ONLY``): the producer copies
+  nothing (it only arrives on each stage's barrier), so the consumers mix
+  whatever shared memory holds and store Y: the arithmetic from shared
+  memory and the stores alone.
 
 All three run in one process on one card, in the order kernel, copy only,
 compute only, compute only, copy only, kernel, at n = 8 and 100 clients
 (kout, k_out = min(10, n - 1)) and the main path's D = 1,756,426, in f32
-and bf16, each time beside its bound.  The variants are built under
-``build/mix_variants/``.  Without a CUDA card it exits nonzero.
+and bf16, each time beside its bound.  The variants' entry points are
+called directly (the wrappers launch the port's own library); each
+library is built under ``build/`` beside it.  Without a CUDA card it
+exits nonzero.
 """
 from __future__ import annotations
 
-import shutil
 import sys
 from pathlib import Path
 
@@ -31,40 +35,8 @@ sys.path.insert(0, str(HERE / "src"))
 import chip_smoke  # noqa: E402  (timing and bounds, shared with the smoke)
 
 D = chip_smoke.CIFAR_CNN_DIM
-PRODUCE = ("    fill_stage(ring + s * stage_bytes, X, n, D, p * C, cols(C, D, p), "
-           "rs, bars + s, lane);")
-CONSUME = "    const unsigned char* stage = ring + s * stage_bytes;\n"
-SKIP = ("    if (D > 0) {  // copy only: release the panel unread\n"
-        "      __syncwarp();\n"
-        "      if (lane == 0) panel::mbar_arrive(bars + STAGES + s);\n"
-        "      continue;\n"
-        "    }\n")
-
-
-def edit(path: Path, old: str, new: str) -> None:
-    text = path.read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"{path.name}: the edit's anchor is not unique")
-    path.write_text(text.replace(old, new))
-
-
-def variants(csrc: Path) -> dict:
-    """The kernel sources and the two edited copies, by name."""
-    root = HERE / "build" / "mix_variants"
-    out = {"kernel": csrc}
-    for name in ("copy only", "compute only"):
-        d = root / name.replace(" ", "_")
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(csrc, d)
-        if name == "copy only":
-            for f in ("gossip_gather.cu", "gossip_matmul.cu"):
-                edit(d / f, CONSUME, SKIP + CONSUME)
-        else:
-            edit(d / "panel_ring.cuh", PRODUCE,
-                 "    for (int64_t r = lane; r < n; r += 32) "
-                 "mbar_arrive_expect_tx(bars + s, 0);")
-        out[name] = d
-    return out
+VARIANTS = {"kernel": (), "copy only": ("PANEL_DIAG_COPY_ONLY",),
+            "compute only": ("PANEL_DIAG_COMPUTE_ONLY",)}
 
 
 def main() -> int:
@@ -74,19 +46,11 @@ def main() -> int:
         return 2
     from repro_torch.core import topology
     from repro_torch.kernels import build
-    from repro_torch.kernels import gossip_gather as gg
-    from repro_torch.kernels import gossip_matmul as gm
 
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke.card_line()
     print(f"card: {card}")
-    csrc = build.CSRC
-    builds = variants(csrc)
-    libs = {}
-    for name, d in builds.items():
-        build.CSRC, build._lib = d, None
-        libs[name] = build.load_library()
+    libs = {name: build.open_library(defs) for name, defs in VARIANTS.items()}
     gen = torch.Generator(device=dev).manual_seed(4)
     cases = []
     for n in (8, 100):
@@ -94,17 +58,28 @@ def main() -> int:
         nl = topology.sample_kout_neighbors(gen, n, min(10, n - 1))
         for dt in (torch.float32, torch.bfloat16):
             X = torch.randn(n, D, generator=gen, device=dev).to(dt)
-            cases.append((n, dt, P, nl, X))
+            cases.append((n, dt, P.contiguous(), nl.idx.contiguous(),
+                          nl.wgt.contiguous(), X, torch.empty_like(X)))
     order = ["kernel", "copy only", "compute only", "compute only",
              "copy only", "kernel"]
     for name in order:
-        build._lib = libs[name]
-        for n, dt, P, nl, X in cases:
-            es = X.element_size()
-            k = nl.idx.shape[1]
-            mm = chip_smoke.timed_ms(lambda: gm.gossip_matmul(P, X), dev, 20)
-            ga = chip_smoke.timed_ms(
-                lambda: gg.gossip_gather(nl.idx, nl.wgt, X), dev, 20)
+        lib = libs[name]
+        for n, dt, P, idx, wgt, X, Y in cases:
+            es, k, code = X.element_size(), idx.shape[1], build.DTYPE_CODES[dt]
+
+            def dense():
+                build.check(lib.gossip_matmul_launch(
+                    code, P.data_ptr(), X.data_ptr(), Y.data_ptr(), n, D,
+                    torch.cuda.current_stream().cuda_stream), "gossip_matmul")
+
+            def gather():
+                build.check(lib.gossip_gather_launch(
+                    code, idx.data_ptr(), wgt.data_ptr(), X.data_ptr(),
+                    Y.data_ptr(), n, k, D,
+                    torch.cuda.current_stream().cuda_stream), "gossip_gather")
+
+            mm = chip_smoke.timed_ms(dense, dev, 20)
+            ga = chip_smoke.timed_ms(gather, dev, 20)
             mm_b, mm_by = chip_smoke.bound_ms(4.0 * n * n + 2.0 * es * n * D,
                                               2.0 * n * n * D)
             ga_b, ga_by = chip_smoke.bound_ms(2.0 * es * n * D + 8.0 * n * k,
@@ -112,7 +87,6 @@ def main() -> int:
             print(f"{name:12s} n={n:3d} {str(dt)[6:]:8s}: gossip_matmul "
                   f"{mm:.4f} ms (bound {mm_b:.4f}, {mm_by}); gossip_gather "
                   f"k_max={k} {ga:.4f} ms (bound {ga_b:.4f}, {ga_by})")
-    build.CSRC, build._lib = csrc, None
     print(card)
     return 0
 

@@ -11,8 +11,8 @@ Each source compiles with ``-Xptxas -v``; what ``nvcc`` printed (each
 kernel's registers, shared memory and spills) is kept beside the library
 as ``<library>.log`` (:func:`build_log`).  Pointers and the stream cross
 as ``c_void_p``, sizes as ``c_int64``; every launch entry point returns
-the ``cudaError_t`` of its launch, and two queries return which of its
-kernels a gossip mix takes at a shape.
+the ``cudaError_t`` of its launch, and one query returns which of its
+kernels the gather takes at a shape.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "DTYPE_CODES", "build_log", "check", "library_path",
-           "load_library", "nvcc_path"]
+           "load_library", "nvcc_path", "open_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = CSRC.parents[3] / "build"
@@ -49,8 +49,6 @@ _SIGNATURES = {
     "gossip_gather_launch": (_I, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     # dtype, n, k_max -> the gather's panel width (0: the row kernel)
     "gossip_gather_panel_cols": (_I, _I64, _I64),
-    # -> the largest n of the dense mix's resident kernel
-    "gossip_matmul_resident_max_n": (),
     # dtype, hd, q, k, v, o, B, H, KV, S, the (b, head, s) strides of q, k,
     # v and o, causal, window, stream
     "flash_attention_launch": (_I, _I, _P, _P, _P, _P, *(_I64,) * 16, _I,
@@ -58,8 +56,7 @@ _SIGNATURES = {
 }
 
 # Entry points that return something else than a cudaError_t.
-_RESTYPES = {"gossip_gather_panel_cols": _I64,
-             "gossip_matmul_resident_max_n": _I64}
+_RESTYPES = {"gossip_gather_panel_cols": _I64}
 
 _lock = threading.Lock()
 _lib = None
@@ -75,13 +72,13 @@ def nvcc_path() -> str:
     )
 
 
-def _build(sources: list[Path], out: Path) -> None:
+def _build(sources: list[Path], out: Path, flags: tuple[str, ...]) -> None:
     nvcc = nvcc_path()
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in sources]
         procs = [
-            subprocess.Popen([nvcc, *_FLAGS, "-c", str(s), "-o", str(o)],
+            subprocess.Popen([nvcc, *flags, "-c", str(s), "-o", str(o)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
             for s, o in zip(sources, objs)
@@ -96,7 +93,7 @@ def _build(sources: list[Path], out: Path) -> None:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         tmp_lib = Path(tmp) / out.name
         link = subprocess.run(
-            [nvcc, *_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+            [nvcc, *flags, "-shared", *map(str, objs), "-o", str(tmp_lib)],
             capture_output=True, text=True,
         )
         if link.returncode:
@@ -105,9 +102,13 @@ def _build(sources: list[Path], out: Path) -> None:
         os.replace(tmp_lib, out)  # atomic: a concurrent loader sees all or none
 
 
-def library_path() -> Path:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return (*_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def library_path(defines: tuple[str, ...] = ()) -> Path:
     """Where the library of the current sources and flags is built."""
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for s in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(s.name.encode() + s.read_bytes())
     return BUILD / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -119,22 +120,27 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def open_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The library of the sources compiled with ``-D`` each of ``defines``,
+    built if it is not there, with its entry points' signatures set."""
+    out = library_path(defines)
+    if not out.exists():
+        _build(sorted(CSRC.glob("*.cu")), out, _flags(defines))
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call and then cached."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        out = library_path()
-        if not out.exists():
-            _build(sorted(CSRC.glob("*.cu")), out)
-        lib = ctypes.CDLL(str(out))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = _RESTYPES.get(name, ctypes.c_int)
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = open_library()
+        return _lib
 
 
 def check(rc: int, what: str) -> None:

@@ -122,6 +122,11 @@ gather_panels_kernel(const int32_t* __restrict__ idx, const float* __restrict__ 
   for (int64_t p = blockIdx.x; p < panels; p += gridDim.x, ++it) {
     const int s = it % STAGES;
     panel::mbar_wait(bars + s, (uint32_t)((it / STAGES) & 1));
+    if (panel::DIAG_SKIP_MIX) {
+      __syncwarp();
+      if (lane == 0) panel::mbar_arrive(bars + STAGES + s);
+      continue;
+    }
     const unsigned char* stage = ring + s * stage_bytes;
     const int64_t c0 = p * C;
     const int pw = (int)panel::cols(C, D, p);

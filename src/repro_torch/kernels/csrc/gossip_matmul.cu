@@ -104,6 +104,11 @@ mix_resident_kernel(const float* __restrict__ P, const T* __restrict__ X,
   for (int64_t p = blockIdx.x; p < panels; p += gridDim.x, ++it) {
     const int s = it % STAGES;
     panel::mbar_wait(bars + s, (uint32_t)((it / STAGES) & 1));
+    if (panel::DIAG_SKIP_MIX) {
+      __syncwarp();
+      if (lane == 0) panel::mbar_arrive(bars + STAGES + s);
+      continue;
+    }
     const unsigned char* stage = ring + s * stage_bytes;
     float acc[TM][TN];
 #pragma unroll
@@ -285,6 +290,3 @@ extern "C" int gossip_matmul_launch(int dtype, const void* P, const void* X, voi
   if (dtype == 1) return launch<__nv_bfloat16>(P, X, Y, n, D, s);
   return (int)cudaErrorInvalidValue;
 }
-
-// The largest n gossip_matmul_launch runs with P resident in shared memory.
-extern "C" int64_t gossip_matmul_resident_max_n() { return RESIDENT_MAX_N; }

@@ -103,6 +103,22 @@ __device__ __forceinline__ int shift(const T* X, int64_t r, int64_t D) {
   return (int)(((uintptr_t)X + (uintptr_t)(r * D) * sizeof(T)) & 15);
 }
 
+// Diagnosis builds (mix_diagnose.py) define one of these; the library
+// defines neither.  PANEL_DIAG_COPY_ONLY: the consumers release each panel
+// unread (the ring's copies alone).  PANEL_DIAG_COMPUTE_ONLY: the producer
+// copies nothing and only arrives on each stage, so the consumers mix
+// whatever the ring holds (the arithmetic and the stores alone).
+#ifdef PANEL_DIAG_COPY_ONLY
+constexpr bool DIAG_SKIP_MIX = true;
+#else
+constexpr bool DIAG_SKIP_MIX = false;
+#endif
+#ifdef PANEL_DIAG_COMPUTE_ONLY
+constexpr bool DIAG_SKIP_COPY = true;
+#else
+constexpr bool DIAG_SKIP_COPY = false;
+#endif
+
 // The ring's barriers: STAGES full, then STAGES empty, at the start of
 // the dynamic shared memory (BARRIER_BYTES, which keeps what follows
 // 16-byte aligned).
@@ -163,6 +179,10 @@ __device__ __forceinline__ void produce(unsigned char* ring, int64_t stage_bytes
   for (int64_t p = blockIdx.x; p < panels; p += gridDim.x, ++f) {
     const int s = f % STAGES;
     if (f >= STAGES) mbar_wait(bars + STAGES + s, (uint32_t)((f / STAGES - 1) & 1));
+    if (DIAG_SKIP_COPY) {
+      for (int64_t r = lane; r < n; r += 32) mbar_arrive_expect_tx(bars + s, 0);
+      continue;
+    }
     fill_stage(ring + s * stage_bytes, X, n, D, p * C, cols(C, D, p), rs, bars + s, lane);
   }
 }

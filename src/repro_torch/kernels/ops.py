@@ -29,15 +29,16 @@ __all__ = [
 # repro/kernels/ops.py:57-67, with the port's own constants per device).
 # The CUDA pair comes from chip_smoke.py's crossover phase, which times the
 # dense kernel against the gather kernel at the main path's D (cifar_cnn,
-# 1,756,426) over n = 4..128 and k_max = 1..n.  On an H100 80GB HBM3 at its
-# 700 W limit, with both mixes' Hopper kernels (TMA-fed panels in shared
-# memory), the gather won every pair with k_max <= 3n/16 (by 4-50%: at
-# n <= 32 both mixes move the same bytes, at n = 128 the dense one does
-# 16x the FMAs) and lost at n = 4 with k_max = 1 (1.22x the dense time)
-# and from k_max = n/4 on at n >= 32; the floor is the least n that
-# k_max = 1 passes.  The CPU pair is the reference's.
-_SPARSE_GOSSIP_MIN_CLIENTS_CUDA = 6
-_SPARSE_GOSSIP_MAX_DENSITY_CUDA = 0.1875
+# 1,756,426) over n = 4..128 and k_max = 1..n (device time, the median of
+# 5 repeats) and counts a pair as lost by the gather only beyond 1.10x the
+# dense time.  On an H100 80GB HBM3 at its 700 W limit, with both mixes'
+# Hopper kernels (TMA-fed panels in shared memory), the gather was faster
+# at every pair with k_max <= n/4 but (128, 32), where it took 1.05x the
+# dense time, and lost from k_max = 3n/8 on at n = 128 (1.48x), from n/2
+# at n = 64 (1.19x) and from 3n/4 at n = 32 (1.34x); the floor is the
+# least n that k_max = 1 passes.  The CPU pair is the reference's.
+_SPARSE_GOSSIP_MIN_CLIENTS_CUDA = 4
+_SPARSE_GOSSIP_MAX_DENSITY_CUDA = 0.25
 _SPARSE_GOSSIP_MIN_CLIENTS_CPU = 128
 _SPARSE_GOSSIP_MAX_DENSITY_CPU = 0.25
 

@@ -106,16 +106,14 @@ def test_cuda_gossip_gather_at_tiling_boundaries(cuda_device, dt, n, d):
                            gg.gossip_gather_plain(idx, wgt, X))
 
 
-def test_cuda_mix_shapes_select_both_kernels_of_each_mix(cuda_device):
-    """The shapes above reach both kernels of each mix: the gather's panel
-    kernel at n = 100 (a panel width) and its row kernel at n = 8192 (0);
-    the dense mix's resident kernel up to n = 128, its tiled one above."""
+def test_cuda_gather_shapes_select_both_its_kernels(cuda_device):
+    """The shapes above reach both kernels of the gather: its panel kernel
+    at n = 100 and 129 (a panel width) and its row kernel at n = 8192 (0)."""
     lib = build.load_library()
     for dtype in (0, 1):  # f32, bf16
         assert lib.gossip_gather_panel_cols(dtype, 100, 11) > 0
         assert lib.gossip_gather_panel_cols(dtype, 129, 11) > 0
         assert lib.gossip_gather_panel_cols(dtype, 8192, 11) == 0
-    assert lib.gossip_matmul_resident_max_n() == 128
 
 
 def test_cuda_wrappers_raise_on_what_their_kernels_do_not_take(cuda_device):

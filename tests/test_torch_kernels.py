@@ -221,12 +221,17 @@ def test_gossip_matmul_plain_matches_reference(dt, n, d):
     for want, what in ((want_kernel, "interpret kernel"),
                        (want_oracle, "oracle")):
         want = np.asarray(want, np.float32)
-        # The sum order's 1e-6 of the output's magnitude, and in bf16 one
-        # bf16 ulp of the result on top (an output near 0 by cancellation
-        # carries the first alone).
-        np.testing.assert_allclose(_np(got), want,
-                                   rtol=BF16_ULP if dt == "bf16" else 0,
-                                   atol=1e-6 * scale, err_msg=what)
+        if dt == "bf16" and (n, d) in BOUNDARY_SHAPES:
+            # Some outputs at these shapes come near 0 by cancellation: the
+            # sum order's 1e-6 of the output's magnitude, and one bf16 ulp of
+            # the result on top.
+            np.testing.assert_allclose(_np(got), want, rtol=BF16_ULP,
+                                       atol=1e-6 * scale, err_msg=what)
+        elif dt == "bf16":
+            _close(_np(got), want, BF16_ULP, what)
+        else:
+            np.testing.assert_allclose(_np(got), want, rtol=0,
+                                       atol=1e-6 * scale, err_msg=what)
     np.testing.assert_array_equal(_np(got_ops), _np(got))
     np.testing.assert_array_equal(
         _np(ref.gossip_matmul_ref(torch.from_numpy(P), tensor_from_numpy(X))),
