@@ -34,7 +34,7 @@ __all__ = [
 # dense time.  On an H100 80GB HBM3 at its 700 W limit, with both mixes'
 # Hopper kernels (TMA-fed panels in shared memory), the gather was faster
 # at every pair with k_max <= n/4 but (128, 32), where it took 1.05x the
-# dense time, and lost from k_max = 3n/8 on at n = 128 (1.48x), from n/2
+# dense time, and lost from k_max = 3n/8 on at n = 128 (1.47x), from n/2
 # at n = 64 (1.19x) and from 3n/4 at n = 32 (1.34x); the floor is the
 # least n that k_max = 1 passes.  The CPU pair is the reference's.
 _SPARSE_GOSSIP_MIN_CLIENTS_CUDA = 4
