@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card, through its
-hand-written Hopper kernels: DFedSGPSM rounds on the flat bank, and serving
-gemma3-12b (prefill, then greedy decode).
+hand-written Hopper kernels: DFedSGPSM rounds on the flat bank, serving
+gemma3-12b (prefill, then greedy decode), and the FL round's scenarios
+(compressors, proximal solver, link and churn scenarios, the bf16 delta
+bank).
 
     python3 chip_smoke.py
 
@@ -28,9 +30,14 @@ Phases, each fatal on failure:
    hd = 256, bf16, windows 1024 and 0), at the other dense decoders' (hd
    128, GQA groups 1, 4 and 16) and at edge cases, with its bf16 tolerance
    and a mask fault that must miss it, and is timed beside SDPA on the
-   same inputs and mask;
+   same inputs and mask.  Then the three FL kernels at the delta bank's
+   shape (n = 100, d_delta = 73,178 bf16 rows, 4 bytes off 16), on banks
+   at and a row past their allocation's start, against their plain
+   versions, and timed beside their bounds;
 4. small parity: one round of every mix on the card against the same
-   round on the CPU (the plain versions), on the same draws;
+   round on the CPU (the plain versions), on the same draws; then one
+   round each of top-k + drops + delays + cold churn (sparse) and int8 +
+   event trigger + proximal solver (dense), held to their flip bounds;
 5. main path: ``FLTrainer`` with DFedSGPSM (5 local steps, batch 32,
    lr 0.01) on ``cifar_cnn``, synthetic CIFAR-10 split by Dirichlet(0.3)
    over 100 clients, kout k_out = 10: 3 rounds with the dense mix and 3
@@ -51,7 +58,16 @@ Phases, each fatal on failure:
    second run, a profiled prefill and decode step split into the attention
    kernel, matmuls and the rest, and the decode check: the logits each new
    token was picked from against ``forward`` on the prompt extended by the
-   new tokens, in bf16 at positions past the 1024-token window.
+   new tokens, in bf16 at positions past the 1024-token window;
+8. the scenario path: phase 5's model, data and topology under (A) top-k
+   with error feedback + drops 0.2 + delays 2 + cold churn, sparse; (B)
+   the proximal solver + int8 + a decaying event trigger whose threshold
+   is chosen on the card, dense; (C) DFedAvgM + drops + churn, dense; (D)
+   the rank-8 bf16 delta bank, sparse and dense: 3 rounds each with loss,
+   push-sum mass (within 1e-3 of 100), live share, comm_fraction, wall
+   time and launches (5 updates and 1 mix a round, 3 mixes under the
+   delay bound), peak memory, profiles of A's and D's last rounds, and
+   the compressors' and the delayed mix's costs.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -81,6 +97,9 @@ BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 
 N_CLIENTS = 100  # the paper's client count
 CIFAR_CNN_DIM = 1_756_426
+# cifar_cnn's delta bank at rank 8: 4 low-rank and 6 dense leaves; 2 mod 8,
+# so bf16 rows start 4 bytes off a 16-byte boundary.
+DELTA_DIM = 73_178
 
 
 class SmokeFailure(RuntimeError):
@@ -354,6 +373,78 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
               + ("none" if r["library_ms"] is None
                  else f"{r['library_ms']:.4f} ms"))
     return rows
+
+
+def delta_kernel_phase(dev, n: int = N_CLIENTS, d: int = DELTA_DIM,
+                       iters: int = 10) -> None:
+    """The three FL kernels at the scenario path's delta bank: n = 100 rows
+    of d_delta = 73,178 bf16 (rows 4 bytes off 16), banks at and a row past
+    their allocation's start, against their plain versions (the update and
+    the gather bit for bit, the dense mix within 2^-7 of max|Y|); then each
+    one's time beside its bound, its plain version's and the library's.
+    A call here takes about as long as its launch takes on the host, so on
+    the card the times are device times (:func:`queued_ms`)."""
+    from repro_torch.core import topology
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import gossip_gather as gg
+    from repro_torch.kernels import gossip_matmul as gm
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    P = topology.sample_kout(gen, n, min(10, n - 1))
+    nl = topology.sample_kout_neighbors(gen, n, min(10, n - 1))
+    w = torch.rand(n, generator=gen, device=dev) + 0.5
+    cells = []
+    for (X, G), V in zip(zip(mix_banks(gen, n, d, bf16, dev),
+                             mix_banks(gen, n, d, bf16, dev)),
+                         mix_banks(gen, n, d, torch.float32, dev)):
+        at = "own bank" if X.data_ptr() % 16 == 0 else (
+            f"one row in ({X.data_ptr() % 16} B off 16)")
+        e_up = max(max_err(a, b) for a, b in zip(
+            fu.fused_update_bank(X, V, G, 0.9, 0.01, w),
+            fu.fused_update_bank_plain(X, V, G, 0.9, 0.01, w)))
+        want = gm.gossip_matmul_plain(P, X)
+        e_mm = max_err(gm.gossip_matmul(P, X), want)
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+        e_ga = max_err(gg.gossip_gather(nl.idx, nl.wgt, X),
+                       gg.gossip_gather_plain(nl.idx, nl.wgt, X))
+        sync(dev)
+        cells.append(f"{at}: fused_update_bank {e_up:.1e} (0), gossip_matmul "
+                     f"{e_mm / tol:.3f} of 2^-7 max|Y|, gossip_gather "
+                     f"{e_ga:.1e} (0)")
+        check(e_up == 0.0, f"fused_update_bank disagrees at d_delta ({at})")
+        check(e_mm <= tol, f"gossip_matmul disagrees at d_delta ({at})")
+        check(e_ga == 0.0, f"gossip_gather disagrees at d_delta ({at})")
+    print(f"  bf16 delta bank n={n} d_delta={d}: " + "; ".join(cells))
+    X, G = (torch.randn(n, d, generator=gen, device=dev).to(bf16)
+            for _ in range(2))
+    V = torch.randn(n, d, generator=gen, device=dev)
+    k = nl.idx.shape[1]
+    rows = {
+        "fused_update_bank": (
+            lambda: fu.fused_update_bank(X, V, G, 0.9, 0.01, w),
+            lambda: fu.fused_update_bank_plain(X, V, G, 0.9, 0.01, w), None,
+            bound_ms(16.0 * n * d + 4 * n, 5.0 * n * d)),
+        "gossip_matmul": (
+            lambda: gm.gossip_matmul(P, X), lambda: gm.gossip_matmul_plain(P, X),
+            lambda: torch.matmul(P, X.float()),
+            bound_ms(4.0 * n * n + 4.0 * n * d, 2.0 * n * n * d)),
+        "gossip_gather": (
+            lambda: gg.gossip_gather(nl.idx, nl.wgt, X),
+            lambda: gg.gossip_gather_plain(nl.idx, nl.wgt, X),
+            lambda: torch.einsum("nk,nkd->nd", nl.wgt, X[nl.idx.long()].float()),
+            bound_ms(4.0 * n * d + 8.0 * n * k, 2.0 * n * k * d)),
+    }
+    def device_ms(fn):
+        return (queued_ms(fn, iters) if dev.type == "cuda"
+                else timed_ms(fn, dev, iters))
+
+    for name, (kern, plain, lib, (b, by)) in rows.items():
+        ms = device_ms(kern)
+        print(f"  {name} bf16 n={n} d_delta={d}: {ms:.4f} ms, bound {b:.4f} ms "
+              f"({by}), {100 * b / ms:.1f}% of it; plain "
+              f"{device_ms(plain):.4f} ms; library "
+              + ("none" if lib is None else f"{device_ms(lib):.4f} ms"))
 
 
 # gemma3-12b's attention at phase 7's prefill: 4 requests of 2048 tokens, 16
@@ -654,15 +745,209 @@ def small_parity(dev) -> None:
               f"card and CPU rounds disagree ({gossip})")
 
 
+class Spy:
+    """Delegates to ``inner`` and records each call of its ``method``: the
+    arguments and the result."""
+
+    def __init__(self, inner, method):
+        self.__dict__.update(inner=inner, method=method, calls=[])
+
+    def __getattr__(self, name):
+        attr = getattr(self.inner, name)
+        if name != self.method:
+            return attr
+
+        def call(*args, **kw):
+            out = attr(*args, **kw)
+            self.calls.append((args, out))
+            return out
+
+        return call
+
+
+def spied(trainer):
+    """``trainer`` with its compressor's ``apply`` and its mixer's
+    ``mix_round`` recorded (the pre-compression bank, the payload, the
+    operator after churn and drops)."""
+    import dataclasses
+
+    prog = trainer.program
+    trainer.program = dataclasses.replace(
+        prog, compressor=Spy(prog.compressor, "apply"),
+        mixer=Spy(prog.mixer, "mix_round"))
+    return trainer
+
+
+def moved(state, dev, like):
+    """``state`` with every tensor on ``dev`` and the random streams of
+    ``like`` (a state of the same program on ``dev``)."""
+    def mv(x):
+        return x.to(dev) if torch.is_tensor(x) else x
+
+    link, churn = state.link, state.churn
+    if link:
+        link = like.link._replace(bufx=mv(link.bufx), bufw=mv(link.bufw),
+                                  last=mv(link.last))
+    if churn:
+        churn = like.churn._replace(live=mv(churn.live), tpl=mv(churn.tpl))
+    return state._replace(params=mv(state.params), mom=mv(state.mom),
+                          w=mv(state.w), losses=mv(state.losses),
+                          comp=mv(state.comp), key=like.key, link=link,
+                          churn=churn)
+
+
+def dense_operator(P, n):
+    from repro_torch.core import topology
+
+    if isinstance(P, topology.NeighborList):
+        return topology.dense_from_neighbors(P, n)
+    return P.float()
+
+
+def event_threshold(norms) -> float:
+    """A threshold between two adjacent drift norms near the median, the
+    pair with the widest relative gap among the middle half, so that about
+    half the clients transmit and every norm lies at least 1e-3 (relative)
+    away from it."""
+    v = sorted(float(x) for x in norms)
+    lo, hi = len(v) // 4, max(3 * len(v) // 4, len(v) // 4 + 1)
+    i = max(range(lo, min(hi, len(v) - 1)), key=lambda j: v[j + 1] / v[j])
+    tau = math.sqrt(v[i] * v[i + 1])
+    check(min(abs(x / tau - 1.0) for x in v) >= 1e-3,
+          f"no threshold 1e-3 away from every drift norm: {v}")
+    return tau
+
+
+def scenario_parity(dev) -> None:
+    """One round of two scenario compositions of mnist_2nn (n = 8, kout
+    k_out = 2, 3 local steps) on the card against the same round on the CPU,
+    from the same state on the same draws (operator, minibatches, drop
+    uniforms, delays, churn coins):
+
+    * topk_ef + drop 0.2 + delay 2 + cold churn, sparse mix;
+    * int8 + event trigger (decay 0.9) + proximal solver, dense mix, the
+      threshold chosen from the CPU's drift norms (1e-3 away from each).
+
+    Card and CPU sum in their own orders (cuDNN, the kernels), about 1e-7
+    relative, and a lossy compressor can flip a coordinate where the noise
+    meets a rounding boundary or the k-th magnitude: receiver i's row of
+    the mixed bank and of the in-flight buffer must lie within 1e-5 max|X|
+    + sum_{j != i} P[i, j] step_j, with P the operator after churn and
+    drops and step_j one int8 step (max|x_j| / 127) or sender j's k-th
+    magnitude (both from the CPU's pre-compression bank); the EF residual
+    within 1e-5 max|X| + max_j kth_j; w within 1e-6, loss, w_mass within
+    1e-5, liveness and comm_fraction equal."""
+    from repro_torch.core import (ChurnModel, FLTrainer, LinkModel,
+                                  TopologyConfig, make_algo, stages, topology)
+    from repro_torch.data.dirichlet import dirichlet_partition, stack_client_data
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.models.small import mnist_2nn
+
+    train, _ = make_dataset("mnist", 1200, 100, seed=0)
+    parts = dirichlet_partition(train["y"], 8, alpha=0.3, seed=0)
+    cdata = stack_client_data(train, parts, pad_to=128)
+    model = mnist_2nn()
+    topo = TopologyConfig(kind="kout", n_clients=8, k_out=2)
+    cases = {
+        "topk_ef + drop 0.2 + delay 2 + cold churn, sparse": dict(
+            algo=make_algo("dfedsgpsm", local_steps=3, compressor="topk_ef"),
+            gossip="sparse", link=LinkModel(drop=0.2, delay=2),
+            churn=ChurnModel(fail_prob=0.3, recover_prob=0.5,
+                             permanent_frac=0.2, resurrect="cold")),
+        "int8 + event trigger + proximal, dense": dict(
+            algo=make_algo("dfedsgpsm", local_steps=3, solver="proximal",
+                           prox_mu=0.05, compressor="int8_rows"),
+            gossip="dense", link=LinkModel(event_threshold=1.0,
+                                           event_decay=0.9)),
+    }
+    for what, kw in cases.items():
+        def trainer(device, kw=kw):
+            return FLTrainer(model.loss, model.init, cdata, seed=0,
+                             topo=topo, device=device, **kw)
+
+        gen = torch.Generator().manual_seed(1)
+        cpu = spied(trainer("cpu"))
+        P = cpu.program.mixing_matrix(gen, cpu.state)
+        draws = {"P": P,
+                 "batch_idx": torch.randint(0, 128, (3, 8, 32), generator=gen)}
+        if kw["link"].drop:
+            draws["drop"] = topology.draw_drops(gen, P)
+        if kw["link"].delay:
+            draws["delay"] = stages.draw_delays(gen, P, kw["link"].delay)
+        if kw.get("churn"):
+            draws["churn"] = topology.draw_churn(gen, 8)
+        if kw["link"].event_threshold:
+            # Choose the threshold from this round's drift norms on the CPU.
+            start = cpu.state
+            cpu.run_round(draws)
+            Xc = cpu.program.compressor.calls[0][1][1]
+            norms = torch.sqrt(((Xc - start.params) ** 2).sum(dim=1))
+            tau = event_threshold(norms)
+            print(f"  {what}: event threshold {tau:.6g} (drift norms "
+                  f"{', '.join(f'{float(x):.4f}' for x in sorted(norms))})")
+            kw["link"] = LinkModel(event_threshold=tau, event_decay=0.9)
+            cpu = spied(trainer("cpu"))
+        card = trainer(dev)
+        card.state = moved(cpu.state, dev, card.state)
+        m_cpu = cpu.run_round(draws)
+        m_card = card.run_round(draws)
+        (comp_prev, X_pre), _ = cpu.program.compressor.calls[-1]
+        Pm = dense_operator(cpu.program.mixer.calls[-1][0][0], 8)
+        y = X_pre.float() + (comp_prev if torch.is_tensor(comp_prev) else 0.0)
+        if kw["algo"].compressor == "int8_rows":
+            step = X_pre.float().abs().amax(dim=1) / 127.0
+        else:
+            k = max(int(0.05 * y.shape[1]), 1)
+            step = torch.topk(y.abs(), k, dim=1).values[:, -1]
+        flips = ((Pm * (1 - torch.eye(8))) @ step)[:, None]
+        want, got = cpu.state, card.state
+        scale = float(want.params.abs().max())
+        bound = 1e-5 * scale + flips
+        ratio = float(((got.params.cpu() - want.params).abs() / bound).max())
+        parts_ = [f"bank {ratio:.3f} of its bound"]
+        ok = ratio <= 1.0
+        if want.link and torch.is_tensor(want.link.bufx):
+            r_buf = float(((got.link.bufx.cpu() - want.link.bufx).abs()
+                           / bound).max())
+            e_bw = max_err(got.link.bufw.cpu(), want.link.bufw)
+            parts_.append(f"bufx {r_buf:.3f} of it, bufw {e_bw:.1e} (1e-6)")
+            ok &= r_buf <= 1.0 and e_bw <= 1e-6
+        if torch.is_tensor(want.comp):
+            e_c = max_err(got.comp.cpu(), want.comp)
+            tol_c = 1e-5 * scale + float(step.max())
+            parts_.append(f"EF residual {e_c / tol_c:.3f} of 1e-5 max|X| + "
+                          "max kth")
+            ok &= e_c <= tol_c
+        if want.churn:
+            same = torch.equal(got.churn.live.cpu(), want.churn.live)
+            parts_.append(f"liveness equal: {same} "
+                          f"{want.churn.live.tolist()}")
+            ok &= same
+        e_w = max_err(got.w.cpu(), want.w)
+        ok &= e_w <= 1e-6
+        for key in m_cpu:
+            a, b = float(m_card[key]), float(m_cpu[key])
+            exact = key == "comm_fraction"
+            ok &= (a == b) if exact else abs(a - b) <= 1e-5
+        parts_.append(f"w {e_w:.1e} (1e-6); metrics card "
+                      + ", ".join(f"{k} {float(v):.6f}" for k, v in
+                                  m_card.items())
+                      + "; CPU " + ", ".join(f"{k} {float(v):.6f}" for k, v in
+                                             m_cpu.items()))
+        print(f"  {what}: " + "; ".join(parts_))
+        check(ok, f"card and CPU scenario rounds disagree ({what})")
+
+
 # -- phase 5: the main path ---------------------------------------------------
 
-def print_profile(prof, wall_s: float, top: int = 12) -> None:
+def print_profile(prof, wall_s: float, top: int = 12, also=()) -> None:
     """Device time by kernel over one profiled round, and the device's busy
     share of the round's wall time: the union of the kernels' intervals
     (kernels on several streams may overlap, so their summed time can
     exceed the wall).  Only device-side events count (an operator's own
     row repeats its kernels' time), and not the profiler's own buffer
-    traffic."""
+    traffic.  Kernels whose names hold a word of ``also`` are listed
+    after the top ones wherever they rank."""
     from torch.autograd import DeviceType
 
     overhead = ("Buffer Flush", "Activity Buffer Request")
@@ -691,6 +976,10 @@ def print_profile(prof, wall_s: float, top: int = 12) -> None:
     for e in rows[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    for e in rows[top:]:
+        if any(w in e.key.lower() for w in also):
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
+                  f"{e.key[:90]} (rank {rows.index(e) + 1})")
 
 
 def counters() -> dict:
@@ -717,13 +1006,12 @@ def read_counts() -> dict:
     return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
-def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
-              n_train: int = 50_000, n_test: int = 10_000,
-              per_client: int = 500, local_steps: int = 5) -> dict:
-    from repro_torch.core import FLTrainer, TopologyConfig, make_algo
+def cifar_data(dev, n_clients: int = N_CLIENTS, n_train: int = 50_000,
+               n_test: int = 10_000, per_client: int = 500):
+    """Synthetic CIFAR-10 split by Dirichlet(0.3) over ``n_clients``, on
+    ``dev``: ``(client_data, test_data)``."""
     from repro_torch.data.dirichlet import dirichlet_partition, stack_client_data
     from repro_torch.data.synthetic import make_dataset
-    from repro_torch.models.small import cifar_cnn
 
     t0 = time.perf_counter()
     train, test = make_dataset("cifar10", n_train, n_test, seed=0)
@@ -734,6 +1022,18 @@ def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
     print(f"  data: {n_train} synthetic CIFAR-10 images, Dirichlet(0.3) over "
           f"{n_clients} clients, {per_client} rows each "
           f"({time.perf_counter() - t0:.1f} s to make)")
+    return cdata, test
+
+
+def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
+              n_train: int = 50_000, n_test: int = 10_000,
+              per_client: int = 500, local_steps: int = 5,
+              data=None) -> dict:
+    from repro_torch.core import FLTrainer, TopologyConfig, make_algo
+    from repro_torch.models.small import cifar_cnn
+
+    cdata, test = data or cifar_data(dev, n_clients, n_train, n_test,
+                                     per_client)
     model = cifar_cnn()
     # lr 0.01: at the default 0.1 (SAM + momentum 0.9) this CNN diverges on
     # the synthetic data within its first local steps, in the JAX reference
@@ -784,6 +1084,151 @@ def main_path(dev, n_clients: int = N_CLIENTS, rounds: int = 3,
     for k in ("fused_update_bank", "gossip_matmul", "gossip_gather"):
         check(launches[k] > 0, f"{k} was never launched on the main path")
     return launches
+
+
+# -- phase 8: the scenario path at full width --------------------------------
+
+def scenario_configs(tau=None) -> dict:
+    """Phase 8's configurations: DFedSGPSM (or DFedAvgM for C) on the main
+    path's model, data and topology, with the scenarios of the FL round."""
+    from repro_torch.core import ChurnModel, LinkModel
+
+    return {
+        "A": dict(gossip="sparse", algo=dict(compressor="topk_ef",
+                                             topk_ratio=0.05),
+                  link=LinkModel(drop=0.2, delay=2),
+                  churn=ChurnModel(fail_prob=0.05, recover_prob=0.5,
+                                   permanent_frac=0.2, resurrect="cold")),
+        "B": dict(gossip="dense", algo=dict(solver="proximal", prox_mu=0.01,
+                                            compressor="int8_rows"),
+                  link=LinkModel(event_threshold=tau or 1.0,
+                                 event_decay=0.9)),
+        "C": dict(name="dfedavgm", gossip="dense",
+                  link=LinkModel(drop=0.2),
+                  churn=ChurnModel(fail_prob=0.05, recover_prob=0.5)),
+        "D sparse": dict(gossip="sparse", delta=8,
+                         bank_dtype=torch.bfloat16),
+        "D dense": dict(gossip="dense", delta=8, bank_dtype=torch.bfloat16),
+    }
+
+
+def scenario_path(dev, data, n_clients: int = N_CLIENTS, rounds: int = 3,
+                  local_steps: int = 5, dim: int = CIFAR_CNN_DIM,
+                  delta_dim: int = DELTA_DIM) -> dict:
+    """The rest of the FL round at full width: the main path's cifar_cnn,
+    data and kout k_out = 10 topology under the configurations of
+    :func:`scenario_configs`, ``rounds`` rounds each, through
+    ``FLTrainer``.  B's event threshold is chosen here, on the card, from a
+    first round's drift norms (about half the clients transmit).  Each
+    round prints loss (over live clients), accuracy, push-sum mass, live
+    share, comm_fraction, wall time and launches; the phase fails unless
+    the loss is finite, the mass within 1e-3 of n, and every round launched
+    the fused update once per local step and its mix once (B + 1 times
+    under a delay bound B).  The last rounds of A and of D (sparse) are
+    profiled.
+    Then the compressors and the delayed mix are timed alone on A's bank."""
+    from repro_torch.core import FLTrainer, TopologyConfig, make_algo
+    from repro_torch.models.small import cifar_cnn
+
+    cdata, _ = data
+    model = cifar_cnn()
+    topo = TopologyConfig(kind="kout", n_clients=n_clients, k_out=10)
+
+    def trainer(cfg):
+        algo = make_algo(cfg.get("name", "dfedsgpsm"), local_steps=local_steps,
+                         batch_size=32, lr=0.01, **cfg.get("algo", {}))
+        kw = {k: cfg[k] for k in ("link", "churn", "delta", "bank_dtype")
+              if k in cfg}
+        return FLTrainer(model.loss, model.init, cdata, algo, topo, seed=0,
+                         gossip=cfg["gossip"], device=dev, **kw)
+
+    # B's threshold: the drift norms of a first round with any threshold
+    # (the round's draws and updates do not depend on it).
+    probe = spied(trainer(scenario_configs()["B"]))
+    start = probe.state.params
+    probe.run_round()
+    Xc = probe.program.compressor.calls[0][1][1]
+    tau = event_threshold(torch.sqrt(((Xc.float() - start.float()) ** 2)
+                                     .sum(dim=1)).cpu())
+    print(f"  B: event threshold {tau:.6g} (between two drift norms of a "
+          "first round), decay 0.9 a round")
+    del probe, start, Xc
+    zero_counts()  # the scenario path's counts start here
+    for name, cfg in scenario_configs(tau).items():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        tr = trainer(cfg)
+        want_dim = delta_dim if "delta" in cfg else dim
+        check(tr.spec.dim == want_dim, f"{name}: bank width {tr.spec.dim}")
+        link = cfg.get("link")
+        mixes = link.delay + 1 if link is not None and link.delay else 1
+        mix = "gossip_gather" if tr.program.sparse_mix else "gossip_matmul"
+        other = "gossip_matmul" if mix == "gossip_gather" else "gossip_gather"
+        for r in range(rounds):
+            before = read_counts()
+            profiled = r == rounds - 1 and name in ("A", "D sparse")
+            sync(dev)
+            with (torch.profiler.profile() if profiled
+                  else contextlib.nullcontext()) as prof:
+                t = time.perf_counter()
+                m = tr.run_round()
+                m = {k: float(v) for k, v in m.items()}
+                mass = m.get("w_mass", float(tr.state.w.sum()))
+                sync(dev)
+                wall = time.perf_counter() - t
+            used = {k: v - before[k] for k, v in read_counts().items()}
+            print(f"  {name} round {r}: loss {m['loss']:.4f} acc {m['acc']:.4f} "
+                  f"w_mass {mass:.6f} live_frac {m.get('live_frac', 1.0):.2f} "
+                  f"comm_fraction {m.get('comm_fraction', 1.0):.2f} wall "
+                  f"{wall:.3f} s{' (profiled)' if profiled else ''} launches "
+                  f"{ {k: v for k, v in used.items() if v} }")
+            if profiled:
+                print_profile(prof, wall, also=("topk", "sort", "radix"))
+            check(math.isfinite(m["loss"]), f"{name} round {r}: loss {m['loss']}")
+            check(abs(mass - n_clients) <= 1e-3,
+                  f"{name} round {r}: push-sum mass {mass}")
+            check(used["fused_update_bank"] == local_steps
+                  and used[mix] == mixes and used[other] == 0,
+                  f"{name} round {r}: launches {used}")
+        if dev.type == "cuda":
+            print(f"  {name}: peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if name == "A":
+            state = tr.state
+        del tr
+    launches = read_counts()
+    compressor_costs(dev, state)
+    return launches
+
+
+def compressor_costs(dev, state, iters: int = 5) -> None:
+    """The scenario path's costs beside the plain round's mix, on A's last
+    bank (100 x 1,756,426 f32): top-k with error feedback (k = 5% of D),
+    int8 row quantization, and the delayed mix (three slices, three gathers,
+    the buffer shift) against one gather of the same operator."""
+    from repro_torch.core import pushsum, stages, topology
+
+    X, n = state.params, state.params.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    nl = topology.sample_kout_neighbors(gen, n, 10)
+    topk = stages.TopKEFCompressor(0.05)
+    int8 = stages.Int8RowCompressor()
+    delayed = stages.DelayedPushSumMixer(delay=2)
+    link = stages.LinkState(gen, **delayed.link_buffers(X))
+    d = stages.draw_delays(gen, nl, 2)
+    w = torch.ones(n, device=dev)
+    costs = {
+        "topk_ef apply": lambda: topk.apply(state.comp, X),
+        "int8_rows apply": lambda: int8.apply((), X),
+        "delayed mix_round (delay 2)": lambda: delayed.mix_round(
+            nl, X, w, link, d, X),
+        "one gather (no delay)": lambda: pushsum.gossip_bank(nl, X),
+    }
+    clock = "CUDA events" if dev.type == "cuda" else "host clock"
+    print(f"  costs on A's bank ({n} x {X.shape[1]:,} {str(X.dtype)[6:]}), "
+          f"{clock}: " + "; ".join(
+        f"{k} {timed_ms(fn, dev, iters, warmup=1):.3f} ms"
+        for k, fn in costs.items()))
 
 
 # -- phase 6: dense against sparse mix ----------------------------------------
@@ -1124,6 +1569,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def head(line: str) -> None:
+        print(f"{line} (at {time.perf_counter() - t_start:.1f} s)")
+
     card = card_line()
     print(f"[1] card: {card}")
     t = time.perf_counter()
@@ -1133,21 +1582,37 @@ def main() -> int:
     flash_build_evidence()
     print("[2] the gossip mixes' kernels:")
     mix_build_evidence()
-    print(f"[3] kernels at n={N_CLIENTS} D={CIFAR_CNN_DIM}")
+    head(f"[3] kernels at n={N_CLIENTS} D={CIFAR_CNN_DIM}")
     rows = kernel_phase(dev, N_CLIENTS, CIFAR_CNN_DIM)
-    print("[4] card round against CPU round, same draws")
+    head(f"[3] kernels at the delta bank's n={N_CLIENTS} d_delta={DELTA_DIM}, "
+         "bf16")
+    delta_kernel_phase(dev)
+    head("[4] card round against CPU round, same draws")
     small_parity(dev)
-    print("[5] main path: DFedSGPSM, cifar_cnn, 100 clients, kout k_out=10")
-    fl = main_path(dev)
-    print("[6] crossover: dense against sparse mix")
+    scenario_parity(dev)
+    head("[5] main path: DFedSGPSM, cifar_cnn, 100 clients, kout k_out=10")
+    # Made once on the host for phases 5 and 8; each copies it to the card,
+    # so phase 7's peak memory holds none of it.
+    data = cifar_data(torch.device("cpu"))
+
+    def on_card():
+        return tuple({k: v.to(dev) for k, v in part.items()} for part in data)
+
+    fl = main_path(dev, data=on_card())
+    head("[6] crossover: dense against sparse mix")
     crossover(dev, CIFAR_CNN_DIM)
-    print("[7] serving: reduced gemma3-12b, card against CPU, f32")
+    head("[7] serving: reduced gemma3-12b, card against CPU, f32")
     serving_parity(dev)
-    print("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
+    head("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
     served = serving(dev)
+    torch.cuda.empty_cache()
+    head("[8] scenario path: cifar_cnn, 100 clients, kout k_out=10, links, "
+         "churn, compressors, proximal solver, delta bank")
+    scen = scenario_path(dev, on_card())
     # Each path's counts run from 0 just before it to just after it.
-    launches = {k: fl[k] + served[k] for k in fl}
-    print(f"launches: FL path {fl}; serving path {served}")
+    launches = {k: fl[k] + served[k] + scen[k] for k in fl}
+    print(f"launches: FL path {fl}; serving path {served}; scenario path "
+          f"{scen}")
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -8,10 +8,11 @@ stage composition on the flat bank — the port of ``repro.core.program``.
 PyTorch runs eagerly, so ``run`` and ``run_superstep`` are Python loops;
 the eval cadence of ``run_superstep`` keys on the global round counter, as
 the reference's in-scan eval does.  Randomness comes from the state's
-``torch.Generator``.  ``step(state, draws=...)`` takes a round's draws from
-the caller instead — the mixing operator, the minibatch indices and, for
-central algorithms, the selected clients — which is how the tests replay
-the reference's own ``jax.random`` draws.
+``torch.Generator``; the link and churn scenarios draw from generators of
+their own.  ``step(state, draws=...)`` takes a round's draws from the
+caller instead — the mixing operator, the minibatch indices, the selected
+clients of central algorithms, the drop uniforms, delays and churn coins —
+which is how the tests replay the reference's own ``jax.random`` draws.
 """
 from __future__ import annotations
 
@@ -22,8 +23,22 @@ import torch
 from torch.func import vmap
 
 from repro_torch.core import topology
-from repro_torch.core.flat import BankSpec, make_spec
-from repro_torch.core.stages import comm_phase, make_stages
+from repro_torch.core.flat import (
+    BoundDeltaSpec,
+    DeltaConfig,
+    bind_delta_spec,
+    make_delta_spec,
+    make_spec,
+)
+from repro_torch.core.stages import (
+    ChurnState,
+    DelayedPushSumMixer,
+    EventTriggeredMixer,
+    IdentityCompressor,
+    LinkState,
+    comm_phase,
+    make_stages,
+)
 from repro_torch.kernels import ops as kops
 
 __all__ = ["FLState", "RoundProgram", "make_program"]
@@ -32,13 +47,29 @@ __all__ = ["FLState", "RoundProgram", "make_program"]
 class FLState(NamedTuple):
     """Round state: everything the next round reads."""
 
-    params: Any  # (n, D) bank, or the (D,) central row
+    params: Any  # (n, D) bank, or the (D,) central row; a dict on flat=False
     mom: Any  # (n, D) float32 end-of-round momentum bank (None on central)
     w: torch.Tensor  # (n,) push-sum weights (all-ones when unused)
     key: torch.Generator  # the program's random stream
     round: int
     losses: torch.Tensor  # (n,) last local losses (drives selection)
-    comp: Any = ()  # compressor state
+    comp: Any = ()  # compressor state (the top-k EF residual bank)
+    link: Any = ()  # stages.LinkState on linked programs
+    churn: Any = ()  # stages.ChurnState on churned programs
+
+
+# Tags that derive the link and churn streams from the main stream's seed
+# (the reference folds its seed key with the same constants).
+LINK_STREAM = 0x11AB
+CHURN_STREAM = 0x0C4B
+
+
+def _fold_generator(gen: torch.Generator, tag: int) -> torch.Generator:
+    """A generator of its own for one scenario stream, seeded from ``gen``'s
+    seed and ``tag`` without drawing from ``gen``: programs without that
+    scenario keep their main stream bit for bit."""
+    seed = (gen.initial_seed() + (tag << 32)) % (1 << 64)
+    return torch.Generator(device=gen.device).manual_seed(seed)
 
 
 def _as_device(x, device):
@@ -48,6 +79,10 @@ def _as_device(x, device):
             torch.as_tensor(x.wgt, device=device).float(),
         )
     return torch.as_tensor(x, device=device)
+
+
+def _is_empty(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +96,7 @@ class RoundProgram:
     init_fn: Callable
     data: dict  # client-stacked tensors, leading dims (n_clients, m, ...)
     topo: topology.TopologyConfig
-    spec: BankSpec
+    spec: Any  # BankSpec, or BoundDeltaSpec for the delta bank
     n: int
     participation: float
     lr: float
@@ -72,23 +107,55 @@ class RoundProgram:
     gossip: str
     sparse_mix: bool
     device: torch.device
+    # Unreliable-link scenario (None: perfect links, the plain round bit
+    # for bit); ``linked`` threads ``state.link`` through the round.
+    link: Any = None
+    linked: bool = False
+    # Node-churn scenario (None: immortal clients, the plain round).
+    churn_model: Any = None
+
+    @property
+    def churned(self) -> bool:
+        return self.churn_model is not None
 
     # -- state constructor ----------------------------------------------------
 
+    def init_row(self, gen: torch.Generator) -> torch.Tensor:
+        """The broadcast initial bank row: the ravelled ``init_fn(gen)``
+        model, or the delta bank's init row (zero deltas, LoRA ``A``
+        factors drawn from ``gen``) — every client starts at the base."""
+        if isinstance(self.spec, BoundDeltaSpec):
+            return self.spec.init_row(gen).to(self.device)
+        return self.spec.ravel(self.init_fn(gen)).to(self.device)
+
     def init(self, gen: torch.Generator) -> FLState:
-        """Initial state: one model from ``init_fn(gen)`` broadcast to every
-        client; ``gen`` then drives every later round."""
-        row = self.spec.ravel(self.init_fn(gen)).to(self.device)
+        """Initial state: one row from ``gen`` broadcast to every client;
+        ``gen`` then drives every later round.  The link and churn streams
+        are generators of their own (:func:`_fold_generator`)."""
         w0 = self.mixer.init_weights(self.n, self.device)
         losses0 = torch.zeros((self.n,), dtype=torch.float32,
                               device=self.device)
         if self.mixer.kind == "central":
+            row = self.spec.ravel(self.init_fn(gen)).to(self.device)
             return FLState(row, None, w0, gen, 0, losses0, ())
+        row = self.init_row(gen)
         bank = row.expand(self.n, self.spec.dim).contiguous()
         mom = torch.zeros((self.n, self.spec.dim), dtype=torch.float32,
                           device=self.device)
-        comp = self.compressor.init_state(self.n, self.spec.dim)
-        return FLState(bank, mom, w0, gen, 0, losses0, comp)
+        comp = self.compressor.init_state(self.n, self.spec.dim, self.device)
+        link = ()
+        if self.linked:
+            link = LinkState(key=_fold_generator(gen, LINK_STREAM),
+                             **self.mixer.link_buffers(bank))
+        churn = ()
+        if self.churned:
+            churn = ChurnState(
+                key=_fold_generator(gen, CHURN_STREAM),
+                live=torch.full((self.n,), topology.LIVE, dtype=torch.int8,
+                                device=self.device),
+                tpl=row if self.churn_model.resurrect == "cold" else (),
+            )
+        return FLState(bank, mom, w0, gen, 0, losses0, comp, link, churn)
 
     # -- random draws ---------------------------------------------------------
 
@@ -135,10 +202,15 @@ class RoundProgram:
     # -- one communication round ----------------------------------------------
 
     def step(self, state: FLState, draws: dict | None = None):
-        """One round.  ``draws`` may supply ``"P"`` (matrix or NeighborList),
-        ``"batch_idx"`` ((K, rows, B) minibatch indices) and, for central
-        algorithms, ``"sel"`` (the sampled clients); whatever is missing is
-        drawn from ``state.key``."""
+        """One round.  ``draws`` may supply the round's random numbers:
+        ``"P"`` (matrix or NeighborList), ``"batch_idx"`` ((K, rows, B)
+        minibatch indices), for central algorithms ``"sel"`` (the sampled
+        clients), and for the scenarios ``"churn"`` ((3, n) uniforms of
+        :func:`topology.draw_churn`), ``"drop"`` (the drop uniforms of
+        :func:`topology.draw_drops`) and ``"delay"`` (the delays of
+        :func:`stages.draw_delays`).  Whatever is missing is drawn: P and
+        the minibatches from ``state.key``, drops and delays from
+        ``state.link.key``, the churn coins from ``state.churn.key``."""
         draws = draws or {}
         lr = self.round_lr(state.round)
         if self.mixer.kind == "central":
@@ -149,15 +221,78 @@ class RoundProgram:
         idx = draws.get("batch_idx")
         idx = (self._batch_idx(state.key, self.n) if idx is None
                else _as_device(idx, self.device).long())
+
+        # Node churn resolves first: this round's liveness decides who
+        # trains and whose edges survive.  A node down this round neither
+        # trains nor communicates; its row and mass freeze on the self-loop.
+        alive = None
+        params0, mom0, comp0 = state.params, state.mom, state.comp
+        if self.churned:
+            u = draws.get("churn")
+            u = (topology.draw_churn(state.churn.key, self.n) if u is None
+                 else _as_device(u, self.device))
+            live_new = topology.churn_transition(u, state.churn.live,
+                                                 self.churn_model)
+            alive = live_new == topology.LIVE
+            if self.churn_model.resurrect == "cold":
+                # A node rejoining this round restarts at the init template
+                # in de-biased coordinates: x := w * template keeps its
+                # frozen mass w; momentum and residual rows are zeroed.
+                reborn = ((state.churn.live == topology.DOWN)
+                          & (live_new == topology.LIVE))[:, None]
+                params0 = torch.where(
+                    reborn,
+                    (state.w[:, None] * state.churn.tpl).to(params0.dtype),
+                    params0)
+                mom0 = torch.where(reborn, 0.0, mom0)
+                if not _is_empty(comp0):
+                    comp0 = torch.where(reborn, 0.0, comp0)
         X, V, losses, accs = self.solver.update(
-            self.loss_fn, self.spec, state.params, state.w, idx, self.data, lr
+            self.loss_fn, self.spec, params0, state.w, idx, self.data, lr
         )
-        X, w_new, comp = comm_phase(
-            self.compressor, self.mixer, P, X, state.w, state.comp
+        if self.churned:
+            # Dead nodes did not train: rows, momentum and last losses
+            # carry through untouched.
+            al = alive[:, None]
+            X = torch.where(al, X, params0)
+            V = torch.where(al, V, mom0)
+            losses = torch.where(alive, losses, state.losses)
+            # Dead nodes leave the operator wholesale (masked before
+            # sender normalization); link drops then fail surviving edges.
+            P = self.churn_model.mask_operator(
+                P, alive, symmetric=self.mixer.kind == "symmetric")
+        X, w_new, comp, link, extras = comm_phase(
+            self.compressor, self.mixer, P, X, state.w, comp0, state.link,
+            linked=self.linked, link_model=self.link,
+            symmetric=self.mixer.kind == "symmetric", t=state.round,
+            draws=draws,
         )
+        churn = state.churn
+        if self.churned:
+            churn = ChurnState(state.churn.key, live_new, state.churn.tpl)
         new_state = FLState(X, V, w_new, state.key, state.round + 1, losses,
-                            comp)
-        return new_state, {"loss": losses.mean(), "acc": accs.mean()}
+                            comp, link, churn)
+        if self.churned:
+            n_live = alive.sum().clamp(min=1).float()
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            metrics = {
+                "loss": torch.where(alive, losses, zero).sum() / n_live,
+                "acc": torch.where(alive, accs, zero).sum() / n_live,
+                **extras,
+                "live_frac": alive.float().mean(),
+                # Mass frozen on dead nodes' self-loops: the third term of
+                # live + in-flight + frozen == n.
+                "dead_mass": torch.where(alive, zero, w_new).sum(),
+            }
+        else:
+            metrics = {"loss": losses.mean(), "acc": accs.mean(), **extras}
+        if self.linked or self.churned:
+            # Total push-sum mass, in-flight shares included.
+            inflight = (link.bufw.sum() if self.linked
+                        and not _is_empty(link.bufw)
+                        else torch.zeros((), device=self.device))
+            metrics["w_mass"] = w_new.sum() + inflight
+        return new_state, metrics
 
     def _central_step(self, state: FLState, lr: float, draws: dict):
         m = max(int(self.participation * self.n), 1)
@@ -177,7 +312,8 @@ class RoundProgram:
         new_losses = state.losses.clone()
         new_losses[sel] = losses
         new_state = FLState(self.mixer.reduce(X), state.mom, state.w,
-                            state.key, state.round + 1, new_losses, state.comp)
+                            state.key, state.round + 1, new_losses, state.comp,
+                            state.link)
         return new_state, {"loss": losses.mean(), "acc": accs.mean()}
 
     # -- whole runs ------------------------------------------------------------
@@ -246,6 +382,10 @@ def make_program(
     topo: topology.TopologyConfig,
     participation: float = 0.1,
     gossip: str = "auto",
+    link: topology.LinkModel | None = None,
+    churn: topology.ChurnModel | None = None,
+    delta: DeltaConfig | int | str | None = None,
+    bank_dtype: torch.dtype | None = None,
     device="cuda",
 ) -> RoundProgram:
     """Compose an ``AlgoConfig`` into a :class:`RoundProgram` on ``device``.
@@ -253,14 +393,66 @@ def make_program(
     ``gossip`` picks the mixing-operator representation: ``"auto"`` applies
     the density rule :func:`repro_torch.kernels.ops.use_sparse_gossip` to
     the family's static ``k_max``; ``"sparse"`` / ``"dense"`` force the
-    neighbor-list or the dense sampler.  On CUDA this turns TF32 off for
-    matmuls and convolutions, as the reference computes in full float32.
+    neighbor-list or the dense sampler.
+
+    ``link`` (:class:`topology.LinkModel`) degrades the links: edge drops,
+    bounded delays (the delayed mixer) or event-triggered sends (the
+    event-triggered mixer).  ``churn`` (:class:`topology.ChurnModel`)
+    crashes and revives whole clients.  ``None`` or an all-zero model
+    builds the plain round, bit for bit.  ``delta`` (a
+    :class:`~repro_torch.core.flat.DeltaConfig`, or a rank / ``"full"``)
+    banks per-client adapter rows over a frozen base drawn once here from
+    ``init_fn`` with ``delta.base_seed``; ``bank_dtype`` overrides the bank
+    rows' dtype (momentum and the EF residual stay float32).
+
+    On CUDA this turns TF32 off for matmuls and convolutions, as the
+    reference computes in full float32.
     """
     device = torch.device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     solver, compressor, mixer = make_stages(algo)
+    link = link if link is not None and link.active else None
+    if link is not None:
+        if mixer.kind == "central":
+            raise ValueError(
+                "the central (server) round has no peer links to degrade; "
+                "drop the link model for comm='central'"
+            )
+        if mixer.kind != "directed" and (link.delay or link.event_threshold):
+            raise ValueError(
+                "delayed / event-triggered mixing is push-sum (directed) "
+                f"only, not comm={algo.comm!r}; symmetric gossip supports "
+                "link drops alone"
+            )
+        if link.delay:
+            mixer = DelayedPushSumMixer(delay=link.delay)
+        elif link.event_threshold:
+            mixer = EventTriggeredMixer(
+                threshold=link.event_threshold,
+                decay=link.event_decay,
+                schedule=link.event_schedule,
+            )
+    churn = churn if churn is not None and churn.active else None
+    if churn is not None:
+        if mixer.kind == "central":
+            raise ValueError(
+                "the central (server) round has no peer population to "
+                "churn; drop churn= for comm='central'"
+            )
+        if link is not None and link.event_threshold:
+            raise ValueError(
+                "event-triggered mixing assumes immortal senders (the "
+                "shared last-broadcast cache cannot model a crashed "
+                "transmitter); churn and event_threshold do not compose"
+            )
+    if mixer.kind == "central" and not isinstance(compressor,
+                                                   IdentityCompressor):
+        raise ValueError(
+            "central (server) rounds do not model compressed communication; "
+            f"drop compressor={algo.compressor!r}/quantize_gossip"
+        )
     if gossip not in ("auto", "sparse", "dense"):
         raise ValueError(f"gossip must be auto|sparse|dense, got {gossip!r}")
     if mixer.kind == "central":
@@ -275,8 +467,41 @@ def make_program(
         sparse_mix = kops.use_sparse_gossip(
             topo.n_clients, topology.neighbor_k_max(topo, mixer.kind), device
         )
+    if (link is not None and link.drop > 0 and sparse_mix
+            and mixer.kind == "symmetric"):
+        raise ValueError(
+            "link drops on the symmetric neighbor-list form are "
+            "unsupported; pass gossip='dense' for symmetric + drops"
+        )
+    if churn is not None and sparse_mix and mixer.kind == "symmetric":
+        raise ValueError(
+            "churn on the symmetric neighbor-list form is unsupported; "
+            "pass gossip='dense' for symmetric + churn"
+        )
     # Leaf shapes and dtypes only: one model on the CPU.
-    spec = make_spec(init_fn(torch.Generator().manual_seed(0)))
+    shape_tree = init_fn(torch.Generator().manual_seed(0))
+    if delta is not None:
+        if not isinstance(delta, DeltaConfig):
+            delta = DeltaConfig(rank=delta)
+        if mixer.kind == "central":
+            raise ValueError(
+                "the central (server) round keeps one global row — there "
+                "are no per-client deltas to bank; drop delta= for "
+                "comm='central'"
+            )
+        dspec = make_delta_spec(shape_tree, rank=delta.rank,
+                                adapt=delta.adapt, dtype=bank_dtype)
+        if dspec.dim == 0:
+            raise ValueError(
+                f"delta adapt={delta.adapt!r} selected no leaves: every "
+                "client would be frozen at the base model"
+            )
+        # The frozen shared base is materialized exactly once, here.
+        base = init_fn(torch.Generator(device=device).manual_seed(
+            delta.base_seed))
+        spec = bind_delta_spec(dspec, base)
+    else:
+        spec = make_spec(shape_tree, dtype=bank_dtype)
     exp_cycle = None
     if topo.kind == "exponential" and topo.time_varying:
         exp_cycle = (
@@ -303,4 +528,7 @@ def make_program(
         gossip=gossip,
         sparse_mix=sparse_mix,
         device=device,
+        link=link,
+        linked=link is not None or mixer.link_stateful,
+        churn_model=churn,
     )

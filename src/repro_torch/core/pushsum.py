@@ -1,6 +1,7 @@
-"""Push-Sum primitives on the flat bank (Kempe et al. 2003; Assran et al.
-2019) — the port of ``gossip_bank``, ``gossip_weights``, ``debias_bank``
-and ``consensus_error_bank`` from ``repro.core.pushsum``.
+"""Push-Sum primitives (Kempe et al. 2003; Assran et al. 2019) — the port of
+``repro.core.pushsum``: the flat-bank forms the round program runs, and the
+client-stacked parameter-dict forms (``gossip``, ``debias``,
+``consensus_error``) of the ``flat=False`` oracle.
 
 Each client carries a push-sum weight ``w_i`` mixed with the same
 column-stochastic operator as its parameters; ``z_i = x_i / w_i`` is the
@@ -10,11 +11,32 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.flat import tree_flatten, tree_map
 from repro_torch.core.topology import NeighborList
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
-__all__ = ["gossip_bank", "gossip_weights", "debias_bank",
-           "consensus_error_bank"]
+__all__ = ["gossip", "gossip_bank", "gossip_weights", "debias", "debias_bank",
+           "consensus_error", "consensus_error_bank"]
+
+
+def gossip(P, stacked_params, use_kernel: bool = True):
+    """One mixing step ``X' = P @ X`` on every leaf of a client-stacked
+    parameter dict (leading dim n).  ``use_kernel=False`` pins the plain
+    oracles of ``kernels.ref`` whatever the device, as the reference's
+    ``flat=False`` path does with ``use_kernel=False``."""
+
+    def mix(x):
+        flat = x.reshape(x.shape[0], -1)
+        if not use_kernel:
+            out = (kref.gossip_gather_ref(P.idx, P.wgt, flat)
+                   if isinstance(P, NeighborList)
+                   else kref.gossip_matmul_ref(P, flat))
+        else:
+            out = gossip_bank(P, flat)
+        return out.reshape(x.shape)
+
+    return tree_map(mix, stacked_params)
 
 
 def gossip_bank(P, X: torch.Tensor) -> torch.Tensor:
@@ -35,6 +57,15 @@ def gossip_weights(P, w: torch.Tensor) -> torch.Tensor:
     return (P.float() @ wf).to(w.dtype)
 
 
+def debias(stacked_params, w: torch.Tensor):
+    """z_i = x_i / w_i on every leaf of a client-stacked parameter dict."""
+
+    def div(x):
+        return x / w.reshape((x.shape[0],) + (1,) * (x.ndim - 1)).to(x.dtype)
+
+    return tree_map(div, stacked_params)
+
+
 def debias_bank(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """z_i = x_i / w_i on the flat (n, D) bank."""
     return X / w[:, None].to(X.dtype)
@@ -45,3 +76,15 @@ def consensus_error_bank(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     z = debias_bank(X, w)
     mean = X.mean(dim=0, keepdim=True)
     return torch.sum((z - mean) ** 2) / X.shape[0]
+
+
+def consensus_error(stacked_params, w: torch.Tensor) -> torch.Tensor:
+    """Mean squared distance of de-biased params from the true average
+    (the quantity bounded by Lemma 4), summed over leaves in bank order."""
+    z = debias(stacked_params, w)
+    total = None
+    for x, zx in zip(tree_flatten(stacked_params)[1], tree_flatten(z)[1]):
+        mean = x.mean(dim=0, keepdim=True)
+        err = torch.sum((zx - mean) ** 2) / x.shape[0]
+        total = err if total is None else total + err
+    return total

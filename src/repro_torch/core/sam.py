@@ -1,6 +1,7 @@
-"""Sharpness-Aware Minimization primitives (Algorithm 1 lines 6-8) — the port
-of ``global_norm``, ``sam_perturb`` and ``sam_gradient`` from
-``repro.core.sam``, over nested parameter dicts with ``torch.func``.
+"""Sharpness-Aware Minimization and local-momentum primitives (Algorithm 1
+lines 6-10) — the port of ``repro.core.sam``, over nested parameter dicts
+with ``torch.func``.  ``momentum_update`` and ``apply_update`` drive the
+``flat=False`` oracle; the flat bank runs them fused in one kernel.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from torch.func import grad, grad_and_value
 
 from repro_torch.core.flat import tree_flatten, tree_map
 
-__all__ = ["global_norm", "sam_perturb", "sam_gradient"]
+__all__ = ["global_norm", "sam_perturb", "sam_gradient", "momentum_update",
+           "apply_update"]
 
 _EPS = 1e-12
 
@@ -48,3 +50,19 @@ def sam_gradient(loss_fn: Callable, params, batch, rho: float):
     perturbed = sam_perturb(params, g1, rho)
     g2, _ = grad(loss_fn, has_aux=True)(perturbed, batch)
     return g2, (loss, aux)
+
+
+def momentum_update(v, grads, alpha: float):
+    """v' = alpha * v + g  (Algorithm 1 line 9; alpha=0 -> plain SGD)."""
+    if alpha == 0.0:
+        return grads
+    return tree_map(
+        lambda vi, gi: (alpha * vi.float() + gi.float()).to(vi.dtype), v, grads
+    )
+
+
+def apply_update(params, v, lr):
+    """x' = x - lr * v  (Algorithm 1 line 10)."""
+    return tree_map(
+        lambda p, vi: (p.float() - lr * vi.float()).to(p.dtype), params, v
+    )

@@ -18,17 +18,34 @@ reference's own draws to the builds and compare the operators.  The
 neighbor-list form (:class:`NeighborList`) is the fixed-shape ``(n, k_max)``
 receiver-side operator the gather kernel consumes, padded with zero-weight
 self slots.
+
+The scenario operators follow the same split: :class:`LinkModel` drops
+(``draw_drops`` then ``drop_links_dense`` / ``drop_links_neighbors``) and
+:class:`ChurnModel` transitions (``draw_churn`` then ``churn_transition``),
+with ``churn_links_*`` masking dead nodes out of a sampled operator.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = [
     "TopologyConfig",
+    "LinkModel",
+    "ChurnModel",
+    "LIVE",
+    "DOWN",
+    "DOWN_PERMANENT",
+    "draw_drops",
+    "drop_links_dense",
+    "drop_links_neighbors",
+    "draw_churn",
+    "churn_transition",
+    "churn_links_dense",
+    "churn_links_neighbors",
     "NeighborList",
     "column_stochastic_from_adjacency",
     "metropolis_weights",
@@ -82,6 +99,269 @@ class TopologyConfig:
                 f"topology kind {self.kind!r} is not ported yet "
                 "(two_tier comes with the sharding slice)"
             )
+
+
+# ---------------------------------------------------------------------------
+# Unreliable links: per-edge drops, bounded delays, event-triggered sends.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LinkModel:
+    """Per-round unreliable-link effects.
+
+    ``drop``: i.i.d. failure probability per directed non-self edge each
+    round, applied to the adjacency before sender normalization, so the
+    operator stays exactly column-stochastic (``drop == 1.0`` is the legal
+    fully isolated boundary: every node keeps its mass on its self-loop).
+    ``delay``: staleness bound B; ``delay >= 1`` swaps in the delayed
+    push-sum mixer with its in-flight buffers.  ``event_threshold`` > 0
+    swaps in the event-triggered mixer; its round-t threshold is
+    ``event_schedule(t)`` when given, else ``event_threshold *
+    event_decay ** t``.  All-zero fields mean perfect links.
+    """
+
+    drop: float = 0.0
+    delay: int = 0
+    event_threshold: float = 0.0
+    event_decay: float = 1.0
+    event_schedule: Any = None
+
+    def __post_init__(self):
+        if not 0.0 <= self.drop <= 1.0:
+            raise ValueError(
+                f"LinkModel.drop must be a probability in [0, 1], got "
+                f"{self.drop!r} (drop=1.0 is the fully-isolated boundary: "
+                "every node keeps all mass on its self-loop)"
+            )
+        if self.delay < 0:
+            raise ValueError("delay bound must be >= 0")
+        if self.event_threshold < 0.0:
+            raise ValueError("event_threshold must be >= 0")
+        if not 0.0 < self.event_decay <= 1.0:
+            raise ValueError("event_decay must be in (0, 1]")
+        if self.event_schedule is not None and not callable(
+            self.event_schedule
+        ):
+            raise ValueError("event_schedule must be callable: t -> "
+                             "threshold")
+        if (self.event_decay != 1.0 or self.event_schedule is not None
+                ) and not self.event_threshold:
+            raise ValueError(
+                "event_decay / event_schedule modulate event-triggered "
+                "mixing; set event_threshold > 0 (the schedule's base / "
+                "round-0 value) to enable it"
+            )
+        if self.delay and self.event_threshold:
+            raise ValueError(
+                "delayed and event-triggered mixing do not compose; "
+                "pick one of delay / event_threshold"
+            )
+        if self.drop and self.event_threshold:
+            # One last-broadcast row per sender cannot model a receiver
+            # whose link was down when the sender transmitted.
+            raise ValueError(
+                "event-triggered mixing assumes reliable links (the shared "
+                "last-broadcast cache cannot model per-receiver misses); "
+                "drop and event_threshold do not compose"
+            )
+
+    @property
+    def active(self) -> bool:
+        return bool(self.drop or self.delay or self.event_threshold)
+
+    def drop_links(self, u: torch.Tensor, P, symmetric: bool = False):
+        """This round's link failures applied to ``P`` (dense or
+        :class:`NeighborList`), given the round's drop uniforms ``u`` from
+        :func:`draw_drops`."""
+        if isinstance(P, NeighborList):
+            if symmetric:
+                raise ValueError(
+                    "link drops on the symmetric neighbor-list form are "
+                    "unsupported (per-edge masks cannot be kept consistent "
+                    "across both endpoints' fixed-shape lists); force "
+                    "gossip='dense'"
+                )
+            return drop_links_neighbors(u, P, drop=self.drop)
+        return drop_links_dense(u, P, drop=self.drop, symmetric=symmetric)
+
+
+def draw_drops(gen: torch.Generator, P) -> torch.Tensor:
+    """The drop draw: one uniform in [0, 1) per entry of the dense operator,
+    or per slot of a :class:`NeighborList`."""
+    shape = P.idx.shape if isinstance(P, NeighborList) else P.shape
+    return torch.rand(tuple(shape), generator=gen, device=gen.device,
+                      dtype=torch.float32)
+
+
+def drop_links_dense(u: torch.Tensor, P: torch.Tensor, drop: float,
+                     symmetric: bool = False) -> torch.Tensor:
+    """Fail each non-self edge of ``P``'s support where its uniform is below
+    ``drop``, then re-normalize from the surviving adjacency (a sender
+    divides by its surviving out-degree, self-loop included).  With
+    ``symmetric`` one coin per undirected edge (``triu(u, 1)`` mirrored)
+    and Metropolis weights on the surviving graph."""
+    n = P.shape[0]
+    if symmetric:
+        u = torch.triu(u, 1)
+        u = u + u.T
+    adj = ((P > 0) & (u >= drop)).float()
+    if symmetric:
+        return metropolis_weights(adj * (1.0 - _eye(n, adj.device)))
+    return column_stochastic_from_adjacency(adj)
+
+
+def _renormalize_slots(nl: "NeighborList", live: torch.Tensor):
+    """Every live slot of sender j gets ``1 / out_degree(j)``, the degree
+    counted over live slots by one scatter-add into ``n + 1`` bins whose
+    last bin (dead slots) is dropped."""
+    n = nl.idx.shape[0]
+    idx = nl.idx.long()
+    target = torch.where(live, idx, torch.full_like(idx, n))
+    outdeg = torch.zeros(n + 1, dtype=torch.float32, device=idx.device)
+    outdeg = outdeg.index_add_(0, target.reshape(-1),
+                               torch.ones(target.numel(), device=idx.device))[:n]
+    wgt = torch.where(live, 1.0 / outdeg[idx], torch.zeros((), device=idx.device))
+    return NeighborList(nl.idx, wgt.float())
+
+
+def drop_links_neighbors(u: torch.Tensor, nl: "NeighborList",
+                         drop: float) -> "NeighborList":
+    """Sparse twin of :func:`drop_links_dense` (directed families): each
+    real non-self slot fails where its uniform is below ``drop``; slot 0,
+    the self-loop, never drops; zero-weight pads stay inert."""
+    keep = u >= drop
+    keep[:, 0] = True
+    return _renormalize_slots(nl, keep & (nl.wgt > 0))
+
+
+# ---------------------------------------------------------------------------
+# Client churn: whole-node failures and recoveries.
+# ---------------------------------------------------------------------------
+
+# Liveness codes carried as an (n,) int8 vector in the round state.
+LIVE = 1  # participating normally
+DOWN = 0  # crashed, may recover with prob recover_prob per round
+DOWN_PERMANENT = -1  # crashed for good; never recovers
+
+
+@dataclasses.dataclass(frozen=True)
+class ChurnModel:
+    """Per-round whole-client failures and recoveries (node churn).
+
+    Each round every live client fails with ``fail_prob``, permanently with
+    probability ``permanent_frac`` given failure; a recoverable down node
+    returns with ``recover_prob``.  A dead node leaves the sampled operator
+    (all in- and out-edges masked before sender normalization), so its
+    column is the identity and its push-sum mass is frozen on its
+    self-loop: live + in-flight + frozen dead mass == n.  ``resurrect``:
+    ``"warm"`` resumes from the stored row, ``"cold"`` rejoins at the init
+    template (``x := w * template``, keeping the mass).  All-zero fields
+    mean no churn.
+    """
+
+    fail_prob: float = 0.0
+    recover_prob: float = 0.0
+    permanent_frac: float = 0.0
+    resurrect: str = "warm"  # warm | cold
+
+    def __post_init__(self):
+        if not 0.0 <= self.fail_prob <= 1.0:
+            raise ValueError(
+                f"ChurnModel.fail_prob must be a probability in [0, 1], "
+                f"got {self.fail_prob!r}"
+            )
+        if not 0.0 <= self.recover_prob <= 1.0:
+            raise ValueError(
+                f"ChurnModel.recover_prob must be a probability in [0, 1], "
+                f"got {self.recover_prob!r}"
+            )
+        if not 0.0 <= self.permanent_frac <= 1.0:
+            raise ValueError(
+                f"ChurnModel.permanent_frac must be a fraction in [0, 1], "
+                f"got {self.permanent_frac!r}"
+            )
+        if self.resurrect not in ("warm", "cold"):
+            raise ValueError(
+                f"ChurnModel.resurrect must be 'warm' (resume from the "
+                f"stored row) or 'cold' (rejoin at the init template), got "
+                f"{self.resurrect!r}"
+            )
+        if self.fail_prob == 0.0 and (
+            self.recover_prob or self.permanent_frac
+        ):
+            raise ValueError(
+                "ChurnModel.recover_prob / permanent_frac modulate node "
+                "failures; set fail_prob > 0 to enable churn"
+            )
+
+    @property
+    def active(self) -> bool:
+        return bool(self.fail_prob)
+
+    def mask_operator(self, P, alive: torch.Tensor, symmetric: bool = False):
+        """Remove every in/out edge of dead nodes from the sampled operator,
+        re-normalizing senders over the surviving support."""
+        if isinstance(P, NeighborList):
+            if symmetric:
+                raise ValueError(
+                    "churn on the symmetric neighbor-list form is "
+                    "unsupported (Metropolis degrees cannot be kept "
+                    "consistent across both endpoints' fixed-shape "
+                    "lists); force gossip='dense'"
+                )
+            return churn_links_neighbors(P, alive)
+        return churn_links_dense(P, alive, symmetric=symmetric)
+
+
+def draw_churn(gen: torch.Generator, n: int) -> torch.Tensor:
+    """The churn draw: (3, n) uniforms in [0, 1) — failure, permanence and
+    recovery coins, in that order."""
+    return torch.rand((3, n), generator=gen, device=gen.device,
+                      dtype=torch.float32)
+
+
+def churn_transition(u: torch.Tensor, live: torch.Tensor,
+                     model: ChurnModel) -> torch.Tensor:
+    """One round of the churn Markov chain over liveness codes, from the
+    (3, n) draw of :func:`draw_churn`: live nodes fail where ``u[0] <
+    fail_prob`` (permanently where also ``u[1] < permanent_frac``),
+    recoverable down nodes return where ``u[2] < recover_prob``, permanent
+    deaths are absorbing."""
+    fails = (live == LIVE) & (u[0] < model.fail_prob)
+    perm = fails & (u[1] < model.permanent_frac)
+    recovers = (live == DOWN) & (u[2] < model.recover_prob)
+    down = torch.where(perm, torch.full_like(live, DOWN_PERMANENT),
+                       torch.full_like(live, DOWN))
+    nxt = torch.where(fails, down, live)
+    nxt = torch.where(recovers, torch.full_like(live, LIVE), nxt)
+    return nxt.to(torch.int8)
+
+
+def churn_links_dense(P: torch.Tensor, alive: torch.Tensor,
+                      symmetric: bool = False) -> torch.Tensor:
+    """Mask dead nodes out of a dense operator before sender
+    normalization: every edge with a dead endpoint goes, self-loops stay,
+    so a dead node's column is the identity column."""
+    n = P.shape[0]
+    a = alive.bool()
+    keep = (a[:, None] & a[None, :]) | torch.eye(n, dtype=torch.bool,
+                                                 device=P.device)
+    adj = ((P > 0) & keep).float()
+    if symmetric:
+        return metropolis_weights(adj * (1.0 - _eye(n, adj.device)))
+    return column_stochastic_from_adjacency(adj)
+
+
+def churn_links_neighbors(nl: "NeighborList",
+                          alive: torch.Tensor) -> "NeighborList":
+    """Sparse twin of :func:`churn_links_dense` (directed families): a
+    non-self slot survives only when both its sender and its receiver are
+    alive; slot 0 always survives; senders re-normalize as in
+    :func:`drop_links_neighbors`."""
+    a = alive.bool()
+    keep = a[:, None] & a[nl.idx.long()]
+    keep[:, 0] = True
+    return _renormalize_slots(nl, keep & (nl.wgt > 0))
 
 
 # ---------------------------------------------------------------------------

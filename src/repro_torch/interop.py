@@ -11,14 +11,17 @@ bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from repro_torch.core.flat import tree_map
-from repro_torch.core.program import FLState
+from repro_torch.core.flat import BoundDeltaSpec, bind_delta_spec, tree_map
+from repro_torch.core.program import FLState, RoundProgram
+from repro_torch.core.stages import ChurnState, LinkState
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "bank_row_from_numpy",
-           "state_from_numpy"]
+           "state_from_numpy", "program_with_delta_base"]
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -40,12 +43,39 @@ def bank_row_from_numpy(row, device="cpu") -> torch.Tensor:
     return tensor_from_numpy(row, device)
 
 
-def state_from_numpy(dump: dict, gen: torch.Generator, device="cpu") -> FLState:
+def _maybe(a, device):
+    return () if a is None else tensor_from_numpy(a, device)
+
+
+def state_from_numpy(dump: dict, gen: torch.Generator, device="cpu", *,
+                     link_key: torch.Generator | None = None,
+                     churn_key: torch.Generator | None = None) -> FLState:
     """A port :class:`FLState` from a numpy dump of a reference ``FLState``:
-    ``params``, ``w``, ``round``, ``losses`` and optionally ``mom`` (None or
-    absent on central algorithms).  The reference's PRNG key has no torch
-    counterpart: ``gen`` becomes the port state's random stream."""
+    ``params``, ``w``, ``round``, ``losses``, and optionally ``mom`` (None
+    or absent on central algorithms), ``comp`` (the EF residual bank),
+    ``link`` (a dict of ``bufx`` / ``bufw`` / ``last``, each None where the
+    mixer carries none) and ``churn`` (a dict of ``live`` and ``tpl``, None
+    when warm).  The reference's PRNG keys have no torch counterpart:
+    ``gen`` becomes the port state's main stream, ``link_key`` /
+    ``churn_key`` its scenario streams (required where the dump carries
+    that scenario)."""
     mom = dump.get("mom")
+    comp = dump.get("comp")
+    link, churn = (), ()
+    if dump.get("link") is not None:
+        if link_key is None:
+            raise ValueError("the dump carries link state: pass link_key")
+        lk = dump["link"]
+        link = LinkState(link_key, _maybe(lk.get("bufx"), device),
+                         _maybe(lk.get("bufw"), device),
+                         _maybe(lk.get("last"), device))
+    if dump.get("churn") is not None:
+        if churn_key is None:
+            raise ValueError("the dump carries churn state: pass churn_key")
+        ch = dump["churn"]
+        churn = ChurnState(churn_key,
+                           tensor_from_numpy(ch["live"], device).to(torch.int8),
+                           _maybe(ch.get("tpl"), device))
     return FLState(
         params=bank_row_from_numpy(dump["params"], device),
         mom=None if mom is None else tensor_from_numpy(mom, device),
@@ -53,5 +83,19 @@ def state_from_numpy(dump: dict, gen: torch.Generator, device="cpu") -> FLState:
         key=gen,
         round=int(np.asarray(dump["round"])),
         losses=tensor_from_numpy(dump["losses"], device),
-        comp=(),
+        comp=_maybe(comp, device),
+        link=link,
+        churn=churn,
     )
+
+
+def program_with_delta_base(program: RoundProgram, base_tree,
+                            device="cpu") -> RoundProgram:
+    """``program`` with its delta bank's frozen base replaced by the
+    reference's base (a numpy params pytree), so that both packages train
+    over the same base."""
+    if not isinstance(program.spec, BoundDeltaSpec):
+        raise ValueError("the program has no delta bank")
+    base = params_from_numpy(base_tree, device)
+    return dataclasses.replace(
+        program, spec=bind_delta_spec(program.spec.delta, base))

@@ -11,6 +11,15 @@ The draws come from the reference's key chain, recomputed here exactly as
   ``program.mixing_matrix`` (central algorithms: ``permutation(tkey, n)[:m]``);
 * client i's key ``keys[2 + i]`` is split once per local step, and the
   second half is the ``randint`` key of that step's minibatch.
+
+The scenario compositions also replay
+
+* the link stream, ``split(state.link.key)[0]``: with drops, its split's
+  first half is the key of the drop uniforms (one per entry of the dense
+  operator or slot of the neighbor list) and the second half the key of
+  the delayed mixer's ``randint`` delays, else the delays take it whole;
+* the churn stream, ``split(state.churn.key)[1]``, split in three: the
+  failure, permanence and recovery uniforms, one per client.
 """
 from __future__ import annotations
 
@@ -19,15 +28,19 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.core import ChurnModel as RefChurn
 from repro.core import FLTrainer as RefTrainer
+from repro.core import LinkModel as RefLink
 from repro.core import TopologyConfig as RefTopo
 from repro.core import make_algo as ref_make_algo
 from repro.core.topology import NeighborList as RefNeighborList
 from repro.data.dirichlet import dirichlet_partition, stack_client_data
 from repro.data.synthetic import make_dataset
 from repro.models.small import mnist_2nn as ref_mnist_2nn
+from repro_torch.core import ChurnModel, LinkModel
 from repro_torch.core import FLTrainer, TopologyConfig, make_algo
 from repro_torch.core.topology import NeighborList
+from repro_torch.interop import program_with_delta_base
 from repro_torch.interop import state_from_numpy
 from repro_torch.models.small import mnist_2nn
 
@@ -63,6 +76,20 @@ def reference_draws(tr: RefTrainer, m_rows: int) -> dict:
                                       torch.from_numpy(np.array(P.wgt)))
         else:
             draws["P"] = np.array(P)
+        shape = np.shape(P.idx if isinstance(P, RefNeighborList) else P)
+        if not _empty(state.link):
+            lkey = jax.random.split(state.link.key)[0]
+            if prog.link is not None and prog.link.drop > 0:
+                dkey, lkey = jax.random.split(lkey)
+                draws["drop"] = np.array(jax.random.uniform(dkey, shape))
+            if hasattr(prog.mixer, "delay"):
+                draws["delay"] = np.array(jax.random.randint(
+                    lkey, shape, 0, prog.mixer.delay + 1))
+        if prog.churned:
+            ckey = jax.random.split(state.churn.key)[1]
+            draws["churn"] = np.stack([
+                np.array(jax.random.uniform(k, (n,)))
+                for k in jax.random.split(ckey, 3)])
     solver = prog.solver
     rows = []
     for key_i in ckeys:
@@ -114,3 +141,105 @@ def run_parity(name: str, gossip: str, cdata):
         port_state = {"params": port.state.params.numpy(),
                       "w": port.state.w.numpy()}
         yield r, ref_metrics, port_metrics, ref_state, port_state
+
+
+def _empty(x) -> bool:
+    """``()``: a carry the program does not hold (a ``LinkState`` is a
+    tuple too, but never empty)."""
+    return isinstance(x, tuple) and len(x) == 0
+
+
+def scenario_state_dump(tr: RefTrainer) -> dict:
+    """:func:`state_dump` plus the EF residual and the link and churn
+    carries, as numpy (None where the program carries none)."""
+    dump = state_dump(tr)
+    s = jax.device_get(tr.state)
+
+    def arr(x):
+        return None if isinstance(x, tuple) else np.array(x)
+
+    dump["comp"] = arr(s.comp)
+    if not _empty(s.link):
+        dump["link"] = {k: arr(getattr(s.link, k))
+                        for k in ("bufx", "bufw", "last")}
+    if not _empty(s.churn):
+        dump["churn"] = {"live": np.array(s.churn.live), "tpl": arr(s.churn.tpl)}
+    return dump
+
+
+def port_state_dump(st) -> dict:
+    """The same fields of a port ``FLState``, as float32 numpy (int8 for
+    the liveness vector)."""
+    def arr(x):
+        return None if isinstance(x, tuple) or x is None else (
+            x.float().numpy() if x.is_floating_point() else x.numpy())
+
+    dump = {"params": arr(st.params), "mom": arr(st.mom), "w": arr(st.w),
+            "losses": arr(st.losses), "comp": arr(st.comp)}
+    if not _empty(st.link):
+        dump["link"] = {k: arr(getattr(st.link, k))
+                        for k in ("bufx", "bufw", "last")}
+    if not _empty(st.churn):
+        dump["churn"] = {"live": arr(st.churn.live), "tpl": arr(st.churn.tpl)}
+    return dump
+
+
+def run_scenario_parity(name: str, gossip: str, cdata, *, algo_kw=None,
+                        link=None, churn=None, delta=None, bf16=False,
+                        resync=False, rounds=ROUNDS, probe=None):
+    """:func:`run_parity` for the scenario compositions: ``algo_kw``
+    overrides the algorithm (compressor, solver, ...), ``link`` / ``churn``
+    are the fields of a ``LinkModel`` / ``ChurnModel`` (built in each
+    package), ``delta`` the delta bank's rank, ``bf16`` a bfloat16 bank;
+    the port trains over the reference's delta base.  ``resync`` restarts
+    the port from the reference's state before every round, so each round's
+    comparison holds one round's divergence (for lossy compressors, whose
+    code flips would otherwise feed the next round).  ``probe(port, draws)``
+    runs before each round of the port, on its state and that round's
+    draws.
+
+    Yields ``(round, ref_metrics, port_metrics, ref_state, port_state)``
+    after each round, the states as :func:`scenario_state_dump` /
+    :func:`port_state_dump`."""
+    algo_kw = dict(local_steps=LOCAL_STEPS, batch_size=BATCH, **(algo_kw or {}))
+    ref_model = ref_mnist_2nn()
+    ref = RefTrainer(
+        ref_model.loss, ref_model.init,
+        {k: jnp.asarray(v) for k, v in cdata.items()},
+        ref_make_algo(name, **algo_kw),
+        RefTopo(kind="kout", n_clients=N_CLIENTS, k_out=K_OUT), seed=0,
+        participation=PARTICIPATION, gossip=gossip,
+        link=None if link is None else RefLink(**link),
+        churn=None if churn is None else RefChurn(**churn),
+        delta=delta, bank_dtype=jnp.bfloat16 if bf16 else None,
+    )
+    model = mnist_2nn()
+    port = FLTrainer(
+        model.loss, model.init, cdata, make_algo(name, **algo_kw),
+        TopologyConfig(kind="kout", n_clients=N_CLIENTS, k_out=K_OUT),
+        seed=0, participation=PARTICIPATION, gossip=gossip,
+        link=None if link is None else LinkModel(**link),
+        churn=None if churn is None else ChurnModel(**churn),
+        delta=delta, bank_dtype=torch.bfloat16 if bf16 else None,
+        device="cpu",
+    )
+    if delta is not None:
+        port.program = program_with_delta_base(
+            port.program, jax.device_get(ref.program.spec.base))
+        port.spec = port.program.spec
+    st = port.state
+    keys = dict(link_key=None if _empty(st.link) else st.link.key,
+                churn_key=None if _empty(st.churn) else st.churn.key)
+    port.state = state_from_numpy(scenario_state_dump(ref), st.key, **keys)
+    m_rows = cdata["x"].shape[1]
+    for r in range(rounds):
+        draws = reference_draws(ref, m_rows)
+        if resync and r:
+            port.state = state_from_numpy(scenario_state_dump(ref),
+                                          port.state.key, **keys)
+        if probe is not None:
+            probe(port, draws)
+        ref_metrics = {k: float(v) for k, v in ref.run_round().items()}
+        port_metrics = {k: float(v) for k, v in port.run_round(draws).items()}
+        yield (r, ref_metrics, port_metrics, scenario_state_dump(ref),
+               port_state_dump(port.state))

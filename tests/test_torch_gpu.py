@@ -17,7 +17,8 @@ keys + 2^-7 |out|; its docstring derives it).
 import pytest
 import torch
 
-from repro_torch.core import FLTrainer, TopologyConfig, make_algo
+from repro_torch.core import (ChurnModel, FLTrainer, LinkModel,
+                              TopologyConfig, make_algo)
 from repro_torch.data.dirichlet import dirichlet_partition, stack_client_data
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.kernels import build
@@ -171,6 +172,41 @@ def test_cuda_round_launches_the_kernels_and_keeps_the_mass(cuda_device,
     assert (fu.launches - before[0], mix.launches - before[1]) == (3, 1)
     assert torch.isfinite(metrics["loss"])
     assert abs(float(tr.state.w.sum()) - 8.0) <= 1e-5
+
+
+@pytest.mark.parametrize("gossip", ["dense", "sparse"])
+@pytest.mark.parametrize("scenario", [
+    dict(algo=dict(compressor="topk_ef"), link=LinkModel(drop=0.2, delay=2),
+         churn=ChurnModel(fail_prob=0.3, recover_prob=0.5,
+                          resurrect="cold")),
+    dict(algo=dict(compressor="int8_rows", solver="proximal"),
+         link=LinkModel(event_threshold=1.0, event_decay=0.9)),
+    dict(delta=8, bank_dtype=torch.bfloat16),
+], ids=["topk-drop-delay-churn", "int8-event-proximal", "delta-bf16"])
+def test_cuda_scenario_round_launches_the_kernels_and_keeps_the_mass(
+        cuda_device, gossip, scenario):
+    """One round per local step of the fused update and one mix launch per
+    delay slice (B + 1 under a delay bound B), push-sum mass n with the
+    in-flight shares."""
+    train, _ = make_dataset("mnist", 1200, 100, seed=0)
+    parts = dirichlet_partition(train["y"], 8, alpha=0.3, seed=0)
+    cdata = stack_client_data(train, parts, pad_to=128)
+    model = mnist_2nn()
+    kw = dict(scenario)
+    tr = FLTrainer(model.loss, model.init, cdata,
+                   make_algo("dfedsgpsm", local_steps=3, **kw.pop("algo", {})),
+                   TopologyConfig(kind="kout", n_clients=8, k_out=2), seed=0,
+                   gossip=gossip, device=cuda_device, **kw)
+    mix = gg if gossip == "sparse" else gm
+    link = kw.get("link")
+    mixes = link.delay + 1 if link is not None and link.delay else 1
+    for _ in range(2):
+        before = (fu.launches, mix.launches)
+        metrics = tr.run_round()
+        assert (fu.launches - before[0], mix.launches - before[1]) == (3, mixes)
+        assert torch.isfinite(metrics["loss"])
+        mass = float(metrics.get("w_mass", tr.state.w.sum()))
+        assert abs(mass - 8.0) <= 1e-5
 
 
 def _flash_within_tolerance(q, k, v, causal, window):

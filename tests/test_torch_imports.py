@@ -15,7 +15,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "tests" / "test_torch_gpu.py"]
+                                      ROOT / "tests" / "test_torch_gpu.py",
+                                      ROOT / "examples" / "quickstart_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

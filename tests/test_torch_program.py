@@ -183,14 +183,18 @@ def test_run_superstep_history_and_exponential_cycle(setting):
 def test_unported_stages_and_options_are_refused(setting):
     model, cdata, _ = setting
     topo = TopologyConfig(kind="kout", n_clients=8, k_out=2)
-    for algo in (make_algo("sgp", compressor="topk_ef"),
-                 make_algo("sgp", solver="proximal")):
-        with pytest.raises(ValueError, match="not ported"):
+    for algo in (make_algo("sgp", compressor="zip"),
+                 make_algo("sgp", solver="adam")):
+        with pytest.raises(ValueError, match="unknown stage"):
             make_program(model.loss, model.init, cdata, algo, topo,
                          device="cpu")
     with pytest.raises(ValueError, match="gossip must be"):
         make_program(model.loss, model.init, cdata, make_algo("sgp"), topo,
                      gossip="halo", device="cpu")
+    for kw in (dict(mesh=object()), dict(paged=True)):
+        with pytest.raises(ValueError, match="not ported"):
+            FLTrainer(model.loss, model.init, cdata, make_algo("sgp"), topo,
+                      device="cpu", **kw)
 
 
 def test_registry_matches_reference():
@@ -200,5 +204,6 @@ def test_registry_matches_reference():
     for name, cfg in ALGORITHMS.items():
         ref = REF[name]
         for field in ("comm", "local_steps", "rho", "alpha", "selection",
-                      "lr", "lr_decay", "batch_size", "solver", "compressor"):
+                      "lr", "lr_decay", "batch_size", "solver", "compressor",
+                      "topk_ratio", "prox_mu", "quantize_gossip"):
             assert getattr(cfg, field) == getattr(ref, field), (name, field)
