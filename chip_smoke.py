@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card, through its
 hand-written Hopper kernels: DFedSGPSM rounds on the flat bank, serving
-gemma3-12b (prefill, then greedy decode), and the FL round's scenarios
+gemma3-12b (prefill, then greedy decode), the FL round's scenarios
 (compressors, proximal solver, link and churn scenarios, the bf16 delta
-bank).
+bank), checkpoints, the paged client store and personalized serving of
+glm4-9b over the delta bank.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, as the check runs it
+    python3 chip_smoke.py --phases 9-11   # phases 1, 2 and the ones named
 
 Phases, each fatal on failure:
 
@@ -30,7 +32,8 @@ Phases, each fatal on failure:
    hd = 256, bf16, windows 1024 and 0), at the other dense decoders' (hd
    128, GQA groups 1, 4 and 16) and at edge cases, with its bf16 tolerance
    and a mask fault that must miss it, and is timed beside SDPA on the
-   same inputs and mask.  Then the three FL kernels at the delta bank's
+   same inputs and mask, also at phase 11's shape (B = 2, 32 on 2 heads,
+   hd 128).  Then the three FL kernels at the delta bank's
    shape (n = 100, d_delta = 73,178 bf16 rows, 4 bytes off 16), on banks
    at and a row past their allocation's start, against their plain
    versions, and timed beside their bounds;
@@ -67,7 +70,31 @@ Phases, each fatal on failure:
    push-sum mass (within 1e-3 of 100), live share, comm_fraction, wall
    time and launches (5 updates and 1 mix a round, 3 mixes under the
    delay bound), peak memory, profiles of A's and D's last rounds, and
-   the compressors' and the delayed mix's costs.
+   the compressors' and the delayed mix's costs;
+9. checkpoints: phase 8's A trainer (comp, link and churn carries) and D
+   sparse trainer (the bf16 delta bank, format v3 with ``__base__``)
+   ``save`` to a temporary directory and ``restore`` into fresh trainers
+   of their compositions: every array and generator state bit for bit,
+   then one round from each bit for bit (``cudnn.deterministic`` set for
+   the phase); A's file into A without its link scenario must raise;
+   bytes written and save and restore seconds;
+10. the paged store at the README's setting: ``FLTrainer(paged=True)``
+   with mnist_2nn (D = 199,210) on synthetic MNIST split by
+   Dirichlet(0.3) over n = 4096 clients, k_active = 256, kout k_out = 4:
+   c_max = 1280 resident and 2560 staging rows, one cold and 3 timed
+   rounds with launches (5 updates at (256, D), 1 gather at (1280, D) with
+   5 slots), closure mass error, wall time and pager counters; store-wide
+   mass 4096 within 1e-3; ``save()``, a reopen with every row bit for bit;
+   then 2 rounds of a fresh store under ``ChurnModel`` and a
+   ``FaultInjector`` (a transient EIO on every file's first read, retried;
+   a corrupted clean chunk, rebuilt from the template); the update and the
+   gather at those shapes against their plain versions and bounds;
+11. personalized serving: ``serve.main --clients 2 --rank 8`` with glm4-9b
+   at full width in bf16 (a zero delta row on lane 0), prompts of 2048
+   tokens and 16 new tokens: expand, prefill and decode times, peak
+   memory, 40 flash launches at B = 2, H = 32, KV = 2; lane 0 against the
+   dense serve of the base and lane 1 against ``forward`` on its own
+   expanded weights, within phase 7's decode tolerance.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -456,6 +483,9 @@ LOCAL_WINDOW = 1024
 # window, hd 128): (H, KV) of their configs, GQA groups 1, 4 and 16.
 OTHER_DECODERS = {"codeqwen1.5-7b": (32, 32), "phi3-medium-14b": (40, 10),
                   "glm4-9b": (32, 2)}
+# glm4-9b's attention at phase 11's personalized prefill: 2 lanes of 2048
+# tokens, 32 query heads on 2 kv heads of hd = 128 (GQA group 16), bf16.
+PERSONAL_SHAPE = (2, 32, 2, 2048, 128)
 
 
 def open_pairs(s: int, causal: bool, window: int) -> int:
@@ -469,7 +499,8 @@ def open_pairs(s: int, causal: bool, window: int) -> int:
 
 
 def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
-                iters: int = 10, others=OTHER_DECODERS) -> dict:
+                iters: int = 10, others=OTHER_DECODERS,
+                personal=PERSONAL_SHAPE) -> dict:
     """The flash kernel against its plain version: at gemma3-12b's prefill
     shapes (local and global layers), at the other decoders' (hd 128, groups
     1, 4 and 16) and at edge cases (hd 64, 128 and 256, GQA groups 1, 2, 4
@@ -508,6 +539,7 @@ def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
     ]
     cases += [((b, nh, nkv, s, 128), bf16, True, 0)
               for nh, nkv in others.values()]
+    cases.append((personal, bf16, True, 0))
 
     def qkv(shp, dt):
         b_, h_, kv_, s_, hd_ = shp
@@ -587,6 +619,7 @@ def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
     timed(shape, 0, "gemma3-12b global layer")
     for name, (nh, nkv) in others.items():
         timed((b, nh, nkv, s, 128), 0, name)
+    timed(personal, 0, "glm4-9b personalized (phase 11)")
     return row
 
 
@@ -997,6 +1030,35 @@ def counters() -> dict:
             "flash_attention": (fa, "launches")}
 
 
+@contextlib.contextmanager
+def kernel_shapes():
+    """Record the tensor shapes each FL and flash kernel wrapper is called
+    with through ``kernels.ops`` while the block runs: ``{kernel: [(shape
+    of each tensor argument, ...), ...]}``."""
+    from repro_torch.kernels import ops as kops
+
+    names = {"fused_update_bank": "_bank_kernel",
+             "gossip_gather": "gossip_gather",
+             "flash_attention": "_flash_kernel"}
+    seen = {k: [] for k in names}
+    saved = {attr: getattr(kops, attr) for attr in names.values()}
+
+    def spy(kernel, fn):
+        def call(*args, **kw):
+            seen[kernel].append(tuple(tuple(a.shape) for a in args
+                                      if isinstance(a, torch.Tensor)))
+            return fn(*args, **kw)
+        return call
+
+    for kernel, attr in names.items():
+        setattr(kops, attr, spy(kernel, saved[attr]))
+    try:
+        yield seen
+    finally:
+        for attr, fn in saved.items():
+            setattr(kops, attr, fn)
+
+
 def zero_counts() -> None:
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
@@ -1112,9 +1174,27 @@ def scenario_configs(tau=None) -> dict:
     }
 
 
+def scenario_trainer(dev, cdata, cfg: dict, n_clients: int = N_CLIENTS,
+                     local_steps: int = 5, seed: int = 0):
+    """An ``FLTrainer`` of one of :func:`scenario_configs`' compositions on
+    the main path's cifar_cnn and kout k_out = 10 topology."""
+    from repro_torch.core import FLTrainer, TopologyConfig, make_algo
+    from repro_torch.models.small import cifar_cnn
+
+    model = cifar_cnn()
+    topo = TopologyConfig(kind="kout", n_clients=n_clients, k_out=10)
+    algo = make_algo(cfg.get("name", "dfedsgpsm"), local_steps=local_steps,
+                     batch_size=32, lr=0.01, **cfg.get("algo", {}))
+    kw = {k: cfg[k] for k in ("link", "churn", "delta", "bank_dtype")
+          if cfg.get(k) is not None}
+    return FLTrainer(model.loss, model.init, cdata, algo, topo, seed=seed,
+                     gossip=cfg["gossip"], device=dev, **kw)
+
+
 def scenario_path(dev, data, n_clients: int = N_CLIENTS, rounds: int = 3,
                   local_steps: int = 5, dim: int = CIFAR_CNN_DIM,
-                  delta_dim: int = DELTA_DIM) -> dict:
+                  delta_dim: int = DELTA_DIM,
+                  keep=("A", "D sparse")) -> tuple:
     """The rest of the FL round at full width: the main path's cifar_cnn,
     data and kout k_out = 10 topology under the configurations of
     :func:`scenario_configs`, ``rounds`` rounds each, through
@@ -1126,21 +1206,13 @@ def scenario_path(dev, data, n_clients: int = N_CLIENTS, rounds: int = 3,
     the fused update once per local step and its mix once (B + 1 times
     under a delay bound B).  The last rounds of A and of D (sparse) are
     profiled.
-    Then the compressors and the delayed mix are timed alone on A's bank."""
-    from repro_torch.core import FLTrainer, TopologyConfig, make_algo
-    from repro_torch.models.small import cifar_cnn
-
+    Then the compressors and the delayed mix are timed alone on A's bank.
+    Returns the path's launch counts and the trainers named in ``keep``
+    (phase 9 checkpoints them)."""
     cdata, _ = data
-    model = cifar_cnn()
-    topo = TopologyConfig(kind="kout", n_clients=n_clients, k_out=10)
 
     def trainer(cfg):
-        algo = make_algo(cfg.get("name", "dfedsgpsm"), local_steps=local_steps,
-                         batch_size=32, lr=0.01, **cfg.get("algo", {}))
-        kw = {k: cfg[k] for k in ("link", "churn", "delta", "bank_dtype")
-              if k in cfg}
-        return FLTrainer(model.loss, model.init, cdata, algo, topo, seed=0,
-                         gossip=cfg["gossip"], device=dev, **kw)
+        return scenario_trainer(dev, cdata, cfg, n_clients, local_steps)
 
     # B's threshold: the drift norms of a first round with any threshold
     # (the round's draws and updates do not depend on it).
@@ -1153,6 +1225,7 @@ def scenario_path(dev, data, n_clients: int = N_CLIENTS, rounds: int = 3,
     print(f"  B: event threshold {tau:.6g} (between two drift norms of a "
           "first round), decay 0.9 a round")
     del probe, start, Xc
+    kept = {}
     zero_counts()  # the scenario path's counts start here
     for name, cfg in scenario_configs(tau).items():
         if dev.type == "cuda":
@@ -1195,10 +1268,12 @@ def scenario_path(dev, data, n_clients: int = N_CLIENTS, rounds: int = 3,
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if name == "A":
             state = tr.state
+        if name in keep:
+            kept[name] = tr
         del tr
     launches = read_counts()
     compressor_costs(dev, state)
-    return launches
+    return launches, kept
 
 
 def compressor_costs(dev, state, iters: int = 5) -> None:
@@ -1470,7 +1545,7 @@ def serving(dev, argv=SERVE_ARGV) -> dict:
     return launches
 
 
-def decode_check(api, params, batch, rec) -> None:
+def decode_check(api, params, batch, rec, mutant: bool = True) -> float:
     """Holds what ``serve.generate`` decoded against ``forward`` on the
     prompt extended by the decoded tokens: the logits each new token was
     picked from must be the forward's at positions S-1 .. S+N-2.  At full
@@ -1486,7 +1561,8 @@ def decode_check(api, params, batch, rec) -> None:
     To show that the check sees a fault there, the decode steps run once
     more, from a fresh prefill, with the window left open at decode (the
     same model but a window as long as the cache, so the same rope thetas):
-    that run must miss the tolerance."""
+    that run must miss the tolerance (``mutant=False`` skips it, for a
+    model without a window).  Returns the tolerance."""
     import dataclasses
 
     from repro_torch.models.registry import get_model_api
@@ -1498,25 +1574,29 @@ def decode_check(api, params, batch, rec) -> None:
     with torch.no_grad():
         want = api.forward(params, {"tokens": torch.cat([prompt, new], 1)})[0]
         want = want[:, s - 1:].clone()  # frees the other positions' logits
-        open_api = get_model_api(dataclasses.replace(cfg,
-                                                     sliding_window=s + n))
-        logits, cache = api.prefill(params, batch, s + n)
-        mutant = [logits[:, -1].clone()]
-        del logits
-        for i in range(n - 1):
-            mutant.append(open_api.decode_step(params, cache, new[:, i],
-                                               s + i)[0])
-        del cache
+        if mutant:
+            open_api = get_model_api(dataclasses.replace(
+                cfg, sliding_window=s + n))
+            logits, cache = api.prefill(params, batch, s + n)
+            wrong = [logits[:, -1].clone()]
+            del logits
+            for i in range(n - 1):
+                wrong.append(open_api.decode_step(params, cache, new[:, i],
+                                                  s + i)[0])
+            del cache
     scale = float(want.float().abs().max())
     tol = (1e-4 if cfg.dtype == torch.float32 else 2.0 ** -4) * scale
     err = max_err(got, want)
-    err_mut = max_err(torch.stack(mutant, 1), want)
     print(f"  decode check: {n} positions from {s - 1}, logits {tuple(got.shape)}"
           f" against forward on the extended prompt: max|err| {err:.4e} "
           f"(tolerance {tol:.4e}, {tol / scale:.3g} of max|logit| "
-          f"{scale:.4e}); with the window left open at decode: {err_mut:.4e}")
+          f"{scale:.4e})")
     check(err <= tol, "decode disagrees with forward on the extended prompt")
-    check(err_mut > tol, "the decode check does not see an open window")
+    if mutant:
+        err_mut = max_err(torch.stack(wrong, 1), want)
+        print(f"  with the window left open at decode: {err_mut:.4e}")
+        check(err_mut > tol, "the decode check does not see an open window")
+    return tol
 
 
 def print_split(prof, wall_s: float, what: str) -> None:
@@ -1544,6 +1624,469 @@ def print_split(prof, wall_s: float, what: str) -> None:
         for k, v in split.items()))
 
 
+# -- phase 9: checkpoints at full width ----------------------------------------
+
+def state_arrays(st) -> dict:
+    """Every tensor of a port ``FLState``, by checkpoint name."""
+    out = {"params": st.params, "mom": st.mom, "w": st.w,
+           "losses": st.losses, "comp": st.comp}
+    if st.link:
+        out.update({f"link_{f}": getattr(st.link, f)
+                    for f in ("bufx", "bufw", "last")})
+    if st.churn:
+        out.update(churn_live=st.churn.live, churn_tpl=st.churn.tpl)
+    return {k: v for k, v in out.items() if isinstance(v, torch.Tensor)}
+
+
+def state_streams(st) -> dict:
+    out = {"key": st.key}
+    if st.link:
+        out["link_key"] = st.link.key
+    if st.churn:
+        out["churn_key"] = st.churn.key
+    return out
+
+
+def checkpoint_phase(dev, data, trainers=None, rounds: int = 1,
+                     local_steps: int = 5) -> dict:
+    """``FLTrainer.save`` / ``restore`` at full width: phase 8's A trainer
+    (top-k EF, drops, delay 2, cold churn: it carries ``comp``, ``link``
+    and ``churn``) and its D sparse trainer (the bf16 rank-8 delta bank:
+    format v3 with ``__base__``).  Each saves to a temporary directory and
+    restores into a fresh trainer of its composition (seed 1); every array
+    and every generator state must be equal bit for bit.  Then one round
+    from each, with ``cudnn.deterministic`` set for the phase, must give
+    the same bank, ``w`` and momentum bit for bit.  A's file restored into
+    its composition without the link scenario must raise.  Without
+    ``trainers``, they are built here and run ``rounds`` rounds."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    cdata, _ = data
+    cfgs = scenario_configs()
+    if trainers is None:
+        trainers = {}
+        for name in ("A", "D sparse"):
+            trainers[name] = scenario_trainer(dev, cdata, cfgs[name],
+                                              local_steps=local_steps)
+            for _ in range(rounds):
+                trainers[name].run_round()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    zero_counts()  # phase 9's counts start here
+    try:
+        for name in ("A", "D sparse"):
+            tr = trainers[name]
+            tmp = tempfile.mkdtemp(prefix="ckpt_")
+            try:
+                sync(dev)
+                t = time.perf_counter()
+                path = tr.save(tmp, step=tr.state.round)
+                save_s = time.perf_counter() - t
+                nbytes = os.path.getsize(path)
+                with np.load(path) as f:
+                    members = set(f.files)
+                fresh = scenario_trainer(dev, cdata, cfgs[name],
+                                         local_steps=local_steps, seed=1)
+                sync(dev)
+                t = time.perf_counter()
+                st = fresh.restore(path)
+                sync(dev)
+                restore_s = time.perf_counter() - t
+                want, got = state_arrays(tr.state), state_arrays(st)
+                check(set(want) == set(got),
+                      f"{name}: restored fields {sorted(got)} != {sorted(want)}")
+                for k in want:
+                    check(want[k].dtype == got[k].dtype
+                          and want[k].device == got[k].device
+                          and torch.equal(want[k], got[k]),
+                          f"{name}: restored {k} differs")
+                check(st.round == tr.state.round, f"{name}: round")
+                gw, gg = state_streams(tr.state), state_streams(st)
+                check(set(gw) == set(gg), f"{name}: streams {sorted(gg)}")
+                for k in gw:
+                    check(torch.equal(gw[k].get_state(), gg[k].get_state())
+                          and gw[k].initial_seed() == gg[k].initial_seed(),
+                          f"{name}: restored stream {k} differs")
+                print(f"  {name}: saved {nbytes / 1e9:.3f} GB "
+                      f"({len(members)} members) in {save_s:.3f} s, restored "
+                      f"in {restore_s:.3f} s; {len(want)} arrays "
+                      f"({', '.join(sorted(want))}) and {len(gw)} generator "
+                      f"states ({', '.join(sorted(gw))}) equal bit for bit")
+                if name == "D sparse":
+                    check("__base__" in members,
+                          "the delta bank's checkpoint has no __base__")
+                ma, mb = tr.run_round(), fresh.run_round()
+                sync(dev)
+                for k in ("params", "w", "mom"):
+                    a, b = getattr(tr.state, k), getattr(fresh.state, k)
+                    check(torch.equal(a, b),
+                          f"{name}: the round after restore differs in {k} "
+                          f"(max|diff| {max_err(a, b):.3e})")
+                print(f"  {name}: one round from each: loss "
+                      f"{float(ma['loss']):.6f} and {float(mb['loss']):.6f}; "
+                      "bank, w and momentum equal bit for bit")
+                del fresh, st
+                if name == "A":
+                    other = scenario_trainer(dev, cdata,
+                                             dict(cfgs[name], link=None),
+                                             local_steps=local_steps)
+                    try:
+                        other.restore(path)
+                    except ValueError as e:
+                        print(f"  A's file into A without its link scenario "
+                              f"raises: {str(e)[:100]}...")
+                    else:
+                        check(False, "a link carry restored into a link-free "
+                                     "composition")
+                    del other
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return read_counts()
+
+
+# -- phase 10: the paged store -------------------------------------------------
+
+# README "Scenario: virtual client population" and round_bench.paged_bench's
+# defaults; the model is the paper's MNIST 2NN (784-200-200-10).
+PAGED_N, PAGED_K_ACTIVE, PAGED_K_OUT = 4096, 256, 4
+MNIST_2NN_DIM = 199_210
+
+
+def mnist_population(dev, n: int = PAGED_N, n_train: int = 60_000,
+                     per_client: int = 32):
+    """Synthetic MNIST split by Dirichlet(0.3) over ``n`` clients."""
+    from repro_torch.data.dirichlet import dirichlet_partition, stack_client_data
+    from repro_torch.data.synthetic import make_dataset
+
+    t0 = time.perf_counter()
+    train, _ = make_dataset("mnist", n_train, 100, seed=0)
+    parts = dirichlet_partition(train["y"], n, alpha=0.3, seed=0)
+    cdata = stack_client_data(train, parts, pad_to=per_client)
+    print(f"  data: {n_train} synthetic MNIST images, Dirichlet(0.3) over {n} "
+          f"clients, {per_client} rows each "
+          f"({time.perf_counter() - t0:.1f} s to make)")
+    return {k: torch.as_tensor(v, device=dev) for k, v in cdata.items()}
+
+
+def paged_kernel_times(dev, k_active: int, c_max: int, d: int, slots: int,
+                       iters: int = 10) -> None:
+    """The update at (k_active, D) and the gather at (c_max, D) with
+    ``slots`` slots, the paged round's shapes: against their plain versions
+    (bit for bit) and timed beside their byte bounds."""
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import gossip_gather as gg
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    X, V, G = (torch.randn(k_active, d, generator=gen, device=dev)
+               for _ in range(3))
+    w = torch.rand(k_active, generator=gen, device=dev) + 0.5
+    e = max(max_err(a, b) for a, b in zip(
+        fu.fused_update_bank(X, V, G, 0.9, 0.1, w),
+        fu.fused_update_bank_plain(X, V, G, 0.9, 0.1, w)))
+    check(e == 0.0, f"fused_update_bank disagrees at ({k_active}, {d})")
+    b, by = bound_ms(24.0 * k_active * d + 4 * k_active, 5.0 * k_active * d)
+    ms = timed_ms(lambda: fu.fused_update_bank(X, V, G, 0.9, 0.1, w), dev,
+                  iters)
+    plain = timed_ms(lambda: fu.fused_update_bank_plain(X, V, G, 0.9, 0.1, w),
+                     dev, iters)
+    print(f"  fused_update_bank f32 n={k_active} D={d}: max|err| {e:.1e} "
+          f"(bitwise); {ms:.4f} ms, bound {b:.4f} ms ({by}), "
+          f"{100 * b / ms:.1f}% of it; plain {plain:.4f} ms")
+    del X, V, G
+    X = torch.randn(c_max, d, generator=gen, device=dev)
+    idx = torch.randint(0, c_max, (c_max, slots), generator=gen, device=dev,
+                        dtype=torch.int32)
+    wgt = torch.rand(c_max, slots, generator=gen, device=dev)
+    e = max_err(gg.gossip_gather(idx, wgt, X),
+                gg.gossip_gather_plain(idx, wgt, X))
+    check(e == 0.0, f"gossip_gather disagrees at ({c_max}, {d}, {slots})")
+    b, by = bound_ms(8.0 * c_max * d + 8.0 * c_max * slots,
+                     2.0 * c_max * slots * d)
+    ms = timed_ms(lambda: gg.gossip_gather(idx, wgt, X), dev, iters)
+    plain = timed_ms(lambda: gg.gossip_gather_plain(idx, wgt, X), dev, iters)
+    lib = timed_ms(lambda: torch.einsum("nk,nkd->nd", wgt, X[idx.long()]),
+                   dev, max(iters // 5, 1))
+    print(f"  gossip_gather f32 n={c_max} D={d} k_max={slots} "
+          f"({gather_path(dev, c_max, slots, torch.float32)}): max|err| "
+          f"{e:.1e} (bitwise); {ms:.4f} ms, bound {b:.4f} ms ({by}), "
+          f"{100 * b / ms:.1f}% of it; plain {plain:.4f} ms; einsum over "
+          f"X[idx] {lib:.4f} ms")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
+                k_out: int = PAGED_K_OUT, rounds: int = 3,
+                local_steps: int = 5, per_client: int = 32,
+                dim: int = MNIST_2NN_DIM) -> dict:
+    """``FLTrainer(paged=True)`` at the README's setting: n clients on disk,
+    k_active a round, kout k_out, mnist_2nn (DFedSGPSM, 5 local steps) —
+    one cold round and ``rounds`` timed rounds, each with its launches (5
+    updates at (k_active, D) and 1 gather at (c_max, D), k_out + 1 slots),
+    its closure mass error, wall time and pager counters; store-wide mass;
+    then ``save()``, a reopen holding the same rows, and 2 rounds of a
+    fresh store under churn and an injected transient EIO on every file's
+    first read and a corrupted clean chunk, which must be retried, and
+    rebuilt from the template, with the mass exact."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import ChurnModel, FLTrainer, TopologyConfig, make_algo
+    from repro_torch.models.small import mnist_2nn
+    from repro_torch.store import FaultInjector, PagedRunner
+
+    cdata = mnist_population(dev, n, per_client=per_client)
+    model = mnist_2nn()
+    # lr 0.01: a client that sent mass as a cold in-neighbor comes back
+    # active with a small push-sum weight w and steps lr / w in de-biased
+    # terms; at the default 0.1 the loss grew past 1e4 by the third round
+    # on an H100.  The port's paged round equals the reference's on the
+    # same draws (tests/test_torch_paged.py): the growth is the
+    # algorithm's at this setting, not the port's.
+    algo = make_algo("dfedsgpsm", local_steps=local_steps, batch_size=32,
+                     lr=0.01)
+    topo = TopologyConfig(kind="kout", n_clients=n, k_out=k_out)
+    c_max = k_active * (k_out + 1)
+    paged_kernel_times(dev, k_active, c_max, dim, k_out + 1)
+    work = tempfile.mkdtemp(prefix="paged_")
+    zero_counts()  # phase 10's counts start here
+
+    def trainer(store, **kw):
+        return FLTrainer(model.loss, model.init, cdata, algo, topo, seed=0,
+                         paged=True, store_dir=os.path.join(work, store),
+                         k_active=k_active, device=dev, **kw)
+
+    def run(tr, r, what):
+        before, stats0 = read_counts(), tr.runner.stats.as_dict()
+        sync(dev)
+        t = time.perf_counter()
+        with kernel_shapes() as shapes:
+            rec = tr.run_round()
+            sync(dev)
+        wall = time.perf_counter() - t
+        check(set(shapes["fused_update_bank"]) == {((k_active, dim),) * 3
+                                                   + ((k_active,),)}
+              and shapes["gossip_gather"] == [((c_max, k_out + 1),) * 2
+                                              + ((c_max, dim),)],
+              f"{what} round {r}: kernel shapes {shapes}")
+        used = {k: v - before[k] for k, v in read_counts().items()}
+        st = tr.runner.stats.as_dict()
+        faulted = st["rows_faulted"] - stats0["rows_faulted"]
+        if r == 0:
+            print(f"  {what}: each round's updates take (X, V, G, w) of "
+                  f"shapes {shapes['fused_update_bank'][0]}, its gather "
+                  f"(idx, wgt, X) {shapes['gossip_gather'][0]}")
+        print(f"  {what} round {r}: loss {rec['loss']:.4f} acc {rec['acc']:.4f}"
+              f" closure rows {int(rec['rows_resident'])} closure mass error "
+              f"{rec['w_mass_closure_err']:.3e} wall {wall:.3f} s; rows "
+              f"faulted {faulted}, carried "
+              f"{st['rows_carried'] - stats0['rows_carried']}, prefetched "
+              f"{st['rows_prefetched'] - stats0['rows_prefetched']}, cache "
+              f"{st['rows_cache_hit'] - stats0['rows_cache_hit']}; launches "
+              f"{ {k: v for k, v in used.items() if v} }")
+        check(math.isfinite(rec["loss"]), f"{what} round {r}: loss")
+        check(rec["w_mass_closure_err"] <= 1e-3,
+              f"{what} round {r}: closure mass error")
+        check(used["fused_update_bank"] == local_steps
+              and used["gossip_gather"] == 1 and used["gossip_matmul"] == 0,
+              f"{what} round {r}: launches {used}")
+        return wall
+
+    try:
+        tr = trainer("store")
+        r = tr.runner
+        check(tr.spec.dim == dim, f"mnist_2nn D = {tr.spec.dim}")
+        check(r.resident_rows == c_max and r.staging_rows == 2 * c_max,
+              f"resident {r.resident_rows}, staging {r.staging_rows}")
+        row_b = r.store.row_nbytes
+        print(f"  n={n} k_active={k_active} kout k_out={k_out}: c_max "
+              f"{c_max} resident rows, {2 * c_max} staging rows; a row is "
+              f"{row_b / 1e6:.3f} MB, so {c_max * row_b / 1e9:.3f} GB "
+              f"resident of a {n * row_b / 1e9:.3f} GB population")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        run(tr, 0, "cold")
+        walls = [run(tr, i + 1, "timed") for i in range(rounds)]
+        mass = r.total_mass()
+        stats = r.stats.as_dict()
+        print(f"  round wall {statistics.median(walls):.3f} s (median of "
+              f"{rounds}: {', '.join(f'{x:.3f}' for x in walls)}); store-wide "
+              f"mass {mass:.6f} (n = {n}); pager: "
+              f"{stats['rows_faulted_per_round']:.1f} rows faulted a round, "
+              f"hit rate {stats['prefetch_hit_rate']:.3f}, prefetch overlap "
+              f"{stats['prefetch_overlap_s']:.3f} s, wait "
+              f"{stats['prefetch_wait_s']:.3f} s, {stats['chunks_written']} "
+              f"chunks written; store on disk {dir_bytes(r.store.path) / 1e9:.3f} "
+              "GB")
+        if dev.type == "cuda":
+            print(f"  peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check(abs(mass - n) <= 1e-3, f"store-wide mass {mass}")
+        t = time.perf_counter()
+        path = tr.save()
+        save_s = time.perf_counter() - t
+        reopened = PagedRunner(tr.program, path, k_active=k_active, seed=999)
+        check(reopened.round_index == r.round_index, "reopened round")
+        check(torch.equal(reopened._key.get_state(), r._key.get_state()),
+              "reopened round generator")
+        t = time.perf_counter()
+        verified = reopened.store.verify_chunks()
+        last = np.asarray(sorted(r._carry))
+        got = reopened.store.read_rows(last)
+        for k in got:
+            want = np.stack([r._carry[int(g)][k] for g in last])
+            check(np.array_equal(got[k], want),
+                  f"reopened rows of the last round differ in {k}")
+        print(f"  save (flush + manifest commit) {save_s:.3f} s; committed "
+              f"store {dir_bytes(path) / 1e9:.3f} GB; reopened at round "
+              f"{reopened.round_index}: {verified['verified']} files "
+              f"verified against their committed checksums, the last "
+              f"round's {len(last)} rows equal bit for bit "
+              f"({time.perf_counter() - t:.1f} s)")
+        reopened.close()
+        r.close()
+        del tr, r, reopened
+        shutil.rmtree(os.path.join(work, "store"))
+
+        fi = FaultInjector(seed=0, eio_prob=1.0, eio_max_per_path=1)
+        chaos = trainer("chaos", faults=fi,
+                        churn=ChurnModel(fail_prob=0.05, recover_prob=0.5,
+                                         resurrect="cold"))
+        store = chaos.runner.store
+        # A clean chunk: the last one written with its template rows and
+        # recorded as never holding trained data, then one byte flipped.
+        start = (n - 1) // store.rows_per_chunk * store.rows_per_chunk
+        ids = np.arange(start, n)
+        store.write_rows(ids, store.read_rows(ids))
+        store._chunks[start]["dirty"].clear()
+        store.update_meta()
+        fname = store._chunks[start]["file"]
+        with open(os.path.join(store.path, fname), "r+b") as f:
+            f.seek(4096)
+            byte = f.read(1)
+            f.seek(4096)
+            f.write(bytes([byte[0] ^ 0x10]))
+        for i in range(2):
+            run(chaos, i, "churn + faults")
+        mass = chaos.runner.total_mass()
+        st = chaos.runner.stats.as_dict()
+        print(f"  churn + faults: {fi.faults_injected} faults injected, "
+              f"{store.io_retries} reads retried ({store.backoff_seconds:.3f} "
+              f"s of backoff), {store.corrupt_chunks} corrupt chunk "
+              f"quarantined, {store.rebuilt_rows} rows rebuilt from the "
+              f"template; store-wide mass {mass:.6f}; rows faulted "
+              f"{st['rows_faulted']}")
+        check(store.io_retries >= 1, "no transient read fault was retried")
+        check(store.corrupt_chunks == 1
+              and store.rebuilt_rows == n - start,
+              f"the corrupted clean chunk was not rebuilt "
+              f"({store.corrupt_chunks}, {store.rebuilt_rows})")
+        check(os.path.exists(os.path.join(store.path, "quarantine", fname)),
+              "the corrupted chunk was not quarantined")
+        check(abs(mass - n) <= 1e-3, f"churn + faults: mass {mass}")
+        chaos.runner.close()
+        del chaos
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return read_counts()
+
+
+# -- phase 11: personalized serving --------------------------------------------
+
+PERSONAL_ARGV = ["--arch", "glm4-9b", "--no-smoke", "--clients", "2",
+                 "--rank", "8", "--zero-clients", "1", "--prompt-len", "2048",
+                 "--new-tokens", "16", "--seed", "0"]
+
+
+def personalized(dev, argv=PERSONAL_ARGV) -> dict:
+    """Personalized serving through ``serve.main --clients``: glm4-9b at
+    full width in bf16, a rank-8 delta bank of 2 clients over the drawn
+    base (lane 0 a zero row with w = 1, lane 1 a random row), one lane per
+    client, prompts of 2048 tokens and 16 new tokens.  Lane 0 must match
+    the dense ``serve.generate`` of the base on its prompt, and lane 1 the
+    ``forward`` of its own expanded weights on its extended prompt, both
+    within phase 7's decode tolerance (2^-4 of max|logit|); lane 0's
+    logits held against lane 1's forward must miss it."""
+    from repro_torch.core.flat import tree_map
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(argv)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # the personalized serving path's counts start here
+    t = time.perf_counter()
+    with kernel_shapes() as shapes:
+        rec = serve.main(argv + ["--device", dev.type])
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    api, stacked, batch, spec = (rec["api"], rec["params"], rec["batch"],
+                                 rec["spec"])
+    cfg, steps, n = api.cfg, rec["steps"], args.clients
+    print(f"  {cfg.name}: {api.num_params() / 1e9:.2f} B parameters, d_delta "
+          f"{spec.dim} ({spec.dtype}); serve.main {wall:.1f} s (parameter "
+          f"init included); expand {rec['expand_s']:.4f} s; prefill "
+          f"{rec['prefill_s']:.4f} s; decode "
+          f"{1e3 * rec['decode_s'] / steps:.2f} ms/step, "
+          f"{n * steps / rec['decode_s']:.1f} tokens/s; launches {launches}")
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB)")
+    check(rec["finite"], "a prefill or decode logit is not finite")
+    check(tuple(rec["tokens"].shape) == (n, args.new_tokens),
+          f"tokens {tuple(rec['tokens'].shape)}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash launches per prefill {launches['flash_attention']}, "
+          f"expected {cfg.n_layers}")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"the FL kernels ran on the serving path: {launches}")
+    hd, s_len = cfg.resolved_head_dim, args.prompt_len
+    want_q = (n, cfg.n_heads, s_len, hd)
+    want_kv = (n, cfg.n_kv_heads, s_len, hd)
+    check(set(shapes["flash_attention"]) == {(want_q, want_kv, want_kv)},
+          f"flash shapes {set(shapes['flash_attention'])}")
+    print(f"  flash (q, k, v) shapes on every prefill layer: {want_q}, "
+          f"{want_kv}, {want_kv}")
+
+    dense = serve.generate(api, spec.base, {"tokens": batch["tokens"][:1]},
+                           args.new_tokens)
+    got, want = rec["logits"][0], dense["logits"][0]
+    scale = float(want.float().abs().max())
+    tol = (1e-4 if cfg.dtype == torch.float32 else 2.0 ** -4) * scale
+    err = max_err(got, want)
+    print(f"  lane 0 (zero row, w = 1) against the dense serve of the base: "
+          f"max|err| {err:.4e} (tolerance {tol:.4e}); tokens "
+          f"{'equal' if torch.equal(rec['tokens'][0], dense['tokens'][0]) else 'differ'}")
+    check(err <= tol, "lane 0 disagrees with the dense serve of the base")
+    del dense
+    lane1 = tree_map(lambda x: x[1], stacked)
+    one = {"logits": rec["logits"][1:2], "tokens": rec["tokens"][1:2]}
+    tol1 = decode_check(api, lane1, {"tokens": batch["tokens"][1:2]}, one,
+                        mutant=False)
+    wrong = {"logits": rec["logits"][0:1], "tokens": rec["tokens"][1:2]}
+    with torch.no_grad():
+        s = batch["tokens"].shape[1]
+        new = rec["tokens"][1:2, :-1].to(batch["tokens"].device,
+                                          batch["tokens"].dtype)
+        fwd = api.forward(lane1, {"tokens": torch.cat(
+            [batch["tokens"][1:2], new], 1)})[0][:, s - 1:]
+    err_mix = max_err(wrong["logits"], fwd)
+    print(f"  lane 0's logits against lane 1's forward: {err_mix:.4e} (must "
+          f"exceed {tol1:.4e})")
+    check(err_mix > tol1, "the lane check does not tell the lanes apart")
+    return launches
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -1558,13 +2101,24 @@ REPLACES = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="3-11",
+                    help="phases to run beyond 1 and 2, e.g. 9-11 or 3,9 "
+                         "(the kernels line needs all of them)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available",
               file=sys.stderr)
         return 2
     from repro_torch.kernels import build
 
+    want = set()
+    for part in args.phases.split(","):
+        lo, _, hi = part.partition("-")
+        want.update(range(int(lo), int(hi or lo) + 1))
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1582,45 +2136,69 @@ def main() -> int:
     flash_build_evidence()
     print("[2] the gossip mixes' kernels:")
     mix_build_evidence()
-    head(f"[3] kernels at n={N_CLIENTS} D={CIFAR_CNN_DIM}")
-    rows = kernel_phase(dev, N_CLIENTS, CIFAR_CNN_DIM)
-    head(f"[3] kernels at the delta bank's n={N_CLIENTS} d_delta={DELTA_DIM}, "
-         "bf16")
-    delta_kernel_phase(dev)
-    head("[4] card round against CPU round, same draws")
-    small_parity(dev)
-    scenario_parity(dev)
-    head("[5] main path: DFedSGPSM, cifar_cnn, 100 clients, kout k_out=10")
-    # Made once on the host for phases 5 and 8; each copies it to the card,
-    # so phase 7's peak memory holds none of it.
-    data = cifar_data(torch.device("cpu"))
+    rows, paths = {}, {}
+    if 3 in want:
+        head(f"[3] kernels at n={N_CLIENTS} D={CIFAR_CNN_DIM}")
+        rows = kernel_phase(dev, N_CLIENTS, CIFAR_CNN_DIM)
+        head(f"[3] kernels at the delta bank's n={N_CLIENTS} "
+             f"d_delta={DELTA_DIM}, bf16")
+        delta_kernel_phase(dev)
+    if 4 in want:
+        head("[4] card round against CPU round, same draws")
+        small_parity(dev)
+        scenario_parity(dev)
+    # Made once on the host for phases 5, 8 and 9; each copies it to the
+    # card, so phase 7's peak memory holds none of it.
+    data = (cifar_data(torch.device("cpu")) if want & {5, 8, 9} else None)
 
     def on_card():
         return tuple({k: v.to(dev) for k, v in part.items()} for part in data)
 
-    fl = main_path(dev, data=on_card())
-    head("[6] crossover: dense against sparse mix")
-    crossover(dev, CIFAR_CNN_DIM)
-    head("[7] serving: reduced gemma3-12b, card against CPU, f32")
-    serving_parity(dev)
-    head("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
-    served = serving(dev)
+    if 5 in want:
+        head("[5] main path: DFedSGPSM, cifar_cnn, 100 clients, kout k_out=10")
+        paths["FL path"] = main_path(dev, data=on_card())
+    if 6 in want:
+        head("[6] crossover: dense against sparse mix")
+        crossover(dev, CIFAR_CNN_DIM)
+    if 7 in want:
+        head("[7] serving: reduced gemma3-12b, card against CPU, f32")
+        serving_parity(dev)
+        head("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
+        paths["serving path"] = serving(dev)
+        torch.cuda.empty_cache()
+    kept = None
+    if 8 in want:
+        head("[8] scenario path: cifar_cnn, 100 clients, kout k_out=10, "
+             "links, churn, compressors, proximal solver, delta bank")
+        paths["scenario path"], kept = scenario_path(dev, on_card())
+    if 9 in want:
+        head("[9] checkpoints at full width: scenario A and the bf16 delta "
+             "bank")
+        paths["checkpoint phase"] = checkpoint_phase(dev, on_card(), kept)
+    del kept
     torch.cuda.empty_cache()
-    head("[8] scenario path: cifar_cnn, 100 clients, kout k_out=10, links, "
-         "churn, compressors, proximal solver, delta bank")
-    scen = scenario_path(dev, on_card())
+    if 10 in want:
+        head(f"[10] paged store: mnist_2nn, n={PAGED_N}, "
+             f"k_active={PAGED_K_ACTIVE}, kout k_out={PAGED_K_OUT}")
+        paths["paged path"] = paged_phase(dev)
+        torch.cuda.empty_cache()
+    if 11 in want:
+        head("[11] personalized serving: glm4-9b at full width, bf16, "
+             "2 clients x 2048 tokens")
+        paths["personalized serving path"] = personalized(dev)
     # Each path's counts run from 0 just before it to just after it.
-    launches = {k: fl[k] + served[k] + scen[k] for k in fl}
-    print(f"launches: FL path {fl}; serving path {served}; scenario path "
-          f"{scen}")
-    kernels = []
-    for name, (source, replaces) in REPLACES.items():
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        **rows[name]})
+    names = counters()
+    launches = {k: sum(p[k] for p in paths.values()) for k in names}
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    if set(range(3, 12)) <= want:
+        kernels = []
+        for name, (source, replaces) in REPLACES.items():
+            kernels.append({"name": name, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": launches[name],
+                            **rows[name]})
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,5 @@
+"""The communication-plan layer — the port of ``repro.comm``: one
+description of "which remote rows does each consumer read"."""
+from repro_torch.comm.plan import CommPlan, ShiftLeg, resolve_backend
+
+__all__ = ["CommPlan", "ShiftLeg", "resolve_backend"]

@@ -21,6 +21,7 @@ from repro_torch.core.program import (
     FLState,
     RoundProgram,
     _as_device,
+    _is_empty,
     make_program,
 )
 from repro_torch.core.sam import apply_update, momentum_update, sam_gradient
@@ -116,8 +117,18 @@ class FLTrainer:
         ``"full"``).
       bank_dtype: storage dtype of the bank rows (e.g. ``torch.bfloat16``);
         momentum and the EF residual stay float32.
-      mesh, paged, faults: not ported yet (ROADMAP queue 1 items 11 and
-        12); they raise.
+      paged: virtual client population — the ``(n, D)`` bank lives in a
+        disk-backed :class:`repro_torch.store.ClientStore` under
+        ``store_dir`` and each round pages in only its fault-in closure
+        (the ``k_active`` sampled clients plus their in-neighbors), with
+        background prefetch and async write-back; the compact round runs
+        on ``device``.  Buffers scale with the closure, not n; the
+        checkpoint is the store itself.  Directed push-sum, perfect links
+        only.  ``rows_per_chunk``, ``prefetch``, ``lru_rows`` and
+        ``faults`` (a :class:`repro_torch.store.FaultInjector`) configure
+        the store and its pager.
+      mesh: the row-sharded bank is not ported yet (ROADMAP queue 1 item
+        12); it raises.
       device: where the bank lives and the kernels run; ``"cuda"`` by
         default, ``"cpu"`` only when asked (the kernels' plain versions).
     """
@@ -137,6 +148,11 @@ class FLTrainer:
         churn: topology.ChurnModel | None = None,
         mesh=None,
         paged: bool = False,
+        store_dir: str | None = None,
+        k_active: int = 0,
+        rows_per_chunk: int = 256,
+        prefetch: bool = True,
+        lru_rows: int | None = None,
         faults=None,
         delta=None,
         bank_dtype=None,
@@ -147,10 +163,19 @@ class FLTrainer:
                 "mesh= (the row-sharded bank) is not ported to repro_torch "
                 "yet: ROADMAP queue 1 item 12"
             )
-        if paged or faults is not None:
+        if paged:
+            if not flat:
+                raise ValueError("paged training runs on the flat bank")
+            if link is not None and link.active:
+                raise ValueError("paged training models perfect links only")
+            if not store_dir:
+                raise ValueError("paged=True needs store_dir")
+            if k_active < 1:
+                raise ValueError("paged=True needs k_active >= 1")
+        elif faults is not None:
             raise ValueError(
-                "paged= / faults= (the disk-backed client store) are not "
-                "ported to repro_torch yet: ROADMAP queue 1 item 11"
+                "faults= injects into the disk-backed store; it needs "
+                "paged=True"
             )
         if not flat and (delta is not None or bank_dtype is not None):
             raise ValueError(
@@ -182,14 +207,29 @@ class FLTrainer:
         self.flat = flat
         self.n = topo.n_clients
         self.device = torch.device(device)
+        # Paged mode drives churn host-side in the runner (dead clients
+        # leave the sampling pool; the program itself stays churn-free).
         self.program = make_program(
             loss_fn, init_fn, client_data, algo, topo, participation,
-            gossip=gossip, link=link, churn=churn, delta=delta,
-            bank_dtype=bank_dtype, device=self.device,
+            gossip=gossip, link=link, churn=None if paged else churn,
+            delta=delta, bank_dtype=bank_dtype, device=self.device,
         )
         self.spec = self.program.spec
+        self.paged = paged
+        self.runner = None
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        if flat:
+        if paged:
+            # The bank never materializes: the store holds the population,
+            # the runner pages closures through program.step_active.
+            from repro_torch.store import PagedRunner
+
+            self.runner = PagedRunner(
+                self.program, store_dir, k_active, seed=seed,
+                rows_per_chunk=rows_per_chunk, prefetch=prefetch,
+                lru_rows=lru_rows, churn=churn, faults=faults,
+            )
+            self.state = None
+        elif flat:
             self.state = self.program.init(gen)
         else:
             # The same generator in the same order as the flat path: the
@@ -290,7 +330,10 @@ class FLTrainer:
 
     def run_round(self, draws: dict | None = None):
         """One round; ``draws`` as in :meth:`RoundProgram.step` (the oracle
-        reads ``P``, ``batch_idx`` and ``sel``)."""
+        reads ``P``, ``batch_idx`` and ``sel``; a paged trainer those of
+        :meth:`repro_torch.store.PagedRunner.run_round`)."""
+        if self.paged:
+            return self.runner.run_round(draws)
         if self.flat:
             self.state, metrics = self.program.step(self.state, draws)
         else:
@@ -299,6 +342,10 @@ class FLTrainer:
 
     def average_model(self):
         """Consensus model x̄ (Algorithm 1 output)."""
+        if self.paged:
+            # Streamed over store chunks; (n, D) never materializes.
+            return self.spec.unravel(torch.from_numpy(
+                self.runner.mean_params()).to(self.device))
         if self.algo.comm == "central":
             return (self.spec.unravel(self.state.params) if self.flat
                     else self.state.params)
@@ -308,6 +355,12 @@ class FLTrainer:
 
     def debiased_models(self):
         """Client-stacked de-biased models z_i = x_i / w_i."""
+        if self.paged:
+            raise ValueError(
+                "debiased_models materializes the full (n, D) bank — the "
+                "point of paged mode is that it never exists; stream rows "
+                "via trainer.runner.store.iter_chunks() instead"
+            )
         if self.flat and self.algo.comm != "central":
             if isinstance(self.spec, BoundDeltaSpec):
                 # z_i = base + expand(row_i) / w_i: the base is not divided.
@@ -319,6 +372,8 @@ class FLTrainer:
 
     def consensus_error(self):
         """Mean squared distance of de-biased params from the average."""
+        if self.paged:
+            return self.runner.consensus_error()
         if self.flat and self.algo.comm != "central":
             return pushsum.consensus_error_bank(self.state.params, self.state.w)
         return pushsum.consensus_error(self.state.params, self.state.w)
@@ -327,7 +382,7 @@ class FLTrainer:
         """``(test_loss, test_acc)`` of the consensus model.  The flat path
         runs the program's eval (as :meth:`fit` does); the oracle pads every
         chunk to ``batch`` rows and masks the pads out of the sums."""
-        if self.flat:
+        if self.flat and not self.paged:
             tl, ta = self.program.make_eval_fn(test_data, batch)(self.state)
             return float(tl), float(ta)
         params = self.average_model()
@@ -364,7 +419,9 @@ class FLTrainer:
         supersteps of ``superstep`` rounds (``0``: one superstep) with the
         eval at the global-round cadence ``eval_every``; the oracle keeps a
         per-round loop."""
-        if not self.flat:
+        if not self.flat or self.paged:
+            # Paged rounds are host-orchestrated by design (the plan /
+            # prefetch / write-back pipeline is the host loop).
             return self._fit_python_loop(rounds, test_data, eval_every, log)
         history = []
         done = 0
@@ -392,17 +449,130 @@ class FLTrainer:
         return history
 
     def _fit_python_loop(self, rounds, test_data, eval_every, log):
-        """Per-round host loop of the ``flat=False`` oracle."""
+        """Per-round host loop of the ``flat=False`` oracle and the paged
+        runner; paged trainers also stream a full-population eval
+        (``PagedRunner.eval_population``) at the same cadence."""
         history = []
         for r in range(rounds):
             metrics = self.run_round()
             rec = {"round": r, **{k: float(v) for k, v in metrics.items()}}
-            if eval_every and (r + 1) % eval_every == 0 and (
-                    test_data is not None):
-                tl, ta = self.evaluate(test_data)
-                rec.update(test_loss=tl, test_acc=ta)
+            if eval_every and (r + 1) % eval_every == 0:
+                if test_data is not None:
+                    tl, ta = self.evaluate(test_data)
+                    rec.update(test_loss=tl, test_acc=ta)
+                if self.paged:
+                    rec.update(self.runner.eval_population(
+                        closure_loss=metrics.get("loss")))
             history.append(rec)
             if log:
                 log(rec)
         return history
+
+    # -- checkpointing (full FLState) -------------------------------------------
+
+    def save(self, directory: str | None = None, step: int = 0,
+             keep: int = 3) -> str:
+        """Checkpoint the full ``FLState`` (params and momentum banks,
+        push-sum weights, round, random streams, compressor state and the
+        link and churn carries) with
+        :func:`repro_torch.checkpoint.save_state`.  Paged trainers ignore
+        ``directory`` / ``step`` / ``keep``: the checkpoint is the store —
+        ``save`` flushes dirty rows and commits ``(round, key)`` into its
+        manifest, returning the store path."""
+        from repro_torch import checkpoint
+
+        if self.paged:
+            return self.runner.save()
+        if not self.flat:
+            raise ValueError("full-state checkpointing needs the flat path")
+        if directory is None:
+            raise ValueError("save() needs a checkpoint directory")
+        return checkpoint.save_state(directory, step, self.state, self.spec,
+                                     keep=keep)
+
+    def restore(self, path: str, *, key=None, link_key=None,
+                churn_key=None) -> FLState:
+        """Warm-restart from a full-``FLState`` checkpoint, written by
+        either package (paged trainers re-sync to their store's last
+        committed manifest).  ``key`` / ``link_key`` / ``churn_key`` supply
+        the random streams a file cannot (a reference checkpoint holds
+        JAX keys); every mismatch of composition the reference refuses
+        raises here too."""
+        from repro_torch import checkpoint
+
+        if self.paged:
+            self.runner.restore(path)
+            return None
+        if not self.flat:
+            raise ValueError("full-state checkpointing needs the flat path")
+        # A stream this composition has no use for is not asked of the
+        # file: the composition guards below refuse such a file instead.
+        if link_key is None and not self.program.linked:
+            link_key = torch.Generator(device=self.device)
+        if churn_key is None and not self.program.churned:
+            churn_key = torch.Generator(device=self.device)
+        state = checkpoint.restore_state(path, self.spec, self.device,
+                                         key=key, link_key=link_key,
+                                         churn_key=churn_key)
+        needs = self.program.compressor.stateful
+        has = not _is_empty(state.comp)
+        if needs and not has:
+            raise ValueError(
+                f"{path} carries no compressor state, but "
+                f"compressor={self.algo.compressor!r} needs its residual "
+                "bank — it was saved from a stateless composition"
+            )
+        if has and not needs:
+            raise ValueError(
+                f"{path} carries compressor state, but this trainer's "
+                f"compressor={self.algo.compressor!r} is stateless"
+            )
+        has_link = not _is_empty(state.link)
+        if self.program.linked != has_link:
+            raise ValueError(
+                f"{path} {'carries' if has_link else 'carries no'} "
+                "unreliable-link state, but this trainer's link scenario "
+                f"{'does not use' if has_link else 'needs'} it — restore "
+                "with the composition that saved it"
+            )
+        if has_link:
+            # Presence is not enough: compare the buffer structure against
+            # what this mixer carries.
+            want = self.program.mixer.link_buffers(state.params)
+            for field in ("bufx", "bufw", "last"):
+                have = getattr(state.link, field)
+                exp = want.get(field)
+                have_arr = not _is_empty(have)
+                if have_arr != (exp is not None) or (
+                    have_arr and tuple(have.shape) != tuple(exp.shape)
+                ):
+                    raise ValueError(
+                        f"{path} link carry field {field!r} is "
+                        f"{tuple(have.shape) if have_arr else 'absent'}, "
+                        "but this trainer's link composition expects "
+                        f"{tuple(exp.shape) if exp is not None else 'none'}"
+                        " — restore with the composition that saved it"
+                    )
+        has_churn = not _is_empty(state.churn)
+        if self.program.churned != has_churn:
+            raise ValueError(
+                f"{path} {'carries' if has_churn else 'carries no'} "
+                "node-churn state, but this trainer's churn scenario "
+                f"{'does not use' if has_churn else 'needs'} it — restore "
+                "with the composition that saved it"
+            )
+        if has_churn:
+            cold = self.program.churn_model.resurrect == "cold"
+            has_tpl = not _is_empty(state.churn.tpl)
+            if cold != has_tpl:
+                raise ValueError(
+                    f"{path} churn carry "
+                    f"{'holds' if has_tpl else 'holds no'} cold-"
+                    "resurrection template row, but this trainer's "
+                    f"ChurnModel.resurrect="
+                    f"{self.program.churn_model.resurrect!r} — restore "
+                    "with the composition that saved it"
+                )
+        self.state = state
+        return self.state
 

@@ -406,10 +406,32 @@ class BoundDeltaSpec:
     def init_row(self, gen: torch.Generator) -> torch.Tensor:
         return self.delta.init_row(gen)
 
+    def base_row(self) -> torch.Tensor:
+        """The base ravelled under the *full* model spec (checkpoint v3's
+        ``__base__``)."""
+        return self.delta.full.ravel(self.base)
+
     def unravel_stacked(self, bank: torch.Tensor) -> dict:
         return tree_map(lambda *xs: torch.stack(xs),
                         *[self.unravel(row) for row in bank])
 
     def debias_stacked(self, bank: torch.Tensor, w: torch.Tensor) -> dict:
-        return tree_map(lambda *xs: torch.stack(xs),
-                        *[self.debias(row, wi) for row, wi in zip(bank, w)])
+        """Row-stacked :meth:`debias`, built leaf by leaf into the stacked
+        outputs (the peak holds one expanded leaf beside them, not one
+        model per row)."""
+        _, base_leaves = tree_flatten(self.base)
+        d = self.delta
+        out = []
+        for i, bl in enumerate(base_leaves):
+            dt = d.full.dtypes[i]
+            leaf = torch.empty((bank.shape[0],) + tuple(bl.shape), dtype=dt,
+                               device=bl.device)
+            for b in range(bank.shape[0]):
+                delta = d._delta_leaf(bank[b], i)
+                if delta is None:
+                    leaf[b] = bl.to(dt)
+                else:
+                    leaf[b] = (bl + (delta / w[b]).to(bl.dtype)).to(dt)
+                del delta
+            out.append(leaf)
+        return tree_unflatten(d.full.paths, out)

@@ -41,7 +41,38 @@ from repro_torch.core.stages import (
 )
 from repro_torch.kernels import ops as kops
 
-__all__ = ["FLState", "RoundProgram", "make_program"]
+__all__ = ["FLState", "ActiveSlots", "RoundProgram", "make_program",
+           "plan_keys"]
+
+
+def plan_keys(gen: torch.Generator):
+    """The paged round's random chain: one split of the round's generator
+    into ``(key_next, akey, tkey, ckey_base)`` — next round's generator,
+    the active-set permutation's, the topology picks' and the one the
+    active clients' minibatches are drawn from.  Four seeds are drawn from
+    a copy of ``gen`` (which is left as it was, as a JAX key is) and each
+    seeds a fresh generator on ``gen``'s device.  The host planner and the
+    fully-resident driver both derive from exactly this chain, which makes
+    paged == resident testable draw for draw."""
+    copy = torch.Generator(device=gen.device)
+    copy.set_state(gen.get_state())
+    seeds = torch.randint(0, 1 << 62, (4,), generator=copy,
+                          device=gen.device).tolist()
+    return tuple(torch.Generator(device=gen.device).manual_seed(int(s))
+                 for s in seeds)
+
+
+class ActiveSlots(NamedTuple):
+    """Device-side view of one paged round's fault-in closure.
+
+    ``ids[s]`` is the global client id resident in compact slot ``s``
+    (layout ``[active | cold | pads]``).  ``idx`` / ``wgt`` are the
+    compact-slot NeighborList of the closure-restricted mixing operator
+    built by :func:`repro_torch.store.paging.build_plan`."""
+
+    ids: torch.Tensor  # (c_max,) int32 global ids per resident slot
+    idx: torch.Tensor  # (c_max, 1 + k_in) int32 compact in-neighbor slots
+    wgt: torch.Tensor  # (c_max, 1 + k_in) float32 mixing weights
 
 
 class FLState(NamedTuple):
@@ -315,6 +346,58 @@ class RoundProgram:
                             state.key, state.round + 1, new_losses, state.comp,
                             state.link)
         return new_state, {"loss": losses.mean(), "acc": accs.mean()}
+
+    # -- one paged round on the compact resident bank ---------------------------
+
+    def step_active(self, state: FLState, slots: ActiveSlots, data_active,
+                    *, k_active: int, draws: dict | None = None):
+        """One communication round over a **compact** ``(c_max, D)`` bank —
+        the paged twin of :meth:`step`.
+
+        ``state`` is the resident state: every bank leaf holds only the
+        round's fault-in closure (layout ``[active | cold | pads]``, see
+        :mod:`repro_torch.store.paging`), ``state.key`` is the round's
+        ``ckey_base`` from :func:`plan_keys`, and ``state.link`` is ``()``.
+        Only the first ``k_active`` rows train (their minibatch indices
+        ``draws["batch_idx"]``, ``(K, k_active, B)``, else drawn from
+        ``state.key``); the mix runs :func:`comm_phase` over the
+        slot-remapped NeighborList in ``slots``.  The active rows of
+        ``state.params``, ``state.mom`` and ``state.losses`` are updated in
+        place."""
+        draws = draws or {}
+        lr = self.round_lr(state.round)
+        idx = draws.get("batch_idx")
+        if idx is None:
+            m = data_active["x"].shape[1]
+            gen = state.key
+            idx = torch.randint(
+                0, m, (self.solver.local_steps, k_active,
+                       self.solver.batch_size),
+                generator=gen, device=gen.device)
+        idx = _as_device(idx, self.device).long()
+        Xa, Va, losses, accs = self.solver.update(
+            self.loss_fn, self.spec, state.params[:k_active],
+            state.w[:k_active], idx, data_active, lr,
+        )
+        X = state.params
+        X[:k_active] = Xa
+        mom = state.mom
+        if mom is not None:
+            mom[:k_active] = Va
+        P = topology.NeighborList(slots.idx, slots.wgt)
+        Xm, w_new, comp, _, extras = comm_phase(
+            self.compressor, self.mixer, P, X, state.w, state.comp, (),
+            t=state.round,
+        )
+        losses_res = state.losses
+        losses_res[:k_active] = losses
+        new_state = FLState(Xm, mom, w_new, state.key, state.round + 1,
+                            losses_res, comp, ())
+        # w_sum counts every resident slot; the runner reports the closure's
+        # own mass.
+        metrics = {"loss": losses.mean(), "acc": accs.mean(),
+                   "w_sum": w_new.sum(), **extras}
+        return new_state, metrics
 
     # -- whole runs ------------------------------------------------------------
 

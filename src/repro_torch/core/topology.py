@@ -76,6 +76,10 @@ __all__ = [
     "neighbor_k_max",
     "dense_from_neighbors",
     "is_column_stochastic",
+    "active_k_in",
+    "draw_active_scores",
+    "build_active_picks",
+    "sample_active_picks",
 ]
 
 
@@ -676,6 +680,72 @@ def sample_neighbors(gen: torch.Generator, cfg: TopologyConfig, t: int = 0,
             return sample_kout_selective_neighbors(gen, losses, n, k)
         return sample_kout_neighbors(gen, n, k)
     raise ValueError(f"unknown topology kind: {cfg.kind}")
+
+
+# ---------------------------------------------------------------------------
+# Active-set (partial participation) in-neighbor sampling: the paged round.
+# ---------------------------------------------------------------------------
+
+_ACTIVE_KINDS = ("ring", "exponential", "kout")
+
+
+def active_k_in(cfg: TopologyConfig) -> int:
+    """Static per-receiver in-degree of :func:`sample_active_picks`: a paged
+    round's fault-in closure is at most ``k_active * (active_k_in + 1)``
+    rows.  The value is :func:`family_k_in`; only the family restriction is
+    paging's own (``two_tier`` comes with ROADMAP queue 1 item 12)."""
+    if cfg.kind in _ACTIVE_KINDS:
+        return family_k_in(cfg)
+    raise ValueError(
+        f"topology kind {cfg.kind!r} has no active-set (paged) form: the "
+        "symmetric family needs consistent masks on both endpoints and "
+        "the full graph faults in everything"
+    )
+
+
+def draw_active_scores(gen: torch.Generator, m: int, n: int) -> torch.Tensor:
+    """The ``kout`` family's draw for ``m`` active receivers: ``(m, n)``
+    float32 scores, uniform in [0, 1)."""
+    return torch.rand((m, n), generator=gen, device=gen.device,
+                      dtype=torch.float32)
+
+
+def build_active_picks(active, cfg: TopologyConfig, t: int = 0,
+                       scores: torch.Tensor | None = None) -> torch.Tensor:
+    """In-neighbors of the round's active receivers, as **global** row ids,
+    ``(k_active, active_k_in(cfg))`` int32 — the exact build of
+    :func:`sample_active_picks` from its draw.  Ring and exponential are
+    deterministic hops (``t`` drives the time-varying hop ``2^(t mod
+    log2 n)``); ``kout`` takes the top ``k_out`` of each receiver's
+    ``scores`` row after subtracting 2 at its own column."""
+    n, k = cfg.n_clients, cfg.k_out
+    a = torch.as_tensor(active).long()
+    if cfg.kind == "ring":
+        return ((a - 1) % n)[:, None].to(torch.int32)
+    if cfg.kind == "exponential":
+        step = 2 ** (t % _hops(n)) if cfg.time_varying else 1
+        return ((a - step) % n)[:, None].to(torch.int32)
+    if cfg.kind == "kout":
+        if scores is None:
+            raise ValueError("the kout family's picks need its scores")
+        scores = torch.as_tensor(scores).float().clone()
+        a = a.to(scores.device)
+        rows = torch.arange(a.shape[0], device=scores.device)
+        scores[rows, a] = scores[rows, a] + (-2.0)
+        return torch.topk(scores, k, dim=1).indices.to(torch.int32)
+    raise ValueError(
+        f"topology kind {cfg.kind!r} has no active-set (paged) form"
+    )
+
+
+def sample_active_picks(gen: torch.Generator, active, cfg: TopologyConfig,
+                        t: int = 0, scores=None) -> torch.Tensor:
+    """:func:`build_active_picks` on a fresh draw from ``gen`` (``kout``
+    only; ``scores`` supplies the draw instead)."""
+    active_k_in(cfg)
+    if cfg.kind == "kout" and scores is None:
+        scores = draw_active_scores(gen, len(active), cfg.n_clients)
+    return build_active_picks(active, cfg, t=t, scores=scores)
 
 
 def is_column_stochastic(P, atol: float = 1e-5) -> bool:

@@ -11,6 +11,13 @@ Parameters are drawn on the device from a ``torch.Generator`` seeded with
 comes from the prefill logits, the other ``--new-tokens - 1`` from decode
 steps, and the cache holds ``--prompt-len + --new-tokens`` positions, as in
 the reference.
+
+With ``--clients N`` the batch becomes a *personalized* decode: a low-rank
+delta bank (frozen shared base = the drawn weights, rank ``--rank``
+adapters) holds one row per client, and request lane b serves client b's
+expanded model in the same pass over the layers.  The bank's rows are
+``0.02`` times standard normals drawn from ``--seed + 3``; the first
+``--zero-clients`` rows are zero, so those lanes serve the base model.
 """
 from __future__ import annotations
 
@@ -20,7 +27,10 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_config, make_batch
-from repro_torch.launch.steps import make_serve_step
+from repro_torch.launch.steps import (
+    make_personalized_serve_step,
+    make_serve_step,
+)
 from repro_torch.models.registry import ModelApi, get_model_api
 
 __all__ = ["build_parser", "generate", "main"]
@@ -36,7 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True,
                     help="shrink the arch config (--no-smoke for full size)")
     ap.add_argument("--clients", type=int, default=0,
-                    help="personalized delta-bank serving (not ported yet)")
+                    help="serve this many per-client delta-bank models "
+                         "(0 = plain shared-weights decode)")
+    ap.add_argument("--rank", type=int, default=8,
+                    help="adapter rank for the --clients delta bank")
+    ap.add_argument("--zero-clients", type=int, default=0,
+                    help="the first this many --clients rows are zero "
+                         "deltas (they serve the base model)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
@@ -105,10 +121,6 @@ def main(argv=None) -> dict:
     :func:`generate`; returns its record together with the ``api``,
     ``params`` and ``batch`` it served."""
     args = build_parser().parse_args(argv)
-    if args.clients:
-        raise NotImplementedError(
-            "--clients (personalized serving over the delta bank) is not "
-            "ported yet: ROADMAP queue 1 item 9")
     device = torch.device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if not cfg.supports_decode():
@@ -117,10 +129,45 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.no_grad():
         params = api.init(gen, device)
+    if args.clients:
+        return _serve_personalized(args, cfg, api, params, device)
     batch = make_batch(cfg, args.batch, args.prompt_len, seed=args.seed + 1,
                        device=device)
     rec = generate(api, params, batch, args.new_tokens)
     return {**rec, "api": api, "params": params, "batch": batch}
+
+
+@torch.no_grad()
+def _serve_personalized(args, cfg, api, params, device) -> dict:
+    """``--clients``: one delta-bank row per client, one lane per client.
+    Returns :func:`generate`'s record with ``expand_s``, and the ``api``,
+    ``spec``, ``bank``, ``w``, lane-stacked ``params`` and ``batch``."""
+    from repro_torch.core.flat import bind_delta_spec, make_delta_spec
+
+    n = args.clients
+    dspec = make_delta_spec(params, rank=args.rank)
+    spec = bind_delta_spec(dspec, params)
+    ps = make_personalized_serve_step(api, spec)
+    # A synthetic trained bank: each client a distinct small perturbation.
+    bgen = torch.Generator(device=device).manual_seed(args.seed + 3)
+    bank = 0.02 * torch.randn((n, dspec.dim), generator=bgen, device=device,
+                              dtype=torch.float32).to(dspec.dtype)
+    bank[:args.zero_clients] = 0.0
+    w = torch.ones((n,), dtype=torch.float32, device=device)
+    ids = torch.arange(n, device=device)
+    batch = make_batch(cfg, n, args.prompt_len, seed=args.seed + 1,
+                       device=device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    stacked = ps.expand(bank, w, ids)
+    _sync(device)
+    expand_s = time.perf_counter() - t0
+    print(f"[serve] expand {n} clients (d_delta={dspec.dim}, "
+          f"{100 * dspec.dim / dspec.full.dim:.1f}% of D): {expand_s:.2f}s")
+    rec = generate(api, stacked, batch, args.new_tokens)
+    return {**rec, "expand_s": expand_s, "api": api, "spec": spec,
+            "bank": bank, "w": w, "params": stacked, "batch": batch}
 
 
 if __name__ == "__main__":

@@ -13,7 +13,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, rms_norm, rope, shard_act
+from repro_torch.models.layers import (
+    apply_rope,
+    lane_scale,
+    rms_norm,
+    rope,
+    shard_act,
+)
 from repro_torch.models.pdefs import PDef
 
 __all__ = ["gqa_defs", "gqa_cache_defs", "gqa_forward", "gqa_decode"]
@@ -86,8 +92,9 @@ def _split_heads(x, kv, g):
 
 
 def _project(x, w):
-    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
-    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul (a batched one when
+    ``w`` carries a leading lane axis, one lane per batch row)."""
+    return (x @ w.flatten(-2)).unflatten(-1, w.shape[-2:])
 
 
 # ---------------------------------------------------------------------------
@@ -99,8 +106,8 @@ def _gqa_qkv(p, x, cfg: ArchConfig, positions, theta):
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, lane_scale(p["q_norm"], q), cfg.norm_eps)
+        k = rms_norm(k, lane_scale(p["k_norm"], k), cfg.norm_eps)
     if theta is not None:
         sin, cos = rope(positions, cfg.resolved_head_dim, theta)
         q = apply_rope(q, sin, cos)
@@ -109,8 +116,9 @@ def _gqa_qkv(p, x, cfg: ArchConfig, positions, theta):
 
 
 def _out_proj(out, wo):
-    """``einsum("bshk,hkd->bsd", out, wo)`` as one matmul."""
-    return out.flatten(2) @ wo.flatten(0, 1)
+    """``einsum("bshk,hkd->bsd", out, wo)`` as one matmul (batched over a
+    leading lane axis of ``wo``)."""
+    return out.flatten(2) @ wo.flatten(-3, -2)
 
 
 def gqa_forward(p, x, cfg: ArchConfig, window: int = 0, theta=None,

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm", "rope", "apply_rope", "softmax_xent", "shard_act"]
+__all__ = ["rms_norm", "lane_scale", "rope", "apply_rope", "softmax_xent",
+           "shard_act"]
 
 
 def shard_act(x, logical: tuple):
@@ -20,6 +21,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
     x = x.float()
     var = x.square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+
+
+def lane_scale(scale, x):
+    """A norm scale with a leading lane axis, ``(B, dim)`` for a ``(B, ...,
+    dim)`` activation whose batch rows are the lanes, reshaped to broadcast
+    over x's middle axes; a ``(dim,)`` scale is returned as it is."""
+    if scale.dim() == 1:
+        return scale
+    return scale.reshape(scale.shape[:1] + (1,) * (x.dim() - 2)
+                         + scale.shape[1:])
 
 
 def rope(positions, dim: int, theta) -> tuple:

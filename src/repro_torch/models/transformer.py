@@ -8,6 +8,14 @@ Per-layer heterogeneity (gemma3's 5:1 sliding-window pattern, dual rope
 thetas) comes from :func:`_layer_meta` as plain Python numbers.  The
 ``loss``, and the ``vlm`` and ``masked_lm`` tasks, wait for ROADMAP queue 1
 item 13.
+
+**Lanes.**  Every entry point also takes parameters stacked on a leading
+*lane* axis, one lane per batch row (``embed`` of shape ``(B, V, d)``):
+batch row b then runs on lane b's weights — the personalized serving of
+``launch.steps.make_personalized_serve_step``, where the reference vmaps
+over (params, batch) lanes.  The projections and the MLP become batched
+matmuls over the lane axis; the attention core has no weights, so the
+flash kernel sees the lanes as its batch.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import rms_norm, shard_act
+from repro_torch.models.layers import lane_scale, rms_norm, shard_act
 from repro_torch.models.pdefs import PDef
 
 __all__ = [
@@ -47,11 +55,18 @@ def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
     return windows, thetas
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s view of a layer-stacked tree (no copy)."""
+def _lanes(params) -> bool:
+    """Whether ``params`` carry a leading lane axis (see the module
+    docstring)."""
+    return params["embed"].dim() == 3
+
+
+def _layer(tree, i: int, lanes: bool = False):
+    """Layer ``i``'s view of a layer-stacked tree (no copy); the layer axis
+    follows the lane axis when there is one."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        return {k: _layer(v, i, lanes) for k, v in tree.items()}
+    return tree[:, i] if lanes else tree[i]
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +104,12 @@ def cache_defs(cfg: ArchConfig, batch: int, length: int) -> dict:
 def _embed_tokens(params, tokens, cfg: ArchConfig):
     """Embedding rows times sqrt(d_model), the constant rounded to the model
     dtype first as the reference does (sqrt(3840) = 61.97 is 62.0 in bf16)."""
-    x = params["embed"][tokens.long()]
+    emb = params["embed"]
+    if emb.dim() == 3:  # lanes: row b looks up lane b's table
+        lane = torch.arange(emb.shape[0], device=emb.device)[:, None]
+        x = emb[lane, tokens.long()]
+    else:
+        x = emb[tokens.long()]
     return x * torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.dtype)
 
 
@@ -103,8 +123,9 @@ def embed_inputs(params, batch, cfg: ArchConfig):
 
 
 def _logits(params, x, cfg: ArchConfig):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = rms_norm(x, lane_scale(params["final_norm"], x), cfg.norm_eps)
+    head = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
+            else params["lm_head"])
     return x @ head
 
 
@@ -112,13 +133,17 @@ def _logits(params, x, cfg: ArchConfig):
 # Layer body + stack.
 # ---------------------------------------------------------------------------
 
+def _norm(x, scale, cfg: ArchConfig):
+    return rms_norm(x, lane_scale(scale, x), cfg.norm_eps)
+
+
 def _block(pl, x, cfg: ArchConfig, window, theta, positions, return_kv=False):
-    h = attn.gqa_forward(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps), cfg,
+    h = attn.gqa_forward(pl["attn"], _norm(x, pl["ln1"], cfg), cfg,
                          window=window, theta=theta, positions=positions,
                          return_kv=return_kv)
     h, kv = h if return_kv else (h, None)
     x = x + shard_act(h, ("batch", "seq", "embed"))
-    y = moe_lib.swiglu_forward(pl["mlp"], rms_norm(x, pl["ln2"], cfg.norm_eps))
+    y = moe_lib.swiglu_forward(pl["mlp"], _norm(x, pl["ln2"], cfg))
     return x + shard_act(y, ("batch", "seq", "embed")), kv
 
 
@@ -127,8 +152,10 @@ def forward(params, batch, cfg: ArchConfig):
     x, mask = embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
+    lanes = _lanes(params)
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
-        x, _ = _block(_layer(params["layers"], i), x, cfg, win, th, positions)
+        x, _ = _block(_layer(params["layers"], i, lanes), x, cfg, win, th,
+                      positions)
     logits = shard_act(_logits(params, x, cfg), ("batch", "seq", "vocab"))
     aux = {"moe_aux": torch.zeros((), device=x.device), "loss_mask": mask}
     return logits, aux
@@ -144,9 +171,10 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=x.device)
              for k, d in cache_defs(cfg, b, cache_len).items()}
+    lanes = _lanes(params)
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
-        x, (k, v) = _block(_layer(params["layers"], i), x, cfg, win, th,
-                           positions, return_kv=True)
+        x, (k, v) = _block(_layer(params["layers"], i, lanes), x, cfg, win,
+                           th, positions, return_kv=True)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     return _logits(params, x, cfg), cache
@@ -158,11 +186,12 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig):
     returned (the reference returns a new cache)."""
     x = _embed_tokens(params, tokens[:, None], cfg)
     x = shard_act(x, ("batch", None, "embed"))
+    lanes = _lanes(params)
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
-        pl = _layer(params["layers"], i)
-        h, _ = attn.gqa_decode(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps),
+        pl = _layer(params["layers"], i, lanes)
+        h, _ = attn.gqa_decode(pl["attn"], _norm(x, pl["ln1"], cfg),
                                _layer(cache, i), cfg, pos, window=win, theta=th)
         x = x + h
-        y = moe_lib.swiglu_forward(pl["mlp"], rms_norm(x, pl["ln2"], cfg.norm_eps))
+        y = moe_lib.swiglu_forward(pl["mlp"], _norm(x, pl["ln2"], cfg))
         x = x + y
     return _logits(params, x, cfg)[:, 0], cache

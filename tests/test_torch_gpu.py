@@ -109,12 +109,15 @@ def test_cuda_gossip_gather_at_tiling_boundaries(cuda_device, dt, n, d):
 
 def test_cuda_gather_shapes_select_both_its_kernels(cuda_device):
     """The shapes above reach both kernels of the gather: its panel kernel
-    at n = 100 and 129 (a panel width) and its row kernel at n = 8192 (0)."""
+    at n = 100 and 129 (a panel width, at least 128 bytes a row) and its
+    row kernel at n = 8192 and at the paged round's compact bank (n = 1280,
+    5 slots), where only narrower panels would fit (0)."""
     lib = build.load_library()
-    for dtype in (0, 1):  # f32, bf16
-        assert lib.gossip_gather_panel_cols(dtype, 100, 11) > 0
-        assert lib.gossip_gather_panel_cols(dtype, 129, 11) > 0
+    for dtype, elem in ((0, 4), (1, 2)):  # f32, bf16
+        for n in (100, 129):
+            assert lib.gossip_gather_panel_cols(dtype, n, 11) * elem >= 128
         assert lib.gossip_gather_panel_cols(dtype, 8192, 11) == 0
+        assert lib.gossip_gather_panel_cols(dtype, 1280, 5) == 0
 
 
 def test_cuda_wrappers_raise_on_what_their_kernels_do_not_take(cuda_device):
@@ -314,3 +317,129 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
         with pytest.raises((RuntimeError, TypeError, ValueError)):
             call()
     assert fa.launches == before
+
+
+def _mnist_clients(n):
+    train, _ = make_dataset("mnist", 1200, 100, seed=0)
+    parts = dirichlet_partition(train["y"], n, alpha=0.3, seed=0)
+    return stack_client_data(train, parts, pad_to=64)
+
+
+def test_cuda_paged_round_matches_the_cpu_on_the_same_draws(cuda_device,
+                                                            tmp_path):
+    """The paged chain runs on CPU generators, so the card and the CPU
+    replay the same schedule: every input of each round's compact step
+    (the staged rows, the slots, the active clients' data and minibatch
+    indices) is bit for bit the CPU's, each card round launches one update
+    per local step and one gather, and the mass holds.  The rows after a
+    round agree to 2e-2 of their magnitude, not to rounding: a ReLU unit
+    whose pre-activation lies within rounding of zero flips its mask on
+    one side, and one such unit moved a client's fc2 gradient by 1e-2
+    (mnist_2nn, n = 16, on an H100; phase 4 of ``chip_smoke.py`` holds a
+    full round to 1e-5 where no unit flips)."""
+    from repro_torch.core import make_program
+    from repro_torch.store import PagedRunner
+
+    n, cdata, model = 16, _mnist_clients(16), mnist_2nn()
+    algo = make_algo("dfedsgpsm", local_steps=3, lr=0.01)
+    topo = TopologyConfig(kind="kout", n_clients=n, k_out=2)
+    runners, seen = {}, {}
+    for dev in ("cpu", cuda_device):
+        name = torch.device(dev).type
+        prog = make_program(model.loss, model.init, cdata, algo, topo,
+                            gossip="dense", device=dev)
+        step = prog.step_active
+
+        def spy(state, slots, data_active, *, k_active, draws=None,
+                _name=name, _step=step):
+            g = torch.Generator()
+            g.set_state(state.key.get_state())
+            seen.setdefault(_name, []).append({
+                "params": state.params.cpu().clone(),
+                "mom": state.mom.cpu().clone(), "w": state.w.cpu().clone(),
+                "idx": slots.idx.cpu(), "wgt": slots.wgt.cpu(),
+                "ids": slots.ids.cpu(),
+                **{k: v.cpu() for k, v in data_active.items()},
+                "batch": torch.randint(
+                    0, data_active["x"].shape[1],
+                    (algo.local_steps, k_active, algo.batch_size),
+                    generator=g)})
+            return _step(state, slots, data_active, k_active=k_active,
+                         draws=draws)
+
+        object.__setattr__(prog, "step_active", spy)
+        runners[name] = PagedRunner(prog, str(tmp_path / name), k_active=4,
+                                    seed=2, rows_per_chunk=4)
+    for _ in range(2):
+        runners["cpu"].run_round()
+        before = (fu.launches, gg.launches, gm.launches)
+        rec = runners["cuda"].run_round()
+        assert (fu.launches - before[0], gg.launches - before[1],
+                gm.launches - before[2]) == (3, 1, 0)
+        assert rec["w_mass_closure_err"] <= 1e-5
+    a = seen["cpu"][0]
+    for k, v in seen["cuda"][0].items():
+        assert torch.equal(v, a[k]), k
+    for k in ("idx", "wgt", "ids", "x", "y", "batch"):
+        assert torch.equal(seen["cuda"][1][k], seen["cpu"][1][k]), k
+    a = runners["cpu"].read_rows(torch.arange(n).numpy())
+    b = runners["cuda"].read_rows(torch.arange(n).numpy())
+    for k in ("params", "mom"):
+        scale = float(abs(a[k]).max())
+        assert float(abs(b[k] - a[k]).max()) <= 2e-2 * scale, k
+    assert abs(runners["cuda"].total_mass() - n) <= 1e-5 * n
+    for r in runners.values():
+        r.close()
+
+
+def test_cuda_checkpoint_restores_bit_for_bit(cuda_device, tmp_path):
+    """A card trainer with the EF residual, the link buffers and the cold
+    churn carry: the file holds its arrays bit for bit, a fresh card
+    trainer restores them and its three generators exactly and the next
+    round is the same; the card's generators do not restore on the CPU
+    unless the caller passes CPU ones."""
+    import numpy as np
+
+    from repro_torch import checkpoint
+
+    cdata, model = _mnist_clients(8), mnist_2nn()
+
+    def trainer(seed):
+        return FLTrainer(
+            model.loss, model.init, cdata,
+            make_algo("dfedsgpsm", local_steps=2, compressor="topk_ef"),
+            TopologyConfig(kind="kout", n_clients=8, k_out=2), seed=seed,
+            gossip="sparse", link=LinkModel(drop=0.2, delay=2),
+            churn=ChurnModel(fail_prob=0.2, recover_prob=0.5,
+                             resurrect="cold"), device=cuda_device)
+
+    tr = trainer(0)
+    tr.run_round()
+    path = tr.save(str(tmp_path), 1)
+    bank, extra, _ = checkpoint.restore_bank(path)
+    np.testing.assert_array_equal(bank, tr.state.params.cpu().numpy())
+    np.testing.assert_array_equal(extra["link_bufx"],
+                                  tr.state.link.bufx.cpu().numpy())
+    np.testing.assert_array_equal(extra["comp"], tr.state.comp.cpu().numpy())
+    fresh = trainer(5)
+    st = fresh.restore(path)
+    for k in ("params", "mom", "w", "losses", "comp"):
+        assert torch.equal(getattr(st, k), getattr(tr.state, k)), k
+    for a, b in ((st.key, tr.state.key), (st.link.key, tr.state.link.key),
+                 (st.churn.key, tr.state.churn.key)):
+        assert torch.equal(a.get_state(), b.get_state())
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr.run_round()
+        fresh.run_round()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    for k in ("params", "mom", "w"):
+        assert torch.equal(getattr(fresh.state, k), getattr(tr.state, k)), k
+    with pytest.raises(ValueError, match="cuda generator"):
+        checkpoint.restore_state(path, tr.spec, "cpu")
+    cpu = checkpoint.restore_state(
+        path, tr.spec, "cpu", key=torch.Generator(),
+        link_key=torch.Generator(), churn_key=torch.Generator())
+    np.testing.assert_array_equal(cpu.params.numpy(), bank)

@@ -41,6 +41,15 @@ def test_port_module_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("sub", ["checkpoint", "comm", "store"])
+def test_the_scan_covers_the_checkpoint_comm_and_store_packages(sub):
+    mods = {p.stem for p in FILES if p.parent == PORT / sub}
+    want = {"__init__", *{"checkpoint": ["io"], "comm": ["plan"],
+                          "store": ["faults", "layout", "store", "paging",
+                                    "prefetch", "paged"]}[sub]}
+    assert want <= mods, sorted(want - mods)
+
+
 def test_every_port_module_imports_without_jax():
     """Import the whole port in a fresh interpreter with ``jax`` and
     ``repro`` made unimportable."""

@@ -265,8 +265,14 @@ def test_generated_logits_are_the_reference_forward_on_the_extended_prompt(
 
 
 def test_serve_refuses_clients_until_the_delta_bank_is_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        serve.main(["--device", "cpu", "--clients", "4"])
+    """The delta bank and personalized serving are ported (queue 1 items 9
+    and 13.6): ``--clients`` now serves one lane per client
+    (``tests/test_torch_serve_personalized.py`` holds it to the
+    reference)."""
+    rec = serve.main(["--device", "cpu", "--clients", "4", "--rank", "2",
+                      "--prompt-len", "6", "--new-tokens", "2"])
+    assert tuple(rec["tokens"].shape) == (4, 2) and rec["finite"]
+    assert rec["bank"].shape == (4, rec["spec"].dim)
 
 
 def test_params_cross_bf16_bit_for_bit():

@@ -3,8 +3,9 @@ device mesh refuses in the port too: ``LinkModel``, ``ChurnModel``, the
 mixers, ``make_program`` and ``FLTrainer``.  Each case builds the same
 configuration in both packages and both must raise ``ValueError``; where
 the reference's message names the conflict, the port's must match it.
-What the port has not ported yet (``mesh=``, ``paged=``, ``faults=``)
-raises naming its ROADMAP item."""
+What the port has not ported yet (``mesh=``) raises naming its ROADMAP
+item; ``paged=`` and ``faults=`` are ported and refuse what the
+reference's refuse."""
 import functools
 
 import jax.numpy as jnp
@@ -207,12 +208,15 @@ def test_both_packages_refuse(case):
 
 
 def test_unported_trainer_options_name_their_roadmap_item():
+    """``mesh=`` is still unported; ``paged=`` and ``faults=`` (queue 1
+    item 11) are ported and refuse with the reference's messages."""
     with pytest.raises(ValueError, match="queue 1 item 12"):
         _trainer(T, mesh=object())
-    with pytest.raises(ValueError, match="queue 1 item 11"):
-        _trainer(T, paged=True)
-    with pytest.raises(ValueError, match="queue 1 item 11"):
-        _trainer(T, faults=object())
+    for pkg in (R, T):
+        with pytest.raises(ValueError, match="paged=True needs store_dir"):
+            _trainer(pkg, paged=True)
+        with pytest.raises(ValueError, match="it needs paged=True"):
+            _trainer(pkg, faults=object())
 
 
 def test_zero_models_are_inactive():
