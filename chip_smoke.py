@@ -6,8 +6,7 @@ gemma3-12b (prefill, then greedy decode), the FL round's scenarios
 bank), checkpoints, the paged client store and personalized serving of
 glm4-9b over the delta bank.
 
-    python3 chip_smoke.py                 # every phase, as the check runs it
-    python3 chip_smoke.py --phases 9-11   # phases 1, 2 and the ones named
+    python3 chip_smoke.py
 
 Phases, each fatal on failure:
 
@@ -81,14 +80,18 @@ Phases, each fatal on failure:
 10. the paged store at the README's setting: ``FLTrainer(paged=True)``
    with mnist_2nn (D = 199,210) on synthetic MNIST split by
    Dirichlet(0.3) over n = 4096 clients, k_active = 256, kout k_out = 4:
-   c_max = 1280 resident and 2560 staging rows, one cold and 3 timed
-   rounds with launches (5 updates at (256, D), 1 gather at (1280, D) with
-   5 slots), closure mass error, wall time and pager counters; store-wide
-   mass 4096 within 1e-3; ``save()``, a reopen with every row bit for bit;
-   then 2 rounds of a fresh store under ``ChurnModel`` and a
-   ``FaultInjector`` (a transient EIO on every file's first read, retried;
-   a corrupted clean chunk, rebuilt from the template); the update and the
-   gather at those shapes against their plain versions and bounds;
+   the update and the gather at the paged shapes against their plain
+   versions and bounds; c_max = 1280 resident and 2560 staging rows; a
+   clean chunk corrupted before the cold round, which that round must
+   rebuild from the template; one cold and 3 timed rounds with launches
+   (5 updates at (256, D), 1 gather at (1280, D) with 5 slots), closure
+   mass error, wall time and pager counters, then the write-back's drain
+   and the time a round including it; store-wide mass 4096 within 1e-3;
+   ``save()``, and a reopen of the saved store under ``ChurnModel`` and a
+   ``FaultInjector`` (a transient EIO on every file's first read): the
+   last round's rows bit for bit, 2 rounds retrying the EIOs with the mass
+   exact, and a corrupted chunk of trained rows that a read must refuse;
+   the phase's wall time by step;
 11. personalized serving: ``serve.main --clients 2 --rank 8`` with glm4-9b
    at full width in bf16 (a zero delta row on lane 0), prompts of 2048
    tokens and 16 new tokens: expand, prefill and decode times, peak
@@ -1823,19 +1826,44 @@ def dir_bytes(path: str) -> int:
                for r, _, fs in os.walk(path) for f in fs)
 
 
+def corrupt_clean_chunk(store, n: int):
+    """Make the store's last chunk clean and corrupt: write its template
+    rows and record it as never holding trained data, then flip one byte
+    of its file.  Returns the chunk's first row and file name."""
+    import numpy as np
+
+    start = (n - 1) // store.rows_per_chunk * store.rows_per_chunk
+    ids = np.arange(start, n)
+    store.write_rows(ids, store.read_rows(ids))
+    store._chunks[start]["dirty"].clear()
+    store.update_meta()
+    fname = store._chunks[start]["file"]
+    with open(os.path.join(store.path, fname), "r+b") as f:
+        f.seek(4096)
+        byte = f.read(1)
+        f.seek(4096)
+        f.write(bytes([byte[0] ^ 0x10]))
+    return start, fname
+
+
 def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
                 k_out: int = PAGED_K_OUT, rounds: int = 3,
                 local_steps: int = 5, per_client: int = 32,
                 dim: int = MNIST_2NN_DIM) -> dict:
     """``FLTrainer(paged=True)`` at the README's setting: n clients on disk,
-    k_active a round, kout k_out, mnist_2nn (DFedSGPSM, 5 local steps) —
-    one cold round and ``rounds`` timed rounds, each with its launches (5
-    updates at (k_active, D) and 1 gather at (c_max, D), k_out + 1 slots),
-    its closure mass error, wall time and pager counters; store-wide mass;
-    then ``save()``, a reopen holding the same rows, and 2 rounds of a
-    fresh store under churn and an injected transient EIO on every file's
-    first read and a corrupted clean chunk, which must be retried, and
-    rebuilt from the template, with the mass exact."""
+    k_active a round, kout k_out, mnist_2nn (DFedSGPSM, 5 local steps).
+    Before the cold round the store's last chunk is made clean and
+    corrupted: the cold round must rebuild it from the template and never
+    consume it.  One cold round and ``rounds`` timed rounds, each with its
+    launches (5 updates at (k_active, D) and 1 gather at (c_max, D), k_out
+    + 1 slots), closure mass error, wall time and pager counters; the
+    write-back's drain after them, and the time a round including it;
+    store-wide mass; then ``save()``, and a reopen of the saved store
+    under a ``ChurnModel`` and a ``FaultInjector`` (a transient EIO on
+    every file's first read): the round, its generator and the last
+    round's rows bit for bit, 2 rounds that must retry the EIOs with the
+    mass exact, and a flipped byte in a chunk of trained rows, which a read
+    must refuse.  The phase's wall time by step closes it."""
     import shutil
     import tempfile
 
@@ -1843,28 +1871,39 @@ def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
 
     from repro_torch.core import ChurnModel, FLTrainer, TopologyConfig, make_algo
     from repro_torch.models.small import mnist_2nn
-    from repro_torch.store import FaultInjector, PagedRunner
+    from repro_torch.store import FaultInjector, StoreCorruptionError
+
+    spent = {}
+    t_step = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_step
+        now = time.perf_counter()
+        spent[what] = spent.get(what, 0.0) + now - t_step
+        t_step = now
 
     cdata = mnist_population(dev, n, per_client=per_client)
     model = mnist_2nn()
-    # lr 0.01: a client that sent mass as a cold in-neighbor comes back
-    # active with a small push-sum weight w and steps lr / w in de-biased
-    # terms; at the default 0.1 the loss grew past 1e4 by the third round
-    # on an H100.  The port's paged round equals the reference's on the
-    # same draws (tests/test_torch_paged.py): the growth is the
-    # algorithm's at this setting, not the port's.
+    # lr 0.01: at the default 0.1 the loss grew past 1e4 by the third
+    # round on an H100, and it grows alike in the reference at these
+    # ratios (tests/test_torch_paged_growth.py): a client that sent mass
+    # as a cold in-neighbour comes back active with a small push-sum
+    # weight w, and steps lr / w in de-biased terms.
     algo = make_algo("dfedsgpsm", local_steps=local_steps, batch_size=32,
                      lr=0.01)
     topo = TopologyConfig(kind="kout", n_clients=n, k_out=k_out)
     c_max = k_active * (k_out + 1)
+    lap("data")
     paged_kernel_times(dev, k_active, c_max, dim, k_out + 1)
+    lap("kernel checks")
     work = tempfile.mkdtemp(prefix="paged_")
+    store_dir = os.path.join(work, "store")
     zero_counts()  # phase 10's counts start here
 
-    def trainer(store, **kw):
+    def trainer(**kw):
         return FLTrainer(model.loss, model.init, cdata, algo, topo, seed=0,
-                         paged=True, store_dir=os.path.join(work, store),
-                         k_active=k_active, device=dev, **kw)
+                         paged=True, store_dir=store_dir, k_active=k_active,
+                         device=dev, **kw)
 
     def run(tr, r, what):
         before, stats0 = read_counts(), tr.runner.stats.as_dict()
@@ -1892,7 +1931,8 @@ def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
               f"faulted {faulted}, carried "
               f"{st['rows_carried'] - stats0['rows_carried']}, prefetched "
               f"{st['rows_prefetched'] - stats0['rows_prefetched']}, cache "
-              f"{st['rows_cache_hit'] - stats0['rows_cache_hit']}; launches "
+              f"{st['rows_cache_hit'] - stats0['rows_cache_hit']}; chunks "
+              f"written so far {st['chunks_written']}; launches "
               f"{ {k: v for k, v in used.items() if v} }")
         check(math.isfinite(rec["loss"]), f"{what} round {r}: loss")
         check(rec["w_mass_closure_err"] <= 1e-3,
@@ -1902,102 +1942,130 @@ def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
               f"{what} round {r}: launches {used}")
         return wall
 
+    def drain(runner, walls, what):
+        """Time the write-back's drain; print the rounds' time with it."""
+        t = time.perf_counter()
+        runner.flush()
+        d = time.perf_counter() - t
+        print(f"  {what}: {len(walls)} rounds {sum(walls):.3f} s "
+              f"({', '.join(f'{x:.3f}' for x in walls)}), then the "
+              f"write-back's drain {d:.3f} s: {(sum(walls) + d) / len(walls):.3f}"
+              f" s a round including it; {runner.store.chunks_written} "
+              f"chunks written in all")
+        return d
+
     try:
-        tr = trainer("store")
+        tr = trainer()
         r = tr.runner
+        store = r.store
         check(tr.spec.dim == dim, f"mnist_2nn D = {tr.spec.dim}")
         check(r.resident_rows == c_max and r.staging_rows == 2 * c_max,
               f"resident {r.resident_rows}, staging {r.staging_rows}")
-        row_b = r.store.row_nbytes
+        row_b = store.row_nbytes
         print(f"  n={n} k_active={k_active} kout k_out={k_out}: c_max "
               f"{c_max} resident rows, {2 * c_max} staging rows; a row is "
               f"{row_b / 1e6:.3f} MB, so {c_max * row_b / 1e9:.3f} GB "
-              f"resident of a {n * row_b / 1e9:.3f} GB population")
+              f"resident of a {n * row_b / 1e9:.3f} GB population in "
+              f"{-(-n // store.rows_per_chunk)} chunks of "
+              f"{store.rows_per_chunk} rows")
+        start, fname = corrupt_clean_chunk(store, n)
+        lap("clean chunk written and corrupted")
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        run(tr, 0, "cold")
-        walls = [run(tr, i + 1, "timed") for i in range(rounds)]
-        mass = r.total_mass()
-        stats = r.stats.as_dict()
-        print(f"  round wall {statistics.median(walls):.3f} s (median of "
-              f"{rounds}: {', '.join(f'{x:.3f}' for x in walls)}); store-wide "
-              f"mass {mass:.6f} (n = {n}); pager: "
-              f"{stats['rows_faulted_per_round']:.1f} rows faulted a round, "
-              f"hit rate {stats['prefetch_hit_rate']:.3f}, prefetch overlap "
-              f"{stats['prefetch_overlap_s']:.3f} s, wait "
-              f"{stats['prefetch_wait_s']:.3f} s, {stats['chunks_written']} "
-              f"chunks written; store on disk {dir_bytes(r.store.path) / 1e9:.3f} "
-              "GB")
-        if dev.type == "cuda":
-            print(f"  peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        check(abs(mass - n) <= 1e-3, f"store-wide mass {mass}")
-        t = time.perf_counter()
-        path = tr.save()
-        save_s = time.perf_counter() - t
-        reopened = PagedRunner(tr.program, path, k_active=k_active, seed=999)
-        check(reopened.round_index == r.round_index, "reopened round")
-        check(torch.equal(reopened._key.get_state(), r._key.get_state()),
-              "reopened round generator")
-        t = time.perf_counter()
-        verified = reopened.store.verify_chunks()
-        last = np.asarray(sorted(r._carry))
-        got = reopened.store.read_rows(last)
-        for k in got:
-            want = np.stack([r._carry[int(g)][k] for g in last])
-            check(np.array_equal(got[k], want),
-                  f"reopened rows of the last round differ in {k}")
-        print(f"  save (flush + manifest commit) {save_s:.3f} s; committed "
-              f"store {dir_bytes(path) / 1e9:.3f} GB; reopened at round "
-              f"{reopened.round_index}: {verified['verified']} files "
-              f"verified against their committed checksums, the last "
-              f"round's {len(last)} rows equal bit for bit "
-              f"({time.perf_counter() - t:.1f} s)")
-        reopened.close()
-        r.close()
-        del tr, r, reopened
-        shutil.rmtree(os.path.join(work, "store"))
-
-        fi = FaultInjector(seed=0, eio_prob=1.0, eio_max_per_path=1)
-        chaos = trainer("chaos", faults=fi,
-                        churn=ChurnModel(fail_prob=0.05, recover_prob=0.5,
-                                         resurrect="cold"))
-        store = chaos.runner.store
-        # A clean chunk: the last one written with its template rows and
-        # recorded as never holding trained data, then one byte flipped.
-        start = (n - 1) // store.rows_per_chunk * store.rows_per_chunk
-        ids = np.arange(start, n)
-        store.write_rows(ids, store.read_rows(ids))
-        store._chunks[start]["dirty"].clear()
-        store.update_meta()
-        fname = store._chunks[start]["file"]
-        with open(os.path.join(store.path, fname), "r+b") as f:
-            f.seek(4096)
-            byte = f.read(1)
-            f.seek(4096)
-            f.write(bytes([byte[0] ^ 0x10]))
-        for i in range(2):
-            run(chaos, i, "churn + faults")
-        mass = chaos.runner.total_mass()
-        st = chaos.runner.stats.as_dict()
-        print(f"  churn + faults: {fi.faults_injected} faults injected, "
-              f"{store.io_retries} reads retried ({store.backoff_seconds:.3f} "
-              f"s of backoff), {store.corrupt_chunks} corrupt chunk "
-              f"quarantined, {store.rebuilt_rows} rows rebuilt from the "
-              f"template; store-wide mass {mass:.6f}; rows faulted "
-              f"{st['rows_faulted']}")
-        check(store.io_retries >= 1, "no transient read fault was retried")
-        check(store.corrupt_chunks == 1
-              and store.rebuilt_rows == n - start,
+        walls = [run(tr, 0, "cold")]
+        check(store.corrupt_chunks == 1 and store.rebuilt_rows == n - start,
               f"the corrupted clean chunk was not rebuilt "
               f"({store.corrupt_chunks}, {store.rebuilt_rows})")
         check(os.path.exists(os.path.join(store.path, "quarantine", fname)),
               "the corrupted chunk was not quarantined")
+        print(f"  the corrupted clean chunk (rows {start}..{n - 1}): "
+              f"quarantined and {store.rebuilt_rows} rows rebuilt from the "
+              f"template in the cold round")
+        walls += [run(tr, i + 1, "timed") for i in range(rounds)]
+        lap(f"cold and {rounds} timed rounds")
+        drain(r, walls, "cold and timed")
+        lap("the write-back's drain after them")
+        mass = r.total_mass()
+        stats = r.stats.as_dict()
+        print(f"  store-wide mass {mass:.6f} (n = {n}); pager: "
+              f"{stats['rows_faulted_per_round']:.1f} rows faulted a round, "
+              f"hit rate {stats['prefetch_hit_rate']:.3f}, prefetch overlap "
+              f"{stats['prefetch_overlap_s']:.3f} s, wait "
+              f"{stats['prefetch_wait_s']:.3f} s; store on disk "
+              f"{dir_bytes(store.path) / 1e9:.3f} GB")
+        if dev.type == "cuda":
+            print(f"  peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check(abs(mass - n) <= 1e-3, f"store-wide mass {mass}")
+        lap("store-wide mass")
+        tr.save()
+        lap("save")
+        print(f"  save (manifest commit) {spent['save']:.3f} s; committed "
+              f"store {dir_bytes(store_dir) / 1e9:.3f} GB")
+        saved_round, saved_key = r.round_index, r._key.get_state()
+        last = np.asarray(sorted(r._carry))
+        want = {k: np.stack([r._carry[int(g)][k] for g in last])
+                for k in r._carry[int(last[0])]}
+        r.close()
+        del tr, r, store
+
+        fi = FaultInjector(seed=0, eio_prob=1.0, eio_max_per_path=1)
+        chaos = trainer(faults=fi, churn=ChurnModel(
+            fail_prob=0.05, recover_prob=0.5, resurrect="cold"))
+        rr = chaos.runner
+        store = rr.store
+        check(rr.round_index == saved_round, "reopened round")
+        check(torch.equal(rr._key.get_state(), saved_key),
+              "reopened round generator")
+        got = store.read_rows(last)
+        for k, v in want.items():
+            check(np.array_equal(got[k], v),
+                  f"reopened rows of the last round differ in {k}")
+        chunks = set((last // store.rows_per_chunk).tolist())
+        check(len(chunks) == -(-n // store.rows_per_chunk),
+              f"the last round's rows lie in {len(chunks)} chunks only")
+        lap("reopen and read back")
+        print(f"  reopened at round {rr.round_index} under churn and faults:"
+              f" the last round's {len(last)} rows equal bit for bit, read "
+              f"from all {len(chunks)} chunks against their committed "
+              f"checksums ({spent['reopen and read back']:.1f} s, "
+              f"{store.io_retries} reads retried)")
+        walls = [run(chaos, i, "churn + faults") for i in range(2)]
+        lap("churn + faults rounds")
+        drain(rr, walls, "churn + faults")
+        lap("the write-back's drain after those")
+        mass = rr.total_mass()
+        print(f"  churn + faults: {fi.faults_injected} faults injected, "
+              f"{store.io_retries} reads retried ({store.backoff_seconds:.3f} "
+              f"s of backoff); store-wide mass {mass:.6f}")
+        check(store.io_retries >= 1, "no transient read fault was retried")
         check(abs(mass - n) <= 1e-3, f"churn + faults: mass {mass}")
-        chaos.runner.close()
-        del chaos
+        rr.close()
+        del chaos, rr
+        # A chunk of trained rows with one flipped byte: a read must
+        # refuse it, never rebuild or consume it.
+        dirty = next(s for s, e in sorted(store._chunks.items())
+                     if e["dirty"] and e["crc"] is not None)
+        with open(os.path.join(store.path, store._chunks[dirty]["file"]),
+                  "r+b") as f:
+            f.seek(4096)
+            byte = f.read(1)
+            f.seek(4096)
+            f.write(bytes([byte[0] ^ 0x10]))
+        try:
+            store.read_rows([dirty])
+            refused = False
+        except StoreCorruptionError:
+            refused = True
+        check(refused, "a corrupted chunk of trained rows was read")
+        print(f"  a flipped byte in the chunk of rows {dirty}.. (trained "
+              "rows): the read refused it")
+        lap("store-wide mass and the corrupted trained chunk")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    lap("close and remove the store")
+    print(f"  phase 10's wall time, {sum(spent.values()):.1f} s: "
+          + "; ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     return read_counts()
 
 
@@ -2101,24 +2169,13 @@ REPLACES = {
 }
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="3-11",
-                    help="phases to run beyond 1 and 2, e.g. 9-11 or 3,9 "
-                         "(the kernels line needs all of them)")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available",
               file=sys.stderr)
         return 2
     from repro_torch.kernels import build
 
-    want = set()
-    for part in args.phases.split(","):
-        lo, _, hi = part.partition("-")
-        want.update(range(int(lo), int(hi or lo) + 1))
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2136,69 +2193,58 @@ def main(argv=None) -> int:
     flash_build_evidence()
     print("[2] the gossip mixes' kernels:")
     mix_build_evidence()
-    rows, paths = {}, {}
-    if 3 in want:
-        head(f"[3] kernels at n={N_CLIENTS} D={CIFAR_CNN_DIM}")
-        rows = kernel_phase(dev, N_CLIENTS, CIFAR_CNN_DIM)
-        head(f"[3] kernels at the delta bank's n={N_CLIENTS} "
-             f"d_delta={DELTA_DIM}, bf16")
-        delta_kernel_phase(dev)
-    if 4 in want:
-        head("[4] card round against CPU round, same draws")
-        small_parity(dev)
-        scenario_parity(dev)
+    paths = {}
+    head(f"[3] kernels at n={N_CLIENTS} D={CIFAR_CNN_DIM}")
+    rows = kernel_phase(dev, N_CLIENTS, CIFAR_CNN_DIM)
+    head(f"[3] kernels at the delta bank's n={N_CLIENTS} "
+         f"d_delta={DELTA_DIM}, bf16")
+    delta_kernel_phase(dev)
+    head("[4] card round against CPU round, same draws")
+    small_parity(dev)
+    scenario_parity(dev)
     # Made once on the host for phases 5, 8 and 9; each copies it to the
     # card, so phase 7's peak memory holds none of it.
-    data = (cifar_data(torch.device("cpu")) if want & {5, 8, 9} else None)
+    data = cifar_data(torch.device("cpu"))
 
     def on_card():
         return tuple({k: v.to(dev) for k, v in part.items()} for part in data)
 
-    if 5 in want:
-        head("[5] main path: DFedSGPSM, cifar_cnn, 100 clients, kout k_out=10")
-        paths["FL path"] = main_path(dev, data=on_card())
-    if 6 in want:
-        head("[6] crossover: dense against sparse mix")
-        crossover(dev, CIFAR_CNN_DIM)
-    if 7 in want:
-        head("[7] serving: reduced gemma3-12b, card against CPU, f32")
-        serving_parity(dev)
-        head("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
-        paths["serving path"] = serving(dev)
-        torch.cuda.empty_cache()
-    kept = None
-    if 8 in want:
-        head("[8] scenario path: cifar_cnn, 100 clients, kout k_out=10, "
-             "links, churn, compressors, proximal solver, delta bank")
-        paths["scenario path"], kept = scenario_path(dev, on_card())
-    if 9 in want:
-        head("[9] checkpoints at full width: scenario A and the bf16 delta "
-             "bank")
-        paths["checkpoint phase"] = checkpoint_phase(dev, on_card(), kept)
+    head("[5] main path: DFedSGPSM, cifar_cnn, 100 clients, kout k_out=10")
+    paths["FL path"] = main_path(dev, data=on_card())
+    head("[6] crossover: dense against sparse mix")
+    crossover(dev, CIFAR_CNN_DIM)
+    head("[7] serving: reduced gemma3-12b, card against CPU, f32")
+    serving_parity(dev)
+    head("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
+    paths["serving path"] = serving(dev)
+    torch.cuda.empty_cache()
+    head("[8] scenario path: cifar_cnn, 100 clients, kout k_out=10, "
+         "links, churn, compressors, proximal solver, delta bank")
+    paths["scenario path"], kept = scenario_path(dev, on_card())
+    head("[9] checkpoints at full width: scenario A and the bf16 delta "
+         "bank")
+    paths["checkpoint phase"] = checkpoint_phase(dev, on_card(), kept)
     del kept
     torch.cuda.empty_cache()
-    if 10 in want:
-        head(f"[10] paged store: mnist_2nn, n={PAGED_N}, "
-             f"k_active={PAGED_K_ACTIVE}, kout k_out={PAGED_K_OUT}")
-        paths["paged path"] = paged_phase(dev)
-        torch.cuda.empty_cache()
-    if 11 in want:
-        head("[11] personalized serving: glm4-9b at full width, bf16, "
-             "2 clients x 2048 tokens")
-        paths["personalized serving path"] = personalized(dev)
+    head(f"[10] paged store: mnist_2nn, n={PAGED_N}, "
+         f"k_active={PAGED_K_ACTIVE}, kout k_out={PAGED_K_OUT}")
+    paths["paged path"] = paged_phase(dev)
+    torch.cuda.empty_cache()
+    head("[11] personalized serving: glm4-9b at full width, bf16, "
+         "2 clients x 2048 tokens")
+    paths["personalized serving path"] = personalized(dev)
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}
     print("launches: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
-    if set(range(3, 12)) <= want:
-        kernels = []
-        for name, (source, replaces) in REPLACES.items():
-            kernels.append({"name": name, "route": "cuda", "source": source,
-                            "replaces": replaces, "launches": launches[name],
-                            **rows[name]})
-        print(json.dumps({"kernels": kernels}))
+    kernels = []
+    for name, (source, replaces) in REPLACES.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        **rows[name]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

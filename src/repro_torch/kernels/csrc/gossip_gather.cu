@@ -29,12 +29,13 @@
 //   slot loop reading its source rows from shared memory (a slot is one
 //   broadcast 8-byte read: its source row's offset in the stage, and its
 //   weight) and stores its columns coalesced.
-// * C is the widest panel (a multiple of 32 up to 256, at least 128 bytes a
-//   row) for which STAGES panels of n rows and the n * k_max slots fit in
-//   shared memory.  At n = 100, k_max = 11 that is 160 columns in f32 and
-//   256 in bf16, one block per SM.  Narrower panels (16, 8 or 4 columns)
-//   lost to the row kernel at every shape timed: f32, D = 199,210, n = 600
-//   to 1280 (paged_diagnose.py), 2.8x to 14.9x slower.
+// * C is the widest panel (a multiple of 32 up to 256; in bf16 also 16 or 8
+//   columns) for which STAGES panels of n rows and the n * k_max slots fit
+//   in shared memory.  At n = 100, k_max = 11 that is 160 columns in f32
+//   and 256 in bf16, one block per SM.  f32 panels narrower than 32
+//   columns lost to the row kernel at every shape timed (D = 199,210, n =
+//   600 to 1280: 2.7x to 15.0x slower), so f32 takes none; bf16's narrow
+//   panels were not timed and stay.
 //
 // Where not even the narrowest panel fits (n in the high hundreds to
 // thousands, or very long lists), the launcher takes the row kernel: one
@@ -196,20 +197,14 @@ size_t panel_smem(int64_t n, int64_t k_max, int64_t C, size_t elem) {
                   n * k_max * sizeof(int2));
 }
 
-// The narrowest panel row the panel kernel takes, in bytes (a diagnosis
-// build may lower it to 16 to take the narrow panels again).
-#ifndef GATHER_MIN_PANEL_BYTES
-#define GATHER_MIN_PANEL_BYTES 128
-#endif
-
 // The panel width the panel kernel takes at (n, k_max), or 0 where not
-// even the narrowest panel (GATHER_MIN_PANEL_BYTES a row) fits: the row
-// kernel's shapes.
+// even the narrowest panel fits (32 columns in f32; 16 bytes a row in
+// bf16): the row kernel's shapes.
 int64_t panel_cols(int64_t n, int64_t k_max, size_t elem) {
   for (int64_t C = MAX_COLS; C >= 32; C -= 32)
-    if (C * (int64_t)elem >= GATHER_MIN_PANEL_BYTES &&
-        panel_smem(n, k_max, C, elem) <= panel::SMEM_LIMIT) return C;
-  for (int64_t C = 16; C * (int64_t)elem >= GATHER_MIN_PANEL_BYTES; C /= 2)
+    if (panel_smem(n, k_max, C, elem) <= panel::SMEM_LIMIT) return C;
+  if (elem == sizeof(float)) return 0;
+  for (int64_t C = 16; C * (int64_t)elem >= 16; C /= 2)
     if (panel_smem(n, k_max, C, elem) <= panel::SMEM_LIMIT) return C;
   return 0;
 }

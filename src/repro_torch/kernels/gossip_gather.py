@@ -15,8 +15,9 @@ not k_max times through L2.  The bank's rows need not be 16-byte aligned
 (D = 1,756,426 is 2 mod 4): ``csrc/panel_ring.cuh`` copies each row's
 segment as whole aligned 16-byte chunks and keeps the row's offset within
 its chunk.  Where not
-even a 128-byte-wide panel of n rows fits in shared memory (n from the
-mid hundreds up, in f32), the shape selects the row kernel: one block per
+even the narrowest panel of n rows fits in shared memory (32 columns in
+f32, from n in the mid hundreds up; 16 bytes in bf16), the shape selects
+the row kernel: one block per
 (receiver row, D chunk), source rows read through L2.  Pad slots carry
 weight 0 and add exactly 0; every index must lie in ``[0, n)``, which the
 port's neighbor-list builders guarantee by construction.

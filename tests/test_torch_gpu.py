@@ -109,15 +109,18 @@ def test_cuda_gossip_gather_at_tiling_boundaries(cuda_device, dt, n, d):
 
 def test_cuda_gather_shapes_select_both_its_kernels(cuda_device):
     """The shapes above reach both kernels of the gather: its panel kernel
-    at n = 100 and 129 (a panel width, at least 128 bytes a row) and its
-    row kernel at n = 8192 and at the paged round's compact bank (n = 1280,
-    5 slots), where only narrower panels would fit (0)."""
+    at n = 100 and 129 (a panel width) and its row kernel at n = 8192 (0).
+    f32 takes no panel narrower than 32 columns: the paged round's compact
+    bank (n = 1280, 5 slots) takes the row kernel, where bf16 keeps its
+    8-column panels."""
     lib = build.load_library()
-    for dtype, elem in ((0, 4), (1, 2)):  # f32, bf16
+    for dtype in (0, 1):  # f32, bf16
         for n in (100, 129):
-            assert lib.gossip_gather_panel_cols(dtype, n, 11) * elem >= 128
+            assert lib.gossip_gather_panel_cols(dtype, n, 11) >= 32
         assert lib.gossip_gather_panel_cols(dtype, 8192, 11) == 0
-        assert lib.gossip_gather_panel_cols(dtype, 1280, 5) == 0
+    assert lib.gossip_gather_panel_cols(0, 1280, 5) == 0
+    assert lib.gossip_gather_panel_cols(0, 600, 11) == 0
+    assert lib.gossip_gather_panel_cols(1, 1280, 5) == 8
 
 
 def test_cuda_wrappers_raise_on_what_their_kernels_do_not_take(cuda_device):
@@ -325,25 +328,58 @@ def _mnist_clients(n):
     return stack_client_data(train, parts, pad_to=64)
 
 
+def _within_flips(got, want, what):
+    """Every coordinate within 1e-5 of the bank's largest magnitude but for
+    the few a ReLU flip reaches: at most 1% of a row's coordinates beyond
+    it, and none beyond 2e-2 of that magnitude.  A flip moves one hidden
+    unit's weights (its fc1 row and fc2 column, about 1,000 of mnist_2nn's
+    199,210 coordinates); a wrong neighbour or weight in a mix moves
+    nearly every coordinate of the rows it reaches."""
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    beyond = (err > 1e-5 * scale).sum(dim=1)
+    print(f"{what}: max|err| {float(err.max()):.3e} (scale {scale:.3e}); "
+          f"coordinates beyond 1e-5 of it per row: {beyond.tolist()}")
+    assert int(beyond.max()) <= 0.01 * want.shape[1], what
+    assert float(err.max()) <= 2e-2 * scale, what
+
+
 def test_cuda_paged_round_matches_the_cpu_on_the_same_draws(cuda_device,
-                                                            tmp_path):
+                                                            tmp_path,
+                                                            monkeypatch):
     """The paged chain runs on CPU generators, so the card and the CPU
-    replay the same schedule: every input of each round's compact step
-    (the staged rows, the slots, the active clients' data and minibatch
-    indices) is bit for bit the CPU's, each card round launches one update
-    per local step and one gather, and the mass holds.  The rows after a
-    round agree to 2e-2 of their magnitude, not to rounding: a ReLU unit
-    whose pre-activation lies within rounding of zero flips its mask on
-    one side, and one such unit moved a client's fc2 gradient by 1e-2
-    (mnist_2nn, n = 16, on an H100; phase 4 of ``chip_smoke.py`` holds a
-    full round to 1e-5 where no unit flips)."""
+    replay the same schedule.  Each round's compact step gets the CPU's
+    slots, active clients' data and minibatch indices bit for bit, and
+    round 0's staged params, momentum and w too; each card round launches
+    one update per local step and one gather, and that gather is the plain
+    gather of the card's own bank on the CPU's slots, bit for bit.  ``w``
+    is bit for bit where it is staged in round 1, and within 2^-22 of its
+    magnitude (two ulps) in every row after 2 rounds.  The params and momentum (staged in round 1, and after 2 rounds) are
+    held to the flip bound of ``_within_flips``, not to rounding: a ReLU
+    unit whose pre-activation lies within rounding of zero flips its mask
+    on one device only (on an H100 one such unit moved a client's fc2
+    gradient by 1e-2; phase 4 of ``chip_smoke.py`` holds a full round to
+    1e-5 where no unit flips)."""
+    import numpy as np
+
     from repro_torch.core import make_program
+    from repro_torch.kernels import ops
     from repro_torch.store import PagedRunner
 
     n, cdata, model = 16, _mnist_clients(16), mnist_2nn()
     algo = make_algo("dfedsgpsm", local_steps=3, lr=0.01)
     topo = TopologyConfig(kind="kout", n_clients=n, k_out=2)
-    runners, seen = {}, {}
+    runners, seen, mixes = {}, {}, {}
+    mix_sparse = ops.gossip_mix_sparse
+
+    def spy_mix(idx, wgt, M):
+        out = mix_sparse(idx, wgt, M)
+        mixes.setdefault(M.device.type, []).append(
+            {"idx": idx.cpu(), "wgt": wgt.cpu(), "M": M.cpu().clone(),
+             "out": out.cpu()})
+        return out
+
+    monkeypatch.setattr(ops, "gossip_mix_sparse", spy_mix)
     for dev in ("cpu", cuda_device):
         name = torch.device(dev).type
         prog = make_program(model.loss, model.init, cdata, algo, topo,
@@ -380,13 +416,28 @@ def test_cuda_paged_round_matches_the_cpu_on_the_same_draws(cuda_device,
     a = seen["cpu"][0]
     for k, v in seen["cuda"][0].items():
         assert torch.equal(v, a[k]), k
-    for k in ("idx", "wgt", "ids", "x", "y", "batch"):
-        assert torch.equal(seen["cuda"][1][k], seen["cpu"][1][k]), k
-    a = runners["cpu"].read_rows(torch.arange(n).numpy())
-    b = runners["cuda"].read_rows(torch.arange(n).numpy())
+    b, a = seen["cuda"][1], seen["cpu"][1]
+    for k in ("idx", "wgt", "ids", "x", "y", "batch", "w"):
+        assert torch.equal(b[k], a[k]), k
     for k in ("params", "mom"):
-        scale = float(abs(a[k]).max())
-        assert float(abs(b[k] - a[k]).max()) <= 2e-2 * scale, k
+        _within_flips(b[k], a[k], f"round 1's staged {k}")
+    assert len(mixes["cuda"]) == len(mixes["cpu"]) == 2
+    for got, want in zip(mixes["cuda"], mixes["cpu"]):
+        for k in ("idx", "wgt"):
+            assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got["out"], gg.gossip_gather_plain(
+            got["idx"], got["wgt"], got["M"])), "the card's mix"
+    ids = np.arange(n)
+    a = runners["cpu"].read_rows(ids)
+    b = runners["cuda"].read_rows(ids)
+    # The w mix is a plain torch.sum over each row's k_out + 1 = 3 slot
+    # products, which the card sums in another order: one element one ulp
+    # apart after 2 rounds on an H100.
+    np.testing.assert_allclose(b["w"], a["w"], rtol=0,
+                               atol=2.0 ** -22 * float(abs(a["w"]).max()))
+    for k in ("params", "mom"):
+        _within_flips(torch.from_numpy(b[k]), torch.from_numpy(a[k]),
+                      f"{k} after 2 rounds")
     assert abs(runners["cuda"].total_mass() - n) <= 1e-5 * n
     for r in runners.values():
         r.close()
