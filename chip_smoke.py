@@ -3,8 +3,8 @@
 hand-written Hopper kernels: DFedSGPSM rounds on the flat bank, serving
 gemma3-12b (prefill, then greedy decode), the FL round's scenarios
 (compressors, proximal solver, link and churn scenarios, the bf16 delta
-bank), checkpoints, the paged client store and personalized serving of
-glm4-9b over the delta bank.
+bank), checkpoints, the paged client store, personalized serving of
+glm4-9b over the delta bank, and pods-as-clients training of glm4-9b.
 
     python3 chip_smoke.py
 
@@ -97,7 +97,20 @@ Phases, each fatal on failure:
    tokens and 16 new tokens: expand, prefill and decode times, peak
    memory, 40 flash launches at B = 2, H = 32, KV = 2; lane 0 against the
    dense serve of the base and lane 1 against ``forward`` on its own
-   expanded weights, within phase 7's decode tolerance.
+   expanded weights, within phase 7's decode tolerance;
+12. training: the flash backward kernel against its plain version at
+   glm4-9b's training shape (B = 1, 32 on 2 heads, S = 4096, hd 128, bf16),
+   at gemma3-12b's (hd 256, windows 1024 and 0), at GQA groups 1, 4 and
+   16, f32 and bf16, edge lengths, with a mask fault that must miss its
+   tolerance, and its time beside its bound and SDPA's backward; reduced
+   glm4-9b, 2 pods, 2 rounds of ``make_round_step`` on the card against
+   the CPU (dense ``P_pod`` and the neighbor list); then the training main
+   path, ``repro_torch.launch.train.run`` with glm4-9b at full width cut to
+   4 layers, 2 pods, K = 2, 1 x 4096 tokens, 3 rounds: loss, accuracy,
+   w_mass (2 within 1e-3), wall time and launches a round (32 flash
+   backward, 32 forward, twice that under the config's remat, 1 dense
+   mix), peak memory, a profiled round split by kind, and the mix at the
+   bank's width (rows over 2^31 bytes) against its plain version.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -106,6 +119,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1030,7 +1044,8 @@ def counters() -> dict:
     return {"fused_update_bank": (fu, "launches"),
             "fused_update": (fu, "row_launches"),
             "gossip_matmul": (gm, "launches"), "gossip_gather": (gg, "launches"),
-            "flash_attention": (fa, "launches")}
+            "flash_attention": (fa, "launches"),
+            "flash_attention_backward": (fa, "backward_launches")}
 
 
 @contextlib.contextmanager
@@ -2155,6 +2170,359 @@ def personalized(dev, argv=PERSONAL_ARGV) -> dict:
     return launches
 
 
+# -- phase 12: pods-as-clients training of glm4-9b -----------------------------
+
+# glm4-9b's attention at train_4k's length: one sequence of 4096 tokens, 32
+# query heads on 2 kv heads of hd 128 (GQA group 16), bf16, causal.
+TRAIN_SHAPE = (1, 32, 2, 4096, 128)
+# gemma3-12b's attention (hd 256, 16 on 8 heads), local and global layers.
+GEMMA_SHAPE = (1, 16, 8, 2048, 256)
+TRAIN_LAYERS = 4  # glm4-9b's 40 layers cut to 4: 2 replicas fit the card
+TRAIN_ARGV = ["--arch", "glm4-9b", "--rounds", "3", "--local-steps", "2",
+              "--batch", "1", "--seq", "4096"]
+BWD_KERNELS = ("flash_bwd_stats_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_group_sum_kernel", "flash_bwd_dq_kernel")
+
+
+def backward_build_evidence() -> None:
+    """``nvcc -Xptxas -v``'s registers and spills for every instantiation
+    of the flash backward's kernels; none may spill."""
+    import re
+
+    from repro_torch.kernels import build
+
+    kernels, fn = {}, None
+    for line in build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '([^' ]+)", line)
+        if m:
+            kind = next((k for k in BWD_KERNELS if k in m.group(1)), None)
+            fn = None
+            if kind:
+                dt = "bf16" if "nv_bfloat16" in m.group(1) else "f32"
+                hd = re.findall(r"Li(\d+)E", m.group(1).split(kind, 1)[1])
+                fn = f"{kind}<{', '.join([dt, *hd])}>"
+                kernels[fn] = [None, None]
+        elif fn and "spill stores" in line:
+            kernels[fn][1] = sum(int(x) for x in re.findall(
+                r"(\d+) bytes spill", line))
+        elif fn and "Used" in line and "registers" in line:
+            kernels[fn][0] = int(re.search(r"Used (\d+) registers",
+                                           line).group(1))
+    check(len(kernels) == 3 * 2 * 3 + 2,
+          f"ptxas lines for {len(kernels)} flash backward kernels, expected "
+          "20 (3 per dtype and head dim, 1 group sum per dtype)")
+    print("  ptxas: " + "; ".join(f"{fn} {regs} regs, {spill} B spilled"
+                                  for fn, (regs, spill) in kernels.items()))
+    check(all(spill == 0 for _, spill in kernels.values()),
+          "a flash backward kernel spills")
+
+
+def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
+                         iters: int = 5) -> dict:
+    """The flash backward kernel against its plain version on the card: at
+    the training shape, at gemma3-12b's shapes (hd 256, window 1024 and
+    0), at GQA groups 1, 4 and 16, in f32 and bf16, at edge lengths; ``o``
+    is the forward kernel's output, as in training.  Tolerance:
+    ``flash_attention.backward_tolerance`` (both compute in f32 from the
+    same values in their own orders; one bf16 ulp of the outputs).  The
+    mask fault runs the kernel on q, o and dO moved down one row (each row's
+    mask one key late): its dq must miss the tolerance.  Then its time at
+    the training shape and at gemma3-12b's global layer beside its bound
+    (10 hd FLOP per open pair at the tensor-core peak of its dtype, bytes of
+    q, k, v, o, dO in and dq, dk, dv out), the plain version's and SDPA's
+    backward (``enable_gqa``, the same mask, on the same inputs)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        (shape, bf16, True, 0),  # the training shape
+        (gemma, bf16, True, LOCAL_WINDOW),  # gemma3-12b, a local layer
+        (gemma, bf16, True, 0),  # and a global one
+        ((2, 8, 8, 1000, 128), bf16, True, 0),  # group 1, ragged
+        ((2, 16, 4, 777, 64), f32, False, 100),  # group 4, non-causal
+        ((2, 16, 4, 777, 64), bf16, True, 100),
+        ((1, 32, 2, 300, 128), bf16, True, 0),  # group 16, ragged
+        ((1, 32, 2, 300, 128), f32, True, 0),
+        ((1, 4, 1, 300, 256), f32, True, 33),
+        ((2, 8, 2, 1, 64), bf16, True, 0),  # S = 1
+        ((2, 8, 2, 65, 64), f32, False, 0),  # a tile and one row
+        ((1, 8, 2, 129, 256), bf16, False, 40),
+    ]
+
+    def inputs(shp, dt):
+        b, h, kv, s, hd = shp
+        return [torch.randn(b, n, s, hd, generator=gen, device=dev).to(dt)
+                for n in (h, kv, kv, h)]
+
+    errs = {}
+    for shp, dt, causal, win in cases:
+        q, k, v, do = inputs(shp, dt)
+        o = fa.flash_attention(q, k, v, causal, win)
+        got = fa.flash_attention_backward(q, k, v, o, do, causal, win)
+        want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, win)
+        tol = fa.backward_tolerance(q, k, v, o, do, want, causal, win)
+        sync(dev)
+        ratios = [float(((a.float() - b.float()).abs() / t).max())
+                  for a, b, t in zip(got, want, tol)]
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        print(f"  flash backward (B,H,KV,S,hd)={shp} {str(dt)[6:]} "
+              f"causal={causal} window={win}: max|err| {e:.3e}; dq, dk, dv at "
+              + ", ".join(f"{r:.4f}" for r in ratios) + " of the tolerance")
+        check(max(ratios) <= 1.0,
+              f"flash backward disagrees ({shp}, {dt}, {causal}, {win})")
+        errs[shp, dt, causal, win] = e
+        if shp == shape:  # the mask fault must miss
+            roll = [torch.roll(t, 1, 2) for t in (q, o, do)]
+            fault = fa.flash_attention_backward(roll[0], k, v, roll[1],
+                                                roll[2], causal, win)[0]
+            sync(dev)
+            miss = float(((fault[:, :, 1:].float() - want[0][:, :, :-1].float())
+                          .abs() / tol[0][:, :, :-1]).max())
+            print(f"    mask one key late (q, o, dO moved down one row): dq "
+                  f"at {miss:.1f} of the tolerance (must exceed 1)")
+            check(miss > 1.0, "the backward tolerance misses a mask fault")
+            del fault, roll
+        del q, k, v, do, o, got, want, tol
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def timed(shp, win, what):
+        b, h, kv, s, hd = shp
+        q, k, v, do = inputs(shp, bf16)
+        o = fa.flash_attention(q, k, v, True, win)
+        n_bytes = 2.0 * (4 * q.numel() + 4 * k.numel())
+        flops = 10.0 * hd * b * h * open_pairs(s, True, win)
+        bound, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        if win:
+            ar = torch.arange(s, device=dev)
+            mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :]
+                                                   < win)
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                 enable_gqa=True)
+        else:
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                 enable_gqa=True)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            out, (qg, kg, vg), do, retain_graph=True)
+        r = dict(
+            max_abs_err=errs[shp, bf16, True, win],
+            ms=timed_ms(lambda: fa.flash_attention_backward(
+                q, k, v, o, do, True, win), dev, iters),
+            plain_ms=timed_ms(lambda: fa.flash_attention_backward_plain(
+                q, k, v, o, do, True, win), dev, max(iters // 5, 1)),
+            bound_ms=bound, bound_by=by,
+            library_ms=timed_ms(lib, dev, iters),
+        )
+        print(f"  flash backward {what} (B,H,KV,S,hd)={shp} window {win}: "
+              f"{r['ms']:.4f} ms for {flops:.4g} FLOP "
+              f"({flops / r['ms'] / 1e9:.2f} TFLOP/s), bound {bound:.4f} ms "
+              f"at the bf16 tensor-core peak ({by}), "
+              f"{100 * bound / r['ms']:.1f}% of it; plain {r['plain_ms']:.4f} "
+              f"ms; SDPA backward {r['library_ms']:.4f} ms; kernel/SDPA "
+              f"{r['ms'] / r['library_ms']:.3f}")
+        del out, lib
+        return r
+
+    row = timed(shape, 0, "glm4-9b training")  # the JSON row
+    timed(gemma, 0, "gemma3-12b global layer")
+    return row
+
+
+def train_parity(dev, seq: int = 128, batch: int = 2, rounds: int = 2):
+    """Reduced glm4-9b (f32, 2 layers, hd 64), 2 pods, K = 2: ``rounds``
+    rounds of ``make_round_step`` on the card against the same on the CPU,
+    from the same params (two distinct replicas) and tokens, once with the
+    dense ``P_pod`` (the dense mix) and once with ``pod_mixing_neighbors``
+    (the gather).  Tolerance: f32 on both, sums in other orders (cuBLAS and
+    the kernels against the CPU's), carried through 2 rounds without a
+    restart: params and momentum within 1e-4 of each leaf's largest
+    magnitude (the CPU against the reference measured 1e-6 a round), w
+    within 1e-6, the loss within 1e-5 relative, the accuracy within one
+    flipped token a step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.flat import tree_flatten, tree_map
+    from repro_torch.data.synthetic import make_lm_stream
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import get_model_api
+
+    cpu = torch.device("cpu")
+    api = get_model_api(get_config("glm4-9b", smoke=True))
+    base = api.init(torch.Generator().manual_seed(0), cpu)
+    stacked = tree_map(lambda x: torch.stack([x, 0.5 * x]), base)
+    toks = make_lm_stream(api.cfg.vocab_size, seq, rounds * 2 * 2 * batch)
+    toks = toks.reshape(rounds, 2, 2, batch, seq)
+    cfg = steps.StepConfig(lr=0.05, alpha=0.9, rho=0.05, local_steps=2)
+    for name, make_P, mix in (
+            ("dense", steps.pod_mixing_matrix, "gossip_matmul"),
+            ("neighbors", steps.pod_mixing_neighbors, "gossip_gather")):
+        out = {}
+        for d in (dev, cpu):
+            round_step = steps.make_round_step(api, cfg)
+            params = tree_map(lambda x: x.to(d).clone(), stacked)
+            v = tree_map(torch.zeros_like, params)
+            w = torch.ones(2, device=d)
+            P = make_P(2, d)
+            zero_counts()
+            hist = []
+            for r in range(rounds):
+                params, v, w, _, _, m = round_step(
+                    params, v, w, (), (), {"tokens": toks[r].to(d)}, P)
+                hist.append((float(m["loss"]), float(m["acc"])))
+            out[d.type] = (params, v, w, hist, read_counts())
+        (gp, gv, gw, gh, used), (cp, cv, cw, ch, _) = out[dev.type], out["cpu"]
+        rel = {}
+        for what, a, b in (("params", gp, cp), ("v", gv, cv)):
+            rel[what] = max(
+                float((x.cpu() - y).abs().max()) / float(y.abs().max())
+                for x, y in zip(tree_flatten(a)[1], tree_flatten(b)[1]))
+        dw = float((gw.cpu() - cw).abs().max())
+        dl = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(gh, ch))
+        da = max(abs(a[1] - b[1]) for a, b in zip(gh, ch))
+        print(f"  {name} P_pod, {rounds} rounds card against CPU: params "
+              f"{rel['params']:.3e} and v {rel['v']:.3e} of their largest "
+              f"magnitude (1e-4), w {dw:.3e} (1e-6), loss {dl:.3e} relative "
+              f"(1e-5), acc {da:.4f} (one token a step: "
+              f"{1 / (batch * (seq - 1)):.4f}); card losses "
+              f"{[round(h[0], 5) for h in gh]}; launches {used}")
+        check(rel["params"] <= 1e-4 and rel["v"] <= 1e-4 and dw <= 1e-6
+              and dl <= 1e-5 and da <= 1 / (batch * (seq - 1)),
+              f"training round on the card disagrees with the CPU ({name})")
+        want_bwd = rounds * 2 * 2 * 2 * api.cfg.n_layers
+        check(used[mix] == rounds and used["flash_attention_backward"]
+              == want_bwd, f"{name}: launches {used}")
+
+
+def print_train_split(prof, wall_s: float) -> None:
+    """``print_profile``, then the device time of a training round by kind:
+    flash forward, flash backward, matmuls, the mix, the rest."""
+    from torch.autograd import DeviceType
+
+    print_profile(prof, wall_s, top=10, also=("flash", "mix_"))
+    split = {"flash forward": 0.0, "flash backward": 0.0, "matmuls": 0.0,
+             "mix": 0.0, "rest": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        name = e.key.lower()
+        if "flash_attention_kernel" in name:
+            kind = "flash forward"
+        elif "flash_bwd_" in name:
+            kind = "flash backward"
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma",
+                                     "sm90_", "cublas")):
+            kind = "matmuls"
+        elif any(t in name for t in ("mix_resident", "mix_tiled", "gather_")):
+            kind = "mix"
+        else:
+            kind = "rest"
+        split[kind] += e.self_device_time_total / 1e3
+    total = sum(split.values())
+    print("  training round device time by kind: " + ", ".join(
+        f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f}%)"
+        for k, v in split.items()))
+
+
+def mix_check(dev, params, P) -> None:
+    """The dense mix at the pod bank's width (two f32 rows of the replicas'
+    2.06 B parameters, each more than 2^31 bytes) against its plain version
+    on column slices at the start, the middle and the end (the last column
+    included); tolerance as phase 3's, 1e-6 of max|Y| in f32."""
+    from repro_torch.core.flat import make_spec, tree_map
+    from repro_torch.kernels import gossip_matmul as gm
+
+    spec = make_spec(tree_map(lambda x: x[0], params))
+    X = spec.ravel_stacked(params)
+    Y = gm.gossip_matmul(P, X)
+    d = X.shape[1]
+    width = min(1 << 22, d)
+    print(f"  the mix at the pod bank's width: ({X.shape[0]}, {d}) "
+          f"{str(X.dtype)[6:]}, {d * X.element_size() / 2 ** 30:.2f} GiB a "
+          f"row ({d * X.element_size()} bytes)")
+    for a in (0, (d - width) // 2, d - width):
+        want = gm.gossip_matmul_plain(P, X[:, a:a + width])
+        e = max_err(Y[:, a:a + width], want)
+        tol = 1e-6 * float(want.abs().max())
+        print(f"    columns {a}..{a + width - 1}: max|err| {e:.3e} "
+              f"(tolerance {tol:.3e})")
+        check(e <= tol, f"the mix disagrees at columns {a}..{a + width - 1}")
+    del X, Y
+
+
+def training(dev, layers: int = TRAIN_LAYERS, argv=TRAIN_ARGV,
+             cfg=None) -> dict:
+    """The training main path through the port's launcher function,
+    ``repro_torch.launch.train.run``: glm4-9b at full width (d_model 4096,
+    32 on 2 heads, hd 128, d_ff 13,696, vocab 151,552, bf16) with its 40
+    layers cut to ``layers``, 2 pods, K = 2, 1 x 4096 tokens a pod a step
+    from ``make_lm_stream``, lr 0.05, alpha 0.9, rho 0.05, 3 rounds: each
+    round's loss, accuracy, w_mass, wall time and launches; peak memory;
+    then, on the state that run left, a profiled round split by kind and
+    the mix at the bank's width against its plain version.  ``cfg`` replaces
+    the architecture's config (a CPU rehearsal passes a reduced one)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(cfg or get_config("glm4-9b"), n_layers=layers)
+    args = train.build_parser().parse_args(argv + ["--device", dev.type])
+    per_step = 2 * args.local_steps * train.N_PODS * cfg.n_layers  # 2 passes
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # the training path's counts start here
+    per_round, last = [], [read_counts()]
+
+    def on_round(r, rec):
+        now = read_counts()
+        per_round.append({k: now[k] - last[0][k] for k in now})
+        last[0] = now
+        print(f"  round {r}: loss {rec['loss']:.4f} acc {rec['acc']:.4f} "
+              f"w_mass {rec['w_mass']:.6f} wall {rec['dt']:.3f} s launches "
+              f"{per_round[-1]}", flush=True)
+
+    t = time.perf_counter()
+    rec = train.run(cfg, args, on_round=on_round)
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    api = rec["api"]
+    print(f"  {cfg.name} cut to {cfg.n_layers} layers: "
+          f"{api.num_params() / 1e9:.3f} B parameters a replica, remat "
+          f"{cfg.remat}; train.run {wall:.1f} s (parameter init included)")
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB)")
+    fwd_per_round = per_step * (2 if cfg.remat else 1)  # remat recomputes
+    for h, used in zip(rec["history"], per_round):
+        check(math.isfinite(h["loss"]), f"round {h['round']}: loss {h['loss']}")
+        check(abs(h["w_mass"] - train.N_PODS) <= 1e-3,
+              f"round {h['round']}: w_mass {h['w_mass']}")
+        check(used["flash_attention_backward"] == per_step
+              and used["flash_attention"] == fwd_per_round
+              and used["gossip_matmul"] == 1 and used["gossip_gather"] == 0
+              and used["fused_update_bank"] == 0,
+              f"round {h['round']}: launches {used}, expected "
+              f"{per_step} backward, {fwd_per_round} forward, 1 dense mix")
+    check(len(rec["history"]) == 3, f"{len(rec['history'])} rounds")
+
+    state = [rec[k] for k in ("params", "v", "w", "comp", "link")]
+    with torch.profiler.profile() as prof:
+        t = time.perf_counter()
+        rec["round_step"](*state, {"tokens": rec["tokens"][0].to(dev)},
+                          rec["P_pod"])
+        sync(dev)
+        wall = time.perf_counter() - t
+    print(f"  profiled round {wall:.3f} s:")
+    print_train_split(prof, wall)
+    del prof
+    mix_check(dev, rec["params"], rec["P_pod"])
+    return launches
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -2166,7 +2534,23 @@ REPLACES = {
                      "src/repro/kernels/fused_update.py:33"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:70"),
+    # The gradient of that kernel's function; the TPU package has no Pallas
+    # backward (its training differentiates the plain attention).
+    "flash_attention_backward": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:70"),
 }
+
+
+def release() -> None:
+    """Free what the phase before left on the card: its cyclic garbage
+    first (trainers and runners hold reference cycles, so their tensors
+    outlive the phase until the collector runs, whenever that is), then
+    the allocator's cached blocks; print what stays live."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (live device memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          "GiB after the phase)")
 
 
 def main() -> int:
@@ -2217,7 +2601,7 @@ def main() -> int:
     serving_parity(dev)
     head("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
     paths["serving path"] = serving(dev)
-    torch.cuda.empty_cache()
+    release()
     head("[8] scenario path: cifar_cnn, 100 clients, kout k_out=10, "
          "links, churn, compressors, proximal solver, delta bank")
     paths["scenario path"], kept = scenario_path(dev, on_card())
@@ -2225,14 +2609,24 @@ def main() -> int:
          "bank")
     paths["checkpoint phase"] = checkpoint_phase(dev, on_card(), kept)
     del kept
-    torch.cuda.empty_cache()
+    release()
     head(f"[10] paged store: mnist_2nn, n={PAGED_N}, "
          f"k_active={PAGED_K_ACTIVE}, kout k_out={PAGED_K_OUT}")
     paths["paged path"] = paged_phase(dev)
-    torch.cuda.empty_cache()
+    release()
     head("[11] personalized serving: glm4-9b at full width, bf16, "
          "2 clients x 2048 tokens")
     paths["personalized serving path"] = personalized(dev)
+    release()
+    head(f"[12] training: the flash backward kernel; card: {card}")
+    backward_build_evidence()
+    rows["flash_attention_backward"] = flash_backward_phase(dev)
+    release()
+    head("[12] training: reduced glm4-9b, 2 pods, card against CPU, f32")
+    train_parity(dev)
+    head(f"[12] training: glm4-9b at full width cut to {TRAIN_LAYERS} "
+         "layers, 2 pods, K = 2, 1 x 4096 tokens, 3 rounds")
+    paths["training path"] = training(dev)
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

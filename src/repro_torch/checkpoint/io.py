@@ -87,18 +87,57 @@ def _path_str(path: tuple) -> str:
     return "/".join(f"[{k!r}]" for k in path)
 
 
-def _flatten_with_paths(tree):
-    from repro_torch.core.flat import tree_flatten
+def _walk(tree, prefix=()):
+    """``(path, leaf)`` pairs of a tree in the reference's flattening order
+    and ``jax.tree_util`` key names: dict keys sorted (``['k']``),
+    NamedTuple fields in order (``.name``), sequence items (``[i]``);
+    empty tuples hold no leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], prefix + (f"[{k!r}]",))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from _walk(getattr(tree, f), prefix + (f".{f}",))
+    elif isinstance(tree, (tuple, list)):
+        for i, x in enumerate(tree):
+            yield from _walk(x, prefix + (f"[{i}]",))
+    else:
+        yield prefix, tree
 
-    paths, leaves = tree_flatten(tree)
-    return paths, [_path_str(p) for p in paths], leaves
+
+def _flatten_with_paths(tree):
+    pairs = list(_walk(tree))
+    return ["/".join(p) for p, _ in pairs], [x for _, x in pairs]
+
+
+def _rebuild(like, leaves):
+    """``like``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    if isinstance(like, dict):
+        done = {k: _rebuild(like[k], leaves) for k in sorted(like)}
+        return {k: done[k] for k in like}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*[_rebuild(getattr(like, f), leaves)
+                            for f in like._fields])
+    if isinstance(like, (tuple, list)):
+        return type(like)(_rebuild(x, leaves) for x in like)
+    return next(leaves)
 
 
 def save(directory: str, step: int, tree, keep: int = 3) -> str:
-    """Save a nested dict of tensors / arrays as ``ckpt_<step>.npz``."""
+    """Save a tree of tensors / arrays (nested dicts, NamedTuples such as a
+    ``LinkState``) as ``ckpt_<step>.npz``.  A ``torch.Generator`` leaf is
+    written as a JAX key made from its seed (so the reference opens the
+    file) beside its state in ``torch_leaf_<i>`` members, which the
+    reference does not read."""
     os.makedirs(directory, exist_ok=True)
-    _, paths, leaves = _flatten_with_paths(tree)
-    payload = {f"leaf_{i}": _to_host(leaf) for i, leaf in enumerate(leaves)}
+    paths, leaves = _flatten_with_paths(tree)
+    payload = {}
+    for i, leaf in enumerate(leaves):
+        if isinstance(leaf, torch.Generator):
+            payload.update(_generator_extras(f"leaf_{i}", leaf))
+        else:
+            payload[f"leaf_{i}"] = _to_host(leaf)
     payload["__paths__"] = np.array(json.dumps(paths))
     final = os.path.join(directory, f"ckpt_{step}.npz")
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
@@ -130,26 +169,32 @@ def latest_checkpoint(directory: str) -> str | None:
 
 
 def restore(path: str, like=None):
-    """Restore a nested dict.  With ``like`` given, its paths are checked
-    and each leaf comes back as a tensor with ``like``'s dtype and device;
-    otherwise a nested dict of numpy arrays is built."""
-    from repro_torch.core.flat import tree_unflatten
-
+    """Restore a tree.  With ``like`` given, its paths are checked and the
+    leaves come back in its structure: a tensor leaf as a tensor with
+    ``like``'s dtype and device, a ``torch.Generator`` leaf from the
+    generator state the port wrote (a file holding only a JAX key raises:
+    random streams do not cross), anything else as the stored numpy array.
+    Otherwise a nested dict of numpy arrays is built."""
     data = np.load(path, allow_pickle=False)
     paths = json.loads(str(data["__paths__"]))
     leaves = [data[f"leaf_{i}"] for i in range(len(paths))]
     if like is not None:
-        keys, ex_paths, ex_leaves = _flatten_with_paths(like)
+        ex_paths, ex_leaves = _flatten_with_paths(like)
         if ex_paths != paths:
             raise ValueError("checkpoint structure mismatch")
         out = []
-        for leaf, ex in zip(leaves, ex_leaves):
+        for i, (leaf, ex) in enumerate(zip(leaves, ex_leaves)):
             if isinstance(ex, torch.Tensor):
                 out.append(_to_tensor(leaf, _dtype_name(ex.dtype),
                                       ex.device).to(ex.dtype))
+            elif isinstance(ex, torch.Generator):
+                extra = {f: data[f] for f in data.files
+                         if f.startswith(f"torch_leaf_{i}")}
+                out.append(_generator_from(extra, f"leaf_{i}", None,
+                                           ex.device))
             else:
                 out.append(leaf)
-        return tree_unflatten(keys, out)
+        return _rebuild(like, iter(out))
     out: dict = {}
     for path, leaf in zip(paths, leaves):
         keys = [k.strip("[]'\".") for k in path.split("/")]

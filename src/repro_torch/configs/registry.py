@@ -27,12 +27,12 @@ _MODULES = {
 # The zoo ids this slice does not port yet, with the open item (ROADMAP
 # queue 1) that ports each.
 _WAITING = {
-    "hubert-xlarge": "item 13 (the masked_lm task)",
-    "deepseek-v3-671b": "item 13 (MoE and MLA)",
-    "dbrx-132b": "item 13 (MoE)",
-    "llava-next-mistral-7b": "item 13 (the vlm task)",
-    "xlstm-350m": "item 13 (the xlstm block)",
-    "hymba-1.5b": "item 13 (the hymba block)",
+    "hubert-xlarge": "item 13.3 (the masked_lm task)",
+    "deepseek-v3-671b": "items 13.1 and 13.2 (MoE and MLA)",
+    "dbrx-132b": "item 13.1 (MoE)",
+    "llava-next-mistral-7b": "item 13.3 (the vlm task)",
+    "xlstm-350m": "item 13.4 (the xlstm block)",
+    "hymba-1.5b": "item 13.4 (the hymba block)",
 }
 
 ARCH_IDS = ("hubert-xlarge", "gemma3-12b", "phi3-medium-14b",
@@ -58,7 +58,7 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,
     numpy from ``seed`` exactly as the reference's ``make_batch`` draws it."""
     if cfg.task != "lm":
         raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (ROADMAP queue 1 item 13)")
+            f"task {cfg.task!r} is not ported yet (ROADMAP queue 1 item 13.3)")
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, size=(batch, seq))
     return {"tokens": torch.as_tensor(tokens, dtype=torch.int32,

@@ -1,7 +1,15 @@
 """Sharpness-Aware Minimization and local-momentum primitives (Algorithm 1
 lines 6-10) — the port of ``repro.core.sam``, over nested parameter dicts
 with ``torch.func``.  ``momentum_update`` and ``apply_update`` drive the
-``flat=False`` oracle; the flat bank runs them fused in one kernel.
+``flat=False`` oracle and the pod runtime; the flat bank runs them fused in
+one kernel.
+
+:func:`sam_gradient_autograd` is the same two-pass gradient taken with
+``torch.autograd.grad`` on leaf tensors, for losses that run a kernel with a
+hand-written backward (the decoders' flash attention): its CUDA call needs
+real storage, which ``torch.func``'s wrapper tensors do not have, and
+``cfg.remat``'s ``torch.utils.checkpoint`` needs the saved-tensor hooks
+that ``torch.func`` refuses.
 """
 from __future__ import annotations
 
@@ -10,10 +18,10 @@ from typing import Callable
 import torch
 from torch.func import grad, grad_and_value
 
-from repro_torch.core.flat import tree_flatten, tree_map
+from repro_torch.core.flat import tree_flatten, tree_map, tree_unflatten
 
-__all__ = ["global_norm", "sam_perturb", "sam_gradient", "momentum_update",
-           "apply_update"]
+__all__ = ["global_norm", "sam_perturb", "sam_gradient",
+           "sam_gradient_autograd", "momentum_update", "apply_update"]
 
 _EPS = 1e-12
 
@@ -49,6 +57,41 @@ def sam_gradient(loss_fn: Callable, params, batch, rho: float):
         return g1, (loss, aux)
     perturbed = sam_perturb(params, g1, rho)
     g2, _ = grad(loss_fn, has_aux=True)(perturbed, batch)
+    return g2, (loss, aux)
+
+
+def _detach(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_detach(y) for y in x)
+    if isinstance(x, dict):
+        return {k: _detach(y) for k, y in x.items()}
+    return x
+
+
+def _grad_and_value(loss_fn: Callable, params, batch):
+    """``(grads, (loss, aux))`` of ``loss_fn`` at ``params`` by
+    ``torch.autograd.grad`` on fresh leaves (the caller's tensors are not
+    touched)."""
+    paths, leaves = tree_flatten(params)
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        loss, aux = loss_fn(tree_unflatten(paths, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return tree_unflatten(paths, list(grads)), (loss.detach(), _detach(aux))
+
+
+def sam_gradient_autograd(loss_fn: Callable, params, batch, rho: float):
+    """:func:`sam_gradient` with ``torch.autograd.grad`` in place of
+    ``torch.func``: the same two passes and :func:`sam_perturb` arithmetic.
+    Returns ``(grads, (loss, aux))`` of the first pass, detached."""
+    g1, (loss, aux) = _grad_and_value(loss_fn, params, batch)
+    if rho == 0.0:
+        return g1, (loss, aux)
+    perturbed = sam_perturb(params, g1, rho)
+    del g1
+    g2, _ = _grad_and_value(loss_fn, perturbed, batch)
     return g2, (loss, aux)
 
 

@@ -1,6 +1,6 @@
 """Deterministic synthetic datasets shaped like the paper's benchmarks — a
-numpy copy of ``repro.data.synthetic.make_dataset`` giving byte-identical
-arrays (``make_lm_stream`` comes with the LLM slice).
+numpy copy of ``repro.data.synthetic.make_dataset`` and ``make_lm_stream``
+giving byte-identical arrays.
 
 The container is offline, so MNIST/CIFAR cannot be downloaded.  We generate
 learnable Gaussian-mixture classification problems with matching shapes so
@@ -15,8 +15,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["DatasetSpec", "SPECS", "make_dataset"]
+__all__ = ["DatasetSpec", "SPECS", "make_dataset", "make_lm_stream"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +62,27 @@ def make_dataset(spec: DatasetSpec | str, n_train: int, n_test: int, seed: int =
         return {"x": x.reshape((n,) + spec.shape), "y": y}
 
     return sample(n_train, seed + 1), sample(n_test, seed + 2)
+
+
+def make_lm_stream(
+    vocab_size: int, seq_len: int, n_seqs: int, seed: int = 0, order: int = 2
+) -> torch.Tensor:
+    """Synthetic token stream with learnable Markov structure for LM training:
+    ``(n_seqs, seq_len)`` int32 tokens on the CPU, the reference's token for
+    token (the same numpy draws).
+
+    A fixed random ``order``-gram transition table generates sequences, so a
+    language model can reduce loss well below uniform entropy.
+    """
+    rng = np.random.default_rng(seed)
+    ctx = min(vocab_size, 512)
+    table = rng.dirichlet(np.ones(ctx) * 0.1, size=ctx).astype(np.float32)
+    toks = np.empty((n_seqs, seq_len), dtype=np.int32)
+    state = rng.integers(0, ctx, size=n_seqs)
+    for t in range(seq_len):
+        u = rng.random((n_seqs, 1))
+        cdf = np.cumsum(table[state], axis=1)
+        nxt = (u < cdf).argmax(axis=1)
+        toks[:, t] = nxt
+        state = nxt
+    return torch.from_numpy(toks % vocab_size)

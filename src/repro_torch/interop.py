@@ -21,7 +21,8 @@ from repro_torch.core.program import FLState, RoundProgram
 from repro_torch.core.stages import ChurnState, LinkState
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "bank_row_from_numpy",
-           "state_from_numpy", "program_with_delta_base"]
+           "state_from_numpy", "pod_state_from_numpy",
+           "program_with_delta_base"]
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -87,6 +88,30 @@ def state_from_numpy(dump: dict, gen: torch.Generator, device="cpu", *,
         link=link,
         churn=churn,
     )
+
+
+def pod_state_from_numpy(dump: dict, device="cpu", *,
+                         link_key: torch.Generator | None = None) -> tuple:
+    """The pod round's carries ``(params, v, w, comp, link)`` from a numpy
+    dump of the reference's: ``params`` and ``v`` (pytrees whose leaves
+    are stacked on a leading pod axis), ``w`` (n_pods,), and optionally
+    ``comp`` (the EF residual bank) and ``link`` (a dict of ``bufx`` /
+    ``bufw`` / ``last``, each None where the mixer carries none).  The
+    reference's link key has no torch counterpart: ``link_key`` becomes
+    the link stream (required where the dump carries link state).  Carries
+    the dump lacks come back as ``()``."""
+    link = ()
+    if dump.get("link") is not None:
+        if link_key is None:
+            raise ValueError("the dump carries link state: pass link_key")
+        lk = dump["link"]
+        link = LinkState(link_key, _maybe(lk.get("bufx"), device),
+                         _maybe(lk.get("bufw"), device),
+                         _maybe(lk.get("last"), device))
+    return (params_from_numpy(dump["params"], device),
+            params_from_numpy(dump["v"], device),
+            tensor_from_numpy(dump["w"], device),
+            _maybe(dump.get("comp"), device), link)
 
 
 def program_with_delta_base(program: RoundProgram, base_tree,

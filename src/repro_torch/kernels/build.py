@@ -11,8 +11,9 @@ Each source compiles with ``-Xptxas -v``; what ``nvcc`` printed (each
 kernel's registers, shared memory and spills) is kept beside the library
 as ``<library>.log`` (:func:`build_log`).  Pointers and the stream cross
 as ``c_void_p``, sizes as ``c_int64``; every launch entry point returns
-the ``cudaError_t`` of its launch, and one query returns which of its
-kernels the gather takes at a shape.
+the ``cudaError_t`` of its launch (the flash backward's: of the first of
+its four launches that fails), and one query returns which of its kernels
+the gather takes at a shape.
 """
 from __future__ import annotations
 
@@ -53,6 +54,11 @@ _SIGNATURES = {
     # v and o, causal, window, stream
     "flash_attention_launch": (_I, _I, _P, _P, _P, _P, *(_I64,) * 16, _I,
                                _I64, _P),
+    # dtype, hd, q, k, v, o, dO, dQ, dK, dV, the f32 scratch (lse, D, the
+    # dK and dV shares), B, H, KV, S, the (b, head, s) strides of q, k, v,
+    # o, dO, dQ, dK and dV, causal, window, stream
+    "flash_attention_backward_launch": (_I, _I, *(_P,) * 12, *(_I64,) * 28,
+                                        _I, _I64, _P),
 }
 
 # Entry points that return something else than a cudaError_t.

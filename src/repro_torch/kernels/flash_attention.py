@@ -20,10 +20,21 @@ contiguous), so a ``(B, S, H, hd)`` projection may be passed as its
 ``transpose(1, 2)`` view; the output is laid out like q.  bf16 inputs are
 loaded by TMA, so they must start on 16 bytes and have (b, head, s) strides
 that are multiples of 8 elements (the transposed views of ``gqa_forward``
-always do).  The kernel has no backward, so the wrapper refuses inputs that
-require grad.  ``launches`` counts kernel launches of both dtypes.
+always do).  ``launches`` counts kernel launches of both dtypes.
 :func:`bf16_tolerance` states how far the bf16 kernel may lie from the plain
 version.
+
+Inputs that require grad go through a ``torch.autograd.Function`` whose
+backward is :func:`flash_attention_backward`: the CUDA kernels of
+``csrc/flash_attention_bwd.cu`` on the card (``backward_launches`` counts
+its calls), :func:`flash_attention_backward_plain` on the CPU.  The TPU
+package has no Pallas backward (its training path differentiates the plain
+attention with JAX); this one computes the gradient of the forward's
+function from q, k, v, the forward's output o and dO, recomputing each
+row's logsumexp.  :func:`backward_tolerance` states how far it may lie from
+its plain version.  The backward's CUDA call takes raw pointers, so the
+gradient is taken with ``torch.autograd`` (``torch.func`` transforms hand
+the backward wrapper tensors without storage).
 """
 from __future__ import annotations
 
@@ -31,13 +42,16 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, load_library
 
-__all__ = ["bf16_tolerance", "flash_attention", "flash_attention_plain",
-           "HEAD_DIMS", "launches"]
+__all__ = ["backward_tolerance", "bf16_tolerance", "flash_attention",
+           "flash_attention_backward", "flash_attention_backward_plain",
+           "flash_attention_plain", "HEAD_DIMS", "launches",
+           "backward_launches"]
 
 HEAD_DIMS = (64, 128, 256)  # the head sizes the kernel is built for
 NEG = -1.0e30
 
 launches = 0
+backward_launches = 0
 
 
 def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -51,16 +65,22 @@ def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
     return ok
 
 
+def _wide(t):
+    """``t`` in f32, or in its own dtype where that is wider (f64, which the
+    gradient checks use)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
     """The kernel's function in plain PyTorch: q scaled in f32 before the
     product, masked scores set to -1e30, softmax, P.V in f32, q's dtype.
     GQA by a (KV, group) split of the query heads, with no repeat."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
-    qf = (q.float() * hd ** -0.5).unflatten(1, (kv, h // kv))
-    scores = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float())
+    qf = (_wide(q) * hd ** -0.5).unflatten(1, (kv, h // kv))
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qf, _wide(k))
     scores = scores.masked_fill(~_mask(s, causal, window, q.device), NEG)
-    out = torch.einsum("bkgqs,bksd->bkgqd", scores.softmax(-1), v.float())
+    out = torch.einsum("bkgqs,bksd->bkgqd", scores.softmax(-1), _wide(v))
     return out.flatten(1, 2).to(q.dtype)
 
 
@@ -129,12 +149,8 @@ def _check_cuda_args(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+def _forward(q, k, v, causal: bool, window: int):
     global launches
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError(
-            "flash_attention has no backward: call it on tensors that do not "
-            "require grad (e.g. under torch.inference_mode())")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     if q.device.type != "cuda":
@@ -157,3 +173,164 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     check(rc, "flash_attention")
     launches += 1
     return o
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with :func:`flash_attention_backward` as its
+    gradient (q, k and v; the masks get none)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        ctx.save_for_backward(q, k, v, output)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do, ctx.causal,
+                                              ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def flash_attention_backward_plain(q, k, v, o, do, causal: bool = True,
+                                   window: int = 0):
+    """The backward kernel's function in plain PyTorch, in f32: each row's
+    logsumexp over its open keys, P = exp(s - lse) (0 on masked pairs),
+    D = rowsum(dO o), dS = P (dO v^T - D), then dQ = dS k hd^-0.5,
+    dK = dS^T q hd^-0.5 and dV = P^T dO summed over each kv head's group.
+    Returns (dq, dk, dv) in the inputs' dtypes (f64 inputs compute in
+    f64)."""
+    b, h, s, hd = q.shape
+    kv = k.shape[1]
+    scale = hd ** -0.5
+    qf = (_wide(q) * scale).unflatten(1, (kv, h // kv))
+    kf, vf = _wide(k), _wide(v)
+    dof = _wide(do).unflatten(1, (kv, h // kv))
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qf, kf)
+    scores = scores.masked_fill(~_mask(s, causal, window, q.device), NEG)
+    p = torch.exp(scores - torch.logsumexp(scores, -1, keepdim=True))
+    del scores
+    dsum = (dof * _wide(o).unflatten(1, (kv, h // kv))).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, vf) - dsum)
+    del p
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf)
+    return dq.flatten(1, 2).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
+                       window: int = 0):
+    """Per-element bounds on ``|kernel - plain|`` for (dq, dk, dv), where
+    ``ref`` is the plain version's (dq, dk, dv) on the same inputs:
+    ``c |ref| + 2 u n mag`` with u = 2^-24, c = 2^-7 for bf16 outputs and
+    2u for f32, n = 2 S + hd (1 + 2 s_max) + 8, and ``mag`` the plain
+    formulas on magnitudes: |dS| <= P (|dO| |v|^T + rowsum(|dO| |o|)), then
+    mag_dq = |dS| |k| hd^-0.5, mag_dk = |dS|^T |q| hd^-0.5 and
+    mag_dv = P^T |dO|.
+
+    Derivation.  Both sides compute in f32 from the same values (bf16
+    inputs widen exactly; products of two of them are exact), so they differ
+    only by the order of their f32 sums, and by the final rounding.  A sum
+    of m terms in any order is within (m u) of the terms' magnitudes of the
+    exact sum.  dO v^T and D sum hd terms; P = exp(s - lse) is off by the
+    error of s (hd u s_max, with s_max the largest |q| |k|^T hd^-0.5 of an
+    open pair) and of lse (as much again, plus S u for its sum over keys),
+    relative; the products with k, q and dO sum up to S terms.  So each
+    side lies within n u mag of the exact gradient, and the two within
+    2 n u mag of each other.  The outputs then round to their dtype: two
+    bf16 roundings of values that close are at most one bf16 ulp apart
+    (2^-7 |ref|, the ulp's largest size relative to the value).  This is a
+    worst-case bound: the measured errors are far smaller."""
+    b, h, s, hd = q.shape
+    kv = k.shape[1]
+    scale = hd ** -0.5
+    qa = q.float().abs().unflatten(1, (kv, h // kv))
+    ka, va = k.float().abs(), v.float().abs()
+    doa = do.float().abs().unflatten(1, (kv, h // kv))
+    qf = (q.float() * scale).unflatten(1, (kv, h // kv))
+    closed = ~_mask(s, causal, window, q.device)
+    s_max = float(torch.einsum("bkgqd,bksd->bkgqs", qa * scale, ka)
+                  .masked_fill(closed, 0.0).amax())
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float())
+    scores = scores.masked_fill(closed, NEG)
+    p = torch.exp(scores - torch.logsumexp(scores, -1, keepdim=True))
+    del scores
+    dabs = (doa * o.float().abs().unflatten(1, (kv, h // kv))).sum(
+        -1, keepdim=True)
+    mag_dv = torch.einsum("bkgqs,bkgqd->bksd", p, doa)
+    dsa = p * (torch.einsum("bkgqd,bksd->bkgqs", doa, va) + dabs)
+    del p
+    mag_dq = (torch.einsum("bkgqs,bksd->bkgqd", dsa, ka) * scale).flatten(1, 2)
+    mag_dk = torch.einsum("bkgqs,bkgqd->bksd", dsa, qa) * scale
+    del dsa
+    u = 2.0 ** -24
+    n = 2 * s + hd * (1 + 2 * s_max) + 8
+    out = []
+    for r, mag in zip(ref, (mag_dq, mag_dk, mag_dv)):
+        c = 2.0 ** -7 if r.dtype == torch.bfloat16 else 2 * u
+        out.append(c * r.float().abs() + 2 * u * n * mag)
+    return tuple(out)
+
+
+def _cuda_view(t):
+    """``t`` itself when its head dim is contiguous, else a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def flash_attention_backward(q, k, v, o, do, causal: bool = True,
+                             window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), given its
+    output ``o`` and the output's gradient ``do``: the plain version for CPU
+    tensors, the CUDA kernels for CUDA tensors (or the wrapper raises).  The
+    gradients are laid out like q, k and v (``empty_like``)."""
+    global backward_launches
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, do, causal, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention backward kernel for device "
+                         f"{q.device}")
+    _check_cuda_args(q, k, v, window)
+    o, do = _cuda_view(o), _cuda_view(do)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    b, h, s, hd = q.shape
+    kv = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse, dsum = torch.empty(b, h, s, **f32), torch.empty(b, h, s, **f32)
+    if h > kv:
+        dk_part = torch.empty(b, h, s, hd, **f32)
+        dv_part = torch.empty(b, h, s, hd, **f32)
+        parts = (dk_part.data_ptr(), dv_part.data_ptr())
+    else:
+        parts = (None, None)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_backward_launch(
+            DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            *parts, b, h, kv, s,
+            *(st for t in (q, k, v, o, do, dq, dk, dv)
+              for st in t.stride()[:3]),
+            int(causal), int(window), torch.cuda.current_stream().cuda_stream,
+        )
+    check(rc, "flash_attention_backward")
+    backward_launches += 1
+    return dq, dk, dv

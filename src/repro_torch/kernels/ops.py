@@ -90,5 +90,6 @@ def flash_attention(q, k, v, causal=True, window=0):
     """Causal / sliding-window GQA attention, the counterpart of the
     reference's ``ops.flash_attention``: q is (B,H,S,hd), k and v are
     (B,KV,S,hd), any S.  Views with a contiguous head dim pass through
-    without a copy (the kernel reads strides)."""
+    without a copy (the kernel reads strides).  Inputs that require grad
+    differentiate through the hand-written backward kernel."""
     return _flash_kernel(q, k, v, causal=bool(causal), window=int(window))

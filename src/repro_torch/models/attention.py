@@ -1,9 +1,10 @@
 """Grouped-query attention with causal and sliding-window masks — the GQA
 part of ``repro.models.attention`` (MLA waits for ROADMAP queue 1 item 13).
 
-Full-sequence mode (:func:`gqa_forward`, used by prefill) computes its
-attention core through the hand-written flash kernel
-(:func:`repro_torch.kernels.ops.flash_attention`); decode mode
+Full-sequence mode (:func:`gqa_forward`, used by prefill and by the
+training forward) computes its attention core through the hand-written
+flash kernel (:func:`repro_torch.kernels.ops.flash_attention`; under
+autograd its backward is the hand-written backward kernel); decode mode
 (:func:`gqa_decode`) stays plain PyTorch, one query against the cache, as in
 the reference, which has no Pallas kernel there either.
 """
@@ -123,7 +124,7 @@ def _out_proj(out, wo):
 
 def gqa_forward(p, x, cfg: ArchConfig, window: int = 0, theta=None,
                 positions=None, return_kv: bool = False):
-    """Full-sequence attention (prefill).  ``positions`` feeds the rope; the
+    """Full-sequence attention (prefill and training).  ``positions`` feeds the rope; the
     kernel's mask takes query and key i at position i, which is what every
     caller passes (``arange(S)`` per row).
 

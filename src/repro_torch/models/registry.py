@@ -19,6 +19,7 @@ class ModelApi(NamedTuple):
     param_defs: Callable
     cache_defs: Callable
     forward: Callable
+    loss: Callable
     decode_step: Callable
     prefill: Callable
 
@@ -43,6 +44,9 @@ def get_model_api(cfg: ArchConfig) -> ModelApi:
     def forward(params, batch):
         return mod.forward(params, batch, cfg)
 
+    def loss(params, batch):
+        return mod.loss(params, batch, cfg)
+
     def decode_step(params, cache, tokens, pos):
         return mod.decode_step(params, cache, tokens, pos, cfg)
 
@@ -54,6 +58,7 @@ def get_model_api(cfg: ArchConfig) -> ModelApi:
         param_defs=lambda c=cfg: mod.param_defs(c),
         cache_defs=lambda batch, length, c=cfg: mod.cache_defs(c, batch, length),
         forward=forward,
+        loss=loss,
         decode_step=decode_step,
         prefill=prefill,
     )

@@ -5,9 +5,12 @@ Parameters stay stacked on a leading layer axis as in the reference, so a
 reference parameter tree carries across as a copy; the reference's
 ``lax.scan`` over layers becomes a Python loop over the layer views.
 Per-layer heterogeneity (gemma3's 5:1 sliding-window pattern, dual rope
-thetas) comes from :func:`_layer_meta` as plain Python numbers.  The
-``loss``, and the ``vlm`` and ``masked_lm`` tasks, wait for ROADMAP queue 1
-item 13.
+thetas) comes from :func:`_layer_meta` as plain Python numbers; with
+``cfg.remat`` each layer of a forward that records gradients runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
+body: the layer is recomputed in the backward, with the same numbers).
+:func:`loss` is the ``lm`` task's next-token cross entropy; the ``vlm`` and
+``masked_lm`` tasks wait for ROADMAP queue 1 item 13.3.
 
 **Lanes.**  Every entry point also takes parameters stacked on a leading
 *lane* axis, one lane per batch row (``embed`` of shape ``(B, V, d)``):
@@ -21,17 +24,24 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import lane_scale, rms_norm, shard_act
+from repro_torch.models.layers import (
+    lane_scale,
+    rms_norm,
+    shard_act,
+    softmax_xent,
+)
 from repro_torch.models.pdefs import PDef
 
 __all__ = [
     "param_defs",
     "cache_defs",
     "forward",
+    "loss",
     "prefill",
     "decode_step",
 ]
@@ -41,7 +51,8 @@ def _check_supported(cfg: ArchConfig) -> None:
     if cfg.attn_type != "gqa" or cfg.n_experts or cfg.task != "lm":
         raise NotImplementedError(
             f"{cfg.name}: only dense GQA decoders of the lm task are ported "
-            "(MLA, MoE and the vlm / masked_lm tasks: ROADMAP queue 1 item 13)")
+            "(ROADMAP queue 1: MoE item 13.1, MLA item 13.2, the vlm and "
+            "masked_lm tasks item 13.3)")
 
 
 def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
@@ -153,12 +164,29 @@ def forward(params, batch, cfg: ArchConfig):
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     lanes = _lanes(params)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
-        x, _ = _block(_layer(params["layers"], i, lanes), x, cfg, win, th,
-                      positions)
+        pl = _layer(params["layers"], i, lanes)
+
+        def body(x, pl=pl, win=win, th=th):
+            return _block(pl, x, cfg, win, th, positions)[0]
+
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     logits = shard_act(_logits(params, x, cfg), ("batch", "seq", "vocab"))
     aux = {"moe_aux": torch.zeros((), device=x.device), "loss_mask": mask}
     return logits, aux
+
+
+def loss(params, batch, cfg: ArchConfig):
+    """Next-token cross entropy of an ``lm`` batch -> (scalar, (ce, acc)),
+    the FL / pod train target: logits at positions 0..S-2 against tokens
+    1..S-1."""
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["tokens"]
+    lg = logits[:, :-1] if labels.shape[1] > 1 else logits
+    ce, acc = softmax_xent(lg, labels[:, 1:], None)
+    total = ce + cfg.router_aux_coef * aux["moe_aux"]
+    return total, (ce, acc)
 
 
 def prefill(params, batch, cfg: ArchConfig, cache_len: int):

@@ -105,9 +105,19 @@ def test_flash_attention_reads_transposed_views():
 
 
 def test_flash_attention_refuses_inputs_that_require_grad():
+    """Inputs that require grad were refused while the kernel had no
+    backward; they now go through the autograd Function, whose CPU backward
+    is the plain one (``tests/test_torch_flash_backward.py`` holds it to
+    the reference)."""
     _, (q, k, v) = _inputs(1, 2, 1, 8, 64, jnp.float32)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.flash_attention(q.requires_grad_(), k, v)
+    out = ops.flash_attention(q.requires_grad_(), k, v)
+    assert out.grad_fn is not None
+    before = fa.backward_launches
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    want = fa.flash_attention_backward_plain(
+        q.detach(), k, v, out.detach(), torch.ones_like(out))[0]
+    assert torch.equal(dq, want)
+    assert fa.backward_launches == before  # a CPU tensor launches nothing
 
 
 def _emulate_bf16_kernel(q, k, v, causal, window, diagonal=0):

@@ -12,7 +12,9 @@ its softmax denominator and P.V in its own order (online, tile by tile):
 2e-5 absolute in f32 on outputs of magnitude about 1.  In bf16 the kernel
 also rounds P to bf16 before P.V on the tensor cores:
 ``flash_attention.bf16_tolerance`` (2e-5 + 2^-8 max|v| over the row's open
-keys + 2^-7 |out|; its docstring derives it).
+keys + 2^-7 |out|; its docstring derives it).  The flash backward computes
+in f32 from the same values as its plain version, in another order:
+``flash_attention.backward_tolerance`` (derived in its docstring).
 """
 import pytest
 import torch
@@ -244,6 +246,51 @@ def test_cuda_flash_attention_matches_its_plain_version(cuda_device, dt, hd):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_cuda_flash_backward_matches_its_plain_version(cuda_device, dt, hd):
+    """The backward kernel (dq, dk, dv from q, k, v, o and dO) against
+    :func:`flash_attention_backward_plain` within
+    :func:`flash_attention.backward_tolerance`, at every head dim, GQA
+    groups 1, 4 and 16, the four mask modes, ragged lengths; and through
+    ``torch.autograd`` on strided views, one backward launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(hd + 1)
+    for s in (1, 12, 100, 200):
+        for h, kv in ((4, 4), (8, 2), (16, 1)):
+            q, k, v = (torch.randn(2, n, s, hd, generator=g,
+                                   device=cuda_device).to(dt)
+                       for n in (h, kv, kv))
+            do = torch.randn(2, h, s, hd, generator=g,
+                             device=cuda_device).to(dt)
+            for causal, window in ((True, 0), (True, 33), (False, 0),
+                                   (False, 70)):
+                o = fa.flash_attention_plain(q, k, v, causal, window)
+                want = fa.flash_attention_backward_plain(q, k, v, o, do,
+                                                         causal, window)
+                before = fa.backward_launches
+                got = fa.flash_attention_backward(q, k, v, o, do, causal,
+                                                  window)
+                assert fa.backward_launches == before + 1
+                tol = fa.backward_tolerance(q, k, v, o, do, want, causal,
+                                            window)
+                for a, b, t in zip(got, want, tol):
+                    assert a.dtype == dt and a.shape == b.shape
+                    assert bool(((a.float() - b.float()).abs() <= t).all()), (
+                        s, h, kv, causal, window)
+    x = torch.randn(1, 40, 8, hd, generator=g, device=cuda_device).to(dt)
+    kx = torch.randn(1, 40, 2, hd, generator=g, device=cuda_device).to(dt)
+    q, k, v = (t.transpose(1, 2).requires_grad_() for t in (x, kx, kx * 0.5))
+    out = fa.flash_attention(q, k, v, True, 0)
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    want = fa.flash_attention_backward_plain(
+        q.detach(), k.detach(), v.detach(), out.detach(), 2 * out.detach())
+    for a, b, t in zip(grads, want, fa.backward_tolerance(
+            q.detach(), k.detach(), v.detach(), out.detach(),
+            2 * out.detach(), want)):
+        assert bool(((a.float() - b.float()).abs() <= t).all())
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("s", [300, 1000])
 def test_cuda_flash_attention_bf16_group16_ragged(cuda_device, s):
     """glm4-9b's GQA group of 16 at hd 128, at lengths that are no multiple
@@ -293,17 +340,18 @@ def test_cuda_flash_attention_reads_strided_views(cuda_device, dt):
 
 
 def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
-    """No backward, no kernel for other head dims, and no bf16 input that
-    TMA cannot load (an s-stride that is no multiple of 8 elements, a base
-    off 16 bytes): the wrapper raises and launches nothing, it never falls
-    back to the plain version."""
+    """No kernel for other head dims, no bf16 input that TMA cannot load
+    (an s-stride that is no multiple of 8 elements, a base off 16 bytes),
+    and no backward of an output or gradient of another shape: the wrapper
+    raises and launches nothing, it never falls back to the plain version.
+    (Inputs that require grad were refused before the backward kernel.)"""
     q = torch.randn(1, 2, 8, 64, device=cuda_device)
     # s-stride 68 elements: hd = 64 contiguous inside rows of 68.
     odd = torch.randn(1, 2, 8, 68, device=cuda_device).bfloat16()[..., :64]
     flat = torch.randn(2 * 8 * 64 + 1, device=cuda_device).bfloat16()
     shifted = flat[1:].view(1, 2, 8, 64)  # starts 2 bytes past 16
     refused = [
-        lambda: fa.flash_attention(q.clone().requires_grad_(), q, q),
+        lambda: fa.flash_attention_backward(q, q, q, q, q[:, :, :4]),
         lambda: fa.flash_attention(torch.randn(1, 2, 8, 96, device=cuda_device),
                                    *(torch.randn(1, 2, 8, 96,
                                                  device=cuda_device),) * 2),
@@ -315,11 +363,11 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
         lambda: fa.flash_attention(odd, odd, odd),
         lambda: fa.flash_attention(shifted, shifted, shifted),
     ]
-    before = fa.launches
+    before = fa.launches, fa.backward_launches
     for call in refused:
         with pytest.raises((RuntimeError, TypeError, ValueError)):
             call()
-    assert fa.launches == before
+    assert (fa.launches, fa.backward_launches) == before
 
 
 def _mnist_clients(n):

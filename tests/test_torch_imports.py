@@ -14,9 +14,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "tests" / "test_torch_gpu.py",
-                                      ROOT / "examples" / "quickstart_torch.py"]
+FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "pod_gossip_pretrain_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -41,12 +42,15 @@ def test_port_module_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("sub", ["checkpoint", "comm", "store"])
+@pytest.mark.parametrize("sub", ["checkpoint", "comm", "store", "optim",
+                                 "launch"])
 def test_the_scan_covers_the_checkpoint_comm_and_store_packages(sub):
     mods = {p.stem for p in FILES if p.parent == PORT / sub}
     want = {"__init__", *{"checkpoint": ["io"], "comm": ["plan"],
                           "store": ["faults", "layout", "store", "paging",
-                                    "prefetch", "paged"]}[sub]}
+                                    "prefetch", "paged"],
+                          "optim": ["sgd"],
+                          "launch": ["steps", "serve", "train"]}[sub]}
     assert want <= mods, sorted(want - mods)
 
 
