@@ -2219,14 +2219,20 @@ def backward_build_evidence() -> None:
 
 def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
                          iters: int = 5) -> dict:
-    """The flash backward kernel against its plain version on the card: at
-    the training shape, at gemma3-12b's shapes (hd 256, window 1024 and
-    0), at GQA groups 1, 4 and 16, in f32 and bf16, at edge lengths; ``o``
-    is the forward kernel's output, as in training.  Tolerance:
-    ``flash_attention.backward_tolerance`` (both compute in f32 from the
-    same values in their own orders; one bf16 ulp of the outputs).  The
-    mask fault runs the kernel on q, o and dO moved down one row (each row's
-    mask one key late): its dq must miss the tolerance.  Then its time at
+    """The flash kernels of training against their plain versions on the
+    card: at the training shape, at gemma3-12b's shapes (hd 256, window
+    1024 and 0), at GQA groups 1, 4 and 16, in f32 and bf16, at edge
+    lengths.  First the forward kernel's o against the plain forward's
+    (phase 3's tolerance, ``bf16_tolerance`` or 2e-5; at the training shape
+    with phase 3's mask fault, which must miss).  Then the backward kernel,
+    given the forward kernel's o as in training, against the plain
+    backward, given the plain forward's o: neither side reads the other's
+    values.  Tolerance: ``flash_attention.backward_tolerance`` (both compute
+    in f32 in their own orders; one bf16 ulp of the outputs), with
+    ``o_err`` the forward's tolerance (what the two o's may differ by moves
+    D = rowsum(dO o), and with it dq and dk).  The backward's mask fault
+    runs the kernel on q, o and dO moved down one row (each row's mask one
+    key late): its dq must miss the tolerance.  Then its time at
     the training shape and at gemma3-12b's global layer beside its bound
     (10 hd FLOP per open pair at the tensor-core peak of its dtype, bytes of
     q, k, v, o, dO in and dq, dk, dv out), the plain version's and SDPA's
@@ -2261,9 +2267,33 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
     for shp, dt, causal, win in cases:
         q, k, v, do = inputs(shp, dt)
         o = fa.flash_attention(q, k, v, causal, win)
+        o_plain = fa.flash_attention_plain(q, k, v, causal, win)
+        o_tol = (fa.bf16_tolerance(v, o_plain, causal, win) if dt == bf16
+                 else torch.full_like(o_plain, 2e-5, dtype=f32))
+        sync(dev)
+        ratio = float(((o.float() - o_plain.float()).abs() / o_tol).max())
+        print(f"  flash forward (B,H,KV,S,hd)={shp} {str(dt)[6:]} "
+              f"causal={causal} window={win}: max|err| "
+              f"{max_err(o, o_plain):.3e}, {ratio:.3f} of its tolerance")
+        check(ratio <= 1.0,
+              f"flash forward disagrees ({shp}, {dt}, {causal}, {win})")
+        if shp == shape:  # phase 3's mask fault must miss
+            fault = fa.flash_attention(torch.roll(q, 1, 2), k, v, causal, win)
+            sync(dev)
+            miss = float(((fault[:, :, 1:].float()
+                           - o_plain[:, :, :-1].float()).abs()
+                          / o_tol[:, :, :-1]).max())
+            print(f"    forward, mask one key late (q moved down one row): "
+                  f"{miss:.3f} of the tolerance (must exceed 1)")
+            check(miss > 1.0, "the forward tolerance misses a mask fault at "
+                              "the training shape")
+            del fault
         got = fa.flash_attention_backward(q, k, v, o, do, causal, win)
-        want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, win)
-        tol = fa.backward_tolerance(q, k, v, o, do, want, causal, win)
+        want = fa.flash_attention_backward_plain(q, k, v, o_plain, do,
+                                                 causal, win)
+        tol = fa.backward_tolerance(q, k, v, o_plain, do, want, causal, win,
+                                    o_err=o_tol)
+        del o_plain, o_tol
         sync(dev)
         ratios = [float(((a.float() - b.float()).abs() / t).max())
                   for a, b, t in zip(got, want, tol)]

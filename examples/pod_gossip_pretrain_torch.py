@@ -4,76 +4,31 @@ pods run K local SAM-momentum steps on their own token stream and exchange
 parameters by directed push-sum gossip — no cross-pod all-reduce.  The twin
 of ``examples/pod_gossip_pretrain.py``.
 
-The 2 pods' replicas are stacked on one device.  The default architecture
-is the reduced glm4-9b (the reference's default, xlstm-350m, waits for
-ROADMAP queue 1 item 13.4).
+This is ``repro_torch.launch.train`` with the example's defaults: the
+reduced (``--smoke``) glm4-9b, 2 pods stacked on one device, K = 2, a
+per-pod batch of 8 sequences of 64 tokens.  The reference's default
+architecture, xlstm-350m, waits for ROADMAP queue 1 item 13.4.  Any of the
+launcher's flags may follow and override these.
 
   python examples/pod_gossip_pretrain_torch.py --rounds 10              # card
   python examples/pod_gossip_pretrain_torch.py --rounds 10 --device cpu
 """
-import argparse
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
-import torch  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 
-from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core.flat import tree_map  # noqa: E402
-from repro_torch.data.synthetic import make_lm_stream  # noqa: E402
-from repro_torch.launch.steps import (  # noqa: E402
-    StepConfig,
-    make_round_step,
-    pod_mixing_matrix,
-)
-from repro_torch.models.registry import get_model_api  # noqa: E402
+DEFAULTS = ["--arch", "glm4-9b", "--smoke", "--rounds", "10",
+            "--local-steps", "2", "--batch", "8", "--seq", "64"]
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="glm4-9b")
-    ap.add_argument("--rounds", type=int, default=10)
-    ap.add_argument("--local-steps", type=int, default=2)
-    ap.add_argument("--batch", type=int, default=8, help="per-pod batch")
-    ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-
-    n_pods = 2
-    device = torch.device(args.device)
-    cfg = get_config(args.arch, smoke=True)
-    api = get_model_api(cfg)
-    step_cfg = StepConfig(lr=0.05, alpha=0.9, rho=0.05,
-                          local_steps=args.local_steps)
-    round_step = make_round_step(api, step_cfg)
-
-    params = api.init(torch.Generator(device=device).manual_seed(0), device)
-    params = tree_map(
-        lambda x: x.unsqueeze(0).expand((n_pods,) + x.shape).contiguous(),
-        params)
-    v = tree_map(torch.zeros_like, params)
-    w = torch.ones((n_pods,), device=device)
-    P_pod = pod_mixing_matrix(n_pods, device)
-    tokens = make_lm_stream(cfg.vocab_size, args.seq,
-                            n_pods * args.local_steps * args.batch * args.rounds)
-    tokens = tokens.reshape(args.rounds, n_pods, args.local_steps, args.batch,
-                            args.seq)
-
-    print(f"{cfg.name} reduced | {n_pods} pods on {device} | "
-          f"K={args.local_steps} | push-sum ring gossip")
-    for r in range(args.rounds):
-        t0 = time.time()
-        batch = {"tokens": tokens[r].to(device)}
-        params, v, w, _, _, m = round_step(params, v, w, (), (), batch, P_pod)
-        print(f"round {r:3d} loss={float(m['loss']):.4f} "
-              f"acc={float(m['acc']):.4f} "
-              f"w={[round(float(x), 3) for x in w]} "
-              f"({time.time() - t0:.2f}s)")
-    assert abs(float(w.sum()) - n_pods) < 1e-3, "push-sum mass conserved"
-    print("done — consensus mass conserved:", float(w.sum()))
+    rec = train.main(DEFAULTS + list(sys.argv[1:] if argv is None else argv))
+    print("done — consensus mass conserved:", rec["history"][-1]["w_mass"])
+    return rec
 
 
 if __name__ == "__main__":

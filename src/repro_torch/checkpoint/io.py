@@ -36,6 +36,8 @@ import zipfile
 import numpy as np
 import torch
 
+from repro_torch.core.flat import tree_leaves_with_path, tree_rebuild
+
 __all__ = [
     "save",
     "restore",
@@ -87,41 +89,9 @@ def _path_str(path: tuple) -> str:
     return "/".join(f"[{k!r}]" for k in path)
 
 
-def _walk(tree, prefix=()):
-    """``(path, leaf)`` pairs of a tree in the reference's flattening order
-    and ``jax.tree_util`` key names: dict keys sorted (``['k']``),
-    NamedTuple fields in order (``.name``), sequence items (``[i]``);
-    empty tuples hold no leaf."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _walk(tree[k], prefix + (f"[{k!r}]",))
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for f in tree._fields:
-            yield from _walk(getattr(tree, f), prefix + (f".{f}",))
-    elif isinstance(tree, (tuple, list)):
-        for i, x in enumerate(tree):
-            yield from _walk(x, prefix + (f"[{i}]",))
-    else:
-        yield prefix, tree
-
-
 def _flatten_with_paths(tree):
-    pairs = list(_walk(tree))
+    pairs = list(tree_leaves_with_path(tree))
     return ["/".join(p) for p, _ in pairs], [x for _, x in pairs]
-
-
-def _rebuild(like, leaves):
-    """``like``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
-    if isinstance(like, dict):
-        done = {k: _rebuild(like[k], leaves) for k in sorted(like)}
-        return {k: done[k] for k in like}
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*[_rebuild(getattr(like, f), leaves)
-                            for f in like._fields])
-    if isinstance(like, (tuple, list)):
-        return type(like)(_rebuild(x, leaves) for x in like)
-    return next(leaves)
 
 
 def save(directory: str, step: int, tree, keep: int = 3) -> str:
@@ -194,7 +164,7 @@ def restore(path: str, like=None):
                                            ex.device))
             else:
                 out.append(leaf)
-        return _rebuild(like, iter(out))
+        return tree_rebuild(like, iter(out))
     out: dict = {}
     for path, leaf in zip(paths, leaves):
         keys = [k.strip("[]'\".") for k in path.split("/")]

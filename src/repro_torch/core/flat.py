@@ -24,7 +24,7 @@ from typing import Any
 import torch
 
 __all__ = ["BankSpec", "make_spec", "tree_flatten", "tree_unflatten",
-           "tree_map", "keystr", "DeltaConfig", "DeltaBankSpec",
+           "tree_map", "keystr", "tree_leaves_with_path", "tree_rebuild", "DeltaConfig", "DeltaBankSpec",
            "BoundDeltaSpec", "make_delta_spec", "bind_delta_spec"]
 
 
@@ -59,6 +59,41 @@ def keystr(path: tuple[str, ...]) -> str:
     ``"['conv2']['w']"``, so ``adapt=`` filters select the same leaves in
     both packages."""
     return "".join(f"[{k!r}]" for k in path)
+
+
+def tree_leaves_with_path(tree, prefix=()):
+    """``(path, leaf)`` pairs of a tree that may also hold NamedTuples and
+    sequences (a round state's ``LinkState``), in ``jax.tree`` flattening
+    order with ``jax.tree_util`` key names: dict keys sorted (``['k']``,
+    as :func:`keystr`), NamedTuple fields in order (``.name``), sequence
+    items (``[i]``); empty tuples hold no leaf.  On a nested dict the
+    order is :func:`tree_flatten`'s."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], prefix + (f"[{k!r}]",))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from tree_leaves_with_path(getattr(tree, f),
+                                             prefix + (f".{f}",))
+    elif isinstance(tree, (tuple, list)):
+        for i, x in enumerate(tree):
+            yield from tree_leaves_with_path(x, prefix + (f"[{i}]",))
+    else:
+        yield prefix, tree
+
+
+def tree_rebuild(like, leaves):
+    """``like``'s structure with its leaves taken, in
+    :func:`tree_leaves_with_path`'s order, from the iterator ``leaves``."""
+    if isinstance(like, dict):
+        done = {k: tree_rebuild(like[k], leaves) for k in sorted(like)}
+        return {k: done[k] for k in like}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*[tree_rebuild(getattr(like, f), leaves)
+                            for f in like._fields])
+    if isinstance(like, (tuple, list)):
+        return type(like)(tree_rebuild(x, leaves) for x in like)
+    return next(leaves)
 
 
 def tree_map(fn, tree, *rest):

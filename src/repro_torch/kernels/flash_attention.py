@@ -232,7 +232,7 @@ def flash_attention_backward_plain(q, k, v, o, do, causal: bool = True,
 
 
 def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
-                       window: int = 0):
+                       window: int = 0, o_err=None):
     """Per-element bounds on ``|kernel - plain|`` for (dq, dk, dv), where
     ``ref`` is the plain version's (dq, dk, dv) on the same inputs:
     ``c |ref| + 2 u n mag`` with u = 2^-24, c = 2^-7 for bf16 outputs and
@@ -240,6 +240,14 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     formulas on magnitudes: |dS| <= P (|dO| |v|^T + rowsum(|dO| |o|)), then
     mag_dq = |dS| |k| hd^-0.5, mag_dk = |dS|^T |q| hd^-0.5 and
     mag_dv = P^T |dO|.
+
+    ``o_err``, when given, bounds per element how far the kernel's ``o``
+    lies from the ``o`` that the plain version was given (the forward
+    kernel's output against the plain forward's, within
+    :func:`bf16_tolerance` or 2e-5).  o enters only through
+    D = rowsum(dO o), so D moves by at most E = rowsum(|dO| o_err) and dS
+    by at most P E: dq by E P |k| hd^-0.5 and dk by (P E)^T |q| hd^-0.5,
+    which are added; dv does not read o.  ``mag`` then uses |o| + o_err.
 
     Derivation.  Both sides compute in f32 from the same values (bf16
     inputs widen exactly; products of two of them are exact), so they differ
@@ -268,8 +276,17 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     scores = scores.masked_fill(closed, NEG)
     p = torch.exp(scores - torch.logsumexp(scores, -1, keepdim=True))
     del scores
-    dabs = (doa * o.float().abs().unflatten(1, (kv, h // kv))).sum(
-        -1, keepdim=True)
+    oa = o.float().abs()
+    extra = [0.0, 0.0, 0.0]
+    if o_err is not None:
+        oa = oa + o_err
+        pe = p * (doa * o_err.float().unflatten(1, (kv, h // kv))).sum(
+            -1, keepdim=True)
+        extra[0] = (torch.einsum("bkgqs,bksd->bkgqd", pe, ka)
+                    * scale).flatten(1, 2)
+        extra[1] = torch.einsum("bkgqs,bkgqd->bksd", pe, qa) * scale
+        del pe
+    dabs = (doa * oa.unflatten(1, (kv, h // kv))).sum(-1, keepdim=True)
     mag_dv = torch.einsum("bkgqs,bkgqd->bksd", p, doa)
     dsa = p * (torch.einsum("bkgqd,bksd->bkgqs", doa, va) + dabs)
     del p
@@ -279,9 +296,9 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     u = 2.0 ** -24
     n = 2 * s + hd * (1 + 2 * s_max) + 8
     out = []
-    for r, mag in zip(ref, (mag_dq, mag_dk, mag_dv)):
+    for r, mag, e in zip(ref, (mag_dq, mag_dk, mag_dv), extra):
         c = 2.0 ** -7 if r.dtype == torch.bfloat16 else 2 * u
-        out.append(c * r.float().abs() + 2 * u * n * mag)
+        out.append(c * r.float().abs() + 2 * u * n * mag + e)
     return tuple(out)
 
 

@@ -105,10 +105,12 @@ def test_flash_attention_reads_transposed_views():
 
 
 def test_flash_attention_refuses_inputs_that_require_grad():
-    """Inputs that require grad were refused while the kernel had no
-    backward; they now go through the autograd Function, whose CPU backward
-    is the plain one (``tests/test_torch_flash_backward.py`` holds it to
-    the reference)."""
+    """Checks that inputs which require grad are differentiated, no longer
+    refused: they go through the autograd Function, whose CPU backward is
+    the plain one (``tests/test_torch_flash_backward.py`` holds it to the
+    reference), and no kernel is launched.  The name is the one this test
+    had while the kernel had no backward and the wrapper refused them; it
+    is kept so that the test's record carries on."""
     _, (q, k, v) = _inputs(1, 2, 1, 8, 64, jnp.float32)
     out = ops.flash_attention(q.requires_grad_(), k, v)
     assert out.grad_fn is not None

@@ -126,3 +126,27 @@ def test_a_mask_one_key_late_misses_the_tolerance():
         miss = float(((fault[0][:, :, 1:] - want[0][:, :, :-1]).abs()
                       / tol[0][:, :, :-1]).max())
         assert miss > 10.0, miss
+
+
+@pytest.mark.parametrize("causal,window", MODES)
+def test_the_tolerance_covers_an_o_off_by_o_err(causal, window):
+    """The card holds the kernel's backward, given the forward kernel's o,
+    against the plain backward given the plain forward's o: ``o_err`` (the
+    forward's bound, ``bf16_tolerance`` here) widens the tolerance by what
+    that difference can move.  An o moved by the whole bound, each element
+    up or down at random, stays within it; without ``o_err`` it does
+    not."""
+    qn, kn, vn, don = _inputs((1, 8, 2, 48, 64), seed=4)
+    q, k, v, do = (torch.from_numpy(a) for a in (qn, kn, vn, don))
+    o = fa.flash_attention_plain(q, k, v, causal, window)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, window)
+    err = fa.bf16_tolerance(v, o, causal, window)
+    sign = torch.from_numpy(np.sign(
+        np.random.default_rng(5).standard_normal(o.shape)).astype(np.float32))
+    got = fa.flash_attention_backward_plain(q, k, v, o + sign * err, do,
+                                            causal, window)
+    _within(got, want, fa.backward_tolerance(q, k, v, o, do, want, causal,
+                                             window, o_err=err))
+    tol = fa.backward_tolerance(q, k, v, o, do, want, causal, window)
+    assert float(((got[0] - want[0]).abs() / tol[0]).max()) > 1.0
+    assert torch.equal(got[2], want[2])  # dv does not read o
