@@ -640,6 +640,38 @@ def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
     return row
 
 
+_SASS = []
+
+
+def hgmma_counts(pattern: str):
+    """{mangled name: count of tensor-core ``HGMMA`` instructions} for each
+    function of the built library whose name holds ``pattern``, from
+    ``cuobjdump -sass`` (run once); None where the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    if not _SASS:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        if not os.path.exists(tool):
+            return None
+        _SASS.append(subprocess.run([tool, "-sass", str(build.library_path())],
+                                    capture_output=True, text=True, check=True,
+                                    timeout=300).stdout)
+    counts, fn = {}, None
+    for line in _SASS[0].splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if pattern in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def flash_build_evidence() -> None:
     """What the flash kernels compiled to: ``nvcc -Xptxas -v``'s lines for
     them (registers, spills; their shared memory is dynamic), and the
@@ -647,7 +679,6 @@ def flash_build_evidence() -> None:
     (``cuobjdump -sass`` of the built library, where the toolkit has it).
     Every tensor-core (tc) instantiation must hold HGMMA."""
     import re
-    import shutil
 
     from repro_torch.kernels import build
 
@@ -658,22 +689,10 @@ def flash_build_evidence() -> None:
     for line in part.splitlines()[1:]:
         if "ptxas" in line or "bytes stack frame" in line:
             print("    " + line.strip()[:150])
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    counts = hgmma_counts("flash_attention_kernel")
+    if counts is None:
         print("  cuobjdump not found: no SASS count")
         return
-    sass = subprocess.run([tool, "-sass", str(build.library_path())],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1) if "flash_attention_kernel" in m.group(1) else None
-            if fn:
-                counts[fn] = 0
-        elif fn and "HGMMA" in line:
-            counts[fn] += 1
     for fn, n in counts.items():
         kind = "tc" if "2tc22flash" in fn else "simt"
         inst = re.search(r"kernelI(?:f)?Li(\d+)E", fn)
@@ -1035,7 +1054,8 @@ def print_profile(prof, wall_s: float, top: int = 12, also=()) -> None:
 def counters() -> dict:
     """Each kernel's launch counter, as (wrapper module, attribute).  The
     one-row update is the (1, D) launch of the bank kernel: both counts go
-    up for it."""
+    up for it.  The flash backward counts its calls and, beside them, the
+    kernels those calls launched (its passes)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import gossip_gather as gg
@@ -1045,7 +1065,8 @@ def counters() -> dict:
             "fused_update": (fu, "row_launches"),
             "gossip_matmul": (gm, "launches"), "gossip_gather": (gg, "launches"),
             "flash_attention": (fa, "launches"),
-            "flash_attention_backward": (fa, "backward_launches")}
+            "flash_attention_backward": (fa, "backward_launches"),
+            "flash_attention_backward_kernels": (fa, "backward_kernel_launches")}
 
 
 @contextlib.contextmanager
@@ -2178,29 +2199,47 @@ TRAIN_SHAPE = (1, 32, 2, 4096, 128)
 # gemma3-12b's attention (hd 256, 16 on 8 heads), local and global layers.
 GEMMA_SHAPE = (1, 16, 8, 2048, 256)
 TRAIN_LAYERS = 4  # glm4-9b's 40 layers cut to 4: 2 replicas fit the card
+# Kernels a backward call launches at the training shape: D, dK / dV (a kv
+# head's 16 query heads in 4 runs of 4), the runs' sum, dQ.
+BWD_TRAIN_PASSES = 4
 TRAIN_ARGV = ["--arch", "glm4-9b", "--rounds", "3", "--local-steps", "2",
               "--batch", "1", "--seq", "4096"]
-BWD_KERNELS = ("flash_bwd_stats_kernel", "flash_bwd_dkdv_kernel",
-               "flash_bwd_group_sum_kernel", "flash_bwd_dq_kernel")
+# The flash backward's kernels, by the name in their mangled symbols.  The
+# tensor-core passes (bf16, hd 64 and 128) live in namespace tc ("2tc" in
+# the symbol); the SIMT passes run f32 at every head dim and bf16 at hd 256.
+BWD_KERNELS = ("flash_bwd_stats_kernel", "flash_bwd_prep_kernel",
+               "flash_bwd_dkdv_kernel", "flash_bwd_group_sum_kernel",
+               "flash_bwd_dq_kernel")
+# Instantiations: the lse pass 2 dtypes x 3 head dims, the prep pass and
+# the group sum 2 dtypes each, the SIMT dK / dV and dQ passes 4 each (f32 x
+# 3, bf16 at 256), the tensor-core dK / dV and dQ passes 2 each.
+BWD_INSTANCES = 6 + 2 + 2 + 4 + 4 + 2 + 2
 
 
 def backward_build_evidence() -> None:
     """``nvcc -Xptxas -v``'s registers and spills for every instantiation
-    of the flash backward's kernels; none may spill."""
+    of the flash backward's kernels (none may spill), and the count of
+    ``HGMMA`` instructions in each one's SASS: every tensor-core (tc)
+    instantiation must hold them, the SIMT ones none."""
     import re
 
     from repro_torch.kernels import build
+
+    def label(name):
+        kind = next((k for k in BWD_KERNELS if k in name), None)
+        if kind is None:
+            return None
+        tc = "2tc" in name
+        dt = "bf16" if tc or "nv_bfloat16" in name else "f32"
+        hd = re.findall(r"Li(\d+)E", name.split(kind, 1)[1])
+        return f"{'tc::' if tc else ''}{kind}<{', '.join([dt, *hd])}>"
 
     kernels, fn = {}, None
     for line in build.build_log().splitlines():
         m = re.search(r"Compiling entry function '([^' ]+)", line)
         if m:
-            kind = next((k for k in BWD_KERNELS if k in m.group(1)), None)
-            fn = None
-            if kind:
-                dt = "bf16" if "nv_bfloat16" in m.group(1) else "f32"
-                hd = re.findall(r"Li(\d+)E", m.group(1).split(kind, 1)[1])
-                fn = f"{kind}<{', '.join([dt, *hd])}>"
+            fn = label(m.group(1))
+            if fn:
                 kernels[fn] = [None, None]
         elif fn and "spill stores" in line:
             kernels[fn][1] = sum(int(x) for x in re.findall(
@@ -2208,13 +2247,26 @@ def backward_build_evidence() -> None:
         elif fn and "Used" in line and "registers" in line:
             kernels[fn][0] = int(re.search(r"Used (\d+) registers",
                                            line).group(1))
-    check(len(kernels) == 3 * 2 * 3 + 2,
+    check(len(kernels) == BWD_INSTANCES,
           f"ptxas lines for {len(kernels)} flash backward kernels, expected "
-          "20 (3 per dtype and head dim, 1 group sum per dtype)")
+          f"{BWD_INSTANCES}")
     print("  ptxas: " + "; ".join(f"{fn} {regs} regs, {spill} B spilled"
                                   for fn, (regs, spill) in kernels.items()))
     check(all(spill == 0 for _, spill in kernels.values()),
           "a flash backward kernel spills")
+    counts = hgmma_counts("flash_bwd_")
+    if counts is None:
+        print("  cuobjdump not found: no SASS count")
+        return
+    hgmma = {label(name): n for name, n in counts.items()}
+    print("  SASS HGMMA: " + "; ".join(f"{fn} {n}"
+                                       for fn, n in hgmma.items()))
+    tc = [fn for fn in hgmma if fn.startswith("tc::")]
+    check(len(tc) == 4, f"{len(tc)} tensor-core backward kernels in the SASS")
+    check(all(hgmma[fn] > 0 for fn in tc),
+          "a tensor-core backward kernel holds no HGMMA")
+    check(all(n == 0 for fn, n in hgmma.items() if fn not in tc),
+          "a SIMT backward kernel holds HGMMA")
 
 
 def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
@@ -2224,19 +2276,25 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
     1024 and 0), at GQA groups 1, 4 and 16, in f32 and bf16, at edge
     lengths.  First the forward kernel's o against the plain forward's
     (phase 3's tolerance, ``bf16_tolerance`` or 2e-5; at the training shape
-    with phase 3's mask fault, which must miss).  Then the backward kernel,
-    given the forward kernel's o as in training, against the plain
-    backward, given the plain forward's o: neither side reads the other's
-    values.  Tolerance: ``flash_attention.backward_tolerance`` (both compute
-    in f32 in their own orders; one bf16 ulp of the outputs), with
+    with phase 3's mask fault, which must miss), and its logsumexp against
+    ``torch.logsumexp`` of the plain masked scores
+    (``flash_attention.lse_tolerance``, their f32 order bound).  Then the
+    backward kernels, given the forward kernel's o and lse as in training,
+    against the plain backward, given the plain forward's o: neither side
+    reads the other's values.  Tolerance:
+    ``flash_attention.backward_tolerance`` (both compute in f32 in their own
+    orders; one bf16 ulp of the outputs; for bf16 inputs 2^-8 of the
+    magnitudes for the tensor-core passes' roundings of P^T and dS), with
     ``o_err`` the forward's tolerance (what the two o's may differ by moves
     D = rowsum(dO o), and with it dq and dk).  The backward's mask fault
-    runs the kernel on q, o and dO moved down one row (each row's mask one
-    key late): its dq must miss the tolerance.  Then its time at
-    the training shape and at gemma3-12b's global layer beside its bound
-    (10 hd FLOP per open pair at the tensor-core peak of its dtype, bytes of
-    q, k, v, o, dO in and dq, dk, dv out), the plain version's and SDPA's
-    backward (``enable_gqa``, the same mask, on the same inputs)."""
+    runs the kernel on q, o, dO and lse moved down one row (each row's mask
+    one key late): its dq must miss the tolerance.  At the training shape
+    two calls on the same inputs must give the same bits.  Each case prints
+    the kernels one call launched.  Then its time at the training shape and
+    at gemma3-12b's global layer beside its bound (10 hd FLOP per open pair
+    at the tensor-core peak of its dtype, bytes of q, k, v, o, dO in and
+    dq, dk, dv out), the plain version's and SDPA's backward
+    (``enable_gqa``, the same mask, on the same inputs)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2266,17 +2324,25 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
     errs = {}
     for shp, dt, causal, win in cases:
         q, k, v, do = inputs(shp, dt)
-        o = fa.flash_attention(q, k, v, causal, win)
-        o_plain = fa.flash_attention_plain(q, k, v, causal, win)
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal, win)
+        o_plain, lse_plain = fa.flash_attention_plain(q, k, v, causal, win,
+                                                      return_lse=True)
         o_tol = (fa.bf16_tolerance(v, o_plain, causal, win) if dt == bf16
                  else torch.full_like(o_plain, 2e-5, dtype=f32))
         sync(dev)
         ratio = float(((o.float() - o_plain.float()).abs() / o_tol).max())
+        lse_ratio = float(((lse - lse_plain).abs() / fa.lse_tolerance(
+            q, k, lse_plain, causal, win)).max())
         print(f"  flash forward (B,H,KV,S,hd)={shp} {str(dt)[6:]} "
               f"causal={causal} window={win}: max|err| "
-              f"{max_err(o, o_plain):.3e}, {ratio:.3f} of its tolerance")
+              f"{max_err(o, o_plain):.3e}, {ratio:.3f} of its tolerance; "
+              f"lse max|err| {max_err(lse, lse_plain):.3e}, {lse_ratio:.2e} "
+              f"of its tolerance")
         check(ratio <= 1.0,
               f"flash forward disagrees ({shp}, {dt}, {causal}, {win})")
+        check(lse_ratio <= 1.0,
+              f"flash forward's lse disagrees ({shp}, {dt}, {causal}, {win})")
+        del lse_plain
         if shp == shape:  # phase 3's mask fault must miss
             fault = fa.flash_attention(torch.roll(q, 1, 2), k, v, causal, win)
             sync(dev)
@@ -2288,7 +2354,9 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
             check(miss > 1.0, "the forward tolerance misses a mask fault at "
                               "the training shape")
             del fault
-        got = fa.flash_attention_backward(q, k, v, o, do, causal, win)
+        before = fa.backward_kernel_launches
+        got = fa.flash_attention_backward(q, k, v, o, do, causal, win, lse)
+        per_call = fa.backward_kernel_launches - before
         want = fa.flash_attention_backward_plain(q, k, v, o_plain, do,
                                                  causal, win)
         tol = fa.backward_tolerance(q, k, v, o_plain, do, want, causal, win,
@@ -2300,29 +2368,40 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         e = max(max_err(a, b) for a, b in zip(got, want))
         print(f"  flash backward (B,H,KV,S,hd)={shp} {str(dt)[6:]} "
               f"causal={causal} window={win}: max|err| {e:.3e}; dq, dk, dv at "
-              + ", ".join(f"{r:.4f}" for r in ratios) + " of the tolerance")
+              + ", ".join(f"{r:.4f}" for r in ratios) + " of the tolerance; "
+              f"{per_call} kernel launches a call ("
+              + ("tensor cores" if fa.on_tensor_cores(dt, shp[4])
+                 else "SIMT") + ")")
         check(max(ratios) <= 1.0,
               f"flash backward disagrees ({shp}, {dt}, {causal}, {win})")
         errs[shp, dt, causal, win] = e
         if shp == shape:  # the mask fault must miss
-            roll = [torch.roll(t, 1, 2) for t in (q, o, do)]
+            roll = [torch.roll(t, 1, 2) for t in (q, o, do, lse)]
             fault = fa.flash_attention_backward(roll[0], k, v, roll[1],
-                                                roll[2], causal, win)[0]
+                                                roll[2], causal, win,
+                                                roll[3])[0]
             sync(dev)
             miss = float(((fault[:, :, 1:].float() - want[0][:, :, :-1].float())
                           .abs() / tol[0][:, :, :-1]).max())
-            print(f"    mask one key late (q, o, dO moved down one row): dq "
-                  f"at {miss:.1f} of the tolerance (must exceed 1)")
+            print(f"    mask one key late (q, o, dO, lse moved down one "
+                  f"row): dq at {miss:.1f} of the widened tolerance (must "
+                  f"exceed 1)")
             check(miss > 1.0, "the backward tolerance misses a mask fault")
             del fault, roll
-        del q, k, v, do, o, got, want, tol
+            again = fa.flash_attention_backward(q, k, v, o, do, causal, win,
+                                                lse)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"    two calls on the same inputs bitwise equal: {same}")
+            check(same, "the flash backward is not deterministic")
+            del again
+        del q, k, v, do, o, lse, got, want, tol
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
     def timed(shp, win, what):
         b, h, kv, s, hd = shp
         q, k, v, do = inputs(shp, bf16)
-        o = fa.flash_attention(q, k, v, True, win)
+        o, lse = fa.flash_attention_with_lse(q, k, v, True, win)
         n_bytes = 2.0 * (4 * q.numel() + 4 * k.numel())
         flops = 10.0 * hd * b * h * open_pairs(s, True, win)
         bound, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
@@ -2341,7 +2420,7 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         r = dict(
             max_abs_err=errs[shp, bf16, True, win],
             ms=timed_ms(lambda: fa.flash_attention_backward(
-                q, k, v, o, do, True, win), dev, iters),
+                q, k, v, o, do, True, win, lse), dev, iters),
             plain_ms=timed_ms(lambda: fa.flash_attention_backward_plain(
                 q, k, v, o, do, True, win), dev, max(iters // 5, 1)),
             bound_ms=bound, bound_by=by,
@@ -2527,8 +2606,17 @@ def training(dev, layers: int = TRAIN_LAYERS, argv=TRAIN_ARGV,
         print(f"  peak device memory {peak / 1e9:.2f} GB "
               f"({peak / 2 ** 30:.2f} GiB)")
     fwd_per_round = per_step * (2 if cfg.remat else 1)  # remat recomputes
+    per_call = (per_round[0]["flash_attention_backward_kernels"]
+                / max(per_round[0]["flash_attention_backward"], 1))
+    print(f"  flash backward: {per_call:g} kernel launches a call (D, dK / dV, "
+          f"the group sum, dQ), {per_round[0]['flash_attention_backward']} "
+          "calls a round")
     for h, used in zip(rec["history"], per_round):
         check(math.isfinite(h["loss"]), f"round {h['round']}: loss {h['loss']}")
+        check(used["flash_attention_backward_kernels"]
+              == BWD_TRAIN_PASSES * used["flash_attention_backward"],
+              f"round {h['round']}: {used['flash_attention_backward_kernels']}"
+              f" backward kernels for {used['flash_attention_backward']} calls")
         check(abs(h["w_mass"] - train.N_PODS) <= 1e-3,
               f"round {h['round']}: w_mass {h['w_mass']}")
         check(used["flash_attention_backward"] == per_step

@@ -12,8 +12,10 @@ kernel's registers, shared memory and spills) is kept beside the library
 as ``<library>.log`` (:func:`build_log`).  Pointers and the stream cross
 as ``c_void_p``, sizes as ``c_int64``; every launch entry point returns
 the ``cudaError_t`` of its launch (the flash backward's: of the first of
-its four launches that fails), and one query returns which of its kernels
-the gather takes at a shape.
+its passes that fails, with the count of passes it launched written
+through its last argument), and two queries return which of its kernels
+the gather takes at a shape and how many f32 shares of dK and dV the flash
+backward sums at a shape.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # dtype, X, V, G, w, Xo, Vo, Zo, alpha, eta, n, D, stream
     "fused_update_bank_launch": (_I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I64,
@@ -50,19 +53,23 @@ _SIGNATURES = {
     "gossip_gather_launch": (_I, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     # dtype, n, k_max -> the gather's panel width (0: the row kernel)
     "gossip_gather_panel_cols": (_I, _I64, _I64),
-    # dtype, hd, q, k, v, o, B, H, KV, S, the (b, head, s) strides of q, k,
-    # v and o, causal, window, stream
-    "flash_attention_launch": (_I, _I, _P, _P, _P, _P, *(_I64,) * 16, _I,
-                               _I64, _P),
-    # dtype, hd, q, k, v, o, dO, dQ, dK, dV, the f32 scratch (lse, D, the
-    # dK and dV shares), B, H, KV, S, the (b, head, s) strides of q, k, v,
-    # o, dO, dQ, dK and dV, causal, window, stream
-    "flash_attention_backward_launch": (_I, _I, *(_P,) * 12, *(_I64,) * 28,
-                                        _I, _I64, _P),
+    # dtype, hd, q, k, v, o, lse (or None), B, H, KV, S, the (b, head, s)
+    # strides of q, k, v and o, causal, window, stream
+    "flash_attention_launch": (_I, _I, _P, _P, _P, _P, _P, *(_I64,) * 16,
+                               _I, _I64, _P),
+    # dtype, hd, q, k, v, o, dO, dQ, dK, dV, the forward's lse (or None),
+    # the f32 scratch (lse, D and lse2, the dK and dV shares), B, H, KV, S,
+    # the (b, head, s) strides of q, k, v, o, dO, dQ, dK and dV, causal,
+    # window, stream, the count of passes launched (out)
+    "flash_attention_backward_launch": (_I, _I, *(_P,) * 13, *(_I64,) * 28,
+                                        _I, _I64, _P, _PI),
+    # dtype, hd, B, H, KV, S -> the f32 shares of dK and dV per kv head
+    "flash_attention_backward_shares": (_I, _I, _I64, _I64, _I64, _I64),
 }
 
 # Entry points that return something else than a cudaError_t.
-_RESTYPES = {"gossip_gather_panel_cols": _I64}
+_RESTYPES = {"gossip_gather_panel_cols": _I64,
+             "flash_attention_backward_shares": _I64}
 
 _lock = threading.Lock()
 _lib = None

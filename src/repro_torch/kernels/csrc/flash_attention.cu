@@ -48,6 +48,12 @@
 //   row's max and sum reduce over the four lanes that hold it; the sum stays
 //   per lane until the end; a warp whose rows kept their max skips the
 //   rescaling of O.
+// - Logsumexp.  Given an lse pointer (training), the epilogue also stores
+//   each row's (m c + log2 l) ln 2 in f32, the natural logsumexp of its
+//   masked, scaled scores (l sums the unrounded f32 p), which the backward
+//   (flash_attention_bwd.cu) reads; serving passes null and stores none.
+//   The mbarriers, TMA loads, wgmma wrappers and tensor maps are in
+//   hopper.cuh, shared with the backward.
 // - Masks.  The block visits only the key tiles that the causal and window
 //   masks leave at least partly open for its 128 rows.  Each consumer then
 //   sorts a tile for its own 64 rows: closed (no wgmma; it only releases the
@@ -58,7 +64,8 @@
 //   or past S are computed but not stored.
 //
 // f32 inputs: the SIMT kernel (namespace simt), 64-row query tiles with Q,
-// K, V and P staged in f32 shared memory and f32 FMAs.  It is the path of
+// K, V and P staged in f32 shared memory and f32 FMAs (it stores m + log l
+// as the row's logsumexp when asked).  It is the path of
 // the f32 parity checks, which hold the kernel to the plain version within
 // 2e-5: TF32 tensor cores would round every product to 10 mantissa bits,
 // and nothing serves in f32.
@@ -68,6 +75,8 @@
 #include <stdint.h>
 
 #include <cmath>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -106,6 +115,7 @@ struct Layout {
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;  // (B, H, S) or null
   int B, H, group, S, n_qt, causal, window;
   float scale;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
@@ -258,6 +268,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < CPL; ++j)
       ob[qi * a.o_ss + lane + 32 * j] = from_f32<T>(acc[r][j] / den);
+    if (a.lse != nullptr && lane == 0) a.lse[(int64_t)bh * a.S + qi] = m[r] + logf(l[r]);
   }
 }
 
@@ -285,10 +296,10 @@ int launch_hd(int hd, const Args& a, cudaStream_t stream) {
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BQ = 128, BK = 64, CONSUMERS = 2, THREADS = (CONSUMERS + 1) * 128;
 constexpr int CHUNK = 8;          // (b, h) pairs whose blocks run together
-constexpr int PANEL = 64;         // bf16 columns of one 128-byte swizzled panel
-constexpr int ROW_BYTES = 128;    // a panel row
 constexpr float NEG = -1.0e30f;
 
 // Shared memory, in bytes from a 1024-byte aligned base: Q as hd / 64 panels
@@ -307,199 +318,11 @@ struct Plan {
 
 struct Args {
   void* o;
+  float* lse;  // (B, H, S) or null
   int B, H, group, S, n_qt, causal, window;
   float scale_log2;  // hd^-0.5 log2(e)
   int64_t o_sb, o_sh, o_ss;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase with the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-D map, coordinates (column, s, head, b), into shared
-// memory at dst; its bytes complete on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (in 16-byte units), layout 1 (B128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes, so that the
-// compiler moves no access to them across the wgmma's issue or wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-      "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-      "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
-      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
-      "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-      "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-      "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-      "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 64) wgmma_rs_m64n64(o, a, db);
-  if constexpr (HD == 128) wgmma_rs_m64n128(o, a, db);
-  if constexpr (HD == 256) wgmma_rs_m64n256(o, a, db);
-}
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -675,7 +498,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_pv<HD>(o, pa[kk], sw128_desc(sVs + kk * 16 * ROW_BYTES, P::KV_PANEL, 1024));
+          wgmma_rs_n<HD>(o, pa[kk], sw128_desc(sVs + kk * 16 * ROW_BYTES, P::KV_PANEL, 1024));
         wgmma_commit();
         wgmma_wait_all();
         pin(o);
@@ -685,7 +508,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (lane == 0) mbar_arrive(empty(st));
     }
 
-    // Epilogue: the row sums over their four lanes, then o / max(l, 1e-20).
+    // Epilogue: the row sums over their four lanes, then o / max(l, 1e-20)
+    // and, when asked, the row's logsumexp in natural-log units:
+    // (m c + log2 l) ln 2, l the sum of the unrounded f32 p.
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -694,6 +519,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float inv = 1.0f / fmaxf(l[r], 1e-20f);
       const int qi = qa + row + 8 * r;
       if (qi >= a.S) continue;
+      if (a.lse != nullptr && col == 0)
+        a.lse[(int64_t)bh * a.S + qi] = (m[r] * c + log2f(l[r])) * 0.69314718055994531f;
       __nv_bfloat16* orow = ob + qi * a.o_ss + col;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
@@ -703,52 +530,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime, so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map (hd, S, heads, B) of a bf16 tensor given by its (b, head, s)
-// element strides, hd contiguous; boxes of 64 columns by `rows` rows.  A
-// dimension of extent 1 is never stepped, so its stride is replaced by the
-// tensor's span (TMA wants every stride a multiple of 16 bytes).
-int make_map(CUtensorMap* map, const void* ptr, int64_t hd, int64_t S, int64_t heads,
-             int64_t B, int64_t sb, int64_t sh, int64_t ss, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int64_t span = 2 * hd * S * heads * B;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(S > 1 ? 2 * ss : span),
-                                 (cuuint64_t)(heads > 1 ? 2 * sh : span),
-                                 (cuuint64_t)(B > 1 ? 2 * sb : span)};
-  const cuuint32_t box[4] = {(cuuint32_t)PANEL, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 struct Launch {
   const void *q, *k, *v;
@@ -788,9 +569,11 @@ int launch_hd(int hd, const Launch& L, const Args& a, cudaStream_t stream) {
 // (B, KV, S, hd), each given by its (b, head, s) element strides with hd
 // contiguous; for bf16, q, k and v start on 16 bytes and their strides are
 // multiples of 8 elements (TMA).  hd is 64, 128 or 256; H is a multiple of
-// KV.  Returns a cudaError_t.
+// KV.  lse, when not null, is a contiguous f32 (B, H, S) that receives each
+// row's logsumexp of its masked, scaled scores (natural log), which the
+// backward reads.  Returns a cudaError_t.
 extern "C" int flash_attention_launch(
-    int dtype, int hd, const void* q, const void* k, const void* v, void* o,
+    int dtype, int hd, const void* q, const void* k, const void* v, void* o, void* lse,
     int64_t B, int64_t H, int64_t KV, int64_t S,
     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
     int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
@@ -804,7 +587,7 @@ extern "C" int flash_attention_launch(
   if (dtype == 0) {
     const int64_t n_qt = (S + simt::BQ - 1) / simt::BQ;
     if (n_qt * B * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    simt::Args a{q, k, v, o, (int)B, (int)H, (int)(H / KV), (int)S, (int)n_qt,
+    simt::Args a{q, k, v, o, static_cast<float*>(lse), (int)B, (int)H, (int)(H / KV), (int)S, (int)n_qt,
                  causal ? 1 : 0, win, (float)scale,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
     return simt::launch_hd<float>(hd, a, s);
@@ -812,7 +595,7 @@ extern "C" int flash_attention_launch(
   if (dtype == 1) {
     const int64_t n_qt = (S + tc::BQ - 1) / tc::BQ;
     if (n_qt * B * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    tc::Args a{o, (int)B, (int)H, (int)(H / KV), (int)S, (int)n_qt, causal ? 1 : 0, win,
+    tc::Args a{o, static_cast<float*>(lse), (int)B, (int)H, (int)(H / KV), (int)S, (int)n_qt, causal ? 1 : 0, win,
                (float)(scale * 1.4426950408889634), o_sb, o_sh, o_ss};
     tc::Launch L{q, k, v, KV, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
     return tc::launch_hd(hd, L, a, s);

@@ -1,11 +1,14 @@
 // The backward of flash attention (csrc/flash_attention.cu): from q, k, v,
-// the forward's output o and the output's gradient dO, the gradients
+// the forward's output o, its logsumexp and the output's gradient dO, the
+// gradients
 //   dQ = dS K hd^-0.5,  dK = dS^T Q hd^-0.5,  dV = P^T dO,
 // with P = exp(q k^T hd^-0.5 - lse) on the pairs that the causal and window
 // masks leave open (0 elsewhere), lse each row's logsumexp over its open
 // keys, D = rowsum(dO o) and dS = P (dO v^T - D).  Query head h reads kv
 // head h / (H / KV); dK and dV of a kv head sum over its group of query
-// heads.  Outputs are stored in the inputs' dtype.
+// heads.  Outputs are stored in the inputs' dtype.  No pass uses atomics:
+// every output element is written once, from sums in a fixed order, so two
+// calls on the same inputs give the same bits.
 //
 // The TPU package has no Pallas backward: its training path differentiates
 // the plain attention (src/repro/models/attention.py, _dot_attn) with JAX.
@@ -16,23 +19,65 @@
 // Bound: operations.  The function needs 10 hd FLOP per open (query, key)
 // pair (q k^T, dO v^T, P^T dO, dS^T q, dS k) against 8 hd-wide rows of
 // bytes per row, so at S = 4096 it is far above the card's 295 FLOP a byte.
+// The passes below recompute q k^T and dO v^T once more (14 hd FLOP a pair).
 //
-// Design: a simple one that is right first, f32 SIMT arithmetic for both
-// input types (bf16 values are widened to f32, so every product is exact
-// and only the order of the f32 sums differs from the plain version; no
-// tensor cores yet), in four launches with no atomics, so the result is
-// deterministic:
-// 1. stats: one block per (b, h, 64-row query tile) recomputes each row's
-//    running max and sum over the open key tiles, as the forward does, and
-//    stores lse = m + log(l) and D = rowsum(dO o) (f32 scratch, (B, H, S)).
+// bf16 at hd 64 and 128: tensor-core passes (namespace tc), fed by TMA.
+// - lse.  The forward kernel stores each row's logsumexp (natural log,
+//   f32, (B, H, S)); without it, the SIMT lse pass below computes it.
+// - Prep pass (flash_bwd_prep_kernel): one warp a row computes
+//   D = rowsum(dO o) in f32 and lse2 = lse log2(e), both stored in f32
+//   rows padded to a multiple of 64 (zeros past S), so that a 64-row slice
+//   of either is one aligned 256-byte bulk copy.
+// - dK / dV pass (tc::flash_bwd_dkdv_kernel, FlashAttention-2's order):
+//   one block per (b, kv head, 128-key tile, run of query heads).  Its
+//   producer warp loads the K and V tiles once by TMA, then streams the
+//   64-row Q and dO tiles of every query head of the run and every query
+//   tile open to its keys, with their lse2 and D slices, through a ring of
+//   STAGES slots (full and empty mbarriers, as the forward streams K and
+//   V).  Two consumer warpgroups own 64 keys each and accumulate dK and dV
+//   (hd / 2 + hd / 2 f32 registers a thread) over all of it:
+//     S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands in
+//     shared memory, K-major); P^T = 2^(S^T c - lse2) with c = hd^-0.5
+//     log2(e), masked on edge tiles; dS^T = P^T (dP^T - D);
+//     dV += P^T dO and dK += dS^T Q (wgmma m64n{hd}k16, P^T and dS^T
+//     rounded to bf16 in registers as the A fragment, the accumulator's
+//     layout, dO and Q read MN-major through the descriptor's transpose
+//     bit, as the forward reads V).
+//   Each value is packed as soon as it is computed, so the f32 S^T and
+//   dP^T tiles die while the A fragments fill.  glm4-9b has 2 kv heads: at
+//   S = 4096 one block per (kv head, key tile) is 64 blocks for 132 SMs,
+//   and the causal mask gives key tile 0 32x the work of the last.  So a
+//   group's query heads are split into runs (the least divisor of the group
+//   that gives a block per SM: 4 runs of 4 heads, 256 blocks at the
+//   training shape; split_for), key tiles are numbered with the most open query
+//   tiles first, and each run stores its f32 share of dK and dV, which
+//   flash_bwd_group_sum_kernel adds in run order.  A group of one run
+//   stores dK and dV directly.
+// - dQ pass (tc::flash_bwd_dq_kernel), the forward's structure: one block
+//   per (b, h, 128-row query tile), numbered as the forward's; Q and dO
+//   loaded once by TMA, K and V streamed through the ring; per consumer
+//   warpgroup (64 rows) S = Q K^T and dP = dO V^T (ss), dS = P (dP - D),
+//   then dQ += dS K with dS in bf16 registers and K read MN-major.
+// - Masks as the forward's: a block visits only the tiles that the masks
+//   leave partly open for one of its rows; each consumer sorts a tile for
+//   its 64 rows into closed (no wgmma), interior (no mask arithmetic) or an
+//   edge (the diagonal, the window's edge, rows or keys past S: masked
+//   pairs get p = 0).
+// - Roundings against the plain version (kernels/flash_attention.py,
+//   backward_tolerance): products of bf16 values are exact and summed in
+//   f32; P^T before P^T dO and dS before dS K and dS^T Q round to bf16
+//   (relative 2^-8 each).
+//
+// f32 inputs (the f32 parity path) and bf16 at hd 256 run SIMT passes,
+// f32 FMAs on values widened to f32 (every product exact):
+// 1. lse and D: given lse, the prep pass computes D alone; without it the
+//    lse pass computes both;
 // 2. dK, dV: one block per (b, h, key tile) walks the query tiles open to
 //    its keys, recomputes P and dS, and accumulates dV = P^T dO and
-//    dK = dS^T (q hd^-0.5) in registers.  Each query head is its own block
-//    (glm4-9b has only 2 kv heads: a block per kv head would give 128
-//    blocks at S = 4096 for 132 SMs); with GQA groups above 1 the block
-//    stores its head's share in f32 scratch (B, H, S, hd), and
-// 3. a reduction sums each kv head's group of shares in head order (group
-//    1 stores dK and dV directly and skips it).
+//    dK = dS^T (q hd^-0.5) in registers; with GQA groups above 1 the block
+//    stores its head's share in f32 scratch, and
+// 3. the group sum adds each kv head's shares in head order (group 1
+//    stores dK and dV directly and skips it);
 // 4. dQ: one block per (b, h, query tile) walks the open key tiles and
 //    accumulates dS K hd^-0.5.
 // Warps own rows of the tile that stays (keys in pass 2, queries in passes
@@ -45,12 +90,17 @@
 // registers.  Keys and queries at or past S are masked and staged as 0.
 // Tile skipping: a block visits only the tiles that the masks leave at
 // least partly open for one of its rows; inside a tile every pair is masked
-// exactly, so the skipping changes no value.
+// exactly, so the skipping changes no value.  hd 256 has no tensor-core
+// plan yet: its dK and dV accumulators alone are 256 f32 registers a
+// thread of one warpgroup.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <cmath>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -173,7 +223,8 @@ __device__ __forceinline__ void key_tiles(const Args& a, int q0, int q_last, int
 }
 
 // ---------------------------------------------------------------------------
-// Pass 1: lse and D per query row.
+// The lse pass, where the caller has no logsumexp from the forward: lse per
+// query row, and D too when dsum is not null.
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -205,7 +256,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_stats_kernel(Args a, int
 
   // D = rowsum(dO o), one warp a row.
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < ROWS && a.dsum != nullptr; ++r) {
     const int qi = q0 + r0 + r;
     float part = 0.0f;
     if (qi < a.S)
@@ -255,7 +306,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_stats_kernel(Args a, int
 }
 
 // ---------------------------------------------------------------------------
-// Pass 2: dK and dV of one query head's share, per key tile.
+// SIMT pass: dK and dV of one query head's share, per key tile.
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -358,10 +409,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(Args a, int 
   }
 }
 
-// Pass 3: dK and dV of each kv head = the sum of its group's shares, in
-// head order.
+// dK and dV of each kv head = the sum of its `shares` f32 shares
+// (B, KV, shares, S, hd), in share order: the SIMT passes' query heads, or
+// the tensor-core pass's runs of heads.
 template <typename T>
-__global__ void flash_bwd_group_sum_kernel(Args a, int hd) {
+__global__ void flash_bwd_group_sum_kernel(Args a, int hd, int shares) {
   const int KV = a.H / a.group;
   const int64_t total = (int64_t)a.B * KV * a.S * hd;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
@@ -371,8 +423,8 @@ __global__ void flash_bwd_group_sum_kernel(Args a, int hd) {
     const int s = (int)(row % a.S);
     const int bg = (int)(row / a.S), b = bg / KV, g = bg % KV;
     float sk = 0.0f, sv = 0.0f;
-    for (int hh = 0; hh < a.group; ++hh) {
-      const int64_t off = (((int64_t)b * a.H + g * a.group + hh) * a.S + s) * hd + d;
+    for (int hh = 0; hh < shares; ++hh) {
+      const int64_t off = (((int64_t)bg * shares + hh) * a.S + s) * hd + d;
       sk += a.dk_part[off];
       sv += a.dv_part[off];
     }
@@ -382,7 +434,7 @@ __global__ void flash_bwd_group_sum_kernel(Args a, int hd) {
 }
 
 // ---------------------------------------------------------------------------
-// Pass 4: dQ per query tile.
+// SIMT pass: dQ per query tile.
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -463,80 +515,713 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(Args a, int n_
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The prep pass: D = rowsum(dO o) per query row, one warp a row, into rows
+// of `ld` floats (zeros past S); with lse2 not null also lse log2(e).
+// ---------------------------------------------------------------------------
+
+struct PrepArgs {
+  const void *o, *dout;
+  const float* lse;  // (B, H, S), read when lse2 is not null
+  float *dsum, *lse2;
+  int B, H, S, ld, hd;
+  int64_t o_sb, o_sh, o_ss, do_sb, do_sh, do_ss;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) flash_bwd_prep_kernel(PrepArgs a) {
+  const int64_t w = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (int64_t)a.B * a.H * a.ld) return;
+  const int bh = (int)(w / a.ld), qi = (int)(w % a.ld);
+  const int b = bh / a.H, h = bh % a.H;
+  float part = 0.0f;
+  if (qi < a.S) {
+    const T* orow = static_cast<const T*>(a.o) + b * a.o_sb + h * a.o_sh + (int64_t)qi * a.o_ss;
+    const T* drow =
+        static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh + (int64_t)qi * a.do_ss;
+    for (int d = lane; d < a.hd; d += 32) part = fmaf(to_f32(drow[d]), to_f32(orow[d]), part);
+  }
+  part = warp_sum(part);
+  if (lane == 0) {
+    a.dsum[w] = qi < a.S ? part : 0.0f;
+    if (a.lse2 != nullptr)
+      a.lse2[w] = qi < a.S ? a.lse[(int64_t)bh * a.S + qi] * 1.4426950408889634f : 0.0f;
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int HD>
-int launch(const Args& a, cudaStream_t stream) {
-  const int64_t bh = (int64_t)a.B * a.H;
-  const int n_qt1 = (a.S + StatsLayout<HD>::BQ - 1) / StatsLayout<HD>::BQ;
-  const int n_kt = (a.S + KVLayout<HD>::BN - 1) / KVLayout<HD>::BN;
-  const int n_qt4 = (a.S + QLayout<HD>::BQ - 1) / QLayout<HD>::BQ;
-  if (bh * n_qt4 > 0x7fffffff || bh * n_kt > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if ((e = allow_smem(flash_bwd_stats_kernel<T, HD>, StatsLayout<HD>::BYTES)) ||
-      (e = allow_smem(flash_bwd_dkdv_kernel<T, HD>, KVLayout<HD>::BYTES)) ||
-      (e = allow_smem(flash_bwd_dq_kernel<T, HD>, QLayout<HD>::BYTES)))
-    return (int)e;
-  flash_bwd_stats_kernel<T, HD>
-      <<<(unsigned)(bh * n_qt1), THREADS, StatsLayout<HD>::BYTES, stream>>>(a, n_qt1);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_kernel<T, HD>
-      <<<(unsigned)(bh * n_kt), THREADS, KVLayout<HD>::BYTES, stream>>>(a, n_kt);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (a.group > 1) {
-    const int64_t total = (int64_t)a.B * (a.H / a.group) * a.S * HD;
-    const int64_t blocks = (total + 255) / 256;
-    const unsigned grid = (unsigned)(blocks < (1 << 21) ? blocks : (1 << 21));
-    flash_bwd_group_sum_kernel<T><<<grid, 256, 0, stream>>>(a, HD);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  flash_bwd_dq_kernel<T, HD>
-      <<<(unsigned)(bh * n_qt4), THREADS, QLayout<HD>::BYTES, stream>>>(a, n_qt4);
+// The group sum of each kv head's `shares` f32 shares of dK and dV.
+template <typename T>
+int group_sum(const Args& a, int hd, int shares, cudaStream_t stream) {
+  const int64_t total = (int64_t)a.B * (a.H / a.group) * a.S * hd;
+  const int64_t blocks = (total + 255) / 256;
+  const unsigned grid = (unsigned)(blocks < (1 << 21) ? blocks : (1 << 21));
+  flash_bwd_group_sum_kernel<T><<<grid, 256, 0, stream>>>(a, hd, shares);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int HD>
+int launch_stats(const Args& a, cudaStream_t stream, int* launched) {
+  const int n_qt = (a.S + StatsLayout<HD>::BQ - 1) / StatsLayout<HD>::BQ;
+  if ((int64_t)a.B * a.H * n_qt > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_bwd_stats_kernel<T, HD>, StatsLayout<HD>::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_stats_kernel<T, HD><<<(unsigned)((int64_t)a.B * a.H * n_qt), THREADS,
+                                  StatsLayout<HD>::BYTES, stream>>>(a, n_qt);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ++*launched;
+  return 0;
+}
+
 template <typename T>
-int launch_hd(int hd, const Args& a, cudaStream_t stream) {
-  if (hd == 64) return launch<T, 64>(a, stream);
-  if (hd == 128) return launch<T, 128>(a, stream);
-  if (hd == 256) return launch<T, 256>(a, stream);
+int launch_stats_hd(int hd, const Args& a, cudaStream_t stream, int* launched) {
+  if (hd == 64) return launch_stats<T, 64>(a, stream, launched);
+  if (hd == 128) return launch_stats<T, 128>(a, stream, launched);
+  if (hd == 256) return launch_stats<T, 256>(a, stream, launched);
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int launch_prep(const PrepArgs& p, cudaStream_t stream, int* launched) {
+  const int64_t rows = (int64_t)p.B * p.H * p.ld;
+  const int64_t blocks = (rows * 32 + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  flash_bwd_prep_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ++*launched;
+  return 0;
+}
+
+
+// ---------------------------------------------------------------------------
+// The tensor-core passes (bf16, hd 64 and 128).
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+
+constexpr int CONSUMERS = 2, THREADS = (CONSUMERS + 1) * 128;
+constexpr int BM = 64;              // rows of a consumer warpgroup and of a streamed tile
+constexpr int BT = CONSUMERS * BM;  // rows of the tile a block keeps: 128
+constexpr int CHUNK = 8;            // dQ: (b, h) pairs whose blocks run together
+
+struct Params {
+  const float *lse2, *dsum;  // (B, H, S_pad) f32, zeros past S
+  void *dq, *dk, *dv;
+  float *dk_part, *dv_part;  // (B, KV, split, S, hd) f32 when split > 1
+  int B, H, KV, group, S, S_pad, causal, window, split, n_kt, n_qt;
+  float scale, scale_log2;  // hd^-0.5 and hd^-0.5 log2(e)
+  int64_t dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
+};
+
+// dK / dV shared memory, in bytes from a 1024-byte aligned base: K and V as
+// hd / 64 panels of 128 rows each; STAGES Q tiles and STAGES dO tiles of
+// hd / 64 panels of 64 rows; STAGES (lse2, D) slices of 64 floats each;
+// the mbarriers (K and V's, STAGES full, STAGES empty).
+template <int HD>
+struct KVPlan {
+  static constexpr int STAGES = HD == 128 ? 3 : 4;
+  static constexpr int PANELS = HD / PANEL;
+  static constexpr int KV_PANEL = BT * ROW_BYTES, T_PANEL = BM * ROW_BYTES;
+  static constexpr int KV_BYTES = PANELS * KV_PANEL, T_BYTES = PANELS * T_PANEL;
+  static constexpr int K = 0, V = KV_BYTES, Q = 2 * KV_BYTES, DO = Q + STAGES * T_BYTES;
+  static constexpr int VEC = DO + STAGES * T_BYTES, VEC_BYTES = 2 * BM * 4;
+  static constexpr int BARS = VEC + STAGES * VEC_BYTES;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+};
+
+// Whether the 64 x 64 block of keys [ka, ka + 63] and queries [qa, qa + 63]
+// is closed to every pair, or has a masked pair (an edge).
+__device__ __forceinline__ bool block_closed(const Params& a, int qa, int ka) {
+  return ka >= a.S || (a.causal && qa + BM - 1 < ka) ||
+         (a.window > 0 && qa - (ka + BM - 1) >= a.window);
+}
+__device__ __forceinline__ bool block_edge(const Params& a, int qa, int ka) {
+  return ka + BM > a.S || qa + BM > a.S || (a.causal && ka + BM - 1 > qa) ||
+         (a.window > 0 && qa + BM - 1 - ka >= a.window);
+}
+__device__ __forceinline__ bool pair_open(const Params& a, int qi, int ki) {
+  bool ok = qi < a.S && ki < a.S;
+  if (a.causal) ok = ok && ki <= qi;
+  if (a.window > 0) ok = ok && (qi - ki < a.window);
+  return ok;
+}
+
+template <int HD>
+__device__ __forceinline__ void store_bf16_rows(void* out, int64_t sb, int64_t sh, int64_t ss,
+                                                int b, int head, int r0, int S, int row,
+                                                int col, const float (&acc)[HD / 2],
+                                                float mul) {
+  __nv_bfloat16* base = static_cast<__nv_bfloat16*>(out) + b * sb + head * sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ri = r0 + row + 8 * r;
+    if (ri >= S) continue;
+    __nv_bfloat16* orow = base + ri * ss + col;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, const Params a) {
+  using P = KVPlan<HD>;
+  constexpr int STAGES = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base + P::K, sV = base + P::V, sQ = base + P::Q, sDO = base + P::DO;
+  const float* vec = reinterpret_cast<const float*>(smem_raw + (base - raw) + P::VEC);
+  const uint32_t bar_kv = base + P::BARS;
+  const auto full = [&](int st) { return bar_kv + 8u * (1 + st); };
+  const auto empty = [&](int st) { return bar_kv + 8u * (1 + STAGES + st); };
+
+  // Key tiles in order of open query tiles (the causal mask opens the most
+  // to key tile 0); within one, every (b, kv head, run of heads).
+  const int per_kt = a.B * a.KV * a.split;
+  const int kt = blockIdx.x / per_kt, rest = blockIdx.x % per_kt;
+  const int sp = rest % a.split, bg = rest / a.split;
+  const int b = bg / a.KV, g = bg % a.KV;
+  const int heads = a.group / a.split, h0 = g * a.group + sp * heads;
+  const int k0 = kt * BT;
+  // Query tiles at least partly open for one of the keys [k0, k_last].
+  const int k_last = min(k0 + BT, a.S) - 1;
+  const int q_begin = a.causal ? k0 : 0;
+  const int q_end = a.window > 0 ? min(a.S, k_last + a.window) : a.S;
+  const int qt_begin = q_begin / BM, n_qt = (q_end + BM - 1) / BM - qt_begin;
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // Producer: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(bar_kv, 2 * P::KV_BYTES);
+#pragma unroll
+      for (int p = 0; p < P::PANELS; ++p) {
+        tma_load(sK + p * P::KV_PANEL, &tk, bar_kv, p * PANEL, k0, g, b);
+        tma_load(sV + p * P::KV_PANEL, &tv, bar_kv, p * PANEL, k0, g, b);
+      }
+      int i = 0;
+      for (int hh = 0; hh < heads; ++hh) {
+        const int h = h0 + hh;
+        for (int t = 0; t < n_qt; ++t, ++i) {
+          const int st = i % STAGES, q0 = (qt_begin + t) * BM;
+          mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * P::T_BYTES + P::VEC_BYTES);
+#pragma unroll
+          for (int p = 0; p < P::PANELS; ++p) {
+            const uint32_t off = st * P::T_BYTES + p * P::T_PANEL;
+            tma_load(sQ + off, &tq, full(st), p * PANEL, q0, h, b);
+            tma_load(sDO + off, &tdo, full(st), p * PANEL, q0, h, b);
+          }
+          const int64_t row = ((int64_t)b * a.H + h) * a.S_pad + q0;
+          const uint32_t sv = base + P::VEC + st * P::VEC_BYTES;
+          bulk_load(sv, a.lse2 + row, BM * 4, full(st));
+          bulk_load(sv + BM * 4, a.dsum + row, BM * 4, full(st));
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: keys ka .. ka + 63 of the tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row = 16 * (t / 32) + lane / 4;  // this thread's keys: row, row + 8
+    const int col = 2 * (lane % 4);            // and queries 8 j + col, + 1
+    const int ka = k0 + BM * wg;
+    const float c = a.scale_log2;
+    float dk[HD / 2], dv[HD / 2], s[32], dp[32];
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.0f;
+    const uint32_t sKw = sK + BM * wg * ROW_BYTES, sVw = sV + BM * wg * ROW_BYTES;
+    mbar_wait(bar_kv, 0);
+
+    int i = 0;
+    for (int hh = 0; hh < heads; ++hh) {
+      for (int tt = 0; tt < n_qt; ++tt, ++i) {
+        const int st = i % STAGES, q0 = (qt_begin + tt) * BM;
+        const bool closed = block_closed(a, q0, ka), edge = block_edge(a, q0, ka);
+        mbar_wait(full(st), (i / STAGES) & 1);
+        if (!closed) {
+          // S^T = K Q^T and dP^T = V dO^T over hd in steps of 16.
+          const uint32_t sQs = sQ + st * P::T_BYTES, sDOs = sDO + st * P::T_BYTES;
+          pin(s);
+          pin(dp);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;
+            wgmma_ss_m64n64(s, sw128_desc(sKw + (kk / 4) * P::KV_PANEL + off, 16, 1024),
+                            sw128_desc(sQs + (kk / 4) * P::T_PANEL + off, 16, 1024), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;
+            wgmma_ss_m64n64(dp, sw128_desc(sVw + (kk / 4) * P::KV_PANEL + off, 16, 1024),
+                            sw128_desc(sDOs + (kk / 4) * P::T_PANEL + off, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(s);
+          pin(dp);
+
+          // P^T and dS^T, element (key ka + row + 8 (e / 2), query
+          // q0 + 8 j + col + e % 2), packed as the A fragment of k-step
+          // kk (queries 16 kk .. 16 kk + 15) as soon as computed.
+          const float* lse2 = vec + st * (2 * BM);
+          const float* dsum = lse2 + BM;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float pv[8], dv8[8];
+#pragma unroll
+            for (int x = 0; x < 8; ++x) {
+              const int j = 2 * kk + x / 4, e = x % 4, qc = 8 * j + col + (e % 2);
+              float p = ex2(fmaf(s[4 * j + e], c, -lse2[qc]));
+              if (edge && !pair_open(a, q0 + qc, ka + row + 8 * (e / 2))) p = 0.0f;
+              pv[x] = p;
+              dv8[x] = p * (dp[4 * j + e] - dsum[qc]);
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              pa[kk][r] = pack_bf16(pv[2 * r], pv[2 * r + 1]);
+              da[kk][r] = pack_bf16(dv8[2 * r], dv8[2 * r + 1]);
+            }
+          }
+
+          // dV += P^T dO and dK += dS^T Q: 16 queries (16 rows of 128
+          // bytes) per step, dO and Q MN-major with their 64-column panels
+          // T_PANEL bytes apart.
+          pin(dv);
+          pin(dk);
+          pin(pa);
+          pin(da);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n<HD>(dv, pa[kk], sw128_desc(sDOs + kk * 16 * ROW_BYTES, P::T_PANEL, 1024));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n<HD>(dk, da[kk], sw128_desc(sQs + kk * 16 * ROW_BYTES, P::T_PANEL, 1024));
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(dv);
+          pin(dk);
+          pin(pa);
+          pin(da);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
+      }
+    }
+
+    // Epilogue: dK hd^-0.5 and dV, in bf16 for a group of one run, else
+    // this run's f32 share.
+    if (a.split == 1) {
+      store_bf16_rows<HD>(a.dk, a.dk_sb, a.dk_sh, a.dk_ss, b, g, ka, a.S, row, col, dk, a.scale);
+      store_bf16_rows<HD>(a.dv, a.dv_sb, a.dv_sh, a.dv_ss, b, g, ka, a.S, row, col, dv, 1.0f);
+    } else {
+      const int64_t share = ((int64_t)bg * a.split + sp) * a.S;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int ki = ka + row + 8 * r;
+        if (ki >= a.S) continue;
+        float* pk = a.dk_part + (share + ki) * HD + col;
+        float* pv = a.dv_part + (share + ki) * HD + col;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          *reinterpret_cast<float2*>(pk + 8 * j) =
+              make_float2(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+          *reinterpret_cast<float2*>(pv + 8 * j) =
+              make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dQ shared memory, in bytes from a 1024-byte aligned base: Q and dO as
+// hd / 64 panels of 128 rows each, then STAGES K tiles and STAGES V tiles
+// of hd / 64 panels of 64 rows, then the mbarriers (Q and dO's, STAGES
+// full, STAGES empty).
+template <int HD>
+struct QPlan {
+  static constexpr int STAGES = 4;
+  static constexpr int PANELS = HD / PANEL;
+  static constexpr int Q_PANEL = BT * ROW_BYTES, KV_PANEL = BM * ROW_BYTES;
+  static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int Q = 0, DO = Q_BYTES, K = 2 * Q_BYTES, V = K + STAGES * KV_BYTES;
+  static constexpr int BARS = V + STAGES * KV_BYTES;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const Params a) {
+  using P = QPlan<HD>;
+  constexpr int STAGES = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + P::Q, sDO = base + P::DO, sK = base + P::K, sV = base + P::V;
+  const uint32_t bar_q = base + P::BARS;
+  const auto full = [&](int st) { return bar_q + 8u * (1 + st); };
+  const auto empty = [&](int st) { return bar_q + 8u * (1 + STAGES + st); };
+
+  // Numbered as the forward: chunks of CHUNK (b, h) pairs, the query tiles
+  // with the most open keys first within a chunk.
+  const int n_bh = a.B * a.H, chunk = blockIdx.x / (CHUNK * a.n_qt);
+  const int pos = blockIdx.x % (CHUNK * a.n_qt), here = min(CHUNK, n_bh - chunk * CHUNK);
+  const int bh = chunk * CHUNK + pos % here;
+  const int qt = a.n_qt - 1 - pos / here;
+  const int b = bh / a.H, h = bh % a.H, g = h / a.group;
+  const int q0 = qt * BT;
+  // Key tiles that the masks leave at least partly open for some row.
+  const int q_last = min(q0 + BT, a.S) - 1;
+  const int k_end = a.causal ? q_last + 1 : a.S;
+  const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt_begin = k_begin / BM, n_kt = (k_end + BM - 1) / BM - kt_begin;
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(bar_q, 2 * P::Q_BYTES);
+#pragma unroll
+      for (int p = 0; p < P::PANELS; ++p) {
+        tma_load(sQ + p * P::Q_PANEL, &tq, bar_q, p * PANEL, q0, h, b);
+        tma_load(sDO + p * P::Q_PANEL, &tdo, bar_q, p * PANEL, q0, h, b);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int st = i % STAGES, k0 = (kt_begin + i) * BM;
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * P::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < P::PANELS; ++p) {
+          const uint32_t off = st * P::KV_BYTES + p * P::KV_PANEL;
+          tma_load(sK + off, &tk, full(st), p * PANEL, k0, g, b);
+          tma_load(sV + off, &tv, full(st), p * PANEL, k0, g, b);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows qa .. qa + 63 of the tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row = 16 * (t / 32) + lane / 4;  // this thread's rows: row, row + 8
+    const int col = 2 * (lane % 4);            // and key columns 8 j + col, + 1
+    const int qa = q0 + BM * wg;
+    const float c = a.scale_log2;
+    float dq[HD / 2], s[32], dp[32], lse2[2], dsum[2];
+    uint32_t da[4][4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qa + row + 8 * r;
+      const int64_t at = (int64_t)bh * a.S_pad + qi;
+      lse2[r] = qi < a.S ? a.lse2[at] : 0.0f;
+      dsum[r] = qi < a.S ? a.dsum[at] : 0.0f;
+    }
+    const uint32_t sQw = sQ + BM * wg * ROW_BYTES, sDOw = sDO + BM * wg * ROW_BYTES;
+    mbar_wait(bar_q, 0);
+
+    for (int i = 0; i < n_kt; ++i) {
+      const int st = i % STAGES, k0 = (kt_begin + i) * BM;
+      const bool closed = block_closed(a, qa, k0), edge = block_edge(a, qa, k0);
+      mbar_wait(full(st), (i / STAGES) & 1);
+      if (!closed) {
+        // S = Q K^T and dP = dO V^T over hd in steps of 16.
+        const uint32_t sKs = sK + st * P::KV_BYTES, sVs = sV + st * P::KV_BYTES;
+        pin(s);
+        pin(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_m64n64(s, sw128_desc(sQw + (kk / 4) * P::Q_PANEL + off, 16, 1024),
+                          sw128_desc(sKs + (kk / 4) * P::KV_PANEL + off, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_m64n64(dp, sw128_desc(sDOw + (kk / 4) * P::Q_PANEL + off, 16, 1024),
+                          sw128_desc(sVs + (kk / 4) * P::KV_PANEL + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(s);
+        pin(dp);
+
+        // dS = P (dP - D), element (query qa + row + 8 (e / 2), key
+        // k0 + 8 j + col + e % 2), packed as the A fragment of k-step kk.
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float d8[8];
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int j = 2 * kk + x / 4, e = x % 4, r = e / 2;
+            float p = ex2(fmaf(s[4 * j + e], c, -lse2[r]));
+            if (edge && !pair_open(a, qa + row + 8 * r, k0 + 8 * j + col + (e % 2))) p = 0.0f;
+            d8[x] = p * (dp[4 * j + e] - dsum[r]);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(d8[2 * r], d8[2 * r + 1]);
+        }
+
+        // dQ += dS K: 16 keys per step, K MN-major.
+        pin(dq);
+        pin(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_n<HD>(dq, da[kk], sw128_desc(sKs + kk * 16 * ROW_BYTES, P::KV_PANEL, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(dq);
+        pin(da);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    store_bf16_rows<HD>(a.dq, a.dq_sb, a.dq_sh, a.dq_ss, b, h, qa, a.S, row, col, dq, a.scale);
+  }
+}
+
+// The runs a group of query heads is split into: the least divisor of the
+// group that gives the dK / dV pass FLASH_BWD_BLOCKS_PER_SM blocks per SM
+// (1: at the training shape 4 runs of 4 heads, 256 blocks).  More runs
+// balance the key tiles' unequal work better but write and sum more f32
+// shares; flash_bwd_diagnose.py times the passes at 1, 2 and 4.
+#ifndef FLASH_BWD_BLOCKS_PER_SM
+#define FLASH_BWD_BLOCKS_PER_SM 1
+#endif
+int split_for(int64_t B, int64_t KV, int64_t group, int64_t S) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;
+  const int64_t blocks = B * KV * ((S + BT - 1) / BT);
+  for (int64_t d = 1; d < group; ++d)
+    if (group % d == 0 && blocks * d >= FLASH_BWD_BLOCKS_PER_SM * sms) return (int)d;
+  return (int)group;
+}
+
+struct Launch {
+  const void *q, *k, *v, *dout;
+  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
+};
+
+template <int HD>
+int launch(const Launch& L, const Params& a, cudaStream_t stream, int* launched) {
+  // Maps with boxes of 64 and 128 rows: the dK / dV pass streams 64-row Q
+  // and dO tiles against 128-row K and V tiles, the dQ pass the other way.
+  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  const auto maps = [&](CUtensorMap* mq, CUtensorMap* mdo, CUtensorMap* mk, CUtensorMap* mv,
+                        int rows) {
+    int e = make_map(mq, L.q, HD, a.S, a.H, a.B, L.q_sb, L.q_sh, L.q_ss, rows);
+    if (e == 0) e = make_map(mdo, L.dout, HD, a.S, a.H, a.B, L.do_sb, L.do_sh, L.do_ss, rows);
+    if (e == 0) e = make_map(mk, L.k, HD, a.S, a.KV, a.B, L.k_sb, L.k_sh, L.k_ss, rows);
+    if (e == 0) e = make_map(mv, L.v, HD, a.S, a.KV, a.B, L.v_sb, L.v_sh, L.v_ss, rows);
+    return e;
+  };
+  int e = maps(&q64, &do64, &k64, &v64, BM);
+  if (e == 0) e = maps(&q128, &do128, &k128, &v128, BT);
+  if (e != 0) return e;
+  const auto dkdv = flash_bwd_dkdv_kernel<HD>;
+  const auto dq = flash_bwd_dq_kernel<HD>;
+  cudaError_t r;
+  if ((r = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                KVPlan<HD>::BYTES)) != cudaSuccess ||
+      (r = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                QPlan<HD>::BYTES)) != cudaSuccess)
+    return (int)r;
+  const int64_t kv_blocks = (int64_t)a.n_kt * a.B * a.KV * a.split;
+  dkdv<<<(unsigned)kv_blocks, THREADS, KVPlan<HD>::BYTES, stream>>>(q64, k128, v128, do64, a);
+  if ((r = cudaGetLastError()) != cudaSuccess) return (int)r;
+  ++*launched;
+  if (a.split > 1) {
+    Args s{};
+    s.dk = a.dk, s.dv = a.dv, s.dk_part = a.dk_part, s.dv_part = a.dv_part;
+    s.B = a.B, s.H = a.H, s.group = a.group, s.S = a.S;
+    s.dk_sb = a.dk_sb, s.dk_sh = a.dk_sh, s.dk_ss = a.dk_ss;
+    s.dv_sb = a.dv_sb, s.dv_sh = a.dv_sh, s.dv_ss = a.dv_ss;
+    if ((e = group_sum<__nv_bfloat16>(s, HD, a.split, stream)) != 0) return e;
+    ++*launched;
+  }
+  const int64_t q_blocks = (int64_t)a.n_qt * a.B * a.H;
+  dq<<<(unsigned)q_blocks, THREADS, QPlan<HD>::BYTES, stream>>>(q128, k64, v64, do128, a);
+  if ((r = cudaGetLastError()) != cudaSuccess) return (int)r;
+  ++*launched;
+  return 0;
+}
+
+}  // namespace tc
+
+// The SIMT dK / dV pass, the group sum and the dQ pass.
+template <typename T, int HD>
+int launch_simt(const Args& a, cudaStream_t stream, int* launched) {
+  const int64_t bh = (int64_t)a.B * a.H;
+  const int n_kt = (a.S + KVLayout<HD>::BN - 1) / KVLayout<HD>::BN;
+  const int n_qt = (a.S + QLayout<HD>::BQ - 1) / QLayout<HD>::BQ;
+  if (bh * n_qt > 0x7fffffff || bh * n_kt > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = allow_smem(flash_bwd_dkdv_kernel<T, HD>, KVLayout<HD>::BYTES)) ||
+      (e = allow_smem(flash_bwd_dq_kernel<T, HD>, QLayout<HD>::BYTES)))
+    return (int)e;
+  flash_bwd_dkdv_kernel<T, HD>
+      <<<(unsigned)(bh * n_kt), THREADS, KVLayout<HD>::BYTES, stream>>>(a, n_kt);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ++*launched;
+  if (a.group > 1) {
+    const int r = group_sum<T>(a, HD, a.group, stream);
+    if (r != 0) return r;
+    ++*launched;
+  }
+  flash_bwd_dq_kernel<T, HD>
+      <<<(unsigned)(bh * n_qt), THREADS, QLayout<HD>::BYTES, stream>>>(a, n_qt);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ++*launched;
+  return 0;
+}
+
+// The SIMT passes exist for f32 at every head dim and for bf16 at hd 256.
+int launch_simt_hd(int dtype, int hd, const Args& a, cudaStream_t stream, int* launched) {
+  if (dtype == 0 && hd == 64) return launch_simt<float, 64>(a, stream, launched);
+  if (dtype == 0 && hd == 128) return launch_simt<float, 128>(a, stream, launched);
+  if (dtype == 0 && hd == 256) return launch_simt<float, 256>(a, stream, launched);
+  if (dtype == 1 && hd == 256) return launch_simt<__nv_bfloat16, 256>(a, stream, launched);
+  return (int)cudaErrorInvalidValue;
+}
+
+bool on_tensor_cores(int dtype, int hd) { return dtype == 1 && (hd == 64 || hd == 128); }
+
 }  // namespace
+
+// The f32 shares of dK and dV per kv head that the backward of this shape
+// stores for its group sum (1: none, dK and dV stored directly): the
+// tensor-core pass's runs of heads, or the SIMT passes' query heads.
+extern "C" int64_t flash_attention_backward_shares(int dtype, int hd, int64_t B, int64_t H,
+                                                   int64_t KV, int64_t S) {
+  if (KV <= 0 || H % KV != 0) return 1;
+  if (on_tensor_cores(dtype, hd)) return tc::split_for(B, KV, H / KV, S);
+  return H / KV;
+}
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dO, dQ, dK and dV alike.
 // q, o, dO and dQ are (B, H, S, hd), k, v, dK and dV (B, KV, S, hd), each
-// given by its (b, head, s) element strides with hd contiguous.  lse and
-// dsum are f32 scratch of B H S elements; dk_part and dv_part f32 scratch
-// of B H S hd elements each, read only when H > KV (may be null otherwise).
-// hd is 64, 128 or 256; H is a multiple of KV.  Launches the four passes on
-// the stream and returns a cudaError_t.
+// given by its (b, head, s) element strides with hd contiguous; for bf16 at
+// hd 64 and 128 (the tensor-core passes), q, k, v and dO start on 16 bytes
+// and their strides are multiples of 8 elements (TMA).  lse is the
+// forward's (B, H, S) f32 logsumexp, or null: then the lse pass writes it
+// to lse_scratch (B H S f32).  vec is f32 scratch of 2 B H S_pad elements,
+// S_pad = S rounded up to 64 (D, and lse log2(e) for the tensor-core
+// passes).  dk_part and dv_part are f32 scratch of B KV shares S hd
+// elements each, read when flash_attention_backward_shares is above 1 (may
+// be null otherwise).  hd is 64, 128 or 256; H is a multiple of KV.
+// Launches the passes on the stream, counts them in *launched, and returns
+// the cudaError_t of the first that fails.
 extern "C" int flash_attention_backward_launch(
     int dtype, int hd, const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* dsum, void* dk_part,
-    void* dv_part, int64_t B, int64_t H, int64_t KV, int64_t S, int64_t q_sb, int64_t q_sh,
-    int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
-    int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t do_sb, int64_t do_sh,
-    int64_t do_ss, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss, int64_t dk_sb, int64_t dk_sh,
-    int64_t dk_ss, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss, int causal, int64_t window,
-    void* stream) {
+    const void* dout, void* dq, void* dk, void* dv, const void* lse, void* lse_scratch,
+    void* vec, void* dk_part, void* dv_part, int64_t B, int64_t H, int64_t KV, int64_t S,
+    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
+    int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+    int64_t do_sb, int64_t do_sh, int64_t do_ss, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss,
+    int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss,
+    int causal, int64_t window, void* stream, int* launched) {
+  if (launched == nullptr) return (int)cudaErrorInvalidValue;
+  *launched = 0;
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0 || window < 0) return (int)cudaErrorInvalidValue;
   if (S > 0x3fffffff || B * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if (H > KV && (dk_part == nullptr || dv_part == nullptr)) return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, dout, dq, dk, dv,
-         static_cast<float*>(lse), static_cast<float*>(dsum),
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hd != 64 && hd != 128 && hd != 256) return (int)cudaErrorInvalidValue;
+  if (vec == nullptr || (lse == nullptr && lse_scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int64_t shares = flash_attention_backward_shares(dtype, hd, B, H, KV, S);
+  if (shares > 1 && (dk_part == nullptr || dv_part == nullptr)) return (int)cudaErrorInvalidValue;
+  const int win = (int)(window > S ? S : window);
+  const double scale = 1.0 / std::sqrt((double)hd);
+  float* lse_f = static_cast<float*>(lse != nullptr ? const_cast<void*>(lse) : lse_scratch);
+  Args a{q, k, v, o, dout, dq, dk, dv, lse_f, static_cast<float*>(vec),
          static_cast<float*>(dk_part), static_cast<float*>(dv_part),
-         (int)B, (int)H, (int)(H / KV), (int)S, causal ? 1 : 0,
-         (int)(window > S ? S : window), (float)(1.0 / std::sqrt((double)hd)),
+         (int)B, (int)H, (int)(H / KV), (int)S, causal ? 1 : 0, win, (float)scale,
          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
          do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_hd<float>(hd, a, s);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(hd, a, s);
-  return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool tensor_cores = on_tensor_cores(dtype, hd);
+  int e;
+  if (lse == nullptr) {  // the lse pass (with D for the SIMT passes)
+    Args s = a;
+    if (tensor_cores) s.dsum = nullptr;
+    e = dtype == 0 ? launch_stats_hd<float>(hd, s, st, launched)
+                   : launch_stats_hd<__nv_bfloat16>(hd, s, st, launched);
+    if (e != 0) return e;
+  }
+  const int64_t ld = tensor_cores ? (S + 63) / 64 * 64 : S;
+  PrepArgs p{o, dout, lse_f, static_cast<float*>(vec), nullptr, (int)B, (int)H, (int)S,
+             (int)ld, hd, o_sb, o_sh, o_ss, do_sb, do_sh, do_ss};
+  if (!tensor_cores) {
+    if (lse != nullptr) {  // D alone
+      e = dtype == 0 ? launch_prep<float>(p, st, launched)
+                     : launch_prep<__nv_bfloat16>(p, st, launched);
+      if (e != 0) return e;
+    }
+    return launch_simt_hd(dtype, hd, a, st, launched);
+  }
+  // Tensor cores: lse2 in the first B H S_pad floats of vec, D after them.
+  p.lse2 = static_cast<float*>(vec);
+  p.dsum = static_cast<float*>(vec) + B * H * ld;
+  if ((e = launch_prep<__nv_bfloat16>(p, st, launched)) != 0) return e;
+  const int64_t n_kt = (S + tc::BT - 1) / tc::BT, n_qt = n_kt;
+  if (n_kt * B * KV * shares > 0x7fffffff || n_qt * B * H > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  tc::Params t{p.lse2, p.dsum, dq, dk, dv, static_cast<float*>(dk_part),
+               static_cast<float*>(dv_part), (int)B, (int)H, (int)KV, (int)(H / KV), (int)S,
+               (int)ld, causal ? 1 : 0, win, (int)shares, (int)n_kt, (int)n_qt,
+               (float)scale, (float)(scale * 1.4426950408889634),
+               dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss};
+  tc::Launch L{q, k, v, dout, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+               do_sb, do_sh, do_ss};
+  return hd == 64 ? tc::launch<64>(L, t, st, launched) : tc::launch<128>(L, t, st, launched);
 }

@@ -25,18 +25,28 @@ always do).  ``launches`` counts kernel launches of both dtypes.
 version.
 
 Inputs that require grad go through a ``torch.autograd.Function`` whose
-backward is :func:`flash_attention_backward`: the CUDA kernels of
-``csrc/flash_attention_bwd.cu`` on the card (``backward_launches`` counts
-its calls), :func:`flash_attention_backward_plain` on the CPU.  The TPU
-package has no Pallas backward (its training path differentiates the plain
-attention with JAX); this one computes the gradient of the forward's
-function from q, k, v, the forward's output o and dO, recomputing each
-row's logsumexp.  :func:`backward_tolerance` states how far it may lie from
-its plain version.  The backward's CUDA call takes raw pointers, so the
+forward also keeps each row's logsumexp (the kernel stores it in its
+epilogue; :func:`flash_attention_plain` returns ``torch.logsumexp`` of the
+masked scores on the CPU) and whose backward is
+:func:`flash_attention_backward`: the CUDA kernels of
+``csrc/flash_attention_bwd.cu`` on the card, :func:`flash_attention_backward_plain`
+on the CPU.  The TPU package has no Pallas backward (its training path
+differentiates the plain attention with JAX); this one computes the
+gradient of the forward's function from q, k, v, the forward's output o,
+its logsumexp and dO.  bf16 at hd 64 and 128 runs tensor-core passes (a D
+pass, a dK / dV pass and a dQ pass on wgmma, fed by TMA, and a fixed-order
+sum of dK / dV shares where a GQA group is split); f32 and bf16 at hd 256
+run f32 SIMT passes.  ``backward_launches`` counts its calls and
+``backward_kernel_launches`` the kernels those calls launched.
+:func:`backward_tolerance` states how far it may lie from its plain
+version, :func:`lse_tolerance` how far the forward's logsumexp may lie from
+``torch.logsumexp``.  The backward's CUDA call takes raw pointers, so the
 gradient is taken with ``torch.autograd`` (``torch.func`` transforms hand
 the backward wrapper tensors without storage).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -44,14 +54,16 @@ from repro_torch.kernels.build import DTYPE_CODES, check, load_library
 
 __all__ = ["backward_tolerance", "bf16_tolerance", "flash_attention",
            "flash_attention_backward", "flash_attention_backward_plain",
-           "flash_attention_plain", "HEAD_DIMS", "launches",
-           "backward_launches"]
+           "flash_attention_plain", "flash_attention_with_lse", "HEAD_DIMS",
+           "launches", "backward_launches", "backward_kernel_launches",
+           "lse_tolerance"]
 
 HEAD_DIMS = (64, 128, 256)  # the head sizes the kernel is built for
 NEG = -1.0e30
 
 launches = 0
-backward_launches = 0
+backward_launches = 0  # calls of the backward
+backward_kernel_launches = 0  # the kernels those calls launched
 
 
 def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -71,17 +83,30 @@ def _wide(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
-    """The kernel's function in plain PyTorch: q scaled in f32 before the
-    product, masked scores set to -1e30, softmax, P.V in f32, q's dtype.
-    GQA by a (KV, group) split of the query heads, with no repeat."""
+def _scores(q, k, causal: bool, window: int):
+    """The masked, scaled scores (B, KV, group, S, S) in f32 (or f64): q
+    scaled before the product, masked scores set to -1e30."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
     qf = (_wide(q) * hd ** -0.5).unflatten(1, (kv, h // kv))
     scores = torch.einsum("bkgqd,bksd->bkgqs", qf, _wide(k))
-    scores = scores.masked_fill(~_mask(s, causal, window, q.device), NEG)
+    return scores.masked_fill(~_mask(s, causal, window, q.device), NEG)
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
+                          return_lse: bool = False):
+    """The kernel's function in plain PyTorch: q scaled in f32 before the
+    product, masked scores set to -1e30, softmax, P.V in f32, q's dtype.
+    GQA by a (KV, group) split of the query heads, with no repeat.  With
+    ``return_lse`` also each row's ``torch.logsumexp`` of its masked
+    scores, (B, H, S) in f32 (f64 for f64 inputs): what the kernel stores
+    for the backward."""
+    scores = _scores(q, k, causal, window)
     out = torch.einsum("bkgqs,bksd->bkgqd", scores.softmax(-1), _wide(v))
-    return out.flatten(1, 2).to(q.dtype)
+    out = out.flatten(1, 2).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, -1).flatten(1, 2)
+    return out
 
 
 def bf16_tolerance(v, out, causal: bool = True, window: int = 0):
@@ -149,10 +174,37 @@ def _check_cuda_args(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _forward(q, k, v, causal: bool, window: int):
+def lse_tolerance(q, k, lse, causal: bool = True, window: int = 0):
+    """Per-element bound on ``|kernel lse - plain lse|`` for the forward's
+    logsumexp, where ``lse`` is the plain one (B, H, S):
+    ``u (2 (hd + 6) s_max + 2 S + 4 |lse| + 16)``, u = 2^-24, s_max the
+    largest |q| |k|^T hd^-0.5 of an open pair.
+
+    Derivation.  Each side's scores lie within (hd + 2) u s_max of the
+    exact ones (q scaled, hd products and their sum in f32), and
+    logsumexp moves by at most the largest change of a score: 2 (hd + 2) u
+    s_max between the sides.  The kernel then takes the row max exactly and
+    sums S terms 2^((s - m) c) (c = hd^-0.5 log2 e): the exponent's f32
+    evaluation is off by at most 4 u s_max in natural units, the ex2
+    approximation by 4 u relative, the sum of S positive terms by S u
+    relative; the plain side's exp and sum are within S u too; log2 l, the
+    product m c and the conversion to natural units add 4 u |lse|, the
+    rest 16 u.  A worst-case bound: measured errors are far smaller."""
+    b, h, s, hd = q.shape
+    kv = k.shape[1]
+    qa = (q.float().abs() * hd ** -0.5).unflatten(1, (kv, h // kv))
+    s_max = float(torch.einsum("bkgqd,bksd->bkgqs", qa, k.float().abs())
+                  .masked_fill(~_mask(s, causal, window, q.device), 0.0)
+                  .amax())
+    u = 2.0 ** -24
+    return u * (2 * (hd + 6) * s_max + 2 * s + 4 * lse.float().abs() + 16)
+
+
+def _forward(q, k, v, causal: bool, window: int, want_lse: bool = False):
+    """o, or (o, lse) with ``want_lse``."""
     global launches
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window)
+        return flash_attention_plain(q, k, v, causal, window, want_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     _check_cuda_args(q, k, v, window)
@@ -162,65 +214,82 @@ def _forward(q, k, v, causal: bool, window: int):
     # q's layout where q is dense (preserve_format), else contiguous: either
     # way hd is contiguous.
     o = torch.empty_like(q)
+    lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+           if want_lse else None)
     lib = load_library()
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_launch(
             DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), b, h, k.shape[1], s, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], int(causal),
-            int(window), torch.cuda.current_stream().cuda_stream,
+            o.data_ptr(), None if lse is None else lse.data_ptr(), b, h,
+            k.shape[1], s, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], int(causal), int(window),
+            torch.cuda.current_stream().cuda_stream,
         )
     check(rc, "flash_attention")
     launches += 1
-    return o
+    return (o, lse) if want_lse else o
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel with :func:`flash_attention_backward` as its
-    gradient (q, k and v; the masks get none)."""
+    """The forward kernel, keeping each row's logsumexp, with
+    :func:`flash_attention_backward` as its gradient (q, k and v; the masks
+    and the logsumexp get none)."""
 
     @staticmethod
     def forward(q, k, v, causal, window):
-        return _forward(q, k, v, causal, window)
+        return _forward(q, k, v, causal, window, want_lse=True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, causal, window = inputs
-        ctx.save_for_backward(q, k, v, output)
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, o, do, ctx.causal,
-                                              ctx.window)
+                                              ctx.window, lse=lse)
         return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window)[0]
     return _forward(q, k, v, causal, window)
 
 
+def flash_attention_with_lse(q, k, v, causal: bool = True, window: int = 0):
+    """(o, lse) with no autograd: the forward as training runs it, each
+    row's logsumexp (B, H, S) f32 beside the output (the kernel's on the
+    card, the plain version's on the CPU)."""
+    return _forward(q, k, v, causal, window, want_lse=True)
+
+
 def flash_attention_backward_plain(q, k, v, o, do, causal: bool = True,
-                                   window: int = 0):
+                                   window: int = 0, lse=None):
     """The backward kernel's function in plain PyTorch, in f32: each row's
-    logsumexp over its open keys, P = exp(s - lse) (0 on masked pairs),
-    D = rowsum(dO o), dS = P (dO v^T - D), then dQ = dS k hd^-0.5,
-    dK = dS^T q hd^-0.5 and dV = P^T dO summed over each kv head's group.
-    Returns (dq, dk, dv) in the inputs' dtypes (f64 inputs compute in
-    f64)."""
+    logsumexp over its open keys (``lse`` (B, H, S) where given, as the
+    forward returns it, else recomputed: the same values),
+    P = exp(s - lse) (0 on masked pairs), D = rowsum(dO o),
+    dS = P (dO v^T - D), then dQ = dS k hd^-0.5, dK = dS^T q hd^-0.5 and
+    dV = P^T dO summed over each kv head's group.  Returns (dq, dk, dv) in
+    the inputs' dtypes (f64 inputs compute in f64)."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
     scale = hd ** -0.5
     qf = (_wide(q) * scale).unflatten(1, (kv, h // kv))
     kf, vf = _wide(k), _wide(v)
     dof = _wide(do).unflatten(1, (kv, h // kv))
-    scores = torch.einsum("bkgqd,bksd->bkgqs", qf, kf)
-    scores = scores.masked_fill(~_mask(s, causal, window, q.device), NEG)
-    p = torch.exp(scores - torch.logsumexp(scores, -1, keepdim=True))
+    scores = _scores(q, k, causal, window)
+    if lse is None:
+        lse = torch.logsumexp(scores, -1, keepdim=True)
+    else:
+        lse = lse.to(scores.dtype).unflatten(1, (kv, h // kv))[..., None]
+    p = torch.exp(scores - lse)
     del scores
     dsum = (dof * _wide(o).unflatten(1, (kv, h // kv))).sum(-1, keepdim=True)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
@@ -235,9 +304,10 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
                        window: int = 0, o_err=None):
     """Per-element bounds on ``|kernel - plain|`` for (dq, dk, dv), where
     ``ref`` is the plain version's (dq, dk, dv) on the same inputs:
-    ``c |ref| + 2 u n mag`` with u = 2^-24, c = 2^-7 for bf16 outputs and
-    2u for f32, n = 2 S + hd (1 + 2 s_max) + 8, and ``mag`` the plain
-    formulas on magnitudes: |dS| <= P (|dO| |v|^T + rowsum(|dO| |o|)), then
+    ``c |ref| + 2 u n mag``, plus ``2^-8 mag`` for bf16 inputs, with
+    u = 2^-24, c = 2^-7 for bf16 outputs and 2u for f32,
+    n = 2 S + hd (1 + 2 s_max) + 8, and ``mag`` the plain formulas on
+    magnitudes: |dS| <= P (|dO| |v|^T + rowsum(|dO| |o|)), then
     mag_dq = |dS| |k| hd^-0.5, mag_dk = |dS|^T |q| hd^-0.5 and
     mag_dv = P^T |dO|.
 
@@ -260,8 +330,15 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     side lies within n u mag of the exact gradient, and the two within
     2 n u mag of each other.  The outputs then round to their dtype: two
     bf16 roundings of values that close are at most one bf16 ulp apart
-    (2^-7 |ref|, the ulp's largest size relative to the value).  This is a
-    worst-case bound: the measured errors are far smaller."""
+    (2^-7 |ref|, the ulp's largest size relative to the value).
+
+    bf16 inputs run tensor-core products, whose A operands are bf16: P^T
+    is rounded to bf16 before P^T dO, and dS before dS k and dS^T q, each
+    value to p~ = p (1 + d) with |d| <= 2^-8 (bf16's unit roundoff).  So
+    dv moves by |sum_q d P^T dO| <= 2^-8 P^T |dO| = 2^-8 mag_dv, and dq and
+    dk by 2^-8 |dS| |k| hd^-0.5 <= 2^-8 mag_dq and 2^-8 |dS|^T |q| hd^-0.5
+    <= 2^-8 mag_dk (|dS| is within the bound above); these are added.
+    This is a worst-case bound: the measured errors are far smaller."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
     scale = hd ** -0.5
@@ -296,58 +373,93 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     u = 2.0 ** -24
     n = 2 * s + hd * (1 + 2 * s_max) + 8
     out = []
+    rounding = 2.0 ** -8 if q.dtype == torch.bfloat16 else 0.0
     for r, mag, e in zip(ref, (mag_dq, mag_dk, mag_dv), extra):
         c = 2.0 ** -7 if r.dtype == torch.bfloat16 else 2 * u
-        out.append(c * r.float().abs() + 2 * u * n * mag + e)
+        out.append(c * r.float().abs() + (2 * u * n + rounding) * mag + e)
     return tuple(out)
 
 
-def _cuda_view(t):
-    """``t`` itself when its head dim is contiguous, else a contiguous copy."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+def _cuda_view(t, tma: bool = False):
+    """``t`` itself when its head dim is contiguous (and, with ``tma``,
+    when TMA can load it: a 16-byte aligned base, (b, head, s) strides
+    positive multiples of 8 elements), else a contiguous copy."""
+    ok = t.stride(-1) == 1
+    if tma:
+        ok = ok and t.data_ptr() % 16 == 0 and all(
+            n == 1 or (st > 0 and st % 8 == 0)
+            for n, st in zip(t.shape[:3], t.stride()[:3]))
+    return t if ok else t.contiguous()
+
+
+def on_tensor_cores(dtype, hd: int) -> bool:
+    """Whether the backward of this dtype and head dim runs the tensor-core
+    passes (bf16 at hd 64 and 128); the others run the SIMT passes."""
+    return dtype == torch.bfloat16 and hd in (64, 128)
 
 
 def flash_attention_backward(q, k, v, o, do, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, lse=None):
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), given its
-    output ``o`` and the output's gradient ``do``: the plain version for CPU
-    tensors, the CUDA kernels for CUDA tensors (or the wrapper raises).  The
+    output ``o``, the output's gradient ``do`` and, where the caller has
+    it, the forward's logsumexp ``lse`` (B, H, S) f32: the plain version
+    for CPU tensors, the CUDA kernels for CUDA tensors (or the wrapper
+    raises).  Without ``lse`` the kernels compute it in one more pass.  The
     gradients are laid out like q, k and v (``empty_like``)."""
-    global backward_launches
+    global backward_launches, backward_kernel_launches
     if q.device.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, o, do, causal, window)
+        return flash_attention_backward_plain(q, k, v, o, do, causal, window,
+                                              lse)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention backward kernel for device "
                          f"{q.device}")
     _check_cuda_args(q, k, v, window)
-    o, do = _cuda_view(o), _cuda_view(do)
+    b, h, s, hd = q.shape
+    kv = k.shape[1]
+    tensor_cores = on_tensor_cores(q.dtype, hd)
+    if tensor_cores:
+        _check_tma(q, k, v)
+    o, do = _cuda_view(o), _cuda_view(do, tma=tensor_cores)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q: {tuple(q.shape)} "
                              f"{q.dtype} on {q.device}, got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
-    b, h, s, hd = q.shape
-    kv = k.shape[1]
+    if lse is not None and (lse.shape != (b, h, s) or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous f32 ({b}, {h}, {s}) on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     f32 = dict(dtype=torch.float32, device=q.device)
-    lse, dsum = torch.empty(b, h, s, **f32), torch.empty(b, h, s, **f32)
-    if h > kv:
-        dk_part = torch.empty(b, h, s, hd, **f32)
-        dv_part = torch.empty(b, h, s, hd, **f32)
-        parts = (dk_part.data_ptr(), dv_part.data_ptr())
-    else:
-        parts = (None, None)
+    s_pad = -(-s // 64) * 64
+    vec = torch.empty(2 * b * h * s_pad, **f32)  # D (and lse log2 e)
+    scratch = torch.empty(b, h, s, **f32) if lse is None else None
     lib = load_library()
-    with torch.cuda.device(q.device):
+    n = ctypes.c_int(0)
+    with torch.cuda.device(q.device):  # the shares depend on its SM count
+        shares = lib.flash_attention_backward_shares(DTYPE_CODES[q.dtype], hd,
+                                                     b, h, kv, s)
+        if shares > 1:
+            dk_part = torch.empty(b, kv * shares, s, hd, **f32)
+            dv_part = torch.empty(b, kv * shares, s, hd, **f32)
+            parts = (dk_part.data_ptr(), dv_part.data_ptr())
+        else:
+            parts = (None, None)
         rc = lib.flash_attention_backward_launch(
             DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), vec.data_ptr(),
             *parts, b, h, kv, s,
             *(st for t in (q, k, v, o, do, dq, dk, dv)
               for st in t.stride()[:3]),
             int(causal), int(window), torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(n),
         )
     check(rc, "flash_attention_backward")
     backward_launches += 1
+    backward_kernel_launches += n.value
     return dq, dk, dv

@@ -13,8 +13,10 @@ its softmax denominator and P.V in its own order (online, tile by tile):
 also rounds P to bf16 before P.V on the tensor cores:
 ``flash_attention.bf16_tolerance`` (2e-5 + 2^-8 max|v| over the row's open
 keys + 2^-7 |out|; its docstring derives it).  The flash backward computes
-in f32 from the same values as its plain version, in another order:
-``flash_attention.backward_tolerance`` (derived in its docstring).
+in f32 from the same values as its plain version, in another order, and in
+bf16 at hd 64 and 128 rounds P^T and dS to bf16 before the tensor-core
+products: ``flash_attention.backward_tolerance`` (derived in its
+docstring).
 """
 import pytest
 import torch
@@ -288,6 +290,44 @@ def test_cuda_flash_backward_matches_its_plain_version(cuda_device, dt, hd):
             q.detach(), k.detach(), v.detach(), out.detach(),
             2 * out.detach(), want)):
         assert bool(((a.float() - b.float()).abs() <= t).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_flash_backward_uses_the_forward_lse_through_autograd(
+        cuda_device, hd):
+    """bf16 through ``torch.autograd`` on the (B, S, H, hd) projections'
+    transposed views: the forward kernel's lse within
+    :func:`flash_attention.lse_tolerance` of the plain one, the gradients
+    within the widened :func:`flash_attention.backward_tolerance` (with the
+    forward's bound as ``o_err``), and one backward call launching the
+    tensor-core passes with the forward's lse: D, dK / dV, the sum of the
+    group's runs, dQ (4 kernels; 5 would mean a recomputed lse)."""
+    g = torch.Generator(device=cuda_device).manual_seed(hd + 7)
+    x = torch.randn(2, 300, 8, hd, generator=g, device=cuda_device).bfloat16()
+    kx = torch.randn(2, 300, 2, hd, generator=g, device=cuda_device).bfloat16()
+    do = torch.randn(2, 8, 300, hd, generator=g, device=cuda_device).bfloat16()
+    q, k, v = (t.transpose(1, 2).requires_grad_() for t in (x, kx, kx * 0.5))
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    for causal, window in ((True, 0), (True, 33), (False, 70)):
+        _, lse = fa.flash_attention_with_lse(qd, kd, vd, causal, window)
+        o_plain, lse_plain = fa.flash_attention_plain(qd, kd, vd, causal,
+                                                      window, return_lse=True)
+        assert bool(((lse - lse_plain).abs() <= fa.lse_tolerance(
+            qd, kd, lse_plain, causal, window)).all())
+        calls, kernels = fa.backward_launches, fa.backward_kernel_launches
+        out = fa.flash_attention(q, k, v, causal, window)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        assert fa.backward_launches == calls + 1
+        assert fa.backward_kernel_launches == kernels + 4
+        want = fa.flash_attention_backward_plain(qd, kd, vd, o_plain, do,
+                                                 causal, window)
+        o_err = fa.bf16_tolerance(vd, o_plain, causal, window)
+        for a, b, t in zip(grads, want, fa.backward_tolerance(
+                qd, kd, vd, o_plain, do, want, causal, window, o_err=o_err)):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            assert bool(((a.float() - b.float()).abs() <= t).all()), (
+                causal, window)
     torch.cuda.synchronize()
 
 
