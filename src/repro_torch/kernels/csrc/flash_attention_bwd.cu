@@ -70,8 +70,8 @@
 //
 // f32 inputs (the f32 parity path) and bf16 at hd 256 run SIMT passes,
 // f32 FMAs on values widened to f32 (every product exact):
-// 1. lse and D: given lse, the prep pass computes D alone; without it the
-//    lse pass computes both;
+// 1. lse and D: the prep pass computes D; without the forward's lse the
+//    lse pass computes it first;
 // 2. dK, dV: one block per (b, h, key tile) walks the query tiles open to
 //    its keys, recomputes P and dS, and accumulates dV = P^T dO and
 //    dK = dS^T (q hd^-0.5) in registers; with GQA groups above 1 the block
@@ -224,7 +224,7 @@ __device__ __forceinline__ void key_tiles(const Args& a, int q0, int q_last, int
 
 // ---------------------------------------------------------------------------
 // The lse pass, where the caller has no logsumexp from the forward: lse per
-// query row, and D too when dsum is not null.
+// query row.
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -251,21 +251,6 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_stats_kernel(Args a, int
   const int r0 = warp * ROWS;
   const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + g * a.k_sh;
-  const T* ob = static_cast<const T*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const T* db = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-
-  // D = rowsum(dO o), one warp a row.
-#pragma unroll
-  for (int r = 0; r < ROWS && a.dsum != nullptr; ++r) {
-    const int qi = q0 + r0 + r;
-    float part = 0.0f;
-    if (qi < a.S)
-      for (int d = lane; d < HD; d += 32)
-        part = fmaf(to_f32(db[(int64_t)qi * a.do_ss + d]), to_f32(ob[(int64_t)qi * a.o_ss + d]),
-                    part);
-    part = warp_sum(part);
-    if (lane == 0 && qi < a.S) a.dsum[(int64_t)bh * a.S + qi] = part;
-  }
 
   stage<T, HD, L::BQ, L::LD>(Qs, qb, a.q_ss, q0, a.S, a.scale);
   int kt_begin, kt_end;
@@ -1028,13 +1013,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // The runs a group of query heads is split into: the least divisor of the
-// group that gives the dK / dV pass FLASH_BWD_BLOCKS_PER_SM blocks per SM
-// (1: at the training shape 4 runs of 4 heads, 256 blocks).  More runs
-// balance the key tiles' unequal work better but write and sum more f32
-// shares; flash_bwd_diagnose.py times the passes at 1, 2 and 4.
-#ifndef FLASH_BWD_BLOCKS_PER_SM
-#define FLASH_BWD_BLOCKS_PER_SM 1
-#endif
+// group that gives the dK / dV pass a block per SM (at the training shape
+// 4 runs of 4 heads, 256 blocks).  More runs balance the key tiles'
+// unequal work better but write and sum more f32 shares, which cost more
+// than they gain (measured at 2 and 4 blocks per SM).
 int split_for(int64_t B, int64_t KV, int64_t group, int64_t S) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -1042,7 +1024,7 @@ int split_for(int64_t B, int64_t KV, int64_t group, int64_t S) {
     sms = 132;
   const int64_t blocks = B * KV * ((S + BT - 1) / BT);
   for (int64_t d = 1; d < group; ++d)
-    if (group % d == 0 && blocks * d >= FLASH_BWD_BLOCKS_PER_SM * sms) return (int)d;
+    if (group % d == 0 && blocks * d >= sms) return (int)d;
   return (int)group;
 }
 
@@ -1191,22 +1173,18 @@ extern "C" int flash_attention_backward_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const bool tensor_cores = on_tensor_cores(dtype, hd);
   int e;
-  if (lse == nullptr) {  // the lse pass (with D for the SIMT passes)
-    Args s = a;
-    if (tensor_cores) s.dsum = nullptr;
-    e = dtype == 0 ? launch_stats_hd<float>(hd, s, st, launched)
-                   : launch_stats_hd<__nv_bfloat16>(hd, s, st, launched);
+  if (lse == nullptr) {  // the lse pass
+    e = dtype == 0 ? launch_stats_hd<float>(hd, a, st, launched)
+                   : launch_stats_hd<__nv_bfloat16>(hd, a, st, launched);
     if (e != 0) return e;
   }
   const int64_t ld = tensor_cores ? (S + 63) / 64 * 64 : S;
   PrepArgs p{o, dout, lse_f, static_cast<float*>(vec), nullptr, (int)B, (int)H, (int)S,
              (int)ld, hd, o_sb, o_sh, o_ss, do_sb, do_sh, do_ss};
-  if (!tensor_cores) {
-    if (lse != nullptr) {  // D alone
-      e = dtype == 0 ? launch_prep<float>(p, st, launched)
-                     : launch_prep<__nv_bfloat16>(p, st, launched);
-      if (e != 0) return e;
-    }
+  if (!tensor_cores) {  // D alone
+    e = dtype == 0 ? launch_prep<float>(p, st, launched)
+                   : launch_prep<__nv_bfloat16>(p, st, launched);
+    if (e != 0) return e;
     return launch_simt_hd(dtype, hd, a, st, launched);
   }
   // Tensor cores: lse2 in the first B H S_pad floats of vec, D after them.

@@ -304,7 +304,8 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
                        window: int = 0, o_err=None):
     """Per-element bounds on ``|kernel - plain|`` for (dq, dk, dv), where
     ``ref`` is the plain version's (dq, dk, dv) on the same inputs:
-    ``c |ref| + 2 u n mag``, plus ``2^-8 mag`` for bf16 inputs, with
+    ``c |ref| + 2 u n mag``, plus ``2^-8 mag`` where the inputs run the
+    tensor-core passes (bf16 at hd 64 and 128, :func:`on_tensor_cores`), with
     u = 2^-24, c = 2^-7 for bf16 outputs and 2u for f32,
     n = 2 S + hd (1 + 2 s_max) + 8, and ``mag`` the plain formulas on
     magnitudes: |dS| <= P (|dO| |v|^T + rowsum(|dO| |o|)), then
@@ -332,13 +333,15 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     bf16 roundings of values that close are at most one bf16 ulp apart
     (2^-7 |ref|, the ulp's largest size relative to the value).
 
-    bf16 inputs run tensor-core products, whose A operands are bf16: P^T
-    is rounded to bf16 before P^T dO, and dS before dS k and dS^T q, each
-    value to p~ = p (1 + d) with |d| <= 2^-8 (bf16's unit roundoff).  So
+    The tensor-core passes' A operands are bf16: P^T is rounded to bf16
+    before P^T dO, and dS before dS k and dS^T q, each value to
+    p~ = p (1 + d) with |d| <= 2^-8 (bf16's unit roundoff).  So
     dv moves by |sum_q d P^T dO| <= 2^-8 P^T |dO| = 2^-8 mag_dv, and dq and
     dk by 2^-8 |dS| |k| hd^-0.5 <= 2^-8 mag_dq and 2^-8 |dS|^T |q| hd^-0.5
     <= 2^-8 mag_dk (|dS| is within the bound above); these are added.
-    This is a worst-case bound: the measured errors are far smaller."""
+    The SIMT passes (f32, and bf16 at hd 256) keep P and dS in f32 and get
+    no such term.  This is a worst-case bound: the measured errors are far
+    smaller."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
     scale = hd ** -0.5
@@ -373,7 +376,7 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     u = 2.0 ** -24
     n = 2 * s + hd * (1 + 2 * s_max) + 8
     out = []
-    rounding = 2.0 ** -8 if q.dtype == torch.bfloat16 else 0.0
+    rounding = 2.0 ** -8 if on_tensor_cores(q.dtype, hd) else 0.0
     for r, mag, e in zip(ref, (mag_dq, mag_dk, mag_dv), extra):
         c = 2.0 ** -7 if r.dtype == torch.bfloat16 else 2 * u
         out.append(c * r.float().abs() + (2 * u * n + rounding) * mag + e)

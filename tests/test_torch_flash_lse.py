@@ -183,9 +183,10 @@ def test_the_mask_fault_misses_the_widened_bf16_tolerance():
 
 
 def test_the_widening_is_for_bf16_inputs_alone():
-    """bf16 inputs add 2^-8 of the magnitudes to each gradient's bound; the
-    same values given in f32 keep the f32 bound (same reference, so the
-    output-rounding term is the same on both sides)."""
+    """bf16 inputs on the tensor-core passes add 2^-8 of the magnitudes to
+    each gradient's bound; the same values given in f32 keep the f32 bound
+    (same reference, so the output-rounding term is the same on both
+    sides)."""
     qb, kb, vb, dob = _inputs((1, 4, 2, 24, 64), seed=5, dtype=torch.bfloat16)
     ob = fa.flash_attention_plain(qb, kb, vb)
     ref = fa.flash_attention_backward_plain(qb, kb, vb, ob, dob)
@@ -194,3 +195,17 @@ def test_the_widening_is_for_bf16_inputs_alone():
                                    ref)
     for w, n in zip(wide, narrow):
         assert bool((w >= n).all()) and float((w - n).max()) > 0
+
+
+def test_bf16_at_hd_256_keeps_the_narrow_bound():
+    """bf16 at hd 256 runs the SIMT passes, which round neither P^T nor dS
+    to bf16: its bound equals the one of the same values given in f32."""
+    qb, kb, vb, dob = _inputs((1, 4, 2, 24, 256), seed=6, dtype=torch.bfloat16)
+    assert not fa.on_tensor_cores(torch.bfloat16, 256)
+    ob = fa.flash_attention_plain(qb, kb, vb)
+    ref = fa.flash_attention_backward_plain(qb, kb, vb, ob, dob)
+    bf16 = fa.backward_tolerance(qb, kb, vb, ob, dob, ref)
+    f32 = fa.backward_tolerance(*(t.float() for t in (qb, kb, vb, ob, dob)),
+                                ref)
+    for a, b in zip(bf16, f32):
+        assert torch.equal(a, b)
