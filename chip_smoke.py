@@ -4,7 +4,8 @@ hand-written Hopper kernels: DFedSGPSM rounds on the flat bank, serving
 gemma3-12b (prefill, then greedy decode), the FL round's scenarios
 (compressors, proximal solver, link and churn scenarios, the bf16 delta
 bank), checkpoints, the paged client store, personalized serving of
-glm4-9b over the delta bank, and pods-as-clients training of glm4-9b.
+glm4-9b over the delta bank, pods-as-clients training of glm4-9b, and
+serving the MoE family (dbrx-132b, deepseek-v3-671b).
 
     python3 chip_smoke.py
 
@@ -29,10 +30,11 @@ Phases, each fatal on failure:
    timed at n = 8 and 100 in f32 and bf16.  The flash kernel
    runs at gemma3-12b's prefill shapes (B = 4, 16 on 8 heads, S = 2048,
    hd = 256, bf16, windows 1024 and 0), at the other dense decoders' (hd
-   128, GQA groups 1, 4 and 16) and at edge cases, with its bf16 tolerance
-   and a mask fault that must miss it, and is timed beside SDPA on the
-   same inputs and mask, also at phase 11's shape (B = 2, 32 on 2 heads,
-   hd 128).  Then the three FL kernels at the delta bank's
+   128, GQA groups 1, 4 and 16), at dbrx-132b's (B = 4, 48 on 8 heads,
+   hd 128, group 6) and at edge cases, with its bf16 tolerance and a mask
+   fault that must miss it, and is timed beside SDPA on the same inputs
+   and mask, also at phase 11's shape (B = 2, 32 on 2 heads, hd 128) and
+   phase 13's (dbrx-132b).  Then the three FL kernels at the delta bank's
    shape (n = 100, d_delta = 73,178 bf16 rows, 4 bytes off 16), on banks
    at and a row past their allocation's start, against their plain
    versions, and timed beside their bounds;
@@ -110,7 +112,21 @@ Phases, each fatal on failure:
    w_mass (2 within 1e-3), wall time and launches a round (32 flash
    backward, 32 forward, twice that under the config's remat, 1 dense
    mix), peak memory, a profiled round split by kind, and the mix at the
-   bank's width (rows over 2^31 bytes) against its plain version.
+   bank's width (rows over 2^31 bytes) against its plain version;
+13. serving the MoE family: reduced dbrx-132b and deepseek-v3-671b in f32,
+   prefill and 4 greedy decode steps on the card against the CPU (the
+   routers' differing choices counted); then each at full width in bf16
+   (parameters drawn on the card), its depth cut to fit the card:
+   dbrx-132b to 8 of 40 layers with 4 requests, deepseek-v3-671b to 2 of
+   61 with 1 request, 2048 prompt tokens and 16 new through
+   ``serve.generate``: prefill time, decode ms/step and tokens/s, peak
+   memory, flash launches (one a dbrx layer, none for deepseek's MLA),
+   each layer's largest expert load and drops, a steady second run, a
+   profiled prefill and decode step split into the flash kernel, expert
+   products, dispatch/combine, MLA and the rest; and the decode check
+   against ``forward`` with the forward's expert choices and kept
+   assignments pinned to the served path's, and a mutant (decode on the
+   layer before's cache) that must miss its tolerance.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -503,6 +519,9 @@ OTHER_DECODERS = {"codeqwen1.5-7b": (32, 32), "phi3-medium-14b": (40, 10),
 # glm4-9b's attention at phase 11's personalized prefill: 2 lanes of 2048
 # tokens, 32 query heads on 2 kv heads of hd = 128 (GQA group 16), bf16.
 PERSONAL_SHAPE = (2, 32, 2, 2048, 128)
+# dbrx-132b's attention at phase 13's prefill: 4 requests of 2048 tokens, 48
+# query heads on 8 kv heads of hd = 128 (GQA group 6), bf16, causal.
+DBRX_SHAPE = (4, 48, 8, 2048, 128)
 
 
 def open_pairs(s: int, causal: bool, window: int) -> int:
@@ -517,13 +536,14 @@ def open_pairs(s: int, causal: bool, window: int) -> int:
 
 def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
                 iters: int = 10, others=OTHER_DECODERS,
-                personal=PERSONAL_SHAPE) -> dict:
+                personal=PERSONAL_SHAPE, dbrx=DBRX_SHAPE) -> dict:
     """The flash kernel against its plain version: at gemma3-12b's prefill
-    shapes (local and global layers), at the other decoders' (hd 128, groups
-    1, 4 and 16) and at edge cases (hd 64, 128 and 256, GQA groups 1, 2, 4
-    and 16, non-causal with and without a window, ragged S, f32); a mask
-    fault that must miss the tolerance; then its time beside its bound, the
-    plain version's and SDPA's on the same bf16 inputs.
+    shapes (local and global layers), at the other dense decoders' (hd 128,
+    groups 1, 4 and 16), at dbrx-132b's (hd 128, group 6) and at edge cases
+    (hd 64, 128 and 256, GQA groups 1, 2, 4 and 16, non-causal with and
+    without a window, ragged S, f32); a mask fault that must miss the
+    tolerance, at gemma3-12b's and dbrx-132b's shapes; then its time beside
+    its bound, the plain version's and SDPA's on the same bf16 inputs.
 
     Tolerance: in f32 (the SIMT kernel) the kernel sums scores, the softmax
     denominator and P.V in its own (online, tile by tile) order, 2e-5 on
@@ -557,6 +577,7 @@ def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
     cases += [((b, nh, nkv, s, 128), bf16, True, 0)
               for nh, nkv in others.values()]
     cases.append((personal, bf16, True, 0))
+    cases.append((dbrx, bf16, True, 0))
 
     def qkv(shp, dt):
         b_, h_, kv_, s_, hd_ = shp
@@ -585,7 +606,7 @@ def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
         check(ratio <= 1.0,
               f"flash_attention disagrees ({shp}, {dt}, {causal}, {win})")
         errs[shp, dt, causal, win] = e
-        if shp == shape and dt == bf16:  # the mask fault must miss
+        if shp in (shape, dbrx) and dt == bf16:  # the mask fault must miss
             fault = fa.flash_attention(torch.roll(q, 1, 2), k, v, causal, win)
             sync(dev)
             miss = float(((fault[:, :, 1:].float() - want[:, :, :-1].float())
@@ -637,6 +658,7 @@ def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
     for name, (nh, nkv) in others.items():
         timed((b, nh, nkv, s, 128), 0, name)
     timed(personal, 0, "glm4-9b personalized (phase 11)")
+    timed(dbrx, 0, "dbrx-132b (phase 13)")
     return row
 
 
@@ -1009,17 +1031,19 @@ def scenario_parity(dev) -> None:
 
 # -- phase 5: the main path ---------------------------------------------------
 
-def print_profile(prof, wall_s: float, top: int = 12, also=()) -> None:
+def print_profile(prof, wall_s: float, top: int = 12, also=(),
+                  skip=()) -> None:
     """Device time by kernel over one profiled round, and the device's busy
     share of the round's wall time: the union of the kernels' intervals
     (kernels on several streams may overlap, so their summed time can
     exceed the wall).  Only device-side events count (an operator's own
     row repeats its kernels' time), and not the profiler's own buffer
-    traffic.  Kernels whose names hold a word of ``also`` are listed
-    after the top ones wherever they rank."""
+    traffic, nor the device-side spans of the ``record_function`` ranges
+    named in ``skip``.  Kernels whose names hold a word of ``also`` are
+    listed after the top ones wherever they rank."""
     from torch.autograd import DeviceType
 
-    overhead = ("Buffer Flush", "Activity Buffer Request")
+    overhead = ("Buffer Flush", "Activity Buffer Request") + tuple(skip)
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type == DeviceType.CUDA and e.name not in overhead
@@ -1468,27 +1492,32 @@ SERVE_ARGV = ["--arch", "gemma3-12b", "--no-smoke", "--batch", "4",
               "--prompt-len", "2048", "--new-tokens", "16", "--seed", "0"]
 
 
-def serving_parity(dev, s: int = 100, steps: int = 4) -> None:
-    """Reduced gemma3-12b in f32 (a 32-token window on layer 0, a global
-    layer 1, hd = 64): prefill and ``steps`` greedy decode steps on ``dev``
-    against the same on the CPU, with the same parameters and prompts.  Both
-    sides compute in f32 (TF32 off) with sums in their own orders (cuBLAS,
-    the flash kernel's online softmax), so the logits agree to 1e-4 of their
-    magnitude; the greedy tokens must be equal."""
+def serving_parity(dev, arch: str = "gemma3-12b", s: int = 100,
+                   steps: int = 4) -> None:
+    """Reduced ``arch`` in f32 (gemma3-12b: a 32-token window on layer 0, a
+    global layer 1, hd = 64; the MoE models: 4 experts, top 2): prefill
+    and ``steps`` greedy decode steps on ``dev`` against the same on the
+    CPU, with the same parameters and prompts.  Both sides compute in f32
+    (TF32 off: a TF32 router would flip top-k choices) with sums in their
+    own orders (cuBLAS, the flash kernel's online softmax), so the logits
+    agree to 1e-4 of their magnitude; the greedy tokens must be equal.  For
+    a MoE model it prints for how many tokens of any layer the two chose
+    other experts.  The card launches the flash kernel once a GQA layer of
+    the prefill (MLA has none)."""
     from repro_torch.configs.registry import get_config, make_batch
     from repro_torch.core.flat import tree_map
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.registry import get_model_api
 
-    cfg = get_config("gemma3-12b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     api = get_model_api(cfg)
     params = api.init(torch.Generator().manual_seed(0), "cpu")
     tokens = make_batch(cfg, 2, s, seed=1)["tokens"]
     runs = {}
     for d in (torch.device("cpu"), dev):
         p = tree_map(lambda t, d=d: t.to(d), params)
-        before = fa.launches
-        with torch.no_grad():
+        before, sels = fa.launches, []
+        with torch.no_grad(), recorded_routing(sels):
             logits, cache = api.prefill(p, {"tokens": tokens.to(d)},
                                         s + steps + 1)
             out, toks = [logits.cpu()], []
@@ -1499,19 +1528,30 @@ def serving_parity(dev, s: int = 100, steps: int = 4) -> None:
                 out.append(logits.cpu())
                 tok = logits.argmax(-1).to(torch.int32)
             toks.append(tok.cpu())
-        runs[d.type] = (out, toks, fa.launches - before)
-    (want, want_toks, _), (got, got_toks, used) = runs["cpu"], runs[dev.type]
+        runs[d.type] = (out, toks, [x.cpu() for x in sels],
+                        fa.launches - before)
+    (want, want_toks, want_sel, _), (got, got_toks, got_sel, used) = (
+        runs["cpu"], runs[dev.type])
+    if cfg.n_experts:
+        flips = sum(int((a.sort(-1).values != b.sort(-1).values)
+                        .any(-1).sum()) for a, b in zip(got_sel, want_sel))
+        print(f"  {arch}: {cfg.n_experts} experts top {cfg.top_k}, "
+              f"{cfg.attn_type}; tokens routed to other experts on the card "
+              f"than on the CPU: {flips} (of "
+              f"{sum(x[..., 0].numel() for x in want_sel)} over the layers "
+              "and steps)")
     for i, (g, w) in enumerate(zip(got, want)):
         e, tol = max_err(g, w), 1e-4 * float(w.abs().max())
         print(f"  {'prefill' if i == 0 else f'decode step {i}'} logits "
               f"{tuple(g.shape)}: max|err| {e:.3e} (tolerance {tol:.3e})")
-        check(e <= tol, f"card and CPU logits disagree ({i})")
+        check(e <= tol, f"{arch}: card and CPU logits disagree ({i})")
     check(all(torch.equal(a, b) for a, b in zip(got_toks, want_toks)),
-          "card and CPU greedy tokens differ")
+          f"{arch}: card and CPU greedy tokens differ")
+    flash = cfg.n_layers if cfg.attn_type == "gqa" else 0
     print(f"  greedy tokens equal; flash launches on the card: {used} "
-          f"(one per layer of the prefill)")
+          f"(one per GQA layer of the prefill: {flash})")
     if dev.type == "cuda":
-        check(used == cfg.n_layers, f"flash launches {used}")
+        check(used == flash, f"{arch}: flash launches {used}")
 
 
 def serving(dev, argv=SERVE_ARGV) -> dict:
@@ -1584,13 +1624,21 @@ def serving(dev, argv=SERVE_ARGV) -> dict:
     return launches
 
 
-def decode_check(api, params, batch, rec, mutant: bool = True) -> float:
+# The decode check's mutants, each a decode fault the check must see.
+MUTANTS = {"window": "with the window left open at decode",
+           "layer": "with each decode step on the layer before's cache"}
+
+
+def decode_check(api, params, batch, rec, mutant="window",
+                 pin=contextlib.nullcontext) -> float:
     """Holds what ``serve.generate`` decoded against ``forward`` on the
     prompt extended by the decoded tokens: the logits each new token was
     picked from must be the forward's at positions S-1 .. S+N-2.  At full
     width the decode steps run at positions 2048 .. 2062, where the local
     layers' 1024-token window closes keys, so this covers the decode
     attention's mask, its reads of the cache and every step's cache write.
+    The forward runs inside ``pin()`` (the MoE models pin its routing to
+    the served path's: :func:`moe_decode_check`).
 
     Tolerance: in f32, 1e-4 of the logits' magnitude (as the parity step);
     in bf16, 2^-4 of it: the two sides round every layer's bf16 activations
@@ -1598,10 +1646,12 @@ def decode_check(api, params, batch, rec, mutant: bool = True) -> float:
     decode attention, cuBLAS at M = B*S against M = B).
 
     To show that the check sees a fault there, the decode steps run once
-    more, from a fresh prefill, with the window left open at decode (the
-    same model but a window as long as the cache, so the same rope thetas):
-    that run must miss the tolerance (``mutant=False`` skips it, for a
-    model without a window).  Returns the tolerance."""
+    more, from a fresh prefill, with a fault that must miss the tolerance:
+    ``mutant="window"`` leaves the window open at decode (the same model
+    but a window as long as the cache, so the same rope thetas);
+    ``"layer"``, for a model without a window, gives each decode step the
+    cache of the layer before its own (the stacked cache's layer index off
+    by one); None skips it.  Returns the tolerance."""
     import dataclasses
 
     from repro_torch.models.registry import get_model_api
@@ -1611,16 +1661,22 @@ def decode_check(api, params, batch, rec, mutant: bool = True) -> float:
     s, n = prompt.shape[1], got.shape[1]
     new = rec["tokens"][:, :n - 1].to(prompt.device, prompt.dtype)
     with torch.no_grad():
-        want = api.forward(params, {"tokens": torch.cat([prompt, new], 1)})[0]
+        with pin():
+            want = api.forward(params, {"tokens": torch.cat([prompt, new],
+                                                            1)})[0]
         want = want[:, s - 1:].clone()  # frees the other positions' logits
         if mutant:
-            open_api = get_model_api(dataclasses.replace(
-                cfg, sliding_window=s + n))
+            step_api = api
             logits, cache = api.prefill(params, batch, s + n)
             wrong = [logits[:, -1].clone()]
             del logits
+            if mutant == "window":
+                step_api = get_model_api(dataclasses.replace(
+                    cfg, sliding_window=s + n))
+            else:
+                cache = {k: v.roll(1, 0) for k, v in cache.items()}
             for i in range(n - 1):
-                wrong.append(open_api.decode_step(params, cache, new[:, i],
+                wrong.append(step_api.decode_step(params, cache, new[:, i],
                                                   s + i)[0])
             del cache
     scale = float(want.float().abs().max())
@@ -1633,8 +1689,9 @@ def decode_check(api, params, batch, rec, mutant: bool = True) -> float:
     check(err <= tol, "decode disagrees with forward on the extended prompt")
     if mutant:
         err_mut = max_err(torch.stack(wrong, 1), want)
-        print(f"  with the window left open at decode: {err_mut:.4e}")
-        check(err_mut > tol, "the decode check does not see an open window")
+        print(f"  {MUTANTS[mutant]}: {err_mut:.4e}")
+        check(err_mut > tol, f"the decode check does not see its mutant "
+                             f"({MUTANTS[mutant]})")
     return tol
 
 
@@ -2176,7 +2233,7 @@ def personalized(dev, argv=PERSONAL_ARGV) -> dict:
     lane1 = tree_map(lambda x: x[1], stacked)
     one = {"logits": rec["logits"][1:2], "tokens": rec["tokens"][1:2]}
     tol1 = decode_check(api, lane1, {"tokens": batch["tokens"][1:2]}, one,
-                        mutant=False)
+                        mutant=None)
     wrong = {"logits": rec["logits"][0:1], "tokens": rec["tokens"][1:2]}
     with torch.no_grad():
         s = batch["tokens"].shape[1]
@@ -2641,6 +2698,280 @@ def training(dev, layers: int = TRAIN_LAYERS, argv=TRAIN_ARGV,
     return launches
 
 
+# -- phase 13: serving the MoE family -----------------------------------------
+
+# Each MoE model at full width, its depth cut so that its bf16 weights and
+# the prefill's activations fit one 80 GB card: (layers kept, requests).
+MOE_SERVE = {"dbrx-132b": (8, 4), "deepseek-v3-671b": (2, 1)}
+MOE_PROMPT, MOE_NEW = 2048, 16
+# The profile's ranges: the port's functions each wraps, by kind.
+MOE_SPANS = {"expert products": ("moe", ("_expert_products",)),
+             "dispatch/combine": ("moe", ("moe_positions", "_dispatch",
+                                          "_combine")),
+             "MLA": ("attention", ("mla_forward", "mla_decode"))}
+
+
+@contextlib.contextmanager
+def patched(module, **fns):
+    """Replace attributes of ``module`` while the block runs."""
+    saved = {k: getattr(module, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(module, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(module, k, fn)
+
+
+@contextlib.contextmanager
+def recorded_routing(sels: list):
+    """Append each call's top-k choice (B, S, k) of the port's router
+    (``models.moe._router_probs``) to ``sels`` while the block runs; the
+    call's results are returned unchanged."""
+    from repro_torch.models import moe
+
+    router = moe._router_probs
+
+    def spy(p, x, cfg):
+        out = router(p, x, cfg)
+        sels.append(out[1].clone())
+        return out
+
+    with patched(moe, _router_probs=spy):
+        yield
+
+
+@contextlib.contextmanager
+def spans():
+    """Run each function of ``MOE_SPANS`` under a ``record_function`` range
+    named by its kind, so that a profile can sum the device time of the
+    kernels each kind launched."""
+    import importlib
+
+    stack = contextlib.ExitStack()
+    with stack:
+        for kind, (mod_name, names) in MOE_SPANS.items():
+            mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+
+            def wrap(fn, kind=kind):
+                def call(*args, **kw):
+                    with torch.profiler.record_function(kind):
+                        return fn(*args, **kw)
+                return call
+
+            stack.enter_context(patched(
+                mod, **{n: wrap(getattr(mod, n)) for n in names}))
+        yield
+
+
+def print_moe_split(prof, wall_s: float, what: str) -> None:
+    """``print_profile``, then the device time by kind: the flash kernel,
+    the expert products, dispatch and combine (positions included), MLA
+    (its projections and its f32 attention) and the rest.  A kind's time is
+    its ranges' device time, each range summing the kernels its operators
+    launched."""
+    from torch.autograd import DeviceType
+
+    print_profile(prof, wall_s, top=8, skip=tuple(MOE_SPANS))
+    total = flash = 0.0
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA or e.key in MOE_SPANS
+                or e.self_device_time_total <= 0):
+            continue
+        total += e.self_device_time_total / 1e3
+        if "flash_attention_kernel" in e.key.lower():
+            flash += e.self_device_time_total / 1e3
+    split = {"flash": flash}
+    for kind in MOE_SPANS:
+        split[kind] = sum(e.device_time_total for e in prof.events()
+                          if e.name == kind
+                          and e.device_type == DeviceType.CPU) / 1e3
+    split["rest"] = total - sum(split.values())
+    print(f"  {what} device time by kind: " + ", ".join(
+        f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f}%)"
+        for k, v in split.items()))
+
+
+def routing_stats(sels, cfg) -> list:
+    """Per layer of a prefill's recorded choices (B, S, k): the largest
+    load of an expert in a batch row, and the assignments dropped."""
+    from repro_torch.models import moe
+
+    out = []
+    for sel in sels:
+        load = torch.zeros(sel.shape[0], cfg.n_experts, dtype=torch.int64,
+                           device=sel.device)
+        load.scatter_add_(1, sel.flatten(1), torch.ones_like(sel.flatten(1)))
+        keep = moe.moe_positions(sel, cfg)[1]
+        out.append((int(load.max()), int((~keep).sum())))
+    return out
+
+
+def moe_serving(dev, arch: str, layers: int, batch_n: int,
+                s: int = MOE_PROMPT, new: int = MOE_NEW, cfg=None) -> dict:
+    """The serving path of ``arch`` at full width (bf16, parameters drawn on
+    the card from seed 0) with its depth cut to ``layers``: ``batch_n``
+    requests of ``s`` prompt tokens through ``serve.generate``, ``new`` new
+    tokens (cache of s + new).  Prints the times, peak memory, launches and
+    each layer's largest expert load and drops; then a steady second run,
+    a profiled prefill and decode step split by kind, and
+    :func:`moe_decode_check`.  ``cfg`` replaces the architecture's config
+    (a CPU rehearsal passes a reduced one)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_model_api
+
+    full = cfg or get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    api = get_model_api(cfg)
+    print(f"  {arch}: {layers} of {full.n_layers} layers (the only cut: "
+          f"widths as published), {api.num_params() / 1e9:.2f} B parameters "
+          f"in {str(cfg.dtype)[6:]}; {cfg.n_experts} experts top "
+          f"{cfg.top_k}, {cfg.attn_type}; {batch_n} x {s} prompt tokens, "
+          f"{new} new; capacity {moe.moe_capacity(s, cfg)} an expert and row "
+          f"at the prefill, {moe.moe_capacity(1, cfg)} at decode")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.no_grad():
+        params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    sync(dev)
+    print(f"  parameters drawn on the card in {time.perf_counter() - t:.1f} s")
+    batch = make_batch(cfg, batch_n, s, seed=1, device=dev)
+    sels = []
+    zero_counts()  # this serving path's counts start here
+    with recorded_routing(sels):
+        rec = serve.generate(api, params, batch, new)
+    launches = read_counts()
+    steps = rec["steps"]
+    print(f"  prefill {rec['prefill_s']:.4f} s (first call); decode "
+          f"{1e3 * rec['decode_s'] / steps:.2f} ms/step, "
+          f"{batch_n * steps / rec['decode_s']:.1f} tokens/s; launches "
+          f"{launches}")
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB)")
+    stats = routing_stats(sels[:layers], cfg)
+    print("  prefill routing by layer (largest expert load in a row, "
+          "assignments dropped of " f"{sels[0].numel()}): "
+          + "; ".join(f"{i}: {m}, {d}" for i, (m, d) in enumerate(stats)))
+    check(rec["finite"], f"{arch}: a prefill or decode logit is not finite")
+    check(tuple(rec["tokens"].shape) == (batch_n, new),
+          f"{arch}: tokens {tuple(rec['tokens'].shape)}")
+    check(len(sels) == layers * new, f"{arch}: {len(sels)} router calls")
+    flash = layers if cfg.attn_type == "gqa" else 0
+    check(launches["flash_attention"] == flash,
+          f"{arch}: flash launches per prefill {launches['flash_attention']},"
+          f" expected {flash}")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"{arch}: the FL kernels ran on the serving path: {launches}")
+
+    warm = serve.generate(api, params, batch, new)
+    print(f"  steady serve.generate: prefill {warm['prefill_s']:.4f} s; decode "
+          f"{1e3 * warm['decode_s'] / steps:.2f} ms/step, "
+          f"{batch_n * steps / warm['decode_s']:.1f} tokens/s")
+    del warm
+    with torch.no_grad(), spans():
+        with torch.profiler.profile() as prof:
+            t = time.perf_counter()
+            logits, cache = api.prefill(params, batch, s + new)
+            sync(dev)
+            wall = time.perf_counter() - t
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        del logits
+        print(f"  profiled prefill {wall:.4f} s:")
+        print_moe_split(prof, wall, "prefill")
+        with torch.profiler.profile() as prof:
+            t = time.perf_counter()
+            make_serve_step(api)(params, cache, tok, s)
+            sync(dev)
+            wall = time.perf_counter() - t
+        del cache
+    print(f"  profiled decode step {1e3 * wall:.2f} ms:")
+    print_moe_split(prof, wall, "decode step")
+    del prof
+    moe_decode_check(api, params, batch, rec, sels)
+    return launches
+
+
+def moe_decode_check(api, params, batch, rec, sels) -> float:
+    """:func:`decode_check` of a MoE model, with the forward's routing
+    pinned to the served path's.  Two things a dense model never had would
+    otherwise decide the result: bf16 activations rounded at M = B*S
+    against M = B move the f32 router logits by ulps and flip top-k choices
+    at near-ties; and the capacity at S+N-1 tokens is not the capacity at S
+    (644 against 640 for dbrx), while a decode step never drops.  So each
+    layer of the forward takes the experts the served path chose for each
+    position (the weights still from the forward's own probabilities) and
+    keeps the assignments the served path kept: the prefill's under its
+    capacity, every decode step's.  This wraps the port's router, capacity
+    and position functions from here; the package has no switch for it.
+    Prints the flips the pin absorbed, the drops, and the first position
+    at which the forward's own capacity would keep another set.  The
+    mutant gives each decode step the layer before's cache.  Returns the
+    tolerance."""
+    import functools
+
+    from repro_torch.models import moe
+
+    cfg = api.cfg
+    n_layers, s, n = cfg.n_layers, batch["tokens"].shape[1], rec["logits"].shape[1]
+    # Each layer's served choice and kept set, position by position: the
+    # prefill's calls come first, then one call a layer each decode step.
+    pinned, kept, caps = [], [], []
+    own_first = s + n - 1  # where the forward's own capacity keeps another set
+    for i in range(n_layers):
+        steps = [sels[n_layers * (j + 1) + i] for j in range(n - 1)]
+        pinned.append(torch.cat([sels[i]] + steps, 1))
+        pre = moe.moe_positions(sels[i], cfg)[1]
+        kept.append(torch.cat([pre, torch.ones_like(pre[:, :1]).expand(
+            -1, n - 1, -1)], 1))
+        pos, own = moe.moe_positions(pinned[i], cfg)
+        differ = torch.nonzero((own != kept[i]).any(-1).any(0))
+        if len(differ):
+            own_first = min(own_first, int(differ[0, 0]))
+        caps.append(int(pos[kept[i]].max()) + 1)
+    state = {"layer": -1, "flips": 0}
+    router, positions = moe._router_probs, moe.moe_positions
+
+    def pinned_router(p, x, cfg_):
+        state["layer"] += 1
+        _, own, probs = router(p, x, cfg_)
+        sel = pinned[state["layer"]]
+        state["flips"] += int((own.sort(-1).values != sel.sort(-1).values)
+                              .any(-1).sum())
+        w = probs.gather(-1, sel)
+        return w / (w.sum(-1, keepdim=True) + 1e-9), sel, probs
+
+    def served_capacity(s_, cfg_):
+        return caps[state["layer"]]
+
+    def served_positions(sel, cfg_):
+        return positions(sel, cfg_)[0], kept[state["layer"]]
+
+    tol = decode_check(api, params, batch, rec, mutant="layer",
+                       pin=functools.partial(
+                           patched, moe, _router_probs=pinned_router,
+                           moe_capacity=served_capacity,
+                           moe_positions=served_positions))
+    check(state["layer"] == n_layers - 1,
+          f"{state['layer'] + 1} router calls in the pinned forward")
+    print(f"  the forward's routing pinned to the served path's: the pin "
+          f"absorbed {state['flips']} flipped choices (tokens of any layer); "
+          f"served drops by layer {[int((~k).sum()) for k in kept]}; the "
+          f"forward's own capacity ({moe.moe_capacity(s + n - 1, cfg)}) "
+          f"would first keep another set at position {own_first} "
+          f"({max(0, min(n, own_first - s + 1))} of the {n} positions "
+          "before it)")
+    return tol
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -2716,7 +3047,7 @@ def main() -> int:
     head("[6] crossover: dense against sparse mix")
     crossover(dev, CIFAR_CNN_DIM)
     head("[7] serving: reduced gemma3-12b, card against CPU, f32")
-    serving_parity(dev)
+    serving_parity(dev, "gemma3-12b")
     head("[7] serving: gemma3-12b at full width, bf16, 4 x 2048 tokens")
     paths["serving path"] = serving(dev)
     release()
@@ -2745,6 +3076,17 @@ def main() -> int:
     head(f"[12] training: glm4-9b at full width cut to {TRAIN_LAYERS} "
          "layers, 2 pods, K = 2, 1 x 4096 tokens, 3 rounds")
     paths["training path"] = training(dev)
+    release()
+    for arch in MOE_SERVE:
+        head(f"[13] serving the MoE family: reduced {arch}, card against "
+             "CPU, f32")
+        serving_parity(dev, arch)
+    for arch, (layers, batch_n) in MOE_SERVE.items():
+        head(f"[13] serving the MoE family: {arch} at full width, bf16, "
+             f"{batch_n} x {MOE_PROMPT} tokens; card: {card}")
+        paths[f"{arch} serving path"] = moe_serving(dev, arch, layers,
+                                                    batch_n)
+        release()
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution and random batches —
 the port of ``repro.configs.registry``.
 
-This slice ports the four dense GQA SwiGLU decoders (the ``lm`` task).
-The other ids of the zoo are known, and ``get_config`` says which open
-item ports them.
+The port holds the four dense GQA SwiGLU decoders and the two MoE
+decoders (dbrx-132b with GQA, deepseek-v3-671b with MLA), all of the
+``lm`` task.  The other ids of the zoo are known, and ``get_config`` says
+which open item ports them.
 """
 from __future__ import annotations
 
@@ -22,14 +23,14 @@ _MODULES = {
     "phi3-medium-14b": "phi3_medium_14b",
     "glm4-9b": "glm4_9b",
     "codeqwen1.5-7b": "codeqwen15_7b",
+    "dbrx-132b": "dbrx_132b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
-# The zoo ids this slice does not port yet, with the open item (ROADMAP
+# The zoo ids the port does not hold yet, with the open item (ROADMAP
 # queue 1) that ports each.
 _WAITING = {
     "hubert-xlarge": "item 13.3 (the masked_lm task)",
-    "deepseek-v3-671b": "items 13.1 and 13.2 (MoE and MLA)",
-    "dbrx-132b": "item 13.1 (MoE)",
     "llava-next-mistral-7b": "item 13.3 (the vlm task)",
     "xlstm-350m": "item 13.4 (the xlstm block)",
     "hymba-1.5b": "item 13.4 (the hymba block)",

@@ -1,5 +1,10 @@
 """Serving launcher: batched prefill, then greedy decode — the port of
-``repro.launch.serve`` for the dense GQA decoders.
+``repro.launch.serve`` for the decoders of the ``lm`` task: the dense GQA
+decoders and the MoE family (dbrx-132b with GQA, deepseek-v3-671b with
+MLA; their expert routing and capacity drops are ``models.moe``'s).
+:func:`generate` serves any ``ModelApi``, so a caller may cut a config's
+depth first (``dataclasses.replace(cfg, n_layers=...)``), as a model too
+deep for one card needs.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --no-smoke --batch 4 --prompt-len 2048 --new-tokens 16

@@ -1,12 +1,19 @@
-"""Grouped-query attention with causal and sliding-window masks — the GQA
-part of ``repro.models.attention`` (MLA waits for ROADMAP queue 1 item 13).
+"""Attention — the port of ``repro.models.attention``: grouped-query
+attention (GQA) with causal and sliding-window masks, and DeepSeek's
+multi-head latent attention (MLA).
 
-Full-sequence mode (:func:`gqa_forward`, used by prefill and by the
+GQA's full-sequence mode (:func:`gqa_forward`, used by prefill and by the
 training forward) computes its attention core through the hand-written
 flash kernel (:func:`repro_torch.kernels.ops.flash_attention`; under
 autograd its backward is the hand-written backward kernel); decode mode
 (:func:`gqa_decode`) stays plain PyTorch, one query against the cache, as in
 the reference, which has no Pallas kernel there either.
+
+MLA (:func:`mla_forward`, :func:`mla_decode`) is plain PyTorch in both
+modes, as the reference's plain ``jnp``: f32 scores ``(B, H, Sq, Sk)``
+from a 128-wide no-rope part and a 64-wide rope part shared by the heads,
+and 128-wide values; the cache holds the latent ``ckv`` and the rope key
+``kpe``, and every step expands the whole cache through ``wkv_b``.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.pdefs import PDef
 
-__all__ = ["gqa_defs", "gqa_cache_defs", "gqa_forward", "gqa_decode"]
+__all__ = ["gqa_defs", "mla_defs", "gqa_cache_defs", "mla_cache_defs",
+           "gqa_forward", "gqa_decode", "mla_forward", "mla_decode"]
 
 _NEG = -2.0e38
 
@@ -48,6 +56,23 @@ def gqa_defs(cfg: ArchConfig, stacked: tuple = ()) -> dict:
     return defs
 
 
+def mla_defs(cfg: ArchConfig, stacked: tuple = ()) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    L, Lax = (stacked, ("layers",) * len(stacked)) if stacked else ((), ())
+    dt = cfg.dtype
+    return {
+        "wq_a": PDef(L + (d, qr), Lax + ("embed", "rank"), dt, fan_in=d),
+        "q_norm": PDef(L + (qr,), Lax + (None,), torch.float32, "zeros"),
+        "wq_b": PDef(L + (qr, h, dn + dr), Lax + ("rank", "heads", None), dt, fan_in=qr),
+        "wkv_a": PDef(L + (d, kr + dr), Lax + ("embed", "rank"), dt, fan_in=d),
+        "kv_norm": PDef(L + (kr,), Lax + (None,), torch.float32, "zeros"),
+        "wkv_b": PDef(L + (kr, h, dn + dv), Lax + ("rank", "heads", None), dt, fan_in=kr),
+        "wo": PDef(L + (h, dv, d), Lax + ("heads", None, "embed"), dt, fan_in=h * dv),
+    }
+
+
 def gqa_cache_defs(cfg: ArchConfig, batch: int, length: int, stacked: tuple = ()) -> dict:
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     L, Lax = (stacked, ("layers",) * len(stacked)) if stacked else ((), ())
@@ -55,6 +80,16 @@ def gqa_cache_defs(cfg: ArchConfig, batch: int, length: int, stacked: tuple = ()
     axes = Lax + ("batch", "seq", "kv_heads", "head_dim")
     return {"k": PDef(shape, axes, cfg.dtype, "zeros"),
             "v": PDef(shape, axes, cfg.dtype, "zeros")}
+
+
+def mla_cache_defs(cfg: ArchConfig, batch: int, length: int, stacked: tuple = ()) -> dict:
+    L, Lax = (stacked, ("layers",) * len(stacked)) if stacked else ((), ())
+    return {
+        "ckv": PDef(L + (batch, length, cfg.kv_lora_rank),
+                    Lax + ("batch", "seq", "rank"), cfg.dtype, "zeros"),
+        "kpe": PDef(L + (batch, length, cfg.qk_rope_head_dim),
+                    Lax + ("batch", "seq", None), cfg.dtype, "zeros"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -178,3 +213,78 @@ def gqa_decode(p, x, cache, cfg: ArchConfig, pos: int, window: int = 0,
     out = _dot_attn(_split_heads(q, kv, g), k, v, bias, hd ** -0.5)
     out = out.reshape(b, 1, cfg.n_heads, hd)
     return _out_proj(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V3).
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, x, cfg: ArchConfig, positions):
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = _project(cq, p["wq_b"])
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    sin, cos = rope(positions, dr, cfg.rope_theta)
+    return q_nope, apply_rope(q_pe, sin, cos)
+
+
+def _mla_kv_latent(p, x, cfg: ArchConfig, positions):
+    kr, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    a = x @ p["wkv_a"]
+    ckv = rms_norm(a[..., :kr], p["kv_norm"], cfg.norm_eps)
+    sin, cos = rope(positions, dr, cfg.rope_theta)
+    kpe = apply_rope(a[..., None, kr:], sin, cos)[..., 0, :]  # shared head
+    return ckv, kpe
+
+
+def _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg: ArchConfig, bias):
+    """Scores in f32 from q scaled in the model dtype first, as the
+    reference: the scale (dn + dr)^-0.5 = 192^-0.5 is not a power of two,
+    so in bf16 the order of the scaling and the cast matters."""
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    kvb = _project(ckv, p["wkv_b"])
+    k_nope, v = kvb[..., :dn], kvb[..., dn:]
+    scale = (dn + cfg.qk_rope_head_dim) ** -0.5
+    scores = torch.einsum("bqhd,bshd->bhqs", (q_nope * scale).float(),
+                          k_nope.float())
+    scores += torch.einsum("bqhd,bsd->bhqs", (q_pe * scale).float(),
+                           kpe.float())
+    if bias is not None:
+        scores += bias
+    probs = scores.softmax(-1)
+    del scores
+    out = torch.einsum("bhqs,bshd->bqhd", probs, v.float()).to(v.dtype)
+    return _out_proj(out, p["wo"])
+
+
+def mla_forward(p, x, cfg: ArchConfig, window: int = 0, theta=None,
+                positions=None, return_kv: bool = False):
+    """Full-sequence MLA (prefill and training); ``window`` and ``theta``
+    are ignored (deepseek has neither), as in the reference."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    ckv, kpe = _mla_kv_latent(p, x, cfg, positions)
+    bias = _full_mask(positions, positions, 0, cfg.causal)[:, None]
+    out = _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg, bias)
+    return (out, (ckv, kpe)) if return_kv else out
+
+
+def mla_decode(p, x, cache, cfg: ArchConfig, pos: int, window: int = 0,
+               theta=None):
+    """Decode against the latent cache (ckv + kpe).  Writes the new entries
+    IN PLACE at ``pos`` (the reference returns an updated copy) and returns
+    that same dict."""
+    b = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, device=x.device)
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    ckv_new, kpe_new = _mla_kv_latent(p, x, cfg, positions)
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
+    kpe[:, pos] = kpe_new[:, 0].to(kpe.dtype)
+    k_pos = torch.arange(ckv.shape[1], device=x.device).expand(b, ckv.shape[1])
+    bias = _full_mask(positions, k_pos, 0, True)[:, None]
+    out = _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg, bias)
+    return out, cache

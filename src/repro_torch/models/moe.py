@@ -1,6 +1,21 @@
-"""The dense SwiGLU MLP of the zoo's decoders — the part of
-``repro.models.moe`` that the dense GQA decoders use.  The mixture of
-experts waits for ROADMAP queue 1 item 13."""
+"""The decoders' MLPs — the port of ``repro.models.moe``: the dense
+SwiGLU MLP and the mixture of experts.
+
+The MoE covers DBRX (softmax top-4 of 16) and DeepSeek-V3 (sigmoid gating
+with normalized top-8 of 256 + 1 shared expert); the aux load-balance loss
+follows Switch/GShard: E * sum_e(frac_tokens_e * mean_prob_e).
+
+``_moe_gshard`` keeps the reference's capacity dispatch — its function, not
+its formulation.  The reference builds one-hot ``(B, S, E, C)`` dispatch
+and combine tensors and contracts them with einsums, which at
+deepseek-v3's shape spends a third of the expert FLOPs selecting rows.
+Here each kept assignment's token row is scattered into its slot of an
+``(E, B, C, d)`` buffer (:func:`_dispatch`), every expert runs ``bmm`` over
+its ``B * C`` slots (:func:`_expert_products`), and each token gathers its
+``k`` slots back with their combine weights (:func:`_combine`).  The
+positions, the capacity, the kept set and the rounding of the combine
+weights are the reference's.
+"""
 from __future__ import annotations
 
 import torch
@@ -10,7 +25,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import shard_act
 from repro_torch.models.pdefs import PDef
 
-__all__ = ["swiglu_defs", "swiglu_forward"]
+__all__ = ["moe_defs", "moe_forward", "swiglu_defs", "swiglu_forward",
+           "moe_capacity", "moe_positions"]
 
 
 def swiglu_defs(cfg: ArchConfig, stacked: tuple = (), d_ff: int = 0) -> dict:
@@ -34,3 +50,152 @@ def swiglu_forward(p, x):
         h = F.gelu(x @ p["wi"], approximate="tanh")
     h = shard_act(h, ("batch", "seq", "mlp"))
     return h @ p["wo"]
+
+
+def moe_defs(cfg: ArchConfig, stacked: tuple = ()) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    L, Lax = (stacked, ("layers",) * len(stacked)) if stacked else ((), ())
+    dt = cfg.dtype
+    defs = {
+        "router": PDef(L + (d, e), Lax + ("embed", None), torch.float32, fan_in=d),
+        "wi": PDef(L + (e, d, f), Lax + ("expert", "embed", "mlp"), dt, fan_in=d),
+        "wg": PDef(L + (e, d, f), Lax + ("expert", "embed", "mlp"), dt, fan_in=d),
+        "wo": PDef(L + (e, f, d), Lax + ("expert", "mlp", "embed"), dt, fan_in=f),
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        defs["shared"] = swiglu_defs(cfg, stacked, d_ff=fs)
+    return defs
+
+
+def _router_probs(p, x, cfg: ArchConfig):
+    """Returns (weights (B,S,k) f32, sel (B,S,k) int64, probs (B,S,E) f32):
+    sigmoid gating for deepseek (a shared expert), softmax over the experts
+    for dbrx; both take the top k and renormalize them."""
+    logits = x.float() @ p["router"]
+    probs = torch.sigmoid(logits) if cfg.n_shared_experts else logits.softmax(-1)
+    w, sel = torch.topk(probs, cfg.top_k, dim=-1)
+    w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    return w, sel, probs
+
+
+def _aux_loss(sel, probs, cfg: ArchConfig):
+    """E * sum_e(frac_e * imp_e): frac counts every assignment, dropped or
+    not; imp is the mean router probability."""
+    e = cfg.n_experts
+    frac = F.one_hot(sel, e).float().mean((0, 1, 2))
+    imp = probs.mean((0, 1))
+    return e * (frac * imp).sum()
+
+
+def _moe_dense(p, x, w, sel, cfg: ArchConfig):
+    """Exact reference: every expert on every token, mask-combined."""
+    e = cfg.n_experts
+    gates = (F.one_hot(sel, e).float() * w[..., None]).sum(2)  # (B,S,E)
+    h = torch.einsum("bsd,edf->bsef", x, p["wi"])
+    g = torch.einsum("bsd,edf->bsef", x, p["wg"])
+    h = F.silu(h) * g
+    out = torch.einsum("bsef,efd->bsed", h, p["wo"])
+    return torch.einsum("bsed,bse->bsd", out.float(), gates).to(x.dtype)
+
+
+def _positions_cumsum(sel, b, s, k, e):
+    """Each assignment's position within its expert, counted within its
+    batch row in (s, k) arrival order: a cumsum of the one-hot assignments
+    over the S*k arrivals (O(T*E) memory).  The one-hot is laid out (B, E,
+    S*k), so that the scan runs along the contiguous axis (the reference's
+    (B, S*k, E) layout scans across rows: 1.5 ms a dbrx layer on an H100)."""
+    flat_e = sel.reshape(b, 1, s * k)
+    oh = flat_e == torch.arange(e, device=sel.device)[None, :, None]
+    count = torch.cumsum(oh, -1, dtype=torch.int32)  # inclusive, (B,E,T)
+    pos = torch.gather(count, 1, flat_e)[:, 0] - 1
+    return pos.reshape(b, s, k)
+
+
+def _positions_sort(sel, b, s, k, e):
+    """The same positions in O(T) memory: a stable argsort groups each row's
+    assignments by expert in arrival order, so the rank within a group is
+    the position."""
+    t = s * k
+    flat_e = sel.reshape(b, t)
+    counts = torch.zeros((b, e), dtype=torch.int64, device=sel.device)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 1) - counts  # exclusive, (B,E)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    pos_sorted = (torch.arange(t, device=sel.device)[None, :]
+                  - torch.gather(starts, 1, sorted_e))
+    pos = torch.empty_like(flat_e).scatter_(1, order, pos_sorted)
+    return pos.reshape(b, s, k).to(torch.int32)
+
+
+def moe_capacity(s: int, cfg: ArchConfig) -> int:
+    """Slots per expert and batch row for a sequence of ``s`` tokens."""
+    return max(int(s * cfg.top_k / cfg.n_experts * cfg.capacity_factor),
+               cfg.top_k)
+
+
+def moe_positions(sel, cfg: ArchConfig):
+    """(position within expert (B,S,k) int32, kept (B,S,k) bool) of each
+    assignment: the reference's rule (``cfg.moe_pos``), capacity per batch
+    row."""
+    b, s, k = sel.shape
+    pos_fn = _positions_sort if cfg.moe_pos == "sort" else _positions_cumsum
+    pos = pos_fn(sel, b, s, k, cfg.n_experts)
+    return pos, pos < moe_capacity(s, cfg)
+
+
+def _dispatch(x, slot, keep, n_slots: int):
+    """(n_slots, d) buffer holding each kept assignment's token row at its
+    slot, zeros elsewhere.  Dropped assignments go to one extra row, cut
+    off before the buffer is returned."""
+    b, s, k = slot.shape
+    buf = x.new_zeros((n_slots + 1, x.shape[-1]))
+    idx = torch.where(keep, slot, n_slots)
+    buf.index_put_((idx,), x[:, :, None, :].expand(b, s, k, x.shape[-1]))
+    return buf[:n_slots]
+
+
+def _expert_products(p, xin):
+    """``(silu(xin wi) * (xin wg)) wo`` for every expert: xin (E, M, d) ->
+    (E, M, d), one ``bmm`` a product."""
+    h = F.silu(torch.bmm(xin, p["wi"])) * torch.bmm(xin, p["wg"])
+    return torch.bmm(h, p["wo"])
+
+
+def _combine(out, slot, keep, w, ddt, dtype):
+    """Each token's sum over its k slots of the combine weight times the
+    expert's output row: a (1, k) x (k, d) matmul a token, accumulated in
+    f32 and rounded to ``dtype`` once.  The weight is the reference's
+    combine entry: w rounded to the dispatch dtype, zero where the
+    assignment was dropped, then rounded to ``dtype``."""
+    b, s, k = slot.shape
+    cw = torch.where(keep, w.to(ddt), 0).to(dtype)
+    rows = out[torch.where(keep, slot, 0)]  # (B,S,k,d)
+    y = torch.bmm(cw.view(b * s, 1, k), rows.view(b * s, k, -1))
+    return y.view(b, s, -1)
+
+
+def _moe_gshard(p, x, w, sel, cfg: ArchConfig):
+    """Capacity-based dispatch and combine (see the module docstring)."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    capacity = moe_capacity(s, cfg)
+    pos, keep = moe_positions(sel, cfg)
+    # Slot (e, b, c) of the (E, B, C) buffer, in row-major order.
+    rows = torch.arange(b, device=x.device)[:, None, None]
+    slot = (sel * b + rows) * capacity + pos
+    ddt = torch.bfloat16 if cfg.moe_dispatch_dtype == "bf16" else torch.float32
+    xin = _dispatch(x, slot, keep, e * b * capacity)
+    out = _expert_products(p, xin.view(e, b * capacity, d))
+    return _combine(out.view(e * b * capacity, d), slot, keep, w, ddt, x.dtype)
+
+
+def moe_forward(p, x, cfg: ArchConfig):
+    """Returns (y, aux_loss)."""
+    w, sel, probs = _router_probs(p, x, cfg)
+    impl = _moe_dense if cfg.moe_impl == "dense" else _moe_gshard
+    y = impl(p, x, w, sel, cfg)
+    if cfg.n_shared_experts:
+        y = y + swiglu_forward(p["shared"], x)
+    return y, _aux_loss(sel, probs, cfg)

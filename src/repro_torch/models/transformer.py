@@ -1,5 +1,6 @@
 """Config-driven decoder stack — the port of ``repro.models.transformer``
-for the dense GQA decoders (the ``lm`` task).
+for the decoders of the ``lm`` task: GQA or MLA attention, a dense SwiGLU
+or a mixture-of-experts MLP.
 
 Parameters stay stacked on a leading layer axis as in the reference, so a
 reference parameter tree carries across as a copy; the reference's
@@ -9,7 +10,9 @@ thetas) comes from :func:`_layer_meta` as plain Python numbers; with
 ``cfg.remat`` each layer of a forward that records gradients runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
 body: the layer is recomputed in the backward, with the same numbers).
-:func:`loss` is the ``lm`` task's next-token cross entropy; the ``vlm`` and
+:func:`forward` returns the MoE layers' mean aux load-balance loss as
+``moe_aux`` (0 for a dense model), and :func:`loss` is the ``lm`` task's
+next-token cross entropy plus ``router_aux_coef`` times it; the ``vlm`` and
 ``masked_lm`` tasks wait for ROADMAP queue 1 item 13.3.
 
 **Lanes.**  Every entry point also takes parameters stacked on a leading
@@ -18,7 +21,8 @@ batch row b then runs on lane b's weights — the personalized serving of
 ``launch.steps.make_personalized_serve_step``, where the reference vmaps
 over (params, batch) lanes.  The projections and the MLP become batched
 matmuls over the lane axis; the attention core has no weights, so the
-flash kernel sees the lanes as its batch.
+flash kernel sees the lanes as its batch.  Lanes of a MoE or MLA model
+are refused (ROADMAP queue 1 item 13.8).
 """
 from __future__ import annotations
 
@@ -48,11 +52,10 @@ __all__ = [
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.attn_type != "gqa" or cfg.n_experts or cfg.task != "lm":
+    if cfg.task != "lm":
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders of the lm task are ported "
-            "(ROADMAP queue 1: MoE item 13.1, MLA item 13.2, the vlm and "
-            "masked_lm tasks item 13.3)")
+            f"{cfg.name}: only decoders of the lm task are ported (ROADMAP "
+            "queue 1: the vlm and masked_lm tasks item 13.3)")
 
 
 def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
@@ -66,10 +69,15 @@ def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
     return windows, thetas
 
 
-def _lanes(params) -> bool:
+def _lanes(params, cfg: ArchConfig) -> bool:
     """Whether ``params`` carry a leading lane axis (see the module
-    docstring)."""
-    return params["embed"].dim() == 3
+    docstring); lanes of a MoE or MLA model are refused."""
+    lanes = params["embed"].dim() == 3
+    if lanes and (cfg.n_experts or cfg.attn_type == "mla"):
+        raise NotImplementedError(
+            f"{cfg.name}: per-lane (personalized) weights of a MoE or MLA "
+            "model are not ported yet (ROADMAP queue 1 item 13.8)")
+    return lanes
 
 
 def _layer(tree, i: int, lanes: bool = False):
@@ -88,8 +96,10 @@ def param_defs(cfg: ArchConfig) -> dict:
     _check_supported(cfg)
     L, d, v = (cfg.n_layers,), cfg.d_model, cfg.padded_vocab
     layers = {
-        "attn": attn.gqa_defs(cfg, stacked=L),
-        "mlp": moe_lib.swiglu_defs(cfg, stacked=L),
+        "attn": (attn.mla_defs(cfg, stacked=L) if cfg.attn_type == "mla"
+                 else attn.gqa_defs(cfg, stacked=L)),
+        "mlp": (moe_lib.moe_defs(cfg, stacked=L) if cfg.n_experts
+                else moe_lib.swiglu_defs(cfg, stacked=L)),
         "ln1": PDef(L + (d,), ("layers", None), torch.float32, "zeros"),
         "ln2": PDef(L + (d,), ("layers", None), torch.float32, "zeros"),
     }
@@ -105,7 +115,10 @@ def param_defs(cfg: ArchConfig) -> dict:
 
 def cache_defs(cfg: ArchConfig, batch: int, length: int) -> dict:
     _check_supported(cfg)
-    return attn.gqa_cache_defs(cfg, batch, length, stacked=(cfg.n_layers,))
+    L = (cfg.n_layers,)
+    if cfg.attn_type == "mla":
+        return attn.mla_cache_defs(cfg, batch, length, stacked=L)
+    return attn.gqa_cache_defs(cfg, batch, length, stacked=L)
 
 
 # ---------------------------------------------------------------------------
@@ -148,14 +161,24 @@ def _norm(x, scale, cfg: ArchConfig):
     return rms_norm(x, lane_scale(scale, x), cfg.norm_eps)
 
 
+def _mlp(pl, x, cfg: ArchConfig):
+    """The layer's MLP on the normed residual -> (y, aux loss or None)."""
+    h = _norm(x, pl["ln2"], cfg)
+    if cfg.n_experts:
+        return moe_lib.moe_forward(pl["mlp"], h, cfg)
+    return moe_lib.swiglu_forward(pl["mlp"], h), None
+
+
 def _block(pl, x, cfg: ArchConfig, window, theta, positions, return_kv=False):
-    h = attn.gqa_forward(pl["attn"], _norm(x, pl["ln1"], cfg), cfg,
-                         window=window, theta=theta, positions=positions,
-                         return_kv=return_kv)
+    """One layer -> (x, the attention's cache entries or None, aux or
+    None)."""
+    fwd = attn.mla_forward if cfg.attn_type == "mla" else attn.gqa_forward
+    h = fwd(pl["attn"], _norm(x, pl["ln1"], cfg), cfg, window=window,
+            theta=theta, positions=positions, return_kv=return_kv)
     h, kv = h if return_kv else (h, None)
     x = x + shard_act(h, ("batch", "seq", "embed"))
-    y = moe_lib.swiglu_forward(pl["mlp"], _norm(x, pl["ln2"], cfg))
-    return x + shard_act(y, ("batch", "seq", "embed")), kv
+    y, aux = _mlp(pl, x, cfg)
+    return x + shard_act(y, ("batch", "seq", "embed")), kv, aux
 
 
 def forward(params, batch, cfg: ArchConfig):
@@ -163,18 +186,23 @@ def forward(params, batch, cfg: ArchConfig):
     x, mask = embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    lanes = _lanes(params)
+    lanes = _lanes(params, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
+    auxs = []
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         pl = _layer(params["layers"], i, lanes)
 
         def body(x, pl=pl, win=win, th=th):
-            return _block(pl, x, cfg, win, th, positions)[0]
+            x, _, aux = _block(pl, x, cfg, win, th, positions)
+            return x, aux
 
-        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+        x, aux = (checkpoint(body, x, use_reentrant=False) if remat
+                  else body(x))
+        auxs.append(aux)
     logits = shard_act(_logits(params, x, cfg), ("batch", "seq", "vocab"))
-    aux = {"moe_aux": torch.zeros((), device=x.device), "loss_mask": mask}
-    return logits, aux
+    moe_aux = (torch.stack(auxs).mean() if cfg.n_experts
+               else torch.zeros((), device=x.device))
+    return logits, {"moe_aux": moe_aux, "loss_mask": mask}
 
 
 def loss(params, batch, cfg: ArchConfig):
@@ -199,12 +227,12 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=x.device)
              for k, d in cache_defs(cfg, b, cache_len).items()}
-    lanes = _lanes(params)
+    lanes = _lanes(params, cfg)
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
-        x, (k, v) = _block(_layer(params["layers"], i, lanes), x, cfg, win,
-                           th, positions, return_kv=True)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        x, kv, _ = _block(_layer(params["layers"], i, lanes), x, cfg, win,
+                          th, positions, return_kv=True)
+        for name, t in zip(cache, kv):  # ("k", "v") or ("ckv", "kpe")
+            cache[name][i, :, :s] = t
     return _logits(params, x, cfg), cache
 
 
@@ -214,12 +242,13 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig):
     returned (the reference returns a new cache)."""
     x = _embed_tokens(params, tokens[:, None], cfg)
     x = shard_act(x, ("batch", None, "embed"))
-    lanes = _lanes(params)
+    lanes = _lanes(params, cfg)
+    dec = attn.mla_decode if cfg.attn_type == "mla" else attn.gqa_decode
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         pl = _layer(params["layers"], i, lanes)
-        h, _ = attn.gqa_decode(pl["attn"], _norm(x, pl["ln1"], cfg),
-                               _layer(cache, i), cfg, pos, window=win, theta=th)
+        h, _ = dec(pl["attn"], _norm(x, pl["ln1"], cfg), _layer(cache, i),
+                   cfg, pos, window=win, theta=th)
         x = x + h
-        y = moe_lib.swiglu_forward(pl["mlp"], _norm(x, pl["ln2"], cfg))
+        y, _ = _mlp(pl, x, cfg)
         x = x + y
     return _logits(params, x, cfg)[:, 0], cache

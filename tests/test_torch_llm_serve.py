@@ -1,5 +1,8 @@
-"""The port's serving path of the dense GQA decoders against the JAX
-reference, on the CPU at ``reduced`` size (f32, 2 layers, hd = 64).
+"""The port's serving path of the decoders against the JAX reference, on
+the CPU at ``reduced`` size (f32, 2 layers, hd = 64): the four dense GQA
+decoders, and the MoE decoders dbrx-132b (GQA, 4 experts top 2 of the
+reduced config) and deepseek-v3-671b (MLA, sigmoid top 2 of 4 and a shared
+expert), whose every layer routes each side by its own f32 router.
 
 Parameters come from the reference's own ``init`` and cross by
 ``repro_torch.interop.params_from_numpy``; prompts come from the same numpy
@@ -36,7 +39,9 @@ from repro_torch.launch import serve
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.registry import get_model_api
 
-ARCHS = ("codeqwen1.5-7b", "gemma3-12b", "glm4-9b", "phi3-medium-14b")
+ARCHS = ("codeqwen1.5-7b", "gemma3-12b", "glm4-9b", "phi3-medium-14b",
+         "dbrx-132b", "deepseek-v3-671b")
+GQA_ARCHS = tuple(a for a in ARCHS if a != "deepseek-v3-671b")
 UNPORTED = tuple(a for a in ref_registry.ARCH_IDS if a not in ARCHS)
 B, S, NEW = 2, 40, 5  # 4 decode steps after the prefill's token
 
@@ -131,7 +136,7 @@ def test_norm_rope_and_xent_match_the_reference():
             _close(g, w, "softmax_xent", rel=1e-5)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", GQA_ARCHS)
 def test_gqa_forward_and_decode_match_the_reference(arch):
     ref_api, api, ref_params, params, _ = _setup(arch)
     cfg, ref_cfg = api.cfg, ref_api.cfg
@@ -214,7 +219,8 @@ def test_prefill_and_decode_match_the_reference(arch):
     with torch.no_grad():
         _close(api.forward(params, {"tokens": torch.from_numpy(tokens)})[0],
                ref_logits, "forward logits")
-    for n in ("k", "v"):
+    assert sorted(cache) == sorted(ref_cache)  # k, v or ckv, kpe
+    for n in cache:
         _close(cache[n], ref_cache[n], f"prefill cache {n}")
     ref_step = jax.jit(ref_api.decode_step)
     ref_tok = jnp.argmax(ref_logits[:, -1], -1).astype(jnp.int32)
@@ -226,7 +232,7 @@ def test_prefill_and_decode_match_the_reference(arch):
         with torch.no_grad():
             step_logits, cache = api.decode_step(params, cache, tok, S + i)
         _close(step_logits, ref_l, f"decode step {i} logits")
-        for n in ("k", "v"):
+        for n in cache:
             _close(cache[n], ref_cache[n], f"decode step {i} cache {n}")
         ref_tok = jnp.argmax(ref_l, -1).astype(jnp.int32)
         tok = step_logits.argmax(-1).to(torch.int32)
@@ -252,8 +258,22 @@ def test_generated_logits_are_the_reference_forward_on_the_extended_prompt(
         arch, capsys):
     """The logits each new token was picked from, prefill's last row and
     one row per decode step, are the reference's ``forward`` on the prompt
-    extended by the new tokens, at positions S-1 .. S+NEW-2."""
+    extended by the new tokens, at positions S-1 .. S+NEW-2.
+
+    A MoE layer's capacity grows with the sequence (25 slots an expert at
+    the prompt's 40 tokens, 27 at the extended 44) and a decode step never
+    drops, so the prefill and the longer forward drop different
+    assignments, in the reference as in the port.  For the MoE models both
+    sides here run with ``capacity_factor = n_experts / top_k``, a capacity
+    of every token, so that the statement holds; ``chip_smoke.py`` phase
+    13 holds the full-width models at their own capacity instead, up to
+    the first position whose kept assignments differ."""
     ref_api, api, ref_params, params, tokens = _setup(arch)
+    if api.cfg.n_experts:
+        fit = api.cfg.n_experts / api.cfg.top_k
+        api = get_model_api(dataclasses.replace(api.cfg, capacity_factor=fit))
+        ref_api = ref_get_model_api(dataclasses.replace(ref_api.cfg,
+                                                        capacity_factor=fit))
     out = serve.generate(api, params, {"tokens": torch.from_numpy(tokens)}, NEW)
     capsys.readouterr()
     assert out["logits"].shape == (B, NEW, api.cfg.padded_vocab)
