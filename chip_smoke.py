@@ -4,8 +4,10 @@ hand-written Hopper kernels: DFedSGPSM rounds on the flat bank, serving
 gemma3-12b (prefill, then greedy decode), the FL round's scenarios
 (compressors, proximal solver, link and churn scenarios, the bf16 delta
 bank), checkpoints, the paged client store, personalized serving of
-glm4-9b over the delta bank, pods-as-clients training of glm4-9b, and
-serving the MoE family (dbrx-132b, deepseek-v3-671b).
+glm4-9b over the delta bank, pods-as-clients training of glm4-9b,
+serving the MoE family (dbrx-132b, deepseek-v3-671b), serving the vlm
+(llava-next-mistral-7b) and running the masked_lm encoder (hubert-xlarge,
+whose head dim 80 has its own flash instantiations).
 
     python3 chip_smoke.py
 
@@ -14,8 +16,9 @@ Phases, each fatal on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``), and
    show what the flash kernels compiled to: ``-Xptxas -v``'s registers and
-   spills, and the ``HGMMA`` (tensor-core) instructions in each one's SASS
-   (``cuobjdump -sass``), which every bf16 instantiation must hold; then
+   spills of every instantiation (hd 64, 80, 128 and 256, each dtype; none
+   may spill), and the ``HGMMA`` (tensor-core) instructions in each one's
+   SASS (``cuobjdump -sass``), which every bf16 instantiation must hold; then
    the two gossip mixes' registers and spills (none may spill), and the
    dense mix's SASS, which must hold FFMA and no HMMA or HGMMA;
 3. kernels: at the main path's shapes (n = 100 clients, D = 1,756,426, the
@@ -126,7 +129,28 @@ Phases, each fatal on failure:
    products, dispatch/combine, MLA and the rest; and the decode check
    against ``forward`` with the forward's expert choices and kept
    assignments pinned to the served path's, and a mutant (decode on the
-   layer before's cache) that must miss its tolerance.
+   layer before's cache) that must miss its tolerance;
+14. the vlm and masked_lm tasks: the flash kernel at hd 80 against its
+   plain version (f32 and bf16, causal and non-causal, GQA groups 1 and 4,
+   S = 1, 63, 65, 1000, and hubert-xlarge's (8, 16 on 16, 1500, hd 80)),
+   with a mask one key late and a causal mask on hubert's inputs that must
+   miss the tolerance, and its time at hubert's shape beside its bound, the
+   plain version and SDPA; the forward at llava-next-mistral-7b's prefill
+   (4, 32 on 8, 5760, hd 128) beside SDPA; reduced llava-next-mistral-7b
+   (prefill and 4 greedy decode steps) and reduced hubert-xlarge widened
+   to hd 80 (forward and loss) in f32, card against CPU; then
+   llava-next-mistral-7b at full width and depth in bf16, 4 requests of
+   2880 image embeddings and 2880 text tokens, 16 new tokens through
+   ``serve.generate`` (32 flash launches a prefill, times, peak memory, a
+   steady second run, a profiled prefill and decode step split into the
+   flash kernel, matmuls and the rest, the projector's time), and the decode
+   check with a mutant that decodes at positions leaving out the image
+   prefix; and hubert-xlarge at full width and depth in bf16, 8 clips of
+   1500 frames through ``ModelApi.forward`` and ``loss`` (48 hd 80 flash
+   launches a call, frames/s, peak memory, a finite loss, a profiled
+   forward), held to the same forward with the plain attention core, a
+   causal mutant that must miss, and ``loss.backward()``, which must raise
+   the flash backward's refusal at hd 80.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -699,7 +723,9 @@ def flash_build_evidence() -> None:
     them (registers, spills; their shared memory is dynamic), and the
     count of tensor-core ``HGMMA`` instructions in each one's SASS
     (``cuobjdump -sass`` of the built library, where the toolkit has it).
-    Every tensor-core (tc) instantiation must hold HGMMA."""
+    Every instantiation, the four head dims (64, 80, 128, 256) of each
+    dtype, must be there and spill nothing, and every tensor-core (tc)
+    one must hold HGMMA."""
     import re
 
     from repro_torch.kernels import build
@@ -711,6 +737,31 @@ def flash_build_evidence() -> None:
     for line in part.splitlines()[1:]:
         if "ptxas" in line or "bytes stack frame" in line:
             print("    " + line.strip()[:150])
+    built, fn = {}, None
+    for line in part.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            inst = re.search(r"(2tc|4simt)22flash_attention_kernelI(?:f)?Li(\d+)E",
+                             m.group(1))
+            fn = (("tc" if inst.group(1) == "2tc" else "simt"),
+                  int(inst.group(2))) if inst else None
+            if fn:
+                built[fn] = [None, None]
+        elif fn and "spill stores" in line:
+            built[fn][1] = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                                         line))
+        elif fn and "Used" in line and "registers" in line:
+            built[fn][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    print("  flash forward instantiations (registers, bytes spilled): " + "; ".join(
+        f"{kind} hd {hd} {regs}, {spill}"
+        for (kind, hd), (regs, spill) in sorted(built.items())))
+    for kind in ("tc", "simt"):
+        for hd in (64, 80, 128, 256):
+            check((kind, hd) in built, f"no {kind} flash kernel at hd {hd} "
+                                       "in the build log")
+            check(built[kind, hd][1] == 0,
+                  f"the {kind} flash kernel at hd {hd} spills "
+                  f"{built[kind, hd][1]} bytes")
     counts = hgmma_counts("flash_attention_kernel")
     if counts is None:
         print("  cuobjdump not found: no SASS count")
@@ -1076,7 +1127,8 @@ def print_profile(prof, wall_s: float, top: int = 12, also=(),
 
 
 def counters() -> dict:
-    """Each kernel's launch counter, as (wrapper module, attribute).  The
+    """Each kernel's launch counter, as (wrapper module, attribute), or
+    (module, a dict attribute, its key).  The
     one-row update is the (1, D) launch of the bank kernel: both counts go
     up for it.  The flash backward counts its calls and, beside them, the
     kernels those calls launched (its passes)."""
@@ -1089,6 +1141,8 @@ def counters() -> dict:
             "fused_update": (fu, "row_launches"),
             "gossip_matmul": (gm, "launches"), "gossip_gather": (gg, "launches"),
             "flash_attention": (fa, "launches"),
+            # the flash launches at hd 80 (hubert-xlarge), also counted above
+            "flash_attention_hd80": (fa, "head_dim_launches", 80),
             "flash_attention_backward": (fa, "backward_launches"),
             "flash_attention_backward_kernels": (fa, "backward_kernel_launches")}
 
@@ -1123,12 +1177,19 @@ def kernel_shapes():
 
 
 def zero_counts() -> None:
-    for mod, attr in counters().values():
-        setattr(mod, attr, 0)
+    for mod, attr, *key in counters().values():
+        if key:
+            getattr(mod, attr)[key[0]] = 0
+        else:
+            setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+    out = {}
+    for name, (mod, attr, *key) in counters().items():
+        value = getattr(mod, attr)
+        out[name] = value[key[0]] if key else value
+    return out
 
 
 def cifar_data(dev, n_clients: int = N_CLIENTS, n_train: int = 50_000,
@@ -1495,9 +1556,10 @@ SERVE_ARGV = ["--arch", "gemma3-12b", "--no-smoke", "--batch", "4",
 def serving_parity(dev, arch: str = "gemma3-12b", s: int = 100,
                    steps: int = 4) -> None:
     """Reduced ``arch`` in f32 (gemma3-12b: a 32-token window on layer 0, a
-    global layer 1, hd = 64; the MoE models: 4 experts, top 2): prefill
-    and ``steps`` greedy decode steps on ``dev`` against the same on the
-    CPU, with the same parameters and prompts.  Both sides compute in f32
+    global layer 1, hd = 64; the MoE models: 4 experts, top 2;
+    llava-next-mistral-7b: 16 image embeddings before 84 tokens): prefill
+    of ``s`` positions and ``steps`` greedy decode steps on ``dev``
+    against the same on the CPU, with the same parameters and batch.  Both sides compute in f32
     (TF32 off: a TF32 router would flip top-k choices) with sums in their
     own orders (cuBLAS, the flash kernel's online softmax), so the logits
     agree to 1e-4 of their magnitude; the greedy tokens must be equal.  For
@@ -1512,14 +1574,14 @@ def serving_parity(dev, arch: str = "gemma3-12b", s: int = 100,
     cfg = get_config(arch, smoke=True)
     api = get_model_api(cfg)
     params = api.init(torch.Generator().manual_seed(0), "cpu")
-    tokens = make_batch(cfg, 2, s, seed=1)["tokens"]
+    batch = make_batch(cfg, 2, s, seed=1)  # s positions, a prefix included
     runs = {}
     for d in (torch.device("cpu"), dev):
         p = tree_map(lambda t, d=d: t.to(d), params)
         before, sels = fa.launches, []
         with torch.no_grad(), recorded_routing(sels):
-            logits, cache = api.prefill(p, {"tokens": tokens.to(d)},
-                                        s + steps + 1)
+            logits, cache = api.prefill(
+                p, {k: v.to(d) for k, v in batch.items()}, s + steps + 1)
             out, toks = [logits.cpu()], []
             tok = logits[:, -1].argmax(-1).to(torch.int32)
             for i in range(steps):
@@ -1626,19 +1688,21 @@ def serving(dev, argv=SERVE_ARGV) -> dict:
 
 # The decode check's mutants, each a decode fault the check must see.
 MUTANTS = {"window": "with the window left open at decode",
-           "layer": "with each decode step on the layer before's cache"}
+           "layer": "with each decode step on the layer before's cache",
+           "prefix": "with decode positions that leave out the image prefix"}
 
 
 def decode_check(api, params, batch, rec, mutant="window",
                  pin=contextlib.nullcontext) -> float:
     """Holds what ``serve.generate`` decoded against ``forward`` on the
     prompt extended by the decoded tokens: the logits each new token was
-    picked from must be the forward's at positions S-1 .. S+N-2.  At full
-    width the decode steps run at positions 2048 .. 2062, where the local
-    layers' 1024-token window closes keys, so this covers the decode
-    attention's mask, its reads of the cache and every step's cache write.
-    The forward runs inside ``pin()`` (the MoE models pin its routing to
-    the served path's: :func:`moe_decode_check`).
+    picked from must be the forward's at positions P+S-1 .. P+S+N-2, P the
+    vlm's image prefix (0 without one).  At full width gemma3-12b's decode
+    steps run at positions 2048 .. 2062, where the local layers'
+    1024-token window closes keys, so this covers the decode attention's
+    mask, its reads of the cache and every step's cache write.  The forward
+    runs inside ``pin()`` (the MoE models pin its routing to the served
+    path's: :func:`moe_decode_check`).
 
     Tolerance: in f32, 1e-4 of the logits' magnitude (as the parity step);
     in bf16, 2^-4 of it: the two sides round every layer's bf16 activations
@@ -1651,7 +1715,9 @@ def decode_check(api, params, batch, rec, mutant="window",
     but a window as long as the cache, so the same rope thetas);
     ``"layer"``, for a model without a window, gives each decode step the
     cache of the layer before its own (the stacked cache's layer index off
-    by one); None skips it.  Returns the tolerance."""
+    by one); ``"prefix"``, for the vlm, decodes at S + i, leaving out the
+    image prefix (the reference launcher's class of bug); None skips it.
+    Returns the tolerance."""
     import dataclasses
 
     from repro_torch.models.registry import get_model_api
@@ -1659,30 +1725,35 @@ def decode_check(api, params, batch, rec, mutant="window",
     cfg, prompt = api.cfg, batch["tokens"]
     got = rec["logits"]
     s, n = prompt.shape[1], got.shape[1]
+    n_prefix = batch["image_feats"].shape[1] if "image_feats" in batch else 0
     new = rec["tokens"][:, :n - 1].to(prompt.device, prompt.dtype)
     with torch.no_grad():
         with pin():
-            want = api.forward(params, {"tokens": torch.cat([prompt, new],
-                                                            1)})[0]
-        want = want[:, s - 1:].clone()  # frees the other positions' logits
+            want = api.forward(params, dict(
+                batch, tokens=torch.cat([prompt, new], 1)))[0]
+        # frees the other positions' logits
+        want = want[:, n_prefix + s - 1:].clone()
         if mutant:
-            step_api = api
-            logits, cache = api.prefill(params, batch, s + n)
+            step_api, pos0 = api, n_prefix + s
+            logits, cache = api.prefill(params, batch, n_prefix + s + n)
             wrong = [logits[:, -1].clone()]
             del logits
             if mutant == "window":
                 step_api = get_model_api(dataclasses.replace(
                     cfg, sliding_window=s + n))
+            elif mutant == "prefix":
+                pos0 = s
             else:
                 cache = {k: v.roll(1, 0) for k, v in cache.items()}
             for i in range(n - 1):
                 wrong.append(step_api.decode_step(params, cache, new[:, i],
-                                                  s + i)[0])
+                                                  pos0 + i)[0])
             del cache
     scale = float(want.float().abs().max())
     tol = (1e-4 if cfg.dtype == torch.float32 else 2.0 ** -4) * scale
     err = max_err(got, want)
-    print(f"  decode check: {n} positions from {s - 1}, logits {tuple(got.shape)}"
+    print(f"  decode check: {n} positions from {n_prefix + s - 1}, logits "
+          f"{tuple(got.shape)}"
           f" against forward on the extended prompt: max|err| {err:.4e} "
           f"(tolerance {tol:.4e}, {tol / scale:.3g} of max|logit| "
           f"{scale:.4e})")
@@ -1695,25 +1766,45 @@ def decode_check(api, params, batch, rec, mutant="window",
     return tol
 
 
-def print_split(prof, wall_s: float, what: str) -> None:
-    """``print_profile``, then the device time by kind: the flash kernel,
-    matmuls (cuBLAS / CUTLASS kernels) and the rest."""
+def kind_split(prof, spans=()) -> dict:
+    """Device time (ms) by kind over a profile, from the device's own
+    timeline: a kernel that runs inside the device-side span of a
+    ``record_function`` range named in ``spans`` goes to that range's
+    kind; any other to the flash kernel, the matmuls (cuBLAS / CUTLASS
+    kernels) or the rest by its name.  (An operator's list of launched
+    kernels would count a kernel once for every enclosing operator that
+    shares its correlation id.)"""
     from torch.autograd import DeviceType
 
-    print_profile(prof, wall_s, top=8)
-    split = {"attention kernel": 0.0, "matmuls": 0.0, "rest": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+    overhead = ("Buffer Flush", "Activity Buffer Request")
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.name not in overhead]
+    windows = [(e.name, e.time_range.start, e.time_range.end)
+               for e in events if e.name in spans]
+    split = {"flash": 0.0, **{k: 0.0 for k in spans}, "matmuls": 0.0,
+             "rest": 0.0}
+    for e in events:
+        if e.name in spans:
             continue
-        name = e.key.lower()
-        if "flash_attention_kernel" in name:
-            kind = "attention kernel"
-        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma",
-                                     "sm90_", "cublas")):
-            kind = "matmuls"
-        else:
-            kind = "rest"
-        split[kind] += e.self_device_time_total / 1e3
+        start, end = e.time_range.start, e.time_range.end
+        kind = next((k for k, a, b in windows if a <= start and end <= b),
+                    None)
+        name = e.name.lower()
+        if kind is None:
+            kind = ("flash" if "flash_attention_kernel" in name else
+                    "matmuls" if any(t in name for t in (
+                        "gemm", "nvjet", "cutlass", "xmma", "sm90_",
+                        "cublas")) else "rest")
+        split[kind] += (end - start) / 1e3
+    return split
+
+
+def print_split(prof, wall_s: float, what: str, spans=()) -> None:
+    """``print_profile``, then the device time by kind
+    (:func:`kind_split`): the flash kernel, each range of ``spans``, the
+    matmuls and the rest."""
+    print_profile(prof, wall_s, top=8, skip=tuple(spans))
+    split = kind_split(prof, spans)
     total = sum(split.values())
     print(f"  {what} device time by kind: " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f}%)"
@@ -2765,34 +2856,6 @@ def spans():
         yield
 
 
-def print_moe_split(prof, wall_s: float, what: str) -> None:
-    """``print_profile``, then the device time by kind: the flash kernel,
-    the expert products, dispatch and combine (positions included), MLA
-    (its projections and its f32 attention) and the rest.  A kind's time is
-    its ranges' device time, each range summing the kernels its operators
-    launched."""
-    from torch.autograd import DeviceType
-
-    print_profile(prof, wall_s, top=8, skip=tuple(MOE_SPANS))
-    total = flash = 0.0
-    for e in prof.key_averages():
-        if (e.device_type != DeviceType.CUDA or e.key in MOE_SPANS
-                or e.self_device_time_total <= 0):
-            continue
-        total += e.self_device_time_total / 1e3
-        if "flash_attention_kernel" in e.key.lower():
-            flash += e.self_device_time_total / 1e3
-    split = {"flash": flash}
-    for kind in MOE_SPANS:
-        split[kind] = sum(e.device_time_total for e in prof.events()
-                          if e.name == kind
-                          and e.device_type == DeviceType.CPU) / 1e3
-    split["rest"] = total - sum(split.values())
-    print(f"  {what} device time by kind: " + ", ".join(
-        f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f}%)"
-        for k, v in split.items()))
-
-
 def routing_stats(sels, cfg) -> list:
     """Per layer of a prefill's recorded choices (B, S, k): the largest
     load of an expert in a batch row, and the assignments dropped."""
@@ -2886,7 +2949,7 @@ def moe_serving(dev, arch: str, layers: int, batch_n: int,
         tok = logits[:, -1].argmax(-1).to(torch.int32)
         del logits
         print(f"  profiled prefill {wall:.4f} s:")
-        print_moe_split(prof, wall, "prefill")
+        print_split(prof, wall, "prefill", MOE_SPANS)
         with torch.profiler.profile() as prof:
             t = time.perf_counter()
             make_serve_step(api)(params, cache, tok, s)
@@ -2894,7 +2957,7 @@ def moe_serving(dev, arch: str, layers: int, batch_n: int,
             wall = time.perf_counter() - t
         del cache
     print(f"  profiled decode step {1e3 * wall:.2f} ms:")
-    print_moe_split(prof, wall, "decode step")
+    print_split(prof, wall, "decode step", MOE_SPANS)
     del prof
     moe_decode_check(api, params, batch, rec, sels)
     return launches
@@ -2972,6 +3035,403 @@ def moe_decode_check(api, params, batch, rec, sels) -> float:
     return tol
 
 
+# -- phase 14: the vlm and masked_lm tasks -------------------------------------
+
+# hubert-xlarge's encoder at phase 14: 8 clips of 1500 frames (30 s each at
+# HuBERT's 20 ms frame rate), 16 query heads on 16 kv heads of hd 80 (1280 /
+# 16), bf16, non-causal.
+HUBERT_CLIPS, HUBERT_FRAMES = 8, 1500
+HUBERT_SHAPE = (HUBERT_CLIPS, 16, 16, HUBERT_FRAMES, 80)
+# llava-next-mistral-7b's prefill at phase 14: 4 requests of 2880 image
+# embeddings (the config's anyres count) and 2880 text tokens, 32 query
+# heads on 8 kv heads of hd 128, causal.
+LLAVA_REQUESTS, LLAVA_SEQ, LLAVA_NEW = 4, 5760, 16
+LLAVA_SHAPE = (LLAVA_REQUESTS, 32, 8, LLAVA_SEQ, 128)
+
+
+def flash_hd80_phase(dev, hubert=HUBERT_SHAPE, llava=LLAVA_SHAPE,
+                     lengths=(1, 63, 65, 1000), iters: int = 10) -> dict:
+    """The flash kernel at hd 80 against its plain version: f32 (the SIMT
+    kernel) and bf16 (the tensor-core kernel's 16-column panels), causal
+    and non-causal, GQA groups 1 and 4, S = ``lengths``, and hubert-xlarge's
+    shape (non-causal); each held to its tolerance (2e-5 in f32,
+    ``bf16_tolerance`` in bf16, as in phase 3).  Two faults must miss it: q
+    moved down one row on a causal bf16 shape (each row's mask one key
+    late), and a causal mask on hubert's inputs.  Then the kernel's time at
+    hubert's shape beside its bound (4 hd FLOP an open pair at the bf16
+    peak), the plain version's and SDPA's on the same inputs; and the
+    forward at llava-next-mistral-7b's prefill shape (hd 128, causal)
+    beside its bound and SDPA, with its first GQA group (4 query heads on
+    kv head 0) held to the plain version.  Returns the hd 80 row of the
+    JSON record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((2, h, kv, s, 80), dt, causal)
+             for dt in (bf16, f32) for causal in (True, False)
+             for h, kv in ((8, 8), (8, 2)) for s in lengths]
+    cases.append((hubert, bf16, False))
+    fault_shape = (2, 8, 2, max(lengths), 80)
+
+    def qkv(shp, dt):
+        b_, h_, kv_, s_, hd_ = shp
+        return [torch.randn(b_, n_, s_, hd_, generator=gen, device=dev).to(dt)
+                for n_ in (h_, kv_, kv_)]
+
+    def ratio(got, want, tol):
+        return float(((got.float() - want.float()).abs() / tol).max())
+
+    worst, errs = {}, {}
+    for shp, dt, causal in cases:
+        q, k, v = qkv(shp, dt)
+        got = fa.flash_attention(q, k, v, causal, 0)
+        want = fa.flash_attention_plain(q, k, v, causal, 0)
+        sync(dev)
+        tol = (fa.bf16_tolerance(v, want, causal, 0) if dt == bf16
+               else torch.full_like(want, 2e-5, dtype=f32))
+        r = ratio(got, want, tol)
+        key = (str(dt)[6:], causal)
+        worst[key] = max(worst.get(key, 0.0), r)
+        errs[shp, dt, causal] = max_err(got, want)
+        check(r <= 1.0, f"flash_attention at hd 80 disagrees ({shp}, {dt}, "
+                        f"causal={causal}): {r:.3f} of its tolerance")
+        if shp == fault_shape and dt == bf16 and causal:
+            fault = fa.flash_attention(torch.roll(q, 1, 2), k, v, causal, 0)
+            sync(dev)
+            miss = ratio(fault[:, :, 1:], want[:, :, :-1], tol[:, :, :-1])
+            print(f"  hd 80 mask one key late (q moved down one row) at "
+                  f"{shp}: {miss:.3f} of the tolerance (must exceed 1)")
+            check(miss > 1.0, "the hd 80 bf16 tolerance misses a mask fault")
+        if shp == hubert:
+            fault = fa.flash_attention(q, k, v, True, 0)
+            sync(dev)
+            miss = ratio(fault, want, tol)
+            print(f"  hubert's shape {shp} under a causal mask: {miss:.3f} "
+                  "of the tolerance (must exceed 1)")
+            check(miss > 1.0, "the hd 80 tolerance misses a causal mask")
+        del q, k, v, got, want, tol
+    print(f"  flash_attention at hd 80, {len(cases)} shapes (B, H, KV, S) = "
+          f"(2, 8, 8 or 2, {', '.join(map(str, lengths))}) and {hubert[:4]}: "
+          "largest |err| / tolerance " + ", ".join(
+              f"{dt} causal={c} {r:.3f}" for (dt, c), r in worst.items())
+          + " (2e-5 in f32; 2e-5 + 2^-8 max_row|v| + 2^-7 |out| in bf16)")
+
+    def bound_of(shp, causal):
+        b_, h_, kv_, s_, hd_ = shp
+        n_bytes = 2.0 * (2 * b_ * h_ + 2 * b_ * kv_) * s_ * hd_  # q, k, v, o
+        flops = 4.0 * hd_ * b_ * h_ * open_pairs(s_, causal, 0)
+        return bound_ms(n_bytes, flops, BF16_FLOP_PER_S) + (flops,)
+
+    q, k, v = qkv(hubert, bf16)
+    bound, by, flops = bound_of(hubert, False)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, enable_gqa=True)
+    row = dict(
+        max_abs_err=errs[hubert, bf16, False],
+        ms=timed_ms(lambda: fa.flash_attention(q, k, v, False, 0), dev, iters),
+        plain_ms=timed_ms(lambda: fa.flash_attention_plain(q, k, v, False, 0),
+                          dev, max(iters // 5, 1)),
+        bound_ms=bound, bound_by=by, library_ms=timed_ms(lib, dev, iters))
+    lib_err = max_err(lib(), fa.flash_attention_plain(q, k, v, False, 0))
+    print(f"  flash_attention hubert-xlarge (B,H,KV,S,hd)={hubert} "
+          f"non-causal: {row['ms']:.4f} ms for {flops:.4g} FLOP "
+          f"({flops / row['ms'] / 1e9:.2f} TFLOP/s), bound {bound:.4f} ms at "
+          f"the bf16 tensor-core peak ({by}), {100 * bound / row['ms']:.1f}% "
+          f"of it; plain {row['plain_ms']:.4f} ms; SDPA "
+          f"{row['library_ms']:.4f} ms (max|SDPA - plain| {lib_err:.3e}); "
+          f"kernel/SDPA {row['ms'] / row['library_ms']:.3f}")
+    del q, k, v
+
+    q, k, v = qkv(llava, bf16)
+    got = fa.flash_attention(q, k, v, True, 0)
+    group = llava[1] // llava[2]
+    want = fa.flash_attention_plain(q[:, :group], k[:, :1], v[:, :1], True, 0)
+    r = ratio(got[:, :group], want,
+              fa.bf16_tolerance(v[:, :1], want, True, 0))
+    del got, want
+    print(f"  llava-next-mistral-7b's prefill shape {llava}: kv head 0's "
+          f"{group} query heads against the plain version: {r:.3f} of the "
+          "bf16 tolerance")
+    check(r <= 1.0, "flash_attention disagrees at llava's prefill shape")
+    bound, by, flops = bound_of(llava, True)
+    ms = timed_ms(lambda: fa.flash_attention(q, k, v, True, 0), dev, iters)
+    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), dev, iters)
+    print(f"  flash_attention llava-next-mistral-7b prefill (B,H,KV,S,hd)="
+          f"{llava} causal: {ms:.4f} ms for {flops:.4g} FLOP "
+          f"({flops / ms / 1e9:.2f} TFLOP/s), bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / ms:.1f}% of it; SDPA {lib_ms:.4f} ms; kernel/SDPA "
+          f"{ms / lib_ms:.3f} (plain not timed: its f32 scores alone would "
+          f"take {4 * llava[0] * llava[1] * llava[3] ** 2 / 1e9:.0f} GB)")
+    return row
+
+
+def encoder_parity(dev, s: int = 100) -> None:
+    """Reduced hubert-xlarge at hd 80 (``reduced`` gives 4 heads of 64 at
+    d_model 256; d_model 320 gives 4 heads of 80), f32,
+    ``forward`` and ``loss`` of one ``make_batch`` batch (2 x ``s``
+    frames) on ``dev`` against the same on the CPU: the card runs the
+    SIMT flash kernel at hd 80, non-causal, once a layer a call.  Both
+    sides sum in their own orders (cuBLAS, the kernel's online softmax):
+    logits within 1e-4 of their magnitude, the loss within 1e-4 of
+    itself."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.core.flat import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import get_model_api
+
+    cfg = dataclasses.replace(get_config("hubert-xlarge", smoke=True),
+                              d_model=320)
+    api = get_model_api(cfg)
+    params = api.init(torch.Generator().manual_seed(0), "cpu")
+    batch = make_batch(cfg, 2, s, seed=1)
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        p = tree_map(lambda t, d=d: t.to(d), params)
+        b = {k: v.to(d) for k, v in batch.items()}
+        before = fa.head_dim_launches[80]
+        with torch.no_grad():
+            logits = api.forward(p, b)[0].cpu()
+            loss = float(api.loss(p, b)[0])
+        runs[d.type] = (logits, loss, fa.head_dim_launches[80] - before)
+    (want, want_loss, _), (got, got_loss, used) = runs["cpu"], runs[dev.type]
+    e, tol = max_err(got, want), 1e-4 * float(want.abs().max())
+    print(f"  reduced hubert-xlarge at hd {cfg.resolved_head_dim} "
+          f"({cfg.n_heads} heads on {cfg.n_kv_heads}), 2 x {s} frames: "
+          f"logits max|err| {e:.3e} (tolerance {tol:.3e}); loss {got_loss:.6f} "
+          f"against {want_loss:.6f}; hd 80 flash launches on the card {used} "
+          f"(one a layer a call: {2 * cfg.n_layers})")
+    check(e <= tol, "hubert: card and CPU logits disagree")
+    check(abs(got_loss - want_loss) <= 1e-4 * abs(want_loss),
+          "hubert: card and CPU losses disagree")
+    if dev.type == "cuda":
+        check(used == 2 * cfg.n_layers, f"hubert: hd 80 flash launches {used}")
+
+
+def vlm_serving(dev, batch_n: int = LLAVA_REQUESTS, seq: int = LLAVA_SEQ,
+                new: int = LLAVA_NEW, cfg=None) -> dict:
+    """The vlm serving path: llava-next-mistral-7b at full width and depth
+    (bf16, parameters drawn on the card from seed 0), ``batch_n`` requests
+    from ``make_batch(cfg, batch_n, seq, 1)`` (at 5760 positions: 2880
+    image embeddings, the config's anyres count, and 2880 text tokens),
+    ``new`` tokens through ``serve.generate`` (cache of seq + new,
+    decode at seq + i).  Prints the prefill time, decode ms/step and
+    tokens/s, peak memory and launches (one flash launch a layer); then a
+    steady second run, a profiled prefill and decode step split into the
+    flash kernel, matmuls and the rest, the projector's time (CUDA events
+    around ``embed_inputs`` of the batch: a ``record_function`` range
+    around it found no device-side span in one whole-script run), and
+    :func:`decode_check` with the prefix mutant.  ``cfg`` replaces the
+    config (a CPU rehearsal passes a reduced one)."""
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model_api
+
+    cfg = cfg or get_config("llava-next-mistral-7b")
+    api = get_model_api(cfg)
+    print(f"  {cfg.name}: {cfg.n_layers} layers at full width, "
+          f"{api.num_params() / 1e9:.2f} B parameters in {str(cfg.dtype)[6:]}"
+          f" ({2 * api.num_params() / 1e9:.1f} GB); {batch_n} requests of "
+          f"{seq} positions, {new} new tokens")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.no_grad():
+        params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    sync(dev)
+    print(f"  parameters drawn on the card in {time.perf_counter() - t:.1f} s")
+    batch = make_batch(cfg, batch_n, seq, seed=1, device=dev)
+    n_img, s = batch["image_feats"].shape[1], batch["tokens"].shape[1]
+    print(f"  batch: {n_img} image embeddings of dim {cfg.frontend_dim} and "
+          f"{s} text tokens a request")
+    zero_counts()  # this serving path's counts start here
+    rec = serve.generate(api, params, batch, new)
+    launches = read_counts()
+    steps = rec["steps"]
+    print(f"  prefill {rec['prefill_s']:.4f} s (first call); decode "
+          f"{1e3 * rec['decode_s'] / steps:.2f} ms/step, "
+          f"{batch_n * steps / rec['decode_s']:.1f} tokens/s; launches "
+          f"{launches}")
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB)")
+    check(rec["finite"], "llava: a prefill or decode logit is not finite")
+    check(rec["n_prefix"] == n_img, f"llava: prefix {rec['n_prefix']}")
+    check(tuple(rec["tokens"].shape) == (batch_n, new),
+          f"llava: tokens {tuple(rec['tokens'].shape)}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"llava: flash launches per prefill {launches['flash_attention']},"
+          f" expected {cfg.n_layers}")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"llava: other kernels ran on the serving path: {launches}")
+
+    warm = serve.generate(api, params, batch, new)
+    print(f"  steady serve.generate: prefill {warm['prefill_s']:.4f} s; decode "
+          f"{1e3 * warm['decode_s'] / steps:.2f} ms/step, "
+          f"{batch_n * steps / warm['decode_s']:.1f} tokens/s")
+    del warm
+    with torch.no_grad():
+        with torch.profiler.profile() as prof:
+            t = time.perf_counter()
+            logits, cache = api.prefill(params, batch, seq + new)
+            sync(dev)
+            wall = time.perf_counter() - t
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        del logits
+        print(f"  profiled prefill {wall:.4f} s:")
+        print_split(prof, wall, "prefill")
+        proj_ms = timed_ms(lambda: transformer.embed_inputs(params, batch, cfg),
+                           dev, 5)
+        print(f"  the projector (embed_inputs of the batch: the MLP on "
+              f"{n_img} image embeddings a request, and the token lookup) "
+              f"{proj_ms:.3f} ms ("
+              + ("CUDA events" if dev.type == "cuda" else "host clock")
+              + f"), {proj_ms / (10 * wall):.2f}% of the profiled prefill, "
+              "within its matmuls and rest")
+        with torch.profiler.profile() as prof:
+            t = time.perf_counter()
+            make_serve_step(api)(params, cache, tok, seq)
+            sync(dev)
+            wall = time.perf_counter() - t
+        del cache
+    print(f"  profiled decode step {1e3 * wall:.2f} ms:")
+    print_split(prof, wall, "decode step")
+    del prof
+    decode_check(api, params, batch, rec, mutant="prefix")
+    return launches
+
+
+def encoder_path(dev, clips: int = HUBERT_CLIPS, frames: int = HUBERT_FRAMES,
+                 cfg=None) -> dict:
+    """The masked_lm path: hubert-xlarge at full width and depth (bf16,
+    parameters drawn on the card from seed 0) on ``make_batch(cfg, clips,
+    frames, 1)``: ``ModelApi.forward`` and ``ModelApi.loss`` under
+    ``no_grad``, with wall time, frames/s, peak memory, the flash launches
+    (one a layer a call, all at hd 80, non-causal) and their shape, and a
+    finite loss; a steady second forward, profiled and split into the
+    flash kernel, matmuls and the rest.  Then the check: the logits
+    against the same forward with the attention core swapped to
+    ``flash_attention_plain`` (``kernels.ops.flash_attention`` wrapped
+    from here; the package has no switch for it), within 2^-4 of
+    max|logit|, the tolerance of phase 7's bf16 decode check: both sides
+    round every layer's bf16 activations, and the kernel also rounds P to
+    bf16 (``bf16_tolerance``) over 48 layers.  The mutant, the same forward
+    with ``causal=True``, must miss it.  Last, ``loss.backward()`` must
+    raise the flash backward's ``NotImplementedError`` (no kernel at hd
+    80).  ``cfg`` replaces the config (a CPU rehearsal passes a reduced
+    one)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.core.flat import tree_flatten
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.registry import get_model_api
+
+    cfg = cfg or get_config("hubert-xlarge")
+    api = get_model_api(cfg)
+    hd = cfg.resolved_head_dim
+    print(f"  {cfg.name}: {cfg.n_layers} layers at full width, "
+          f"{api.num_params() / 1e9:.3f} B parameters in {str(cfg.dtype)[6:]};"
+          f" {cfg.n_heads} heads of hd {hd}, causal={cfg.causal}; {clips} "
+          f"clips of {frames} frames")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = make_batch(cfg, clips, frames, seed=1, device=dev)
+    sync(dev)
+    zero_counts()  # this path's counts start here
+    with torch.no_grad(), kernel_shapes() as seen:
+        t = time.perf_counter()
+        logits, aux = api.forward(params, batch)
+        sync(dev)
+        fwd_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loss, (ce, acc) = api.loss(params, batch)
+        loss = float(loss)
+        loss_s = time.perf_counter() - t
+    launches = read_counts()
+    shapes = sorted(set(seen["flash_attention"]))
+    print(f"  forward {fwd_s:.4f} s (first call), "
+          f"{clips * frames / fwd_s:.0f} frames/s; loss {loss:.4f} (ce "
+          f"{float(ce):.4f}, acc {float(acc):.4f}) in {loss_s:.4f} s; "
+          f"flash launches {launches['flash_attention']} over the forward "
+          f"and the loss ({cfg.n_layers} a call), "
+          f"{launches['flash_attention_hd80']} of them at hd 80, shapes "
+          f"(q, k, v) {shapes}; launches {launches}")
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB)")
+    check(math.isfinite(loss), f"hubert: loss {loss}")
+    check(launches["flash_attention"] == 2 * cfg.n_layers
+          and launches["flash_attention_hd80"] == (2 * cfg.n_layers
+                                                    if hd == 80 else 0),
+          f"hubert: flash launches {launches}, expected {2 * cfg.n_layers} at "
+          f"hd {hd}")
+    check(all(v == 0 for k, v in launches.items()
+              if not k.startswith("flash_attention")
+              or k.startswith("flash_attention_backward")),
+          f"hubert: other kernels ran on the encoder path: {launches}")
+    with torch.no_grad():
+        with torch.profiler.profile() as prof:
+            t = time.perf_counter()
+            api.forward(params, batch)
+            sync(dev)
+            wall = time.perf_counter() - t
+    print(f"  profiled steady forward {wall:.4f} s, "
+          f"{clips * frames / wall:.0f} frames/s:")
+    print_split(prof, wall, "forward")
+    del prof
+
+    def plain_core(q, k, v, causal=True, window=0):
+        return fa.flash_attention_plain(q, k, v, bool(causal), int(window))
+
+    with torch.no_grad():
+        with patched(kops, flash_attention=plain_core):
+            want = api.forward(params, batch)[0]
+        mutant = get_model_api(dataclasses.replace(cfg, causal=True))
+        wrong = mutant.forward(params, batch)[0]
+    scale = float(want.float().abs().max())
+    tol = 2.0 ** -4 * scale
+    err, err_mut = max_err(logits, want), max_err(wrong, want)
+    print(f"  check against the plain attention core: max|err| {err:.4e} "
+          f"(tolerance {tol:.4e}, 2^-4 of max|logit| {scale:.4e}); causal "
+          f"mutant {err_mut:.4e}")
+    check(err <= tol, "hubert: the forward disagrees with its plain core")
+    check(err_mut > tol, "hubert: the check does not see a causal mask")
+    del logits, want, wrong
+    leaves = tree_flatten(params)[1]
+    for t_ in leaves:
+        t_.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            api.loss(params, batch)[0].backward()
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    finally:
+        for t_ in leaves:
+            t_.requires_grad_(False)
+            t_.grad = None
+    print(f"  loss.backward() at hd {hd}: "
+          + (f"raises NotImplementedError: {raised}" if raised
+             else "ran (no refusal)"))
+    if dev.type == "cuda" and hd == 80:
+        check(raised is not None and "13.10" in raised,
+              "hubert: the flash backward at hd 80 did not refuse")
+    return launches
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -2983,6 +3443,11 @@ REPLACES = {
                      "src/repro/kernels/fused_update.py:33"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:70"),
+    # The same kernel's hd 80 instantiations (hubert-xlarge), timed at
+    # hubert's shape; its launches are the ones at hd 80.
+    "flash_attention_hd80": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:70"),
     # The gradient of that kernel's function; the TPU package has no Pallas
     # backward (its training differentiates the plain attention).
     "flash_attention_backward": (
@@ -3087,6 +3552,22 @@ def main() -> int:
         paths[f"{arch} serving path"] = moe_serving(dev, arch, layers,
                                                     batch_n)
         release()
+    head(f"[14] the vlm and masked_lm tasks: the flash kernel at hd 80; "
+         f"card: {card}")
+    rows["flash_attention_hd80"] = flash_hd80_phase(dev)
+    release()
+    head("[14] reduced llava-next-mistral-7b, card against CPU, f32")
+    serving_parity(dev, "llava-next-mistral-7b")
+    head("[14] reduced hubert-xlarge at hd 80, card against CPU, f32")
+    encoder_parity(dev)
+    head(f"[14] llava-next-mistral-7b at full width, bf16, {LLAVA_REQUESTS} x "
+         f"{LLAVA_SEQ} positions (image + text); card: {card}")
+    paths["llava-next-mistral-7b serving path"] = vlm_serving(dev)
+    release()
+    head(f"[14] hubert-xlarge at full width, bf16, {HUBERT_CLIPS} x "
+         f"{HUBERT_FRAMES} frames; card: {card}")
+    paths["hubert-xlarge encoder path"] = encoder_path(dev)
+    release()
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

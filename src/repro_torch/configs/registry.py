@@ -2,9 +2,11 @@
 the port of ``repro.configs.registry``.
 
 The port holds the four dense GQA SwiGLU decoders and the two MoE
-decoders (dbrx-132b with GQA, deepseek-v3-671b with MLA), all of the
-``lm`` task.  The other ids of the zoo are known, and ``get_config`` says
-which open item ports them.
+decoders (dbrx-132b with GQA, deepseek-v3-671b with MLA) of the ``lm``
+task, llava-next-mistral-7b (the ``vlm`` task: an image prefix before the
+text) and hubert-xlarge (the ``masked_lm`` task: an encoder over audio
+frames).  The other ids of the zoo are known, and ``get_config`` says which
+open item ports them.
 """
 from __future__ import annotations
 
@@ -25,13 +27,13 @@ _MODULES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
     "dbrx-132b": "dbrx_132b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 # The zoo ids the port does not hold yet, with the open item (ROADMAP
 # queue 1) that ports each.
 _WAITING = {
-    "hubert-xlarge": "item 13.3 (the masked_lm task)",
-    "llava-next-mistral-7b": "item 13.3 (the vlm task)",
     "xlstm-350m": "item 13.4 (the xlstm block)",
     "hymba-1.5b": "item 13.4 (the hymba block)",
 }
@@ -53,14 +55,42 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
     return reduced(cfg) if smoke else cfg
 
 
+def _batch_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    """Input name -> (shape, dtype) of a full-sequence (train or prefill)
+    batch of ``seq`` positions, in the reference's key order (the order of
+    the draws)."""
+    if cfg.task == "masked_lm":
+        return {
+            "features": ((batch, seq, cfg.frontend_dim), torch.float32),
+            "mask": ((batch, seq), torch.bool),
+            "targets": ((batch, seq), torch.int32),
+        }
+    if cfg.task == "vlm":
+        n_img = min(cfg.n_frontend_tokens, max(seq // 2, 1))
+        return {
+            "tokens": ((batch, seq - n_img), torch.int32),
+            "image_feats": ((batch, n_img, cfg.frontend_dim), torch.float32),
+        }
+    return {"tokens": ((batch, seq), torch.int32)}
+
+
 def make_batch(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,
                device="cpu") -> dict:
-    """A random ``lm`` batch ``{"tokens": (batch, seq) int32}``, drawn with
-    numpy from ``seed`` exactly as the reference's ``make_batch`` draws it."""
-    if cfg.task != "lm":
-        raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (ROADMAP queue 1 item 13.3)")
+    """A random batch of ``seq`` positions for ``cfg``'s task, drawn with
+    numpy from ``seed`` exactly as the reference's ``make_batch`` draws it:
+    ``lm`` ``{"tokens"}``; ``vlm`` ``{"tokens", "image_feats"}`` (the image
+    prefix takes ``min(n_frontend_tokens, max(seq // 2, 1))`` positions);
+    ``masked_lm`` ``{"features", "mask", "targets"}`` (a frame is masked
+    with probability 0.3)."""
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab_size, size=(batch, seq))
-    return {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
-                                      device=device)}
+    out = {}
+    for name, (shape, dt) in _batch_shapes(cfg, batch, seq).items():
+        if dt == torch.int32:
+            hi = cfg.vocab_size if name in ("tokens", "targets") else 2
+            a = rng.integers(0, hi, size=shape)
+        elif dt == torch.bool:
+            a = rng.random(shape) < 0.3
+        else:
+            a = rng.standard_normal(shape)
+        out[name] = torch.as_tensor(a, device=device).to(dt)
+    return out

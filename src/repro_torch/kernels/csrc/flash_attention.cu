@@ -32,7 +32,20 @@
 //   head by index.  A box is 64 columns (128 bytes) wide, in the 128-byte
 //   swizzle that the wgmma descriptors read; TMA zero-fills rows past S.
 //   Shared memory at hd 256: Q 64 KB + 2 stages of K and V (32 KB each) =
-//   192 KB; at hd 64 and 128 the ring has 4 stages.
+//   192 KB; at hd 64, 80 and 128 the ring has 4 stages.
+// - hd 80 (hubert-xlarge: 1280 / 16 heads) is no multiple of a 64-column
+//   panel.  Its tiles are five 16-column panels (32 bytes a row) in the
+//   32-byte swizzle, the largest swizzle whose atom divides 80, loaded by
+//   five 16-column TMA boxes: S = Q K^T takes one k16 step a panel (5
+//   steps), and O += P V is one m64n80k16 a step, reading V's five panels
+//   MN-major.  Every read stays in wgmma's canonical layouts and nothing is
+//   padded: Q 20 KB + 4 stages of K and V (10 KB each) = 100 KB.  The other
+//   plan, hd 128's two 64-column panels with TMA zero-filling columns
+//   80-127, keeps the 128-byte swizzle but needs P.V at n128 (48 of its
+//   columns zeros, 1.3x the tensor work of the exact products and 1.6x the
+//   shared memory), since an n80 or n16 product cannot read part of a
+//   128-byte swizzle atom in the canonical MN-major layout.  The scale is
+//   80^-0.5.
 // - Products.  S = Q K^T is wgmma m64n64k16 with both operands in shared
 //   memory, K-major.  O += P V is wgmma m64n{hd}k16 with P in registers: the
 //   f32 score fragment is the A fragment's layout, so P is rounded to bf16
@@ -63,7 +76,8 @@
 //   first open score wipes them (alpha = 0), as in the TPU kernel.  Rows at
 //   or past S are computed but not stored.
 //
-// f32 inputs: the SIMT kernel (namespace simt), 64-row query tiles with Q,
+// f32 inputs: the SIMT kernel (namespace simt) at hd 64, 80, 128 and 256,
+// 64-row query tiles with Q,
 // K, V and P staged in f32 shared memory and f32 FMAs (it stores m + log l
 // as the row's logsumexp when asked).  It is the path of
 // the f32 parity checks, which hold the kernel to the plain version within
@@ -89,7 +103,10 @@ namespace {
 //   hd = 256, so one block runs per SM.
 // - Each of the 8 warps owns 8 query rows: a row's max and sum are warp
 //   shuffles, and P needs only __syncwarp before P.V.  A lane owns 2 key
-//   columns of the score tile and hd / 32 columns of the output rows.
+//   columns of the score tile and output columns lane + 32 j, j <
+//   ceil(hd / 32): hd / 32 of them at hd 64, 128 and 256; at hd 80 lanes
+//   0-15 own 3 and lanes 16-31 own 2 (the third column, past hd, is
+//   neither read from V nor stored).
 // - K rows are padded by 4 floats so the float4 reads of 8 lanes hit 32
 //   distinct banks; Q and P reads are warp-wide broadcasts.
 // - Keys at or past S are closed (and staged as 0); rows at or past S are
@@ -136,7 +153,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Args a) {
   using L = Layout<HD>;
-  constexpr int CPL = HD / 32;  // output columns per lane
+  constexpr int CPL = (HD + 31) / 32;  // output columns per lane, at most
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Qs = smem + L::Q;
@@ -244,6 +261,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Args a) {
         p[r] = *reinterpret_cast<const float4*>(Ps + (r0 + r) * L::PS + kk);
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
+        if (HD % 32 != 0 && lane + 32 * j >= HD) continue;
         const float v0 = Vs[(kk + 0) * L::VS + lane + 32 * j];
         const float v1 = Vs[(kk + 1) * L::VS + lane + 32 * j];
         const float v2 = Vs[(kk + 2) * L::VS + lane + 32 * j];
@@ -267,7 +285,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Args a) {
     const float den = fmaxf(l[r], 1e-20f);
 #pragma unroll
     for (int j = 0; j < CPL; ++j)
-      ob[qi * a.o_ss + lane + 32 * j] = from_f32<T>(acc[r][j] / den);
+      if (HD % 32 == 0 || lane + 32 * j < HD)
+        ob[qi * a.o_ss + lane + 32 * j] = from_f32<T>(acc[r][j] / den);
     if (a.lse != nullptr && lane == 0) a.lse[(int64_t)bh * a.S + qi] = m[r] + logf(l[r]);
   }
 }
@@ -286,6 +305,7 @@ int launch(const Args& a, cudaStream_t stream) {
 template <typename T>
 int launch_hd(int hd, const Args& a, cudaStream_t stream) {
   if (hd == 64) return launch<T, 64>(a, stream);
+  if (hd == 80) return launch<T, 80>(a, stream);
   if (hd == 128) return launch<T, 128>(a, stream);
   if (hd == 256) return launch<T, 256>(a, stream);
   return (int)cudaErrorInvalidValue;
@@ -302,19 +322,30 @@ constexpr int BQ = 128, BK = 64, CONSUMERS = 2, THREADS = (CONSUMERS + 1) * 128;
 constexpr int CHUNK = 8;          // (b, h) pairs whose blocks run together
 constexpr float NEG = -1.0e30f;
 
-// Shared memory, in bytes from a 1024-byte aligned base: Q as hd / 64 panels
-// of 128 rows, then STAGES K tiles and STAGES V tiles, each hd / 64 panels of
-// 64 rows, then the mbarriers (Q's, STAGES full, STAGES empty).
+// Shared memory, in bytes from a 1024-byte aligned base: Q as PANELS panels
+// of 128 rows, then STAGES K tiles and STAGES V tiles, each PANELS panels of
+// 64 rows, then the mbarriers (Q's, STAGES full, STAGES empty).  A panel is
+// COLS columns, SW bytes a row in the SW-byte swizzle: 64 columns in the
+// 128-byte swizzle where 64 divides hd, else (hd 80) 16 in the 32-byte one.
 template <int HD>
 struct Plan {
   static constexpr int STAGES = HD == 256 ? 2 : 4;
-  static constexpr int PANELS = HD / PANEL;
-  static constexpr int Q_PANEL = BQ * ROW_BYTES, KV_PANEL = BK * ROW_BYTES;
+  static constexpr int SW = HD % PANEL == 0 ? 128 : 32, COLS = SW / 2;
+  static constexpr int PANELS = HD / COLS;
+  static constexpr int STEPS = COLS / 16;  // k16 steps in a panel row
+  static constexpr int Q_PANEL = BQ * SW, KV_PANEL = BK * SW;
   static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
   static constexpr int K = Q_BYTES, V = K + STAGES * KV_BYTES;
   static constexpr int BARS = V + STAGES * KV_BYTES;
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+  static_assert(HD % COLS == 0 && HD % 16 == 0, "hd must be a multiple of 16");
 };
+
+// The wgmma descriptor of a panel in the plan's swizzle.
+template <int SW>
+__device__ __forceinline__ uint64_t panel_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return SW == 128 ? sw128_desc(addr, lbo, sbo) : sw32_desc(addr, lbo, sbo);
+}
 
 struct Args {
   void* o;
@@ -371,7 +402,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_expect_tx(bar_q, P::Q_BYTES);
 #pragma unroll
       for (int p = 0; p < P::PANELS; ++p)
-        tma_load(sQ + p * P::Q_PANEL, &tq, bar_q, p * PANEL, q0, h, b);
+        tma_load(sQ + p * P::Q_PANEL, &tq, bar_q, p * P::COLS, q0, h, b);
       for (int i = 0; i < n_kt; ++i) {
         const int st = i % STAGES, k0 = (kt_begin + i) * BK;
         mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
@@ -379,8 +410,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int p = 0; p < P::PANELS; ++p) {
           const uint32_t off = st * P::KV_BYTES + p * P::KV_PANEL;
-          tma_load(sK + off, &tk, full(st), p * PANEL, k0, g, b);
-          tma_load(sV + off, &tv, full(st), p * PANEL, k0, g, b);
+          tma_load(sK + off, &tk, full(st), p * P::COLS, k0, g, b);
+          tma_load(sV + off, &tv, full(st), p * P::COLS, k0, g, b);
         }
       }
     }
@@ -397,7 +428,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
-    const uint32_t sQw = sQ + 64 * wg * ROW_BYTES;
+    const uint32_t sQw = sQ + 64 * wg * P::SW;
     mbar_wait(bar_q, 0);
 
     for (int i = 0; i < n_kt; ++i) {
@@ -414,9 +445,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32;
-          wgmma_ss_m64n64(s, sw128_desc(sQw + (kk / 4) * P::Q_PANEL + off, 16, 1024),
-                          sw128_desc(sKs + (kk / 4) * P::KV_PANEL + off, 16, 1024), kk > 0);
+          const uint32_t off = (kk % P::STEPS) * 32, p = kk / P::STEPS;
+          wgmma_ss_m64n64(s, panel_desc<P::SW>(sQw + p * P::Q_PANEL + off, 16, 8 * P::SW),
+                          panel_desc<P::SW>(sKs + p * P::KV_PANEL + off, 16, 8 * P::SW),
+                          kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -490,15 +522,16 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
 
-        // O += P V: 16 keys (16 rows of 128 bytes) per step, V MN-major with
-        // its 64-column panels KV_PANEL bytes apart.
+        // O += P V: 16 keys (16 panel rows) per step, V MN-major with its
+        // panels KV_PANEL bytes apart.
         const uint32_t sVs = sV + st * P::KV_BYTES;
         pin(o);
         pin(pa);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n<HD>(o, pa[kk], sw128_desc(sVs + kk * 16 * ROW_BYTES, P::KV_PANEL, 1024));
+          wgmma_rs_n<HD>(o, pa[kk],
+                         panel_desc<P::SW>(sVs + kk * 16 * P::SW, P::KV_PANEL, 8 * P::SW));
         wgmma_commit();
         wgmma_wait_all();
         pin(o);
@@ -539,10 +572,11 @@ struct Launch {
 
 template <int HD>
 int launch(const Launch& L, const Args& a, cudaStream_t stream) {
+  constexpr int COLS = Plan<HD>::COLS;
   CUtensorMap mq, mk, mv;
-  int e = make_map(&mq, L.q, HD, a.S, a.H, a.B, L.q_sb, L.q_sh, L.q_ss, BQ);
-  if (e == 0) e = make_map(&mk, L.k, HD, a.S, L.KV, a.B, L.k_sb, L.k_sh, L.k_ss, BK);
-  if (e == 0) e = make_map(&mv, L.v, HD, a.S, L.KV, a.B, L.v_sb, L.v_sh, L.v_ss, BK);
+  int e = make_map(&mq, L.q, HD, a.S, a.H, a.B, L.q_sb, L.q_sh, L.q_ss, BQ, COLS);
+  if (e == 0) e = make_map(&mk, L.k, HD, a.S, L.KV, a.B, L.k_sb, L.k_sh, L.k_ss, BK, COLS);
+  if (e == 0) e = make_map(&mv, L.v, HD, a.S, L.KV, a.B, L.v_sb, L.v_sh, L.v_ss, BK, COLS);
   if (e != 0) return e;
   const auto kernel = flash_attention_kernel<HD>;
   cudaError_t r = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -555,6 +589,7 @@ int launch(const Launch& L, const Args& a, cudaStream_t stream) {
 
 int launch_hd(int hd, const Launch& L, const Args& a, cudaStream_t stream) {
   if (hd == 64) return launch<64>(L, a, stream);
+  if (hd == 80) return launch<80>(L, a, stream);
   if (hd == 128) return launch<128>(L, a, stream);
   if (hd == 256) return launch<256>(L, a, stream);
   return (int)cudaErrorInvalidValue;
@@ -568,7 +603,7 @@ int launch_hd(int hd, const Launch& L, const Args& a, cudaStream_t stream) {
 // kernel), for q, k, v and o alike.  q and o are (B, H, S, hd), k and v
 // (B, KV, S, hd), each given by its (b, head, s) element strides with hd
 // contiguous; for bf16, q, k and v start on 16 bytes and their strides are
-// multiples of 8 elements (TMA).  hd is 64, 128 or 256; H is a multiple of
+// multiples of 8 elements (TMA).  hd is 64, 80, 128 or 256; H is a multiple of
 // KV.  lse, when not null, is a contiguous f32 (B, H, S) that receives each
 // row's logsumexp of its masked, scaled scores (natural log), which the
 // backward reads.  Returns a cudaError_t.

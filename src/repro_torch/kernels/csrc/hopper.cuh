@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the flash attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads of
-// 4-D tensor maps and 1-D bulk copies, the wgmma shared-memory descriptor
-// of the 128-byte swizzle and the bf16 wgmma products (m64n64k16 with both
-// operands in shared memory; m64n{64,128,256}k16 with A in registers and B
-// read MN-major), and the host's tensor maps.
+// 4-D tensor maps and 1-D bulk copies, the wgmma shared-memory descriptors
+// of the 128-byte and 32-byte swizzles and the bf16 wgmma products
+// (m64n64k16 with both operands in shared memory; m64n{64,80,128,256}k16
+// with A in registers and B read MN-major), and the host's tensor maps.
 //
 // Tiles live in shared memory as panels of 64 bf16 columns (128 bytes a
 // row) in the 128-byte swizzle, each panel 1024-byte aligned, as TMA
@@ -14,6 +14,14 @@
 // reduction over the rows, the transpose bit set), a k16 step is 16 rows,
 // and the panels are the N dimension's 64-column chunks:
 // sw128_desc(tile + kk * 16 * ROW_BYTES, <panel bytes>, 1024).
+//
+// A head dim that is no multiple of 64 (hd 80) is cut into panels of 16
+// columns (32 bytes a row) in the 32-byte swizzle, each 1024-byte aligned,
+// the largest swizzle whose atom (16 columns by 8 rows) divides it.  Read
+// K-major, a k16 step is a whole panel: sw32_desc(panel, 16, 256).  Read
+// MN-major, a k16 step is 16 rows and the N dimension's 16-column panels
+// are <panel bytes> apart: sw32_desc(tile + kk * 16 * 32, <panel bytes>,
+// 256).
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -88,6 +96,13 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          (1ull << 62);
 }
 
+// The same for the 32-byte swizzle, layout 3 (B32).
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (3ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -156,6 +171,25 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n80(float (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+      "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
                                                 uint64_t db) {
   asm volatile(
@@ -218,11 +252,13 @@ __device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x N) += a (registers) b (shared memory, MN-major), N = 64, 128 or 256.
+// d (64 x N) += a (registers) b (shared memory, MN-major), N = 64, 80, 128
+// or 256.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_n(float (&d)[N / 2], const uint32_t (&a)[4],
                                            uint64_t db) {
   if constexpr (N == 64) wgmma_rs_m64n64(d, a, db);
+  if constexpr (N == 80) wgmma_rs_m64n80(d, a, db);
   if constexpr (N == 128) wgmma_rs_m64n128(d, a, db);
   if constexpr (N == 256) wgmma_rs_m64n256(d, a, db);
 }
@@ -253,11 +289,12 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 4-D map (hd, S, heads, B) of a bf16 tensor given by its (b, head, s)
-// element strides, hd contiguous; boxes of 64 columns by `rows` rows.  A
-// dimension of extent 1 is never stepped, so its stride is replaced by the
-// tensor's span (TMA wants every stride a multiple of 16 bytes).
+// element strides, hd contiguous; boxes of `cols` columns (64 in the
+// 128-byte swizzle, or 16 in the 32-byte one) by `rows` rows.  A dimension
+// of extent 1 is never stepped, so its stride is replaced by the tensor's
+// span (TMA wants every stride a multiple of 16 bytes).
 inline int make_map(CUtensorMap* map, const void* ptr, int64_t hd, int64_t S, int64_t heads,
-             int64_t B, int64_t sb, int64_t sh, int64_t ss, int rows) {
+             int64_t B, int64_t sb, int64_t sh, int64_t ss, int rows, int cols = PANEL) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   const int64_t span = 2 * hd * S * heads * B;
@@ -265,11 +302,12 @@ inline int make_map(CUtensorMap* map, const void* ptr, int64_t hd, int64_t S, in
   const cuuint64_t strides[3] = {(cuuint64_t)(S > 1 ? 2 * ss : span),
                                  (cuuint64_t)(heads > 1 ? 2 * sh : span),
                                  (cuuint64_t)(B > 1 ? 2 * sb : span)};
-  const cuuint32_t box[4] = {(cuuint32_t)PANEL, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            cols == PANEL ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,8 @@ on the H100 is operations (4 hd FLOP per open query/key pair).  bf16 inputs
 run a warp-specialised kernel on the tensor cores (wgmma, K and V streamed
 by TMA); f32 inputs run an f32 SIMT kernel, which keeps the f32 parity
 checks at 2e-5.  Both visit only the key tiles that the masks leave open.
-See the source note for the design.
+Both are built for head dims 64, 80 (hubert-xlarge), 128 and 256
+(``HEAD_DIMS``).  See the source note for the design.
 
 ``flash_attention`` is the wrapper: a CPU tensor goes to
 :func:`flash_attention_plain`; a CUDA tensor goes to the kernel of its
@@ -20,7 +21,8 @@ contiguous), so a ``(B, S, H, hd)`` projection may be passed as its
 ``transpose(1, 2)`` view; the output is laid out like q.  bf16 inputs are
 loaded by TMA, so they must start on 16 bytes and have (b, head, s) strides
 that are multiples of 8 elements (the transposed views of ``gqa_forward``
-always do).  ``launches`` counts kernel launches of both dtypes.
+always do).  ``launches`` counts kernel launches of both dtypes, and
+``head_dim_launches`` the same launches by head dim.
 :func:`bf16_tolerance` states how far the bf16 kernel may lie from the plain
 version.
 
@@ -36,7 +38,9 @@ gradient of the forward's function from q, k, v, the forward's output o,
 its logsumexp and dO.  bf16 at hd 64 and 128 runs tensor-core passes (a D
 pass, a dK / dV pass and a dQ pass on wgmma, fed by TMA, and a fixed-order
 sum of dK / dV shares where a GQA group is split); f32 and bf16 at hd 256
-run f32 SIMT passes.  ``backward_launches`` counts its calls and
+run f32 SIMT passes; at hd 80 the backward raises ``NotImplementedError``
+on the card (``BACKWARD_HEAD_DIMS``, ``BACKWARD_ITEM``), while its plain
+version runs on the CPU.  ``backward_launches`` counts its calls and
 ``backward_kernel_launches`` the kernels those calls launched.
 :func:`backward_tolerance` states how far it may lie from its plain
 version, :func:`lse_tolerance` how far the forward's logsumexp may lie from
@@ -52,16 +56,23 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, load_library
 
-__all__ = ["backward_tolerance", "bf16_tolerance", "flash_attention",
-           "flash_attention_backward", "flash_attention_backward_plain",
-           "flash_attention_plain", "flash_attention_with_lse", "HEAD_DIMS",
+__all__ = ["BACKWARD_HEAD_DIMS", "BACKWARD_ITEM", "backward_tolerance",
+           "bf16_tolerance", "flash_attention", "flash_attention_backward",
+           "flash_attention_backward_plain", "flash_attention_plain",
+           "flash_attention_with_lse", "HEAD_DIMS", "head_dim_launches",
            "launches", "backward_launches", "backward_kernel_launches",
            "lse_tolerance"]
 
-HEAD_DIMS = (64, 128, 256)  # the head sizes the kernel is built for
+HEAD_DIMS = (64, 80, 128, 256)  # the head sizes the forward is built for
+# The head sizes the backward is built for; at hd 80 (hubert-xlarge) it
+# raises on the card.
+BACKWARD_HEAD_DIMS = (64, 128, 256)
+BACKWARD_ITEM = ("ROADMAP queue 1 item 13.10: the flash backward at hd 80, "
+                 "and training of the vlm and masked_lm tasks on the card")
 NEG = -1.0e30
 
 launches = 0
+head_dim_launches = dict.fromkeys(HEAD_DIMS, 0)  # ``launches`` by head dim
 backward_launches = 0  # calls of the backward
 backward_kernel_launches = 0  # the kernels those calls launched
 
@@ -117,7 +128,11 @@ def bf16_tolerance(v, out, causal: bool = True, window: int = 0):
 
     Derivation.  Products of bf16 values are exact in f32, so the kernel's
     scores, row max and denominator l = sum_j p_j are the plain version's up
-    to the order of f32 sums (the 2e-5, as in f32).  The one new rounding is
+    to the order of f32 sums and to where the scale hd^-0.5 is applied (to
+    q before the product in the plain version, to the f32 scores in the
+    kernel: a few f32 roundings apart, at every head dim whether or not the
+    scale is a power of two, 80^-0.5 and 128^-0.5 included), the 2e-5, as
+    in f32.  The one new rounding is
     p_j to bf16 before P.V, p~_j = p_j (1 + d_j) with |d_j| <= 2^-8 (bf16's
     unit roundoff), so the f32 output moves by
     |sum_j (p~_j - p_j) v_j| / l <= 2^-8 sum_j p_j |v_j| / l
@@ -227,6 +242,7 @@ def _forward(q, k, v, causal: bool, window: int, want_lse: bool = False):
         )
     check(rc, "flash_attention")
     launches += 1
+    head_dim_launches[hd] += 1
     return (o, lse) if want_lse else o
 
 
@@ -416,6 +432,10 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention backward kernel for device "
                          f"{q.device}")
+    if q.dim() == 4 and q.shape[-1] not in BACKWARD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash backward has no kernel at head dim {q.shape[-1]} "
+            f"(built for {BACKWARD_HEAD_DIMS}): {BACKWARD_ITEM}")
     _check_cuda_args(q, k, v, window)
     b, h, s, hd = q.shape
     kv = k.shape[1]

@@ -1,7 +1,9 @@
 """Serving launcher: batched prefill, then greedy decode — the port of
-``repro.launch.serve`` for the decoders of the ``lm`` task: the dense GQA
-decoders and the MoE family (dbrx-132b with GQA, deepseek-v3-671b with
-MLA; their expert routing and capacity drops are ``models.moe``'s).
+``repro.launch.serve`` for the decoders: the dense GQA decoders and the
+MoE family (dbrx-132b with GQA, deepseek-v3-671b with MLA; their expert
+routing and capacity drops are ``models.moe``'s) of the ``lm`` task, and
+llava-next-mistral-7b of the ``vlm`` task.  An encoder (hubert-xlarge) has
+no decode path and is refused.
 :func:`generate` serves any ``ModelApi``, so a caller may cut a config's
 depth first (``dataclasses.replace(cfg, n_layers=...)``), as a model too
 deep for one card needs.
@@ -12,10 +14,14 @@ deep for one card needs.
 Runs on the card (``--device cuda``, the default) unless asked for the CPU
 (``--device cpu``, where every kernel takes its plain PyTorch version).
 Parameters are drawn on the device from a ``torch.Generator`` seeded with
-``--seed``; prompts come from numpy with ``--seed + 1``.  The first new token
-comes from the prefill logits, the other ``--new-tokens - 1`` from decode
-steps, and the cache holds ``--prompt-len + --new-tokens`` positions, as in
-the reference.
+``--seed``; prompts come from numpy with ``--seed + 1``.  A vlm request
+also carries 8 image embeddings, as in the reference, drawn with numpy from
+``--seed + 2`` (standard normals, f32).  The first new token comes from the
+prefill logits, the other ``--new-tokens - 1`` from decode steps, and the
+cache holds the image prefix, ``--prompt-len`` and ``--new-tokens``
+positions.  (The reference sizes its cache without the prefix but decodes
+after it, so its vlm decode writes past the cache; ``dynamic_update_slice``
+clamps every step onto the last slot.  ROADMAP §3.)
 
 With ``--clients N`` the batch becomes a *personalized* decode: a low-rank
 delta bank (frozen shared base = the drawn weights, rank ``--rank``
@@ -29,16 +35,20 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
-from repro_torch.configs.registry import get_config, make_batch
+from repro_torch.configs.registry import get_config
 from repro_torch.launch.steps import (
     make_personalized_serve_step,
     make_serve_step,
 )
 from repro_torch.models.registry import ModelApi, get_model_api
 
-__all__ = ["build_parser", "generate", "main"]
+__all__ = ["build_parser", "generate", "main", "prompts", "N_IMAGE"]
+
+# Image embeddings per vlm request (the reference's serve launcher's).
+N_IMAGE = 8
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,16 +89,20 @@ def _finite(t: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
     """Prefill ``batch``, then greedy-decode; prints the reference's lines.
+    A vlm batch's ``image_feats`` (B, n_img, Fd) come before its tokens:
+    the cache holds n_img + S + new_tokens positions and step i decodes at
+    n_img + S + i.
 
     Returns ``tokens`` (B, new_tokens) on the CPU, ``logits`` (B,
     new_tokens, V) on the device (the last-position logits each token was
     picked from), ``prefill_s`` and ``decode_s`` (host clock, synchronized
-    with the device), ``steps`` and ``finite`` (every prefill and decode
-    logit finite)."""
+    with the device), ``steps``, ``n_prefix`` (n_img, 0 without image
+    features) and ``finite`` (every prefill and decode logit finite)."""
     tokens = batch["tokens"]
     device = tokens.device
     b, s = tokens.shape
-    cache_len = s + new_tokens
+    n_prefix = batch["image_feats"].shape[1] if "image_feats" in batch else 0
+    cache_len = n_prefix + s + new_tokens
     serve_step = make_serve_step(api)
 
     _sync(device)
@@ -100,13 +114,15 @@ def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
     del logits
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    print(f"[serve] prefill {b}x{s}: {prefill_s:.2f}s")
+    print(f"[serve] prefill {b}x{s}"
+          + (f" after {n_prefix} image embeddings" if n_prefix else "")
+          + f": {prefill_s:.2f}s")
 
     out = [toks]
     steps = new_tokens - 1
     t0 = time.perf_counter()
     for i in range(steps):
-        logits_i, cache = serve_step(params, cache, toks, s + i)
+        logits_i, cache = serve_step(params, cache, toks, n_prefix + s + i)
         toks = logits_i.argmax(-1).to(torch.int32)
         finite = finite & _finite(logits_i)
         last.append(logits_i)
@@ -118,7 +134,7 @@ def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
     print(tokens_out)
     return {"tokens": tokens_out, "logits": torch.stack(last, dim=1),
             "prefill_s": prefill_s, "decode_s": decode_s, "steps": steps,
-            "finite": bool(finite)}
+            "n_prefix": n_prefix, "finite": bool(finite)}
 
 
 def main(argv=None) -> dict:
@@ -136,10 +152,25 @@ def main(argv=None) -> dict:
         params = api.init(gen, device)
     if args.clients:
         return _serve_personalized(args, cfg, api, params, device)
-    batch = make_batch(cfg, args.batch, args.prompt_len, seed=args.seed + 1,
-                       device=device)
+    batch = prompts(cfg, args.batch, args.prompt_len, args.seed, device)
     rec = generate(api, params, batch, args.new_tokens)
     return {**rec, "api": api, "params": params, "batch": batch}
+
+
+def prompts(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """The requests :func:`main` serves: ``batch`` prompts of ``prompt_len``
+    tokens drawn with numpy from ``seed + 1`` (``make_batch``'s ``lm``
+    draw), and for a vlm ``N_IMAGE`` image embeddings per request, standard
+    normals in f32 from ``seed + 2``."""
+    rng = np.random.default_rng(seed + 1)
+    out = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(batch, prompt_len)),
+        device=device).to(torch.int32)}
+    if cfg.task == "vlm":
+        feats = np.random.default_rng(seed + 2).standard_normal(
+            (batch, N_IMAGE, cfg.frontend_dim))
+        out["image_feats"] = torch.as_tensor(feats, device=device).float()
+    return out
 
 
 @torch.no_grad()
@@ -160,8 +191,7 @@ def _serve_personalized(args, cfg, api, params, device) -> dict:
     bank[:args.zero_clients] = 0.0
     w = torch.ones((n,), dtype=torch.float32, device=device)
     ids = torch.arange(n, device=device)
-    batch = make_batch(cfg, n, args.prompt_len, seed=args.seed + 1,
-                       device=device)
+    batch = prompts(cfg, n, args.prompt_len, args.seed, device)
 
     _sync(device)
     t0 = time.perf_counter()

@@ -175,7 +175,7 @@ def gqa_forward(p, x, cfg: ArchConfig, window: int = 0, theta=None,
     the f32 kernel scales q in f32; the bf16 kernel scales the f32 scores
     (folded with log2 e into its exponent) and rounds P to bf16 before
     P.V (``kernels.flash_attention.bf16_tolerance``).  All agree whenever
-    hd^-0.5 is a power of two (hd 64, 256); at hd 128 in bf16 the
+    hd^-0.5 is a power of two (hd 64, 256); at hd 80 and 128 in bf16 the
     reference's scaled q carries one more bf16 rounding, which neither
     kernel has."""
     b, s, _ = x.shape

@@ -1,12 +1,12 @@
-"""Shared model layers: norms, rotary embeddings, loss — the port of
-``repro.models.layers``.  ``shard_act`` is the identity: sharding waits for
-ROADMAP queue 1 item 12."""
+"""Shared model layers: norms, rotary and sinusoidal positions, loss — the
+port of ``repro.models.layers``.  ``shard_act`` is the identity: sharding
+waits for ROADMAP queue 1 item 12."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm", "lane_scale", "rope", "apply_rope", "softmax_xent",
-           "shard_act"]
+__all__ = ["rms_norm", "lane_scale", "rope", "apply_rope",
+           "sinusoidal_positions", "softmax_xent", "shard_act"]
 
 
 def shard_act(x, logical: tuple):
@@ -51,6 +51,17 @@ def apply_rope(x, sin, cos):
     s = sin[..., None, :].float()
     c = cos[..., None, :].float()
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(positions, dim: int):
+    """Fixed sinusoidal embeddings ``positions.shape + (dim,)`` in f32: the
+    sines of ``positions * 10000^(-i / half)`` for i < half = dim // 2, then
+    their cosines."""
+    half = dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-torch.log(torch.tensor(10_000.0)) * ar / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softmax_xent(logits, labels, mask=None):

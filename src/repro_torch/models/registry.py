@@ -1,6 +1,6 @@
 """Uniform model API — the port of ``repro.models.registry`` for the
 ``transformer`` block kind (xlstm and hymba wait for ROADMAP queue 1
-item 13)."""
+item 13.4)."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -38,7 +38,7 @@ def get_model_api(cfg: ArchConfig) -> ModelApi:
     if cfg.block_kind not in _MODULES:
         raise NotImplementedError(
             f"block kind {cfg.block_kind!r} is not ported yet (ROADMAP queue 1 "
-            "item 13)")
+            "item 13.4)")
     mod = _MODULES[cfg.block_kind]
 
     def forward(params, batch):

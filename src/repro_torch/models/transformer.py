@@ -1,6 +1,15 @@
-"""Config-driven decoder stack — the port of ``repro.models.transformer``
-for the decoders of the ``lm`` task: GQA or MLA attention, a dense SwiGLU
-or a mixture-of-experts MLP.
+"""Config-driven transformer stack — the port of
+``repro.models.transformer``: GQA or MLA attention, a dense SwiGLU (or
+GELU) MLP or a mixture of experts, for the three tasks of the zoo:
+
+- ``lm``: a decoder over ``{"tokens": (B, S)}``, next-token loss;
+- ``vlm``: a decoder over ``{"tokens": (B, St), "image_feats": (B, Ni,
+  Fd)}``: the image features go through the projector MLP and sit before
+  the text embeddings, and the loss is next-token over the text;
+- ``masked_lm``: an encoder (``causal=False``) over ``{"features": (B, S,
+  Fd), "mask": (B, S), "targets": (B, S)}``: masked frames take the learned
+  ``mask_emb``, sinusoidal positions are added, and the loss is the cross
+  entropy at the masked frames.
 
 Parameters stay stacked on a leading layer axis as in the reference, so a
 reference parameter tree carries across as a copy; the reference's
@@ -11,23 +20,28 @@ thetas) comes from :func:`_layer_meta` as plain Python numbers; with
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
 body: the layer is recomputed in the backward, with the same numbers).
 :func:`forward` returns the MoE layers' mean aux load-balance loss as
-``moe_aux`` (0 for a dense model), and :func:`loss` is the ``lm`` task's
-next-token cross entropy plus ``router_aux_coef`` times it; the ``vlm`` and
-``masked_lm`` tasks wait for ROADMAP queue 1 item 13.3.
+``moe_aux`` (0 for a dense model), and :func:`loss` is the task's cross
+entropy plus ``router_aux_coef`` times it.
+
+:func:`prefill` of a vlm batch puts the image prefix in the cache first:
+the caller sizes the cache as prefix + prompt + new tokens and decodes at
+position prefix + prompt + i (``launch.serve.generate`` does).
+:func:`decode_step` takes tokens only, as in the reference.
 
 **Lanes.**  Every entry point also takes parameters stacked on a leading
-*lane* axis, one lane per batch row (``embed`` of shape ``(B, V, d)``):
+*lane* axis, one lane per batch row (``final_norm`` of shape ``(B, d)``):
 batch row b then runs on lane b's weights — the personalized serving of
 ``launch.steps.make_personalized_serve_step``, where the reference vmaps
 over (params, batch) lanes.  The projections and the MLP become batched
 matmuls over the lane axis; the attention core has no weights, so the
-flash kernel sees the lanes as its batch.  Lanes of a MoE or MLA model
-are refused (ROADMAP queue 1 item 13.8).
+flash kernel sees the lanes as its batch.  Lanes of a MoE, MLA, vlm or
+masked_lm model are refused (ROADMAP queue 1 item 13.8).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -37,6 +51,7 @@ from repro_torch.models.layers import (
     lane_scale,
     rms_norm,
     shard_act,
+    sinusoidal_positions,
     softmax_xent,
 )
 from repro_torch.models.pdefs import PDef
@@ -49,13 +64,6 @@ __all__ = [
     "prefill",
     "decode_step",
 ]
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.task != "lm":
-        raise NotImplementedError(
-            f"{cfg.name}: only decoders of the lm task are ported (ROADMAP "
-            "queue 1: the vlm and masked_lm tasks item 13.3)")
 
 
 def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
@@ -71,12 +79,15 @@ def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
 
 def _lanes(params, cfg: ArchConfig) -> bool:
     """Whether ``params`` carry a leading lane axis (see the module
-    docstring); lanes of a MoE or MLA model are refused."""
-    lanes = params["embed"].dim() == 3
-    if lanes and (cfg.n_experts or cfg.attn_type == "mla"):
+    docstring), told by ``final_norm``, a leaf of every task; lanes of a
+    MoE, MLA, vlm or masked_lm model are refused."""
+    lanes = params["final_norm"].dim() == 2
+    if lanes and (cfg.n_experts or cfg.attn_type == "mla"
+                  or cfg.task != "lm"):
         raise NotImplementedError(
-            f"{cfg.name}: per-lane (personalized) weights of a MoE or MLA "
-            "model are not ported yet (ROADMAP queue 1 item 13.8)")
+            f"{cfg.name}: per-lane (personalized) weights of a MoE, MLA, vlm "
+            "or masked_lm model are not ported yet (ROADMAP queue 1 item "
+            "13.8)")
     return lanes
 
 
@@ -93,7 +104,6 @@ def _layer(tree, i: int, lanes: bool = False):
 # ---------------------------------------------------------------------------
 
 def param_defs(cfg: ArchConfig) -> dict:
-    _check_supported(cfg)
     L, d, v = (cfg.n_layers,), cfg.d_model, cfg.padded_vocab
     layers = {
         "attn": (attn.mla_defs(cfg, stacked=L) if cfg.attn_type == "mla"
@@ -106,15 +116,28 @@ def param_defs(cfg: ArchConfig) -> dict:
     defs = {
         "layers": layers,
         "final_norm": PDef((d,), (None,), torch.float32, "zeros"),
-        "embed": PDef((v, d), ("vocab", "embed"), cfg.dtype, fan_in=d),
     }
-    if not cfg.tie_embeddings:
+    if cfg.task in ("lm", "vlm"):
+        defs["embed"] = PDef((v, d), ("vocab", "embed"), cfg.dtype, fan_in=d)
+        if not cfg.tie_embeddings:
+            defs["lm_head"] = PDef((d, v), ("embed", "vocab"), cfg.dtype,
+                                   fan_in=d)
+    if cfg.task == "vlm":
+        fd = cfg.frontend_dim
+        defs["projector"] = {
+            "w1": PDef((fd, d), ("frontend", "embed"), cfg.dtype, fan_in=fd),
+            "w2": PDef((d, d), ("embed", "mlp"), cfg.dtype, fan_in=d),
+        }
+    if cfg.task == "masked_lm":
+        fd = cfg.frontend_dim
+        defs["in_proj"] = PDef((fd, d), ("frontend", "embed"), cfg.dtype,
+                               fan_in=fd)
+        defs["mask_emb"] = PDef((d,), (None,), cfg.dtype)
         defs["lm_head"] = PDef((d, v), ("embed", "vocab"), cfg.dtype, fan_in=d)
     return defs
 
 
 def cache_defs(cfg: ArchConfig, batch: int, length: int) -> dict:
-    _check_supported(cfg)
     L = (cfg.n_layers,)
     if cfg.attn_type == "mla":
         return attn.mla_cache_defs(cfg, batch, length, stacked=L)
@@ -138,11 +161,38 @@ def _embed_tokens(params, tokens, cfg: ArchConfig):
 
 
 def embed_inputs(params, batch, cfg: ArchConfig):
-    """(x, loss_mask) of an ``lm`` batch ``{"tokens": (B,S)}``."""
-    _check_supported(cfg)
-    x = _embed_tokens(params, batch["tokens"], cfg)
-    mask = torch.ones(batch["tokens"].shape, dtype=torch.float32,
-                      device=x.device)
+    """(x, loss_mask) of a batch of ``cfg``'s task (the module docstring
+    gives the layouts), in the model dtype.
+
+    vlm: ``gelu(feats w1) w2`` with the tanh GELU (``jax.nn.gelu``'s
+    default) for the image rows, then the text embeddings; the loss mask is
+    0 on the image rows.  masked_lm: ``feats in_proj``, masked frames
+    replaced by ``mask_emb``, plus the sinusoidal positions rounded to the
+    model dtype; the loss mask is the frame mask."""
+    if cfg.task == "lm":
+        x = _embed_tokens(params, batch["tokens"], cfg)
+        mask = torch.ones(batch["tokens"].shape, dtype=torch.float32,
+                          device=x.device)
+    elif cfg.task == "vlm":
+        proj = params["projector"]
+        img = batch["image_feats"].to(cfg.dtype) @ proj["w1"]
+        img = F.gelu(img, approximate="tanh") @ proj["w2"]
+        txt = _embed_tokens(params, batch["tokens"], cfg)
+        x = torch.cat([img, txt], dim=1)
+        mask = torch.cat([
+            torch.zeros(img.shape[:2], dtype=torch.float32, device=x.device),
+            torch.ones(batch["tokens"].shape, dtype=torch.float32,
+                       device=x.device)], dim=1)
+    elif cfg.task == "masked_lm":
+        x = batch["features"].to(cfg.dtype) @ params["in_proj"]
+        m = batch["mask"].to(cfg.dtype)[..., None]
+        x = x * (1 - m) + params["mask_emb"] * m
+        pos = sinusoidal_positions(torch.arange(x.shape[1], device=x.device),
+                                   cfg.d_model)
+        x = x + pos[None].to(cfg.dtype)
+        mask = batch["mask"].float()
+    else:
+        raise ValueError(f"unknown task {cfg.task!r}")
     return shard_act(x, ("batch", "seq", "embed")), mask
 
 
@@ -183,10 +233,10 @@ def _block(pl, x, cfg: ArchConfig, window, theta, positions, return_kv=False):
 
 def forward(params, batch, cfg: ArchConfig):
     """Full-sequence forward -> (logits, aux)."""
+    lanes = _lanes(params, cfg)
     x, mask = embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    lanes = _lanes(params, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
@@ -206,28 +256,37 @@ def forward(params, batch, cfg: ArchConfig):
 
 
 def loss(params, batch, cfg: ArchConfig):
-    """Next-token cross entropy of an ``lm`` batch -> (scalar, (ce, acc)),
-    the FL / pod train target: logits at positions 0..S-2 against tokens
-    1..S-1."""
+    """The task's cross entropy -> (scalar, (ce, acc)), the FL / pod train
+    target.  lm and vlm: next-token, the logits at the text positions but
+    the last against text tokens 1..St-1 (a vlm's image positions are
+    skipped); masked_lm: ``targets`` at the masked frames."""
     logits, aux = forward(params, batch, cfg)
-    labels = batch["tokens"]
-    lg = logits[:, :-1] if labels.shape[1] > 1 else logits
-    ce, acc = softmax_xent(lg, labels[:, 1:], None)
+    if cfg.task == "masked_lm":
+        ce, acc = softmax_xent(logits, batch["targets"], aux["loss_mask"])
+    else:
+        labels = batch["tokens"]
+        n_prefix = logits.shape[1] - labels.shape[1]  # the vlm's image rows
+        lg = (logits[:, n_prefix:-1] if labels.shape[1] > 1
+              else logits[:, n_prefix:])
+        ce, acc = softmax_xent(lg, labels[:, 1:], None)
     total = ce + cfg.router_aux_coef * aux["moe_aux"]
     return total, (ce, acc)
 
 
 def prefill(params, batch, cfg: ArchConfig, cache_len: int):
     """Full-sequence forward that also fills the KV cache (zero-padded to
-    ``cache_len``) -> (logits for every position, cache)."""
+    ``cache_len``) -> (logits for every position, cache).  A vlm batch's
+    image prefix takes the cache's first positions, so ``cache_len`` must
+    count it."""
+    lanes = _lanes(params, cfg)
     x, _ = embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     if s > cache_len:
-        raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
+        raise ValueError(f"prompt length {s} (an image prefix included) "
+                         f"exceeds cache_len {cache_len}")
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=x.device)
              for k, d in cache_defs(cfg, b, cache_len).items()}
-    lanes = _lanes(params, cfg)
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         x, kv, _ = _block(_layer(params["layers"], i, lanes), x, cfg, win,
                           th, positions, return_kv=True)

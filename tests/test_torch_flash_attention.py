@@ -14,6 +14,17 @@ or after the product rounds the same.  In bf16 both compute in f32 from
 the same bf16 inputs and round the output once, so a result may land one
 bf16 ulp apart: 2^-7 of its magnitude, plus the f32 2e-5.
 
+At hd 80 (hubert-xlarge) the plain version is held to the reference's
+oracle and to its Pallas kernel in interpret mode, causal and not, in both
+dtypes; 80^-0.5 is no power of two, but every side scales in f32 here
+(the port's plain version q before the product, the reference's oracle the
+scores after it), a few f32 roundings of the scores apart, well inside
+2e-5.  Its plain backward is held to ``jax.vjp`` of the reference's
+``_dot_attn`` (the models' attention core) within
+``flash_attention.backward_tolerance``.  The CUDA backward refuses hd 80
+(``BACKWARD_HEAD_DIMS``); that refusal runs only on the card
+(``chip_smoke.py`` phase 14).
+
 The CUDA kernel for bf16 inputs also rounds P to bf16 before P.V on the
 tensor cores.  No CUDA kernel runs here, so ``_emulate_bf16_kernel`` redoes
 its arithmetic tile by tile in PyTorch, and the tests hold it to
@@ -23,6 +34,7 @@ that tolerance.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +42,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
+from repro.models import attention as ref_attn
 from repro_torch.interop import tensor_from_numpy
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
@@ -76,6 +89,69 @@ def test_flash_attention_matches_the_reference(causal, window, h, kv, hd, dtype)
     _assert_close(got_ref, want, bf16)
     _assert_close(got, want, bf16)
     _assert_close(got, want_kernel, bf16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv", HEADS)
+@pytest.mark.parametrize("causal,window", MODES)
+def test_flash_attention_matches_the_reference_at_hd_80(causal, window, h, kv,
+                                                        dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(2, h, kv, 128, 80, getattr(jnp, dtype),
+                                      seed=4)
+    bf16 = dtype == "bfloat16"
+    want = ref_ref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    want_kernel = ref_ops.flash_attention(jq, jk, jv, causal=causal,
+                                          window=window, block_q=64, block_k=64)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.launches == before
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _assert_close(ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window), want, bf16)
+    _assert_close(got, want, bf16)
+    _assert_close(got, want_kernel, bf16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2)])
+def test_plain_backward_at_hd_80_matches_the_reference_dot_attn(causal, h, kv):
+    """The gradient of the models' attention core at hubert-xlarge's head
+    dim: ``jax.vjp`` of the reference's ``_dot_attn`` (with its additive
+    causal mask, or none for an encoder) against the port's plain
+    backward, f32."""
+    b, s, hd = 2, 37, 80
+    rng = np.random.default_rng(5)
+    qn, kn, vn, don = (rng.standard_normal(sh).astype(np.float32)
+                       for sh in ((b, h, s, hd), (b, kv, s, hd),
+                                  (b, kv, s, hd), (b, h, s, hd)))
+    pos = jnp.broadcast_to(jnp.arange(s), (b, s))
+    bias = (ref_attn._full_mask(pos, pos, 0, True)[:, None, None] if causal
+            else None)
+
+    def core(q, k, v):  # (B,H,S,hd), (B,KV,S,hd) in the kernel's layout
+        out = ref_attn._dot_attn(
+            q.transpose(0, 2, 1, 3).reshape(b, s, kv, h // kv, hd),
+            k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3), bias, hd ** -0.5)
+        return out.reshape(b, s, h, hd).transpose(0, 2, 1, 3)
+
+    ref_o, vjp = jax.vjp(core, jnp.asarray(qn), jnp.asarray(kn),
+                         jnp.asarray(vn))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(don))]
+    q, k, v, do = (torch.from_numpy(a) for a in (qn, kn, vn, don))
+    o = fa.flash_attention_plain(q, k, v, causal, 0)
+    _assert_close(o, ref_o, False)
+    got = fa.flash_attention_backward(q, k, v, o, do, causal, 0)
+    tol = fa.backward_tolerance(q, k, v, o, do, got, causal, 0)
+    for g, w, t in zip(got, want, tol):
+        assert float(((g - torch.from_numpy(w.copy())).abs() / t).max()) <= 1.0
+
+
+def test_the_backward_is_built_without_hd_80():
+    """The forward takes hd 80, the backward kernel does not: on the card
+    it raises, naming the open item, rather than take another path."""
+    assert 80 in fa.HEAD_DIMS and 80 not in fa.BACKWARD_HEAD_DIMS
+    assert "hd 80" in fa.BACKWARD_ITEM and "13.10" in fa.BACKWARD_ITEM
+    assert not fa.on_tensor_cores(torch.bfloat16, 80)
 
 
 @pytest.mark.parametrize("s", [12, 100])
@@ -165,9 +241,11 @@ def _emulate_bf16_kernel(q, k, v, causal, window, diagonal=0):
 
 
 # (B, H, KV, S, hd), causal, window: gemma3's hd 256 with a window; a causal
-# GQA group of 4 at hd 128 and a ragged S; hd 64, non-causal, windowed.
+# GQA group of 4 at hd 128 and a ragged S; hd 64, non-causal, windowed;
+# hubert-xlarge's hd 80, non-causal (its encoder) and causal.
 EMULATED = [((1, 4, 2, 300, 256), True, 64), ((1, 8, 2, 200, 128), True, 0),
-            ((2, 4, 4, 150, 64), False, 50)]
+            ((2, 4, 4, 150, 64), False, 50), ((2, 4, 4, 150, 80), False, 0),
+            ((1, 8, 2, 200, 80), True, 0)]
 
 
 def _beyond_tolerance(got, want, v, causal, window):

@@ -16,7 +16,7 @@ keys + 2^-7 |out|; its docstring derives it).  The flash backward computes
 in f32 from the same values as its plain version, in another order, and in
 bf16 at hd 64 and 128 rounds P^T and dS to bf16 before the tensor-core
 products: ``flash_attention.backward_tolerance`` (derived in its
-docstring).
+docstring).  The backward has no kernel at hd 80: it raises there.
 """
 import pytest
 import torch
@@ -249,11 +249,27 @@ def test_cuda_flash_attention_matches_its_plain_version(cuda_device, dt, hd):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_cuda_flash_backward_refuses_hd_80(cuda_device, dt):
+    """The forward has hd 80 (hubert-xlarge), the backward does not: it
+    raises, naming the open item, and launches nothing."""
+    q, k, v = (torch.randn(1, 4, 30, 80, device=cuda_device).to(dt)
+               for _ in range(3))
+    before = fa.backward_launches
+    with pytest.raises(NotImplementedError, match="13.10"):
+        fa.flash_attention_backward(q, k, v, q, q, False, 0)
+    x = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="13.10"):
+        fa.flash_attention(x, k, v, False, 0).float().sum().backward()
+    assert fa.backward_launches == before
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", fa.BACKWARD_HEAD_DIMS)
 def test_cuda_flash_backward_matches_its_plain_version(cuda_device, dt, hd):
     """The backward kernel (dq, dk, dv from q, k, v, o and dO) against
     :func:`flash_attention_backward_plain` within
-    :func:`flash_attention.backward_tolerance`, at every head dim, GQA
+    :func:`flash_attention.backward_tolerance`, at every head dim it is
+    built for (``BACKWARD_HEAD_DIMS``), GQA
     groups 1, 4 and 16, the four mask modes, ragged lengths; and through
     ``torch.autograd`` on strided views, one backward launch a call."""
     g = torch.Generator(device=cuda_device).manual_seed(hd + 1)

@@ -18,6 +18,7 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
     ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "pod_gossip_pretrain_torch.py",
+    ROOT / "examples" / "serve_decode_torch.py",
     ROOT / "repeat_phase.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 

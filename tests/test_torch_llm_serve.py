@@ -42,7 +42,10 @@ from repro_torch.models.registry import get_model_api
 ARCHS = ("codeqwen1.5-7b", "gemma3-12b", "glm4-9b", "phi3-medium-14b",
          "dbrx-132b", "deepseek-v3-671b")
 GQA_ARCHS = tuple(a for a in ARCHS if a != "deepseek-v3-671b")
-UNPORTED = tuple(a for a in ref_registry.ARCH_IDS if a not in ARCHS)
+# The vlm and masked_lm archs have their own files
+# (tests/test_torch_{vlm,masked_lm}.py); what is left waits for item 13.4.
+UNPORTED = tuple(a for a in ref_registry.ARCH_IDS
+                 if a not in registry.PORTED_ARCH_IDS)
 B, S, NEW = 2, 40, 5  # 4 decode steps after the prefill's token
 
 _CACHE: dict = {}
