@@ -6,9 +6,10 @@ of ``examples/pod_gossip_pretrain.py``.
 
 This is ``repro_torch.launch.train`` with the example's defaults: the
 reduced (``--smoke``) glm4-9b, 2 pods stacked on one device, K = 2, a
-per-pod batch of 8 sequences of 64 tokens.  The reference's default
-architecture, xlstm-350m, waits for ROADMAP queue 1 item 13.4.  Any of the
-launcher's flags may follow and override these.
+per-pod batch of 8 sequences of 64 tokens.  The reference example's
+default architecture, xlstm-350m, runs with ``--arch xlstm-350m`` (it is
+also the launcher's own default).  Any of the launcher's flags may follow
+and override these.
 
   python examples/pod_gossip_pretrain_torch.py --rounds 10              # card
   python examples/pod_gossip_pretrain_torch.py --rounds 10 --device cpu

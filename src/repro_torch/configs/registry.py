@@ -1,12 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution and random batches —
 the port of ``repro.configs.registry``.
 
-The port holds the four dense GQA SwiGLU decoders and the two MoE
-decoders (dbrx-132b with GQA, deepseek-v3-671b with MLA) of the ``lm``
-task, llava-next-mistral-7b (the ``vlm`` task: an image prefix before the
-text) and hubert-xlarge (the ``masked_lm`` task: an encoder over audio
-frames).  The other ids of the zoo are known, and ``get_config`` says which
-open item ports them.
+The port holds every id of the zoo: the four dense GQA SwiGLU decoders
+and the two MoE decoders (dbrx-132b with GQA, deepseek-v3-671b with MLA)
+of the ``lm`` task, the recurrent xlstm-350m and the hybrid hymba-1.5b
+(their own block kinds, also ``lm``), llava-next-mistral-7b (the ``vlm``
+task: an image prefix before the text) and hubert-xlarge (the
+``masked_lm`` task: an encoder over audio frames).
 """
 from __future__ import annotations
 
@@ -29,27 +29,18 @@ _MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "hubert-xlarge": "hubert_xlarge",
-}
-
-# The zoo ids the port does not hold yet, with the open item (ROADMAP
-# queue 1) that ports each.
-_WAITING = {
-    "xlstm-350m": "item 13.4 (the xlstm block)",
-    "hymba-1.5b": "item 13.4 (the hymba block)",
+    "xlstm-350m": "xlstm_350m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_IDS = ("hubert-xlarge", "gemma3-12b", "phi3-medium-14b",
             "deepseek-v3-671b", "glm4-9b", "dbrx-132b",
             "llava-next-mistral-7b", "codeqwen1.5-7b", "xlstm-350m",
             "hymba-1.5b")
-PORTED_ARCH_IDS = tuple(a for a in ARCH_IDS if a in _MODULES)
+PORTED_ARCH_IDS = ARCH_IDS  # the port holds the whole zoo
 
 
 def get_config(arch: str, smoke: bool = False) -> ArchConfig:
-    if arch in _WAITING:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet: ROADMAP queue 1 "
-            f"{_WAITING[arch]}; ported: {', '.join(PORTED_ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     cfg = mod.CONFIG
     return reduced(cfg) if smoke else cfg

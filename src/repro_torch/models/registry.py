@@ -1,6 +1,6 @@
-"""Uniform model API — the port of ``repro.models.registry`` for the
-``transformer`` block kind (xlstm and hymba wait for ROADMAP queue 1
-item 13.4)."""
+"""Uniform model API — the port of ``repro.models.registry``: block kind ->
+(param_defs, cache_defs, forward, loss, decode_step, prefill), for the
+``transformer``, ``xlstm`` and ``hymba`` kinds."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -8,7 +8,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import hymba, transformer, xlstm
 from repro_torch.models.pdefs import init_tree, tree_num_params
 
 __all__ = ["ModelApi", "get_model_api"]
@@ -31,14 +31,13 @@ class ModelApi(NamedTuple):
         return tree_num_params(self.param_defs(self.cfg))
 
 
-_MODULES = {"transformer": transformer}
+_MODULES = {"transformer": transformer, "xlstm": xlstm, "hymba": hymba}
 
 
 def get_model_api(cfg: ArchConfig) -> ModelApi:
     if cfg.block_kind not in _MODULES:
-        raise NotImplementedError(
-            f"block kind {cfg.block_kind!r} is not ported yet (ROADMAP queue 1 "
-            "item 13.4)")
+        raise ValueError(f"unknown block kind {cfg.block_kind!r}; known: "
+                         f"{', '.join(_MODULES)}")
     mod = _MODULES[cfg.block_kind]
 
     def forward(params, batch):

@@ -35,7 +35,8 @@ batch row b then runs on lane b's weights — the personalized serving of
 over (params, batch) lanes.  The projections and the MLP become batched
 matmuls over the lane axis; the attention core has no weights, so the
 flash kernel sees the lanes as its batch.  Lanes of a MoE, MLA, vlm or
-masked_lm model are refused (ROADMAP queue 1 item 13.8).
+masked_lm model, and of the xlstm and hymba blocks (whose modules call
+:func:`_lanes` too), are refused (ROADMAP queue 1 item 13.8).
 """
 from __future__ import annotations
 
@@ -79,15 +80,16 @@ def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
 
 def _lanes(params, cfg: ArchConfig) -> bool:
     """Whether ``params`` carry a leading lane axis (see the module
-    docstring), told by ``final_norm``, a leaf of every task; lanes of a
-    MoE, MLA, vlm or masked_lm model are refused."""
+    docstring), told by ``final_norm``, a leaf of every task and block
+    kind; lanes of a MoE, MLA, vlm, masked_lm, xlstm or hymba model are
+    refused."""
     lanes = params["final_norm"].dim() == 2
     if lanes and (cfg.n_experts or cfg.attn_type == "mla"
-                  or cfg.task != "lm"):
+                  or cfg.task != "lm" or cfg.block_kind != "transformer"):
         raise NotImplementedError(
-            f"{cfg.name}: per-lane (personalized) weights of a MoE, MLA, vlm "
-            "or masked_lm model are not ported yet (ROADMAP queue 1 item "
-            "13.8)")
+            f"{cfg.name}: per-lane (personalized) weights of a MoE, MLA, "
+            "vlm, masked_lm, xlstm or hymba model are not ported yet "
+            "(ROADMAP queue 1 item 13.8)")
     return lanes
 
 

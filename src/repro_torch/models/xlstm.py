@@ -1,0 +1,365 @@
+"""xLSTM (arXiv:2405.04517) — the port of ``repro.models.xlstm``: mLSTM
+(matrix memory; a stabilized parallel form for the full sequence, an O(1)
+recurrent step for decode) and sLSTM (scalar memory, a time loop with
+block-diagonal recurrent gate connections and a post-FFN).
+
+Every ``cfg.slstm_every``-th layer is sLSTM, the rest mLSTM: 24 layers with
+``slstm_every=6`` are 4 groups of [5 mLSTM, 1 sLSTM].  Parameters stay
+stacked on a double leading axis, ``(groups, n_m, ...)`` for the mLSTM
+blocks and ``(groups, n_s, ...)`` for the sLSTM blocks, as in the
+reference, so a reference tree carries across leaf for leaf; the
+reference's scans over groups and blocks become Python loops over the
+views.  With ``cfg.remat`` each group of a forward that records gradients
+runs under ``torch.utils.checkpoint`` (the reference checkpoints its group
+body).
+
+Plain PyTorch throughout: the reference computes all of it outside any
+Pallas kernel.  Two numerical choices are the reference's and are kept:
+
+- the sLSTM loop of :func:`forward` starts from the stabilizer m = -2e38,
+  while :func:`prefill` runs :func:`decode_step` over the prompt from the
+  zero state of :func:`cache_defs` (sLSTM m = 0, and mLSTM m = 0 against
+  the parallel form's row maximum), so the two agree only to a tolerance;
+- the mLSTM denominator ``max(|q . n|, exp(-m))`` has an f32 floor
+  ``exp(-m)`` that overflows to inf when m < about -88 (the output is then
+  0 in both packages); the causal mask is -2e38, not -inf.
+
+The sLSTM's four gates are interleaved on the last axis: the input
+projection ``(..., 4d)`` and the recurrent product ``(..., 4 hd)`` read as
+``(..., heads, hd, 4)`` (:func:`_gates`), not as four contiguous blocks.
+
+:func:`decode_step` updates the cache IN PLACE and returns it (the
+reference returns a new one).  Per-lane (personalized) weights are refused
+(ROADMAP queue 1 item 13.8).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import rms_norm, softmax_xent
+from repro_torch.models.pdefs import PDef
+from repro_torch.models.transformer import _embed_tokens, _lanes
+
+__all__ = ["param_defs", "cache_defs", "forward", "loss", "prefill",
+           "decode_step", "mlstm_parallel", "mlstm_step"]
+
+_NEG = -2.0e38
+
+
+def _dims(cfg: ArchConfig):
+    d = cfg.d_model
+    di = 2 * d  # mLSTM projection factor 2 (paper)
+    h = cfg.n_heads
+    return d, di, h, di // h
+
+
+def _groups(cfg: ArchConfig):
+    """(mLSTM blocks a group, groups, sLSTM blocks a group)."""
+    if not cfg.slstm_every:
+        return cfg.n_layers, 1, 0
+    p = cfg.slstm_every
+    if cfg.n_layers % p:
+        raise ValueError(f"n_layers {cfg.n_layers} must divide by "
+                         f"slstm_every {p}")
+    return p - 1, cfg.n_layers // p, 1
+
+
+# ---------------------------------------------------------------------------
+# Parameter / cache declarations.
+# ---------------------------------------------------------------------------
+
+def _mlstm_defs(cfg: ArchConfig, stacked: tuple) -> dict:
+    d, di, h, hd = _dims(cfg)
+    L, Lax = stacked, ("layers",) * len(stacked)
+    dt, f32 = cfg.dtype, torch.float32
+    return {
+        "ln": PDef(L + (d,), Lax + (None,), f32, "zeros"),
+        "w_up": PDef(L + (d, 2 * di), Lax + ("embed", "mlp"), dt, fan_in=d),
+        "wq": PDef(L + (di, di), Lax + ("ssm_inner", "mlp"), dt, fan_in=di),
+        "wk": PDef(L + (di, di), Lax + ("ssm_inner", "mlp"), dt, fan_in=di),
+        "wv": PDef(L + (di, di), Lax + ("ssm_inner", "mlp"), dt, fan_in=di),
+        "w_if": PDef(L + (di, 2 * h), Lax + ("ssm_inner", None), f32, fan_in=di),
+        "b_if": PDef(L + (2 * h,), Lax + (None,), f32, "zeros"),
+        "out_norm": PDef(L + (hd,), Lax + (None,), f32, "zeros"),
+        "w_down": PDef(L + (di, d), Lax + ("mlp", "embed"), dt, fan_in=di),
+    }
+
+
+def _slstm_defs(cfg: ArchConfig, stacked: tuple) -> dict:
+    d, _, h, _ = _dims(cfg)
+    hd = d // h
+    f = int(math.ceil(4 * d / 3 / 128) * 128)  # post-FFN (pf 4/3)
+    L, Lax = stacked, ("layers",) * len(stacked)
+    dt, f32 = cfg.dtype, torch.float32
+    return {
+        "ln": PDef(L + (d,), Lax + (None,), f32, "zeros"),
+        "wx": PDef(L + (d, 4 * d), Lax + ("embed", "mlp"), dt, fan_in=d),
+        "r": PDef(L + (h, hd, 4 * hd), Lax + ("heads", None, None), dt, fan_in=hd),
+        "b": PDef(L + (4 * d,), Lax + (None,), f32, "zeros"),
+        "out_norm": PDef(L + (hd,), Lax + (None,), f32, "zeros"),
+        "ln_ffn": PDef(L + (d,), Lax + (None,), f32, "zeros"),
+        "ffn_wi": PDef(L + (d, f), Lax + ("embed", "mlp"), dt, fan_in=d),
+        "ffn_wg": PDef(L + (d, f), Lax + ("embed", "mlp"), dt, fan_in=d),
+        "ffn_wo": PDef(L + (f, d), Lax + ("mlp", "embed"), dt, fan_in=f),
+    }
+
+
+def param_defs(cfg: ArchConfig) -> dict:
+    d, v = cfg.d_model, cfg.padded_vocab
+    n_m, g, n_s = _groups(cfg)
+    defs = {
+        "mlstm": _mlstm_defs(cfg, (g, n_m)),
+        "final_norm": PDef((d,), (None,), torch.float32, "zeros"),
+        "embed": PDef((v, d), ("vocab", "embed"), cfg.dtype, fan_in=d),
+        "lm_head": PDef((d, v), ("embed", "vocab"), cfg.dtype, fan_in=d),
+    }
+    if n_s:
+        defs["slstm"] = _slstm_defs(cfg, (g, n_s))
+    return defs
+
+
+def cache_defs(cfg: ArchConfig, batch: int, length: int) -> dict:
+    """Decode state, O(1) in the sequence length (``length`` is unused)."""
+    del length
+    d, _, h, hd = _dims(cfg)
+    n_m, g, n_s = _groups(cfg)
+    f32 = torch.float32
+    lay = ("layers", "layers", "batch", "heads")
+    defs = {
+        "m_C": PDef((g, n_m, batch, h, hd, hd), lay + (None, None), f32, "zeros"),
+        "m_n": PDef((g, n_m, batch, h, hd), lay + (None,), f32, "zeros"),
+        "m_m": PDef((g, n_m, batch, h), lay, f32, "zeros"),
+    }
+    if n_s:
+        shape = (g, n_s, batch, h, d // h)
+        for name in ("s_c", "s_n", "s_m", "s_h"):
+            defs[name] = PDef(shape, lay + (None,), f32, "zeros")
+    return defs
+
+
+def _block(tree: dict, gi: int, j: int) -> dict:
+    """Block j of group gi: views of the doubly stacked leaves."""
+    return {k: t[gi, j] for k, t in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM core.
+# ---------------------------------------------------------------------------
+
+def _mlstm_qkvif(pl, xm, cfg: ArchConfig):
+    _, _, h, hd = _dims(cfg)
+    b, s, _ = xm.shape
+    q = (xm @ pl["wq"]).reshape(b, s, h, hd)
+    k = (xm @ pl["wk"]).reshape(b, s, h, hd)
+    v = (xm @ pl["wv"]).reshape(b, s, h, hd)
+    gates = xm.float() @ pl["w_if"] + pl["b_if"]
+    return q, k, v, gates[..., :h], gates[..., h:]
+
+
+def mlstm_parallel(q, k, v, i_pre, f_pre):
+    """Stabilized quadratic form (training and the forward): q, k, v
+    ``(B, S, H, hd)``, gate pre-activations ``(B, S, H)`` -> ``(B, S, H,
+    hd)`` in f32.  ``D[t, s] = F_t - F_s + i_s`` for s <= t (F the
+    cumulative log forget gate), stabilized by its row maximum m."""
+    hd = q.shape[-1]
+    s = q.shape[1]
+    lf = F.logsigmoid(f_pre)
+    F_cum = torch.cumsum(lf, dim=1)
+    D = F_cum[:, :, None, :] - F_cum[:, None, :, :] + i_pre[:, None, :, :]
+    t_idx = torch.arange(s, device=q.device)
+    causal = t_idx[:, None] >= t_idx[None, :]
+    D = torch.where(causal[None, :, :, None], D, _NEG)  # (B, T, S, H)
+    m = D.amax(dim=2)  # (B, T, H)
+    w = torch.exp(D - m[:, :, None, :])
+    scores = torch.einsum("bthd,bshd->btsh", q.float(),
+                          k.float()) / np.sqrt(hd)
+    sw = scores * w
+    num = torch.einsum("btsh,bshd->bthd", sw, v.float())
+    denom = torch.maximum(sw.sum(dim=2).abs(), torch.exp(-m))
+    return num / denom[..., None]
+
+
+def mlstm_step(state, q, k, v, i_pre, f_pre):
+    """Recurrent form (decode): q, k, v ``(B, H, hd)``, state ``(C, n, m)``
+    -> (new state, ``(B, H, hd)`` in f32)."""
+    C, n, m = state
+    hd = q.shape[-1]
+    lf = F.logsigmoid(f_pre.float())
+    li = i_pre.float()
+    m_new = torch.maximum(lf + m, li)
+    f_eff = torch.exp(lf + m - m_new)[..., None]
+    i_eff = torch.exp(li - m_new)[..., None]
+    k32 = k.float() / np.sqrt(hd)
+    v32 = v.float()
+    C_new = (f_eff[..., None] * C
+             + i_eff[..., None] * k32[..., :, None] * v32[..., None, :])
+    n_new = f_eff * n + i_eff * k32
+    q32 = q.float()
+    num = torch.einsum("bhd,bhde->bhe", q32, C_new)
+    denom = torch.maximum(torch.einsum("bhd,bhd->bh", q32, n_new).abs(),
+                          torch.exp(-m_new))
+    return (C_new, n_new, m_new), num / denom[..., None]
+
+
+def _mlstm_block(pl, x, cfg: ArchConfig, state=None):
+    """Full block over x ``(B, S, D)``; with ``state`` one recurrent step
+    (S = 1) -> (x, the new state or None)."""
+    d, di, h, hd = _dims(cfg)
+    b, s, _ = x.shape
+    up = rms_norm(x, pl["ln"], cfg.norm_eps) @ pl["w_up"]
+    xm, z = up[..., :di], up[..., di:]
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(pl, xm, cfg)
+    if state is None:
+        hcell, new_state = mlstm_parallel(q, k, v, i_pre, f_pre), None
+    else:
+        new_state, hcell = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0],
+                                      i_pre[:, 0], f_pre[:, 0])
+        hcell = hcell[:, None]
+    hcell = rms_norm(hcell, pl["out_norm"], cfg.norm_eps)
+    hflat = hcell.reshape(b, s, di).to(cfg.dtype) * F.silu(z)
+    return x + hflat @ pl["w_down"], new_state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM core.
+# ---------------------------------------------------------------------------
+
+def _gates(t, h: int, hd: int):
+    """``(..., 4 h hd)`` gate pre-activations -> ``(..., h, hd, 4)``: the
+    four gates of a unit are adjacent (interleaved), as in the reference."""
+    return t.reshape(t.shape[:-1] + (h, hd, 4))
+
+
+def _slstm_cell(pre, state):
+    """pre ``(B, H, hd, 4)`` gate pre-activations; state ``(c, n, m, h)``."""
+    c, n, m, _ = state
+    i_pre, f_pre, z_pre, o_pre = pre.unbind(-1)
+    lf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(lf + m, i_pre)
+    i_eff = torch.exp(i_pre - m_new)
+    f_eff = torch.exp(lf + m - m_new)
+    c_new = f_eff * c + i_eff * torch.tanh(z_pre)
+    n_new = torch.clamp_min(f_eff * n + i_eff, 1e-6)
+    h_new = torch.sigmoid(o_pre) * (c_new / n_new)
+    return (c_new, n_new, m_new, h_new)
+
+
+def _slstm_recur(pl, px, h_prev, cfg: ArchConfig):
+    """The recurrent gate contribution added to one step's precomputed
+    input projection px ``(B, H, hd, 4)``; h_prev ``(B, H, hd)``."""
+    d, _, h, _ = _dims(cfg)
+    pr = torch.einsum("bhe,heg->bhg", h_prev, pl["r"].float())
+    return px + _gates(pr.flatten(-2), h, d // h)
+
+
+def _slstm_input_proj(pl, xn, cfg: ArchConfig):
+    """The input projection of the whole sequence, ``(B, S, H, hd, 4)``,
+    outside the time loop (only ``h @ R`` stays sequential)."""
+    d, _, h, _ = _dims(cfg)
+    px = xn.float() @ pl["wx"].float() + pl["b"]
+    return _gates(px, h, d // h)
+
+
+def _slstm_block(pl, x, cfg: ArchConfig, state=None):
+    d, _, h, _ = _dims(cfg)
+    hd = d // h
+    b, s, _ = x.shape
+    xn = rms_norm(x, pl["ln"], cfg.norm_eps)
+    if state is None:
+        px_all = _slstm_input_proj(pl, xn, cfg)
+        zeros = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
+        st = (zeros, zeros, torch.full_like(zeros, _NEG), zeros)
+        hs = []
+        for t in range(s):  # the reference's lax.scan over time
+            st = _slstm_cell(_slstm_recur(pl, px_all[:, t], st[3], cfg), st)
+            hs.append(st[3])
+        hs = torch.stack(hs, dim=1)  # (B, S, H, hd)
+        new_state = None
+    else:
+        px = _slstm_input_proj(pl, xn[:, :1], cfg)[:, 0]
+        new_state = _slstm_cell(_slstm_recur(pl, px, state[3], cfg), state)
+        hs = new_state[3][:, None]
+    hs = rms_norm(hs, pl["out_norm"], cfg.norm_eps)
+    x = x + hs.reshape(b, s, d).to(cfg.dtype)
+    xn2 = rms_norm(x, pl["ln_ffn"], cfg.norm_eps)  # post-FFN (pf 4/3)
+    hmid = F.silu(xn2 @ pl["ffn_wi"]) * (xn2 @ pl["ffn_wg"])
+    return x + hmid @ pl["ffn_wo"], new_state
+
+
+# ---------------------------------------------------------------------------
+# Stack: groups of n_m mLSTM blocks and n_s sLSTM blocks.
+# ---------------------------------------------------------------------------
+
+def _logits(params, x, cfg: ArchConfig):
+    return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+
+
+def forward(params, batch, cfg: ArchConfig):
+    """Full-sequence forward (the parallel mLSTM form) -> (logits, {})."""
+    _lanes(params, cfg)
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    n_m, g, n_s = _groups(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for gi in range(g):
+        def group(x, gi=gi):
+            for j in range(n_m):
+                x, _ = _mlstm_block(_block(params["mlstm"], gi, j), x, cfg)
+            for j in range(n_s):
+                x, _ = _slstm_block(_block(params["slstm"], gi, j), x, cfg)
+            return x
+
+        x = checkpoint(group, x, use_reentrant=False) if remat else group(x)
+    return _logits(params, x, cfg), {}
+
+
+def loss(params, batch, cfg: ArchConfig):
+    logits, _ = forward(params, batch, cfg)
+    ce, acc = softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+    return ce, (ce, acc)
+
+
+def prefill(params, batch, cfg: ArchConfig, cache_len: int):
+    """Recurrent prefill, as the reference's: :func:`decode_step` over the
+    prompt from the zero state -> (logits ``(B, S, V)``, final state).
+    ``cache_len`` is unused (the state is O(1))."""
+    del cache_len
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=tokens.device)
+             for k, d in cache_defs(cfg, b, 0).items()}
+    out = []
+    for t in range(s):
+        logits, cache = decode_step(params, cache, tokens[:, t], 0, cfg)
+        out.append(logits)
+    return torch.stack(out, dim=1), cache
+
+
+_M_STATE = ("m_C", "m_n", "m_m")
+_S_STATE = ("s_c", "s_n", "s_m", "s_h")
+
+
+def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
+    """One token (B,) -> (logits (B, V), cache); the recurrent state is
+    position-free (``pos`` is unused) and updated IN PLACE."""
+    del pos
+    _lanes(params, cfg)
+    x = _embed_tokens(params, tokens[:, None], cfg)
+    n_m, g, n_s = _groups(cfg)
+    for gi in range(g):
+        for j in range(n_m):
+            st = tuple(cache[k][gi, j] for k in _M_STATE)
+            x, new = _mlstm_block(_block(params["mlstm"], gi, j), x, cfg, st)
+            for old, t in zip(st, new):
+                old.copy_(t)
+        for j in range(n_s):
+            st = tuple(cache[k][gi, j] for k in _S_STATE)
+            x, new = _slstm_block(_block(params["slstm"], gi, j), x, cfg, st)
+            for old, t in zip(st, new):
+                old.copy_(t)
+    return _logits(params, x, cfg)[:, 0], cache

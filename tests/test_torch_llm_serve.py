@@ -42,10 +42,8 @@ from repro_torch.models.registry import get_model_api
 ARCHS = ("codeqwen1.5-7b", "gemma3-12b", "glm4-9b", "phi3-medium-14b",
          "dbrx-132b", "deepseek-v3-671b")
 GQA_ARCHS = tuple(a for a in ARCHS if a != "deepseek-v3-671b")
-# The vlm and masked_lm archs have their own files
-# (tests/test_torch_{vlm,masked_lm}.py); what is left waits for item 13.4.
-UNPORTED = tuple(a for a in ref_registry.ARCH_IDS
-                 if a not in registry.PORTED_ARCH_IDS)
+# The vlm and masked_lm archs, xlstm-350m and hymba-1.5b have their own
+# files (tests/test_torch_{vlm,masked_lm,xlstm,hymba}.py).
 B, S, NEW = 2, 40, 5  # 4 decode steps after the prefill's token
 
 _CACHE: dict = {}
@@ -94,11 +92,16 @@ def test_configs_match_the_reference(arch):
     assert api.num_params() == ref_api.num_params()
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_get_config_raises_for_the_unported_archs(arch):
-    assert arch in registry.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        registry.get_config(arch)
+def test_every_reference_arch_resolves_in_the_port():
+    assert registry.ARCH_IDS == tuple(ref_registry.ARCH_IDS)
+    assert registry.PORTED_ARCH_IDS == registry.ARCH_IDS
+    for arch in ref_registry.ARCH_IDS:
+        for smoke in (False, True):
+            cfg = registry.get_config(arch, smoke=smoke)
+            assert cfg.name == arch
+            assert (cfg.block_kind
+                    == ref_registry.get_config(arch, smoke=smoke).block_kind)
+            assert get_model_api(cfg).cfg is cfg
 
 
 def test_make_batch_draws_the_reference_tokens():

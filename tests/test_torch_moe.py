@@ -88,9 +88,9 @@ def _ref_routing(arch):
 
 def test_both_moe_configs_are_ported():
     assert set(ARCHS) <= set(registry.PORTED_ARCH_IDS)
-    # The six decoders of the lm task, then llava-next-mistral-7b and
-    # hubert-xlarge (the vlm and masked_lm tasks).
-    assert len(registry.PORTED_ARCH_IDS) == 8
+    # The whole zoo: the six transformer decoders of the lm task, xlstm-350m
+    # and hymba-1.5b, llava-next-mistral-7b and hubert-xlarge.
+    assert len(registry.PORTED_ARCH_IDS) == 10
     for arch in ARCHS:
         cfg = registry.get_config(arch)
         assert cfg.family == "moe" and cfg.n_experts

@@ -67,8 +67,12 @@ def test_smoke_run_on_the_cpu():
         assert np.isfinite(h["loss"]) and 0.0 <= h["acc"] <= 1.0
         assert abs(h["w_mass"] - train.N_PODS) < 1e-6
     assert rec["params"]["embed"].shape[0] == train.N_PODS
-    with pytest.raises(NotImplementedError, match="13.4"):
-        train.main(["--device", "cpu", "--rounds", "1"])  # xlstm-350m
+    # The launcher's default arch, xlstm-350m, reduced.
+    rec = train.main(["--device", "cpu", "--smoke", "--rounds", "1",
+                      "--batch", "2", "--seq", "16"])
+    assert rec["api"].cfg.name == "xlstm-350m"
+    assert np.isfinite(rec["history"][0]["loss"])
+    assert abs(rec["history"][0]["w_mass"] - train.N_PODS) < 1e-6
 
 
 def test_superstep_and_resume_equal_the_uninterrupted_run(tmp_path):

@@ -243,16 +243,13 @@ def test_sgd_momentum_step_matches_the_reference():
     assert out_v["b"].dtype == torch.float32
 
 
-def test_loss_refuses_the_unported_tasks():
-    """The vlm and masked_lm tasks are ported (their losses are held to the
-    reference in ``tests/test_torch_{vlm,masked_lm}.py``); the xlstm and
-    hymba blocks still wait, and both their configs and their block kind
-    name item 13.4."""
-    for arch in ("xlstm-350m", "hymba-1.5b"):
-        with pytest.raises(NotImplementedError, match="item 13.4"):
-            registry.get_config(arch)
-        cfg = ref_registry.get_config(arch, smoke=True)
-        kind = dataclasses.replace(registry.get_config("glm4-9b", smoke=True),
-                                   block_kind=cfg.block_kind)
-        with pytest.raises(NotImplementedError, match="item 13.4"):
-            get_model_api(kind).loss({}, {})
+def test_model_api_names_an_unknown_block_kind():
+    """Every block kind of the zoo has a module (the reference's three:
+    transformer, xlstm, hymba); another kind is refused by name."""
+    for arch in ref_registry.ARCH_IDS:
+        cfg = registry.get_config(arch, smoke=True)
+        assert callable(get_model_api(cfg).loss)
+    kind = dataclasses.replace(registry.get_config("glm4-9b", smoke=True),
+                               block_kind="rwkv")
+    with pytest.raises(ValueError, match="'rwkv'"):
+        get_model_api(kind)
