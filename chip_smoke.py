@@ -7,8 +7,10 @@ bank), checkpoints, the paged client store, personalized serving of
 glm4-9b over the delta bank, pods-as-clients training of glm4-9b,
 serving the MoE family (dbrx-132b, deepseek-v3-671b), serving the vlm
 (llava-next-mistral-7b), running the masked_lm encoder (hubert-xlarge,
-whose head dim 80 has its own flash instantiations), and serving and
-training the recurrent xlstm-350m and the hybrid hymba-1.5b.
+whose head dim 80 has its own flash instantiations, forward and
+backward), serving and training the recurrent xlstm-350m and the hybrid
+hymba-1.5b, and training the masked_lm and vlm tasks (hubert-xlarge,
+llava-next-mistral-7b) with the pods-as-clients round.
 
     python3 chip_smoke.py
 
@@ -106,9 +108,11 @@ Phases, each fatal on failure:
    expanded weights, within phase 7's decode tolerance;
 12. training: the flash backward kernel against its plain version at
    glm4-9b's training shape (B = 1, 32 on 2 heads, S = 4096, hd 128, bf16),
-   at gemma3-12b's (hd 256, windows 1024 and 0), at GQA groups 1, 4 and
-   16, f32 and bf16, edge lengths, with a mask fault that must miss its
-   tolerance, and its time beside its bound and SDPA's backward; reduced
+   at gemma3-12b's (hd 256, windows 1024 and 0), at hubert-xlarge's (2, 16
+   on 16, 1500, hd 80, non-causal, f32 and bf16, a causal mask that must
+   miss), at GQA groups 1, 4 and 16, f32 and bf16, edge lengths, with a
+   mask fault that must miss its tolerance, and its time beside its bound
+   and SDPA's backward (glm4-9b's, gemma3-12b's and hubert's); reduced
    glm4-9b, 2 pods, 2 rounds of ``make_round_step`` on the card against
    the CPU (dense ``P_pod`` and the neighbor list); then the training main
    path, ``repro_torch.launch.train.run`` with glm4-9b at full width cut to
@@ -150,8 +154,8 @@ Phases, each fatal on failure:
    1500 frames through ``ModelApi.forward`` and ``loss`` (48 hd 80 flash
    launches a call, frames/s, peak memory, a finite loss, a profiled
    forward), held to the same forward with the plain attention core, a
-   causal mutant that must miss, and ``loss.backward()``, which must raise
-   the flash backward's refusal at hd 80;
+   causal mutant that must miss, and ``loss.backward()`` through the hd 80
+   flash backward (48 calls, every gradient finite);
 15. xlstm-350m and hymba-1.5b, the last two ids of the zoo: the flash
    kernels at hymba's GQA group 5 (25 on 5 heads, hd 64): the forward at its
    prefill (4, 25 on 5, 2176) with windows 1024 and 0, a ragged length in
@@ -169,7 +173,17 @@ Phases, each fatal on failure:
    that leaves out the meta offset; then training: the CLI's default
    (``train.main(["--rounds", "2"])``, xlstm-350m at full width and depth)
    and hymba-1.5b cut to 4 layers at 1 x 2048 tokens, with loss, mass 2,
-   round times, peak memory and launches.
+   round times, peak memory and launches;
+16. training the masked_lm and vlm tasks: reduced hubert-xlarge (d_model
+   320, 4 heads of hd 80: the f32 SIMT backward at hd 80) and reduced
+   llava-next-mistral-7b, 2 pods, 2 rounds of ``make_round_step`` over
+   ``make_batch`` draws on the card against the CPU; then hubert-xlarge at
+   full width and depth (2 clips of 1500 frames a pod a step) and
+   llava-next-mistral-7b at full width cut to 4 of 32 layers (1 x (2880
+   image embeddings + 2880 text tokens)), 2 pods, K = 2, 2 rounds each:
+   loss, accuracy, w_mass (2 within 1e-3), wall time and launches a round
+   (hubert's 384 backward calls all at hd 80), peak memory and a profiled
+   round split by kind.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -1102,7 +1116,7 @@ def scenario_parity(dev) -> None:
 # -- phase 5: the main path ---------------------------------------------------
 
 def print_profile(prof, wall_s: float, top: int = 12, also=(),
-                  skip=()) -> None:
+                  skip=()) -> list:
     """Device time by kernel over one profiled round, and the device's busy
     share of the round's wall time: the union of the kernels' intervals
     (kernels on several streams may overlap, so their summed time can
@@ -1110,7 +1124,8 @@ def print_profile(prof, wall_s: float, top: int = 12, also=(),
     row repeats its kernels' time), and not the profiler's own buffer
     traffic, nor the device-side spans of the ``record_function`` ranges
     named in ``skip``.  Kernels whose names hold a word of ``also`` are
-    listed after the top ones wherever they rank."""
+    listed after the top ones wherever they rank.  Returns the kernels'
+    rows of ``key_averages``."""
     from torch.autograd import DeviceType
 
     overhead = ("Buffer Flush", "Activity Buffer Request") + tuple(skip)
@@ -1143,6 +1158,7 @@ def print_profile(prof, wall_s: float, top: int = 12, also=(),
         if any(w in e.key.lower() for w in also):
             print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
                   f"{e.key[:90]} (rank {rows.index(e) + 1})")
+    return rows
 
 
 def counters() -> dict:
@@ -1163,6 +1179,9 @@ def counters() -> dict:
             # the flash launches at hd 80 (hubert-xlarge), also counted above
             "flash_attention_hd80": (fa, "head_dim_launches", 80),
             "flash_attention_backward": (fa, "backward_launches"),
+            # the backward's calls at hd 80, also counted above
+            "flash_attention_backward_hd80": (fa, "backward_head_dim_launches",
+                                              80),
             "flash_attention_backward_kernels": (fa, "backward_kernel_launches")}
 
 
@@ -2383,16 +2402,26 @@ TRAIN_LAYERS = 4  # glm4-9b's 40 layers cut to 4: 2 replicas fit the card
 BWD_TRAIN_PASSES = 4
 TRAIN_ARGV = ["--arch", "glm4-9b", "--rounds", "3", "--local-steps", "2",
               "--batch", "1", "--seq", "4096"]
+# hubert-xlarge's attention in phase 16's training round: 2 clips of 1500
+# frames a pod a step, 16 query heads on 16 kv heads of hd 80, non-causal.
+HUBERT_TRAIN_SHAPE = (2, 16, 16, 1500, 80)
+# llava-next-mistral-7b's attention in phase 16's training round: 1 row of
+# 5760 positions a pod a step, 32 query heads on 8 kv heads of hd 128
+# (GQA group 4), causal.
+LLAVA_TRAIN_SHAPE = (1, 32, 8, 5760, 128)
 # The flash backward's kernels, by the name in their mangled symbols.  The
-# tensor-core passes (bf16, hd 64 and 128) live in namespace tc ("2tc" in
-# the symbol); the SIMT passes run f32 at every head dim and bf16 at hd 256.
+# tensor-core passes (bf16, hd 64, 80 and 128) live in namespace tc ("2tc"
+# in the symbol); the SIMT passes run f32 at every head dim and bf16 at hd
+# 256.
 BWD_KERNELS = ("flash_bwd_stats_kernel", "flash_bwd_prep_kernel",
                "flash_bwd_dkdv_kernel", "flash_bwd_group_sum_kernel",
                "flash_bwd_dq_kernel")
-# Instantiations: the lse pass 2 dtypes x 3 head dims, the prep pass and
-# the group sum 2 dtypes each, the SIMT dK / dV and dQ passes 4 each (f32 x
-# 3, bf16 at 256), the tensor-core dK / dV and dQ passes 2 each.
-BWD_INSTANCES = 6 + 2 + 2 + 4 + 4 + 2 + 2
+# Instantiations: the lse pass 2 dtypes x 4 head dims, the prep pass and
+# the group sum 2 dtypes each, the SIMT dK / dV and dQ passes 5 each (f32 x
+# 4, bf16 at 256), the tensor-core dK / dV and dQ passes 3 each (64, 80,
+# 128).
+BWD_INSTANCES = 8 + 2 + 2 + 5 + 5 + 3 + 3
+BWD_TC_INSTANCES = 6
 
 
 def backward_build_evidence() -> None:
@@ -2441,7 +2470,8 @@ def backward_build_evidence() -> None:
     print("  SASS HGMMA: " + "; ".join(f"{fn} {n}"
                                        for fn, n in hgmma.items()))
     tc = [fn for fn in hgmma if fn.startswith("tc::")]
-    check(len(tc) == 4, f"{len(tc)} tensor-core backward kernels in the SASS")
+    check(len(tc) == BWD_TC_INSTANCES,
+          f"{len(tc)} tensor-core backward kernels in the SASS")
     check(all(hgmma[fn] > 0 for fn in tc),
           "a tensor-core backward kernel holds no HGMMA")
     check(all(n == 0 for fn, n in hgmma.items() if fn not in tc),
@@ -2449,13 +2479,17 @@ def backward_build_evidence() -> None:
 
 
 def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
-                         iters: int = 5) -> dict:
+                         hubert=HUBERT_TRAIN_SHAPE, llava=LLAVA_TRAIN_SHAPE,
+                         iters: int = 5) -> tuple:
     """The flash kernels of training against their plain versions on the
     card: at the training shape, at gemma3-12b's shapes (hd 256, window
-    1024 and 0), at GQA groups 1, 4 and 16, in f32 and bf16, at edge
-    lengths.  First the forward kernel's o against the plain forward's
-    (phase 3's tolerance, ``bf16_tolerance`` or 2e-5; at the training shape
-    with phase 3's mask fault, which must miss), and its logsumexp against
+    1024 and 0), at hubert-xlarge's training shape (hd 80, non-causal, f32
+    and bf16) and a causal hd 80 shape at GQA group 4, at
+    llava-next-mistral-7b's training shape (bf16, group 4, no share
+    split), at GQA groups 1, 4 and 16, in f32 and bf16, at edge lengths.
+    First the forward kernel's o against the plain forward's (phase 3's
+    tolerance, ``bf16_tolerance`` or 2e-5; at the training shape with
+    phase 3's mask fault, which must miss), and its logsumexp against
     ``torch.logsumexp`` of the plain masked scores
     (``flash_attention.lse_tolerance``, their f32 order bound).  Then the
     backward kernels, given the forward kernel's o and lse as in training,
@@ -2467,13 +2501,17 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
     ``o_err`` the forward's tolerance (what the two o's may differ by moves
     D = rowsum(dO o), and with it dq and dk).  The backward's mask fault
     runs the kernel on q, o, dO and lse moved down one row (each row's mask
-    one key late): its dq must miss the tolerance.  At the training shape
-    two calls on the same inputs must give the same bits.  Each case prints
-    the kernels one call launched.  Then its time at the training shape and
-    at gemma3-12b's global layer beside its bound (10 hd FLOP per open pair
-    at the tensor-core peak of its dtype, bytes of q, k, v, o, dO in and
-    dq, dk, dv out), the plain version's and SDPA's backward
-    (``enable_gqa``, the same mask, on the same inputs)."""
+    one key late): its dq must miss the tolerance; at hubert's shape (bf16)
+    the fault is a causal mask on the non-causal inputs.  At the training
+    shape two calls on the same inputs must give the same bits.  Each case
+    prints the kernels one call launched and the dK / dV shares it summed
+    (:func:`backward_shares`).  Then its time at the training
+    shape, at gemma3-12b's global layer and at hubert's training shape
+    beside its bound (10 hd FLOP per open pair at the tensor-core peak of
+    its dtype, bytes of q, k, v, o, dO in and dq, dk, dv out), the plain
+    version's and SDPA's backward (``enable_gqa``, the same mask, on the
+    same inputs).  Returns the JSON rows of the training shape and of hd
+    80 (hubert's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2493,6 +2531,11 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         ((2, 8, 2, 1, 64), bf16, True, 0),  # S = 1
         ((2, 8, 2, 65, 64), f32, False, 0),  # a tile and one row
         ((1, 8, 2, 129, 256), bf16, False, 40),
+        (hubert, bf16, False, 0),  # hubert-xlarge's training shape, hd 80
+        (hubert, f32, False, 0),
+        ((1, 8, 2, 300, 80), bf16, True, 100),  # hd 80, group 4, ragged
+        ((1, 8, 2, 300, 80), f32, True, 0),
+        (llava, bf16, True, 0),  # llava-next-mistral-7b's training shape
     ]
 
     def inputs(shp, dt):
@@ -2550,7 +2593,8 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
               + ", ".join(f"{r:.4f}" for r in ratios) + " of the tolerance; "
               f"{per_call} kernel launches a call ("
               + ("tensor cores" if fa.on_tensor_cores(dt, shp[4])
-                 else "SIMT") + ")")
+                 else "SIMT") + "), dK / dV shares "
+              + backward_shares(q, shp[2]))
         check(max(ratios) <= 1.0,
               f"flash backward disagrees ({shp}, {dt}, {causal}, {win})")
         errs[shp, dt, causal, win] = e
@@ -2573,19 +2617,32 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
             print(f"    two calls on the same inputs bitwise equal: {same}")
             check(same, "the flash backward is not deterministic")
             del again
+        if shp == hubert and dt == bf16:  # a causal mask must miss
+            fault = fa.flash_attention_backward(q, k, v, o, do, True, 0,
+                                                lse)[0]
+            sync(dev)
+            miss = float(((fault.float() - want[0].float()).abs()
+                          / tol[0]).max())
+            print(f"    hd 80 under a causal mask: dq at {miss:.1f} of the "
+                  f"widened tolerance (must exceed 1)")
+            check(miss > 1.0, "the hd 80 backward tolerance misses a causal "
+                              "mask")
+            del fault
         del q, k, v, do, o, lse, got, want, tol
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
-    def timed(shp, win, what):
+    def timed(shp, win, what, causal=True):
         b, h, kv, s, hd = shp
         q, k, v, do = inputs(shp, bf16)
-        o, lse = fa.flash_attention_with_lse(q, k, v, True, win)
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal, win)
         n_bytes = 2.0 * (4 * q.numel() + 4 * k.numel())
-        flops = 10.0 * hd * b * h * open_pairs(s, True, win)
+        flops = 10.0 * hd * b * h * open_pairs(s, causal, win)
         bound, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        if win:
+        if not causal:
+            out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True)
+        elif win:
             ar = torch.arange(s, device=dev)
             mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :]
                                                    < win)
@@ -2597,15 +2654,16 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         lib = lambda: torch.autograd.grad(  # noqa: E731
             out, (qg, kg, vg), do, retain_graph=True)
         r = dict(
-            max_abs_err=errs[shp, bf16, True, win],
+            max_abs_err=errs[shp, bf16, causal, win],
             ms=timed_ms(lambda: fa.flash_attention_backward(
-                q, k, v, o, do, True, win, lse), dev, iters),
+                q, k, v, o, do, causal, win, lse), dev, iters),
             plain_ms=timed_ms(lambda: fa.flash_attention_backward_plain(
-                q, k, v, o, do, True, win), dev, max(iters // 5, 1)),
+                q, k, v, o, do, causal, win), dev, max(iters // 5, 1)),
             bound_ms=bound, bound_by=by,
             library_ms=timed_ms(lib, dev, iters),
         )
-        print(f"  flash backward {what} (B,H,KV,S,hd)={shp} window {win}: "
+        print(f"  flash backward {what} (B,H,KV,S,hd)={shp} causal={causal} "
+              f"window {win}: "
               f"{r['ms']:.4f} ms for {flops:.4g} FLOP "
               f"({flops / r['ms'] / 1e9:.2f} TFLOP/s), bound {bound:.4f} ms "
               f"at the bf16 tensor-core peak ({by}), "
@@ -2615,9 +2673,28 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         del out, lib
         return r
 
-    row = timed(shape, 0, "glm4-9b training")  # the JSON row
+    row = timed(shape, 0, "glm4-9b training")  # the JSON rows
     timed(gemma, 0, "gemma3-12b global layer")
-    return row
+    return row, timed(hubert, 0, "hubert-xlarge training", causal=False)
+
+
+def round_batches(cfg, rounds: int, batch: int, seq: int,
+                  local_steps: int = 2, device="cpu") -> dict:
+    """The batches of ``rounds`` pod rounds of ``cfg``'s task, 2 pods,
+    arrays of shape (rounds, 2, K, batch, ...): ``make_lm_stream`` tokens
+    for the lm task, as ``launch.train.run`` draws them, else one
+    ``configs.registry.make_round_batches`` draw (seed 1), as the
+    reference's dry-run feeds its round."""
+    from repro_torch.configs.registry import make_round_batches
+    from repro_torch.data.synthetic import make_lm_stream
+
+    if cfg.task != "lm":
+        return make_round_batches(cfg, rounds, 2, local_steps, batch, seq,
+                                  seed=1, device=device)
+    toks = make_lm_stream(cfg.vocab_size, seq,
+                          rounds * 2 * local_steps * batch)
+    return {"tokens": toks.reshape(rounds, 2, local_steps, batch, seq)
+            .to(device)}
 
 
 def train_parity(dev, seq: int = 128, batch: int = 2, rounds: int = 2,
@@ -2625,21 +2702,22 @@ def train_parity(dev, seq: int = 128, batch: int = 2, rounds: int = 2,
     """Reduced ``arch`` (glm4-9b: f32, 2 layers, hd 64), or ``cfg`` where
     given, 2 pods, K = 2: ``rounds`` rounds of ``make_round_step`` on the
     card against the same on the CPU, from the same params (two distinct
-    replicas) and tokens, once with the dense ``P_pod`` (the dense mix) and
+    replicas) and batches (:func:`round_batches`), once with the dense
+    ``P_pod`` (the dense mix) and
     once with ``pod_mixing_neighbors`` (the gather).  Tolerance: f32 on
     both, sums in other orders (cuBLAS and the kernels against the CPU's),
     carried through 2 rounds without a restart: params and momentum within
     1e-4 of each leaf's largest magnitude (the CPU against the reference
     measured 1e-6 a round), w within 1e-6, the loss within 1e-5 relative,
-    the accuracy within one flipped token a step.  With ``calibrate`` (a
+    the accuracy within one flipped token a step (one position of
+    ``configs.registry.step_positions``).  With ``calibrate`` (a
     model whose training is ill-conditioned at random init: xLSTM's mLSTM
     floor, ``tests/_torch_blocks.py``), a leaf may also lie within twice
     what the CPU's own leaf moves when the params take 1e-6 relative noise
     (the most over 2 draws, with the dense mix), and the accuracy within 2%
     of a step's tokens."""
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import get_config, step_positions
     from repro_torch.core.flat import tree_flatten, tree_map
-    from repro_torch.data.synthetic import make_lm_stream
     from repro_torch.launch import steps
     from repro_torch.models.registry import get_model_api
 
@@ -2647,8 +2725,7 @@ def train_parity(dev, seq: int = 128, batch: int = 2, rounds: int = 2,
     api = get_model_api(cfg or get_config(arch, smoke=True))
     base = api.init(torch.Generator().manual_seed(0), cpu)
     stacked = tree_map(lambda x: torch.stack([x, 0.5 * x]), base)
-    toks = make_lm_stream(api.cfg.vocab_size, seq, rounds * 2 * 2 * batch)
-    toks = toks.reshape(rounds, 2, 2, batch, seq)
+    data = round_batches(api.cfg, rounds, batch, seq)
     step_cfg = steps.StepConfig(lr=0.05, alpha=0.9, rho=0.05, local_steps=2)
 
     def run(d, make_P, noise=None):
@@ -2665,7 +2742,8 @@ def train_parity(dev, seq: int = 128, batch: int = 2, rounds: int = 2,
         hist = []
         for r in range(rounds):
             params, v, w, _, _, m = round_step(
-                params, v, w, (), (), {"tokens": toks[r].to(d)}, P)
+                params, v, w, (), (), {k: x[r].to(d) for k, x in data.items()},
+                P)
             hist.append((float(m["loss"]), float(m["acc"])))
         return (tree_flatten(params)[1], tree_flatten(v)[1], w.cpu(), hist,
                 read_counts())
@@ -2673,9 +2751,10 @@ def train_parity(dev, seq: int = 128, batch: int = 2, rounds: int = 2,
     def rel(a, b):
         return float((a.cpu() - b).abs().max()) / float(b.abs().max())
 
-    step_tokens = batch * (seq - 1)
+    step_tokens = step_positions(data)
     acc_tol = (max(1, int(0.02 * step_tokens)) if calibrate else 1) / step_tokens
     attn_layers = 0 if api.cfg.block_kind == "xlstm" else api.cfg.n_layers
+    hd80 = api.cfg.resolved_head_dim == 80
     for name, make_P, mix in (
             ("dense", steps.pod_mixing_matrix, "gossip_matmul"),
             ("neighbors", steps.pod_mixing_neighbors, "gossip_gather")):
@@ -2705,20 +2784,16 @@ def train_parity(dev, seq: int = 128, batch: int = 2, rounds: int = 2,
               f"training round on the card disagrees with the CPU ({name})")
         want_bwd = rounds * 2 * 2 * 2 * attn_layers
         check(used[mix] == rounds and used["flash_attention_backward"]
-              == want_bwd, f"{name}: launches {used}")
+              == want_bwd and used["flash_attention_backward_hd80"]
+              == (want_bwd if hd80 else 0), f"{name}: launches {used}")
 
 
 def print_train_split(prof, wall_s: float) -> None:
     """``print_profile``, then the device time of a training round by kind:
     flash forward, flash backward, matmuls, the mix, the rest."""
-    from torch.autograd import DeviceType
-
-    print_profile(prof, wall_s, top=10, also=("flash", "mix_"))
     split = {"flash forward": 0.0, "flash backward": 0.0, "matmuls": 0.0,
              "mix": 0.0, "rest": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
+    for e in print_profile(prof, wall_s, top=10, also=("flash", "mix_")):
         name = e.key.lower()
         if "flash_attention_kernel" in name:
             kind = "flash forward"
@@ -3368,21 +3443,23 @@ def encoder_path(dev, clips: int = HUBERT_CLIPS, frames: int = HUBERT_FRAMES,
                  cfg=None) -> dict:
     """The masked_lm path: hubert-xlarge at full width and depth (bf16,
     parameters drawn on the card from seed 0) on ``make_batch(cfg, clips,
-    frames, 1)``: ``ModelApi.forward`` and ``ModelApi.loss`` under
-    ``no_grad``, with wall time, frames/s, peak memory, the flash launches
-    (one a layer a call, all at hd 80, non-causal) and their shape, and a
-    finite loss; a steady second forward, profiled and split into the
-    flash kernel, matmuls and the rest.  Then the check: the logits
+    frames, 1)``: ``ModelApi.forward`` under ``no_grad``, then
+    ``ModelApi.loss`` and ``loss.backward()`` through the flash backward at hd
+    80 (one call a layer, each layer's forward recomputed under the
+    config's remat), with wall times, frames/s, peak memory, the flash
+    launches (all at hd 80, non-causal) and their shape, a finite loss and
+    finite gradients; then a steady second forward, profiled and split
+    into the flash kernel, matmuls and the rest.  Then the check: the logits
     against the same forward with the attention core swapped to
     ``flash_attention_plain`` (``kernels.ops.flash_attention`` wrapped
     from here; the package has no switch for it), within 2^-4 of
     max|logit|, the tolerance of phase 7's bf16 decode check: both sides
     round every layer's bf16 activations, and the kernel also rounds P to
     bf16 (``bf16_tolerance``) over 48 layers.  The mutant, the same forward
-    with ``causal=True``, must miss it.  Last, ``loss.backward()`` must
-    raise the flash backward's ``NotImplementedError`` (no kernel at hd
-    80).  ``cfg`` replaces the config (a CPU rehearsal passes a reduced
-    one)."""
+    with ``causal=True``, must miss it.  Returns the launches of the
+    forward, the loss and the backward, read once after them (not of the
+    profiled forward and the checks).
+    ``cfg`` replaces the config (a CPU rehearsal passes a reduced one)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config, make_batch
@@ -3403,39 +3480,65 @@ def encoder_path(dev, clips: int = HUBERT_CLIPS, frames: int = HUBERT_FRAMES,
     with torch.no_grad():
         params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
     batch = make_batch(cfg, clips, frames, seed=1, device=dev)
+    leaves = tree_flatten(params)[1]
     sync(dev)
     zero_counts()  # this path's counts start here
-    with torch.no_grad(), kernel_shapes() as seen:
-        t = time.perf_counter()
-        logits, aux = api.forward(params, batch)
-        sync(dev)
-        fwd_s = time.perf_counter() - t
-        t = time.perf_counter()
-        loss, (ce, acc) = api.loss(params, batch)
-        loss = float(loss)
-        loss_s = time.perf_counter() - t
-    launches = read_counts()
+    try:
+        with kernel_shapes() as seen:
+            with torch.no_grad():
+                t = time.perf_counter()
+                logits, aux = api.forward(params, batch)
+                sync(dev)
+                fwd_s = time.perf_counter() - t
+            for t_ in leaves:
+                t_.requires_grad_(True)
+            t = time.perf_counter()
+            loss, (ce, acc) = api.loss(params, batch)
+            sync(dev)
+            loss_s = time.perf_counter() - t
+            t = time.perf_counter()
+            loss.backward()
+            sync(dev)
+            bwd_s = time.perf_counter() - t
+        launches = read_counts()
+        loss = float(loss.detach())
+        finite = all(bool(torch.isfinite(t_.grad).all()) for t_ in leaves)
+        grad_max = max(float(t_.grad.float().abs().max()) for t_ in leaves)
+    finally:
+        for t_ in leaves:
+            t_.requires_grad_(False)
+            t_.grad = None
     shapes = sorted(set(seen["flash_attention"]))
+    # the forward, the loss's forward, and the loss's again under remat
+    fwd_calls = (3 if cfg.remat else 2) * cfg.n_layers
     print(f"  forward {fwd_s:.4f} s (first call), "
           f"{clips * frames / fwd_s:.0f} frames/s; loss {loss:.4f} (ce "
           f"{float(ce):.4f}, acc {float(acc):.4f}) in {loss_s:.4f} s; "
-          f"flash launches {launches['flash_attention']} over the forward "
-          f"and the loss ({cfg.n_layers} a call), "
-          f"{launches['flash_attention_hd80']} of them at hd 80, shapes "
-          f"(q, k, v) {shapes}; launches {launches}")
+          f"loss.backward() {bwd_s:.4f} s; {len(leaves)} gradients, all "
+          f"finite: {finite}, largest |grad| {grad_max:.4e}; flash launches "
+          f"{launches['flash_attention']} ({cfg.n_layers} a forward, remat "
+          f"{cfg.remat}), {launches['flash_attention_hd80']} of them at hd "
+          f"80, shapes (q, k, v) {shapes}; backward calls "
+          f"{launches['flash_attention_backward']} "
+          f"({launches['flash_attention_backward_hd80']} at hd 80), "
+          f"{launches['flash_attention_backward_kernels']} kernels; launches "
+          f"{launches}")
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated()
         print(f"  peak device memory {peak / 1e9:.2f} GB "
               f"({peak / 2 ** 30:.2f} GiB)")
     check(math.isfinite(loss), f"hubert: loss {loss}")
-    check(launches["flash_attention"] == 2 * cfg.n_layers
-          and launches["flash_attention_hd80"] == (2 * cfg.n_layers
-                                                    if hd == 80 else 0),
-          f"hubert: flash launches {launches}, expected {2 * cfg.n_layers} at "
-          f"hd {hd}")
+    check(finite, "hubert: a gradient of loss.backward() is not finite")
+    if dev.type == "cuda":
+        at80 = hd == 80
+        want = {"flash_attention": fwd_calls,
+                "flash_attention_hd80": fwd_calls if at80 else 0,
+                "flash_attention_backward": cfg.n_layers,
+                "flash_attention_backward_hd80": cfg.n_layers if at80 else 0}
+        check(all(launches[k] == n for k, n in want.items()),
+              f"hubert: launches {launches}, expected {want}")
     check(all(v == 0 for k, v in launches.items()
-              if not k.startswith("flash_attention")
-              or k.startswith("flash_attention_backward")),
+              if not k.startswith("flash_attention")),
           f"hubert: other kernels ran on the encoder path: {launches}")
     with torch.no_grad():
         with torch.profiler.profile() as prof:
@@ -3464,26 +3567,6 @@ def encoder_path(dev, clips: int = HUBERT_CLIPS, frames: int = HUBERT_FRAMES,
           f"mutant {err_mut:.4e}")
     check(err <= tol, "hubert: the forward disagrees with its plain core")
     check(err_mut > tol, "hubert: the check does not see a causal mask")
-    del logits, want, wrong
-    leaves = tree_flatten(params)[1]
-    for t_ in leaves:
-        t_.requires_grad_(True)
-    try:
-        with torch.enable_grad():
-            api.loss(params, batch)[0].backward()
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
-    finally:
-        for t_ in leaves:
-            t_.requires_grad_(False)
-            t_.grad = None
-    print(f"  loss.backward() at hd {hd}: "
-          + (f"raises NotImplementedError: {raised}" if raised
-             else "ran (no refusal)"))
-    if dev.type == "cuda" and hd == 80:
-        check(raised is not None and "13.10" in raised,
-              "hubert: the flash backward at hd 80 did not refuse")
     return launches
 
 
@@ -3507,9 +3590,9 @@ HYMBA_ARGV = ["--arch", "hymba-1.5b", "--no-smoke", "--batch", "4",
 # The training CLI's default run (xlstm-350m at full width and depth, 2
 # pods, K = 2, 8 x 64 tokens a pod a step), 2 rounds.
 XLSTM_TRAIN_ARGV = ["--rounds", "2"]
-HYMBA_TRAIN_LAYERS = 4  # layer 0 global, 1-3 windowed, as hymba's first 4
-HYMBA_TRAIN_ARGV = ["--arch", "hymba-1.5b", "--rounds", "2",
-                    "--local-steps", "2", "--batch", "1", "--seq", "2048"]
+# hymba-1.5b's training: cut to 4 layers (layer 0 global, 1-3 windowed, as
+# hymba's first 4), 1 row of 2048 tokens a pod a step.
+HYMBA_TRAIN = (4, 1, 2048)
 
 
 def hymba_group5():
@@ -3938,43 +4021,28 @@ def hymba_serving(dev, argv=HYMBA_ARGV) -> dict:
     return launches
 
 
-def block_training(dev, argv, layers=None, profile: bool = True) -> dict:
-    """A pods-as-clients training run of the xlstm or hymba block through
-    ``repro_torch.launch.train``: without ``layers``, ``train.main(argv)``
-    as the CLI runs it (``["--rounds", "2"]``: xlstm-350m at full width and
-    depth, 2 pods, K = 2, 8 x 64 tokens, the reference's defaults); with
-    ``layers``, ``train.run`` on the arch's config cut to that depth.
-    Prints each round's loss, w_mass and wall time, peak memory and the
-    launches: one dense mix a round, and for hymba the flash forward and
-    backward (2 passes x K x 2 pods x layers backward calls a round, twice
-    that many forward calls under remat), then a profiled round split by
-    kind.  The loss must be finite and the mass 2 within 1e-3.  Returns the
+def cli_training(dev, argv) -> dict:
+    """The training CLI's run: ``launch.train.main(argv)``.  Prints each
+    round's loss, w_mass and wall time, peak memory and the launches (one
+    dense mix a round; xlstm-350m, the default, has no attention).  The
+    loss must be finite and the mass 2 within 1e-3.  Returns the
     launches."""
-    import dataclasses
-
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch import train
 
     argv = argv + ([] if "--device" in argv or dev.type == "cuda"
                    else ["--device", dev.type])
-    args = train.build_parser().parse_args(argv)
+    rounds = train.build_parser().parse_args(argv).rounds
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     zero_counts()  # this training path's counts start here
     t = time.perf_counter()
-    if layers is None:
-        rec = train.main(argv)
-    else:
-        cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
-                                  n_layers=layers)
-        rec = train.run(cfg, args)
+    rec = train.main(argv)
     wall = time.perf_counter() - t
     launches = read_counts()
-    api, rounds = rec["api"], args.rounds
-    cfg = api.cfg
-    print(f"  {cfg.name}, {cfg.n_layers} layers: {api.num_params()} "
-          f"parameters a replica, remat {cfg.remat}; train.run {wall:.1f} s "
-          f"(parameter init included); launches {launches}")
+    api = rec["api"]
+    print(f"  {api.cfg.name}, {api.cfg.n_layers} layers: {api.num_params()} "
+          f"parameters a replica; train.main {wall:.1f} s (parameter init "
+          f"included); launches {launches}")
     for h in rec["history"]:
         print(f"  round {h['round']}: loss {h['loss']:.4f} acc {h['acc']:.4f} "
               f"w_mass {h['w_mass']:.6f} wall {h['dt']:.3f} s")
@@ -3987,31 +4055,135 @@ def block_training(dev, argv, layers=None, profile: bool = True) -> dict:
         peak = torch.cuda.max_memory_allocated()
         print(f"  peak device memory {peak / 1e9:.2f} GB "
               f"({peak / 2 ** 30:.2f} GiB)")
-    attn = 0 if cfg.block_kind == "xlstm" else cfg.n_layers
-    per_round = 2 * args.local_steps * train.N_PODS * attn  # 2 SAM passes
-    want = {"gossip_matmul": rounds, "gossip_gather": 0,
-            "fused_update_bank": 0,
-            "flash_attention_backward": rounds * per_round,
-            "flash_attention": rounds * per_round * (2 if cfg.remat else 1)}
-    if attn:
-        print(f"  flash backward: "
-              f"{launches['flash_attention_backward_kernels'] / max(launches['flash_attention_backward'], 1):g}"
-              " kernel launches a call")
+    if dev.type == "cuda":
+        check(launches["gossip_matmul"] == rounds and all(
+            n == 0 for k, n in launches.items() if k != "gossip_matmul"),
+            f"{api.cfg.name} training: launches {launches}, expected "
+            f"{rounds} dense mixes")
+    return launches
+
+
+def backward_passes(shape, dt=torch.bfloat16) -> int:
+    """The kernels one flash backward call launches at ``shape`` (B, H, KV,
+    S, hd) given the forward's logsumexp: D, dK / dV, the shares' sum
+    where the group is split (:func:`backward_shares`), dQ."""
+    from repro_torch.kernels.build import DTYPE_CODES, load_library
+
+    b, h, kv, s, hd = shape
+    shares = load_library().flash_attention_backward_shares(
+        DTYPE_CODES[dt], hd, b, h, kv, s)
+    return 3 + (shares > 1)
+
+
+def pod_training(dev, arch: str, layers, batch_n: int, seq: int, shape,
+                 rounds: int = 2, cfg=None, profile: bool = True) -> dict:
+    """The pods-as-clients round of ``arch`` on the card through the
+    port's ``launch/steps.make_round_step``, as ``launch.train.run`` drives
+    it: full width (bf16, parameters drawn on the card from seed 0, the
+    replicas equal), its depth cut to ``layers`` where given, 2 pods, K =
+    2, lr 0.05, alpha 0.9, rho 0.05, the dense ``P_pod``, ``batch_n`` rows
+    of ``seq`` positions a pod a step (:func:`round_batches`: the lm
+    stream, or the task's ``make_batch`` draws).  ``shape`` is (B, H, KV,
+    S, hd) of its attention.  Per round: loss, accuracy, w_mass, wall time
+    and the launches by kernel; then peak memory and a profiled round
+    split by kind.  The losses must be finite, w_mass 2 within 1e-3, and
+    each round one dense mix and 2 passes x K x 2 pods x layers flash
+    backward calls at ``shape`` (twice as many forward launches under
+    remat), each launching :func:`backward_passes` kernels, at hd 80 all of
+    them on the hd 80 kernels.  ``cfg`` replaces the config (a CPU
+    rehearsal passes a reduced one).  Returns the launches."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.flat import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import get_model_api
+
+    cfg = cfg or get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    api = get_model_api(cfg)
+    k_steps, n_pods = 2, 2
+    step_cfg = steps.StepConfig(lr=0.05, alpha=0.9, rho=0.05,
+                                local_steps=k_steps)
+    round_step = steps.make_round_step(api, step_cfg)
+    hd = cfg.resolved_head_dim
+    print(f"  {cfg.name}: {cfg.n_layers} layers at full width, "
+          f"{api.num_params() / 1e9:.3f} B parameters a replica in "
+          f"{str(cfg.dtype)[6:]}, {cfg.n_heads} heads on {cfg.n_kv_heads} of "
+          f"hd {hd}, causal={cfg.causal}, remat {cfg.remat}; {n_pods} pods, "
+          f"K = {k_steps}, {batch_n} x {seq} positions a pod a step")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.no_grad():
+        params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+        params = tree_map(lambda x: x.unsqueeze(0).expand(
+            (n_pods,) + x.shape).contiguous(), params)
+    v = tree_map(torch.zeros_like, params)
+    w = torch.ones(n_pods, dtype=torch.float32, device=dev)
+    P = steps.pod_mixing_matrix(n_pods, dev)
+    data = round_batches(cfg, rounds, batch_n, seq, k_steps, device=dev)
+    sync(dev)
+    print(f"  parameters, momentum and batches on the card in "
+          f"{time.perf_counter() - t:.1f} s; a step's batch: " + ", ".join(
+              f"{k} {tuple(x.shape[3:])}" for k, x in data.items()))
+    per_round = 2 * k_steps * n_pods * cfg.n_layers  # 2 SAM passes
+    want = {"flash_attention_backward": per_round,
+            "flash_attention_backward_hd80": per_round if hd == 80 else 0,
+            "flash_attention": per_round * (2 if cfg.remat else 1),
+            "gossip_matmul": 1, "gossip_gather": 0, "fused_update_bank": 0}
+    if dev.type == "cuda":
         want["flash_attention_backward_kernels"] = (
-            BWD_TRAIN_PASSES * rounds * per_round)
-    check(all(launches[k] == v for k, v in want.items()),
-          f"{cfg.name} training: launches {launches}, expected {want}")
-    if not profile:
-        return launches
-    state = [rec[k] for k in ("params", "v", "w", "comp", "link")]
-    with torch.profiler.profile() as prof:
-        t = time.perf_counter()
-        rec["round_step"](*state, {"tokens": rec["tokens"][0].to(dev)},
-                          rec["P_pod"])
-        sync(dev)
-        wall = time.perf_counter() - t
-    print(f"  profiled round {wall:.3f} s:")
-    print_train_split(prof, wall)
+            per_round * backward_passes(shape))
+    b, h, kv, s, _ = shape
+    qkv = ((b, h, s, hd), (b, kv, s, hd), (b, kv, s, hd))
+    zero_counts()  # this training path's counts start here
+    last = read_counts()
+    with kernel_shapes() as seen:
+        for r in range(rounds):
+            t = time.perf_counter()
+            params, v, w, _, _, m = round_step(
+                params, v, w, (), (), {k: x[r] for k, x in data.items()}, P)
+            loss, acc = float(m["loss"]), float(m["acc"])
+            w_mass = float(w.sum())
+            sync(dev)
+            wall = time.perf_counter() - t
+            now = read_counts()
+            used = {k: now[k] - last[k] for k in now}
+            last = now
+            calls = max(used["flash_attention_backward"], 1)
+            print(f"  round {r}: loss {loss:.4f} acc {acc:.4f} w_mass "
+                  f"{w_mass:.6f} wall {wall:.3f} s; launches {used}; "
+                  f"{used['flash_attention_backward_kernels'] / calls:g} "
+                  "backward kernels a call", flush=True)
+            check(math.isfinite(loss), f"{cfg.name} round {r}: loss {loss}")
+            check(abs(w_mass - n_pods) <= 1e-3,
+                  f"{cfg.name} round {r}: w_mass {w_mass}")
+            if dev.type == "cuda":
+                check(all(used[k] == n for k, n in want.items()),
+                      f"{cfg.name} round {r}: launches {used}, expected "
+                      f"{want}")
+    launches = read_counts()
+    if dev.type == "cuda":
+        check(set(seen["flash_attention"]) == {qkv},
+              f"{cfg.name}: flash shapes {set(seen['flash_attention'])}, "
+              f"expected {qkv}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB)")
+    if profile:  # the device's events only: a round holds ~10^5 host ops
+        kinds = ([torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda"
+                 else None)
+        with torch.profiler.profile(activities=kinds) as prof:
+            t = time.perf_counter()
+            round_step(params, v, w, (), (),
+                       {k: x[0] for k, x in data.items()}, P)
+            sync(dev)
+            wall = time.perf_counter() - t
+        print(f"  profiled round {wall:.3f} s:")
+        print_train_split(prof, wall)
+        del prof
     return launches
 
 
@@ -4046,15 +4218,57 @@ def blocks_phase(dev, head=print) -> dict:
     release()
     head(f"[15] training: the CLI's default (xlstm-350m at full width and "
          f"depth), 2 rounds; card: {card}")
-    paths["xlstm-350m training path"] = block_training(
-        dev, XLSTM_TRAIN_ARGV, profile=False)
+    paths["xlstm-350m training path"] = cli_training(dev, XLSTM_TRAIN_ARGV)
     release()
-    head(f"[15] training: hymba-1.5b at full width cut to "
-         f"{HYMBA_TRAIN_LAYERS} layers, 2 pods, K = 2, 1 x 2048 tokens, "
-         f"2 rounds; card: {card}")
-    paths["hymba-1.5b training path"] = block_training(
-        dev, HYMBA_TRAIN_ARGV, layers=HYMBA_TRAIN_LAYERS)
+    layers, batch_n, seq = HYMBA_TRAIN
+    head(f"[15] training: hymba-1.5b at full width cut to {layers} layers, "
+         f"2 pods, K = 2, {batch_n} x {seq} tokens, 2 rounds; card: {card}")
+    paths["hymba-1.5b training path"] = pod_training(
+        dev, "hymba-1.5b", layers, batch_n, seq, HYMBA_TRAIN_SHAPE)
     release()
+    return paths
+
+
+# -- phase 16: pods-as-clients training of the masked_lm and vlm tasks ---------
+
+# Each model, its depth (None: all of it), its rows a pod a step and their
+# positions: hubert-xlarge whole, 2 clips of 1500 frames (phase 14's 30 s
+# clip); llava-next-mistral-7b cut to 4 of its 32 layers (2 replicas,
+# momentum, the SAM copies and the f32 bank fit the card, as glm4-9b in
+# phase 12), 1 x (2880 image embeddings + 2880 text tokens).
+TASK_TRAIN = {"hubert-xlarge": (None, 2, 1500, HUBERT_TRAIN_SHAPE),
+              "llava-next-mistral-7b": (4, 1, 5760, LLAVA_TRAIN_SHAPE)}
+TASK_ROUNDS = 2
+
+
+def tasks_phase(dev, head=print) -> dict:
+    """Phase 16 whole (``head`` prints each step's heading): for the
+    masked_lm and the vlm task, a reduced pod round in f32, card against
+    CPU (hubert-xlarge at d_model 320 keeps 4 heads of hd 80, so its card
+    side runs the f32 SIMT backward at hd 80), then the model at full
+    width (:data:`TASK_TRAIN`) through :func:`pod_training`.  Returns the
+    launches of its two main paths.  ``python3 repeat_phase.py --repeat 1
+    tasks_phase`` runs it alone."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    card = card_line() if dev.type == "cuda" else "no card"
+    paths = {}
+    reduced = {"hubert-xlarge": dataclasses.replace(
+        get_config("hubert-xlarge", smoke=True), d_model=320),
+        "llava-next-mistral-7b": None}
+    for arch, cfg in reduced.items():
+        head(f"[16] training: reduced {arch}, 2 pods, card against CPU, f32")
+        train_parity(dev, arch=arch, cfg=cfg)
+    for arch, (layers, batch_n, seq, shape) in TASK_TRAIN.items():
+        depth = "and depth" if layers is None else f"cut to {layers} layers"
+        head(f"[16] training: {arch} at full width {depth}, 2 pods, K = 2, "
+             f"{batch_n} x {seq} positions, {TASK_ROUNDS} rounds; card: "
+             f"{card}")
+        paths[f"{arch} training path"] = pod_training(
+            dev, arch, layers, batch_n, seq, shape, TASK_ROUNDS)
+        release()
     return paths
 
 
@@ -4077,6 +4291,11 @@ REPLACES = {
     # The gradient of that kernel's function; the TPU package has no Pallas
     # backward (its training differentiates the plain attention).
     "flash_attention_backward": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:70"),
+    # The backward's hd 80 instantiations (hubert-xlarge), timed at hubert's
+    # training shape; its launches are the calls at hd 80.
+    "flash_attention_backward_hd80": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:70"),
 }
@@ -4160,7 +4379,8 @@ def main() -> int:
     release()
     head(f"[12] training: the flash backward kernel; card: {card}")
     backward_build_evidence()
-    rows["flash_attention_backward"] = flash_backward_phase(dev)
+    (rows["flash_attention_backward"],
+     rows["flash_attention_backward_hd80"]) = flash_backward_phase(dev)
     release()
     head("[12] training: reduced glm4-9b, 2 pods, card against CPU, f32")
     train_parity(dev)
@@ -4195,6 +4415,7 @@ def main() -> int:
     paths["hubert-xlarge encoder path"] = encoder_path(dev)
     release()
     paths.update(blocks_phase(dev, head))
+    paths.update(tasks_phase(dev, head))
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

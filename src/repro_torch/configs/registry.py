@@ -18,7 +18,8 @@ import torch
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape, reduced
 
 __all__ = ["ARCH_IDS", "PORTED_ARCH_IDS", "get_config", "make_batch",
-           "INPUT_SHAPES", "InputShape"]
+           "make_round_batches", "step_positions", "INPUT_SHAPES",
+           "InputShape"]
 
 _MODULES = {
     "gemma3-12b": "gemma3_12b",
@@ -85,3 +86,28 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,
             a = rng.standard_normal(shape)
         out[name] = torch.as_tensor(a, device=device).to(dt)
     return out
+
+
+def make_round_batches(cfg: ArchConfig, rounds: int, pods: int,
+                       local_steps: int, batch: int, seq: int, seed: int = 0,
+                       device="cpu") -> dict:
+    """The batches of ``rounds`` pods-as-clients rounds of ``cfg``'s task:
+    one :func:`make_batch` draw of ``rounds x pods x local_steps x batch``
+    rows of ``seq`` positions, each array cut to (rounds, pods,
+    local_steps, batch, ...).  A round's slice is the batch
+    ``launch.steps.make_round_step`` takes."""
+    flat = make_batch(cfg, rounds * pods * local_steps * batch, seq,
+                      seed=seed, device=device)
+    return {k: v.reshape(rounds, pods, local_steps, batch, *v.shape[1:])
+            for k, v in flat.items()}
+
+
+def step_positions(batches: dict) -> int:
+    """The fewest positions one local step's accuracy averages over, for
+    batches of shape (rounds, pods, K, B, ...): the masked frames of a
+    masked_lm step, else the text positions but the first (B (S - 1))."""
+    if "mask" in batches:
+        m = batches["mask"]
+        return int(m.flatten(0, 2).sum(dim=(1, 2)).min())
+    t = batches["tokens"]
+    return t.shape[3] * (t.shape[4] - 1)

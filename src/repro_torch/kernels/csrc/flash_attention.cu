@@ -325,27 +325,18 @@ constexpr float NEG = -1.0e30f;
 // Shared memory, in bytes from a 1024-byte aligned base: Q as PANELS panels
 // of 128 rows, then STAGES K tiles and STAGES V tiles, each PANELS panels of
 // 64 rows, then the mbarriers (Q's, STAGES full, STAGES empty).  A panel is
-// COLS columns, SW bytes a row in the SW-byte swizzle: 64 columns in the
-// 128-byte swizzle where 64 divides hd, else (hd 80) 16 in the 32-byte one.
+// COLS columns, SW bytes a row in the SW-byte swizzle (hopper.cuh, Panels).
 template <int HD>
-struct Plan {
+struct Plan : Panels<HD> {
+  using Panels<HD>::SW;
+  using Panels<HD>::PANELS;
   static constexpr int STAGES = HD == 256 ? 2 : 4;
-  static constexpr int SW = HD % PANEL == 0 ? 128 : 32, COLS = SW / 2;
-  static constexpr int PANELS = HD / COLS;
-  static constexpr int STEPS = COLS / 16;  // k16 steps in a panel row
   static constexpr int Q_PANEL = BQ * SW, KV_PANEL = BK * SW;
   static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
   static constexpr int K = Q_BYTES, V = K + STAGES * KV_BYTES;
   static constexpr int BARS = V + STAGES * KV_BYTES;
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
-  static_assert(HD % COLS == 0 && HD % 16 == 0, "hd must be a multiple of 16");
 };
-
-// The wgmma descriptor of a panel in the plan's swizzle.
-template <int SW>
-__device__ __forceinline__ uint64_t panel_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return SW == 128 ? sw128_desc(addr, lbo, sbo) : sw32_desc(addr, lbo, sbo);
-}
 
 struct Args {
   void* o;

@@ -21,7 +21,7 @@
 // bytes per row, so at S = 4096 it is far above the card's 295 FLOP a byte.
 // The passes below recompute q k^T and dO v^T once more (14 hd FLOP a pair).
 //
-// bf16 at hd 64 and 128: tensor-core passes (namespace tc), fed by TMA.
+// bf16 at hd 64, 80 and 128: tensor-core passes (namespace tc), fed by TMA.
 // - lse.  The forward kernel stores each row's logsumexp (natural log,
 //   f32, (B, H, S)); without it, the SIMT lse pass below computes it.
 // - Prep pass (flash_bwd_prep_kernel): one warp a row computes
@@ -35,7 +35,7 @@
 //   tile open to its keys, with their lse2 and D slices, through a ring of
 //   STAGES slots (full and empty mbarriers, as the forward streams K and
 //   V).  Two consumer warpgroups own 64 keys each and accumulate dK and dV
-//   (hd / 2 + hd / 2 f32 registers a thread) over all of it:
+//   (hd / 2 + hd / 2 f32 registers a thread: 80 at hd 80) over all of it:
 //     S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands in
 //     shared memory, K-major); P^T = 2^(S^T c - lse2) with c = hd^-0.5
 //     log2(e), masked on edge tiles; dS^T = P^T (dP^T - D);
@@ -58,6 +58,15 @@
 //   loaded once by TMA, K and V streamed through the ring; per consumer
 //   warpgroup (64 rows) S = Q K^T and dP = dO V^T (ss), dS = P (dP - D),
 //   then dQ += dS K with dS in bf16 registers and K read MN-major.
+// - hd 80 (hubert-xlarge: 1280 / 16 heads) is no multiple of a 64-column
+//   panel.  As in the forward, every tile is five 16-column panels (32
+//   bytes a row) in the 32-byte swizzle, each loaded by its own 16-column
+//   TMA box (Panels<HD>).  A k16 step of S^T = K Q^T and dP^T = V dO^T is
+//   one K-major panel, sw32_desc(panel, 16, 256); dV += P^T dO, dK += dS^T
+//   Q and dQ += dS K read dO, Q and K MN-major across the five panels, one
+//   m64n80k16 a k16 step, as the forward's P V reads V.  Shared memory:
+//   K and V 40 KB and 4 stages of Q and dO 80 KB (dK / dV); Q and dO 40 KB
+//   and 4 stages of K and V 80 KB (dQ).
 // - Masks as the forward's: a block visits only the tiles that the masks
 //   leave partly open for one of its rows; each consumer sorts a tile for
 //   its 64 rows into closed (no wgmma), interior (no mask arithmetic) or an
@@ -68,7 +77,8 @@
 //   f32; P^T before P^T dO and dS before dS K and dS^T Q round to bf16
 //   (relative 2^-8 each).
 //
-// f32 inputs (the f32 parity path) and bf16 at hd 256 run SIMT passes,
+// f32 inputs (the f32 parity path, hd 64, 80, 128 and 256) and bf16 at
+// hd 256 run SIMT passes,
 // f32 FMAs on values widened to f32 (every product exact):
 // 1. lse and D: the prep pass computes D; without the forward's lse the
 //    lse pass computes it first;
@@ -82,7 +92,9 @@
 //    accumulates dS K hd^-0.5.
 // Warps own rows of the tile that stays (keys in pass 2, queries in passes
 // 1 and 4), lanes own 2 of the 64 columns of the tile that streams through
-// shared memory, and hd / 32 columns of the accumulators.  Rows read by one
+// shared memory, and ceil(hd / 32) columns of the accumulators (at hd 80
+// lanes 0-15 own 3 and lanes 16-31 own 2, as the forward's SIMT kernel;
+// the third column, past hd, is neither read nor stored).  Rows read by one
 // lane each are padded by 4 floats, so the float4 reads of 8 lanes hit 32
 // distinct banks; rows read by the whole warp are broadcasts.  At hd 256
 // the tile that stays is 32 rows, so shared memory stays under 227 KB
@@ -184,12 +196,20 @@ __device__ __forceinline__ void row_col_dots(const float* A, const float* Bm, in
   }
 }
 
+// Output columns a lane owns: lane + 32 j for j < CPL, at most; at hd 80
+// lanes 0-15 own 3 and lanes 16-31 own 2 (the third column, past hd, is
+// neither read nor stored), as the forward's SIMT kernel.
+template <int HD>
+__device__ __forceinline__ bool owns(int lane, int j) {
+  return HD % 32 == 0 || lane + 32 * j < HD;
+}
+
 // acc[r][j] += sum_c W[r][c] Bm[c][lane + 32 j] over the tile's 64 columns:
 // W rows are this warp's (broadcast float4), Bm columns the lane's.
 template <int HD, int NR, int LDW, int LDB>
 __device__ __forceinline__ void accumulate(const float* W, const float* Bm, int lane,
-                                           float (&acc)[NR][HD / 32]) {
-  constexpr int CPL = HD / 32;
+                                           float (&acc)[NR][(HD + 31) / 32]) {
+  constexpr int CPL = (HD + 31) / 32;
 #pragma unroll 2
   for (int c = 0; c < COLS; c += 4) {
     float4 w[NR];
@@ -197,6 +217,7 @@ __device__ __forceinline__ void accumulate(const float* W, const float* Bm, int 
     for (int r = 0; r < NR; ++r) w[r] = *reinterpret_cast<const float4*>(W + r * LDW + c);
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
+      if (!owns<HD>(lane, j)) continue;
       const float b0 = Bm[(c + 0) * LDB + lane + 32 * j];
       const float b1 = Bm[(c + 1) * LDB + lane + 32 * j];
       const float b2 = Bm[(c + 2) * LDB + lane + 32 * j];
@@ -307,7 +328,7 @@ struct KVLayout {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(Args a, int n_kt) {
   using L = KVLayout<HD>;
-  constexpr int ROWS = L::ROWS, CPL = HD / 32;
+  constexpr int ROWS = L::ROWS, CPL = (HD + 31) / 32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float *Ks = smem + L::K, *Vs = smem + L::V, *Qs = smem + L::Q, *DOs = smem + L::DO;
@@ -380,6 +401,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(Args a, int 
       T* dvb = static_cast<T*>(a.dv) + b * a.dv_sb + g * a.dv_sh + (int64_t)ki * a.dv_ss;
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
+        if (!owns<HD>(lane, j)) continue;
         dkb[lane + 32 * j] = from_f32<T>(dk[r][j]);
         dvb[lane + 32 * j] = from_f32<T>(dv[r][j]);
       }
@@ -387,6 +409,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(Args a, int 
       const int64_t off = ((int64_t)bh * a.S + ki) * HD;
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
+        if (!owns<HD>(lane, j)) continue;
         a.dk_part[off + lane + 32 * j] = dk[r][j];
         a.dv_part[off + lane + 32 * j] = dv[r][j];
       }
@@ -434,7 +457,7 @@ struct QLayout {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(Args a, int n_qt) {
   using L = QLayout<HD>;
-  constexpr int ROWS = L::ROWS, CPL = HD / 32;
+  constexpr int ROWS = L::ROWS, CPL = (HD + 31) / 32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float *Qs = smem + L::Q, *DOs = smem + L::DO, *Ks = smem + L::K, *Vs = smem + L::V;
@@ -496,7 +519,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(Args a, int n_
     if (qi >= a.S) continue;
 #pragma unroll
     for (int j = 0; j < CPL; ++j)
-      dqb[(int64_t)qi * a.dq_ss + lane + 32 * j] = from_f32<T>(acc[r][j] * a.scale);
+      if (owns<HD>(lane, j))
+        dqb[(int64_t)qi * a.dq_ss + lane + 32 * j] = from_f32<T>(acc[r][j] * a.scale);
   }
 }
 
@@ -567,6 +591,7 @@ int launch_stats(const Args& a, cudaStream_t stream, int* launched) {
 template <typename T>
 int launch_stats_hd(int hd, const Args& a, cudaStream_t stream, int* launched) {
   if (hd == 64) return launch_stats<T, 64>(a, stream, launched);
+  if (hd == 80) return launch_stats<T, 80>(a, stream, launched);
   if (hd == 128) return launch_stats<T, 128>(a, stream, launched);
   if (hd == 256) return launch_stats<T, 256>(a, stream, launched);
   return (int)cudaErrorInvalidValue;
@@ -586,7 +611,7 @@ int launch_prep(const PrepArgs& p, cudaStream_t stream, int* launched) {
 
 
 // ---------------------------------------------------------------------------
-// The tensor-core passes (bf16, hd 64 and 128).
+// The tensor-core passes (bf16, hd 64, 80 and 128).
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -609,14 +634,15 @@ struct Params {
 };
 
 // dK / dV shared memory, in bytes from a 1024-byte aligned base: K and V as
-// hd / 64 panels of 128 rows each; STAGES Q tiles and STAGES dO tiles of
-// hd / 64 panels of 64 rows; STAGES (lse2, D) slices of 64 floats each;
+// PANELS panels of 128 rows each; STAGES Q tiles and STAGES dO tiles of
+// PANELS panels of 64 rows; STAGES (lse2, D) slices of 64 floats each;
 // the mbarriers (K and V's, STAGES full, STAGES empty).
 template <int HD>
-struct KVPlan {
+struct KVPlan : Panels<HD> {
+  using Panels<HD>::SW;
+  using Panels<HD>::PANELS;
   static constexpr int STAGES = HD == 128 ? 3 : 4;
-  static constexpr int PANELS = HD / PANEL;
-  static constexpr int KV_PANEL = BT * ROW_BYTES, T_PANEL = BM * ROW_BYTES;
+  static constexpr int KV_PANEL = BT * SW, T_PANEL = BM * SW;
   static constexpr int KV_BYTES = PANELS * KV_PANEL, T_BYTES = PANELS * T_PANEL;
   static constexpr int K = 0, V = KV_BYTES, Q = 2 * KV_BYTES, DO = Q + STAGES * T_BYTES;
   static constexpr int VEC = DO + STAGES * T_BYTES, VEC_BYTES = 2 * BM * 4;
@@ -709,8 +735,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_expect_tx(bar_kv, 2 * P::KV_BYTES);
 #pragma unroll
       for (int p = 0; p < P::PANELS; ++p) {
-        tma_load(sK + p * P::KV_PANEL, &tk, bar_kv, p * PANEL, k0, g, b);
-        tma_load(sV + p * P::KV_PANEL, &tv, bar_kv, p * PANEL, k0, g, b);
+        tma_load(sK + p * P::KV_PANEL, &tk, bar_kv, p * P::COLS, k0, g, b);
+        tma_load(sV + p * P::KV_PANEL, &tv, bar_kv, p * P::COLS, k0, g, b);
       }
       int i = 0;
       for (int hh = 0; hh < heads; ++hh) {
@@ -722,8 +748,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
           for (int p = 0; p < P::PANELS; ++p) {
             const uint32_t off = st * P::T_BYTES + p * P::T_PANEL;
-            tma_load(sQ + off, &tq, full(st), p * PANEL, q0, h, b);
-            tma_load(sDO + off, &tdo, full(st), p * PANEL, q0, h, b);
+            tma_load(sQ + off, &tq, full(st), p * P::COLS, q0, h, b);
+            tma_load(sDO + off, &tdo, full(st), p * P::COLS, q0, h, b);
           }
           const int64_t row = ((int64_t)b * a.H + h) * a.S_pad + q0;
           const uint32_t sv = base + P::VEC + st * P::VEC_BYTES;
@@ -744,7 +770,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint32_t pa[4][4], da[4][4];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.0f;
-    const uint32_t sKw = sK + BM * wg * ROW_BYTES, sVw = sV + BM * wg * ROW_BYTES;
+    const uint32_t sKw = sK + BM * wg * P::SW, sVw = sV + BM * wg * P::SW;
     mbar_wait(bar_kv, 0);
 
     int i = 0;
@@ -761,15 +787,17 @@ __global__ void __launch_bounds__(THREADS, 1)
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < HD / 16; ++kk) {
-            const uint32_t off = (kk % 4) * 32;
-            wgmma_ss_m64n64(s, sw128_desc(sKw + (kk / 4) * P::KV_PANEL + off, 16, 1024),
-                            sw128_desc(sQs + (kk / 4) * P::T_PANEL + off, 16, 1024), kk > 0);
+            const uint32_t off = (kk % P::STEPS) * 32, p = kk / P::STEPS;
+            wgmma_ss_m64n64(s, panel_desc<P::SW>(sKw + p * P::KV_PANEL + off, 16, 8 * P::SW),
+                            panel_desc<P::SW>(sQs + p * P::T_PANEL + off, 16, 8 * P::SW),
+                            kk > 0);
           }
 #pragma unroll
           for (int kk = 0; kk < HD / 16; ++kk) {
-            const uint32_t off = (kk % 4) * 32;
-            wgmma_ss_m64n64(dp, sw128_desc(sVw + (kk / 4) * P::KV_PANEL + off, 16, 1024),
-                            sw128_desc(sDOs + (kk / 4) * P::T_PANEL + off, 16, 1024), kk > 0);
+            const uint32_t off = (kk % P::STEPS) * 32, p = kk / P::STEPS;
+            wgmma_ss_m64n64(dp, panel_desc<P::SW>(sVw + p * P::KV_PANEL + off, 16, 8 * P::SW),
+                            panel_desc<P::SW>(sDOs + p * P::T_PANEL + off, 16, 8 * P::SW),
+                            kk > 0);
           }
           wgmma_commit();
           wgmma_wait_all();
@@ -799,9 +827,8 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
           }
 
-          // dV += P^T dO and dK += dS^T Q: 16 queries (16 rows of 128
-          // bytes) per step, dO and Q MN-major with their 64-column panels
-          // T_PANEL bytes apart.
+          // dV += P^T dO and dK += dS^T Q: 16 queries (16 panel rows) per
+          // step, dO and Q MN-major with their panels T_PANEL bytes apart.
           pin(dv);
           pin(dk);
           pin(pa);
@@ -809,10 +836,12 @@ __global__ void __launch_bounds__(THREADS, 1)
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n<HD>(dv, pa[kk], sw128_desc(sDOs + kk * 16 * ROW_BYTES, P::T_PANEL, 1024));
+            wgmma_rs_n<HD>(dv, pa[kk],
+                           panel_desc<P::SW>(sDOs + kk * 16 * P::SW, P::T_PANEL, 8 * P::SW));
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n<HD>(dk, da[kk], sw128_desc(sQs + kk * 16 * ROW_BYTES, P::T_PANEL, 1024));
+            wgmma_rs_n<HD>(dk, da[kk],
+                           panel_desc<P::SW>(sQs + kk * 16 * P::SW, P::T_PANEL, 8 * P::SW));
           wgmma_commit();
           wgmma_wait_all();
           pin(dv);
@@ -851,14 +880,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // dQ shared memory, in bytes from a 1024-byte aligned base: Q and dO as
-// hd / 64 panels of 128 rows each, then STAGES K tiles and STAGES V tiles
-// of hd / 64 panels of 64 rows, then the mbarriers (Q and dO's, STAGES
+// PANELS panels of 128 rows each, then STAGES K tiles and STAGES V tiles
+// of PANELS panels of 64 rows, then the mbarriers (Q and dO's, STAGES
 // full, STAGES empty).
 template <int HD>
-struct QPlan {
+struct QPlan : Panels<HD> {
+  using Panels<HD>::SW;
+  using Panels<HD>::PANELS;
   static constexpr int STAGES = 4;
-  static constexpr int PANELS = HD / PANEL;
-  static constexpr int Q_PANEL = BT * ROW_BYTES, KV_PANEL = BM * ROW_BYTES;
+  static constexpr int Q_PANEL = BT * SW, KV_PANEL = BM * SW;
   static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
   static constexpr int Q = 0, DO = Q_BYTES, K = 2 * Q_BYTES, V = K + STAGES * KV_BYTES;
   static constexpr int BARS = V + STAGES * KV_BYTES;
@@ -912,8 +942,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_expect_tx(bar_q, 2 * P::Q_BYTES);
 #pragma unroll
       for (int p = 0; p < P::PANELS; ++p) {
-        tma_load(sQ + p * P::Q_PANEL, &tq, bar_q, p * PANEL, q0, h, b);
-        tma_load(sDO + p * P::Q_PANEL, &tdo, bar_q, p * PANEL, q0, h, b);
+        tma_load(sQ + p * P::Q_PANEL, &tq, bar_q, p * P::COLS, q0, h, b);
+        tma_load(sDO + p * P::Q_PANEL, &tdo, bar_q, p * P::COLS, q0, h, b);
       }
       for (int i = 0; i < n_kt; ++i) {
         const int st = i % STAGES, k0 = (kt_begin + i) * BM;
@@ -922,8 +952,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int p = 0; p < P::PANELS; ++p) {
           const uint32_t off = st * P::KV_BYTES + p * P::KV_PANEL;
-          tma_load(sK + off, &tk, full(st), p * PANEL, k0, g, b);
-          tma_load(sV + off, &tv, full(st), p * PANEL, k0, g, b);
+          tma_load(sK + off, &tk, full(st), p * P::COLS, k0, g, b);
+          tma_load(sV + off, &tv, full(st), p * P::COLS, k0, g, b);
         }
       }
     }
@@ -946,7 +976,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       lse2[r] = qi < a.S ? a.lse2[at] : 0.0f;
       dsum[r] = qi < a.S ? a.dsum[at] : 0.0f;
     }
-    const uint32_t sQw = sQ + BM * wg * ROW_BYTES, sDOw = sDO + BM * wg * ROW_BYTES;
+    const uint32_t sQw = sQ + BM * wg * P::SW, sDOw = sDO + BM * wg * P::SW;
     mbar_wait(bar_q, 0);
 
     for (int i = 0; i < n_kt; ++i) {
@@ -961,15 +991,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32;
-          wgmma_ss_m64n64(s, sw128_desc(sQw + (kk / 4) * P::Q_PANEL + off, 16, 1024),
-                          sw128_desc(sKs + (kk / 4) * P::KV_PANEL + off, 16, 1024), kk > 0);
+          const uint32_t off = (kk % P::STEPS) * 32, p = kk / P::STEPS;
+          wgmma_ss_m64n64(s, panel_desc<P::SW>(sQw + p * P::Q_PANEL + off, 16, 8 * P::SW),
+                          panel_desc<P::SW>(sKs + p * P::KV_PANEL + off, 16, 8 * P::SW),
+                          kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32;
-          wgmma_ss_m64n64(dp, sw128_desc(sDOw + (kk / 4) * P::Q_PANEL + off, 16, 1024),
-                          sw128_desc(sVs + (kk / 4) * P::KV_PANEL + off, 16, 1024), kk > 0);
+          const uint32_t off = (kk % P::STEPS) * 32, p = kk / P::STEPS;
+          wgmma_ss_m64n64(dp, panel_desc<P::SW>(sDOw + p * P::Q_PANEL + off, 16, 8 * P::SW),
+                          panel_desc<P::SW>(sVs + p * P::KV_PANEL + off, 16, 8 * P::SW),
+                          kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -998,7 +1030,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n<HD>(dq, da[kk], sw128_desc(sKs + kk * 16 * ROW_BYTES, P::KV_PANEL, 1024));
+          wgmma_rs_n<HD>(dq, da[kk],
+                         panel_desc<P::SW>(sKs + kk * 16 * P::SW, P::KV_PANEL, 8 * P::SW));
         wgmma_commit();
         wgmma_wait_all();
         pin(dq);
@@ -1035,15 +1068,18 @@ struct Launch {
 
 template <int HD>
 int launch(const Launch& L, const Params& a, cudaStream_t stream, int* launched) {
-  // Maps with boxes of 64 and 128 rows: the dK / dV pass streams 64-row Q
-  // and dO tiles against 128-row K and V tiles, the dQ pass the other way.
+  // Maps with boxes of 64 and 128 rows, a panel wide: the dK / dV pass
+  // streams 64-row Q and dO tiles against 128-row K and V tiles, the dQ
+  // pass the other way.
+  constexpr int COLS = Panels<HD>::COLS;
   CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
   const auto maps = [&](CUtensorMap* mq, CUtensorMap* mdo, CUtensorMap* mk, CUtensorMap* mv,
                         int rows) {
-    int e = make_map(mq, L.q, HD, a.S, a.H, a.B, L.q_sb, L.q_sh, L.q_ss, rows);
-    if (e == 0) e = make_map(mdo, L.dout, HD, a.S, a.H, a.B, L.do_sb, L.do_sh, L.do_ss, rows);
-    if (e == 0) e = make_map(mk, L.k, HD, a.S, a.KV, a.B, L.k_sb, L.k_sh, L.k_ss, rows);
-    if (e == 0) e = make_map(mv, L.v, HD, a.S, a.KV, a.B, L.v_sb, L.v_sh, L.v_ss, rows);
+    int e = make_map(mq, L.q, HD, a.S, a.H, a.B, L.q_sb, L.q_sh, L.q_ss, rows, COLS);
+    if (e == 0)
+      e = make_map(mdo, L.dout, HD, a.S, a.H, a.B, L.do_sb, L.do_sh, L.do_ss, rows, COLS);
+    if (e == 0) e = make_map(mk, L.k, HD, a.S, a.KV, a.B, L.k_sb, L.k_sh, L.k_ss, rows, COLS);
+    if (e == 0) e = make_map(mv, L.v, HD, a.S, a.KV, a.B, L.v_sb, L.v_sh, L.v_ss, rows, COLS);
     return e;
   };
   int e = maps(&q64, &do64, &k64, &v64, BM);
@@ -1106,16 +1142,20 @@ int launch_simt(const Args& a, cudaStream_t stream, int* launched) {
   return 0;
 }
 
-// The SIMT passes exist for f32 at every head dim and for bf16 at hd 256.
+// The SIMT passes exist for f32 at every head dim (64, 80, 128, 256) and for
+// bf16 at hd 256.
 int launch_simt_hd(int dtype, int hd, const Args& a, cudaStream_t stream, int* launched) {
   if (dtype == 0 && hd == 64) return launch_simt<float, 64>(a, stream, launched);
+  if (dtype == 0 && hd == 80) return launch_simt<float, 80>(a, stream, launched);
   if (dtype == 0 && hd == 128) return launch_simt<float, 128>(a, stream, launched);
   if (dtype == 0 && hd == 256) return launch_simt<float, 256>(a, stream, launched);
   if (dtype == 1 && hd == 256) return launch_simt<__nv_bfloat16, 256>(a, stream, launched);
   return (int)cudaErrorInvalidValue;
 }
 
-bool on_tensor_cores(int dtype, int hd) { return dtype == 1 && (hd == 64 || hd == 128); }
+bool on_tensor_cores(int dtype, int hd) {
+  return dtype == 1 && (hd == 64 || hd == 80 || hd == 128);
+}
 
 }  // namespace
 
@@ -1132,14 +1172,14 @@ extern "C" int64_t flash_attention_backward_shares(int dtype, int hd, int64_t B,
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dO, dQ, dK and dV alike.
 // q, o, dO and dQ are (B, H, S, hd), k, v, dK and dV (B, KV, S, hd), each
 // given by its (b, head, s) element strides with hd contiguous; for bf16 at
-// hd 64 and 128 (the tensor-core passes), q, k, v and dO start on 16 bytes
+// hd 64, 80 and 128 (the tensor-core passes), q, k, v and dO start on 16 bytes
 // and their strides are multiples of 8 elements (TMA).  lse is the
 // forward's (B, H, S) f32 logsumexp, or null: then the lse pass writes it
 // to lse_scratch (B H S f32).  vec is f32 scratch of 2 B H S_pad elements,
 // S_pad = S rounded up to 64 (D, and lse log2(e) for the tensor-core
 // passes).  dk_part and dv_part are f32 scratch of B KV shares S hd
 // elements each, read when flash_attention_backward_shares is above 1 (may
-// be null otherwise).  hd is 64, 128 or 256; H is a multiple of KV.
+// be null otherwise).  hd is 64, 80, 128 or 256; H is a multiple of KV.
 // Launches the passes on the stream, counts them in *launched, and returns
 // the cudaError_t of the first that fails.
 extern "C" int flash_attention_backward_launch(
@@ -1157,7 +1197,7 @@ extern "C" int flash_attention_backward_launch(
   if (KV <= 0 || H % KV != 0 || window < 0) return (int)cudaErrorInvalidValue;
   if (S > 0x3fffffff || B * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (hd != 64 && hd != 128 && hd != 256) return (int)cudaErrorInvalidValue;
+  if (hd != 64 && hd != 80 && hd != 128 && hd != 256) return (int)cudaErrorInvalidValue;
   if (vec == nullptr || (lse == nullptr && lse_scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   const int64_t shares = flash_attention_backward_shares(dtype, hd, B, H, KV, S);
@@ -1201,5 +1241,7 @@ extern "C" int flash_attention_backward_launch(
                dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss};
   tc::Launch L{q, k, v, dout, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                do_sb, do_sh, do_ss};
-  return hd == 64 ? tc::launch<64>(L, t, st, launched) : tc::launch<128>(L, t, st, launched);
+  if (hd == 64) return tc::launch<64>(L, t, st, launched);
+  if (hd == 80) return tc::launch<80>(L, t, st, launched);
+  return tc::launch<128>(L, t, st, launched);
 }

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the flash attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads of
 // 4-D tensor maps and 1-D bulk copies, the wgmma shared-memory descriptors
-// of the 128-byte and 32-byte swizzles and the bf16 wgmma products
+// of the 128-byte and 32-byte swizzles (panel_desc picks one by the panel's
+// row bytes) and the bf16 wgmma products
 // (m64n64k16 with both operands in shared memory; m64n{64,80,128,256}k16
 // with A in registers and B read MN-major), and the host's tensor maps.
 //
@@ -13,7 +14,7 @@
 // sw128_desc(panel + (kk % 4) * 32, 16, 1024).  Read MN-major (the
 // reduction over the rows, the transpose bit set), a k16 step is 16 rows,
 // and the panels are the N dimension's 64-column chunks:
-// sw128_desc(tile + kk * 16 * ROW_BYTES, <panel bytes>, 1024).
+// sw128_desc(tile + kk * 16 * 128, <panel bytes>, 1024).
 //
 // A head dim that is no multiple of 64 (hd 80) is cut into panels of 16
 // columns (32 bytes a row) in the 32-byte swizzle, each 1024-byte aligned,
@@ -30,8 +31,18 @@
 
 namespace hopper {
 
-constexpr int PANEL = 64;       // bf16 columns of one 128-byte swizzled panel
-constexpr int ROW_BYTES = 128;  // a panel row
+constexpr int PANEL = 64;  // bf16 columns of one 128-byte swizzled panel
+
+// The panels a tile of hd columns is cut into: COLS columns, SW bytes a
+// row in the SW-byte swizzle; 64 columns in the 128-byte swizzle where 64
+// divides hd, else (hd 80) 16 in the 32-byte one.
+template <int HD>
+struct Panels {
+  static constexpr int SW = HD % PANEL == 0 ? 128 : 32, COLS = SW / 2;
+  static constexpr int PANELS = HD / COLS;
+  static constexpr int STEPS = COLS / 16;  // k16 steps in a panel row
+  static_assert(HD % COLS == 0 && HD % 16 == 0, "hd must be a multiple of 16");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -101,6 +112,12 @@ __device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint3
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
          (3ull << 62);
+}
+
+// The descriptor of a panel in the SW-byte swizzle (128 or 32).
+template <int SW>
+__device__ __forceinline__ uint64_t panel_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return SW == 128 ? sw128_desc(addr, lbo, sbo) : sw32_desc(addr, lbo, sbo);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

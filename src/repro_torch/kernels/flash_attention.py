@@ -35,12 +35,14 @@ masked scores on the CPU) and whose backward is
 on the CPU.  The TPU package has no Pallas backward (its training path
 differentiates the plain attention with JAX); this one computes the
 gradient of the forward's function from q, k, v, the forward's output o,
-its logsumexp and dO.  bf16 at hd 64 and 128 runs tensor-core passes (a D
-pass, a dK / dV pass and a dQ pass on wgmma, fed by TMA, and a fixed-order
-sum of dK / dV shares where a GQA group is split); f32 and bf16 at hd 256
-run f32 SIMT passes; at hd 80 the backward raises ``NotImplementedError``
-on the card (``BACKWARD_HEAD_DIMS``, ``BACKWARD_ITEM``), while its plain
-version runs on the CPU.  ``backward_launches`` counts its calls and
+its logsumexp and dO.  bf16 at hd 64, 80 and 128 runs tensor-core passes
+(a D pass, a dK / dV pass and a dQ pass on wgmma, fed by TMA, and a
+fixed-order sum of dK / dV shares where a GQA group is split; hd 80 in the
+forward's 16-column panels); f32 at every head dim and bf16 at hd 256 run
+f32 SIMT passes.  It is built for the forward's head dims
+(``BACKWARD_HEAD_DIMS``); at another one it raises ``NotImplementedError``
+on the card.  ``backward_launches`` counts its calls,
+``backward_head_dim_launches`` the same calls by head dim and
 ``backward_kernel_launches`` the kernels those calls launched.
 :func:`backward_tolerance` states how far it may lie from its plain
 version, :func:`lse_tolerance` how far the forward's logsumexp may lie from
@@ -56,24 +58,22 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, load_library
 
-__all__ = ["BACKWARD_HEAD_DIMS", "BACKWARD_ITEM", "backward_tolerance",
+__all__ = ["BACKWARD_HEAD_DIMS", "backward_tolerance",
            "bf16_tolerance", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_plain", "flash_attention_plain",
            "flash_attention_with_lse", "HEAD_DIMS", "head_dim_launches",
-           "launches", "backward_launches", "backward_kernel_launches",
-           "lse_tolerance"]
+           "launches", "backward_launches", "backward_head_dim_launches",
+           "backward_kernel_launches", "lse_tolerance"]
 
 HEAD_DIMS = (64, 80, 128, 256)  # the head sizes the forward is built for
-# The head sizes the backward is built for; at hd 80 (hubert-xlarge) it
-# raises on the card.
-BACKWARD_HEAD_DIMS = (64, 128, 256)
-BACKWARD_ITEM = ("ROADMAP queue 1 item 13.10: the flash backward at hd 80, "
-                 "and training of the vlm and masked_lm tasks on the card")
+BACKWARD_HEAD_DIMS = HEAD_DIMS  # the backward is built for the forward's
 NEG = -1.0e30
 
 launches = 0
 head_dim_launches = dict.fromkeys(HEAD_DIMS, 0)  # ``launches`` by head dim
 backward_launches = 0  # calls of the backward
+# ``backward_launches`` by head dim
+backward_head_dim_launches = dict.fromkeys(BACKWARD_HEAD_DIMS, 0)
 backward_kernel_launches = 0  # the kernels those calls launched
 
 
@@ -321,8 +321,8 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     """Per-element bounds on ``|kernel - plain|`` for (dq, dk, dv), where
     ``ref`` is the plain version's (dq, dk, dv) on the same inputs:
     ``c |ref| + 2 u n mag``, plus ``2^-8 mag`` where the inputs run the
-    tensor-core passes (bf16 at hd 64 and 128, :func:`on_tensor_cores`), with
-    u = 2^-24, c = 2^-7 for bf16 outputs and 2u for f32,
+    tensor-core passes (bf16 at hd 64, 80 and 128, :func:`on_tensor_cores`),
+    with u = 2^-24, c = 2^-7 for bf16 outputs and 2u for f32,
     n = 2 S + hd (1 + 2 s_max) + 8, and ``mag`` the plain formulas on
     magnitudes: |dS| <= P (|dO| |v|^T + rowsum(|dO| |o|)), then
     mag_dq = |dS| |k| hd^-0.5, mag_dk = |dS|^T |q| hd^-0.5 and
@@ -413,8 +413,8 @@ def _cuda_view(t, tma: bool = False):
 
 def on_tensor_cores(dtype, hd: int) -> bool:
     """Whether the backward of this dtype and head dim runs the tensor-core
-    passes (bf16 at hd 64 and 128); the others run the SIMT passes."""
-    return dtype == torch.bfloat16 and hd in (64, 128)
+    passes (bf16 at hd 64, 80 and 128); the others run the SIMT passes."""
+    return dtype == torch.bfloat16 and hd in (64, 80, 128)
 
 
 def flash_attention_backward(q, k, v, o, do, causal: bool = True,
@@ -435,7 +435,8 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     if q.dim() == 4 and q.shape[-1] not in BACKWARD_HEAD_DIMS:
         raise NotImplementedError(
             f"the flash backward has no kernel at head dim {q.shape[-1]} "
-            f"(built for {BACKWARD_HEAD_DIMS}): {BACKWARD_ITEM}")
+            f"(built for {BACKWARD_HEAD_DIMS}): another head dim needs its "
+            f"own instantiations of the passes in csrc/flash_attention_bwd.cu")
     _check_cuda_args(q, k, v, window)
     b, h, s, hd = q.shape
     kv = k.shape[1]
@@ -484,5 +485,6 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
         )
     check(rc, "flash_attention_backward")
     backward_launches += 1
+    backward_head_dim_launches[hd] += 1
     backward_kernel_launches += n.value
     return dq, dk, dv

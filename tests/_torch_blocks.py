@@ -1,5 +1,6 @@
 """Shared harness of the recurrent and hybrid block tests
-(``tests/test_torch_{xlstm,hymba}.py``): both packages on the CPU at a
+(``tests/test_torch_{xlstm,hymba}.py``, and the task rounds of
+``tests/test_torch_pod_tasks.py``): both packages on the CPU at a
 reduced config, parameters from the reference's own ``init`` carried across
 by ``repro_torch.interop.params_from_numpy``, inputs from the same numpy
 draws.  Each check states its tolerance where it is called.
@@ -28,6 +29,7 @@ import torch
 from repro.configs import registry as ref_registry
 from repro.launch import steps as ref_steps
 from repro.models.registry import get_model_api as ref_get_model_api
+from repro_torch.configs import registry
 from repro_torch.core.flat import tree_flatten
 from repro_torch.interop import params_from_numpy, pod_state_from_numpy
 from repro_torch.launch import steps
@@ -151,31 +153,39 @@ def grad_parity(ref_api, api, ref_params, batch: dict, rel: float) -> dict:
     return {tuple(p): g for p, g in zip(paths, grads)}
 
 
-def pod_round_parity(ref_api, api, ref_params, toks: np.ndarray,
-                     rel: float) -> list:
+def pod_round_parity(ref_api, api, ref_params, batches, rel: float) -> list:
     """The pods-as-clients round of both packages (2 pods, K local steps,
-    lr 0.05, alpha 0.9, rho 0.05, the dense ``P_pod``), ``toks`` of shape
-    (rounds, 2, K, B, S); each round restarts the port from the reference's
-    state (params, momentum ``v``, push-sum ``w``).  Holds every params and
-    ``v`` leaf to ``rel`` of its largest magnitude or to twice the
-    reference's own drift (:func:`drifts` of the round's params), ``w`` to
-    1e-6, the loss to 1e-5 relative and the accuracy to one token a step.  The two
-    replicas differ (the second is half the first), so the first mix
-    already moves them.  Returns the reference's losses."""
-    kw = dict(lr=0.05, alpha=0.9, rho=0.05, local_steps=toks.shape[2])
+    lr 0.05, alpha 0.9, rho 0.05, the dense ``P_pod``) on ``batches``: a
+    token array of shape (rounds, 2, K, B, S), or a dict of the task's
+    arrays of shape (rounds, 2, K, B, ...); each round restarts the port
+    from the reference's state (params, momentum ``v``, push-sum ``w``).
+    Holds every params and ``v`` leaf to ``rel`` of its largest magnitude
+    or to twice the reference's own drift (:func:`drifts` of the round's
+    params), ``w`` to 1e-6, the loss to 1e-5 relative and the accuracy to
+    one position a step (``configs.registry.step_positions``).  The two
+    replicas differ
+    (the second is half the first), so the first mix already moves them.
+    Returns the reference's losses."""
+    if not isinstance(batches, dict):
+        batches = {"tokens": batches}
+    first = np.asarray(next(iter(batches.values())))
+    kw = dict(lr=0.05, alpha=0.9, rho=0.05, local_steps=first.shape[2])
     ref_round = jax.jit(ref_steps.make_round_step(ref_api,
                                                   ref_steps.StepConfig(**kw)))
     port_round = steps.make_round_step(api, steps.StepConfig(**kw))
     params = jax.tree.map(lambda x: jnp.stack([x, x * 0.5]), ref_params)
     ref = (params, jax.tree.map(jnp.zeros_like, params), jnp.ones((2,)), (),
            ())
+    step_positions = registry.step_positions(
+        {k: torch.from_numpy(np.asarray(x)) for k, x in batches.items()})
     losses = []
-    for r in range(toks.shape[0]):
+    for r in range(first.shape[0]):
         p, v, w = jax.device_get(ref[:3])
         state = pod_state_from_numpy({"params": p, "v": v, "w": w})
-        got = port_round(*state, {"tokens": torch.from_numpy(toks[r])},
+        got = port_round(*state, {k: torch.from_numpy(np.array(x[r]))
+                                  for k, x in batches.items()},
                          steps.pod_mixing_matrix(2))
-        batch = {"tokens": jnp.asarray(toks[r])}
+        batch = {k: jnp.asarray(x[r]) for k, x in batches.items()}
         P = ref_steps.pod_mixing_matrix(2)
         moved = drifts(lambda p: ref_round(p, *ref[1:], batch, P)[:2], ref[0])
         ref = ref_round(*ref, batch, P)
@@ -187,8 +197,8 @@ def pod_round_parity(ref_api, api, ref_params, toks: np.ndarray,
         m = got[5]
         assert float(m["loss"]) == pytest.approx(float(ref_m["loss"]),
                                                  rel=1e-5)
-        step_tokens = toks.shape[3] * (toks.shape[4] - 1)
-        assert abs(float(m["acc"]) - float(ref_m["acc"])) <= 1 / step_tokens
+        assert (abs(float(m["acc"]) - float(ref_m["acc"]))
+                <= 1 / step_positions)
         assert float(got[2].sum()) == pytest.approx(2.0, abs=1e-6)
         losses.append(float(ref_m["loss"]))
         ref = ref[:5]

@@ -21,9 +21,10 @@ dtypes; 80^-0.5 is no power of two, but every side scales in f32 here
 scores after it), a few f32 roundings of the scores apart, well inside
 2e-5.  Its plain backward is held to ``jax.vjp`` of the reference's
 ``_dot_attn`` (the models' attention core) within
-``flash_attention.backward_tolerance``.  The CUDA backward refuses hd 80
-(``BACKWARD_HEAD_DIMS``); that refusal runs only on the card
-(``chip_smoke.py`` phase 14).
+``flash_attention.backward_tolerance``.  The CUDA backward is built at hd
+80 too (``BACKWARD_HEAD_DIMS``: bf16 on the tensor cores, f32 on the SIMT
+passes); it runs only on the card (``tests/test_torch_gpu.py``,
+``chip_smoke.py`` phases 12, 14 and 16).
 
 The CUDA kernel for bf16 inputs also rounds P to bf16 before P.V on the
 tensor cores.  No CUDA kernel runs here, so ``_emulate_bf16_kernel`` redoes
@@ -146,12 +147,18 @@ def test_plain_backward_at_hd_80_matches_the_reference_dot_attn(causal, h, kv):
         assert float(((g - torch.from_numpy(w.copy())).abs() / t).max()) <= 1.0
 
 
-def test_the_backward_is_built_without_hd_80():
-    """The forward takes hd 80, the backward kernel does not: on the card
-    it raises, naming the open item, rather than take another path."""
-    assert 80 in fa.HEAD_DIMS and 80 not in fa.BACKWARD_HEAD_DIMS
-    assert "hd 80" in fa.BACKWARD_ITEM and "13.10" in fa.BACKWARD_ITEM
-    assert not fa.on_tensor_cores(torch.bfloat16, 80)
+def test_the_backward_is_built_at_every_forward_head_dim():
+    """The backward kernel is built at every head dim of the forward, hd
+    80 (hubert-xlarge) included: bf16 there runs the tensor-core passes
+    (``backward_tolerance`` adds their 2^-8 term), f32 the SIMT ones.  A
+    head dim outside the tuple is refused on the card
+    (``tests/test_torch_gpu.py``)."""
+    assert fa.BACKWARD_HEAD_DIMS == fa.HEAD_DIMS
+    assert 80 in fa.BACKWARD_HEAD_DIMS
+    assert fa.on_tensor_cores(torch.bfloat16, 80)
+    assert not fa.on_tensor_cores(torch.float32, 80)
+    assert not fa.on_tensor_cores(torch.bfloat16, 256)
+    assert set(fa.backward_head_dim_launches) == set(fa.BACKWARD_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("s", [12, 100])

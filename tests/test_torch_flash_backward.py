@@ -4,7 +4,8 @@ which the CPU path runs and the CUDA kernel is held to) against autograd of
 the port's plain forward and against ``jax.vjp`` of the reference's
 ``repro.kernels.ref.flash_attention_ref``, on the same numpy inputs, f32,
 causal with and without a window and non-causal with and without one, GQA
-groups 1, 2 and 4, hd 64 and 128; an f64 ``gradcheck`` of the plain twin
+groups 1, 2 and 4, hd 64, 80 (hubert-xlarge's) and 128; an f64
+``gradcheck`` of the plain twin
 through the autograd Function; and the mask fault that the card's check
 uses, which must miss the tolerance.
 
@@ -25,7 +26,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
 MODES = [(True, 0), (True, 9), (False, 0), (False, 9)]
-SHAPES = [(2, 4, 4, 40, 64), (1, 4, 2, 33, 128), (2, 8, 2, 40, 64)]
+SHAPES = [(2, 4, 4, 40, 64), (1, 4, 2, 33, 128), (2, 8, 2, 40, 64),
+          (2, 4, 4, 30, 80), (1, 8, 2, 33, 80)]
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -19,6 +19,7 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "pod_gossip_pretrain_torch.py",
     ROOT / "examples" / "serve_decode_torch.py",
+    ROOT / "examples" / "train_cifar_dfl_torch.py",
     ROOT / "repeat_phase.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
