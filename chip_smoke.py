@@ -9,8 +9,9 @@ serving the MoE family (dbrx-132b, deepseek-v3-671b), serving the vlm
 (llava-next-mistral-7b), running the masked_lm encoder (hubert-xlarge,
 whose head dim 80 has its own flash instantiations, forward and
 backward), serving and training the recurrent xlstm-350m and the hybrid
-hymba-1.5b, and training the masked_lm and vlm tasks (hubert-xlarge,
-llava-next-mistral-7b) with the pods-as-clients round.
+hymba-1.5b, training the masked_lm and vlm tasks (hubert-xlarge,
+llava-next-mistral-7b) with the pods-as-clients round, and personalized
+lanes of every family beside the dense decoders.
 
     python3 chip_smoke.py
 
@@ -183,7 +184,25 @@ Phases, each fatal on failure:
    image embeddings + 2880 text tokens)), 2 pods, K = 2, 2 rounds each:
    loss, accuracy, w_mass (2 within 1e-3), wall time and launches a round
    (hubert's 384 backward calls all at hd 80), peak memory and a profiled
-   round split by kind.
+   round split by kind;
+17. personalized lanes of every family: reduced dbrx-132b,
+   deepseek-v3-671b, llava-next-mistral-7b, hubert-xlarge (hd 80), xlstm-350m
+   and hymba-1.5b in f32, 3 lanes of a rank-2 delta bank in a permuted
+   client order, card against CPU (prefill and 3 decode steps; hubert its
+   forward); then each at full width through ``serve.client_bank``,
+   ``make_personalized_serve_step``'s expansion and ``serve.generate``,
+   rank 8, lane 0 a zero row, 16 new tokens: llava-next-mistral-7b whole,
+   2 x (2880 image embeddings + 1024 tokens); dbrx-132b at 2 of 40 layers,
+   2 x 2048; deepseek-v3-671b at 1 of 61, 1 lane (a random row) x 2048;
+   hymba-1.5b whole in f32, 2 x 1024 after its meta tokens; xlstm-350m
+   whole in f32, 2 x 128; hubert-xlarge whole, 2 x 1500 frames (forward).
+   Expand seconds and peak memory, prefill, decode ms/step, peak memory,
+   the flash launches and shapes with the lanes as the batch, no FL
+   kernel; lane 0 against the dense serve of the base, lane 1 against the
+   forward of its own weights (a MoE model's routing pinned), lane 0
+   against lane 1's forward must miss; deepseek's lane against its forward
+   and the base's forward (must miss); hubert's lanes against their
+   weights' forward alone, swapped lanes must miss.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -3093,7 +3112,7 @@ def moe_serving(dev, arch: str, layers: int, batch_n: int,
     return launches
 
 
-def moe_decode_check(api, params, batch, rec, sels) -> float:
+def moe_decode_check(api, params, batch, rec, sels, mutant="layer") -> float:
     """:func:`decode_check` of a MoE model, with the forward's routing
     pinned to the served path's.  Two things a dense model never had would
     otherwise decide the result: bf16 activations rounded at M = B*S
@@ -3107,8 +3126,9 @@ def moe_decode_check(api, params, batch, rec, sels) -> float:
     and position functions from here; the package has no switch for it.
     Prints the flips the pin absorbed, the drops, and the first position
     at which the forward's own capacity would keep another set.  The
-    mutant gives each decode step the layer before's cache.  Returns the
-    tolerance."""
+    mutant (:func:`decode_check`'s; ``"layer"`` gives each decode step the
+    layer before's cache, None for a one-layer model) must miss.  Returns
+    the tolerance."""
     import functools
 
     from repro_torch.models import moe
@@ -3148,7 +3168,7 @@ def moe_decode_check(api, params, batch, rec, sels) -> float:
     def served_positions(sel, cfg_):
         return positions(sel, cfg_)[0], kept[state["layer"]]
 
-    tol = decode_check(api, params, batch, rec, mutant="layer",
+    tol = decode_check(api, params, batch, rec, mutant=mutant,
                        pin=functools.partial(
                            patched, moe, _router_probs=pinned_router,
                            moe_capacity=served_capacity,
@@ -3908,7 +3928,7 @@ def ssm_times(dev, api, params, batch) -> None:
     cfg = api.cfg
     pl = _layer(params["layers"], 0)
     with torch.no_grad():
-        x = hymba._with_meta(params, batch["tokens"], cfg)
+        x = hymba._with_meta(params, batch["tokens"], cfg, False)
         xn = rms_norm(x, pl["ln1"], cfg.norm_eps)
         branch = timed_ms(lambda: hymba._ssm_scan(pl["ssm"], xn, cfg), dev, 3,
                           1)
@@ -4272,6 +4292,387 @@ def tasks_phase(dev, head=print) -> dict:
     return paths
 
 
+# -- phase 17: personalized lanes of every family -------------------------------
+
+# Full width, personalized: (layers kept, None for all; lanes; text tokens,
+# prompt tokens or frames a lane; f32 weights).  llava-next-mistral-7b's
+# lanes carry its 2880 image embeddings (the config's anyres count) before
+# 1024 text tokens, hymba-1.5b's its 128 meta tokens before 1024;
+# hubert-xlarge encodes 1500 frames a lane (``forward``: an encoder has no
+# decode).  deepseek-v3-671b takes one lane: its base at one layer (26.7 GB
+# in bf16) and one expanded copy fit 80 GB, two copies do not.  xlstm and
+# hymba run on f32 weights: in bf16 their two forms drift apart at random
+# init (phase 15).
+LANES_FULL = {"llava-next-mistral-7b": (None, 2, 1024, False),
+              "dbrx-132b": (2, 2, 2048, False),
+              "deepseek-v3-671b": (1, 1, 2048, False),
+              "hymba-1.5b": (None, 2, 1024, True),
+              "xlstm-350m": (None, 2, 128, True),
+              "hubert-xlarge": (None, 2, 1500, False)}
+LANES_RANK, LANES_NEW = 8, 16
+
+
+def flash_layers(cfg) -> int:
+    """Flash launches of one prefill or forward: one a GQA layer (MLA and
+    xLSTM have none)."""
+    return (cfg.n_layers if cfg.attn_type == "gqa"
+            and cfg.block_kind != "xlstm" else 0)
+
+
+def lanes_parity(dev, arch: str) -> None:
+    """Reduced ``arch`` in f32 (as :func:`serving_parity`; hubert-xlarge
+    at hd 80, as :func:`encoder_parity`), personalized: a rank-2 delta bank of 3 clients (0.02 standard normals,
+    w in [0.5, 1.5)) over the drawn base, the lanes in the permuted client
+    order (2, 0, 1), each device expanding the same bank over its own copy
+    of the base; the lanes' prefill of 64 positions and 3 greedy decode
+    steps (hubert: its laned ``forward``) on ``dev`` against
+    the same on the CPU.  Logits within 1e-4 of their magnitude, greedy
+    tokens equal; the MoE models at ``capacity_factor = n_experts /
+    top_k`` (every token kept, so that a choice flipped between the two
+    sides' sums changes no other token's).  The card launches the flash
+    kernel once a GQA layer, the lanes as its batch."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.core.flat import bind_delta_spec, make_delta_spec, tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_personalized_serve_step
+    from repro_torch.models.registry import get_model_api
+
+    s, steps = 64, 3
+    cfg = get_config(arch, smoke=True)
+    if cfg.task == "masked_lm":
+        cfg = dataclasses.replace(cfg, d_model=320)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    api = get_model_api(cfg)
+    params = api.init(torch.Generator().manual_seed(0), "cpu")
+    dspec = make_delta_spec(params, rank=2)
+    gen = torch.Generator().manual_seed(3)
+    bank = 0.02 * torch.randn((3, dspec.dim), generator=gen)
+    w = 0.5 + torch.rand((3,), generator=gen)
+    ids = torch.tensor([2, 0, 1])
+    batch = make_batch(cfg, 3, s, seed=1)
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        p = tree_map(lambda t, d=d: t.to(d), params)
+        ps = make_personalized_serve_step(api, bind_delta_spec(dspec, p))
+        b = {k: v.to(d) for k, v in batch.items()}
+        before = fa.launches
+        with torch.no_grad():
+            stacked = ps.expand(bank.to(d), w.to(d), ids.to(d))
+            toks = []
+            if not cfg.supports_decode():
+                out = [api.forward(stacked, b)[0].cpu()]
+            else:
+                logits, cache = ps.prefill(stacked, b, s + steps + 1)
+                out = [logits.cpu()]
+                tok = logits[:, -1].argmax(-1).to(torch.int32)
+                for i in range(steps):
+                    toks.append(tok.cpu())
+                    logits, cache = ps.decode_step(stacked, cache, tok, s + i)
+                    out.append(logits.cpu())
+                    tok = logits.argmax(-1).to(torch.int32)
+                toks.append(tok.cpu())
+        runs[d.type] = (out, toks, fa.launches - before)
+    (want, want_toks, _), (got, got_toks, used) = runs["cpu"], runs[dev.type]
+    errs = []
+    for i, (g, x) in enumerate(zip(got, want)):
+        e, tol = max_err(g, x), 1e-4 * float(x.abs().max())
+        errs.append(e / tol)
+        check(e <= tol, f"{arch} lanes: card and CPU logits disagree ({i})")
+    check(all(torch.equal(a, b) for a, b in zip(got_toks, want_toks)),
+          f"{arch} lanes: card and CPU greedy tokens differ")
+    flash = flash_layers(cfg)
+    print(f"  reduced {arch}, 3 lanes x {s} positions"
+          + (f", {steps} decode steps" if cfg.supports_decode()
+             else " (forward)")
+          + f": logits {tuple(got[0].shape)} at most {max(errs):.4f} of the "
+          f"tolerance (1e-4 of max|logit|)"
+          + ("; greedy tokens equal" if toks else "")
+          + f"; flash launches on the card {used} (one a GQA layer: "
+          f"{flash})")
+    if dev.type == "cuda":
+        check(used == flash, f"{arch} lanes: flash launches {used}")
+
+
+def lanes_batch(cfg, n: int, seq: int, dev) -> dict:
+    """``make_batch``'s draw of ``n`` lanes of ``seq`` positions; a vlm's
+    lanes carry the config's ``n_frontend_tokens`` image embeddings before
+    ``seq`` text tokens."""
+    from repro_torch.configs.registry import make_batch
+
+    if cfg.task != "vlm":
+        return make_batch(cfg, n, seq, seed=1, device=dev)
+    batch = make_batch(cfg, n, 2 * cfg.n_frontend_tokens, seed=1, device=dev)
+    batch["tokens"] = batch["tokens"][:, :seq].contiguous()
+    return batch
+
+
+def lanes_flash_check(dev, cfg, n: int, positions: int) -> None:
+    """The flash forward at the lanes' attention shape, the ``n`` lanes as
+    its batch: ``(n, H, positions, hd)`` q on ``(n, KV, positions, hd)``
+    k, v, random, in the model's dtype (the f32 SIMT kernel for f32
+    weights), under each mask the model's layers pass it (causal with each
+    of their windows; non-causal for an encoder), against
+    ``flash_attention_plain`` on the same inputs: within
+    ``bf16_tolerance`` in bf16 and 2e-5 in f32, as in phase 3.  A mask one
+    key late must miss that tolerance: q moved down one row where the mask
+    is causal, each row's last key left out where it is not.  These
+    launches come before the path's counts start."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import _layer_meta
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    hd, dt, causal = cfg.resolved_head_dim, cfg.dtype, cfg.causal
+    q, k, v = [torch.randn(n, h, positions, hd, generator=gen,
+                           device=dev).to(dt)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    for win in sorted(set(_layer_meta(cfg)[0])) if causal else [0]:
+        got = fa.flash_attention(q, k, v, causal, win)
+        want = fa.flash_attention_plain(q, k, v, causal, win)
+        tol = (fa.bf16_tolerance(v, want, causal, win)
+               if dt == torch.bfloat16
+               else torch.full_like(want, 2e-5, dtype=torch.float32))
+        ratio = float(((got.float() - want.float()).abs() / tol).max())
+        del got
+        if causal:
+            fault = fa.flash_attention(torch.roll(q, 1, 2), k, v, True,
+                                       win)[:, :, 1:]
+        else:
+            fault = fa.flash_attention(q[:, :, :-1], k[:, :, :-1],
+                                       v[:, :, :-1], False, 0)
+        miss = float(((fault.float() - want[:, :, :-1].float()).abs()
+                      / tol[:, :, :-1]).max())
+        del fault, want, tol
+        print(f"  flash forward at the lanes' shape q {tuple(q.shape)}, k, v "
+              f"{tuple(k.shape)}, {str(dt)[6:]}, "
+              + (f"causal, window {win}" if causal else "non-causal")
+              + f": {ratio:.3f} of its tolerance against the plain version; "
+              f"mask one key late {miss:.1f} of it (must exceed 1)")
+        check(ratio <= 1.0, f"flash forward disagrees at the lanes' shape "
+                            f"{tuple(q.shape)} (window {win})")
+        check(miss > 1.0, f"the lanes' flash check misses a mask fault at "
+                          f"{tuple(q.shape)} (window {win})")
+
+
+def lanes_serving(dev, arch: str, layers, n: int, seq: int, f32: bool,
+                  new: int = LANES_NEW, cfg=None) -> dict:
+    """Personalized serving of ``arch`` at full width (its depth cut to
+    ``layers`` where given, f32 weights if ``f32``, else the config's
+    bf16; parameters drawn on the card from seed 0): first
+    :func:`lanes_flash_check` at the lanes' attention shape where the
+    model has GQA layers; then ``serve.main --clients``' delta bank of
+    ``n`` clients at rank ``LANES_RANK`` over the drawn
+    base (``serve.client_bank``: lane 0 a zero row with w = 1 when ``n`` >
+    1, the other rows random), expanded by ``make_personalized_serve_step``
+    and served through ``serve.generate`` (``new`` new tokens; hubert: its
+    laned ``forward``).  The counts run from just before the expansion to
+    just after the serve: one flash launch a GQA layer of the prefill, its
+    (q, k, v) shapes with the lanes as the batch, no FL kernel.  Prints
+    expand s and its peak memory, prefill s, decode ms/step and the peak.
+
+    Then, as phase 11: lane 0 against the dense ``serve.generate`` of the
+    base on its request; lane 1 against ``forward`` of its own expanded
+    weights on its extended prompt (:func:`decode_check`; a MoE model
+    through :func:`moe_decode_check`, its routing pinned to the served
+    path's, at the config's own capacity), both within 2^-4 of max|logit|
+    in bf16 and 2^-6 in f32; lane 0's logits held against lane 1's forward
+    must miss.  With one lane (deepseek-v3-671b) its logits against the
+    forward of its expanded weights, and the base's forward must miss.
+    hubert: each lane's laned logits against ``forward`` of that lane's
+    weights alone on its frames, lane 0's against lane 1's weights
+    (swapped) must miss.  ``cfg`` replaces the config (a CPU rehearsal
+    passes a reduced one).  Returns the launches."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.flat import tree_map
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_personalized_serve_step
+    from repro_torch.models.registry import get_model_api
+
+    full = cfg or get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    api = get_model_api(cfg)
+    cuda, decode = dev.type == "cuda", cfg.supports_decode()
+    rel = 2.0 ** -6 if f32 else 2.0 ** -4
+    batch = lanes_batch(cfg, n, seq, dev)
+    n_prefix = batch["image_feats"].shape[1] if "image_feats" in batch else 0
+    inputs = batch["tokens" if decode else "features"].shape[1]
+    positions = n_prefix + cfg.n_meta_tokens + inputs
+    flash = flash_layers(cfg)
+    if flash:
+        lanes_flash_check(dev, cfg, n, positions)
+    t = time.perf_counter()
+    with torch.no_grad():
+        params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    sync(dev)
+    init_s = time.perf_counter() - t
+    spec, bank, w = serve.client_bank(params, n, LANES_RANK, int(n > 1),
+                                      seed=0)
+    ps = make_personalized_serve_step(api, spec)
+    print(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers at full width, "
+          f"{api.num_params() / 1e9:.3f} B parameters in {str(cfg.dtype)[6:]} "
+          f"(drawn in {init_s:.1f} s); {n} lane(s) of "
+          + (f"{n_prefix} image embeddings + " if n_prefix else "")
+          + (f"{cfg.n_meta_tokens} meta tokens + " if cfg.n_meta_tokens
+             else "")
+          + f"{seq} {'frames' if not decode else 'tokens'}; rank "
+          f"{LANES_RANK}, "
+          f"d_delta {spec.dim} ({100 * spec.dim / spec.delta.full.dim:.2f}% "
+          f"of D); lane 0 " + ("a zero row" if n > 1 else "a random row"))
+    resident = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sels = []
+    zero_counts()  # this lanes path's counts start here
+    with kernel_shapes() as shapes, recorded_routing(sels):
+        sync(dev)
+        t = time.perf_counter()
+        with torch.no_grad():
+            stacked = ps.expand(bank, w, torch.arange(n, device=dev))
+        sync(dev)
+        expand_s = time.perf_counter() - t
+        if cuda:
+            expand_peak = torch.cuda.max_memory_allocated() - resident
+            lanes_bytes = torch.cuda.memory_allocated() - resident
+        if decode:
+            rec = serve.generate(api, stacked, batch, new)
+        else:
+            t = time.perf_counter()
+            with torch.no_grad():
+                logits = api.forward(stacked, batch)[0]
+            sync(dev)
+            fwd_s = time.perf_counter() - t
+    launches = read_counts()
+    line = f"  expand {expand_s:.4f} s"
+    if cuda:
+        rows = bank.numel() * bank.element_size()
+        line += (f" (peak {expand_peak / 1e9:.2f} GB over the resident base's "
+                 f"{resident / 1e9:.2f} GB: the lanes {lanes_bytes / 1e9:.2f} "
+                 f"GB, the gathered bank rows {rows / 1e9:.2f} GB and "
+                 f"{(expand_peak - lanes_bytes - rows) / 1e9:.2f} GB of "
+                 "expansion temporaries)")
+    if decode:
+        line += (f"; prefill {rec['prefill_s']:.4f} s (first call); decode "
+                 f"{1e3 * rec['decode_s'] / rec['steps']:.2f} ms/step")
+    else:
+        line += f"; laned forward {fwd_s:.4f} s (first call)"
+    print(line)
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB); launches {launches}")
+    hd = cfg.resolved_head_dim
+    check(launches["flash_attention"] == flash,
+          f"{arch} lanes: flash launches {launches['flash_attention']}, "
+          f"expected {flash}")
+    check(launches["flash_attention_hd80"] == (flash if hd == 80 else 0),
+          f"{arch} lanes: hd 80 launches {launches['flash_attention_hd80']}")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("flash_attention", "flash_attention_hd80")),
+          f"{arch} lanes: the FL kernels ran on the lanes path: {launches}")
+    if flash:
+        want_q = (n, cfg.n_heads, positions, hd)
+        want_kv = (n, cfg.n_kv_heads, positions, hd)
+        check(set(shapes["flash_attention"]) == {(want_q, want_kv, want_kv)},
+              f"{arch} lanes: flash shapes {set(shapes['flash_attention'])}")
+        print(f"  flash (q, k, v) shapes on every layer: {want_q}, {want_kv}, "
+              f"{want_kv}")
+
+    lane = [tree_map(lambda x, b=b: x[b], stacked) for b in range(n)]
+    if not decode:
+        check(bool(torch.isfinite(logits).all()),
+              f"{arch} lanes: a logit is not finite")
+        with torch.no_grad():
+            alone = [api.forward(lane[b], {k: v[b:b + 1] for k, v in
+                                           batch.items()})[0]
+                     for b in range(n)]
+            swapped = api.forward(lane[1], {k: v[:1] for k, v in
+                                            batch.items()})[0]
+        for b in range(n):
+            e, scale = max_err(logits[b:b + 1], alone[b]), float(
+                alone[b].float().abs().max())
+            print(f"  lane {b}'s laned logits against its weights' forward "
+                  f"alone: max|err| {e:.4e} (tolerance {rel * scale:.4e})")
+            check(e <= rel * scale, f"{arch}: lane {b} disagrees")
+        e = max_err(logits[:1], swapped)
+        tol = rel * float(alone[0].float().abs().max())
+        print(f"  lane 0's logits against lane 1's weights on lane 0's frames:"
+              f" {e:.4e} (must exceed {tol:.4e})")
+        check(e > tol, f"{arch}: the lane check does not tell the lanes apart")
+        return launches
+
+    check(rec["finite"], f"{arch} lanes: a prefill or decode logit is not "
+                         "finite")
+    check(tuple(rec["tokens"].shape) == (n, new),
+          f"{arch} lanes: tokens {tuple(rec['tokens'].shape)}")
+    s = batch["tokens"].shape[1]
+    last = n - 1  # the lane held against its own forward: a random row
+    rows = {k: v[last:last + 1] for k, v in batch.items()}
+    one = {"logits": rec["logits"][last:last + 1],
+           "tokens": rec["tokens"][last:last + 1]}
+    if cfg.n_experts:
+        tol = moe_decode_check(api, lane[last], rows, one,
+                               [x[last:last + 1] for x in sels],
+                               mutant="layer" if cfg.n_layers > 1 else None)
+    else:
+        tol = decode_check(api, lane[last], rows, one, mutant=None, rel=rel)
+    new_t = rec["tokens"][last:last + 1, :-1].to(batch["tokens"].device,
+                                                 batch["tokens"].dtype)
+    ext = dict(rows, tokens=torch.cat([rows["tokens"], new_t], 1))
+    with torch.no_grad():
+        fwd = api.forward(spec.base if n == 1 else lane[last],
+                          ext)[0][:, n_prefix + s - 1:]
+    if n == 1:
+        e = max_err(one["logits"], fwd)
+        print(f"  the lane's logits against the base's forward on its "
+              f"extended prompt: {e:.4e} (must exceed {tol:.4e})")
+        check(e > tol, f"{arch}: the lane serves the base")
+        return launches
+    e = max_err(rec["logits"][:1], fwd)
+    print(f"  lane 0's logits against lane {last}'s forward: {e:.4e} (must "
+          f"exceed {tol:.4e})")
+    check(e > tol, f"{arch}: the lane check does not tell the lanes apart")
+    del fwd
+    dense = serve.generate(api, spec.base, {k: v[:1] for k, v in
+                                           batch.items()}, new)
+    got, want = rec["logits"][0], dense["logits"][0]
+    tol0 = rel * float(want.float().abs().max())
+    e = max_err(got, want)
+    print(f"  lane 0 (zero row, w = 1) against the dense serve of the base: "
+          f"max|err| {e:.4e} (tolerance {tol0:.4e}); tokens "
+          + ("equal" if torch.equal(rec["tokens"][0], dense["tokens"][0])
+             else "differ"))
+    check(e <= tol0, f"{arch}: lane 0 disagrees with the dense serve")
+    return launches
+
+
+def lanes_phase(dev, head=print) -> dict:
+    """Phase 17: each family's personalized lanes at reduced size against
+    the CPU, then at full width (``LANES_FULL``).  Returns each full-width
+    run's launches."""
+    card = card_line()
+    t0 = time.perf_counter()
+    for arch in LANES_FULL:
+        head(f"[17] personalized lanes: reduced {arch}, 3 lanes, card "
+             "against CPU, f32")
+        lanes_parity(dev, arch)
+    paths = {}
+    for arch, (layers, n, seq, f32) in LANES_FULL.items():
+        head(f"[17] personalized lanes: {arch} at full width, {n} lane(s), "
+             f"{'f32' if f32 else 'bf16'}; card: {card}")
+        paths[f"{arch} lanes path"] = lanes_serving(dev, arch, layers, n,
+                                                    seq, f32)
+        release()
+    print(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -4416,6 +4817,7 @@ def main() -> int:
     release()
     paths.update(blocks_phase(dev, head))
     paths.update(tasks_phase(dev, head))
+    paths.update(lanes_phase(dev, head))
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

@@ -27,6 +27,10 @@ __all__ = ["BankSpec", "make_spec", "tree_flatten", "tree_unflatten",
            "tree_map", "keystr", "tree_leaves_with_path", "tree_rebuild", "DeltaConfig", "DeltaBankSpec",
            "BoundDeltaSpec", "make_delta_spec", "bind_delta_spec"]
 
+# The most elements of one f32 piece of an expanded delta leaf
+# (:meth:`BoundDeltaSpec.debias_stacked`): 256 MiB.
+_PIECE_ELEMS = 1 << 26
+
 
 def tree_flatten(tree) -> tuple[list[tuple[str, ...]], list[Any]]:
     """``(paths, leaves)`` of a nested dict, keys sorted at every level."""
@@ -267,6 +271,37 @@ class DeltaBankSpec:
         A, B = self.factors(row, i)
         return torch.matmul(A.float(), B.float())
 
+    def _delta_pieces(self, row: torch.Tensor, i: int, limit: int):
+        """Leaf ``i``'s float32 delta (not frozen) in pieces of at most
+        ``limit`` elements (one row at the least): yields ``(index,
+        piece)``, the index into the leaf viewed as ``(N, p, q)`` (low-rank,
+        N the product of its leading axes) or as a flat vector (dense).
+        Each piece is whole matrices ``A[n] @ B[n]`` or rows of one, the
+        same products as :meth:`_delta_leaf`'s, so that the pieces are its
+        slices."""
+        if self.modes[i] == "dense":
+            o, s = self.offsets[i], self.sizes[i]
+            for a in range(0, s, limit):
+                e = min(a + limit, s)
+                yield (slice(a, e),), row[o + a:o + e].float()
+            return
+        A, B = self.factors(row, i)
+        p, r, q = A.shape[-2], A.shape[-1], B.shape[-1]
+        A, B = A.reshape(-1, p, r), B.reshape(-1, r, q)
+        if p * q <= limit:
+            per = limit // (p * q)
+            for a in range(0, A.shape[0], per):
+                yield ((slice(a, a + per),),
+                       torch.matmul(A[a:a + per].float(),
+                                    B[a:a + per].float()))
+            return
+        rows = max(1, limit // q)
+        for n in range(A.shape[0]):
+            Bn = B[n].float()
+            for a in range(0, p, rows):
+                yield (n, slice(a, a + rows)), torch.matmul(
+                    A[n, a:a + rows].float(), Bn)
+
     def unravel(self, base, row: torch.Tensor) -> dict:
         """``base + expand(row)`` as a params dict (leaf dtypes restored)."""
         return self.debias(base, row, None)
@@ -451,9 +486,13 @@ class BoundDeltaSpec:
                         *[self.unravel(row) for row in bank])
 
     def debias_stacked(self, bank: torch.Tensor, w: torch.Tensor) -> dict:
-        """Row-stacked :meth:`debias`, built leaf by leaf into the stacked
-        outputs (the peak holds one expanded leaf beside them, not one
-        model per row)."""
+        """Row-stacked :meth:`debias`, built into the stacked outputs leaf
+        by leaf, and each leaf in pieces of at most ``_PIECE_ELEMS``
+        elements (:meth:`DeltaBankSpec._delta_pieces`): the f32
+        temporaries stay near that size (1 GiB at most), where a whole
+        expanded leaf can be larger than the card (one of
+        deepseek-v3-671b's expert leaves is 15 GB in f32).  Bit for bit
+        :meth:`debias` of each row."""
         _, base_leaves = tree_flatten(self.base)
         d = self.delta
         out = []
@@ -461,12 +500,18 @@ class BoundDeltaSpec:
             dt = d.full.dtypes[i]
             leaf = torch.empty((bank.shape[0],) + tuple(bl.shape), dtype=dt,
                                device=bl.device)
+            if d.modes[i] == "frozen":
+                leaf[:] = bl.to(dt)
+                out.append(leaf)
+                continue
+            view = ((-1,) if d.modes[i] == "dense"
+                    else (-1,) + tuple(bl.shape[-2:]))
+            base = bl.reshape(view)
             for b in range(bank.shape[0]):
-                delta = d._delta_leaf(bank[b], i)
-                if delta is None:
-                    leaf[b] = bl.to(dt)
-                else:
-                    leaf[b] = (bl + (delta / w[b]).to(bl.dtype)).to(dt)
-                del delta
+                dst = leaf[b].view(view)
+                for idx, delta in d._delta_pieces(bank[b], i,
+                                                    _PIECE_ELEMS):
+                    dst[idx] = (base[idx] + (delta / w[b]).to(bl.dtype)).to(dt)
+                    del delta
             out.append(leaf)
         return tree_unflatten(d.full.paths, out)

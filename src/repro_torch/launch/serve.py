@@ -1,9 +1,9 @@
 """Serving launcher: batched prefill, then greedy decode — the port of
 ``repro.launch.serve`` for the decoders: the dense GQA decoders and the
 MoE family (dbrx-132b with GQA, deepseek-v3-671b with MLA; their expert
-routing and capacity drops are ``models.moe``'s) of the ``lm`` task, and
-llava-next-mistral-7b of the ``vlm`` task.  An encoder (hubert-xlarge) has
-no decode path and is refused.
+routing and capacity drops are ``models.moe``'s) of the ``lm`` task,
+llava-next-mistral-7b of the ``vlm`` task, xlstm-350m and hymba-1.5b.  An
+encoder (hubert-xlarge) has no decode path and is refused.
 :func:`generate` serves any ``ModelApi``, so a caller may cut a config's
 depth first (``dataclasses.replace(cfg, n_layers=...)``), as a model too
 deep for one card needs.
@@ -26,9 +26,14 @@ clamps every step onto the last slot.  ROADMAP §3.)
 With ``--clients N`` the batch becomes a *personalized* decode: a low-rank
 delta bank (frozen shared base = the drawn weights, rank ``--rank``
 adapters) holds one row per client, and request lane b serves client b's
-expanded model in the same pass over the layers.  The bank's rows are
-``0.02`` times standard normals drawn from ``--seed + 3``; the first
-``--zero-clients`` rows are zero, so those lanes serve the base model.
+expanded model in the same pass over the layers, for every decoding zoo
+id (a vlm lane's cache holds its image prefix, as above).  The bank's rows
+are ``0.02`` times standard normals drawn from ``--seed + 3``
+(:func:`client_bank`); the first ``--zero-clients`` rows are zero, so
+those lanes serve the base model.  On the CPU, at smoke size:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
+      --clients 2 --rank 2 --device cpu
 """
 from __future__ import annotations
 
@@ -45,7 +50,8 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models.registry import ModelApi, get_model_api
 
-__all__ = ["build_parser", "generate", "main", "prompts", "N_IMAGE"]
+__all__ = ["build_parser", "client_bank", "generate", "main", "prompts",
+           "N_IMAGE"]
 
 # Image embeddings per vlm request (the reference's serve launcher's).
 N_IMAGE = 8
@@ -174,22 +180,39 @@ def prompts(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
 
 
 @torch.no_grad()
+def client_bank(params: dict, n: int, rank: int, zero_clients: int = 0,
+                seed: int = 0) -> tuple:
+    """``--clients``' delta bank over ``params`` (the frozen base) -> (the
+    bound spec, ``bank`` (n, d_delta), ``w`` (n,) of ones): a synthetic
+    trained bank, each client a distinct small perturbation, ``0.02``
+    times standard normals drawn on the base's device from ``seed + 3``,
+    the first ``zero_clients`` rows zero."""
+    from repro_torch.core.flat import (
+        bind_delta_spec,
+        make_delta_spec,
+        tree_flatten,
+    )
+
+    device = tree_flatten(params)[1][0].device
+    dspec = make_delta_spec(params, rank=rank)
+    spec = bind_delta_spec(dspec, params)
+    bgen = torch.Generator(device=device).manual_seed(seed + 3)
+    bank = 0.02 * torch.randn((n, dspec.dim), generator=bgen, device=device,
+                              dtype=torch.float32).to(dspec.dtype)
+    bank[:zero_clients] = 0.0
+    return spec, bank, torch.ones((n,), dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
 def _serve_personalized(args, cfg, api, params, device) -> dict:
     """``--clients``: one delta-bank row per client, one lane per client.
     Returns :func:`generate`'s record with ``expand_s``, and the ``api``,
     ``spec``, ``bank``, ``w``, lane-stacked ``params`` and ``batch``."""
-    from repro_torch.core.flat import bind_delta_spec, make_delta_spec
-
     n = args.clients
-    dspec = make_delta_spec(params, rank=args.rank)
-    spec = bind_delta_spec(dspec, params)
+    spec, bank, w = client_bank(params, n, args.rank, args.zero_clients,
+                                args.seed)
+    dspec = spec.delta
     ps = make_personalized_serve_step(api, spec)
-    # A synthetic trained bank: each client a distinct small perturbation.
-    bgen = torch.Generator(device=device).manual_seed(args.seed + 3)
-    bank = 0.02 * torch.randn((n, dspec.dim), generator=bgen, device=device,
-                              dtype=torch.float32).to(dspec.dtype)
-    bank[:args.zero_clients] = 0.0
-    w = torch.ones((n,), dtype=torch.float32, device=device)
     ids = torch.arange(n, device=device)
     batch = prompts(cfg, n, args.prompt_len, args.seed, device)
 

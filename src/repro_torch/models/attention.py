@@ -14,6 +14,10 @@ modes, as the reference's plain ``jnp``: f32 scores ``(B, H, Sq, Sk)``
 from a 128-wide no-rope part and a 64-wide rope part shared by the heads,
 and 128-wide values; the cache holds the latent ``ckv`` and the rope key
 ``kpe``, and every step expands the whole cache through ``wkv_b``.
+
+Both kinds take lane-stacked weights (a leading lane axis, one lane per
+batch row; ``models.transformer``): the projections are batched matmuls
+over the lanes and the norm scales broadcast per lane.
 """
 from __future__ import annotations
 
@@ -221,7 +225,8 @@ def gqa_decode(p, x, cache, cfg: ArchConfig, pos: int, window: int = 0,
 
 def _mla_q(p, x, cfg: ArchConfig, positions):
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    cq = x @ p["wq_a"]
+    cq = rms_norm(cq, lane_scale(p["q_norm"], cq), cfg.norm_eps)
     q = _project(cq, p["wq_b"])
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     sin, cos = rope(positions, dr, cfg.rope_theta)
@@ -231,7 +236,7 @@ def _mla_q(p, x, cfg: ArchConfig, positions):
 def _mla_kv_latent(p, x, cfg: ArchConfig, positions):
     kr, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     a = x @ p["wkv_a"]
-    ckv = rms_norm(a[..., :kr], p["kv_norm"], cfg.norm_eps)
+    ckv = rms_norm(a[..., :kr], lane_scale(p["kv_norm"], a), cfg.norm_eps)
     sin, cos = rope(positions, dr, cfg.rope_theta)
     kpe = apply_rope(a[..., None, kr:], sin, cos)[..., 0, :]  # shared head
     return ckv, kpe

@@ -19,8 +19,13 @@ The SSM scan over the sequence, ``h_t = decay_t h_{t-1} + u_t B_t`` from h
 (:func:`_scan`): ceil(log2 S) passes over the whole ``(B, S, d_inner, N)``
 operand, each one fused multiply-add and a concatenation, with the decays
 kept at ``(B, S, d_inner)``.  It sums in a tree order, as the reference
-does, and plain autograd differentiates it.  Per-lane (personalized)
-weights are refused (ROADMAP queue 1 item 13.8).
+does, and plain autograd differentiates it.
+
+Every entry point also takes lane-stacked parameters (a leading lane axis,
+one lane per batch row; see ``models.transformer``): each lane puts its own
+``(n_meta, d)`` meta tokens before its row, the projections are batched
+matmuls, and the norm scales and the SSM's per-channel ``b_dt``,
+``A_log`` and ``D`` broadcast per lane; :func:`_scan` has no weights.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import rms_norm, softmax_xent
+from repro_torch.models.layers import lane_scale, softmax_xent
 from repro_torch.models.moe import swiglu_defs, swiglu_forward
 from repro_torch.models.pdefs import PDef
 from repro_torch.models.transformer import (
@@ -38,6 +43,7 @@ from repro_torch.models.transformer import (
     _lanes,
     _layer,
     _layer_meta,
+    _norm,
 )
 
 __all__ = ["param_defs", "cache_defs", "forward", "loss", "prefill",
@@ -106,8 +112,10 @@ def _ssm_proj(pl, xn, cfg: ArchConfig):
     up = xn @ pl["w_in"]
     xm, z = up[..., :di], up[..., di:]
     x32 = xm.float()
-    dt = F.softplus(x32 @ pl["w_dt"].float() + pl["b_dt"])
-    decay = torch.exp(dt * -torch.exp(pl["A_log"]))  # (B, S, di) in (0, 1]
+    dt = x32 @ pl["w_dt"].float()
+    dt = F.softplus(dt + lane_scale(pl["b_dt"], dt))
+    # (B, S, di) in (0, 1]
+    decay = torch.exp(dt * -torch.exp(lane_scale(pl["A_log"], dt)))
     Bm = x32 @ pl["w_B"].float()
     Cm = x32 @ pl["w_C"].float()
     return xm, z, decay, Bm, Cm, dt * x32
@@ -141,7 +149,8 @@ def _ssm_scan(pl, xn, cfg: ArchConfig, state=None):
         h = _scan(decay, contrib)
     else:
         h = (decay[:, 0, :, None] * state + contrib[:, 0])[:, None]
-    y = torch.einsum("bsen,bsn->bse", h, Cm) + pl["D"] * xm.float()
+    y = (torch.einsum("bsen,bsn->bse", h, Cm)
+         + lane_scale(pl["D"], xm) * xm.float())
     y = y.to(cfg.dtype) * F.silu(z)
     return y @ pl["w_out"], h[:, -1]
 
@@ -150,26 +159,28 @@ def _ssm_scan(pl, xn, cfg: ArchConfig, state=None):
 # Hybrid layer + stack.
 # ---------------------------------------------------------------------------
 
-def _with_meta(params, tokens, cfg: ArchConfig):
-    """The meta tokens, then the token embeddings: ``(B, n_meta + S, D)``."""
+def _with_meta(params, tokens, cfg: ArchConfig, lanes: bool):
+    """The meta tokens, then the token embeddings: ``(B, n_meta + S, D)``;
+    with ``lanes``, each row's own lane's meta tokens."""
     x = _embed_tokens(params, tokens, cfg)
-    meta = params["meta_tokens"][None].expand((x.shape[0],)
-                                              + params["meta_tokens"].shape)
+    meta = params["meta_tokens"]
+    if not lanes:
+        meta = meta[None].expand((x.shape[0],) + meta.shape)
     return torch.cat([meta, x], dim=1)
 
 
 def _mix(pl, x, a, s_out, cfg: ArchConfig):
     """The residual update of a layer from its attention and SSM outputs."""
-    mix = 0.5 * (rms_norm(a, pl["norm_attn"], cfg.norm_eps)
-                 + rms_norm(s_out, pl["norm_ssm"], cfg.norm_eps))
+    mix = 0.5 * (_norm(a, pl["norm_attn"], cfg)
+                 + _norm(s_out, pl["norm_ssm"], cfg))
     x = x + mix
-    return x + swiglu_forward(pl["mlp"], rms_norm(x, pl["ln2"], cfg.norm_eps))
+    return x + swiglu_forward(pl["mlp"], _norm(x, pl["ln2"], cfg))
 
 
 def _hybrid(pl, x, cfg: ArchConfig, window, theta, positions,
             return_kv=False):
     """One layer over the full sequence -> (x, (k, v) or None, last h)."""
-    xn = rms_norm(x, pl["ln1"], cfg.norm_eps)
+    xn = _norm(x, pl["ln1"], cfg)
     a = attn.gqa_forward(pl["attn"], xn, cfg, window=window, theta=theta,
                          positions=positions, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
@@ -178,18 +189,18 @@ def _hybrid(pl, x, cfg: ArchConfig, window, theta, positions,
 
 
 def _head(params, x, cfg: ArchConfig):
-    return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    return _norm(x, params["final_norm"], cfg) @ params["lm_head"]
 
 
 def forward(params, batch, cfg: ArchConfig):
     """Full-sequence forward -> (logits of the text positions, {})."""
-    _lanes(params, cfg)
-    x = _with_meta(params, batch["tokens"], cfg)
+    lanes = _lanes(params)
+    x = _with_meta(params, batch["tokens"], cfg, lanes)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
-        def body(x, pl=_layer(params["layers"], i), win=win, th=th):
+        def body(x, pl=_layer(params["layers"], i, lanes), win=win, th=th):
             return _hybrid(pl, x, cfg, win, th, positions)[0]
 
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
@@ -206,8 +217,8 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
     """Forward over the meta tokens and the prompt that also fills the
     cache -> (logits of the prompt, cache): KV zero-padded to n_meta +
     ``cache_len`` positions, and each layer's last SSM state."""
-    _lanes(params, cfg)
-    x = _with_meta(params, batch["tokens"], cfg)
+    lanes = _lanes(params)
+    x = _with_meta(params, batch["tokens"], cfg, lanes)
     b, s = x.shape[:2]
     if s > cfg.n_meta_tokens + cache_len:
         raise ValueError(f"prompt length {s - cfg.n_meta_tokens} exceeds "
@@ -216,8 +227,8 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
     cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=x.device)
              for k, d in cache_defs(cfg, b, cache_len).items()}
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
-        x, (k, v), h_last = _hybrid(_layer(params["layers"], i), x, cfg, win,
-                                    th, positions, return_kv=True)
+        x, (k, v), h_last = _hybrid(_layer(params["layers"], i, lanes), x,
+                                    cfg, win, th, positions, return_kv=True)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
         cache["ssm_h"][i] = h_last
@@ -228,12 +239,12 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     """One token (B,) at text position ``pos`` -> (logits (B, V), cache);
     the cache is read and written at ``pos + n_meta`` (its head holds the
     meta tokens), IN PLACE."""
-    _lanes(params, cfg)
+    lanes = _lanes(params)
     x = _embed_tokens(params, tokens[:, None], cfg)
     cache_pos = int(pos) + cfg.n_meta_tokens
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
-        pl = _layer(params["layers"], i)
-        xn = rms_norm(x, pl["ln1"], cfg.norm_eps)
+        pl = _layer(params["layers"], i, lanes)
+        xn = _norm(x, pl["ln1"], cfg)
         a, _ = attn.gqa_decode(pl["attn"], xn, _layer(
             {"k": cache["k"], "v": cache["v"]}, i), cfg, cache_pos,
             window=win, theta=th)

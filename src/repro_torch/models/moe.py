@@ -15,6 +15,16 @@ its ``B * C`` slots (:func:`_expert_products`), and each token gathers its
 ``k`` slots back with their combine weights (:func:`_combine`).  The
 positions, the capacity, the kept set and the rounding of the combine
 weights are the reference's.
+
+With lane-stacked weights (a leading lane axis, one lane per batch row,
+``lanes=True``; see ``models.transformer``), each row routes through its
+own lane's router and experts: the slots are laid out ``(B, E, C)``
+instead, so that lane b's ``(E, C, d)`` block runs through
+:func:`_expert_products` against lane b's ``(E, d, f)`` experts, a
+contiguous block of the ``(B, L, E, d, f)`` leaf (``B`` calls and no copy
+of the weights), and the aux loss is per lane, ``(B,)``.  Capacity and
+positions are per batch row as without lanes, which under the reference's
+vmap with an inner batch of 1 is per lane.
 """
 from __future__ import annotations
 
@@ -79,23 +89,28 @@ def _router_probs(p, x, cfg: ArchConfig):
     return w, sel, probs
 
 
-def _aux_loss(sel, probs, cfg: ArchConfig):
+def _aux_loss(sel, probs, cfg: ArchConfig, lanes: bool = False):
     """E * sum_e(frac_e * imp_e): frac counts every assignment, dropped or
-    not; imp is the mean router probability."""
+    not; imp is the mean router probability.  With lanes, one per batch
+    row, ``(B,)``."""
     e = cfg.n_experts
+    if lanes:
+        frac = F.one_hot(sel, e).float().mean((1, 2))
+        return e * (frac * probs.mean(1)).sum(-1)
     frac = F.one_hot(sel, e).float().mean((0, 1, 2))
     imp = probs.mean((0, 1))
     return e * (frac * imp).sum()
 
 
-def _moe_dense(p, x, w, sel, cfg: ArchConfig):
+def _moe_dense(p, x, w, sel, cfg: ArchConfig, lanes: bool = False):
     """Exact reference: every expert on every token, mask-combined."""
     e = cfg.n_experts
     gates = (F.one_hot(sel, e).float() * w[..., None]).sum(2)  # (B,S,E)
-    h = torch.einsum("bsd,edf->bsef", x, p["wi"])
-    g = torch.einsum("bsd,edf->bsef", x, p["wg"])
+    ln = "b" if lanes else ""
+    h = torch.einsum(f"bsd,{ln}edf->bsef", x, p["wi"])
+    g = torch.einsum(f"bsd,{ln}edf->bsef", x, p["wg"])
     h = F.silu(h) * g
-    out = torch.einsum("bsef,efd->bsed", h, p["wo"])
+    out = torch.einsum(f"bsef,{ln}efd->bsed", h, p["wo"])
     return torch.einsum("bsed,bse->bsd", out.float(), gates).to(x.dtype)
 
 
@@ -176,26 +191,36 @@ def _combine(out, slot, keep, w, ddt, dtype):
     return y.view(b, s, -1)
 
 
-def _moe_gshard(p, x, w, sel, cfg: ArchConfig):
+def _moe_gshard(p, x, w, sel, cfg: ArchConfig, lanes: bool = False):
     """Capacity-based dispatch and combine (see the module docstring)."""
     b, s, d = x.shape
     e = cfg.n_experts
     capacity = moe_capacity(s, cfg)
     pos, keep = moe_positions(sel, cfg)
-    # Slot (e, b, c) of the (E, B, C) buffer, in row-major order.
     rows = torch.arange(b, device=x.device)[:, None, None]
-    slot = (sel * b + rows) * capacity + pos
     ddt = torch.bfloat16 if cfg.moe_dispatch_dtype == "bf16" else torch.float32
-    xin = _dispatch(x, slot, keep, e * b * capacity)
-    out = _expert_products(p, xin.view(e, b * capacity, d))
+    if lanes:
+        # Slot (b, e, c) of the (B, E, C) buffer: lane b's experts.
+        slot = (rows * e + sel) * capacity + pos
+        xin = _dispatch(x, slot, keep, e * b * capacity).view(b, e, capacity,
+                                                              d)
+        out = torch.stack([
+            _expert_products({k: p[k][i] for k in ("wi", "wg", "wo")},
+                             xin[i]) for i in range(b)])
+    else:
+        # Slot (e, b, c) of the (E, B, C) buffer, in row-major order.
+        slot = (sel * b + rows) * capacity + pos
+        xin = _dispatch(x, slot, keep, e * b * capacity)
+        out = _expert_products(p, xin.view(e, b * capacity, d))
     return _combine(out.view(e * b * capacity, d), slot, keep, w, ddt, x.dtype)
 
 
-def moe_forward(p, x, cfg: ArchConfig):
-    """Returns (y, aux_loss)."""
+def moe_forward(p, x, cfg: ArchConfig, lanes: bool = False):
+    """Returns (y, aux_loss); with ``lanes`` (lane-stacked weights) the aux
+    loss is per lane."""
     w, sel, probs = _router_probs(p, x, cfg)
     impl = _moe_dense if cfg.moe_impl == "dense" else _moe_gshard
-    y = impl(p, x, w, sel, cfg)
+    y = impl(p, x, w, sel, cfg, lanes)
     if cfg.n_shared_experts:
         y = y + swiglu_forward(p["shared"], x)
-    return y, _aux_loss(sel, probs, cfg)
+    return y, _aux_loss(sel, probs, cfg, lanes)

@@ -32,11 +32,17 @@ position prefix + prompt + i (``launch.serve.generate`` does).
 *lane* axis, one lane per batch row (``final_norm`` of shape ``(B, d)``):
 batch row b then runs on lane b's weights — the personalized serving of
 ``launch.steps.make_personalized_serve_step``, where the reference vmaps
-over (params, batch) lanes.  The projections and the MLP become batched
-matmuls over the lane axis; the attention core has no weights, so the
-flash kernel sees the lanes as its batch.  Lanes of a MoE, MLA, vlm or
-masked_lm model, and of the xlstm and hymba blocks (whose modules call
-:func:`_lanes` too), are refused (ROADMAP queue 1 item 13.8).
+over (params, batch) lanes with an inner batch of 1.  This holds for every
+task and block kind (the xlstm and hymba modules call :func:`_lanes` too).
+The projections, the MLP, the vlm projector and the encoder's ``in_proj``
+become batched matmuls over the lane axis; norm scales and per-channel
+vectors (``mask_emb`` among them) broadcast per lane through
+:func:`~repro_torch.models.layers.lane_scale`; a MoE layer's router and
+experts run on each lane's own weights, with capacity per batch row, that
+is per lane (``models.moe``).  The attention core has no weights, so the
+flash kernel sees the lanes as its batch.  With lanes, :func:`forward`
+returns ``moe_aux`` per lane, shape ``(B,)``, as ``jax.vmap`` of the
+reference's forward does.
 """
 from __future__ import annotations
 
@@ -78,19 +84,11 @@ def _layer_meta(cfg: ArchConfig) -> tuple[list[int], list[float]]:
     return windows, thetas
 
 
-def _lanes(params, cfg: ArchConfig) -> bool:
+def _lanes(params) -> bool:
     """Whether ``params`` carry a leading lane axis (see the module
     docstring), told by ``final_norm``, a leaf of every task and block
-    kind; lanes of a MoE, MLA, vlm, masked_lm, xlstm or hymba model are
-    refused."""
-    lanes = params["final_norm"].dim() == 2
-    if lanes and (cfg.n_experts or cfg.attn_type == "mla"
-                  or cfg.task != "lm" or cfg.block_kind != "transformer"):
-        raise NotImplementedError(
-            f"{cfg.name}: per-lane (personalized) weights of a MoE, MLA, "
-            "vlm, masked_lm, xlstm or hymba model are not ported yet "
-            "(ROADMAP queue 1 item 13.8)")
-    return lanes
+    kind."""
+    return params["final_norm"].dim() == 2
 
 
 def _layer(tree, i: int, lanes: bool = False):
@@ -188,7 +186,7 @@ def embed_inputs(params, batch, cfg: ArchConfig):
     elif cfg.task == "masked_lm":
         x = batch["features"].to(cfg.dtype) @ params["in_proj"]
         m = batch["mask"].to(cfg.dtype)[..., None]
-        x = x * (1 - m) + params["mask_emb"] * m
+        x = x * (1 - m) + lane_scale(params["mask_emb"], x) * m
         pos = sinusoidal_positions(torch.arange(x.shape[1], device=x.device),
                                    cfg.d_model)
         x = x + pos[None].to(cfg.dtype)
@@ -213,15 +211,16 @@ def _norm(x, scale, cfg: ArchConfig):
     return rms_norm(x, lane_scale(scale, x), cfg.norm_eps)
 
 
-def _mlp(pl, x, cfg: ArchConfig):
+def _mlp(pl, x, cfg: ArchConfig, lanes: bool):
     """The layer's MLP on the normed residual -> (y, aux loss or None)."""
     h = _norm(x, pl["ln2"], cfg)
     if cfg.n_experts:
-        return moe_lib.moe_forward(pl["mlp"], h, cfg)
+        return moe_lib.moe_forward(pl["mlp"], h, cfg, lanes)
     return moe_lib.swiglu_forward(pl["mlp"], h), None
 
 
-def _block(pl, x, cfg: ArchConfig, window, theta, positions, return_kv=False):
+def _block(pl, x, cfg: ArchConfig, window, theta, positions, lanes: bool,
+           return_kv=False):
     """One layer -> (x, the attention's cache entries or None, aux or
     None)."""
     fwd = attn.mla_forward if cfg.attn_type == "mla" else attn.gqa_forward
@@ -229,13 +228,13 @@ def _block(pl, x, cfg: ArchConfig, window, theta, positions, return_kv=False):
             theta=theta, positions=positions, return_kv=return_kv)
     h, kv = h if return_kv else (h, None)
     x = x + shard_act(h, ("batch", "seq", "embed"))
-    y, aux = _mlp(pl, x, cfg)
+    y, aux = _mlp(pl, x, cfg, lanes)
     return x + shard_act(y, ("batch", "seq", "embed")), kv, aux
 
 
 def forward(params, batch, cfg: ArchConfig):
     """Full-sequence forward -> (logits, aux)."""
-    lanes = _lanes(params, cfg)
+    lanes = _lanes(params)
     x, mask = embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -245,14 +244,15 @@ def forward(params, batch, cfg: ArchConfig):
         pl = _layer(params["layers"], i, lanes)
 
         def body(x, pl=pl, win=win, th=th):
-            x, _, aux = _block(pl, x, cfg, win, th, positions)
+            x, _, aux = _block(pl, x, cfg, win, th, positions, lanes)
             return x, aux
 
         x, aux = (checkpoint(body, x, use_reentrant=False) if remat
                   else body(x))
         auxs.append(aux)
     logits = shard_act(_logits(params, x, cfg), ("batch", "seq", "vocab"))
-    moe_aux = (torch.stack(auxs).mean() if cfg.n_experts
+    # (B,) with lanes: each lane's mean over the layers.
+    moe_aux = (torch.stack(auxs).mean(0) if cfg.n_experts
                else torch.zeros((), device=x.device))
     return logits, {"moe_aux": moe_aux, "loss_mask": mask}
 
@@ -280,7 +280,7 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
     ``cache_len``) -> (logits for every position, cache).  A vlm batch's
     image prefix takes the cache's first positions, so ``cache_len`` must
     count it."""
-    lanes = _lanes(params, cfg)
+    lanes = _lanes(params)
     x, _ = embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     if s > cache_len:
@@ -291,7 +291,7 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
              for k, d in cache_defs(cfg, b, cache_len).items()}
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         x, kv, _ = _block(_layer(params["layers"], i, lanes), x, cfg, win,
-                          th, positions, return_kv=True)
+                          th, positions, lanes, return_kv=True)
         for name, t in zip(cache, kv):  # ("k", "v") or ("ckv", "kpe")
             cache[name][i, :, :s] = t
     return _logits(params, x, cfg), cache
@@ -303,13 +303,13 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig):
     returned (the reference returns a new cache)."""
     x = _embed_tokens(params, tokens[:, None], cfg)
     x = shard_act(x, ("batch", None, "embed"))
-    lanes = _lanes(params, cfg)
+    lanes = _lanes(params)
     dec = attn.mla_decode if cfg.attn_type == "mla" else attn.gqa_decode
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         pl = _layer(params["layers"], i, lanes)
         h, _ = dec(pl["attn"], _norm(x, pl["ln1"], cfg), _layer(cache, i),
                    cfg, pos, window=win, theta=th)
         x = x + h
-        y, _ = _mlp(pl, x, cfg)
+        y, _ = _mlp(pl, x, cfg, lanes)
         x = x + y
     return _logits(params, x, cfg)[:, 0], cache

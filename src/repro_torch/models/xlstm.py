@@ -29,8 +29,12 @@ projection ``(..., 4d)`` and the recurrent product ``(..., 4 hd)`` read as
 ``(..., heads, hd, 4)`` (:func:`_gates`), not as four contiguous blocks.
 
 :func:`decode_step` updates the cache IN PLACE and returns it (the
-reference returns a new one).  Per-lane (personalized) weights are refused
-(ROADMAP queue 1 item 13.8).
+reference returns a new one).  Every entry point also takes lane-stacked
+parameters (a leading lane axis, one lane per batch row; see
+``models.transformer``): the block views follow the lane axis
+(``(B, groups, n, ...)`` leaves), the projections are batched matmuls,
+norm scales and biases broadcast per lane, and the sLSTM's block-diagonal
+recurrence reads each lane's own ``r``.
 """
 from __future__ import annotations
 
@@ -42,9 +46,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import rms_norm, softmax_xent
+from repro_torch.models.layers import lane_scale, softmax_xent
 from repro_torch.models.pdefs import PDef
-from repro_torch.models.transformer import _embed_tokens, _lanes
+from repro_torch.models.transformer import _embed_tokens, _lanes, _norm
 
 __all__ = ["param_defs", "cache_defs", "forward", "loss", "prefill",
            "decode_step", "mlstm_parallel", "mlstm_step"]
@@ -143,8 +147,11 @@ def cache_defs(cfg: ArchConfig, batch: int, length: int) -> dict:
     return defs
 
 
-def _block(tree: dict, gi: int, j: int) -> dict:
-    """Block j of group gi: views of the doubly stacked leaves."""
+def _block(tree: dict, gi: int, j: int, lanes: bool = False) -> dict:
+    """Block j of group gi: views of the doubly stacked leaves (behind the
+    lane axis when there is one)."""
+    if lanes:
+        return {k: t[:, gi, j] for k, t in tree.items()}
     return {k: t[gi, j] for k, t in tree.items()}
 
 
@@ -158,7 +165,8 @@ def _mlstm_qkvif(pl, xm, cfg: ArchConfig):
     q = (xm @ pl["wq"]).reshape(b, s, h, hd)
     k = (xm @ pl["wk"]).reshape(b, s, h, hd)
     v = (xm @ pl["wv"]).reshape(b, s, h, hd)
-    gates = xm.float() @ pl["w_if"] + pl["b_if"]
+    gates = xm.float() @ pl["w_if"]
+    gates = gates + lane_scale(pl["b_if"], gates)
     return q, k, v, gates[..., :h], gates[..., h:]
 
 
@@ -212,7 +220,7 @@ def _mlstm_block(pl, x, cfg: ArchConfig, state=None):
     (S = 1) -> (x, the new state or None)."""
     d, di, h, hd = _dims(cfg)
     b, s, _ = x.shape
-    up = rms_norm(x, pl["ln"], cfg.norm_eps) @ pl["w_up"]
+    up = _norm(x, pl["ln"], cfg) @ pl["w_up"]
     xm, z = up[..., :di], up[..., di:]
     q, k, v, i_pre, f_pre = _mlstm_qkvif(pl, xm, cfg)
     if state is None:
@@ -221,7 +229,7 @@ def _mlstm_block(pl, x, cfg: ArchConfig, state=None):
         new_state, hcell = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0],
                                       i_pre[:, 0], f_pre[:, 0])
         hcell = hcell[:, None]
-    hcell = rms_norm(hcell, pl["out_norm"], cfg.norm_eps)
+    hcell = _norm(hcell, pl["out_norm"], cfg)
     hflat = hcell.reshape(b, s, di).to(cfg.dtype) * F.silu(z)
     return x + hflat @ pl["w_down"], new_state
 
@@ -250,11 +258,13 @@ def _slstm_cell(pre, state):
     return (c_new, n_new, m_new, h_new)
 
 
-def _slstm_recur(pl, px, h_prev, cfg: ArchConfig):
+def _slstm_recur(pl, px, h_prev, cfg: ArchConfig, lanes: bool):
     """The recurrent gate contribution added to one step's precomputed
-    input projection px ``(B, H, hd, 4)``; h_prev ``(B, H, hd)``."""
+    input projection px ``(B, H, hd, 4)``; h_prev ``(B, H, hd)``; with
+    ``lanes`` each row's own ``r`` of the ``(B, H, hd, 4 hd)`` stack."""
     d, _, h, _ = _dims(cfg)
-    pr = torch.einsum("bhe,heg->bhg", h_prev, pl["r"].float())
+    pr = torch.einsum("bhe,bheg->bhg" if lanes else "bhe,heg->bhg",
+                      h_prev, pl["r"].float())
     return px + _gates(pr.flatten(-2), h, d // h)
 
 
@@ -262,32 +272,35 @@ def _slstm_input_proj(pl, xn, cfg: ArchConfig):
     """The input projection of the whole sequence, ``(B, S, H, hd, 4)``,
     outside the time loop (only ``h @ R`` stays sequential)."""
     d, _, h, _ = _dims(cfg)
-    px = xn.float() @ pl["wx"].float() + pl["b"]
+    px = xn.float() @ pl["wx"].float()
+    px = px + lane_scale(pl["b"], px)
     return _gates(px, h, d // h)
 
 
-def _slstm_block(pl, x, cfg: ArchConfig, state=None):
+def _slstm_block(pl, x, cfg: ArchConfig, state=None, lanes: bool = False):
     d, _, h, _ = _dims(cfg)
     hd = d // h
     b, s, _ = x.shape
-    xn = rms_norm(x, pl["ln"], cfg.norm_eps)
+    xn = _norm(x, pl["ln"], cfg)
     if state is None:
         px_all = _slstm_input_proj(pl, xn, cfg)
         zeros = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
         st = (zeros, zeros, torch.full_like(zeros, _NEG), zeros)
         hs = []
         for t in range(s):  # the reference's lax.scan over time
-            st = _slstm_cell(_slstm_recur(pl, px_all[:, t], st[3], cfg), st)
+            st = _slstm_cell(_slstm_recur(pl, px_all[:, t], st[3], cfg,
+                                           lanes), st)
             hs.append(st[3])
         hs = torch.stack(hs, dim=1)  # (B, S, H, hd)
         new_state = None
     else:
         px = _slstm_input_proj(pl, xn[:, :1], cfg)[:, 0]
-        new_state = _slstm_cell(_slstm_recur(pl, px, state[3], cfg), state)
+        new_state = _slstm_cell(_slstm_recur(pl, px, state[3], cfg, lanes),
+                                state)
         hs = new_state[3][:, None]
-    hs = rms_norm(hs, pl["out_norm"], cfg.norm_eps)
+    hs = _norm(hs, pl["out_norm"], cfg)
     x = x + hs.reshape(b, s, d).to(cfg.dtype)
-    xn2 = rms_norm(x, pl["ln_ffn"], cfg.norm_eps)  # post-FFN (pf 4/3)
+    xn2 = _norm(x, pl["ln_ffn"], cfg)  # post-FFN (pf 4/3)
     hmid = F.silu(xn2 @ pl["ffn_wi"]) * (xn2 @ pl["ffn_wg"])
     return x + hmid @ pl["ffn_wo"], new_state
 
@@ -297,21 +310,23 @@ def _slstm_block(pl, x, cfg: ArchConfig, state=None):
 # ---------------------------------------------------------------------------
 
 def _logits(params, x, cfg: ArchConfig):
-    return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    return _norm(x, params["final_norm"], cfg) @ params["lm_head"]
 
 
 def forward(params, batch, cfg: ArchConfig):
     """Full-sequence forward (the parallel mLSTM form) -> (logits, {})."""
-    _lanes(params, cfg)
+    lanes = _lanes(params)
     x = _embed_tokens(params, batch["tokens"], cfg)
     n_m, g, n_s = _groups(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     for gi in range(g):
         def group(x, gi=gi):
             for j in range(n_m):
-                x, _ = _mlstm_block(_block(params["mlstm"], gi, j), x, cfg)
+                x, _ = _mlstm_block(_block(params["mlstm"], gi, j, lanes),
+                                    x, cfg)
             for j in range(n_s):
-                x, _ = _slstm_block(_block(params["slstm"], gi, j), x, cfg)
+                x, _ = _slstm_block(_block(params["slstm"], gi, j, lanes),
+                                    x, cfg, lanes=lanes)
             return x
 
         x = checkpoint(group, x, use_reentrant=False) if remat else group(x)
@@ -348,18 +363,20 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     """One token (B,) -> (logits (B, V), cache); the recurrent state is
     position-free (``pos`` is unused) and updated IN PLACE."""
     del pos
-    _lanes(params, cfg)
+    lanes = _lanes(params)
     x = _embed_tokens(params, tokens[:, None], cfg)
     n_m, g, n_s = _groups(cfg)
     for gi in range(g):
         for j in range(n_m):
             st = tuple(cache[k][gi, j] for k in _M_STATE)
-            x, new = _mlstm_block(_block(params["mlstm"], gi, j), x, cfg, st)
+            x, new = _mlstm_block(_block(params["mlstm"], gi, j, lanes), x,
+                                  cfg, st)
             for old, t in zip(st, new):
                 old.copy_(t)
         for j in range(n_s):
             st = tuple(cache[k][gi, j] for k in _S_STATE)
-            x, new = _slstm_block(_block(params["slstm"], gi, j), x, cfg, st)
+            x, new = _slstm_block(_block(params["slstm"], gi, j, lanes), x,
+                                  cfg, st, lanes)
             for old, t in zip(st, new):
                 old.copy_(t)
     return _logits(params, x, cfg)[:, 0], cache

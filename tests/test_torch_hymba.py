@@ -288,11 +288,21 @@ def test_pod_round_matches_the_reference():
     assert all(np.isfinite(losses))
 
 
-def test_personalized_lanes_are_refused():
+def test_personalized_lanes_run_each_lane_on_its_own_weights():
+    """Lane b of a laned ``prefill`` (its own meta tokens, SSM and
+    attention) is lane b's model run alone, to 1e-5 of the logits'
+    magnitude; ``serve.main --clients`` serves hymba.  The reference's
+    lanes are ``tests/test_torch_lanes_blocks.py``'s."""
     _, api, _, params, toks = _setup()
-    stacked = tree_map(lambda t: t[None].expand(B, *t.shape), params)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="13.8"):
-        api.prefill(stacked, {"tokens": torch.from_numpy(toks)}, S)
-    with pytest.raises(NotImplementedError, match="13.8"):
-        serve.main(["--device", "cpu", "--arch", ARCH, "--clients", "2",
-                    "--rank", "2", "--prompt-len", "6", "--new-tokens", "2"])
+    other = tree_map(lambda t: t * 0.9, params)
+    stacked = tree_map(lambda *ts: torch.stack(ts), params, other)
+    tk = torch.from_numpy(toks)
+    with torch.no_grad():
+        pre, _ = api.prefill(stacked, {"tokens": tk}, S)
+        for b, p in enumerate((params, other)):
+            close(pre[b:b + 1], api.prefill(p, {"tokens": tk[b:b + 1]},
+                                            S)[0].numpy(),
+                  f"lane {b} prefill", 1e-5)
+    rec = serve.main(["--device", "cpu", "--arch", ARCH, "--clients", "2",
+                      "--rank", "2", "--prompt-len", "6", "--new-tokens", "2"])
+    assert tuple(rec["tokens"].shape) == (2, 2) and rec["finite"]

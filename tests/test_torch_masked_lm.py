@@ -253,9 +253,18 @@ def test_serve_refuses_the_encoder():
         serve.main(["--device", "cpu", "--arch", ARCH])
 
 
-def test_personalized_lanes_of_the_encoder_are_refused():
+def test_personalized_lanes_of_the_encoder_run_each_lane_on_its_own_weights():
+    """Lane b of a laned ``forward`` (its own ``in_proj``, ``mask_emb`` and
+    encoder) is lane b's model run alone, to 1e-5 of the logits'
+    magnitude.  The reference's lanes are
+    ``tests/test_torch_lanes_tasks.py``'s."""
     _, api, _, params, batch = _setup()
     from repro_torch.core.flat import tree_map
-    stacked = tree_map(lambda t: t[None].expand(B, *t.shape), params)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="13.8"):
-        api.forward(stacked, _torch_batch(batch))
+    other = tree_map(lambda t: t * 0.9, params)
+    stacked = tree_map(lambda *ts: torch.stack(ts), params, other)
+    tb = _torch_batch(batch)
+    with torch.no_grad():
+        logits, _ = api.forward(stacked, tb)
+        for b, p in enumerate((params, other)):
+            one, _ = api.forward(p, {k: v[b:b + 1] for k, v in tb.items()})
+            _close(logits[b:b + 1], one, f"lane {b} forward", 1e-5)

@@ -207,18 +207,28 @@ def test_moe_forward_matches_the_reference(arch, impl):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_lanes_of_a_moe_model_are_refused(arch):
-    """Per-lane (personalized) weights of the MoE and MLA models wait for
-    their own item; the entry points refuse them rather than run them
-    wrongly."""
+def test_lanes_of_a_moe_model_run_each_lane_on_its_own_weights(arch):
+    """Per-lane (personalized) weights of the MoE and MLA models: batch row
+    b of a laned ``forward`` and ``prefill`` is lane b's model run alone
+    (its own router and experts, capacity per row), to 1e-5 of the logits'
+    magnitude, and the aux loss is per lane.  The reference's lanes are
+    ``tests/test_torch_lanes_moe.py``'s."""
     from repro_torch.models.registry import get_model_api
     from repro_torch.core.flat import tree_map
 
     api = get_model_api(registry.get_config(arch, smoke=True))
-    params = api.init(torch.Generator().manual_seed(0))
-    lanes = tree_map(lambda t: t.unsqueeze(0).expand(2, *t.shape), params)
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13.8"):
-        api.forward(lanes, {"tokens": tokens})
-    with pytest.raises(NotImplementedError, match="item 13.8"):
-        api.prefill(lanes, {"tokens": tokens}, 10)
+    ps = [api.init(torch.Generator().manual_seed(i)) for i in range(2)]
+    lanes = tree_map(lambda *ts: torch.stack(ts), *ps)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, api.cfg.vocab_size, (2, 8))).to(torch.int32)
+    with torch.no_grad():
+        logits, aux = api.forward(lanes, {"tokens": tokens})
+        pre, _ = api.prefill(lanes, {"tokens": tokens}, 10)
+        assert tuple(aux["moe_aux"].shape) == (2,)
+        for b in range(2):
+            one, one_aux = api.forward(ps[b], {"tokens": tokens[b:b + 1]})
+            _close(logits[b:b + 1], one, f"lane {b} forward", 1e-5)
+            _close(aux["moe_aux"][b], one_aux["moe_aux"], f"lane {b} aux",
+                   1e-6)
+            _close(pre[b:b + 1], api.prefill(ps[b], {"tokens": tokens[b:b + 1]},
+                                             10)[0], f"lane {b} prefill", 1e-5)

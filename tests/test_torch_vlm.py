@@ -284,16 +284,25 @@ def test_serve_main_serves_the_vlm_with_eight_image_embeddings(capsys):
     assert "[serve] prefill 2x12 after 8 image embeddings" in capsys.readouterr().out
 
 
-def test_personalized_lanes_of_the_vlm_are_refused():
-    """The reference vmaps them; the port names the open item (ROADMAP
-    queue 1 item 13.8)."""
+def test_personalized_lanes_of_the_vlm_run_each_lane_on_its_own_weights():
+    """Lane b of a laned prefill (its own projector and decoder, its image
+    prefix in the cache) is lane b's model run alone, to 1e-5 of the
+    logits' magnitude; ``serve.main --clients`` serves the vlm.  The
+    reference's lanes are ``tests/test_torch_lanes_tasks.py``'s."""
     _, api, _, params, batch = _setup()
-    stacked = tree_map(lambda t: t[None].expand(B, *t.shape), params)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="13.8"):
-        api.prefill(stacked, _torch_batch(batch), SEQ + NEW)
-    with pytest.raises(NotImplementedError, match="13.8"):
-        serve.main(["--device", "cpu", "--arch", ARCH, "--clients", "2",
-                    "--rank", "2", "--prompt-len", "6", "--new-tokens", "2"])
+    other = tree_map(lambda t: t * 0.9, params)
+    stacked = tree_map(lambda *ts: torch.stack(ts), params, other)
+    tb = _torch_batch(batch)
+    with torch.no_grad():
+        logits, _ = api.prefill(stacked, tb, SEQ + NEW)
+        for b, p in enumerate((params, other)):
+            one, _ = api.prefill(p, {k: v[b:b + 1] for k, v in tb.items()},
+                                 SEQ + NEW)
+            _close(logits[b:b + 1], one, f"lane {b} prefill", 1e-5)
+    rec = serve.main(["--device", "cpu", "--arch", ARCH, "--clients", "2",
+                      "--rank", "2", "--prompt-len", "6", "--new-tokens", "2"])
+    assert rec["n_prefix"] == 8 and rec["finite"]
+    assert tuple(rec["tokens"].shape) == (2, 2)
 
 
 def test_the_reference_serve_sized_cache_diverges():

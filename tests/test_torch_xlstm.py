@@ -318,10 +318,20 @@ def test_a_bare_training_cli_run_trains_xlstm():
     assert "w_mass=2.0000" in out
 
 
-def test_personalized_lanes_are_refused():
+def test_personalized_lanes_run_each_lane_on_its_own_weights():
+    """Lane b of a laned ``prefill`` and ``forward`` is lane b's model run
+    alone, to 1e-5 of the logits' magnitude.  The reference's lanes are
+    ``tests/test_torch_lanes_blocks.py``'s."""
     _, api, _, params, toks = _setup()
-    stacked = tree_map(lambda t: t[None].expand(B, *t.shape), params)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="13.8"):
-        api.prefill(stacked, {"tokens": torch.from_numpy(toks)}, S)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="13.8"):
-        api.forward(stacked, {"tokens": torch.from_numpy(toks)})
+    other = tree_map(lambda t: t * 0.9, params)
+    stacked = tree_map(lambda *ts: torch.stack(ts), params, other)
+    tk = torch.from_numpy(toks)
+    with torch.no_grad():
+        pre, _ = api.prefill(stacked, {"tokens": tk}, S)
+        fwd, _ = api.forward(stacked, {"tokens": tk})
+        for b, p in enumerate((params, other)):
+            one = {"tokens": tk[b:b + 1]}
+            close(pre[b:b + 1], api.prefill(p, one, S)[0].numpy(),
+                  f"lane {b} prefill", 1e-5)
+            close(fwd[b:b + 1], api.forward(p, one)[0].numpy(),
+                  f"lane {b} forward", 1e-5)
