@@ -10,8 +10,10 @@ serving the MoE family (dbrx-132b, deepseek-v3-671b), serving the vlm
 whose head dim 80 has its own flash instantiations, forward and
 backward), serving and training the recurrent xlstm-350m and the hybrid
 hymba-1.5b, training the masked_lm and vlm tasks (hubert-xlarge,
-llava-next-mistral-7b) with the pods-as-clients round, and personalized
-lanes of every family beside the dense decoders.
+llava-next-mistral-7b) with the pods-as-clients round, personalized lanes
+of every family beside the dense decoders, and the two-tier topology family
+and the row-sharded bank (the all-gather and halo executors over
+``torch.distributed``, NCCL on the card).
 
     python3 chip_smoke.py
 
@@ -113,7 +115,8 @@ Phases, each fatal on failure:
    on 16, 1500, hd 80, non-causal, f32 and bf16, a causal mask that must
    miss), at GQA groups 1, 4 and 16, f32 and bf16, edge lengths, with a
    mask fault that must miss its tolerance, and its time beside its bound
-   and SDPA's backward (glm4-9b's, gemma3-12b's and hubert's); reduced
+   and SDPA's backward (glm4-9b's, gemma3-12b's, llava-next-mistral-7b's
+   and hubert's); reduced
    glm4-9b, 2 pods, 2 rounds of ``make_round_step`` on the card against
    the CPU (dense ``P_pod`` and the neighbor list); then the training main
    path, ``repro_torch.launch.train.run`` with glm4-9b at full width cut to
@@ -202,7 +205,21 @@ Phases, each fatal on failure:
    forward of its own weights (a MoE model's routing pinned), lane 0
    against lane 1's forward must miss; deepseek's lane against its forward
    and the base's forward (must miss); hubert's lanes against their
-   weights' forward alone, swapped lanes must miss.
+   weights' forward alone, swapped lanes must miss;
+18. the two-tier family and the row-sharded bank at phase 5's size
+   (cifar_cnn, n = 100, K = 5, batch 32, lr 0.01; 4 pods of 25, k_out =
+   10): the dense mix's row panel at (25, 100) x (100, D) and its edge
+   shapes against its plain version and the square launch's rows, the
+   gather at the two-tier inter list (100, 11), and for one shard's 25
+   receivers over the gathered bank and over its rows and their halo
+   (slots remapped), each timed beside its bound, its plain version and
+   a library call; then 3 two-tier rounds in the dense form and in the
+   operator form (intra ``bmm`` + the gather) on the same draws from one
+   state, the banks held to each other and the mass 100; then
+   ``FLTrainer(mesh=)`` on a one-rank NCCL clients mesh, ``gossip="xla"``
+   and ``"halo"``, kout and two_tier, 2 rounds each, held to the
+   unsharded program on the same draws, with the executor that ran and
+   the round times.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -315,13 +332,14 @@ def matmul_path(dev, n: int) -> str:
     return "resident kernel, n <= 128" if n <= 128 else "tiled kernel, n > 128"
 
 
-def gather_path(dev, n: int, k_max: int, dt) -> str:
+def gather_path(dev, n: int, k_max: int, dt, m: int | None = None) -> str:
+    """The gather's kernel for m receivers (n by default) over n rows."""
     from repro_torch.kernels import build
 
     if dev.type != "cuda":
         return "plain version"
     cols = build.load_library().gossip_gather_panel_cols(
-        0 if dt == torch.float32 else 1, n, k_max)
+        0 if dt == torch.float32 else 1, n if m is None else m, n, k_max)
     return f"panel kernel, {cols} columns" if cols else "row kernel"
 
 
@@ -2100,7 +2118,7 @@ def corrupt_clean_chunk(store, n: int):
 
 
 def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
-                k_out: int = PAGED_K_OUT, rounds: int = 3,
+                k_out: int = PAGED_K_OUT, rounds: int = 1,
                 local_steps: int = 5, per_client: int = 32,
                 dim: int = MNIST_2NN_DIM) -> dict:
     """``FLTrainer(paged=True)`` at the README's setting: n clients on disk,
@@ -2114,9 +2132,13 @@ def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
     store-wide mass; then ``save()``, and a reopen of the saved store
     under a ``ChurnModel`` and a ``FaultInjector`` (a transient EIO on
     every file's first read): the round, its generator and the last
-    round's rows bit for bit, 2 rounds that must retry the EIOs with the
-    mass exact, and a flipped byte in a chunk of trained rows, which a read
-    must refuse.  The phase's wall time by step closes it."""
+    round's rows bit for bit, a round after the reads that retried the
+    EIOs, with the mass exact, and a flipped byte in a chunk of
+    trained rows, which a read must refuse.  The phase's wall time by step
+    closes it.  One timed round and one under churn and faults keep the
+    whole script well inside its time limit: the write-back's drain after
+    the rounds, host disk I/O, took most of the phase, and grows with the
+    rounds run."""
     import shutil
     import tempfile
 
@@ -2283,7 +2305,7 @@ def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
               f"from all {len(chunks)} chunks against their committed "
               f"checksums ({spent['reopen and read back']:.1f} s, "
               f"{store.io_retries} reads retried)")
-        walls = [run(chaos, i, "churn + faults") for i in range(2)]
+        walls = [run(chaos, 0, "churn + faults")]
         lap("churn + faults rounds")
         drain(rr, walls, "churn + faults")
         lap("the write-back's drain after those")
@@ -2694,6 +2716,7 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
 
     row = timed(shape, 0, "glm4-9b training")  # the JSON rows
     timed(gemma, 0, "gemma3-12b global layer")
+    timed(llava, 0, "llava-next-mistral-7b training")
     return row, timed(hubert, 0, "hubert-xlarge training", causal=False)
 
 
@@ -2836,7 +2859,8 @@ def mix_check(dev, params, P) -> None:
     """The dense mix at the pod bank's width (two f32 rows of the replicas'
     2.06 B parameters, each more than 2^31 bytes) against its plain version
     on column slices at the start, the middle and the end (the last column
-    included); tolerance as phase 3's, 1e-6 of max|Y| in f32."""
+    included); tolerance as phase 3's, 1e-6 of max|Y| in f32.  Then its
+    time beside its bound and ``torch.matmul``'s on the same bank."""
     from repro_torch.core.flat import make_spec, tree_map
     from repro_torch.kernels import gossip_matmul as gm
 
@@ -2855,7 +2879,18 @@ def mix_check(dev, params, P) -> None:
         print(f"    columns {a}..{a + width - 1}: max|err| {e:.3e} "
               f"(tolerance {tol:.3e})")
         check(e <= tol, f"the mix disagrees at columns {a}..{a + width - 1}")
-    del X, Y
+    del Y
+    n = X.shape[0]
+    t_kernel = timed_ms(lambda: gm.gossip_matmul(P, X), dev, 3, 1)
+    b, by = bound_ms(4.0 * n * n + 8.0 * n * d, 2.0 * n * n * d)
+    try:
+        lib = f"{timed_ms(lambda: torch.matmul(P.float(), X), dev, 3, 1):.4f} ms"
+    except RuntimeError as e:  # a library call may refuse 2^31 columns
+        lib = f"refused ({str(e).splitlines()[0][:120]})"
+    print(f"    the mix at the pod bank's width: {t_kernel:.4f} ms, bound "
+          f"{b:.4f} ms ({by}), {100 * b / t_kernel:.1f}% of it; torch.matmul "
+          f"(f32, TF32 off) {lib}")
+    del X
 
 
 def training(dev, layers: int = TRAIN_LAYERS, argv=TRAIN_ARGV,
@@ -4673,6 +4708,366 @@ def lanes_phase(dev, head=print) -> dict:
     return paths
 
 
+# -- phase 18: the two-tier family and the row-sharded bank --------------------
+
+# Phase 5's clients in 4 pods of 25; every client draws k_out = 10
+# cross-pod senders.
+TWO_TIER_PODS = 4
+SHARD_ROUNDS = 2
+
+
+def panel_bound(m: int, n: int, d: int, es: int) -> tuple:
+    """The row panel's bound: P, X and Y moved once; 2 m n D FLOP at the
+    f32 peak."""
+    return bound_ms(4.0 * m * n + es * (n + m) * d, 2.0 * m * n * d)
+
+
+def halo_lists(idx, wgt, m: int):
+    """Receivers 0..m-1 of ``(idx, wgt)`` as one shard of m rows sees them:
+    the remote rows they read (nonzero weight, sorted) and each slot's row
+    in ``[own rows; those rows]`` (a zero-weight remote slot points at
+    halo row 0), as ``gossip_gather_halo`` remaps them."""
+    own_idx, own_wgt = idx[:m].long(), wgt[:m]
+    remote = (own_idx >= m) & (own_wgt != 0)
+    rows = torch.unique(own_idx[remote])
+    where = torch.zeros(idx.shape[0], dtype=torch.long, device=idx.device)
+    where[rows] = torch.arange(rows.numel(), device=idx.device)
+    slots = torch.where(own_idx < m, own_idx, m + where[own_idx])
+    return rows, slots.to(torch.int32).contiguous()
+
+
+def sharding_kernel_phase(dev, n: int = N_CLIENTS, d: int = CIFAR_CNN_DIM,
+                          n_pods: int = TWO_TIER_PODS,
+                          iters: int = 10) -> None:
+    """Phase 18's kernel checks, outside any counted path: the dense mix's
+    row panel (a shard's m = n / n_pods rows of the two-tier operator over
+    the gathered bank) at (25, 100) x (100, D) and at the panel's edge
+    shapes, f32 and bf16, own bank and one row in, against its plain
+    version (phase 3's tolerance) and against the square launch's rows (bit
+    for bit); the gather at the two-tier inter list (100, 11) bit for bit;
+    the gather for a shard's 25 receivers over the gathered bank and over
+    ``[own rows; halo rows]`` with the slots remapped, both bit for bit
+    against the plain version and the square launch's rows.  Then each
+    one's time beside its bound, its plain version's and a library call's
+    (``torch.matmul``, TF32 off; the ``einsum`` over ``X[idx]``)."""
+    from repro_torch.core import topology
+    from repro_torch.kernels import gossip_gather as gg
+    from repro_torch.kernels import gossip_matmul as gm
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    m = n // n_pods
+    op = topology.sample_two_tier(gen, n, n_pods, 10)
+    P = topology.dense_from_two_tier(op)
+    for (m_, n_, d_) in [(m, n, d), (1, 9, 4097), (7, 100, 4098),
+                         (64, 128, 4099), (3, 129, 4097), (100, 130, 3)]:
+        Pm = (P[:m_, :n_] if n_ <= n else torch.rand(
+            m_, n_, generator=gen, device=dev)).contiguous()
+        cells = []
+        for dt in (torch.float32, torch.bfloat16):
+            for X in mix_banks(gen, n_, d_, dt, dev):
+                got = gm.gossip_matmul(Pm, X)
+                want = gm.gossip_matmul_plain(Pm, X)
+                sync(dev)
+                e = max_err(got, want)
+                tol = (1e-6 if dt == torch.float32 else 2.0 ** -7) * float(
+                    want.float().abs().max())
+                check(e <= tol, f"row panel disagrees ({m_}, {n_}, {d_}, {dt})")
+                Pn = torch.zeros(n_, n_, device=dev)
+                Pn[:m_] = Pm
+                same = torch.equal(got, gm.gossip_matmul(Pn, X)[:m_])
+                # The kernels sum in one order whatever the rows; the CPU's
+                # plain products need not.
+                check(same or dev.type != "cuda",
+                      f"row panel and square launch differ "
+                      f"({m_}, {n_}, {d_}, {dt})")
+                cells.append(f"{str(dt)[6:]} {e / tol if tol else e:.3f} "
+                             f"(square rows equal: {same})")
+                del got, want, X
+        print(f"  row panel ({m_}, {n_}) x ({n_}, {d_}): max|err| / tolerance"
+              f" (1e-6 max|Y| in f32, 2^-7 in bf16; own bank, one row in) "
+              + ", ".join(cells))
+    X = torch.randn(n, d, generator=gen, device=dev)
+    Pm = P[:m].contiguous()
+    b, by = panel_bound(m, n, d, 4)
+    r = dict(ms=timed_ms(lambda: gm.gossip_matmul(Pm, X), dev, iters),
+             plain=timed_ms(lambda: gm.gossip_matmul_plain(Pm, X), dev, iters),
+             lib=timed_ms(lambda: torch.matmul(Pm, X), dev, iters))
+    print(f"  row panel ({m}, {n}) x ({n}, {d}) f32: {r['ms']:.4f} ms, bound "
+          f"{b:.4f} ms ({by}), {100 * b / r['ms']:.1f}% of it; plain "
+          f"{r['plain']:.4f} ms; torch.matmul {r['lib']:.4f} ms")
+
+    nl = op.inter
+    k = nl.idx.shape[1]
+    rows, slots = halo_lists(nl.idx, nl.wgt, m)
+    for dt in (torch.float32, torch.bfloat16):
+        Xd = X.to(dt)
+        whole = gg.gossip_gather(nl.idx, nl.wgt, Xd)
+        e = max_err(whole, gg.gossip_gather_plain(nl.idx, nl.wgt, Xd))
+        check(e == 0.0, f"two-tier inter gather disagrees ({dt})")
+        recv = gg.gossip_gather(nl.idx[:m].contiguous(),
+                                nl.wgt[:m].contiguous(), Xd)
+        e_recv = max_err(recv, gg.gossip_gather_plain(nl.idx[:m], nl.wgt[:m],
+                                                      Xd))
+        ext = torch.cat([Xd[:m], Xd[rows]])
+        halo = gg.gossip_gather(slots, nl.wgt[:m].contiguous(), ext)
+        e_halo = max_err(halo, gg.gossip_gather_plain(slots, nl.wgt[:m], ext))
+        same = torch.equal(recv, whole[:m]) and torch.equal(halo, whole[:m])
+        sync(dev)
+        print(f"  gossip_gather two-tier inter ({n}, {k}) {str(dt)[6:]} "
+              f"({gather_path(dev, n, k, dt)}): max|err| {e:.1e}; {m} "
+              f"receivers over the gathered bank {e_recv:.1e}, over [{m} own; "
+              f"{rows.numel()} halo] rows {e_halo:.1e} (tolerance 0); both "
+              f"equal the whole mix's rows: {same}")
+        check(e_recv == 0.0 and e_halo == 0.0 and same,
+              f"the gather for a shard's receivers disagrees ({dt})")
+        del Xd, whole, recv, ext, halo
+    ext = torch.cat([X[:m], X[rows]])
+    wm = nl.wgt[:m].contiguous()
+    im = nl.idx[:m].contiguous()
+    cases = {
+        f"two-tier inter ({n}, {k})": (
+            lambda: gg.gossip_gather(nl.idx, nl.wgt, X),
+            lambda: gg.gossip_gather_plain(nl.idx, nl.wgt, X),
+            lambda: torch.einsum("nk,nkd->nd", nl.wgt, X[nl.idx.long()]),
+            8.0 * n * d + 8.0 * n * k, 2.0 * n * k * d),
+        f"{m} receivers over the gathered ({n}, D)": (
+            lambda: gg.gossip_gather(im, wm, X),
+            lambda: gg.gossip_gather_plain(im, wm, X),
+            lambda: torch.einsum("nk,nkd->nd", wm, X[im.long()]),
+            4.0 * (n + m) * d + 8.0 * m * k, 2.0 * m * k * d),
+        f"{m} receivers over [{m} own; {rows.numel()} halo]": (
+            lambda: gg.gossip_gather(slots, wm, ext),
+            lambda: gg.gossip_gather_plain(slots, wm, ext),
+            lambda: torch.einsum("nk,nkd->nd", wm, ext[slots.long()]),
+            4.0 * (ext.shape[0] + m) * d + 8.0 * m * k, 2.0 * m * k * d),
+    }
+    for what, (kern, plain, lib, n_bytes, flops) in cases.items():
+        b, by = bound_ms(n_bytes, flops)
+        t = timed_ms(kern, dev, iters)
+        print(f"  gossip_gather {what} f32: {t:.4f} ms, bound {b:.4f} ms "
+              f"({by}), {100 * b / t:.1f}% of it; plain "
+              f"{timed_ms(plain, dev, iters):.4f} ms; einsum "
+              f"{timed_ms(lib, dev, iters):.4f} ms")
+    intra = timed_ms(lambda: torch.bmm(op.intra, X.view(n_pods, m, d)), dev,
+                     iters)
+    print(f"  the intra-pod term (torch.bmm, ({n_pods}, {m}, {m}) x "
+          f"({n_pods}, {m}, {d}), TF32 off): {intra:.4f} ms")
+    del X, ext
+
+
+def state_copy(st):
+    """A copy of a round state's tensors (generators shared)."""
+    def cp(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+    return st._replace(params=cp(st.params), mom=cp(st.mom), w=cp(st.w),
+                       losses=cp(st.losses))
+
+
+def timed_round(dev, trainer, draws) -> tuple:
+    """One round on ``draws``: its loss, wall seconds and launches (the
+    kernels launched at all)."""
+    before = read_counts()
+    sync(dev)
+    t = time.perf_counter()
+    metrics = trainer.run_round(draws)
+    loss = float(metrics["loss"])
+    sync(dev)
+    wall = time.perf_counter() - t
+    used = {k: v - before[k] for k, v in read_counts().items()}
+    return loss, wall, {k: v for k, v in used.items() if v}
+
+
+def two_tier_path(dev, data, n_clients: int = N_CLIENTS,
+                  n_pods: int = TWO_TIER_PODS, rounds: int = 3,
+                  local_steps: int = 5) -> dict:
+    """Phase 5's DFedSGPSM on cifar_cnn over the two-tier family: each round
+    one draw (the operator and the minibatches) taken by the dense form
+    (``gossip="dense"``: ``gossip_matmul.cu``) and by the operator form
+    (``gossip="sparse"``: the intra ``bmm`` plus ``gossip_gather.cu`` on the
+    inter list), both from the dense trainer's state; the banks within
+    1e-5 of their magnitude (f32 sums in their own orders; the local steps
+    equal, ``cudnn.deterministic`` being set for the phase), the mass 100
+    within 1e-3.  Returns the launches of the 2 x ``rounds`` rounds."""
+    from repro_torch.core import FLTrainer, TopologyConfig, make_algo, topology
+    from repro_torch.models.small import cifar_cnn
+
+    cdata, test = data
+    model = cifar_cnn()
+    algo = make_algo("dfedsgpsm", local_steps=local_steps, batch_size=32,
+                     lr=0.01)
+    topo = TopologyConfig(kind="two_tier", n_clients=n_clients, k_out=10,
+                          n_pods=n_pods)
+    tr = {g: FLTrainer(model.loss, model.init, cdata, algo, topo, seed=0,
+                       gossip=g, device=dev) for g in ("dense", "sparse")}
+    check(not tr["dense"].program.sparse_mix and tr["sparse"].program.sparse_mix,
+          "the two forms' operators")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m_rows = cdata["x"].shape[1]
+    zero_counts()  # the path's counts start here
+    for r in range(rounds):
+        op = topology.sample_two_tier(gen, n_clients, n_pods, 10)
+        idx = torch.randint(0, m_rows, (local_steps, n_clients, 32),
+                            generator=gen, device=dev)
+        tr["sparse"].state = state_copy(tr["dense"].state)
+        for g, P, mix in (("dense", topology.dense_from_two_tier(op),
+                           "gossip_matmul"), ("sparse", op, "gossip_gather")):
+            loss, wall, used = timed_round(dev, tr[g], {"P": P,
+                                                        "batch_idx": idx})
+            mass = float(tr[g].state.w.sum())
+            print(f"  two-tier {'dense' if g == 'dense' else 'operator'} "
+                  f"round {r}: loss {loss:.4f} mass {mass:.6f} wall "
+                  f"{wall:.3f} s launches {used}")
+            check(math.isfinite(loss), f"two-tier {g} round {r}: loss {loss}")
+            check(abs(mass - n_clients) <= 1e-3,
+                  f"two-tier {g} round {r}: push-sum mass {mass}")
+            check(used == {"fused_update_bank": local_steps, mix: 1},
+                  f"two-tier {g} round {r}: launches {used}")
+        a, b = tr["dense"].state, tr["sparse"].state
+        e = max_err(a.params, b.params)
+        tol = 1e-5 * float(a.params.abs().max())
+        dw = max_err(a.w, b.w)
+        print(f"    dense against operator form: bank max|err| {e:.3e} "
+              f"({e / tol:.4f} of 1e-5 max|x|), w {dw:.3e} (1e-6)")
+        check(e <= tol and dw <= 1e-6, f"two-tier forms disagree, round {r}")
+    launches = read_counts()
+    tl, ta = tr["sparse"].evaluate(test)
+    print(f"  operator form: test loss {tl:.4f} acc {ta:.4f}")
+    check(math.isfinite(tl), f"two-tier test loss {tl}")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def executor_name(backend, shard) -> str:
+    if backend is None or isinstance(backend, str):
+        return ("all-gather (all_gather of the bank, then the gather over the "
+                f"rank's {shard.m} receivers)")
+    if backend.plan.n_shards == 1:
+        return "halo; one shard, so its all-gather form, as the reference's"
+    return f"halo ({'static' if backend.plan.static else 'dynamic'} plan)"
+
+
+def sharded_path(dev, data, n_clients: int = N_CLIENTS,
+                 n_pods: int = TWO_TIER_PODS, rounds: int = SHARD_ROUNDS,
+                 local_steps: int = 5) -> dict:
+    """The sharded program through ``FLTrainer(mesh=)`` on a one-rank clients
+    mesh (NCCL on the card, gloo on the CPU), ``gossip="xla"`` and
+    ``"halo"``, kout k_out = 10 and two_tier, ``rounds`` rounds each, held
+    to the unsharded program on the same draws from the same state (bank
+    within 1e-5 of its magnitude, w within 1e-6); the executor each ran,
+    and the round times.  The
+    process group starts here and is torn down at the end.  Returns the
+    launches of the sharded rounds."""
+    from repro_torch.core import FLTrainer, TopologyConfig, make_algo, topology
+    from repro_torch.launch.mesh import close_clients_world, init_clients_world
+    from repro_torch.models.small import cifar_cnn
+
+    cdata, _ = data
+    model = cifar_cnn()
+    algo = make_algo("dfedsgpsm", local_steps=local_steps, batch_size=32,
+                     lr=0.01)
+    m_rows = cdata["x"].shape[1]
+    mesh = init_clients_world(0, 1, free_port(), device=dev)
+    launches = {k: 0 for k in counters()}
+    try:
+        import torch.distributed as dist
+
+        print(f"  process group: {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, mesh {mesh}")
+        for topo in (TopologyConfig(kind="kout", n_clients=n_clients, k_out=10),
+                     TopologyConfig(kind="two_tier", n_clients=n_clients,
+                                    k_out=10, n_pods=n_pods)):
+            gen = torch.Generator(device=dev).manual_seed(7)
+            draws = []
+            for _ in range(rounds):
+                P = topology.sample_neighbors(gen, topo)
+                idx = torch.randint(0, m_rows, (local_steps, n_clients, 32),
+                                    generator=gen, device=dev)
+                draws.append({"P": P, "batch_idx": idx})
+            ref = FLTrainer(model.loss, model.init, cdata, algo, topo, seed=0,
+                            gossip="sparse", device=dev)
+            want, walls = [], []
+            for d in draws:
+                _, wall, _ = timed_round(dev, ref, d)
+                want.append((ref.state.params.clone(), ref.state.w.clone()))
+                walls.append(wall)
+            print(f"  {topo.kind} unsharded rounds: wall "
+                  + ", ".join(f"{w:.3f}" for w in walls) + " s")
+            del ref
+            for gossip in ("xla", "halo"):
+                tr = FLTrainer(model.loss, model.init, cdata, algo, topo,
+                               seed=0, gossip=gossip, mesh=mesh, device=dev)
+                shard = tr.program.shard
+                print(f"  {topo.kind} gossip={gossip!r}: executor "
+                      + executor_name(tr.program.mixer.backend, shard))
+                zero_counts()
+                for r, d in enumerate(draws):
+                    loss, wall, used = timed_round(dev, tr, d)
+                    whole = tr.program.whole_state(tr.state)
+                    e = max_err(whole.params, want[r][0])
+                    tol = 1e-5 * float(want[r][0].abs().max())
+                    dw = max_err(whole.w, want[r][1])
+                    mass = float(whole.w.sum())
+                    print(f"    round {r}: loss {loss:.4f} mass {mass:.6f} "
+                          f"wall {wall:.3f} s; against unsharded: bank "
+                          f"max|err| {e:.3e} ({e / tol:.4f} of 1e-5 max|x|; "
+                          f"bit for bit: {e == 0.0}), w {dw:.3e}; launches "
+                          f"{used}")
+                    check(math.isfinite(loss) and abs(mass - n_clients) <= 1e-3,
+                          f"sharded {topo.kind} {gossip} round {r}: loss "
+                          f"{loss}, mass {mass}")
+                    check(e <= tol and dw <= 1e-6,
+                          f"sharded {topo.kind} {gossip} round {r} disagrees")
+                    check(used == {"fused_update_bank": local_steps,
+                                   "gossip_gather": 1},
+                          f"sharded {topo.kind} {gossip} round {r}: launches "
+                          f"{used}")
+                for k, v in read_counts().items():
+                    launches[k] += v
+                del tr, whole
+    finally:
+        close_clients_world()
+    check(launches["gossip_gather"] > 0, "the sharded path launched no gather")
+    return launches
+
+
+def sharding_phase(dev, data=None, head=print) -> dict:
+    """Phase 18 whole (``head`` prints each step's heading): the kernel
+    checks, the two-tier rounds and the sharded program at phase 5's size,
+    with ``cudnn.deterministic`` set (its rounds are held to each other
+    from equal states, so their local steps must be equal: cuDNN's default
+    convolution gradients sum in no fixed order).  Returns the launches of
+    its two main paths.  ``python3 repeat_phase.py --repeat 1
+    sharding_phase`` runs it alone."""
+    card = card_line() if dev.type == "cuda" else "no card"
+    head(f"[18] the two-tier family and the row-sharded bank: the row panel "
+         f"and the gather for a shard's receivers; card: {card}")
+    sharding_kernel_phase(dev)
+    release()
+    data = data or cifar_data(dev)
+    paths = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        head(f"[18] two-tier rounds: cifar_cnn, {N_CLIENTS} clients in "
+             f"{TWO_TIER_PODS} pods, k_out=10, dense and operator form")
+        paths["two-tier path"] = two_tier_path(dev, data)
+        release()
+        head(f"[18] the sharded program on a one-rank clients mesh: kout and "
+             f"two_tier, gossip 'xla' and 'halo', {SHARD_ROUNDS} rounds each")
+        paths["sharded path"] = sharded_path(dev, data)
+        release()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return paths
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -4818,6 +5213,7 @@ def main() -> int:
     paths.update(blocks_phase(dev, head))
     paths.update(tasks_phase(dev, head))
     paths.update(lanes_phase(dev, head))
+    paths.update(sharding_phase(dev, on_card(), head))
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

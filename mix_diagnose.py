@@ -69,13 +69,13 @@ def main() -> int:
 
             def dense():
                 build.check(lib.gossip_matmul_launch(
-                    code, P.data_ptr(), X.data_ptr(), Y.data_ptr(), n, D,
+                    code, P.data_ptr(), X.data_ptr(), Y.data_ptr(), n, n, D,
                     torch.cuda.current_stream().cuda_stream), "gossip_matmul")
 
             def gather():
                 build.check(lib.gossip_gather_launch(
                     code, idx.data_ptr(), wgt.data_ptr(), X.data_ptr(),
-                    Y.data_ptr(), n, k, D,
+                    Y.data_ptr(), n, n, k, D,
                     torch.cuda.current_stream().cuda_stream), "gossip_gather")
 
             mm = chip_smoke.timed_ms(dense, dev, 20)

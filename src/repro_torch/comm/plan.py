@@ -9,11 +9,12 @@ halo, the backend dispatch rule and the store's fault-in planner;
 :func:`repro_torch.core.topology.family_k_in`.
 
 Ported here: :meth:`CommPlan.build` with its static shift legs (ring /
-exponential) and its traffic accounting, which are numpy, and the
-store-facing side (:attr:`CommPlan.pageable`, :meth:`CommPlan.closure_bound`,
-:meth:`CommPlan.in_neighbors`) that the paged round plans from.  The
-executors that ship the rows between devices (``resolve_backend``, the halo
-exchange) come with the row-sharded bank, ROADMAP queue 1 item 12.
+exponential) and its traffic accounting, which are numpy, the store-facing
+side (:attr:`CommPlan.pageable`, :meth:`CommPlan.closure_bound`,
+:meth:`CommPlan.in_neighbors`) that the paged round plans from, and the
+mesh-aware executor rule :func:`resolve_backend` with the halo executor's
+:class:`HaloBackend` (its transport is
+``repro_torch.kernels.gossip_gather.gossip_gather_halo``).
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from repro_torch.core import topology
-from repro_torch.core.topology import NeighborList, TopologyConfig
+from repro_torch.core.topology import NeighborList, TopologyConfig, TwoTierOp
 
-__all__ = ["CommPlan", "ShiftLeg", "resolve_backend"]
+__all__ = ["CommPlan", "HaloBackend", "ShiftLeg", "resolve_backend"]
 
 
 class ShiftLeg(NamedTuple):
@@ -179,8 +180,9 @@ class CommPlan:
 
     def measured_rows(self, P) -> dict:
         """Mean/max distinct remote rows per shard under a concrete sampled
-        ``NeighborList`` operator."""
-        nl = P
+        operator (``NeighborList`` or ``TwoTierOp`` — only the inter list
+        of the latter crosses shards when pods align with shards)."""
+        nl = P.inter if isinstance(P, TwoTierOp) else P
         counts = [
             self.shard_remote_rows(nl, s).size for s in range(self.n_shards)
         ]
@@ -225,12 +227,62 @@ class CommPlan:
                                             scores=scores)
 
 
-def resolve_backend(*args, **kwargs):
-    """The mesh-aware executor dispatch rule (dense / sparse kernel /
-    all-gather / halo exchange) of the reference.  The row-sharded bank and
-    its halo executor are ROADMAP queue 1 item 12; one device needs no
-    rule beyond ``kernels.ops.use_sparse_gossip``."""
-    raise NotImplementedError(
-        "resolve_backend and the halo-exchange executor come with the "
-        "row-sharded bank: ROADMAP queue 1 item 12"
-    )
+class HaloBackend(NamedTuple):
+    """The halo executor's selection, carried as the mixers' ``backend``
+    down to :func:`repro_torch.kernels.gossip_gather.gossip_gather_halo`."""
+
+    mesh: object  # torch.distributed.device_mesh.DeviceMesh
+    axis: str  # the bank-row mesh axis ("clients")
+    plan: CommPlan
+
+
+GOSSIP_MODES = ("auto", "sparse", "dense", "xla", "halo")
+
+
+def check_gossip(gossip: str) -> None:
+    """Refuse a ``gossip`` value that is none of :data:`GOSSIP_MODES`."""
+    if gossip not in GOSSIP_MODES:
+        raise ValueError(
+            f"gossip must be {'|'.join(GOSSIP_MODES)}, got {gossip!r}"
+        )
+
+
+def resolve_backend(gossip: str, sparse_mix: bool, topo: TopologyConfig,
+                    mixer_kind: str, mesh=None, shard_axis: str = "clients"):
+    """The executor dispatch rule — dense / sparse kernel / all-gather /
+    halo — with the reference's decisions case for case.  Returns the
+    mixers' ``backend``:
+
+      * ``None``: the kernels on the bank at hand (only without a mesh);
+      * ``"xla"``: the all-gather executor (the reference's name: its
+        whole-bank form, which GSPMD lowers to one all-gather of the bank);
+        without a mesh the same kernels, no collective;
+      * :class:`HaloBackend`: the halo exchange, shipping the plan's rows.
+
+    Without a mesh nothing is sharded: ``"xla"`` stays forceable and
+    ``"halo"`` is refused.  Under a mesh the dense form and ``"xla"`` take
+    the all-gather; ``"halo"`` forces the halo exchange for any family;
+    ``"auto"`` / ``"sparse"`` take it exactly when the plan is static (ring,
+    exponential) with more than one shard, else the all-gather.
+    """
+    from repro_torch.launch.mesh import mesh_axis_names, mesh_axis_size
+
+    check_gossip(gossip)
+    if mesh is None or shard_axis not in mesh_axis_names(mesh):
+        if gossip == "halo":
+            raise ValueError(
+                "gossip='halo' is the sharded halo-exchange executor; it "
+                "needs a mesh with the bank-row axis"
+            )
+        return "xla" if gossip == "xla" else None
+    if not sparse_mix:
+        return "xla"
+    n_shards = mesh_axis_size(mesh, shard_axis)
+    plan = CommPlan.build(topo, n_shards, mixer_kind)
+    if gossip == "halo":
+        return HaloBackend(mesh, shard_axis, plan)
+    if gossip == "xla":
+        return "xla"
+    if plan.static and n_shards > 1:
+        return HaloBackend(mesh, shard_axis, plan)
+    return "xla"

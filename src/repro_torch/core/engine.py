@@ -127,8 +127,12 @@ class FLTrainer:
         only.  ``rows_per_chunk``, ``prefetch``, ``lru_rows`` and
         ``faults`` (a :class:`repro_torch.store.FaultInjector`) configure
         the store and its pager.
-      mesh: the row-sharded bank is not ported yet (ROADMAP queue 1 item
-        12); it raises.
+      mesh: row-shards the bank over the ``"clients"`` axis of a 1-D
+        ``torch.distributed`` device mesh
+        (:func:`repro_torch.launch.mesh.make_clients_mesh`), one rank a
+        shard; every rank builds the same trainer with the same seed.
+        ``save`` gathers the bank to rank 0, which writes the reference's
+        file; ``restore`` hands each rank its rows.
       device: where the bank lives and the kernels run; ``"cuda"`` by
         default, ``"cpu"`` only when asked (the kernels' plain versions).
     """
@@ -158,14 +162,12 @@ class FLTrainer:
         bank_dtype=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise ValueError(
-                "mesh= (the row-sharded bank) is not ported to repro_torch "
-                "yet: ROADMAP queue 1 item 12"
-            )
         if paged:
             if not flat:
                 raise ValueError("paged training runs on the flat bank")
+            if mesh is not None:
+                raise ValueError("paged training is single-host; drop the "
+                                 "mesh (disk, not devices, bounds n)")
             if link is not None and link.active:
                 raise ValueError("paged training models perfect links only")
             if not store_dir:
@@ -177,6 +179,8 @@ class FLTrainer:
                 "faults= injects into the disk-backed store; it needs "
                 "paged=True"
             )
+        if not flat and mesh is not None:
+            raise ValueError("the flat=False oracle path is single-device")
         if not flat and (delta is not None or bank_dtype is not None):
             raise ValueError(
                 "the flat=False oracle path keeps full-precision per-leaf "
@@ -212,7 +216,7 @@ class FLTrainer:
         self.program = make_program(
             loss_fn, init_fn, client_data, algo, topo, participation,
             gossip=gossip, link=link, churn=None if paged else churn,
-            delta=delta, bank_dtype=bank_dtype, device=self.device,
+            mesh=mesh, delta=delta, bank_dtype=bank_dtype, device=self.device,
         )
         self.spec = self.program.spec
         self.paged = paged
@@ -350,7 +354,8 @@ class FLTrainer:
             return (self.spec.unravel(self.state.params) if self.flat
                     else self.state.params)
         if self.flat:
-            return self.spec.unravel(self.state.params.mean(dim=0))
+            return self.spec.unravel(
+                self.program.whole_state(self.state).params.mean(dim=0))
         return tree_map(lambda x: x.mean(dim=0), self.state.params)
 
     def debiased_models(self):
@@ -362,11 +367,11 @@ class FLTrainer:
                 "via trainer.runner.store.iter_chunks() instead"
             )
         if self.flat and self.algo.comm != "central":
+            st = self.program.whole_state(self.state)
             if isinstance(self.spec, BoundDeltaSpec):
                 # z_i = base + expand(row_i) / w_i: the base is not divided.
-                return self.spec.debias_stacked(self.state.params,
-                                                self.state.w)
-            z = pushsum.debias_bank(self.state.params, self.state.w)
+                return self.spec.debias_stacked(st.params, st.w)
+            z = pushsum.debias_bank(st.params, st.w)
             return self.spec.unravel_stacked(z)
         return pushsum.debias(self.state.params, self.state.w)
 
@@ -375,7 +380,8 @@ class FLTrainer:
         if self.paged:
             return self.runner.consensus_error()
         if self.flat and self.algo.comm != "central":
-            return pushsum.consensus_error_bank(self.state.params, self.state.w)
+            st = self.program.whole_state(self.state)
+            return pushsum.consensus_error_bank(st.params, st.w)
         return pushsum.consensus_error(self.state.params, self.state.w)
 
     def evaluate(self, test_data, batch: int = 1024):
@@ -475,7 +481,10 @@ class FLTrainer:
         """Checkpoint the full ``FLState`` (params and momentum banks,
         push-sum weights, round, random streams, compressor state and the
         link and churn carries) with
-        :func:`repro_torch.checkpoint.save_state`.  Paged trainers ignore
+        :func:`repro_torch.checkpoint.save_state`.  A row-sharded trainer
+        gathers the whole state to every rank, rank 0 writes it (the file
+        an unsharded trainer writes), and every rank returns its path.
+        Paged trainers ignore
         ``directory`` / ``step`` / ``keep``: the checkpoint is the store —
         ``save`` flushes dirty rows and commits ``(round, key)`` into its
         manifest, returning the store path."""
@@ -487,8 +496,18 @@ class FLTrainer:
             raise ValueError("full-state checkpointing needs the flat path")
         if directory is None:
             raise ValueError("save() needs a checkpoint directory")
-        return checkpoint.save_state(directory, step, self.state, self.spec,
-                                     keep=keep)
+        shard = self.program.shard
+        if shard is None:
+            return checkpoint.save_state(directory, step, self.state,
+                                         self.spec, keep=keep)
+        import torch.distributed as dist
+
+        state = self.program.whole_state(self.state)
+        path = [checkpoint.save_state(directory, step, state, self.spec,
+                                      keep=keep) if shard.rank == 0 else None]
+        dist.broadcast_object_list(path, src=dist.get_global_rank(
+            shard.group, 0), group=shard.group)
+        return path[0]
 
     def restore(self, path: str, *, key=None, link_key=None,
                 churn_key=None) -> FLState:
@@ -497,7 +516,9 @@ class FLTrainer:
         committed manifest).  ``key`` / ``link_key`` / ``churn_key`` supply
         the random streams a file cannot (a reference checkpoint holds
         JAX keys); every mismatch of composition the reference refuses
-        raises here too."""
+        raises here too.  A row-sharded trainer keeps its rows of the
+        file's state (``RoundProgram.shard_state``), so it resumes sharded
+        from its first round."""
         from repro_torch import checkpoint
 
         if self.paged:
@@ -573,6 +594,6 @@ class FLTrainer:
                     f"{self.program.churn_model.resurrect!r} — restore "
                     "with the composition that saved it"
                 )
-        self.state = state
+        self.state = self.program.shard_state(state)
         return self.state
 

@@ -13,6 +13,15 @@ their own.  ``step(state, draws=...)`` takes a round's draws from the
 caller instead — the mixing operator, the minibatch indices, the selected
 clients of central algorithms, the drop uniforms, delays and churn coins —
 which is how the tests replay the reference's own ``jax.random`` draws.
+
+With ``mesh=`` the bank is row-sharded over the ``"clients"`` axis of a
+``torch.distributed`` device mesh, one rank a shard: each rank holds its
+``n / world`` contiguous rows of every bank-row leaf and the client data,
+and runs the same program on them (SPMD).  Every rank makes each draw whole
+from the same generator and keeps its rows, so a sharded run equals the
+unsharded one round for round; the mix crosses ranks through the executor
+``comm.plan.resolve_backend`` picks, and the reported metrics are computed
+from every rank's rows.
 """
 from __future__ import annotations
 
@@ -104,6 +113,10 @@ def _fold_generator(gen: torch.Generator, tag: int) -> torch.Generator:
 
 
 def _as_device(x, device):
+    if isinstance(x, topology.TwoTierOp):
+        return topology.TwoTierOp(
+            torch.as_tensor(x.intra, device=device).float(),
+            _as_device(x.inter, device))
     if isinstance(x, topology.NeighborList):
         return topology.NeighborList(
             torch.as_tensor(x.idx, device=device).to(torch.int32),
@@ -144,6 +157,9 @@ class RoundProgram:
     linked: bool = False
     # Node-churn scenario (None: immortal clients, the plain round).
     churn_model: Any = None
+    # Row-sharded bank: this rank's
+    # :class:`~repro_torch.launch.sharding.RowShard` (None: one device).
+    shard: Any = None
 
     @property
     def churned(self) -> bool:
@@ -162,18 +178,20 @@ class RoundProgram:
     def init(self, gen: torch.Generator) -> FLState:
         """Initial state: one row from ``gen`` broadcast to every client;
         ``gen`` then drives every later round.  The link and churn streams
-        are generators of their own (:func:`_fold_generator`)."""
-        w0 = self.mixer.init_weights(self.n, self.device)
-        losses0 = torch.zeros((self.n,), dtype=torch.float32,
+        are generators of their own (:func:`_fold_generator`).  On a sharded
+        bank each rank makes its own rows of that state."""
+        rows = self.n if self.shard is None else self.shard.m
+        w0 = self.mixer.init_weights(rows, self.device)
+        losses0 = torch.zeros((rows,), dtype=torch.float32,
                               device=self.device)
         if self.mixer.kind == "central":
             row = self.spec.ravel(self.init_fn(gen)).to(self.device)
             return FLState(row, None, w0, gen, 0, losses0, ())
         row = self.init_row(gen)
-        bank = row.expand(self.n, self.spec.dim).contiguous()
-        mom = torch.zeros((self.n, self.spec.dim), dtype=torch.float32,
+        bank = row.expand(rows, self.spec.dim).contiguous()
+        mom = torch.zeros((rows, self.spec.dim), dtype=torch.float32,
                           device=self.device)
-        comp = self.compressor.init_state(self.n, self.spec.dim, self.device)
+        comp = self.compressor.init_state(rows, self.spec.dim, self.device)
         link = ()
         if self.linked:
             link = LinkState(key=_fold_generator(gen, LINK_STREAM),
@@ -182,11 +200,37 @@ class RoundProgram:
         if self.churned:
             churn = ChurnState(
                 key=_fold_generator(gen, CHURN_STREAM),
-                live=torch.full((self.n,), topology.LIVE, dtype=torch.int8,
+                live=torch.full((rows,), topology.LIVE, dtype=torch.int8,
                                 device=self.device),
                 tpl=row if self.churn_model.resurrect == "cold" else (),
             )
         return FLState(bank, mom, w0, gen, 0, losses0, comp, link, churn)
+
+    # -- the row-sharded bank --------------------------------------------------
+
+    def shard_state(self, state: FLState) -> FLState:
+        """This rank's rows of every bank-row leaf of a whole ``state`` (the
+        random streams, the round and the cold template stay whole).
+        Identity on one device and for central algorithms, so callers
+        compose through it unconditionally; ``FLTrainer.restore`` routes a
+        loaded checkpoint through it, so a resumed run is sharded from its
+        first round."""
+        if self.shard is None or self.mixer.kind == "central":
+            return state
+        return self.shard.state_rows(state)
+
+    def whole_state(self, state: FLState) -> FLState:
+        """The whole ``state`` from every rank's rows (the inverse of
+        :meth:`shard_state`; every rank gets it)."""
+        if self.shard is None or self.mixer.kind == "central":
+            return state
+        return self.shard.state_whole(state)
+
+    def _whole(self, x, lead: int = 0):
+        return x if self.shard is None else self.shard.all_gather(x, lead)
+
+    def _rows(self, x, lead: int = 0):
+        return x if self.shard is None else self.shard.rows(x, lead)
 
     # -- random draws ---------------------------------------------------------
 
@@ -247,11 +291,17 @@ class RoundProgram:
         if self.mixer.kind == "central":
             return self._central_step(state, lr, draws)
         P = draws.get("P")
-        P = (self.mixing_matrix(state.key, state) if P is None
-             else _as_device(P, self.device))
+        if P is None:
+            # Loss-selective sampling reads every client's last loss.
+            seen = (state._replace(losses=self._whole(state.losses))
+                    if self.selection else state)
+            P = self.mixing_matrix(state.key, seen)
+        else:
+            P = _as_device(P, self.device)
         idx = draws.get("batch_idx")
         idx = (self._batch_idx(state.key, self.n) if idx is None
                else _as_device(idx, self.device).long())
+        idx = self._rows(idx, 1)
 
         # Node churn resolves first: this round's liveness decides who
         # trains and whose edges survive.  A node down this round neither
@@ -262,7 +312,8 @@ class RoundProgram:
             u = draws.get("churn")
             u = (topology.draw_churn(state.churn.key, self.n) if u is None
                  else _as_device(u, self.device))
-            live_new = topology.churn_transition(u, state.churn.live,
+            live_new = topology.churn_transition(self._rows(u, 1),
+                                                 state.churn.live,
                                                  self.churn_model)
             alive = live_new == topology.LIVE
             if self.churn_model.resurrect == "cold":
@@ -291,7 +342,8 @@ class RoundProgram:
             # Dead nodes leave the operator wholesale (masked before
             # sender normalization); link drops then fail surviving edges.
             P = self.churn_model.mask_operator(
-                P, alive, symmetric=self.mixer.kind == "symmetric")
+                P, self._whole(live_new) == topology.LIVE,
+                symmetric=self.mixer.kind == "symmetric")
         X, w_new, comp, link, extras = comm_phase(
             self.compressor, self.mixer, P, X, state.w, comp0, state.link,
             linked=self.linked, link_model=self.link,
@@ -303,6 +355,12 @@ class RoundProgram:
             churn = ChurnState(state.churn.key, live_new, state.churn.tpl)
         new_state = FLState(X, V, w_new, state.key, state.round + 1, losses,
                             comp, link, churn)
+        if self.shard is not None:
+            # The metrics of every rank's rows, computed as on one device.
+            losses, accs, w_new = (self._whole(x) for x in (losses, accs,
+                                                            w_new))
+            if self.churned:
+                alive = self._whole(live_new) == topology.LIVE
         if self.churned:
             n_live = alive.sum().clamp(min=1).float()
             zero = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -319,7 +377,7 @@ class RoundProgram:
             metrics = {"loss": losses.mean(), "acc": accs.mean(), **extras}
         if self.linked or self.churned:
             # Total push-sum mass, in-flight shares included.
-            inflight = (link.bufw.sum() if self.linked
+            inflight = (self._whole(link.bufw, 1).sum() if self.linked
                         and not _is_empty(link.bufw)
                         else torch.zeros((), device=self.device))
             metrics["w_mass"] = w_new.sum() + inflight
@@ -415,7 +473,7 @@ class RoundProgram:
 
         def eval_fn(state: FLState):
             row = (state.params if self.mixer.kind == "central"
-                   else state.params.mean(dim=0))
+                   else self._whole(state.params).mean(dim=0))
             params = self.spec.unravel(row)
 
             def one(x, y):
@@ -467,16 +525,30 @@ def make_program(
     gossip: str = "auto",
     link: topology.LinkModel | None = None,
     churn: topology.ChurnModel | None = None,
+    mesh=None,
+    shard_axis: str = "clients",
     delta: DeltaConfig | int | str | None = None,
     bank_dtype: torch.dtype | None = None,
     device="cuda",
 ) -> RoundProgram:
     """Compose an ``AlgoConfig`` into a :class:`RoundProgram` on ``device``.
 
-    ``gossip`` picks the mixing-operator representation: ``"auto"`` applies
-    the density rule :func:`repro_torch.kernels.ops.use_sparse_gossip` to
-    the family's static ``k_max``; ``"sparse"`` / ``"dense"`` force the
-    neighbor-list or the dense sampler.
+    ``gossip`` picks the mixing-operator representation and, with a mesh,
+    the executor, through :func:`repro_torch.comm.plan.resolve_backend`:
+    ``"auto"`` applies the density rule
+    :func:`repro_torch.kernels.ops.use_sparse_gossip` to the family's
+    static ``k_max``; ``"sparse"`` / ``"dense"`` force the neighbor-list or
+    the dense sampler; ``"xla"`` forces the sparse form on the all-gather
+    executor; ``"halo"`` (mesh required) the sparse form on the halo
+    exchange, which ships only each shard's ``CommPlan`` rows.  Under a
+    mesh, ``"auto"`` / ``"sparse"`` take the halo exchange for the static
+    shift families (ring, exponential) and the all-gather otherwise.
+
+    ``mesh`` (a 1-D ``torch.distributed`` ``DeviceMesh`` with axis
+    ``shard_axis``, :func:`repro_torch.launch.mesh.make_clients_mesh`)
+    row-shards the round over its ranks: the bank rows and the client data
+    are split along the axis, each rank running the program on its rows.
+    ``None`` is the one-device program.
 
     ``link`` (:class:`topology.LinkModel`) degrades the links: edge drops,
     bounded delays (the delayed mixer) or event-triggered sends (the
@@ -491,11 +563,25 @@ def make_program(
     On CUDA this turns TF32 off for matmuls and convolutions, as the
     reference computes in full float32.
     """
+    # comm.plan imports repro_torch.core: a module-level import would cycle.
+    from repro_torch.comm.plan import check_gossip, resolve_backend
+
     device = torch.device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     solver, compressor, mixer = make_stages(algo)
+    if topo.kind == "two_tier":
+        if mixer.kind != "directed":
+            raise ValueError(
+                "the two-tier family is directed push-sum gossip only; "
+                f"comm={algo.comm!r} has no two-tier form"
+            )
+        if algo.selection:
+            raise ValueError(
+                "loss-selective neighbor sampling has no two-tier form; "
+                "disable selection for kind='two_tier'"
+            )
     link = link if link is not None and link.active else None
     if link is not None:
         if mixer.kind == "central":
@@ -536,11 +622,10 @@ def make_program(
             "central (server) rounds do not model compressed communication; "
             f"drop compressor={algo.compressor!r}/quantize_gossip"
         )
-    if gossip not in ("auto", "sparse", "dense"):
-        raise ValueError(f"gossip must be auto|sparse|dense, got {gossip!r}")
+    check_gossip(gossip)
     if mixer.kind == "central":
         sparse_mix = False
-    elif gossip == "sparse":
+    elif gossip in ("sparse", "xla", "halo"):
         if topo.kind == "full":
             raise ValueError("the full graph has no sparse neighbor-list form")
         sparse_mix = True
@@ -556,11 +641,41 @@ def make_program(
             "link drops on the symmetric neighbor-list form are "
             "unsupported; pass gossip='dense' for symmetric + drops"
         )
+    if (link is not None and link.drop > 0 and sparse_mix
+            and topo.kind == "two_tier"):
+        raise ValueError(
+            "link drops on the two-tier operator form are unsupported; "
+            "pass gossip='dense' for two_tier + drops"
+        )
     if churn is not None and sparse_mix and mixer.kind == "symmetric":
         raise ValueError(
             "churn on the symmetric neighbor-list form is unsupported; "
             "pass gossip='dense' for symmetric + churn"
         )
+    if churn is not None and sparse_mix and topo.kind == "two_tier":
+        raise ValueError(
+            "churn on the two-tier operator form is unsupported; "
+            "pass gossip='dense' for two_tier + churn"
+        )
+    data = {k: torch.as_tensor(v, device=device) for k, v in client_data.items()}
+    shard = None
+    if mesh is not None:
+        from repro_torch.launch.sharding import RowShard, check_row_mesh
+
+        check_row_mesh(mesh, shard_axis, topo.n_clients)
+        if mixer.kind == "central":
+            raise ValueError(
+                "the central (server) round keeps one global row — there "
+                "is no client bank to shard; drop the mesh"
+            )
+        shard = RowShard(mesh, shard_axis, topo.n_clients)
+        # Client-stacked data rows live with their bank rows.
+        data = {k: shard.rows(v) for k, v in data.items()}
+    if mixer.kind != "central":
+        backend = resolve_backend(gossip, sparse_mix, topo, mixer.kind, mesh,
+                                  shard_axis)
+        if backend is not None or shard is not None:
+            mixer = dataclasses.replace(mixer, backend=backend, shard=shard)
     # Leaf shapes and dtypes only: one model on the CPU.
     shape_tree = init_fn(torch.Generator().manual_seed(0))
     if delta is not None:
@@ -592,7 +707,6 @@ def make_program(
             if sparse_mix
             else topology.exponential_cycle(topo.n_clients, device)
         )
-    data = {k: torch.as_tensor(v, device=device) for k, v in client_data.items()}
     return RoundProgram(
         solver=solver,
         compressor=compressor,
@@ -614,4 +728,5 @@ def make_program(
         link=link,
         linked=link is not None or mixer.link_stateful,
         churn_model=churn,
+        shard=shard,
     )

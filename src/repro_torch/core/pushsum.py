@@ -6,13 +6,20 @@ client-stacked parameter-dict forms (``gossip``, ``debias``,
 Each client carries a push-sum weight ``w_i`` mixed with the same
 column-stochastic operator as its parameters; ``z_i = x_i / w_i`` is the
 de-biased model and ``sum_i w_i = n`` for all rounds.
+
+``backend`` selects the mix's executor (``comm.plan.resolve_backend``):
+``None`` or ``"xla"`` the kernels on the bank at hand, a
+:class:`~repro_torch.comm.plan.HaloBackend` the halo exchange.  Under a
+row-sharded bank ``shard`` (a :class:`~repro_torch.launch.sharding.RowShard`)
+says which rows this rank holds: ``X`` and ``w`` are its rows, the operator
+``P`` is the whole round's, and the result is its rows of ``P @ X``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.flat import tree_flatten, tree_map
-from repro_torch.core.topology import NeighborList
+from repro_torch.core.topology import NeighborList, TwoTierOp
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -39,19 +46,53 @@ def gossip(P, stacked_params, use_kernel: bool = True):
     return tree_map(mix, stacked_params)
 
 
-def gossip_bank(P, X: torch.Tensor) -> torch.Tensor:
+def _intra(P: TwoTierOp, X: torch.Tensor, shard=None) -> torch.Tensor:
+    """The two-tier operator's intra-pod term in f32: one batched product of
+    the pod blocks with their rows.  Under a row-sharded bank whose shards
+    hold whole pods it is the rank's own pods; otherwise the pods of the
+    rank's rows come from the gathered bank."""
+    n_pods, ps, _ = P.intra.shape
+    if shard is None:
+        lo, pods, rows = 0, n_pods, X
+    elif shard.m % ps == 0:
+        lo, pods, rows = shard.lo // ps, shard.m // ps, X
+    else:
+        lo, hi = shard.lo // ps, -(-shard.hi // ps)
+        pods, rows = hi - lo, shard.all_gather(X)[lo * ps:hi * ps]
+    out = torch.bmm(P.intra[lo:lo + pods],
+                    rows.reshape(pods, ps, -1).float()).reshape(pods * ps, -1)
+    if shard is not None and shard.m % ps:
+        out = out[shard.lo - lo * ps:shard.hi - lo * ps]
+    return out
+
+
+def gossip_bank(P, X: torch.Tensor, backend=None, shard=None) -> torch.Tensor:
     """One mixing step ``X' = P @ X`` on the (n, D) bank: the dense kernel
-    for a matrix, the gather kernel for a :class:`NeighborList`."""
+    for a matrix, the gather kernel for a :class:`NeighborList`, and for a
+    :class:`TwoTierOp` the f32 intra-pod product (``torch.bmm``, TF32 off)
+    plus the cross-pod gather.  Under ``shard``, this rank's rows."""
+    if isinstance(P, TwoTierOp):
+        inter = gossip_bank(P.inter, X, backend, shard)
+        return _intra(P, X, shard).to(X.dtype) + inter
     if isinstance(P, NeighborList):
-        return kops.gossip_mix_sparse(P.idx, P.wgt, X)
-    return kops.gossip_mix(P, X)
+        return kops.gossip_mix_sparse(P.idx, P.wgt, X, backend, shard)
+    return kops.gossip_mix(P, X, shard)
 
 
-def gossip_weights(P, w: torch.Tensor) -> torch.Tensor:
+def gossip_weights(P, w: torch.Tensor, shard=None) -> torch.Tensor:
     """Mix the push-sum weights ``w' = P @ w`` (shape (n,)) in float32 — a
     plain (n,) operation, the same neighbor gather as the bank for a
-    :class:`NeighborList`."""
+    :class:`NeighborList`.  Under ``shard`` the rank's rows of ``w`` go in
+    and out; every rank mixes the whole gathered vector, so its rows equal
+    the unsharded result bit for bit."""
+    if shard is not None:
+        return shard.rows(gossip_weights(P, shard.all_gather(w)))
     wf = w.float()
+    if isinstance(P, TwoTierOp):
+        n_pods, ps, _ = P.intra.shape
+        intra = torch.bmm(P.intra, wf.reshape(n_pods, ps, 1)).reshape(-1)
+        inter = torch.sum(P.inter.wgt * wf[P.inter.idx.long()], dim=1)
+        return (intra + inter).to(w.dtype)
     if isinstance(P, NeighborList):
         return torch.sum(P.wgt * wf[P.idx.long()], dim=1).to(w.dtype)
     return (P.float() @ wf).to(w.dtype)

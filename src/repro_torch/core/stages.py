@@ -20,6 +20,12 @@ self-loop is local memory, not a network link.
 Randomness arrives as explicit draws: minibatch indices drawn by the round
 program, drop uniforms and delay draws from the link stream
 (``LinkState.key``, a ``torch.Generator``), or replayed from the reference.
+
+Every mixer carries the reference's ``backend`` (the executor of
+``comm.plan.resolve_backend``) and, on a row-sharded bank, ``shard`` (a
+``launch.sharding.RowShard``): the operator is the whole round's, the bank,
+the weights and the link buffers are this rank's rows, and the extras a
+mixer reports are reduced over every rank's rows.
 """
 from __future__ import annotations
 
@@ -221,25 +227,32 @@ class ChurnState(NamedTuple):
 
 def _self_weights(P):
     """The self-loop weight per receiver: ``diag(P)`` for a dense matrix,
-    slot 0 of a NeighborList (the self-loop by convention)."""
+    slot 0 of a NeighborList (the self-loop by convention), the pod blocks'
+    diagonals for a TwoTierOp (its inter list's slot 0 is a zero-weight
+    pad)."""
+    if isinstance(P, topology.TwoTierOp):
+        return torch.diagonal(P.intra, dim1=1, dim2=2).reshape(-1)
     if isinstance(P, topology.NeighborList):
         return P.wgt[:, 0]
-    if isinstance(P, torch.Tensor):
-        return torch.diagonal(P)
-    raise ValueError(
-        f"no self-loop weights for a {type(P).__name__} operator: two-tier "
-        "operators come with the sharding slice (ROADMAP queue 1 item 12)"
-    )
+    return torch.diagonal(P)
 
 
-def _selfloop_correction(P, X, X_full, mixed):
+def _selfloop_correction(P, X, X_full, mixed, shard=None):
     """Replace the self-loop contribution ``P[ii]·X[i]`` inside ``mixed``
     with the full-precision ``P[ii]·X_full[i]``; a no-op when ``X_full is
-    X`` (identity compressor), keeping those compositions bit for bit."""
+    X`` (identity compressor), keeping those compositions bit for bit.
+    Under ``shard`` the rows are the rank's."""
     if X_full is X:
         return mixed
-    s = _self_weights(P)[:, None]
-    return mixed + (s * (X_full.float() - X.float())).to(mixed.dtype)
+    s = _self_weights(P)
+    if shard is not None:
+        s = shard.rows(s)
+    return mixed + (s[:, None] * (X_full.float() - X.float())).to(mixed.dtype)
+
+
+def _whole(x, shard, lead: int = 0):
+    """Every rank's rows of ``x`` (dim ``lead``), or ``x`` unsharded."""
+    return x if shard is None else shard.all_gather(x, lead)
 
 
 def _ones(n, device):
@@ -251,6 +264,8 @@ class PushSumMixer:
     """Directed column-stochastic gossip + push-sum weight mixing
     (Algorithm 1 lines 12-14): X' = P X, w' = P w."""
 
+    backend: Any = None
+    shard: Any = None
     kind = "directed"
     link_stateful = False
 
@@ -261,14 +276,15 @@ class PushSumMixer:
         return {}
 
     def mix_weights(self, P, w):
-        return pushsum.gossip_weights(P, w)
+        return pushsum.gossip_weights(P, w, self.shard)
 
     def mix(self, P, X, w):
-        return pushsum.gossip_bank(P, X), self.mix_weights(P, w)
+        return (pushsum.gossip_bank(P, X, self.backend, self.shard),
+                self.mix_weights(P, w))
 
     def mix_round(self, P, X, w, link, draw, X_full, t=None):
         Xm, wm = self.mix(P, X, w)
-        return _selfloop_correction(P, X, X_full, Xm), wm, link, {}
+        return _selfloop_correction(P, X, X_full, Xm, self.shard), wm, link, {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,6 +336,8 @@ class DelayedPushSumMixer:
     """
 
     delay: int = 1
+    backend: Any = None
+    shard: Any = None
     kind = "directed"
     link_stateful = True
 
@@ -341,16 +359,17 @@ class DelayedPushSumMixer:
         }
 
     def mix_weights(self, P, w):
-        return pushsum.gossip_weights(P, w)
+        return pushsum.gossip_weights(P, w, self.shard)
 
     def mix_round(self, P, X, w, link: LinkState, draw, X_full, t=None):
         if draw is None:
             draw = draw_delays(link.key, P, self.delay)
         slices = _delay_slices(draw, P, self.delay)
-        sent_x = [pushsum.gossip_bank(Ps, X) for Ps in slices]
-        sent_w = [pushsum.gossip_weights(Ps, w) for Ps in slices]
+        sent_x = [pushsum.gossip_bank(Ps, X, self.backend, self.shard)
+                  for Ps in slices]
+        sent_w = [self.mix_weights(Ps, w) for Ps in slices]
         # Slice 0 holds the self-loop: keep it full precision.
-        sent_x[0] = _selfloop_correction(P, X, X_full, sent_x[0])
+        sent_x[0] = _selfloop_correction(P, X, X_full, sent_x[0], self.shard)
         X_new = sent_x[0] + link.bufx[0].to(sent_x[0].dtype)
         w_new = sent_w[0] + link.bufw[0]
         # Shift the buffers one round closer to delivery and enqueue the
@@ -360,7 +379,8 @@ class DelayedPushSumMixer:
         bufw = torch.cat([link.bufw[1:], torch.zeros_like(link.bufw[:1])]) \
             + torch.stack(sent_w[1:])
         link = link._replace(bufx=bufx, bufw=bufw)
-        return X_new, w_new, link, {"w_inflight": bufw.sum()}
+        return X_new, w_new, link, {
+            "w_inflight": _whole(bufw, self.shard, 1).sum()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,6 +397,8 @@ class EventTriggeredMixer:
     threshold: float = 0.01
     decay: float = 1.0
     schedule: Any = None
+    backend: Any = None
+    shard: Any = None
     kind = "directed"
     link_stateful = True
 
@@ -404,7 +426,7 @@ class EventTriggeredMixer:
         return {"last": bank.clone()}
 
     def mix_weights(self, P, w):
-        return pushsum.gossip_weights(P, w)
+        return pushsum.gossip_weights(P, w, self.shard)
 
     def mix_round(self, P, X, w, link: LinkState, draw, X_full, t=None):
         drift = X.float() - link.last.float()
@@ -413,10 +435,12 @@ class EventTriggeredMixer:
         B = torch.where(send[:, None], X, link.last.to(X.dtype))
         # B is a fresh tensor, so the self-loop correction always applies:
         # the self-loop never reads the cache.
-        Xm = _selfloop_correction(P, B, X_full, pushsum.gossip_bank(P, B))
-        wm = pushsum.gossip_weights(P, w)
+        Xm = _selfloop_correction(
+            P, B, X_full, pushsum.gossip_bank(P, B, self.backend, self.shard),
+            self.shard)
+        wm = self.mix_weights(P, w)
         return Xm, wm, link._replace(last=B), {
-            "comm_fraction": send.float().mean()
+            "comm_fraction": _whole(send.float(), self.shard).mean()
         }
 
 

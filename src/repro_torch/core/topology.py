@@ -23,6 +23,11 @@ The scenario operators follow the same split: :class:`LinkModel` drops
 (``draw_drops`` then ``drop_links_dense`` / ``drop_links_neighbors``) and
 :class:`ChurnModel` transitions (``draw_churn`` then ``churn_transition``),
 with ``churn_links_*`` masking dead nodes out of a sampled operator.
+
+The hierarchical two-tier family (``kind="two_tier"``) has its own
+structured operator, :class:`TwoTierOp`: dense push-sum gossip inside each
+of ``n_pods`` equal pods of contiguous rows, plus ``k_out`` sparse directed
+in-edges from other pods (``draw_uniform`` then ``build_two_tier``).
 """
 from __future__ import annotations
 
@@ -47,6 +52,10 @@ __all__ = [
     "churn_links_dense",
     "churn_links_neighbors",
     "NeighborList",
+    "TwoTierOp",
+    "build_two_tier",
+    "sample_two_tier",
+    "dense_from_two_tier",
     "column_stochastic_from_adjacency",
     "metropolis_weights",
     "directed_ring",
@@ -85,24 +94,40 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class TopologyConfig:
-    """Static description of the communication graph family (main-path
-    families: kout | ring | exponential | symmetric | full)."""
+    """Static description of the communication graph family: kout | ring |
+    exponential | symmetric | full | two_tier."""
 
     kind: str = "kout"
     n_clients: int = 100
     # Number of out-neighbors each client picks (excluding the self-loop).
+    # For the two-tier family: the cross-pod in-edges each client draws;
+    # gossip inside a pod is dense by construction.
     k_out: int = 10
     time_varying: bool = True
+    # Two-tier family only: the clients form n_pods equal pods of
+    # contiguous rows, so pods can align with the shards of a row-sharded
+    # bank (intra-pod mixing stays on a shard; only the k_out cross-pod
+    # edges leave it).
+    n_pods: int = 0
 
     def __post_init__(self):
         if self.k_out >= self.n_clients:
             raise ValueError("k_out must be < n_clients")
-        if self.kind not in ("kout", "ring", "exponential", "symmetric",
-                             "full"):
-            raise ValueError(
-                f"topology kind {self.kind!r} is not ported yet "
-                "(two_tier comes with the sharding slice)"
-            )
+        if self.kind == "two_tier":
+            if self.n_pods < 2:
+                raise ValueError("two_tier topology needs n_pods >= 2")
+            if self.n_clients % self.n_pods:
+                raise ValueError(
+                    "two_tier topology needs n_clients divisible by n_pods"
+                )
+            ps = self.n_clients // self.n_pods
+            if not 1 <= self.k_out <= self.n_clients - ps:
+                raise ValueError(
+                    "two_tier k_out must be in [1, n_clients - pod_size] "
+                    "(every cross-pod edge leaves the receiver's own pod)"
+                )
+        elif self.n_pods:
+            raise ValueError("n_pods is a two_tier-only field")
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +202,13 @@ class LinkModel:
         """This round's link failures applied to ``P`` (dense or
         :class:`NeighborList`), given the round's drop uniforms ``u`` from
         :func:`draw_drops`."""
+        if isinstance(P, TwoTierOp):
+            raise ValueError(
+                "link drops on the two-tier operator form are unsupported "
+                "(a dropped cross-pod edge changes every intra-pod weight "
+                "of its sender's pod); force gossip='dense' for two_tier + "
+                "link scenarios"
+            )
         if isinstance(P, NeighborList):
             if symmetric:
                 raise ValueError(
@@ -305,6 +337,12 @@ class ChurnModel:
     def mask_operator(self, P, alive: torch.Tensor, symmetric: bool = False):
         """Remove every in/out edge of dead nodes from the sampled operator,
         re-normalizing senders over the surviving support."""
+        if isinstance(P, TwoTierOp):
+            raise ValueError(
+                "churn on the two-tier operator form is unsupported (a "
+                "dead client changes every intra-pod weight of its pod); "
+                "force gossip='dense' for two_tier + churn scenarios"
+            )
         if isinstance(P, NeighborList):
             if symmetric:
                 raise ValueError(
@@ -529,6 +567,8 @@ def sample_mixing(gen: torch.Generator, cfg: TopologyConfig, t: int = 0,
         return torch.full((n, n), 1.0 / n, dtype=torch.float32, device=dev)
     if cfg.kind == "symmetric":
         return sample_symmetric_k_regular(gen, n, k)
+    if cfg.kind == "two_tier":
+        return dense_from_two_tier(sample_two_tier(gen, n, cfg.n_pods, k))
     if cfg.kind == "kout":
         if losses is not None:
             return sample_kout_selective(gen, losses, n, k)
@@ -648,6 +688,8 @@ def family_k_in(cfg: TopologyConfig, mixer_kind: str = "directed") -> int:
     degree bound ``2 * k_out``)."""
     if mixer_kind == "symmetric" or cfg.kind == "symmetric":
         return 2 * cfg.k_out
+    if cfg.kind == "two_tier":
+        return cfg.n_clients // cfg.n_pods - 1 + cfg.k_out
     if cfg.kind in ("ring", "exponential"):
         return 1
     if cfg.kind == "full":
@@ -665,7 +707,7 @@ def neighbor_k_max(cfg: TopologyConfig, mixer_kind: str = "directed") -> int:
 def sample_neighbors(gen: torch.Generator, cfg: TopologyConfig, t: int = 0,
                      losses: torch.Tensor | None = None) -> NeighborList:
     """Sample the round-t operator in neighbor-list form — the sparse twin of
-    :func:`sample_mixing`."""
+    :func:`sample_mixing` (a :class:`TwoTierOp` for the two-tier family)."""
     n, k, dev = cfg.n_clients, cfg.k_out, gen.device
     if cfg.kind == "ring":
         return neighbors_ring(n, dev)
@@ -675,6 +717,8 @@ def sample_neighbors(gen: torch.Generator, cfg: TopologyConfig, t: int = 0,
         raise ValueError("the full graph has no sparse neighbor-list form")
     if cfg.kind == "symmetric":
         return sample_symmetric_neighbors(gen, n, k)
+    if cfg.kind == "two_tier":
+        return sample_two_tier(gen, n, cfg.n_pods, k)
     if cfg.kind == "kout":
         if losses is not None:
             return sample_kout_selective_neighbors(gen, losses, n, k)
@@ -686,14 +730,14 @@ def sample_neighbors(gen: torch.Generator, cfg: TopologyConfig, t: int = 0,
 # Active-set (partial participation) in-neighbor sampling: the paged round.
 # ---------------------------------------------------------------------------
 
-_ACTIVE_KINDS = ("ring", "exponential", "kout")
+_ACTIVE_KINDS = ("ring", "exponential", "kout", "two_tier")
 
 
 def active_k_in(cfg: TopologyConfig) -> int:
     """Static per-receiver in-degree of :func:`sample_active_picks`: a paged
     round's fault-in closure is at most ``k_active * (active_k_in + 1)``
     rows.  The value is :func:`family_k_in`; only the family restriction is
-    paging's own (``two_tier`` comes with ROADMAP queue 1 item 12)."""
+    paging's own."""
     if cfg.kind in _ACTIVE_KINDS:
         return family_k_in(cfg)
     raise ValueError(
@@ -704,8 +748,8 @@ def active_k_in(cfg: TopologyConfig) -> int:
 
 
 def draw_active_scores(gen: torch.Generator, m: int, n: int) -> torch.Tensor:
-    """The ``kout`` family's draw for ``m`` active receivers: ``(m, n)``
-    float32 scores, uniform in [0, 1)."""
+    """The ``kout`` and ``two_tier`` families' draw for ``m`` active
+    receivers: ``(m, n)`` float32 scores, uniform in [0, 1)."""
     return torch.rand((m, n), generator=gen, device=gen.device,
                       dtype=torch.float32)
 
@@ -717,7 +761,10 @@ def build_active_picks(active, cfg: TopologyConfig, t: int = 0,
     :func:`sample_active_picks` from its draw.  Ring and exponential are
     deterministic hops (``t`` drives the time-varying hop ``2^(t mod
     log2 n)``); ``kout`` takes the top ``k_out`` of each receiver's
-    ``scores`` row after subtracting 2 at its own column."""
+    ``scores`` row after subtracting 2 at its own column; ``two_tier``
+    lists the receiver's pod-mates (its in-pod offsets rotated so that
+    itself drops out), then the top ``k_out`` of its ``scores`` row after
+    subtracting 2 over its own pod."""
     n, k = cfg.n_clients, cfg.k_out
     a = torch.as_tensor(active).long()
     if cfg.kind == "ring":
@@ -733,6 +780,19 @@ def build_active_picks(active, cfg: TopologyConfig, t: int = 0,
         rows = torch.arange(a.shape[0], device=scores.device)
         scores[rows, a] = scores[rows, a] + (-2.0)
         return torch.topk(scores, k, dim=1).indices.to(torch.int32)
+    if cfg.kind == "two_tier":
+        if scores is None:
+            raise ValueError("the two_tier family's picks need its scores")
+        scores = torch.as_tensor(scores).float()
+        a = a.to(scores.device)
+        ps = n // cfg.n_pods
+        pod = a // ps
+        off = (a % ps)[:, None] + 1 + torch.arange(ps - 1,
+                                                   device=a.device)[None, :]
+        mates = pod[:, None] * ps + off % ps
+        same = pod[:, None] == (torch.arange(n, device=a.device) // ps)[None, :]
+        cross = torch.topk(scores - 2.0 * same.float(), k, dim=1).indices
+        return torch.cat([mates, cross], dim=1).to(torch.int32)
     raise ValueError(
         f"topology kind {cfg.kind!r} has no active-set (paged) form"
     )
@@ -740,12 +800,69 @@ def build_active_picks(active, cfg: TopologyConfig, t: int = 0,
 
 def sample_active_picks(gen: torch.Generator, active, cfg: TopologyConfig,
                         t: int = 0, scores=None) -> torch.Tensor:
-    """:func:`build_active_picks` on a fresh draw from ``gen`` (``kout``
-    only; ``scores`` supplies the draw instead)."""
+    """:func:`build_active_picks` on a fresh draw from ``gen`` (``kout`` and
+    ``two_tier``; ``scores`` supplies the draw instead)."""
     active_k_in(cfg)
-    if cfg.kind == "kout" and scores is None:
+    if cfg.kind in ("kout", "two_tier") and scores is None:
         scores = draw_active_scores(gen, len(active), cfg.n_clients)
     return build_active_picks(active, cfg, t=t, scores=scores)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical two-tier family: dense push-sum gossip inside each pod,
+# sparse directed k_out edges between pods.
+# ---------------------------------------------------------------------------
+
+class TwoTierOp(NamedTuple):
+    """Structured operator of the two-tier family.
+
+    ``intra`` holds the ``(n_pods, ps, ps)`` dense pod blocks: block p mixes
+    the contiguous rows ``[p*ps, (p+1)*ps)``, so where a row-sharded bank's
+    shards hold whole pods the intra mix never leaves its shard.  ``inter``
+    is a :class:`NeighborList` of each receiver's ``k_out`` cross-pod
+    in-edges (slot 0 the self slot at weight 0: the self-loop lives on the
+    intra diagonal); it is the only term that crosses shards.  A sender j
+    with ``c_j`` external receivers has out-degree ``ps + c_j`` and every
+    one of its edges carries ``1 / (ps + c_j)``, so the densified sum
+    (:func:`dense_from_two_tier`) is exactly column-stochastic.
+    """
+
+    intra: torch.Tensor  # (n_pods, ps, ps) float32 pod-block weights
+    inter: NeighborList  # (n, k_out + 1) cross-pod edges
+
+
+def build_two_tier(scores: torch.Tensor, n_pods: int, k: int) -> TwoTierOp:
+    """The two-tier operator from (n, n) uniform scores: receiver i takes
+    the top-k scores of row i outside its own pod (same-pod scores pushed
+    down by 2) as its cross-pod senders; every sender's out-degree is its
+    pod plus its count of external picks (one global scatter-count)."""
+    n = scores.shape[0]
+    ps = n // n_pods
+    dev = scores.device
+    i = torch.arange(n, dtype=torch.int32, device=dev)
+    pod = i // ps
+    same = (pod[:, None] == pod[None, :]).float()
+    picks = torch.topk(scores - 2.0 * same, k, dim=1).indices
+    outdeg = ps + torch.bincount(picks.reshape(-1), minlength=n).float()
+    idx = torch.cat([i[:, None], picks.to(torch.int32)], dim=1)
+    wgt = torch.cat([torch.zeros((n, 1), dtype=torch.float32, device=dev),
+                     1.0 / outdeg[picks]], dim=1)
+    intra = (1.0 / outdeg).reshape(n_pods, 1, ps).expand(n_pods, ps, ps)
+    return TwoTierOp(intra.contiguous(), NeighborList(idx, wgt.contiguous()))
+
+
+def sample_two_tier(gen: torch.Generator, n: int, n_pods: int,
+                    k: int) -> TwoTierOp:
+    """Each client receives from its whole pod plus k distinct senders of
+    other pods, drawn uniformly."""
+    return build_two_tier(draw_uniform(gen, n), n_pods, k)
+
+
+def dense_from_two_tier(op: TwoTierOp) -> torch.Tensor:
+    """Densify: the block-diagonal intra weights plus the scattered inter
+    edges — the (n, n) matrix the structured operator equals."""
+    return (torch.block_diag(*op.intra)
+            + dense_from_neighbors(op.inter, op.inter.idx.shape[0]))
 
 
 def is_column_stochastic(P, atol: float = 1e-5) -> bool:

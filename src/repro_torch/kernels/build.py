@@ -47,12 +47,12 @@ _SIGNATURES = {
     # dtype, X, V, G, w, Xo, Vo, Zo, alpha, eta, n, D, stream
     "fused_update_bank_launch": (_I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I64,
                                  _I64, _P),
-    # dtype, P, X, Y, n, D, stream
-    "gossip_matmul_launch": (_I, _P, _P, _P, _I64, _I64, _P),
-    # dtype, idx, wgt, X, Y, n, k_max, D, stream
-    "gossip_gather_launch": (_I, _P, _P, _P, _P, _I64, _I64, _I64, _P),
-    # dtype, n, k_max -> the gather's panel width (0: the row kernel)
-    "gossip_gather_panel_cols": (_I, _I64, _I64),
+    # dtype, P, X, Y, m, n, D, stream (P (m, n): m = n, or a row panel)
+    "gossip_matmul_launch": (_I, _P, _P, _P, _I64, _I64, _I64, _P),
+    # dtype, idx, wgt, X, Y, m receivers, n source rows, k_max, D, stream
+    "gossip_gather_launch": (_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    # dtype, m, n, k_max -> the gather's panel width (0: the row kernel)
+    "gossip_gather_panel_cols": (_I, _I64, _I64, _I64),
     # dtype, hd, q, k, v, o, lse (or None), B, H, KV, S, the (b, head, s)
     # strides of q, k, v and o, causal, window, stream
     "flash_attention_launch": (_I, _I, _P, _P, _P, _P, _P, *(_I64,) * 16,

@@ -3,7 +3,10 @@
 //     Y[i] = sum_l wgt[i, l] * X[idx[i, l]]      l = 0 .. k_max - 1
 //
 // accumulated in f32, one slot at a time in slot order, and stored in the
-// bank dtype.  Pad slots carry weight 0 and add exactly 0.
+// bank dtype.  Pad slots carry weight 0 and add exactly 0.  There are m
+// receivers (rows of idx, wgt and Y) and n source rows (of X): m = n for
+// the mix of a whole bank; m < n for a row-sharded bank's local receivers
+// over the gathered bank, or over its own rows and their halo.
 //
 // Replaces the TPU kernel src/repro/kernels/gossip_gather.py
 // (gossip_gather_pallas, _kernel).  The slot order is the reference's own
@@ -96,7 +99,7 @@ __device__ __forceinline__ void mix_row(const unsigned char* stage, const int2* 
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 gather_panels_kernel(const int32_t* __restrict__ idx, const float* __restrict__ wgt,
-                     const T* __restrict__ X, T* __restrict__ Y, int64_t n,
+                     const T* __restrict__ X, T* __restrict__ Y, int64_t m, int64_t n,
                      int64_t k_max, int64_t D, int64_t C, int64_t panels) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
@@ -106,7 +109,7 @@ gather_panels_kernel(const int32_t* __restrict__ idx, const float* __restrict__ 
   // Each slot as (byte offset of its source row within a stage, weight):
   // the offset is the same in every panel.
   int2* slots = reinterpret_cast<int2*>(ring + STAGES * stage_bytes);
-  for (int64_t i = threadIdx.x; i < n * k_max; i += THREADS)
+  for (int64_t i = threadIdx.x; i < m * k_max; i += THREADS)
     slots[i] = make_int2((int)(idx[i] * rs + panel::shift(X, idx[i], D)),
                          __float_as_int(wgt[i]));
   panel::init_ring<STAGES>(bars, n, WARPS);
@@ -133,7 +136,7 @@ gather_panels_kernel(const int32_t* __restrict__ idx, const float* __restrict__ 
     const unsigned char* stage = ring + s * stage_bytes;
     const int64_t c0 = p * C;
     const int pw = (int)panel::cols(C, D, p);
-    for (int64_t row = (int64_t)warp * rows_per_warp + sub; row < n;
+    for (int64_t row = (int64_t)warp * rows_per_warp + sub; row < m;
          row += (int64_t)WARPS * rows_per_warp) {
       if (pw == C)
         mix_row<T, V, true>(stage, slots + row * k_max, k_max, col0, lanes, pw,
@@ -154,14 +157,14 @@ constexpr int ROW_CHUNK = ROW_THREADS * ROW_PER_THREAD;  // columns per block
 template <typename T>
 __global__ void __launch_bounds__(ROW_THREADS)
 gather_rows_kernel(const int32_t* __restrict__ idx, const float* __restrict__ wgt,
-                   const T* __restrict__ X, T* __restrict__ Y, int64_t n,
+                   const T* __restrict__ X, T* __restrict__ Y, int64_t m,
                    int64_t k_max, int64_t D) {
   extern __shared__ unsigned char smem[];
   int32_t* s_idx = reinterpret_cast<int32_t*>(smem);
   float* s_wgt = reinterpret_cast<float*>(smem + k_max * sizeof(int32_t));
 
-  const int64_t row = blockIdx.x % n;
-  const int64_t c0 = (blockIdx.x / n) * ROW_CHUNK;
+  const int64_t row = blockIdx.x % m;
+  const int64_t c0 = (blockIdx.x / m) * ROW_CHUNK;
   for (int64_t l = threadIdx.x; l < k_max; l += ROW_THREADS) {
     s_idx[l] = idx[row * k_max + l];
     s_wgt[l] = wgt[row * k_max + l];
@@ -191,54 +194,56 @@ gather_rows_kernel(const int32_t* __restrict__ idx, const float* __restrict__ wg
     if (col[j] < D) Y[row * D + col[j]] = from_f32<T>(acc[j]);
 }
 
-// Shared memory of the panel kernel with panels of C columns.
-size_t panel_smem(int64_t n, int64_t k_max, int64_t C, size_t elem) {
+// Shared memory of the panel kernel with panels of C columns: n source
+// rows a stage, m receivers' slots.
+size_t panel_smem(int64_t m, int64_t n, int64_t k_max, int64_t C, size_t elem) {
   return (size_t)(panel::BARRIER_BYTES + STAGES * n * panel::row_stride(C, elem) +
-                  n * k_max * sizeof(int2));
+                  m * k_max * sizeof(int2));
 }
 
-// The panel width the panel kernel takes at (n, k_max), or 0 where not
+// The panel width the panel kernel takes at (m, n, k_max), or 0 where not
 // even the narrowest panel fits (32 columns in f32; 16 bytes a row in
 // bf16): the row kernel's shapes.
-int64_t panel_cols(int64_t n, int64_t k_max, size_t elem) {
+int64_t panel_cols(int64_t m, int64_t n, int64_t k_max, size_t elem) {
   for (int64_t C = MAX_COLS; C >= 32; C -= 32)
-    if (panel_smem(n, k_max, C, elem) <= panel::SMEM_LIMIT) return C;
+    if (panel_smem(m, n, k_max, C, elem) <= panel::SMEM_LIMIT) return C;
   if (elem == sizeof(float)) return 0;
   for (int64_t C = 16; C * (int64_t)elem >= 16; C /= 2)
-    if (panel_smem(n, k_max, C, elem) <= panel::SMEM_LIMIT) return C;
+    if (panel_smem(m, n, k_max, C, elem) <= panel::SMEM_LIMIT) return C;
   return 0;
 }
 
 template <typename T, int V>
-int launch_panels(const void* idx, const void* wgt, const void* X, void* Y, int64_t n,
-                  int64_t k_max, int64_t D, int64_t C, cudaStream_t stream) {
-  const size_t smem = panel_smem(n, k_max, C, sizeof(T));
+int launch_panels(const void* idx, const void* wgt, const void* X, void* Y, int64_t m,
+                  int64_t n, int64_t k_max, int64_t D, int64_t C, cudaStream_t stream) {
+  const size_t smem = panel_smem(m, n, k_max, C, sizeof(T));
   const int64_t panels = (D + C - 1) / C;
   int grid = 0;
   const int rc = panel::persistent_grid(gather_panels_kernel<T, V>, THREADS, smem, panels,
                                         &grid);
   if (rc) return rc;
   gather_panels_kernel<T, V><<<grid, THREADS, smem, stream>>>(
-      (const int32_t*)idx, (const float*)wgt, (const T*)X, (T*)Y, n, k_max, D, C, panels);
+      (const int32_t*)idx, (const float*)wgt, (const T*)X, (T*)Y, m, n, k_max, D, C,
+      panels);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* idx, const void* wgt, const void* X, void* Y, int64_t n,
+int launch(const void* idx, const void* wgt, const void* X, void* Y, int64_t m, int64_t n,
            int64_t k_max, int64_t D, cudaStream_t stream) {
-  if (n <= 0 || D <= 0) return (int)cudaGetLastError();
-  if (k_max < 1) return (int)cudaErrorInvalidValue;
-  const int64_t C = panel_cols(n, k_max, sizeof(T));
+  if (m <= 0 || D <= 0) return (int)cudaGetLastError();
+  if (k_max < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const int64_t C = panel_cols(m, n, k_max, sizeof(T));
   if (C > 0) {
     switch (C >= 32 ? C / 32 : 1) {
-      case 1: return launch_panels<T, 1>(idx, wgt, X, Y, n, k_max, D, C, stream);
-      case 2: return launch_panels<T, 2>(idx, wgt, X, Y, n, k_max, D, C, stream);
-      case 3: return launch_panels<T, 3>(idx, wgt, X, Y, n, k_max, D, C, stream);
-      case 4: return launch_panels<T, 4>(idx, wgt, X, Y, n, k_max, D, C, stream);
-      case 5: return launch_panels<T, 5>(idx, wgt, X, Y, n, k_max, D, C, stream);
-      case 6: return launch_panels<T, 6>(idx, wgt, X, Y, n, k_max, D, C, stream);
-      case 7: return launch_panels<T, 7>(idx, wgt, X, Y, n, k_max, D, C, stream);
-      default: return launch_panels<T, 8>(idx, wgt, X, Y, n, k_max, D, C, stream);
+      case 1: return launch_panels<T, 1>(idx, wgt, X, Y, m, n, k_max, D, C, stream);
+      case 2: return launch_panels<T, 2>(idx, wgt, X, Y, m, n, k_max, D, C, stream);
+      case 3: return launch_panels<T, 3>(idx, wgt, X, Y, m, n, k_max, D, C, stream);
+      case 4: return launch_panels<T, 4>(idx, wgt, X, Y, m, n, k_max, D, C, stream);
+      case 5: return launch_panels<T, 5>(idx, wgt, X, Y, m, n, k_max, D, C, stream);
+      case 6: return launch_panels<T, 6>(idx, wgt, X, Y, m, n, k_max, D, C, stream);
+      case 7: return launch_panels<T, 7>(idx, wgt, X, Y, m, n, k_max, D, C, stream);
+      default: return launch_panels<T, 8>(idx, wgt, X, Y, m, n, k_max, D, C, stream);
     }
   }
   const size_t smem = (size_t)k_max * (sizeof(int32_t) + sizeof(float));
@@ -249,8 +254,8 @@ int launch(const void* idx, const void* wgt, const void* X, void* Y, int64_t n,
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t chunks = (D + ROW_CHUNK - 1) / ROW_CHUNK;
-  gather_rows_kernel<T><<<(unsigned)(n * chunks), ROW_THREADS, smem, stream>>>(
-      (const int32_t*)idx, (const float*)wgt, (const T*)X, (T*)Y, n, k_max, D);
+  gather_rows_kernel<T><<<(unsigned)(m * chunks), ROW_THREADS, smem, stream>>>(
+      (const int32_t*)idx, (const float*)wgt, (const T*)X, (T*)Y, m, k_max, D);
   return (int)cudaGetLastError();
 }
 
@@ -258,20 +263,23 @@ size_t elem_size(int dtype) { return dtype == 0 ? 4 : dtype == 1 ? 2 : 0; }
 
 }  // namespace
 
-// dtype: 0 = float32 bank, 1 = bfloat16 bank.  idx is int32, wgt float32,
-// both (n, k_max) row-major.  Returns a cudaError_t.
+// dtype: 0 = float32 bank, 1 = bfloat16 bank.  m receivers over n source
+// rows (m = n for the mix of a whole bank): idx is int32 and wgt float32,
+// both (m, k_max) row-major, X is (n, D), Y is (m, D), every index in
+// [0, n).  Returns a cudaError_t.
 extern "C" int gossip_gather_launch(int dtype, const void* idx, const void* wgt,
-                                    const void* X, void* Y, int64_t n, int64_t k_max,
-                                    int64_t D, void* stream) {
+                                    const void* X, void* Y, int64_t m, int64_t n,
+                                    int64_t k_max, int64_t D, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(idx, wgt, X, Y, n, k_max, D, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(idx, wgt, X, Y, n, k_max, D, s);
+  if (dtype == 0) return launch<float>(idx, wgt, X, Y, m, n, k_max, D, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(idx, wgt, X, Y, m, n, k_max, D, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The panel width gossip_gather_launch takes at (n, k_max) for this dtype,
-// or 0 where it takes the row kernel (-1 for an unknown dtype).
-extern "C" int64_t gossip_gather_panel_cols(int dtype, int64_t n, int64_t k_max) {
+// The panel width gossip_gather_launch takes at (m, n, k_max) for this
+// dtype, or 0 where it takes the row kernel (-1 for an unknown dtype).
+extern "C" int64_t gossip_gather_panel_cols(int dtype, int64_t m, int64_t n,
+                                            int64_t k_max) {
   const size_t elem = elem_size(dtype);
-  return elem ? panel_cols(n, k_max, elem) : -1;
+  return elem ? panel_cols(m, n, k_max, elem) : -1;
 }

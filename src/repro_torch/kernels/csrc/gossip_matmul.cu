@@ -1,6 +1,7 @@
 // Dense push-sum mix Y = P @ X over the (n, D) client bank, accumulated in
 // f32 and stored in the bank dtype.  P is the (n, n) f32 column-stochastic
-// mixing matrix.
+// mixing matrix, or a row panel of it: m rows (m, n), whose Y is (m, D) —
+// a row-sharded bank's local rows of the mix over the gathered bank.
 //
 // Replaces the TPU kernel src/repro/kernels/gossip_matmul.py
 // (gossip_matmul_pallas, _kernel).  The reference mixes at
@@ -35,6 +36,12 @@
 //   writing 192 consecutive columns of a row (coalesced).
 // A tile has at most 7 padding rows (4 at n = 100).
 //
+// Row panel (m != n, both at most 128): the resident kernel with P's m rows
+// resident and the ring's stages of n rows, in panels of 128 columns, 2
+// stages deep (what fits for every m and n up to 128); each output sums
+// its n products in ascending k as the square mix does, so its rows
+// equal the square mix's rows bit for bit.
+//
 // Tiled kernel (n > 128): one block per BM x BN tile of Y, the reduction
 // in BK-deep slabs of P and X staged in shared memory, 8 x 8 accumulators
 // a thread; the 1-D grid runs the row tiles of one column panel back to
@@ -65,7 +72,8 @@ constexpr int TM_MAX = RESIDENT_MAX_N / WARPS;  // rows per thread
 template <typename T, int TM, int STAGES, int PANEL>
 __global__ void __launch_bounds__(THREADS)
 mix_resident_kernel(const float* __restrict__ P, const T* __restrict__ X,
-                    T* __restrict__ Y, int64_t n, int64_t D, int64_t panels) {
+                    T* __restrict__ Y, int64_t m, int64_t n, int64_t D,
+                    int64_t panels) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int TN = PANEL / 32;
   constexpr int n_pad = TM * WARPS;
@@ -78,7 +86,7 @@ mix_resident_kernel(const float* __restrict__ P, const T* __restrict__ X,
 
   for (int i = threadIdx.x; i < n_pad * kp; i += THREADS) {
     const int r = i / kp, k = i % kp;
-    Ps[i] = (r < n && k < n) ? P[r * n + k] : 0.0f;
+    Ps[i] = (r < m && k < n) ? P[r * n + k] : 0.0f;
   }
   // Rows n .. kp - 1 of every stage are the reduction's padding: zeros,
   // which no copy overwrites.
@@ -147,7 +155,7 @@ mix_resident_kernel(const float* __restrict__ P, const T* __restrict__ X,
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int64_t row = warp + WARPS * i;
-      if (row >= n) continue;
+      if (row >= m) continue;
       T* out = Y + row * D + c0;
 #pragma unroll
       for (int j = 0; j < TN; ++j)
@@ -164,7 +172,7 @@ static_assert((BM / TILE_M) * (BN / TILE_N) == TILED_THREADS, "one thread per 8 
 template <typename T>
 __global__ void __launch_bounds__(TILED_THREADS)
 mix_tiled_kernel(const float* __restrict__ P, const T* __restrict__ X,
-                 T* __restrict__ Y, int64_t n, int64_t D, int64_t m_tiles) {
+                 T* __restrict__ Y, int64_t m, int64_t n, int64_t D, int64_t m_tiles) {
   __shared__ float Ps[BK][BM];  // P slab, transposed: Ps[k][row]
   __shared__ float Xs[BK][BN];  // X slab: Xs[k][col]
 
@@ -187,7 +195,7 @@ mix_tiled_kernel(const float* __restrict__ P, const T* __restrict__ X,
       const int idx = tid + r * TILED_THREADS;
       const int row = idx / BK, k = idx % BK;
       const int64_t gr = m0 + row, gk = k0 + k;
-      Ps[k][row] = (gr < n && gk < n) ? P[gr * n + gk] : 0.0f;
+      Ps[k][row] = (gr < m && gk < n) ? P[gr * n + gk] : 0.0f;
     }
 #pragma unroll
     for (int r = 0; r < (BK * BN) / TILED_THREADS; ++r) {
@@ -215,7 +223,7 @@ mix_tiled_kernel(const float* __restrict__ P, const T* __restrict__ X,
 #pragma unroll
   for (int i = 0; i < TILE_M; ++i) {
     const int64_t gr = m0 + ty + 16 * i;
-    if (gr >= n) continue;
+    if (gr >= m) continue;
 #pragma unroll
     for (int j = 0; j < TILE_N; ++j) {
       const int64_t gc = d0 + tx + 16 * j;
@@ -224,13 +232,16 @@ mix_tiled_kernel(const float* __restrict__ P, const T* __restrict__ X,
   }
 }
 
-constexpr size_t resident_smem(int64_t n, int stages, int64_t panel, size_t elem) {
-  return (size_t)(panel::BARRIER_BYTES + ((n + 7) & ~7) * ((n + 3) & ~3) * 4 +
+// P's m rows (padded to 8) by n columns (padded to 4), and the ring's
+// stages of n rows.
+constexpr size_t resident_smem(int64_t m, int64_t n, int stages, int64_t panel,
+                               size_t elem) {
+  return (size_t)(panel::BARRIER_BYTES + ((m + 7) & ~7) * ((n + 3) & ~3) * 4 +
                   stages * ((n + 3) & ~3) * panel::row_stride(panel, elem));
 }
 
 constexpr bool fits(int64_t n, int stages, int64_t panel, size_t elem) {
-  return resident_smem(n, stages, panel, elem) <= panel::SMEM_LIMIT;
+  return resident_smem(n, n, stages, panel, elem) <= panel::SMEM_LIMIT;
 }
 
 // The resident kernel for n_pad = 8 TM rows: each thread's tile is TM x
@@ -246,15 +257,53 @@ int launch_resident(const void* P, const void* X, void* Y, int64_t n, int64_t D,
                          : fits(N, 3, PANEL, sizeof(T)) ? 3
                                                         : 2;
   static_assert(fits(N, STAGES, PANEL, sizeof(T)), "the resident kernel's shared memory");
-  const size_t smem = resident_smem(n, STAGES, PANEL, sizeof(T));
+  const size_t smem = resident_smem(n, n, STAGES, PANEL, sizeof(T));
   const int64_t panels = (D + PANEL - 1) / PANEL;
   int grid = 0;
   const int rc = panel::persistent_grid(mix_resident_kernel<T, TM, STAGES, PANEL>,
                                         THREADS, smem, panels, &grid);
   if (rc) return rc;
   mix_resident_kernel<T, TM, STAGES, PANEL><<<grid, THREADS, smem, stream>>>(
-      (const float*)P, (const T*)X, (T*)Y, n, D, panels);
+      (const float*)P, (const T*)X, (T*)Y, n, n, D, panels);
   return (int)cudaGetLastError();
+}
+
+// The row panel: TM = max(ceil(m / 8), ROWS_TM_MIN) rows a thread, panels
+// of 128 columns in a 2-stage ring of n rows.
+constexpr int ROWS_PANEL = 128;
+constexpr int ROWS_STAGES = 2;
+static_assert(fits(RESIDENT_MAX_N, ROWS_STAGES, ROWS_PANEL, sizeof(float)),
+              "the row panel's shared memory");
+
+template <typename T, int TM>
+int launch_rows(const void* P, const void* X, void* Y, int64_t m, int64_t n, int64_t D,
+                cudaStream_t stream) {
+  // P's rows are padded to the kernel's TM * 8, which may exceed m.
+  const size_t smem = resident_smem(TM * WARPS, n, ROWS_STAGES, ROWS_PANEL, sizeof(T));
+  const int64_t panels = (D + ROWS_PANEL - 1) / ROWS_PANEL;
+  int grid = 0;
+  const int rc = panel::persistent_grid(
+      mix_resident_kernel<T, TM, ROWS_STAGES, ROWS_PANEL>, THREADS, smem, panels, &grid);
+  if (rc) return rc;
+  mix_resident_kernel<T, TM, ROWS_STAGES, ROWS_PANEL><<<grid, THREADS, smem, stream>>>(
+      (const float*)P, (const T*)X, (T*)Y, m, n, D, panels);
+  return (int)cudaGetLastError();
+}
+
+// The row panel takes at least 3 rows a thread: nvcc 12.8 spills 8 bytes
+// in the f32 instance at 2, and the extra rows of a smaller m are zero rows
+// of P, which cost FMAs only.
+constexpr int ROWS_TM_MIN = 3;
+
+template <typename T, int TM = ROWS_TM_MIN>
+int dispatch_rows(const void* P, const void* X, void* Y, int64_t m, int64_t n, int64_t D,
+                  cudaStream_t stream) {
+  if constexpr (TM > TM_MAX) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if ((m + 7) / 8 <= TM) return launch_rows<T, TM>(P, X, Y, m, n, D, stream);
+    return dispatch_rows<T, TM + 1>(P, X, Y, m, n, D, stream);
+  }
 }
 
 template <typename T, int TM = 1>
@@ -269,24 +318,36 @@ int dispatch_resident(const void* P, const void* X, void* Y, int64_t n, int64_t 
 }
 
 template <typename T>
-int launch(const void* P, const void* X, void* Y, int64_t n, int64_t D,
-           cudaStream_t stream) {
-  if (n <= 0 || D <= 0) return (int)cudaGetLastError();
-  if (n <= RESIDENT_MAX_N) return dispatch_resident<T>(P, X, Y, n, D, stream);
-  const int64_t m_tiles = (n + BM - 1) / BM;
+int launch_tiled(const void* P, const void* X, void* Y, int64_t m, int64_t n, int64_t D,
+                 cudaStream_t stream) {
+  const int64_t m_tiles = (m + BM - 1) / BM;
   const int64_t d_tiles = (D + BN - 1) / BN;
   mix_tiled_kernel<T><<<(unsigned)(m_tiles * d_tiles), TILED_THREADS, 0, stream>>>(
-      (const float*)P, (const T*)X, (T*)Y, n, D, m_tiles);
+      (const float*)P, (const T*)X, (T*)Y, m, n, D, m_tiles);
   return (int)cudaGetLastError();
+}
+
+// The square mix (m = n), or a row panel of it.
+template <typename T>
+int launch(const void* P, const void* X, void* Y, int64_t m, int64_t n, int64_t D,
+           cudaStream_t stream) {
+  if (m <= 0 || D <= 0) return (int)cudaGetLastError();
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (m == n && n <= RESIDENT_MAX_N) return dispatch_resident<T>(P, X, Y, n, D, stream);
+  if (m <= RESIDENT_MAX_N && n <= RESIDENT_MAX_N)
+    return dispatch_rows<T>(P, X, Y, m, n, D, stream);
+  return launch_tiled<T>(P, X, Y, m, n, D, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 bank, 1 = bfloat16 bank.  Returns a cudaError_t.
+// dtype: 0 = float32 bank, 1 = bfloat16 bank.  Y = P @ X with P (m, n)
+// f32, X (n, D) and Y (m, D) in the bank dtype: m = n for the square mix,
+// m < n for a row panel.  Returns a cudaError_t.
 extern "C" int gossip_matmul_launch(int dtype, const void* P, const void* X, void* Y,
-                                    int64_t n, int64_t D, void* stream) {
+                                    int64_t m, int64_t n, int64_t D, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(P, X, Y, n, D, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(P, X, Y, n, D, s);
+  if (dtype == 0) return launch<float>(P, X, Y, m, n, D, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(P, X, Y, m, n, D, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 """Dense push-sum mix ``Y = P @ X`` over the (n, D) bank, f32 accumulation,
-stored in X's dtype.
+stored in X's dtype.  ``P`` is (n, n), or a row panel (m, n) of it: a
+row-sharded bank's own m rows of the mix over the gathered bank.
 
 Replaces the TPU kernel ``repro.kernels.gossip_matmul.gossip_matmul_pallas``
 with the CUDA C++ kernels in ``csrc/gossip_matmul.cu``: f32 SIMT products
@@ -12,7 +13,11 @@ X in 192-column panels (128 past n = 104) through a ring that a producer
 warp fills with TMA bulk copies (``csrc/panel_ring.cuh``, whole aligned
 16-byte chunks whatever the rows' alignment), with rows padded only to a
 multiple of 8 and at most 13 x 6 accumulators a thread; larger n takes the
-tiled kernel (128 x 128 tiles of Y).
+tiled kernel (128 x 128 tiles of Y).  A row panel with m, n <= 128 takes
+the resident kernel with m rows of P resident and n rows a stage (128
+columns, 2 stages), else the tiled kernel; each output sums its n
+products in the square mix's order, so a panel's rows equal the square
+mix's rows bit for bit.
 
 ``gossip_matmul`` is the wrapper: a CPU tensor goes to
 :func:`gossip_matmul_plain`; a CUDA tensor goes to the kernel, or the
@@ -46,19 +51,22 @@ def gossip_matmul(P, X):
             f"{tuple(X.shape)}"
         )
     n, d = X.shape
-    if P.shape != (n, n) or P.dtype != torch.float32:
-        raise ValueError(f"P must be float32 of shape ({n}, {n})")
+    if (P.dim() != 2 or P.shape[1] != n or P.shape[0] < 1
+            or P.dtype != torch.float32):
+        raise ValueError(f"P must be float32 of shape (m, {n}), got "
+                         f"{P.dtype} {tuple(P.shape)}")
     if P.device != X.device:
         raise ValueError(f"P is on {P.device}, X on {X.device}")
     if not (P.is_contiguous() and X.is_contiguous()):
         raise ValueError("P and X must be contiguous")
     lib = load_library()
-    Y = torch.empty_like(X)
+    m = P.shape[0]
+    Y = X.new_empty((m, d))
+    stream = torch.cuda.current_stream(X.device).cuda_stream
     with torch.cuda.device(X.device):
         rc = lib.gossip_matmul_launch(
-            DTYPE_CODES[X.dtype], P.data_ptr(), X.data_ptr(), Y.data_ptr(), n, d,
-            torch.cuda.current_stream().cuda_stream,
-        )
+            DTYPE_CODES[X.dtype], P.data_ptr(), X.data_ptr(), Y.data_ptr(),
+            m, n, d, stream)
     check(rc, "gossip_matmul")
     launches += 1
     return Y

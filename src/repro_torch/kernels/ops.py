@@ -13,7 +13,11 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.fused_update import fused_update_bank as _bank_kernel
-from repro_torch.kernels.gossip_gather import gossip_gather
+from repro_torch.kernels.gossip_gather import (
+    gossip_gather,
+    gossip_gather_halo,
+    gossip_gather_xla,
+)
 from repro_torch.kernels.gossip_matmul import gossip_matmul
 
 __all__ = [
@@ -56,17 +60,30 @@ def use_sparse_gossip(n: int, k_max: int, device="cuda") -> bool:
     return n >= floor and k_max <= density * n
 
 
-def gossip_mix(P, M):
-    """One dense mixing matmul ``M' = P @ M`` (f32 accumulation)."""
+def gossip_mix(P, M, shard=None):
+    """One dense mixing matmul ``M' = P @ M`` (f32 accumulation).  Under a
+    row-sharded bank (``shard``, with ``M`` the rank's rows) the rank's row
+    panel of ``P`` over the all-gathered bank: a dense operator has no
+    sparse row set to ship, so every executor takes the all-gather."""
+    if shard is not None:
+        return gossip_matmul(shard.rows(P.float()),
+                             shard.all_gather(M.contiguous()))
     return gossip_matmul(P.float().contiguous(), M.contiguous())
 
 
-def gossip_mix_sparse(idx, wgt, M):
-    """Sparse mixing ``M'[i] = sum_l wgt[i,l] * M[idx[i,l]]``."""
-    return gossip_gather(
-        idx.to(torch.int32).contiguous(), wgt.float().contiguous(),
-        M.contiguous(),
-    )
+def gossip_mix_sparse(idx, wgt, M, backend=None, shard=None):
+    """Sparse mixing ``M'[i] = sum_l wgt[i,l] * M[idx[i,l]]``.  ``backend``
+    is the executor of ``comm.plan.resolve_backend``: a ``HaloBackend``
+    takes the halo exchange, ``None`` and ``"xla"`` the all-gather (no
+    collective without ``shard``)."""
+    idx = idx.to(torch.int32).contiguous()
+    wgt = wgt.float().contiguous()
+    M = M.contiguous()
+    if backend is not None and not isinstance(backend, str):
+        return gossip_gather_halo(idx, wgt, M, shard=shard, plan=backend.plan)
+    if shard is not None:
+        return gossip_gather_xla(idx, wgt, M, shard)
+    return gossip_gather(idx, wgt, M)
 
 
 def fused_update_bank(X, V, G, alpha, eta, w):

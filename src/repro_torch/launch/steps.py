@@ -262,8 +262,9 @@ def make_round_step(
 
     ``gossip`` is the executor knob of the reference: ``"auto"`` and
     ``"xla"`` run as on a one-device mesh (the mixer's own kernel);
-    ``"halo"`` ships the ring halo exchange of the row-sharded bank, ROADMAP
-    queue 1 item 12, and raises.
+    ``"halo"`` ships the pod ring's halo exchange over a pod axis sharded
+    across cards, which comes with the pod runtime (ROADMAP item 13.7), and
+    raises.
     """
     from repro_torch.core.stages import IdentityCompressor, comm_phase
 
@@ -298,8 +299,8 @@ def make_round_step(
         )
     if gossip == "halo":
         raise NotImplementedError(
-            "gossip='halo' runs the pod ring's halo exchange over a "
-            "row-sharded bank: ROADMAP queue 1 item 12")
+            "gossip='halo' runs the pod ring's halo exchange over a pod "
+            "axis sharded across cards: the pod runtime, ROADMAP item 13.7")
 
     def one_pod(params, v, i, w_i, batches):
         """Pod i's K local steps on its slices of the stacked leaves,

@@ -1,6 +1,7 @@
 """Shared model layers: norms, rotary and sinusoidal positions, loss — the
-port of ``repro.models.layers``.  ``shard_act`` is the identity: sharding
-waits for ROADMAP queue 1 item 12."""
+port of ``repro.models.layers``.  ``shard_act`` is the identity: placing
+activations on a model mesh (``spec_for`` and ``constrain``) waits for
+ROADMAP item 14."""
 from __future__ import annotations
 
 import torch

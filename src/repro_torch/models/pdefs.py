@@ -2,8 +2,8 @@
 
 Every model declares its parameters (and KV caches) as a nested dict of
 ``PDef``: shape, per-dim logical axis names, dtype and init spec.  The axis
-names are kept for the sharding item (ROADMAP queue 1 item 12); on one
-device nothing reads them.
+names are kept for placing parameters on a mesh (``spec_for``, ROADMAP item
+14); on one device nothing reads them.
 """
 from __future__ import annotations
 

@@ -56,7 +56,7 @@ from repro_torch.store.store import ClientStore
 
 __all__ = ["PagedRunner", "ResidentDriver", "make_plan", "bank_fields"]
 
-_PAGED_KINDS = ("ring", "exponential", "kout")
+_PAGED_KINDS = ("ring", "exponential", "kout", "two_tier")
 
 
 def _check_paged_program(program):
@@ -79,8 +79,7 @@ def _check_paged_program(program):
     if program.topo.kind not in _PAGED_KINDS:
         raise ValueError(
             f"topology kind {program.topo.kind!r} has no paged form "
-            f"(supported: {_PAGED_KINDS}; two_tier comes with ROADMAP "
-            "queue 1 item 12)"
+            f"(supported: {_PAGED_KINDS})"
         )
 
 
@@ -159,8 +158,9 @@ def make_plan(topo, k_active: int, c_max: int, gen, t: int, live=None,
     ``topo`` is a :class:`~repro_torch.core.topology.TopologyConfig` or a
     prebuilt :class:`~repro_torch.comm.plan.CommPlan`.  ``draws`` may
     supply the round's ``"perm"`` (the active-set permutation of
-    ``range(n)``) and ``"scores"`` (the ``kout`` picks' ``(k_active, n)``
-    uniforms) instead of ``gen``'s; the chain advances all the same.
+    ``range(n)``) and ``"scores"`` (the ``kout`` and ``two_tier`` picks'
+    ``(k_active, n)`` uniforms) instead of ``gen``'s; the chain advances
+    all the same.
 
     With a churn liveness vector ``live``, dead clients leave the pool: the
     active set is the first ``k_active`` live ids of the same permutation,

@@ -34,12 +34,14 @@ from repro.core import LinkModel as RefLink
 from repro.core import TopologyConfig as RefTopo
 from repro.core import make_algo as ref_make_algo
 from repro.core.topology import NeighborList as RefNeighborList
+from repro.core.topology import TwoTierOp as RefTwoTierOp
 from repro.data.dirichlet import dirichlet_partition, stack_client_data
 from repro.data.synthetic import make_dataset
 from repro.models.small import mnist_2nn as ref_mnist_2nn
 from repro_torch.core import ChurnModel, LinkModel
 from repro_torch.core import FLTrainer, TopologyConfig, make_algo
-from repro_torch.core.topology import NeighborList
+from repro_torch.core import topology
+from repro_torch.core.topology import NeighborList, TwoTierOp
 from repro_torch.interop import program_with_delta_base
 from repro_torch.interop import state_from_numpy
 from repro_torch.models.small import mnist_2nn
@@ -58,6 +60,78 @@ def golden_data():
     return stack_client_data(train, parts, pad_to=128)
 
 
+def port_operator(P):
+    """A reference mixing operator as the port's: a NeighborList or a
+    TwoTierOp of tensors, or a dense numpy array."""
+    def nl(x):
+        return NeighborList(torch.from_numpy(np.array(x.idx)),
+                            torch.from_numpy(np.array(x.wgt)))
+
+    if isinstance(P, RefTwoTierOp):
+        return TwoTierOp(torch.from_numpy(np.array(P.intra)), nl(P.inter))
+    if isinstance(P, RefNeighborList):
+        return nl(P)
+    return np.array(P)
+
+
+def dense_operator(P, n: int) -> np.ndarray:
+    """The (n, n) dense matrix of a port operator, as float32 numpy."""
+    if isinstance(P, TwoTierOp):
+        return topology.dense_from_two_tier(P).numpy()
+    if isinstance(P, NeighborList):
+        return topology.dense_from_neighbors(P, n).numpy()
+    return np.asarray(P, np.float32)
+
+
+class PreCompression:
+    """Probe of :func:`run_scenario_parity`: the port's pre-compression
+    bank of each round, from its own local steps on the round's draws,
+    ``y = X + residual`` and the round's operator, dense."""
+
+    def __init__(self):
+        self.rounds = []
+
+    def __call__(self, port, draws):
+        prog, st = port.program, port.state
+        X, *_ = prog.solver.update(
+            prog.loss_fn, prog.spec, st.params, st.w,
+            torch.as_tensor(draws["batch_idx"]).long(), prog.data,
+            prog.round_lr(st.round))
+        y = X.float() + (st.comp if torch.is_tensor(st.comp) else 0.0)
+        self.rounds.append(dict(X=X.float(), y=y,
+                                P=dense_operator(draws["P"], prog.n)))
+
+
+def flip_step(rec, compressor: str, ratio: float = 0.05) -> np.ndarray:
+    """What one code flip can move each sender's transmitted coordinate
+    by: one int8 quantisation step ``max|x_j| / 127``, or (top-k at
+    ``ratio``) the k-th largest magnitude of ``y_j``."""
+    if compressor == "int8_rows":
+        return (rec["X"].abs().amax(dim=1) / 127.0).numpy()
+    k = max(int(ratio * rec["y"].shape[1]), 1)
+    return torch.topk(rec["y"].abs(), k, dim=1).values[:, -1].numpy()
+
+
+def flip_bound(P: np.ndarray, step: np.ndarray) -> np.ndarray:
+    """``sum_{j != i} P[i, j] step_j`` per receiver i, as an (n, 1) column:
+    the self-loop rides at full precision, so a receiver's own flips do
+    not count."""
+    off = P * (1.0 - np.eye(P.shape[0], dtype=np.float32))
+    return (off @ step)[:, None]
+
+
+def swap_bound(P: np.ndarray, step: np.ndarray, ref_comp: np.ndarray,
+               port_comp: np.ndarray) -> np.ndarray:
+    """:func:`flip_bound` per coordinate, over the top-k coordinates that
+    were actually swapped: sender j's coordinate c counts where exactly one
+    package kept it (its EF residual is 0 there, and nonzero where it was
+    dropped).  Where no sender swapped a coordinate the bound is 0, so the
+    self-loop's own share is held to the draw-exact tolerance."""
+    off = P * (1.0 - np.eye(P.shape[0], dtype=np.float32))
+    swapped = (ref_comp == 0) != (port_comp == 0)
+    return off @ (step[:, None] * swapped)
+
+
 def reference_draws(tr: RefTrainer, m_rows: int) -> dict:
     """This round's draws of the reference trainer ``tr``, as numpy."""
     prog, state = tr.program, tr.state
@@ -71,13 +145,9 @@ def reference_draws(tr: RefTrainer, m_rows: int) -> dict:
         ckeys = ckeys[:m]
     else:
         P = prog.mixing_matrix(tkey, state)
-        if isinstance(P, RefNeighborList):
-            draws["P"] = NeighborList(torch.from_numpy(np.array(P.idx)),
-                                      torch.from_numpy(np.array(P.wgt)))
-        else:
-            draws["P"] = np.array(P)
-        shape = np.shape(P.idx if isinstance(P, RefNeighborList) else P)
+        draws["P"] = port_operator(P)
         if not _empty(state.link):
+            shape = np.shape(P.idx if isinstance(P, RefNeighborList) else P)
             lkey = jax.random.split(state.link.key)[0]
             if prog.link is not None and prog.link.drop > 0:
                 dkey, lkey = jax.random.split(lkey)
@@ -186,11 +256,13 @@ def port_state_dump(st) -> dict:
 
 def run_scenario_parity(name: str, gossip: str, cdata, *, algo_kw=None,
                         link=None, churn=None, delta=None, bf16=False,
-                        resync=False, rounds=ROUNDS, probe=None):
+                        resync=False, rounds=ROUNDS, probe=None, topo=None):
     """:func:`run_parity` for the scenario compositions: ``algo_kw``
     overrides the algorithm (compressor, solver, ...), ``link`` / ``churn``
     are the fields of a ``LinkModel`` / ``ChurnModel`` (built in each
-    package), ``delta`` the delta bank's rank, ``bf16`` a bfloat16 bank;
+    package), ``topo`` the fields of the ``TopologyConfig`` (kout,
+    ``N_CLIENTS``, ``K_OUT`` by default), ``delta`` the delta bank's rank,
+    ``bf16`` a bfloat16 bank;
     the port trains over the reference's delta base.  ``resync`` restarts
     the port from the reference's state before every round, so each round's
     comparison holds one round's divergence (for lossy compressors, whose
@@ -202,12 +274,13 @@ def run_scenario_parity(name: str, gossip: str, cdata, *, algo_kw=None,
     after each round, the states as :func:`scenario_state_dump` /
     :func:`port_state_dump`."""
     algo_kw = dict(local_steps=LOCAL_STEPS, batch_size=BATCH, **(algo_kw or {}))
+    topo = topo or dict(kind="kout", n_clients=N_CLIENTS, k_out=K_OUT)
     ref_model = ref_mnist_2nn()
     ref = RefTrainer(
         ref_model.loss, ref_model.init,
         {k: jnp.asarray(v) for k, v in cdata.items()},
         ref_make_algo(name, **algo_kw),
-        RefTopo(kind="kout", n_clients=N_CLIENTS, k_out=K_OUT), seed=0,
+        RefTopo(**topo), seed=0,
         participation=PARTICIPATION, gossip=gossip,
         link=None if link is None else RefLink(**link),
         churn=None if churn is None else RefChurn(**churn),
@@ -216,7 +289,7 @@ def run_scenario_parity(name: str, gossip: str, cdata, *, algo_kw=None,
     model = mnist_2nn()
     port = FLTrainer(
         model.loss, model.init, cdata, make_algo(name, **algo_kw),
-        TopologyConfig(kind="kout", n_clients=N_CLIENTS, k_out=K_OUT),
+        TopologyConfig(**topo),
         seed=0, participation=PARTICIPATION, gossip=gossip,
         link=None if link is None else LinkModel(**link),
         churn=None if churn is None else ChurnModel(**churn),

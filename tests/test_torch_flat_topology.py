@@ -211,8 +211,18 @@ def test_own_draws_give_column_stochastic_operators(kind):
 
 
 def test_unported_families_are_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        topology.TopologyConfig(kind="two_tier", n_clients=8, k_out=2)
+    """Every family is ported; what stays refused is what the reference
+    refuses: a two_tier configuration its checks reject, and the full
+    graph's sparse form."""
+    for kw, msg in ((dict(kind="two_tier", k_out=2), "n_pods >= 2"),
+                    (dict(kind="two_tier", k_out=2, n_pods=3), "divisible"),
+                    (dict(kind="two_tier", k_out=5, n_pods=2), "k_out must"),
+                    (dict(kind="kout", k_out=2, n_pods=2), "two_tier-only")):
+        with pytest.raises(ValueError, match=msg):
+            topology.TopologyConfig(n_clients=8, **kw)
+    cfg = topology.TopologyConfig(kind="two_tier", n_clients=8, k_out=2,
+                                  n_pods=2)
+    assert topology.neighbor_k_max(cfg) == 4 + 2
     with pytest.raises(ValueError, match="full graph"):
         topology.sample_neighbors(torch.Generator(), topology.TopologyConfig(
             kind="full", n_clients=8, k_out=2))

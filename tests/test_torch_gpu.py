@@ -120,11 +120,11 @@ def test_cuda_gather_shapes_select_both_its_kernels(cuda_device):
     lib = build.load_library()
     for dtype in (0, 1):  # f32, bf16
         for n in (100, 129):
-            assert lib.gossip_gather_panel_cols(dtype, n, 11) >= 32
-        assert lib.gossip_gather_panel_cols(dtype, 8192, 11) == 0
-    assert lib.gossip_gather_panel_cols(0, 1280, 5) == 0
-    assert lib.gossip_gather_panel_cols(0, 600, 11) == 0
-    assert lib.gossip_gather_panel_cols(1, 1280, 5) == 8
+            assert lib.gossip_gather_panel_cols(dtype, n, n, 11) >= 32
+        assert lib.gossip_gather_panel_cols(dtype, 8192, 8192, 11) == 0
+    assert lib.gossip_gather_panel_cols(0, 1280, 1280, 5) == 0
+    assert lib.gossip_gather_panel_cols(0, 600, 600, 11) == 0
+    assert lib.gossip_gather_panel_cols(1, 1280, 1280, 5) == 8
 
 
 def test_cuda_wrappers_raise_on_what_their_kernels_do_not_take(cuda_device):
@@ -477,8 +477,8 @@ def test_cuda_paged_round_matches_the_cpu_on_the_same_draws(cuda_device,
     runners, seen, mixes = {}, {}, {}
     mix_sparse = ops.gossip_mix_sparse
 
-    def spy_mix(idx, wgt, M):
-        out = mix_sparse(idx, wgt, M)
+    def spy_mix(idx, wgt, M, *executor):
+        out = mix_sparse(idx, wgt, M, *executor)
         mixes.setdefault(M.device.type, []).append(
             {"idx": idx.cpu(), "wgt": wgt.cpu(), "M": M.cpu().clone(),
              "out": out.cpu()})

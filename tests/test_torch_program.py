@@ -190,10 +190,25 @@ def test_unported_stages_and_options_are_refused(setting):
                          device="cpu")
     with pytest.raises(ValueError, match="gossip must be"):
         make_program(model.loss, model.init, cdata, make_algo("sgp"), topo,
+                     gossip="nccl", device="cpu")
+    # The halo executor and the mesh are ported: without a mesh "halo"
+    # refuses, and a mesh must carry the clients axis and divide n.
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_program(model.loss, model.init, cdata, make_algo("sgp"), topo,
                      gossip="halo", device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        FLTrainer(model.loss, model.init, cdata, make_algo("sgp"), topo,
-                  device="cpu", mesh=object())
+
+    class Mesh:
+        def __init__(self, **axes):
+            self.axis_names, self.shape = tuple(axes), dict(axes)
+
+    for mesh, msg in ((Mesh(data=2), "no 'clients' axis"),
+                      (Mesh(clients=3), "divisible")):
+        with pytest.raises(ValueError, match=msg):
+            FLTrainer(model.loss, model.init, cdata, make_algo("sgp"), topo,
+                      device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="no client bank to shard"):
+        make_program(model.loss, model.init, cdata, make_algo("fedavg"),
+                     topo, device="cpu", mesh=Mesh(clients=2))
     # paged= is ported (the disk-backed store): without a store it refuses
     # as the reference does.
     with pytest.raises(ValueError, match="needs store_dir"):

@@ -38,51 +38,19 @@ the bf16-rounded gradients) to one bf16 ulp of its largest magnitude,
 """
 import numpy as np
 import pytest
-import torch
 
-from _torch_parity import golden_data, run_scenario_parity
-from repro_torch.core import topology
+from _torch_parity import (
+    PreCompression,
+    flip_bound,
+    flip_step,
+    golden_data,
+    run_scenario_parity,
+)
 
 
 @pytest.fixture(scope="module")
 def cdata():
     return golden_data()
-
-
-def _dense_p(P, n):
-    if isinstance(P, topology.NeighborList):
-        return topology.dense_from_neighbors(P, n).numpy()
-    return np.asarray(P, np.float32)
-
-
-class PreCompression:
-    """Probe: the port's pre-compression bank of each round, from its own
-    local steps on the round's draws, and the round's operator."""
-
-    def __init__(self):
-        self.rounds = []
-
-    def __call__(self, port, draws):
-        prog, st = port.program, port.state
-        X, *_ = prog.solver.update(
-            prog.loss_fn, prog.spec, st.params, st.w,
-            torch.as_tensor(draws["batch_idx"]).long(), prog.data,
-            prog.round_lr(st.round))
-        y = X.float() + (st.comp if torch.is_tensor(st.comp) else 0.0)
-        self.rounds.append(dict(X=X.float(), y=y, P=_dense_p(draws["P"],
-                                                             prog.n)))
-
-
-def _step(rec, compressor):
-    if compressor == "int8_rows":
-        return (rec["X"].abs().amax(dim=1) / 127.0).numpy()
-    k = max(int(0.05 * rec["y"].shape[1]), 1)
-    return torch.topk(rec["y"].abs(), k, dim=1).values[:, -1].numpy()
-
-
-def _flip_bound(rec, step):
-    off = rec["P"] * (1.0 - np.eye(rec["P"].shape[0], dtype=np.float32))
-    return (off @ step)[:, None]
 
 
 @pytest.mark.parametrize("gossip", ["dense", "sparse"])
@@ -93,11 +61,11 @@ def test_lossy_compressor_round_parity(cdata, compressor, gossip):
             "dfedsgpsm", gossip, cdata, algo_kw=dict(compressor=compressor),
             resync=True, probe=probe):
         rec = probe.rounds[r]
-        step = _step(rec, compressor)
+        step = flip_step(rec, compressor)
         want, got = ref_s["params"], port_s["params"]
         scale = float(np.abs(want).max())
         err = np.abs(got - want)
-        bound = 1e-5 * scale + _flip_bound(rec, step)
+        bound = 1e-5 * scale + flip_bound(rec["P"], step)
         assert np.all(err <= bound), (r, float((err - bound).max()))
         off = int((err > 1e-5 * scale).sum())
         msg = f"{compressor} {gossip} round {r}: {off} coordinates of X' " \
@@ -144,11 +112,11 @@ def test_bf16_bank_with_topk_round_parity(cdata):
             "dfedsgpsm", "dense", cdata, algo_kw=dict(compressor="topk_ef"),
             bf16=True, resync=True, probe=probe):
         rec = probe.rounds[r]
-        kth = _step(rec, "topk_ef")
+        kth = flip_step(rec, "topk_ef")
         want = ref_s["params"].astype(np.float32)
         scale = float(np.abs(want).max())
         err = np.abs(port_s["params"] - want)
-        bound = 2.0 ** -7 * scale + _flip_bound(rec, kth)
+        bound = 2.0 ** -7 * scale + flip_bound(rec["P"], kth)
         assert np.all(err <= bound), (r, float((err - bound).max()))
         print(f"bf16 topk_ef round {r}: {int((err > 0).sum())} of {err.size} "
               "bank values differ, at most "

@@ -242,7 +242,7 @@ def test_pod_mixers_and_plan_match_reference():
 def test_round_step_refusals():
     api = _setup()["api"]
     cfg = steps.StepConfig()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 13.7"):
         steps.make_round_step(api, cfg, gossip="halo")
     with pytest.raises(ValueError, match="auto|xla|halo"):
         steps.make_round_step(api, cfg, gossip="nccl")

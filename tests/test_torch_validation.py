@@ -3,8 +3,7 @@ device mesh refuses in the port too: ``LinkModel``, ``ChurnModel``, the
 mixers, ``make_program`` and ``FLTrainer``.  Each case builds the same
 configuration in both packages and both must raise ``ValueError``; where
 the reference's message names the conflict, the port's must match it.
-What the port has not ported yet (``mesh=``) raises naming its ROADMAP
-item; ``paged=`` and ``faults=`` are ported and refuse what the
+``mesh=``, ``paged=`` and ``faults=`` are ported and refuse what the
 reference's refuse."""
 import functools
 
@@ -208,10 +207,23 @@ def test_both_packages_refuse(case):
 
 
 def test_unported_trainer_options_name_their_roadmap_item():
-    """``mesh=`` is still unported; ``paged=`` and ``faults=`` (queue 1
-    item 11) are ported and refuse with the reference's messages."""
-    with pytest.raises(ValueError, match="queue 1 item 12"):
-        _trainer(T, mesh=object())
+    """``mesh=`` (queue 1 item 12), ``paged=`` and ``faults=`` (item 11)
+    are ported and refuse what the reference's refuse, with its
+    messages: a mesh without the clients axis, one whose size does not
+    divide n, and a mesh beside ``paged=``."""
+
+    class Mesh:
+        def __init__(self, **axes):
+            self.axis_names, self.shape = tuple(axes), dict(axes)
+
+    for pkg in (R, T):
+        with pytest.raises(ValueError, match="no 'clients' axis"):
+            _trainer(pkg, mesh=Mesh(data=2))
+        with pytest.raises(ValueError, match="must be divisible"):
+            _trainer(pkg, mesh=Mesh(clients=3))
+        with pytest.raises(ValueError, match="paged training is single-host"):
+            _trainer(pkg, mesh=Mesh(clients=2), paged=True, store_dir="x",
+                     k_active=2)
     for pkg in (R, T):
         with pytest.raises(ValueError, match="paged=True needs store_dir"):
             _trainer(pkg, paged=True)
