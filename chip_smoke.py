@@ -219,7 +219,19 @@ Phases, each fatal on failure:
    ``FLTrainer(mesh=)`` on a one-rank NCCL clients mesh, ``gossip="xla"``
    and ``"halo"``, kout and two_tier, 2 rounds each, held to the
    unsharded program on the same draws, with the executor that ran and
-   the round times.
+   the round times;
+19. the dry-run against the card: five records of
+   ``repro_torch.launch.dryrun`` (glm4-9b at full width cut to 4 layers:
+   prefill 2 x 4096, one decode step at B = 2 against a 4096-position
+   cache, the train step at 1 x 4096, the ``multi`` round step over 2 pods
+   at 2 x 4096; hubert-xlarge whole, forward at 8 x 1500), each traced on
+   meta and then run on the card with drawn values: the counting mode
+   around the card's run counts the trace's FLOPs and bytes and one kernel
+   record a launch; the roofline time (FLOPs at the bf16 peak, bytes at the
+   HBM rate, the larger) over the median of 3 timed runs must be at most
+   1.05, and the predicted peak within 25% of the measured one; then the
+   numbers the kernel table lacked (SDPA at glm4-9b's training forward
+   shape, ``torch.matmul`` at hymba-1.5b's 4-layer pod bank).
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -242,11 +254,25 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+# The roofline's H100 SXM constants and each kernel's cost formula live in
+# the port (``launch.mesh.HARDWARE``, ``roofline.cost``), which its dry-run
+# shares.
+from repro_torch.launch.mesh import HARDWARE  # noqa: E402
+from repro_torch.roofline.cost import (  # noqa: E402
+    bound_ms,
+    dense_mix_cost,
+    flash_backward_cost,
+    flash_forward_cost,
+    gather_cost,
+    open_pairs,
+    update_cost,
+)
+
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
+HBM_BYTES_PER_S = HARDWARE["hbm_bw"]
+F32_FLOP_PER_S = HARDWARE["peak_flops_f32"]
+BF16_FLOP_PER_S = HARDWARE["peak_flops_bf16"]  # dense, on the tensor cores
 
 N_CLIENTS = 100  # the paper's client count
 CIFAR_CNN_DIM = 1_756_426
@@ -292,13 +318,6 @@ def timed_ms(fn, dev, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
-
-
-def bound_ms(n_bytes: float, flops: float,
-             flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_err(a, b) -> float:
@@ -362,14 +381,12 @@ def mix_times(dev, gen, d: int, iters: int) -> None:
             es = X.element_size()
             mm = timed_ms(lambda: gm.gossip_matmul(P, X), dev, iters)
             mm_lib = timed_ms(lambda: torch.matmul(P, X.float()), dev, iters)
-            mm_b, mm_by = bound_ms(4.0 * n * n + 2.0 * es * n * d,
-                                   2.0 * n * n * d)
+            mm_b, mm_by = dense_mix_cost(n, n, d, es).bound_ms()
             ga = timed_ms(lambda: gg.gossip_gather(nl.idx, nl.wgt, X), dev,
                           iters)
             ga_lib = timed_ms(lambda: torch.einsum(
                 "nk,nkd->nd", nl.wgt, X[nl.idx.long()].float()), dev, iters)
-            ga_b, ga_by = bound_ms(2.0 * es * n * d + 8.0 * n * k,
-                                   2.0 * n * k * d)
+            ga_b, ga_by = gather_cost(n, n, k, d, es).bound_ms()
             print(f"  mix times n={n} D={d} {str(dt)[6:]}: gossip_matmul "
                   f"{mm:.4f} ms, bound {mm_b:.4f} ({mm_by}), "
                   f"{100 * mm_b / mm:.1f}% of it, torch.matmul (f32) "
@@ -414,7 +431,7 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
     X, G, V = bank(n, d, torch.float32), bank(n, d, torch.float32), bank(
         n, d, torch.float32)
     w = torch.rand(n, generator=gen, device=dev) + 0.5
-    b, b_by = bound_ms(24.0 * n * d + 4 * n, 5.0 * n * d)
+    b, b_by = update_cost(n, d, 4).bound_ms()
     rows["fused_update_bank"] = dict(
         max_abs_err=err,
         ms=timed_ms(lambda: fu.fused_update_bank(X, V, G, 0.9, 0.1, w), dev,
@@ -428,7 +445,7 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
     row1 = timed_ms(lambda: fu.fused_update_bank(*one_row), dev, iters)
     row1_plain = timed_ms(lambda: fu.fused_update_bank_plain(*one_row), dev,
                           iters)
-    b1, b1_by = bound_ms(24.0 * d + 4, 5.0 * d)
+    b1, b1_by = update_cost(1, d, 4).bound_ms()
     print(f"  fused_update (one row, the n = 1 case) D={d}: {row1:.4f} ms, "
           f"bound {b1:.4f} ms, {100 * b1 / row1:.1f}% of bound; plain "
           f"{row1_plain:.4f} ms")
@@ -461,7 +478,7 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
               f"one row in) {', '.join(cells)}")
     P = topology.sample_kout(gen, n, min(10, n - 1))
     X = bank(n, d, torch.float32)
-    b, b_by = bound_ms(4.0 * n * n + 8.0 * n * d, 2.0 * n * n * d)
+    b, b_by = dense_mix_cost(n, n, d, 4).bound_ms()
     rows["gossip_matmul"] = dict(
         max_abs_err=err,
         ms=timed_ms(lambda: gm.gossip_matmul(P, X), dev, iters),
@@ -506,7 +523,7 @@ def kernel_phase(dev, n: int, d: int, iters: int = 10) -> dict:
               f"{', '.join(cells)}")
     X = bank(n, d, torch.float32)
     k_max = nl.idx.shape[1]
-    b, b_by = bound_ms(8.0 * n * d + 8.0 * n * k_max, 2.0 * n * k_max * d)
+    b, b_by = gather_cost(n, n, k_max, d, 4).bound_ms()
     rows["gossip_gather"] = dict(
         max_abs_err=err,
         ms=timed_ms(lambda: gg.gossip_gather(nl.idx, nl.wgt, X), dev, iters),
@@ -578,16 +595,16 @@ def delta_kernel_phase(dev, n: int = N_CLIENTS, d: int = DELTA_DIM,
         "fused_update_bank": (
             lambda: fu.fused_update_bank(X, V, G, 0.9, 0.01, w),
             lambda: fu.fused_update_bank_plain(X, V, G, 0.9, 0.01, w), None,
-            bound_ms(16.0 * n * d + 4 * n, 5.0 * n * d)),
+            update_cost(n, d, 2).bound_ms()),
         "gossip_matmul": (
             lambda: gm.gossip_matmul(P, X), lambda: gm.gossip_matmul_plain(P, X),
             lambda: torch.matmul(P, X.float()),
-            bound_ms(4.0 * n * n + 4.0 * n * d, 2.0 * n * n * d)),
+            dense_mix_cost(n, n, d, 2).bound_ms()),
         "gossip_gather": (
             lambda: gg.gossip_gather(nl.idx, nl.wgt, X),
             lambda: gg.gossip_gather_plain(nl.idx, nl.wgt, X),
             lambda: torch.einsum("nk,nkd->nd", nl.wgt, X[nl.idx.long()].float()),
-            bound_ms(4.0 * n * d + 8.0 * n * k, 2.0 * n * k * d)),
+            gather_cost(n, n, k, d, 2).bound_ms()),
     }
     def device_ms(fn):
         return (queued_ms(fn, iters) if dev.type == "cuda"
@@ -616,16 +633,6 @@ PERSONAL_SHAPE = (2, 32, 2, 2048, 128)
 # dbrx-132b's attention at phase 13's prefill: 4 requests of 2048 tokens, 48
 # query heads on 8 kv heads of hd = 128 (GQA group 6), bf16, causal.
 DBRX_SHAPE = (4, 48, 8, 2048, 128)
-
-
-def open_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs that the causal and window masks leave open, per
-    (batch, head): the pairs the attention needs on these inputs."""
-    total = 0
-    for i in range(s):
-        lo = max(0, i - window + 1) if window else 0
-        total += (i + 1 if causal else s) - lo
-    return total
 
 
 def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
@@ -715,9 +722,10 @@ def flash_phase(dev, shape=FLASH_SHAPE, window=LOCAL_WINDOW,
     def timed(shp, win, what):
         b_, h_, kv_, s_, hd_ = shp
         q, k, v = qkv(shp, bf16)
-        n_bytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, o
-        flops = 4.0 * hd_ * b_ * h_ * open_pairs(s_, True, win)
-        bound, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+        cost = flash_forward_cost(b_, h_, kv_, s_, hd_, True, win,
+                                  q.element_size())
+        flops = cost.flops
+        bound, by = cost.bound_ms(BF16_FLOP_PER_S)
         if win:
             ar = torch.arange(s_, device=dev)
             mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :]
@@ -2063,7 +2071,7 @@ def paged_kernel_times(dev, k_active: int, c_max: int, d: int, slots: int,
         fu.fused_update_bank(X, V, G, 0.9, 0.1, w),
         fu.fused_update_bank_plain(X, V, G, 0.9, 0.1, w)))
     check(e == 0.0, f"fused_update_bank disagrees at ({k_active}, {d})")
-    b, by = bound_ms(24.0 * k_active * d + 4 * k_active, 5.0 * k_active * d)
+    b, by = update_cost(k_active, d, 4).bound_ms()
     ms = timed_ms(lambda: fu.fused_update_bank(X, V, G, 0.9, 0.1, w), dev,
                   iters)
     plain = timed_ms(lambda: fu.fused_update_bank_plain(X, V, G, 0.9, 0.1, w),
@@ -2079,8 +2087,7 @@ def paged_kernel_times(dev, k_active: int, c_max: int, d: int, slots: int,
     e = max_err(gg.gossip_gather(idx, wgt, X),
                 gg.gossip_gather_plain(idx, wgt, X))
     check(e == 0.0, f"gossip_gather disagrees at ({c_max}, {d}, {slots})")
-    b, by = bound_ms(8.0 * c_max * d + 8.0 * c_max * slots,
-                     2.0 * c_max * slots * d)
+    b, by = gather_cost(c_max, c_max, slots, d, 4).bound_ms()
     ms = timed_ms(lambda: gg.gossip_gather(idx, wgt, X), dev, iters)
     plain = timed_ms(lambda: gg.gossip_gather_plain(idx, wgt, X), dev, iters)
     lib = timed_ms(lambda: torch.einsum("nk,nkd->nd", wgt, X[idx.long()]),
@@ -2677,9 +2684,10 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         b, h, kv, s, hd = shp
         q, k, v, do = inputs(shp, bf16)
         o, lse = fa.flash_attention_with_lse(q, k, v, causal, win)
-        n_bytes = 2.0 * (4 * q.numel() + 4 * k.numel())
-        flops = 10.0 * hd * b * h * open_pairs(s, causal, win)
-        bound, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+        cost = flash_backward_cost(b, h, kv, s, hd, causal, win,
+                                   q.element_size(), lse=True)
+        flops = cost.flops
+        bound, by = cost.bound_ms(BF16_FLOP_PER_S)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         if not causal:
             out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True)
@@ -2882,7 +2890,7 @@ def mix_check(dev, params, P) -> None:
     del Y
     n = X.shape[0]
     t_kernel = timed_ms(lambda: gm.gossip_matmul(P, X), dev, 3, 1)
-    b, by = bound_ms(4.0 * n * n + 8.0 * n * d, 2.0 * n * n * d)
+    b, by = dense_mix_cost(n, n, d, 4).bound_ms()
     try:
         lib = f"{timed_ms(lambda: torch.matmul(P.float(), X), dev, 3, 1):.4f} ms"
     except RuntimeError as e:  # a library call may refuse 2^31 columns
@@ -3306,9 +3314,8 @@ def flash_hd80_phase(dev, hubert=HUBERT_SHAPE, llava=LLAVA_SHAPE,
 
     def bound_of(shp, causal):
         b_, h_, kv_, s_, hd_ = shp
-        n_bytes = 2.0 * (2 * b_ * h_ + 2 * b_ * kv_) * s_ * hd_  # q, k, v, o
-        flops = 4.0 * hd_ * b_ * h_ * open_pairs(s_, causal, 0)
-        return bound_ms(n_bytes, flops, BF16_FLOP_PER_S) + (flops,)
+        cost = flash_forward_cost(b_, h_, kv_, s_, hd_, causal, 0, 2)
+        return cost.bound_ms(BF16_FLOP_PER_S) + (cost.flops,)
 
     q, k, v = qkv(hubert, bf16)
     bound, by, flops = bound_of(hubert, False)
@@ -3774,9 +3781,8 @@ def flash_group5_phase(dev, shape=HYMBA_SHAPE, ragged=HYMBA_RAGGED,
         b, h, kv, s, hd = shape
         q, k, v = inputs(shape, bf16)
         pairs = open_pairs(s, True, win)
-        flops = 4.0 * hd * b * h * pairs
-        bound, by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
-                             flops, BF16_FLOP_PER_S)
+        bound, by = flash_forward_cost(b, h, kv, s, hd, True, win,
+                                       2).bound_ms(BF16_FLOP_PER_S)
         ms = timed_ms(lambda: fa.flash_attention(q, k, v, True, win), dev,
                       iters)
         plain = timed_ms(lambda: fa.flash_attention_plain(q, k, v, True, win),
@@ -3791,9 +3797,8 @@ def flash_group5_phase(dev, shape=HYMBA_SHAPE, ragged=HYMBA_RAGGED,
         b, h, kv, s, hd = train
         q, k, v, do = inputs(train, bf16, 4)
         o, lse = fa.flash_attention_with_lse(q, k, v, True, win)
-        flops = 10.0 * hd * b * h * open_pairs(s, True, win)
-        bound, by = bound_ms(2.0 * (4 * q.numel() + 4 * k.numel()), flops,
-                             BF16_FLOP_PER_S)
+        bound, by = flash_backward_cost(b, h, kv, s, hd, True, win, 2,
+                                        lse=True).bound_ms(BF16_FLOP_PER_S)
         ms = timed_ms(lambda: fa.flash_attention_backward(
             q, k, v, o, do, True, win, lse), dev, iters)
         plain = timed_ms(lambda: fa.flash_attention_backward_plain(
@@ -4719,7 +4724,7 @@ SHARD_ROUNDS = 2
 def panel_bound(m: int, n: int, d: int, es: int) -> tuple:
     """The row panel's bound: P, X and Y moved once; 2 m n D FLOP at the
     f32 peak."""
-    return bound_ms(4.0 * m * n + es * (n + m) * d, 2.0 * m * n * d)
+    return dense_mix_cost(m, n, d, es).bound_ms()
 
 
 def halo_lists(idx, wgt, m: int):
@@ -4829,20 +4834,20 @@ def sharding_kernel_phase(dev, n: int = N_CLIENTS, d: int = CIFAR_CNN_DIM,
             lambda: gg.gossip_gather(nl.idx, nl.wgt, X),
             lambda: gg.gossip_gather_plain(nl.idx, nl.wgt, X),
             lambda: torch.einsum("nk,nkd->nd", nl.wgt, X[nl.idx.long()]),
-            8.0 * n * d + 8.0 * n * k, 2.0 * n * k * d),
+            gather_cost(n, n, k, d, 4)),
         f"{m} receivers over the gathered ({n}, D)": (
             lambda: gg.gossip_gather(im, wm, X),
             lambda: gg.gossip_gather_plain(im, wm, X),
             lambda: torch.einsum("nk,nkd->nd", wm, X[im.long()]),
-            4.0 * (n + m) * d + 8.0 * m * k, 2.0 * m * k * d),
+            gather_cost(m, n, k, d, 4)),
         f"{m} receivers over [{m} own; {rows.numel()} halo]": (
             lambda: gg.gossip_gather(slots, wm, ext),
             lambda: gg.gossip_gather_plain(slots, wm, ext),
             lambda: torch.einsum("nk,nkd->nd", wm, ext[slots.long()]),
-            4.0 * (ext.shape[0] + m) * d + 8.0 * m * k, 2.0 * m * k * d),
+            gather_cost(m, ext.shape[0], k, d, 4)),
     }
-    for what, (kern, plain, lib, n_bytes, flops) in cases.items():
-        b, by = bound_ms(n_bytes, flops)
+    for what, (kern, plain, lib, cost) in cases.items():
+        b, by = cost.bound_ms()
         t = timed_ms(kern, dev, iters)
         print(f"  gossip_gather {what} f32: {t:.4f} ms, bound {b:.4f} ms "
               f"({by}), {100 * b / t:.1f}% of it; plain "
@@ -5068,6 +5073,197 @@ def sharding_phase(dev, data=None, head=print) -> dict:
     return paths
 
 
+# -- phase 19: the dry-run against the card -----------------------------------
+
+# The records the card checks, each traced on meta by the dry-run's own
+# ``run_one`` at the configuration the card then runs: glm4-9b at full width
+# cut to 4 of its 40 layers (as phase 12) and hubert-xlarge whole.
+DRYRUN_RECORDS = (
+    # (arch, layers or None for all, (shape name, S, B, kind), mesh)
+    ("glm4-9b", TRAIN_LAYERS, ("prefill_2x4096", 4096, 2, "prefill"), "card"),
+    ("glm4-9b", TRAIN_LAYERS, ("decode_2x4096", 4096, 2, "decode"), "card"),
+    ("glm4-9b", TRAIN_LAYERS, ("train_1x4096", 4096, 1, "train"), "card"),
+    ("glm4-9b", TRAIN_LAYERS, ("train_2x4096", 4096, 2, "train"), "multi"),
+    ("hubert-xlarge", None, ("prefill_8x1500", 1500, 8, "prefill"), "card"),
+)
+# A roofline time longer than the measured one overstates the work.
+SHARE_LIMIT = 1.05
+PEAK_TOLERANCE = 0.25  # predicted peak within 25% of the measured one
+DRYRUN_RUNS = 3
+
+
+def dryrun_record(dev, arch: str, layers, shape, mesh: str,
+                  runs: int = DRYRUN_RUNS) -> None:
+    """One dry-run record against the card: the meta trace of
+    ``dryrun.run_one``, then the same step on the card with drawn values
+    (``dryrun.step_args``).  (a) The counting mode around the card's run
+    counts the trace's FLOPs and bytes, and as many kernel records as the
+    wrappers' launch counters moved; (b) the roofline time max(t_compute,
+    t_memory) of the whole step over its median time (CUDA events around
+    each of ``runs`` runs after a warm-up) is at most ``SHARE_LIMIT``; (c)
+    the predicted peak (arguments + the trace's high-water mark) is within
+    ``PEAK_TOLERANCE`` of ``torch.cuda.max_memory_allocated()`` over one
+    run from a reset with the arguments resident."""
+    import dataclasses
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import get_model_api
+    from repro_torch.roofline.cost import CostMode
+
+    shape = InputShape(*shape)
+    overrides = {"n_layers": layers} if layers else None
+    traces = {}
+    rec = dryrun.run_one(arch, shape, mesh, overrides=overrides,
+                         traces=traces)
+    check(rec["status"] == "ok", f"the dry-run of {arch} {shape.name} "
+                                 f"{mesh} failed: {rec.get('error')}")
+    (meta,) = traces.values()
+    what = f"{arch} {shape.name} {mesh} ({rec['step']})"
+    t_roof = max(meta["flops"] / BF16_FLOP_PER_S,
+                 meta["bytes accessed"] / HBM_BYTES_PER_S)
+    print(f"  {what}: traced on meta in {meta['compile_s']} s, "
+          f"{meta['aten_ops']} aten ops, {meta['flops']:.6g} FLOP, "
+          f"{meta['bytes accessed']:.6g} bytes, kernels "
+          f"{ {k: v['launches'] for k, v in meta['kernels'].items()} }, "
+          f"roofline {1e3 * t_roof:.4f} ms ({rec['roofline']['bottleneck']}"
+          f" per device on {rec['n_chips']} chips), predicted peak "
+          f"{meta['memory']['peak_estimate'] / 2 ** 30:.3f} GiB")
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    api = get_model_api(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    args, run = dryrun.step_args(api, shape, rec["step"], device=dev, seed=0)
+    sync(dev)
+    before = read_counts()
+    with CostMode(args) as mode:
+        run(*args)
+    sync(dev)
+    moved = {k: v - before[k] for k, v in read_counts().items()}
+    got = mode.result()
+    print(f"  {what}: counted on the card: {got['aten_ops']} aten ops, "
+          f"{got['flops']:.6g} FLOP, {got['bytes accessed']:.6g} bytes, "
+          f"kernel records { {k: v['launches'] for k, v in got['kernels'].items()} }"
+          f", launches {moved}")
+    check(got["flops"] == meta["flops"]
+          and got["bytes accessed"] == meta["bytes accessed"],
+          f"{what}: the card's run counts other FLOPs or bytes than the meta "
+          f"trace")
+    for name in ("flash_attention", "flash_attention_backward",
+                 "gossip_matmul", "gossip_gather", "fused_update_bank"):
+        n_rec = got["kernels"].get(name, {}).get("launches", 0)
+        n_meta = meta["kernels"].get(name, {}).get("launches", 0)
+        check(n_rec == moved[name] == n_meta,
+              f"{what}: {n_rec} {name} records on the card, {n_meta} on "
+              f"meta, {moved[name]} launches")
+    run(*args)  # warm-up
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    share = 1e3 * t_roof / ms
+    print(f"  {what}: measured {', '.join(f'{t:.3f}' for t in times)} ms, "
+          f"median {ms:.3f} ms")
+    print(f"  {what}: roofline share {share:.4f} (roofline "
+          f"{1e3 * t_roof:.4f} ms over the median; at most {SHARE_LIMIT})")
+    torch.cuda.reset_peak_memory_stats(dev)
+    run(*args)
+    sync(dev)
+    measured = torch.cuda.max_memory_allocated(dev) - base
+    ratio = meta["memory"]["peak_estimate"] / measured
+    print(f"  {what}: peak ratio {ratio:.4f} (predicted "
+          f"{meta['memory']['peak_estimate'] / 2 ** 30:.3f} GiB = arguments "
+          f"{meta['memory']['argument'] / 2 ** 30:.3f} + temporaries "
+          f"{meta['memory']['temp'] / 2 ** 30:.3f}; measured "
+          f"{measured / 2 ** 30:.3f} GiB; within {PEAK_TOLERANCE:.0%})")
+    check(share <= SHARE_LIMIT, f"{what}: the roofline time is {share:.3f} "
+                                f"of the measured time: the count overstates "
+                                f"the work")
+    check(abs(ratio - 1) <= PEAK_TOLERANCE,
+          f"{what}: predicted peak {ratio:.3f} of the measured one")
+    del args, run
+
+
+def table_rows(dev, iters: int = 10) -> None:
+    """Numbers of ``PERF.md``'s kernel table that earlier runs left out:
+    SDPA beside the flash forward at glm4-9b's training shape, and
+    ``torch.matmul`` beside the dense mix at hymba-1.5b's 4-layer pod
+    bank (2 replicas, f32), each with its bound."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_matmul as gm
+    from repro_torch.launch.steps import pod_mixing_matrix
+    from repro_torch.models.pdefs import tree_num_params
+    from repro_torch.models.registry import get_model_api
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b, h, kv, s, hd = TRAIN_SHAPE
+    q, k, v = (torch.randn(b, n, s, hd, generator=gen, device=dev).to(
+        torch.bfloat16) for n in (h, kv, kv))
+    bound, by = flash_forward_cost(b, h, kv, s, hd, True, 0, 2, lse=True
+                                   ).bound_ms(BF16_FLOP_PER_S)
+    ms = timed_ms(lambda: fa.flash_attention_with_lse(q, k, v, True, 0), dev,
+                  iters)
+    lib = timed_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), dev, iters)
+    print(f"  flash forward with the row logsumexp at glm4-9b's training "
+          f"shape {TRAIN_SHAPE}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / ms:.1f}% of it; SDPA {lib:.4f} ms; kernel/SDPA "
+          f"{ms / lib:.3f}")
+    del q, k, v
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=4)
+    d = tree_num_params(get_model_api(cfg).param_defs())
+    X = torch.randn(2, d, generator=gen, device=dev)
+    P = pod_mixing_matrix(2, device=dev)
+    bound, by = dense_mix_cost(2, 2, d, 4).bound_ms()
+    ms = timed_ms(lambda: gm.gossip_matmul(P, X), dev, iters)
+    lib = timed_ms(lambda: torch.matmul(P, X), dev, iters)
+    print(f"  gossip_matmul at hymba-1.5b's 4-layer pod bank (2, {d}) f32: "
+          f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% "
+          f"of it; torch.matmul (TF32 off) {lib:.4f} ms")
+    del X
+
+
+def dryrun_phase(dev, head=print) -> dict:
+    """Phase 19 whole (``head`` prints each step's heading): each record of
+    ``DRYRUN_RECORDS`` against the card (:func:`dryrun_record`), then the
+    kernel table's missing numbers (:func:`table_rows`).  Returns the
+    launches of its path.  ``python3 repeat_phase.py --repeat 1
+    dryrun_phase`` runs it alone."""
+    from repro_torch.launch.mesh import card_hardware
+
+    card = card_line() if dev.type == "cuda" else "no card"
+    head(f"[19] the dry-run against the card: {len(DRYRUN_RECORDS)} records "
+         f"traced on meta, then run; card: {card}")
+    hbm = card_hardware()["hbm_bytes"] if dev.type == "cuda" else None
+    print(f"  the card's memory (torch.cuda.get_device_properties): "
+          + ("none" if hbm is None else f"{hbm / 2 ** 30:.2f} GiB, "
+             f"{hbm} bytes; the data sheet's {HARDWARE['hbm_bytes']}"))
+    zero_counts()
+    for arch, layers, shape, mesh in DRYRUN_RECORDS:
+        dryrun_record(dev, arch, layers, shape, mesh)
+        release()
+    paths = {"dry-run path": read_counts()}
+    head("[19] the kernel table's missing numbers")
+    table_rows(dev)
+    release()
+    return paths
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -5214,6 +5410,7 @@ def main() -> int:
     paths.update(tasks_phase(dev, head))
     paths.update(lanes_phase(dev, head))
     paths.update(sharding_phase(dev, on_card(), head))
+    paths.update(dryrun_phase(dev, head))
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

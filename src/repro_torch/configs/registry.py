@@ -1,5 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution and random batches —
-the port of ``repro.configs.registry``.
+"""Architecture registry: ``--arch <id>`` resolution, ``input_specs`` and
+random batches — the port of ``repro.configs.registry``.
 
 The port holds every id of the zoo: the four dense GQA SwiGLU decoders
 and the two MoE decoders (dbrx-132b with GQA, deepseek-v3-671b with MLA)
@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape, reduced
 
-__all__ = ["ARCH_IDS", "PORTED_ARCH_IDS", "get_config", "make_batch",
+__all__ = ["ARCH_IDS", "PORTED_ARCH_IDS", "get_config", "input_specs",
+           "make_batch",
            "make_round_batches", "step_positions", "INPUT_SHAPES",
            "InputShape"]
 
@@ -64,6 +65,23 @@ def _batch_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
             "image_feats": ((batch, n_img, cfg.frontend_dim), torch.float32),
         }
     return {"tokens": ((batch, seq), torch.int32)}
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape | str,
+                device="meta") -> dict:
+    """Empty tensors (on ``meta`` by default: no memory) of every model input
+    of one input shape, with the reference's names, shapes and dtypes.  For
+    a decode shape this is the per-step request batch {tokens (B,), pos
+    ()}; the KV cache comes from the model's ``cache_defs``."""
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    if shape.kind == "decode":
+        specs = {"tokens": ((shape.global_batch,), torch.int32),
+                 "pos": ((), torch.int32)}
+    else:
+        specs = _batch_shapes(cfg, shape.global_batch, shape.seq_len)
+    return {k: torch.empty(sh, dtype=dt, device=device)
+            for k, (sh, dt) in specs.items()}
 
 
 def make_batch(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,

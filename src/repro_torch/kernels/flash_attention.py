@@ -16,7 +16,10 @@ Both are built for head dims 64, 80 (hubert-xlarge), 128 and 256
 
 ``flash_attention`` is the wrapper: a CPU tensor goes to
 :func:`flash_attention_plain`; a CUDA tensor goes to the kernel of its
-dtype, or the wrapper raises.  Inputs are read through their strides (hd
+dtype, or the wrapper raises; a meta tensor gets empty outputs of the
+kernel's shapes (the dry-run's trace, ``repro_torch.launch.dryrun``).  Every
+call records its cost (``repro_torch.roofline.cost.flash_forward_cost``) in
+a counting ``CostMode``.  Inputs are read through their strides (hd
 contiguous), so a ``(B, S, H, hd)`` projection may be passed as its
 ``transpose(1, 2)`` view; the output is laid out like q.  bf16 inputs are
 loaded by TMA, so they must start on 16 bytes and have (b, head, s) strides
@@ -48,7 +51,10 @@ on the card.  ``backward_launches`` counts its calls,
 version, :func:`lse_tolerance` how far the forward's logsumexp may lie from
 ``torch.logsumexp``.  The backward's CUDA call takes raw pointers, so the
 gradient is taken with ``torch.autograd`` (``torch.func`` transforms hand
-the backward wrapper tensors without storage).
+the backward wrapper tensors without storage).  On a meta tensor the
+backward returns empty gradients after allocating the scratch the kernels
+take (:func:`backward_shares` says how many f32 shares), and records its
+cost (``flash_backward_cost``) as the forward does.
 """
 from __future__ import annotations
 
@@ -57,8 +63,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, load_library
+from repro_torch.roofline.cost import (
+    flash_backward_cost,
+    flash_forward_cost,
+)
+from repro_torch.roofline.cost import kernel as kernel_cost
 
-__all__ = ["BACKWARD_HEAD_DIMS", "backward_tolerance",
+__all__ = ["BACKWARD_HEAD_DIMS", "backward_shares", "backward_tolerance",
            "bf16_tolerance", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_plain", "flash_attention_plain",
            "flash_attention_with_lse", "HEAD_DIMS", "head_dim_launches",
@@ -218,32 +229,41 @@ def lse_tolerance(q, k, lse, causal: bool = True, window: int = 0):
 def _forward(q, k, v, causal: bool, window: int, want_lse: bool = False):
     """o, or (o, lse) with ``want_lse``."""
     global launches
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window, want_lse)
-    if q.device.type != "cuda":
+    dev = q.device.type
+    if dev not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no flash_attention kernel for device {q.device}")
-    _check_cuda_args(q, k, v, window)
-    if q.dtype == torch.bfloat16:
-        _check_tma(q, k, v)
-    b, h, s, hd = q.shape
-    # q's layout where q is dense (preserve_format), else contiguous: either
-    # way hd is contiguous.
-    o = torch.empty_like(q)
-    lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-           if want_lse else None)
-    lib = load_library()
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_launch(
-            DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), None if lse is None else lse.data_ptr(), b, h,
-            k.shape[1], s, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], int(causal), int(window),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    check(rc, "flash_attention")
-    launches += 1
-    head_dim_launches[hd] += 1
-    return (o, lse) if want_lse else o
+    with kernel_cost("flash_attention", lambda: flash_forward_cost(
+            *q.shape[:2], k.shape[1], *q.shape[2:], causal, window,
+            q.element_size(), want_lse)):
+        if dev == "cpu":  # laid out like q, as the kernel's output
+            out = flash_attention_plain(q, k, v, causal, window, want_lse)
+            o = torch.empty_like(q).copy_(out[0] if want_lse else out)
+            return (o, out[1]) if want_lse else o
+        _check_cuda_args(q, k, v, window)
+        if q.dtype == torch.bfloat16:
+            _check_tma(q, k, v)
+        b, h, s, hd = q.shape
+        # q's layout where q is dense (preserve_format), else contiguous:
+        # either way hd is contiguous.
+        o = torch.empty_like(q)
+        lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+               if want_lse else None)
+        if dev == "meta":  # the outputs' shapes, no computation
+            return (o, lse) if want_lse else o
+        lib = load_library()
+        with torch.cuda.device(q.device):
+            rc = lib.flash_attention_launch(
+                DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, h, k.shape[1], s,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *o.stride()[:3], int(causal), int(window),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        check(rc, "flash_attention")
+        launches += 1
+        head_dim_launches[hd] += 1
+        return (o, lse) if want_lse else o
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -422,16 +442,47 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), given its
     output ``o``, the output's gradient ``do`` and, where the caller has
     it, the forward's logsumexp ``lse`` (B, H, S) f32: the plain version
-    for CPU tensors, the CUDA kernels for CUDA tensors (or the wrapper
-    raises).  Without ``lse`` the kernels compute it in one more pass.  The
-    gradients are laid out like q, k and v (``empty_like``)."""
+    for CPU tensors, the CUDA kernels for CUDA tensors, empty gradients for
+    meta tensors (or the wrapper raises).  Without ``lse`` the kernels
+    compute it in one more pass.  The gradients are laid out like q, k and
+    v (``empty_like``)."""
     global backward_launches, backward_kernel_launches
-    if q.device.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, o, do, causal, window,
-                                              lse)
-    if q.device.type != "cuda":
+    dev = q.device.type
+    if dev not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no flash_attention backward kernel for device "
                          f"{q.device}")
+    with kernel_cost("flash_attention_backward", lambda: flash_backward_cost(
+            *q.shape[:2], k.shape[1], *q.shape[2:], causal, window,
+            q.element_size(), lse is not None)):
+        if dev == "cpu":  # laid out like q, k and v, as the kernels' output
+            grads = flash_attention_backward_plain(q, k, v, o, do, causal,
+                                                   window, lse)
+            return tuple(torch.empty_like(t).copy_(g)
+                         for t, g in zip((q, k, v), grads))
+        return _backward_card(q, k, v, o, do, causal, window, lse)
+
+
+def backward_shares(dtype, hd: int, b: int, h: int, kv: int, s: int) -> int:
+    """The f32 dK / dV shares the backward sums for a GQA group: the C entry
+    point ``flash_attention_backward_shares`` (``tc::split_for``) on the
+    H100 SXM's 132 SMs: on the tensor cores the least divisor of the group
+    giving a block per SM over the (b, kv head, 128-key tile) blocks, else
+    the whole group."""
+    sms = 132
+    group = h // kv
+    if not on_tensor_cores(dtype, hd):
+        return group
+    blocks = b * kv * (-(-s // 128))
+    for d in range(1, group):
+        if group % d == 0 and blocks * d >= sms:
+            return d
+    return group
+
+
+def _backward_card(q, k, v, o, do, causal, window, lse):
+    """The backward on a CUDA tensor (the kernels), or on a meta tensor (the
+    gradients and the scratch the kernels take, empty: no computation)."""
+    global backward_launches, backward_kernel_launches
     if q.dim() == 4 and q.shape[-1] not in BACKWARD_HEAD_DIMS:
         raise NotImplementedError(
             f"the flash backward has no kernel at head dim {q.shape[-1]} "
@@ -440,6 +491,7 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     _check_cuda_args(q, k, v, window)
     b, h, s, hd = q.shape
     kv = k.shape[1]
+    meta = q.device.type == "meta"
     tensor_cores = on_tensor_cores(q.dtype, hd)
     if tensor_cores:
         _check_tma(q, k, v)
@@ -460,24 +512,27 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     s_pad = -(-s // 64) * 64
     vec = torch.empty(2 * b * h * s_pad, **f32)  # D (and lse log2 e)
     scratch = torch.empty(b, h, s, **f32) if lse is None else None
-    lib = load_library()
+    if meta:
+        shares = backward_shares(q.dtype, hd, b, h, kv, s)
+    else:
+        lib = load_library()
+        with torch.cuda.device(q.device):  # the shares depend on its SM count
+            shares = lib.flash_attention_backward_shares(
+                DTYPE_CODES[q.dtype], hd, b, h, kv, s)
+    # dK and dV shares of the group's runs, summed by the last pass
+    parts = ([torch.empty(b, kv * shares, s, hd, **f32) for _ in range(2)]
+             if shares > 1 else [])
+    if meta:  # the gradients' shapes and the scratch, no computation
+        return dq, dk, dv
     n = ctypes.c_int(0)
-    with torch.cuda.device(q.device):  # the shares depend on its SM count
-        shares = lib.flash_attention_backward_shares(DTYPE_CODES[q.dtype], hd,
-                                                     b, h, kv, s)
-        if shares > 1:
-            dk_part = torch.empty(b, kv * shares, s, hd, **f32)
-            dv_part = torch.empty(b, kv * shares, s, hd, **f32)
-            parts = (dk_part.data_ptr(), dv_part.data_ptr())
-        else:
-            parts = (None, None)
+    with torch.cuda.device(q.device):
         rc = lib.flash_attention_backward_launch(
             DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if scratch is None else scratch.data_ptr(), vec.data_ptr(),
-            *parts, b, h, kv, s,
+            *([p.data_ptr() for p in parts] or [None, None]), b, h, kv, s,
             *(st for t in (q, k, v, o, do, dq, dk, dv)
               for st in t.stride()[:3]),
             int(causal), int(window), torch.cuda.current_stream().cuda_stream,

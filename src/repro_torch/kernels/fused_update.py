@@ -10,7 +10,9 @@ note for the design.
 
 ``fused_update_bank`` is the wrapper: a CPU tensor goes to
 :func:`fused_update_bank_plain`; a CUDA tensor goes to the kernel, or the
-wrapper raises.  ``launches`` counts kernel launches; ``row_launches``
+wrapper raises; a meta tensor gets empty outputs of the kernel's shapes.
+Every call records its cost (``repro_torch.roofline.cost.update_cost``) in
+a counting ``CostMode``.  ``launches`` counts kernel launches; ``row_launches``
 counts those of one row (n = 1), the case that replaces ``fused_update_pallas``.
 """
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, load_library
+from repro_torch.roofline.cost import kernel as kernel_cost
+from repro_torch.roofline.cost import update_cost
 
 __all__ = ["fused_update_bank", "fused_update_bank_plain", "launches",
            "row_launches"]
@@ -57,25 +61,30 @@ def _check_cuda_args(X, V, G, w):
 def fused_update_bank(X, V, G, alpha, eta, w):
     """Returns ``(X', V', Z')``: X' and Z' in X's dtype, V' in float32."""
     global launches, row_launches
-    if X.device.type == "cpu":
-        return fused_update_bank_plain(X, V, G, alpha, eta, w)
-    if X.device.type != "cuda":
+    dev = X.device.type
+    if dev not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no fused_update kernel for device {X.device}")
-    _check_cuda_args(X, V, G, w)
-    lib = load_library()
-    Xo = torch.empty_like(X)
-    Vo = torch.empty_like(V)
-    Zo = torch.empty_like(X)
-    n, d = X.shape
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fused_update_bank_launch(
-            DTYPE_CODES[X.dtype], X.data_ptr(), V.data_ptr(), G.data_ptr(),
-            w.data_ptr(), Xo.data_ptr(), Vo.data_ptr(), Zo.data_ptr(),
-            float(alpha), float(eta), n, d, stream,
-        )
-    check(rc, "fused_update_bank")
-    launches += 1
-    if n == 1:
-        row_launches += 1
-    return Xo, Vo, Zo
+    with kernel_cost("fused_update_bank", lambda: update_cost(
+            *X.shape, X.element_size())):
+        if dev == "cpu":
+            return fused_update_bank_plain(X, V, G, alpha, eta, w)
+        _check_cuda_args(X, V, G, w)
+        Xo = torch.empty_like(X)
+        Vo = torch.empty_like(V)
+        Zo = torch.empty_like(X)
+        if dev == "meta":  # the outputs' shapes, no computation
+            return Xo, Vo, Zo
+        lib = load_library()
+        n, d = X.shape
+        with torch.cuda.device(X.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.fused_update_bank_launch(
+                DTYPE_CODES[X.dtype], X.data_ptr(), V.data_ptr(), G.data_ptr(),
+                w.data_ptr(), Xo.data_ptr(), Vo.data_ptr(), Zo.data_ptr(),
+                float(alpha), float(eta), n, d, stream,
+            )
+        check(rc, "fused_update_bank")
+        launches += 1
+        if n == 1:
+            row_launches += 1
+        return Xo, Vo, Zo

@@ -24,10 +24,12 @@ port's neighbor-list builders guarantee by construction.
 
 ``gossip_gather`` is the wrapper: a CPU tensor goes to
 :func:`gossip_gather_plain`; a CUDA tensor goes to the kernel, or the
-wrapper raises.  ``launches`` counts kernel launches.  The lists may name
-m receivers over n source rows (``idx`` and ``wgt`` (m, k_max), ``X`` (n,
-D), ``Y`` (m, D)): a row-sharded bank's own receivers over the gathered
-bank or over its rows and their halo.
+wrapper raises; a meta tensor gets an empty output of the kernel's shape.
+``launches`` counts kernel launches; every call records its cost
+(``repro_torch.roofline.cost.gather_cost``) in a counting ``CostMode``.
+The lists may name m receivers over n source rows (``idx`` and ``wgt`` (m,
+k_max), ``X`` (n, D), ``Y`` (m, D)): a row-sharded bank's own receivers
+over the gathered bank or over its rows and their halo.
 
 The row-sharded bank's two executors (the reference's, over
 ``torch.distributed`` in place of ``shard_map`` and GSPMD) both end in that
@@ -42,6 +44,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, load_library
+from repro_torch.roofline.cost import gather_cost
+from repro_torch.roofline.cost import kernel as kernel_cost
 
 __all__ = ["gossip_gather", "gossip_gather_plain", "gossip_gather_xla",
            "gossip_gather_halo", "launches"]
@@ -62,40 +66,46 @@ def gossip_gather_plain(idx, wgt, X):
 
 def gossip_gather(idx, wgt, X):
     global launches
-    if X.device.type == "cpu":
-        return gossip_gather_plain(idx, wgt, X)
-    if X.device.type != "cuda":
+    dev = X.device.type
+    if dev not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no gossip_gather kernel for device {X.device}")
-    if X.dim() != 2 or X.dtype not in DTYPE_CODES:
-        raise ValueError(
-            f"X must be a float32/bfloat16 (n, D) bank, got {X.dtype} "
-            f"{tuple(X.shape)}"
-        )
-    n, d = X.shape
-    if idx.dim() != 2 or idx.shape[0] < 1 or idx.shape[1] < 1:
-        raise ValueError(
-            f"idx must be (m >= 1, k_max >= 1), got {tuple(idx.shape)}"
-        )
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if wgt.shape != idx.shape or wgt.dtype != torch.float32:
-        raise ValueError("wgt must be float32 with idx's shape")
-    for name, t in (("idx", idx), ("wgt", wgt), ("X", X)):
-        if t.device != X.device:
-            raise ValueError(f"{name} is on {t.device}, X on {X.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lib = load_library()
-    m, k_max = idx.shape
-    Y = X.new_empty((m, d))
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    with torch.cuda.device(X.device):
-        rc = lib.gossip_gather_launch(
-            DTYPE_CODES[X.dtype], idx.data_ptr(), wgt.data_ptr(),
-            X.data_ptr(), Y.data_ptr(), m, n, k_max, d, stream)
-    check(rc, "gossip_gather")
-    launches += 1
-    return Y
+    with kernel_cost("gossip_gather", lambda: gather_cost(
+            idx.shape[0], X.shape[0], idx.shape[1], X.shape[1],
+            X.element_size())):
+        if dev == "cpu":
+            return gossip_gather_plain(idx, wgt, X)
+        if X.dim() != 2 or X.dtype not in DTYPE_CODES:
+            raise ValueError(
+                f"X must be a float32/bfloat16 (n, D) bank, got {X.dtype} "
+                f"{tuple(X.shape)}"
+            )
+        n, d = X.shape
+        if idx.dim() != 2 or idx.shape[0] < 1 or idx.shape[1] < 1:
+            raise ValueError(
+                f"idx must be (m >= 1, k_max >= 1), got {tuple(idx.shape)}"
+            )
+        if idx.dtype != torch.int32:
+            raise TypeError(f"idx must be int32, got {idx.dtype}")
+        if wgt.shape != idx.shape or wgt.dtype != torch.float32:
+            raise ValueError("wgt must be float32 with idx's shape")
+        for name, t in (("idx", idx), ("wgt", wgt), ("X", X)):
+            if t.device != X.device:
+                raise ValueError(f"{name} is on {t.device}, X on {X.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        m, k_max = idx.shape
+        Y = X.new_empty((m, d))
+        if dev == "meta":  # the output's shape, no computation
+            return Y
+        lib = load_library()
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        with torch.cuda.device(X.device):
+            rc = lib.gossip_gather_launch(
+                DTYPE_CODES[X.dtype], idx.data_ptr(), wgt.data_ptr(),
+                X.data_ptr(), Y.data_ptr(), m, n, k_max, d, stream)
+        check(rc, "gossip_gather")
+        launches += 1
+        return Y
 
 
 def gossip_gather_xla(idx, wgt, X, shard=None):

@@ -21,13 +21,17 @@ mix's rows bit for bit.
 
 ``gossip_matmul`` is the wrapper: a CPU tensor goes to
 :func:`gossip_matmul_plain`; a CUDA tensor goes to the kernel, or the
-wrapper raises.  ``launches`` counts kernel launches.
+wrapper raises; a meta tensor gets an empty output of the kernel's shape.
+``launches`` counts kernel launches; every call records its cost
+(``repro_torch.roofline.cost.dense_mix_cost``) in a counting ``CostMode``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, load_library
+from repro_torch.roofline.cost import dense_mix_cost
+from repro_torch.roofline.cost import kernel as kernel_cost
 
 __all__ = ["gossip_matmul", "gossip_matmul_plain", "launches"]
 
@@ -41,32 +45,37 @@ def gossip_matmul_plain(P, X):
 
 def gossip_matmul(P, X):
     global launches
-    if X.device.type == "cpu":
-        return gossip_matmul_plain(P, X)
-    if X.device.type != "cuda":
+    dev = X.device.type
+    if dev not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no gossip_matmul kernel for device {X.device}")
-    if X.dim() != 2 or X.dtype not in DTYPE_CODES:
-        raise ValueError(
-            f"X must be a float32/bfloat16 (n, D) bank, got {X.dtype} "
-            f"{tuple(X.shape)}"
-        )
-    n, d = X.shape
-    if (P.dim() != 2 or P.shape[1] != n or P.shape[0] < 1
-            or P.dtype != torch.float32):
-        raise ValueError(f"P must be float32 of shape (m, {n}), got "
-                         f"{P.dtype} {tuple(P.shape)}")
-    if P.device != X.device:
-        raise ValueError(f"P is on {P.device}, X on {X.device}")
-    if not (P.is_contiguous() and X.is_contiguous()):
-        raise ValueError("P and X must be contiguous")
-    lib = load_library()
-    m = P.shape[0]
-    Y = X.new_empty((m, d))
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    with torch.cuda.device(X.device):
-        rc = lib.gossip_matmul_launch(
-            DTYPE_CODES[X.dtype], P.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            m, n, d, stream)
-    check(rc, "gossip_matmul")
-    launches += 1
-    return Y
+    with kernel_cost("gossip_matmul", lambda: dense_mix_cost(
+            P.shape[0], *X.shape, X.element_size())):
+        if dev == "cpu":
+            return gossip_matmul_plain(P, X)
+        if X.dim() != 2 or X.dtype not in DTYPE_CODES:
+            raise ValueError(
+                f"X must be a float32/bfloat16 (n, D) bank, got {X.dtype} "
+                f"{tuple(X.shape)}"
+            )
+        n, d = X.shape
+        if (P.dim() != 2 or P.shape[1] != n or P.shape[0] < 1
+                or P.dtype != torch.float32):
+            raise ValueError(f"P must be float32 of shape (m, {n}), got "
+                             f"{P.dtype} {tuple(P.shape)}")
+        if P.device != X.device:
+            raise ValueError(f"P is on {P.device}, X on {X.device}")
+        if not (P.is_contiguous() and X.is_contiguous()):
+            raise ValueError("P and X must be contiguous")
+        m = P.shape[0]
+        Y = X.new_empty((m, d))
+        if dev == "meta":  # the output's shape, no computation
+            return Y
+        lib = load_library()
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        with torch.cuda.device(X.device):
+            rc = lib.gossip_matmul_launch(
+                DTYPE_CODES[X.dtype], P.data_ptr(), X.data_ptr(), Y.data_ptr(),
+                m, n, d, stream)
+        check(rc, "gossip_matmul")
+        launches += 1
+        return Y

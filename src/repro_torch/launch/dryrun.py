@@ -1,0 +1,547 @@
+"""Dry-run: the cost of every (arch x input shape x mesh), counted on the meta
+device — the port of ``repro.launch.dryrun``.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh card,single,multi
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-12b \\
+      --shape train_4k --mesh card
+
+The reference lowers and compiles each step for the TPU production mesh on
+``ShapeDtypeStruct`` stand-ins.  Here the stand-ins are meta tensors (shapes
+and dtypes, no memory), and the port's own step functions run on them once
+under ``repro_torch.roofline.cost.CostMode``, which counts every operator
+and every hand-written kernel's record: the train step
+(``launch.steps.make_train_step``), the pods-as-clients round step over the
+``pod`` axis (``make_round_step``, the ``multi`` mesh's train record),
+``forward`` (prefill) and the serve step (decode).  The port runs eagerly
+and counts every layer, so it traces once: the reference's second lowering
+and its extrapolation over the layer loop's trip count are not needed.
+One trace per (arch, shape, step function) serves every mesh that runs that
+step; ``compile_s`` is its time.
+
+Meshes:
+
+- ``card``: one H100, nothing placed; the whole step's cost, the only
+  record a card can check (``chip_smoke.py`` phase 19 does).
+- ``single`` and ``multi``: the reference's production meshes (16 x 16 and
+  2 x 16 x 16, ``launch.mesh.make_production_mesh``).  The argument bytes
+  a device holds are exact, from ``launch.sharding.spec_for`` of every
+  parameter, cache and batch leaf (with :func:`_pod_spec` and
+  :func:`_model_axes` as the reference's).  FLOPs, bytes and temporaries
+  are the whole step's divided by the chip count (``"per_device":
+  "ideal"``): a lower bound of the reference's per-device counts.  The
+  collectives come from the placement and the pod plan
+  (``roofline.analysis``'s four rules).
+
+Records take the reference's keys, against the H100's constants
+(``launch.mesh.HARDWARE``); those that cannot run are marked ``skip`` as in
+the reference, and a trace that raises is written with ``status: "error"``
+and its traceback (the CLI then exits non-zero).  No card is needed.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import json
+import math
+import os
+import sys
+import time
+import traceback
+
+import torch
+
+from repro_torch.configs.base import INPUT_SHAPES, InputShape
+from repro_torch.configs.registry import (
+    ARCH_IDS,
+    get_config,
+    input_specs,
+    make_batch,
+)
+from repro_torch.launch import sharding as shlib
+from repro_torch.launch.mesh import HARDWARE, make_production_mesh
+from repro_torch.launch.steps import (
+    StepConfig,
+    make_round_step,
+    make_serve_step,
+    make_train_step,
+    pod_comm_plan,
+    pod_mixing_matrix,
+)
+from repro_torch.models.pdefs import (
+    _map_sorted,
+    abstract_tree,
+    init_tree,
+    tree_num_params,
+)
+from repro_torch.models.registry import get_model_api
+from repro_torch.roofline.analysis import (
+    CollectiveStats,
+    expert_collectives,
+    fsdp_collectives,
+    model_flops,
+    pod_collectives,
+    roofline_terms,
+    tensor_parallel_collectives,
+)
+from repro_torch.roofline.cost import CostMode
+
+__all__ = ["MESHES", "param_counts", "run_one", "step_args",
+           "step_model_flops", "trace", "main"]
+
+DEFAULT_OUT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                           "experiments", "dryrun_torch")
+MESHES = ("card", "single", "multi")
+N_PODS = make_production_mesh(multi_pod=True).shape["pod"]  # the round's pods
+
+
+def _skip_reason(cfg, shape) -> str | None:
+    if shape.kind == "decode":
+        if not cfg.supports_decode():
+            return "encoder-only architecture: no autoregressive decode"
+        if shape.name == "long_500k" and not cfg.supports_long_context():
+            return "pure full-attention arch: long_500k needs sub-quadratic decode"
+    return None
+
+
+def _pod_spec(spec: tuple, batch_dims: tuple, shape_tuple: tuple,
+              n_pods: int) -> tuple:
+    """Widen a single-pod spec: shard batch over ("pod","data") when it
+    divides; leave everything else untouched (=> replicated over pod)."""
+    if n_pods <= 1:
+        return tuple(spec)
+    out = list(spec) + [None] * (len(shape_tuple) - len(spec))
+    for i in batch_dims:
+        if out[i] == "data" and shape_tuple[i] % (16 * n_pods) == 0:
+            out[i] = ("pod", "data")
+    return tuple(out)
+
+
+def _model_axes(cfg):
+    if cfg.attn_fallback == "replicate":
+        return tuple(a for a in shlib.MODEL_AXES if a != "head_dim")
+    return shlib.MODEL_AXES
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+# -- placement on a production mesh -------------------------------------------
+# Each returns {path: (shape, dtype, spec)} for one argument of the step, as
+# the reference places it.
+
+def _abstract_params(api, mesh, multi_pod: bool, replicate_pods: bool) -> dict:
+    n_pods = mesh.shape.get("pod", 1)
+    maxes = _model_axes(api.cfg)
+    out = {}
+    for path, d in _leaves(api.param_defs()):
+        spec = shlib.spec_for(d, mesh, fsdp=api.cfg.fsdp, model_axes=maxes)
+        if multi_pod and not replicate_pods:  # a leading replica axis
+            out[path] = ((n_pods,) + d.shape, d.dtype, ("pod",) + spec)
+        else:
+            out[path] = (d.shape, d.dtype, spec)
+    return out
+
+
+def _abstract_batch(cfg, shape, mesh, multi_pod: bool, stacked: bool) -> dict:
+    """The train / prefill batch; for the multi-pod round stacked as
+    (n_pods, K=1, local_batch, ...)."""
+    n_pods = mesh.shape.get("pod", 1)
+    out = {}
+    for name, t in input_specs(cfg, shape).items():
+        sh = tuple(t.shape)
+        spec = ("data" if sh[0] % 16 == 0 else None,) + (None,) * (len(sh) - 1)
+        if multi_pod and stacked:
+            local = (sh[0] // n_pods,) + sh[1:]
+            out[(name,)] = ((n_pods, 1) + local, t.dtype,
+                            ("pod", None, "data" if local[0] % 16 == 0
+                             else None) + (None,) * (len(sh) - 1))
+        elif multi_pod:
+            out[(name,)] = (sh, t.dtype, _pod_spec(spec, (0,), sh, n_pods))
+        else:
+            out[(name,)] = (sh, t.dtype, spec)
+    return out
+
+
+def _abstract_cache(api, mesh, batch: int, length: int,
+                    multi_pod: bool) -> dict:
+    n_pods = mesh.shape.get("pod", 1)
+    maxes = _model_axes(api.cfg)
+    seq_shard = api.cfg.serve_cache_shard == "seq"
+    out = {}
+    for path, d in _leaves(api.cache_defs(batch, length)):
+        if seq_shard and "seq" in d.axes:
+            # distributed flash-decode layout: batch->data, seq->model
+            spec = tuple("data" if a == "batch" and n % 16 == 0
+                         else "model" if a == "seq" and n % 16 == 0
+                         else None for a, n in zip(d.axes, d.shape))
+        else:
+            spec = shlib.spec_for(d, mesh, fsdp=False, model_axes=maxes)
+        if multi_pod:
+            bdims = tuple(i for i, a in enumerate(d.axes) if a == "batch")
+            spec = _pod_spec(spec, bdims, d.shape, n_pods)
+        out[path] = (d.shape, d.dtype, spec)
+    return out
+
+
+def _placed_args(api, shape, mesh, multi: bool) -> list:
+    """Every argument of the step the reference lowers for this
+    combination, each as {path: (shape, dtype, spec)}."""
+    cfg = api.cfg
+    f32 = torch.float32
+    if shape.kind == "train" and multi:
+        n_pods = mesh.shape["pod"]
+        params = _abstract_params(api, mesh, True, replicate_pods=False)
+        return [params, params, {(): ((n_pods,), f32, ("pod",))},
+                _abstract_batch(cfg, shape, mesh, True, stacked=True),
+                {(): ((n_pods, n_pods), f32, ())}]
+    if shape.kind == "train":
+        params = _abstract_params(api, mesh, False, False)
+        return [params, params, {(): ((), f32, ())},
+                _abstract_batch(cfg, shape, mesh, False, stacked=False)]
+    params = _abstract_params(api, mesh, multi, replicate_pods=True)
+    if shape.kind == "prefill":
+        return [params, _abstract_batch(cfg, shape, mesh, multi,
+                                        stacked=False)]
+    b = shape.global_batch
+    toks = _pod_spec(("data" if b % 16 == 0 else None,), (0,), (b,),
+                     mesh.shape.get("pod", 1))
+    return [params, _abstract_cache(api, mesh, b, shape.seq_len, multi),
+            {(): ((b,), torch.int32, toks)}, {(): ((), torch.int32, ())}]
+
+
+def _device_bytes(args: list, mesh) -> int:
+    """Bytes one device holds of the placed arguments."""
+    return sum(math.prod(shlib.shard_shape(sh, spec, mesh))
+               * torch.empty((), dtype=dt).element_size()
+               for arg in args for sh, dt, spec in arg.values())
+
+
+# -- the collectives of a placement -------------------------------------------
+
+def _blocks(defs: dict) -> list:
+    """The layers' sub-blocks, as (path prefix, layer count): the children
+    of a layer-stacked ``layers`` tree (attention, MLP or experts, hymba's
+    SSM), else the top-level trees of layer-stacked leaves (xlstm's mLSTM
+    and sLSTM blocks)."""
+    root, base = (defs["layers"], ("layers",)) if "layers" in defs else (
+        defs, ())
+    out = []
+    for name in sorted(root):
+        if not isinstance(root[name], dict):
+            continue
+        d = next(leaf for _, leaf in _leaves(root[name]))
+        n = math.prod(s for s, a in zip(d.shape, d.axes) if a == "layers")
+        if "layers" in d.axes:
+            out.append((base + (name,), n))
+    return out
+
+
+def _collectives(api, shape, mesh, multi: bool, placed: list,
+                 passes: int):
+    """The placement's collectives on ``mesh`` (``roofline.analysis``'s four
+    rules) for the step whose arguments ``_placed_args`` placed
+    (``placed``), with ``passes`` gradient passes in a train step."""
+    cfg = api.cfg
+    stats = CollectiveStats()
+    kind = shape.kind
+    params = _abstract_params(api, mesh, False, False)  # one replica
+    data_n = mesh.shape["data"]
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    # FSDP: every leaf placed on "data"
+    blocks = [math.prod(shlib.shard_shape(sh, spec, mesh))
+              * torch.empty((), dtype=dt).element_size()
+              for sh, dt, spec in params.values() if "data" in spec]
+    fsdp_collectives(stats, blocks, data_n, kind, passes)
+    # the device's activations: local batch x S x d_model
+    if kind == "decode":  # the tokens are the third argument
+        sh, _, spec = placed[2][()]
+        local, seq = shlib.shard_shape(sh, spec, mesh)[0], 1
+    else:
+        sh, _, spec = next(iter(placed[3 if kind == "train" else 1].values()))
+        lead = 2 if kind == "train" and multi else 0
+        local, seq = shlib.shard_shape(sh, spec, mesh)[lead], shape.seq_len
+    act = local * seq * cfg.d_model * itemsize
+    on_model = [(path, n) for path, n in _blocks(api.param_defs())
+                if any("model" in spec for p, (_, _, spec) in params.items()
+                       if p[:len(path)] == path)]
+    tensor_parallel_collectives(stats, sum(n for _, n in on_model), act,
+                                kind, passes)
+    # expert dispatch: the blocks whose experts sit on "model"
+    defs = dict(_leaves(api.param_defs()))
+    moe = [n for path, n in on_model
+           if any(p[:len(path)] == path and "expert" in defs[p].axes
+                  and spec[defs[p].axes.index("expert")] == "model"
+                  for p, (_, _, spec) in params.items())]
+    expert_collectives(stats, sum(moe), act * max(cfg.top_k, 1), kind, passes)
+    if kind == "train" and multi:
+        n_pods = mesh.shape["pod"]
+        # the bank's dtype: the leaves' promoted (launch.steps._row_spec)
+        dt = functools.reduce(torch.promote_types,
+                              (d.dtype for _, d in _leaves(api.param_defs())))
+        pod_collectives(stats, pod_comm_plan(n_pods, n_pods),
+                        tree_num_params(api.param_defs()),
+                        torch.empty((), dtype=dt).element_size())
+    return stats
+
+
+# -- the trace ------------------------------------------------------------------
+
+def _step_name(shape, multi: bool) -> str:
+    if shape.kind == "train":
+        return "round_step" if multi else "train_step"
+    return "forward" if shape.kind == "prefill" else "serve_step"
+
+
+def trace(api, shape, step: str, step_cfg=None) -> dict:
+    """Run one step of ``api``'s model at ``shape`` on meta tensors (no
+    memory) under a ``CostMode`` (see :func:`step_args`), and return its
+    ``result()`` with the trace's time (``compile_s``)."""
+    args, run = step_args(api, shape, step, step_cfg)
+    t0 = time.perf_counter()
+    with CostMode(args) as mode:
+        out = run(*args)
+    rec = mode.result(out)
+    rec["compile_s"] = round(time.perf_counter() - t0, 1)
+    return rec
+
+
+def step_args(api, shape, step: str, step_cfg=None, device="meta",
+              seed: int | None = None):
+    """(arguments, function) of one step of ``api``'s model at ``shape``:
+    ``"train_step"`` (params, momentum, the push-sum weight and the
+    batch), ``"round_step"`` (``N_PODS`` replicas stacked on a leading
+    axis, the batch split among them, the pod ring's dense ``P_pod``),
+    ``"forward"`` (params and batch) or ``"serve_step"`` (one token a
+    request against a cache of ``shape.seq_len`` positions, at the last).
+    Without ``seed`` the arguments are empty tensors on ``device``; with
+    one, parameters drawn from it (``init_tree``), batches from
+    ``make_batch``, zero momentum and caches, unit weights: what the card
+    runs."""
+    cfg = api.cfg
+    step_cfg = step_cfg or StepConfig()
+    defs = api.param_defs()
+    real = seed is not None
+    gen = torch.Generator(device=device).manual_seed(seed) if real else None
+
+    def tree(d, lead=()):
+        if lead:
+            d = _map_sorted(lambda p: p._replace(shape=lead + p.shape,
+                                          axes=(None,) * len(lead) + p.axes,
+                                          fan_in=p.fan_in or (
+                                              p.shape[-2] if len(p.shape) > 1
+                                              else p.shape[-1])), d)
+        return init_tree(gen, d, device) if real else abstract_tree(d, device)
+
+    def zeros(t):
+        return _map_sorted(torch.zeros_like if real else (lambda x: x), t)
+
+    def batch_of(b, s):
+        if real:
+            return make_batch(cfg, b, s, seed=seed, device=device)
+        return input_specs(cfg, InputShape(shape.name, s, b, shape.kind),
+                           device)
+
+    empty = torch.ones if real else torch.empty
+    if step == "round_step":
+        n_pods = N_PODS
+        params = tree(defs, (n_pods,))
+        v = zeros(tree(defs, (n_pods,)))
+        w = empty((n_pods,), device=device)
+        batch = {k: x.reshape((n_pods, 1, x.shape[0] // n_pods)
+                              + tuple(x.shape[1:]))
+                 for k, x in batch_of(shape.global_batch,
+                                      shape.seq_len).items()}
+        P = pod_mixing_matrix(n_pods, device=device)
+        fn = make_round_step(api, step_cfg)
+        return (params, v, w, (), (), batch, P), fn
+    params = tree(defs)
+    if step == "train_step":
+        v = zeros(tree(defs))
+        w = empty((), device=device)
+        batch = batch_of(shape.global_batch, shape.seq_len)
+        return (params, v, w, batch), make_train_step(api, step_cfg)
+    if step == "forward":
+        return (params, batch_of(shape.global_batch, shape.seq_len)), api.forward
+    b = shape.global_batch
+    cache = zeros(tree(api.cache_defs(b, shape.seq_len)))
+    toks = (make_batch(cfg, b, 1, seed=seed, device=device)["tokens"][:, 0]
+            .contiguous() if real
+            else torch.empty((b,), dtype=torch.int32, device=device))
+    serve = make_serve_step(api)
+    return (params, cache, toks), lambda p, c, t: serve(p, c, t,
+                                                        shape.seq_len - 1)
+
+
+def param_counts(api) -> tuple[int, int]:
+    """(parameters, parameters active a token): a MoE layer's inactive
+    experts (``n_experts - top_k`` of ``3 d_model d_ff`` each) left out."""
+    cfg = api.cfg
+    n_params = tree_num_params(api.param_defs())
+    if cfg.n_experts:
+        per_layer = 3 * cfg.d_model * cfg.d_ff
+        return n_params, n_params - cfg.n_layers * (
+            cfg.n_experts - cfg.top_k) * per_layer
+    return n_params, n_params
+
+
+def step_model_flops(active: int, shape) -> float:
+    """6ND for a train shape, 2ND for a forward or decode step, over the
+    shape's tokens (one a request for decode)."""
+    tokens = shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len)
+    return model_flops(active, tokens,
+                       "train" if shape.kind == "train" else "fwd")
+
+
+def run_one(arch: str, shape, mesh_kind: str, step_cfg=None,
+            overrides: dict = None, smoke: bool = False,
+            traces: dict = None) -> dict:
+    """One record: ``arch`` (reduced with ``smoke``) at ``shape`` (an
+    ``INPUT_SHAPES`` name or an ``InputShape``) on ``mesh_kind`` (``card``,
+    ``single`` or ``multi``).  ``traces`` caches the step traces by (arch,
+    shape, step) across calls, so that meshes running the same step share
+    one."""
+    base_cfg = get_config(arch, smoke=smoke)
+    if overrides:
+        base_cfg = dataclasses.replace(base_cfg, **overrides)
+    shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
+    rec = {"arch": arch, "shape": shape.name, "mesh": mesh_kind,
+           "kind": shape.kind, "status": "ok"}
+    reason = _skip_reason(base_cfg, shape)
+    if reason:
+        rec.update(status="skip", reason=reason)
+        return rec
+    if mesh_kind not in MESHES:
+        raise ValueError(f"unknown mesh {mesh_kind!r}; choose from {MESHES}")
+    step_cfg = step_cfg or StepConfig()
+    cfg = base_cfg
+    api = get_model_api(cfg)
+    multi = mesh_kind == "multi"
+    step = _step_name(shape, multi)
+    traces = {} if traces is None else traces
+    key = (arch, shape, step)
+    if key not in traces:
+        traces[key] = trace(api, shape, step, step_cfg)
+    cost = traces[key]
+    passes = 2 if step_cfg.rho > 0 else 1
+    if mesh_kind == "card":
+        n_chips, coll = 1, CollectiveStats()
+        mem = dict(cost["memory"])
+    else:
+        mesh = make_production_mesh(multi_pod=multi)
+        n_chips = mesh.size
+        placed = _placed_args(api, shape, mesh, multi)
+        coll = _collectives(api, shape, mesh, multi, placed, passes)
+        mem = {k: v / n_chips for k, v in cost["memory"].items()}
+        mem["argument"] = _device_bytes(placed, mesh)
+        mem["peak_estimate"] = mem["argument"] + mem["temp"]
+    terms = roofline_terms({"flops": cost["flops"] / n_chips,
+                            "bytes accessed": cost["bytes accessed"] / n_chips},
+                           coll)
+
+    n_params, active = param_counts(api)
+    mf = step_model_flops(active, shape)
+    total = terms["flops_per_device"] * n_chips
+    rec.update(
+        compile_s=cost["compile_s"],
+        step=step,
+        n_chips=n_chips,
+        n_params=n_params,
+        n_params_active=active,
+        bytes_per_device=mem,
+        per_device="whole step" if mesh_kind == "card" else "ideal",
+        roofline=terms,
+        collectives={"bytes": coll.bytes_by_kind, "count": coll.count_by_kind},
+        model_flops=mf,
+        useful_flops_ratio=(mf / total) if total else None,
+        cost={k: cost[k] for k in ("flops", "bytes accessed", "aten_flops",
+                                   "aten_bytes", "aten_ops")},
+        kernels=cost["kernels"],
+        hbm_bytes=HARDWARE["hbm_bytes"],
+    )
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, help="arch id or comma list")
+    ap.add_argument("--shape", default=None, help="shape name or comma list")
+    ap.add_argument("--mesh", default="single,multi")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=os.environ.get("DRYRUN_OUT", DEFAULT_OUT))
+    ap.add_argument("--set", default=None, dest="overrides",
+                    help="cfg overrides for perf variants, e.g. "
+                         "attn_fallback=replicate,fsdp=false")
+    ap.add_argument("--tag", default=None, help="suffix for variant records")
+    args = ap.parse_args(argv)
+
+    overrides = {}
+    step_overrides = {}
+    if args.overrides:
+        for kv in args.overrides.split(","):
+            k, v = kv.split("=")
+            if v.lower() in ("true", "false"):
+                v = v.lower() == "true"
+            elif v.replace(".", "", 1).isdigit():
+                v = float(v) if "." in v else int(v)
+            if k in ("microbatches", "lr", "alpha", "rho", "local_steps"):
+                step_overrides[k] = v
+            else:
+                overrides[k] = v
+    step_cfg = StepConfig(**step_overrides) if step_overrides else None
+
+    archs = list(ARCH_IDS) if (args.all or not args.arch) else args.arch.split(",")
+    shapes = (list(INPUT_SHAPES) if (args.all or not args.shape)
+              else args.shape.split(","))
+    meshes = args.mesh.split(",")
+    os.makedirs(args.out, exist_ok=True)
+
+    errors = 0
+    for arch in archs:
+        for shape in shapes:
+            traces = {}  # the meshes of one (arch, shape) share its traces
+            for mesh_kind in meshes:
+                tag = f"{arch}__{shape}__{mesh_kind}"
+                if args.tag:
+                    tag += f"__{args.tag}"
+                path = os.path.join(args.out, tag + ".json")
+                if os.path.exists(path):
+                    print(f"[dryrun] {tag}: cached", flush=True)
+                    continue
+                print(f"[dryrun] {tag}: tracing...", flush=True)
+                try:
+                    rec = run_one(arch, shape, mesh_kind, step_cfg=step_cfg,
+                                  overrides=overrides or None, traces=traces)
+                except Exception as e:  # record failures — they are bugs
+                    rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                           "variant": args.tag,
+                           "status": "error", "error": f"{type(e).__name__}: {e}",
+                           "traceback": traceback.format_exc()[-2000:]}
+                if args.tag:
+                    rec["variant"] = args.tag
+                    rec["overrides"] = {**overrides, **step_overrides}
+                with open(path, "w") as f:
+                    json.dump(rec, f, indent=1)
+                status = rec["status"]
+                extra = ""
+                if status == "ok":
+                    r = rec["roofline"]
+                    extra = (f" bottleneck={r['bottleneck']}"
+                             f" tc={r['t_compute_s']:.3e}"
+                             f" tm={r['t_memory_s']:.3e}"
+                             f" tx={r['t_collective_s']:.3e}"
+                             f" trace={rec['compile_s']}s")
+                elif status == "error":
+                    errors += 1
+                    extra = " " + rec["error"][:160]
+                print(f"[dryrun] {tag}: {status}{extra}", flush=True)
+    return 1 if errors else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,17 +8,75 @@ one process a shard.  Nothing on the card's machine tells a process of a
 cluster, so :func:`init_clients_world` starts the process group itself from
 an explicit address, world size and rank: NCCL on CUDA, gloo when the caller
 asks for the CPU (as the tests do).  There is no fallback from one to the
-other.  ``make_host_mesh``, ``make_production_mesh`` and ``HARDWARE`` place
-model parameters on the pod mesh and wait for ROADMAP items 14 and 13.7.
+other.
+
+:func:`make_production_mesh` returns the reference's production meshes
+(``(data, model)`` 16 x 16; ``(pod, data, model)`` 2 x 16 x 16) as an
+:class:`AbstractMesh`: axis names and sizes, no devices.  A live mesh of 256
+or 512 ranks cannot be built on one card; the dry-run
+(``repro_torch.launch.dryrun``) only reads the axes to place parameters
+(``launch.sharding.spec_for``).  ``HARDWARE`` holds the H100 SXM constants
+of the roofline (``repro_torch.roofline``).  ``make_host_mesh``, which
+places a live model across cards, waits for the pod runtime (ROADMAP item
+13.7).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["CLIENTS", "init_clients_world", "close_clients_world",
-           "make_clients_mesh", "mesh_axis_names", "mesh_axis_size"]
+__all__ = ["CLIENTS", "HARDWARE", "AbstractMesh", "card_hardware",
+           "init_clients_world", "close_clients_world", "make_clients_mesh",
+           "make_production_mesh", "mesh_axis_names", "mesh_axis_size"]
 
 CLIENTS = "clients"
+
+# NVIDIA H100 SXM constants of the roofline (NVIDIA's data sheet, dense
+# rates, 700 W).  ``link_bw`` is one direction of NVLink 4 (900 GB/s both
+# ways) and takes the place of the reference's ``ici_bw``: a 16-wide model
+# axis spans two 8-card nodes, whose links are slower, so the collective
+# term is a lower bound there.  ``hbm_bytes`` is the data sheet's 80 GB;
+# :func:`card_hardware` reads it from the card.
+HARDWARE = {
+    "chip": "h100-sxm",
+    "peak_flops_bf16": 989e12,  # FLOP/s, dense, on the tensor cores
+    "peak_flops_f32": 67e12,  # FLOP/s outside the tensor cores
+    "hbm_bw": 3.35e12,  # B/s
+    "link_bw": 450e9,  # B/s, NVLink 4, one direction
+    "hbm_bytes": 80 * 10 ** 9,
+}
+
+
+def card_hardware(device=0) -> dict:
+    """``HARDWARE`` with ``hbm_bytes`` read from the card
+    (``torch.cuda.get_device_properties``); raises without one."""
+    props = torch.cuda.get_device_properties(device)
+    return {**HARDWARE, "chip": props.name, "hbm_bytes": props.total_memory}
+
+
+class AbstractMesh(NamedTuple):
+    """A mesh by its axes alone: ``axis_names`` and ``shape`` (axis name ->
+    size), as the reference's ``jax`` meshes expose them."""
+
+    axis_names: tuple
+    shape: dict
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for name in self.axis_names:
+            n *= self.shape[name]
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production mesh: ``(data, model)`` 16 x 16, or with
+    ``multi_pod`` ``(pod, data, model)`` 2 x 16 x 16 (the ``pod`` axis is
+    the DFL client axis: each pod holds one push-sum replica)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(axes, dict(zip(axes, shape)))
 
 
 def mesh_axis_names(mesh) -> tuple:

@@ -1,5 +1,16 @@
-"""Row sharding of the flat client bank — the port of
-``repro.launch.sharding.bank_row_pins``.
+"""Placement on a mesh — the port of ``repro.launch.sharding``: the
+logical-axis rules of model parameters and caches (``spec_for``,
+``sharding_for``, ``use_mesh``), and the row sharding of the flat client
+bank (``bank_row_pins``).
+
+Models declare *logical* axes ("heads", "mlp", "embed", "batch", ...);
+:func:`spec_for` maps them onto the mesh axes ("data", "model"[, "pod"])
+exactly as the reference does, as a tuple of the ``PartitionSpec``'s
+entries.  The port runs a model on one card, so nothing places it yet: the
+dry-run (``repro_torch.launch.dryrun``) reads the specs to count each
+device's bytes and collectives on the reference's production meshes.
+``constrain`` and ``in_manual_region``, which place activations of a model
+running across cards, wait for the pod runtime (ROADMAP item 13.7).
 
 The reference pins every bank-row leaf of its one GSPMD program to the mesh
 axis with sharding constraints.  The port's sharded round is SPMD over
@@ -7,15 +18,126 @@ axis with sharding constraints.  The port's sharded round is SPMD over
 ``[lo, lo + m)`` of every bank-row leaf (params, momentum, w, losses, the
 EF residual, the link buffers, the churn liveness), and :class:`RowShard` is
 the one object that knows which — it slices a whole leaf to the rank's
-rows and gathers the rows of every rank back into a whole leaf.  The
-placement of model parameters (``spec_for``, ``sharding_for``,
-``use_mesh``, ``constrain``) waits for ROADMAP item 14.
+rows and gathers the rows of every rank back into a whole leaf.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 
-__all__ = ["RowShard", "bank_row_pins", "check_row_mesh"]
+__all__ = ["MODEL_AXES", "FSDP_AXES", "ACT_RULES", "use_mesh", "active_mesh",
+           "spec_for", "sharding_for", "shard_shape", "RowShard",
+           "bank_row_pins", "check_row_mesh"]
+
+# Logical axes eligible for tensor/expert parallelism, in priority order —
+# the *first* divisible dim of a param gets the "model" mesh axis.
+MODEL_AXES = ("expert", "vocab", "heads", "kv_heads", "mlp", "head_dim",
+              "ssm_inner")
+# Logical axes eligible for FSDP-style sharding over "data".
+FSDP_AXES = ("embed", "ffpar", "frontend", "rank")
+# Activation logical names -> mesh axes (the reference's ``constrain``
+# rules; kept for the pod runtime).
+ACT_RULES = {
+    "batch": "data",
+    "expert": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "vocab": "model",
+    "head_dim": "head_dim_fallback",  # only used when heads were replicated
+    "ssm_inner": "model",
+    "seq": None,
+    "embed": None,
+}
+
+_STATE: list = []  # stack of (mesh, fsdp: bool)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, fsdp: bool = True):
+    """Make ``mesh`` (and its FSDP choice) the active one inside the block:
+    :func:`sharding_for` without a mesh reads it."""
+    _STATE.append((mesh, fsdp))
+    try:
+        yield mesh
+    finally:
+        _STATE.pop()
+
+
+def active_mesh():
+    return _STATE[-1][0] if _STATE else None
+
+
+def _axis_size(mesh, name: str) -> int:
+    from repro_torch.launch.mesh import mesh_axis_names, mesh_axis_size
+
+    return mesh_axis_size(mesh, name) if name in mesh_axis_names(mesh) else 0
+
+
+def spec_for(pdef, mesh, fsdp: bool = True, model_axes: tuple = None) -> tuple:
+    """A parameter's (or cache's) ``PDef`` -> its ``PartitionSpec``
+    entries, one mesh axis name or ``None`` per dim.
+
+    At most one dim is sharded over "model" (first divisible logical axis in
+    ``model_axes`` priority) and, when ``fsdp``, one over "data"; a cache's
+    batch dim takes "data" first, and a long cache whose batch does not
+    divide shards its sequence instead."""
+    model_axes = MODEL_AXES if model_axes is None else model_axes
+    model_n = _axis_size(mesh, "model")
+    data_n = _axis_size(mesh, "data")
+    spec: list = [None] * len(pdef.shape)
+
+    def place(mesh_axis, mesh_n, candidates):
+        if not mesh_n or mesh_axis in spec:
+            return
+        for logical in candidates:
+            for i, (dim, name) in enumerate(zip(pdef.shape, pdef.axes)):
+                if name == logical and spec[i] is None and dim % mesh_n == 0:
+                    spec[i] = mesh_axis
+                    return
+
+    place("model", model_n, model_axes)
+    # caches/activations: batch rides on "data" (takes priority over FSDP)
+    place("data", data_n, ("batch",))
+    if fsdp:
+        place("data", data_n, FSDP_AXES)
+    # long-context caches with unshardable batch: shard the sequence dim
+    place("data", data_n, ("seq",))
+    return tuple(spec)
+
+
+def shard_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """One device's block of a ``shape`` placed by ``spec`` on ``mesh``: a
+    dim on a mesh axis (or a tuple of axes) divided by its size."""
+    out = []
+    for i, dim in enumerate(shape):
+        axes = spec[i] if i < len(spec) else None
+        axes = () if axes is None else (axes,) if isinstance(axes, str) else axes
+        out.append(dim // math.prod(_axis_size(mesh, a) for a in axes))
+    return tuple(out)
+
+
+def sharding_for(pdef, mesh=None, fsdp: bool = None):
+    """Where ``pdef`` goes on ``mesh`` (default: the active one, ``None``
+    without one): on a live ``DeviceMesh`` the DTensor placements, one per
+    mesh dim (``Shard(i)`` for the dim :func:`spec_for` puts on it, else
+    ``Replicate()``); on an abstract mesh (axis names and sizes) the shape
+    of one device's shard."""
+    if mesh is None:
+        if not _STATE:
+            return None
+        mesh, fsdp_active = _STATE[-1]
+        fsdp = fsdp_active if fsdp is None else fsdp
+    spec = spec_for(pdef, mesh, True if fsdp is None else fsdp)
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return shard_shape(pdef.shape, spec, mesh)
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(spec.index(name)) if name in spec else Replicate()
+                 for name in names)
 
 
 def check_row_mesh(mesh, axis: str, n: int) -> int:

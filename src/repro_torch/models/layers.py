@@ -1,7 +1,7 @@
 """Shared model layers: norms, rotary and sinusoidal positions, loss — the
 port of ``repro.models.layers``.  ``shard_act`` is the identity: placing
-activations on a model mesh (``spec_for`` and ``constrain``) waits for
-ROADMAP item 14."""
+activations on a model mesh (the reference's ``constrain``) waits for the
+pod runtime, ROADMAP item 13.7."""
 from __future__ import annotations
 
 import torch

@@ -89,15 +89,23 @@ def _router_probs(p, x, cfg: ArchConfig):
     return w, sel, probs
 
 
+def _one_hot(sel, e: int):
+    """``F.one_hot(sel, e)`` as floats, by one comparison with ``arange(e)``:
+    the same operators on every device (``F.one_hot`` checks its range with a
+    host read and scatters on the CPU, scatters on CUDA and compares on
+    meta), so a meta trace counts what the card runs."""
+    return (sel[..., None] == torch.arange(e, device=sel.device)).float()
+
+
 def _aux_loss(sel, probs, cfg: ArchConfig, lanes: bool = False):
     """E * sum_e(frac_e * imp_e): frac counts every assignment, dropped or
     not; imp is the mean router probability.  With lanes, one per batch
     row, ``(B,)``."""
     e = cfg.n_experts
     if lanes:
-        frac = F.one_hot(sel, e).float().mean((1, 2))
+        frac = _one_hot(sel, e).mean((1, 2))
         return e * (frac * probs.mean(1)).sum(-1)
-    frac = F.one_hot(sel, e).float().mean((0, 1, 2))
+    frac = _one_hot(sel, e).mean((0, 1, 2))
     imp = probs.mean((0, 1))
     return e * (frac * imp).sum()
 
@@ -105,7 +113,7 @@ def _aux_loss(sel, probs, cfg: ArchConfig, lanes: bool = False):
 def _moe_dense(p, x, w, sel, cfg: ArchConfig, lanes: bool = False):
     """Exact reference: every expert on every token, mask-combined."""
     e = cfg.n_experts
-    gates = (F.one_hot(sel, e).float() * w[..., None]).sum(2)  # (B,S,E)
+    gates = (_one_hot(sel, e) * w[..., None]).sum(2)  # (B,S,E)
     ln = "b" if lanes else ""
     h = torch.einsum(f"bsd,{ln}edf->bsef", x, p["wi"])
     g = torch.einsum(f"bsd,{ln}edf->bsef", x, p["wg"])

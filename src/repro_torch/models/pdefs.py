@@ -1,9 +1,11 @@
 """Parameter definitions — the port of ``repro.models.pdefs``.
 
 Every model declares its parameters (and KV caches) as a nested dict of
-``PDef``: shape, per-dim logical axis names, dtype and init spec.  The axis
-names are kept for placing parameters on a mesh (``spec_for``, ROADMAP item
-14); on one device nothing reads them.
+``PDef``: shape, per-dim logical axis names, dtype and init spec.  From one
+declaration come real parameters (:func:`init_tree`) and meta tensors
+(:func:`abstract_tree`: shapes and dtypes, no allocation, the dry-run's
+stand-ins); the axis names place them on a mesh
+(``repro_torch.launch.sharding.spec_for``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["PDef", "init_tree", "tree_num_params"]
+__all__ = ["PDef", "init_tree", "abstract_tree", "tree_num_params"]
 
 # At most this many values are drawn at once: a full-width leaf (gemma3-12b's
 # stacked ``wi`` holds 2.83e9) is filled slice by slice, so no f32 temporary
@@ -62,6 +64,14 @@ def init_tree(gen: torch.Generator, defs, device=None) -> dict:
         return out
 
     return _map_sorted(make, defs)
+
+
+def abstract_tree(defs, device="meta") -> dict:
+    """Empty tensors of every ``PDef``'s shape and dtype on ``device`` —
+    on ``meta`` (the default) they hold no memory: the reference's
+    ``ShapeDtypeStruct`` tree."""
+    return _map_sorted(
+        lambda d: torch.empty(d.shape, dtype=d.dtype, device=device), defs)
 
 
 def _map_sorted(fn, tree):

@@ -323,9 +323,32 @@ def test_density_rule_on_cuda_uses_its_own_floor():
     (gg.gossip_gather, lambda t: (t[:, :2].int(), t[:, :2], t)),
 ])
 def test_wrappers_refuse_devices_without_a_kernel(wrapper, args):
-    t = torch.empty((4, 8), device="meta")
+    class Elsewhere:  # a tensor on a device with neither kernel nor plan
+        device = torch.device("xpu")
+
+        def __getitem__(self, _):
+            return self
+
+        def int(self):
+            return self
+
     with pytest.raises(ValueError, match="no .* kernel for device"):
-        wrapper(*args(t))
+        wrapper(*args(Elsewhere()))
+
+
+@pytest.mark.parametrize("wrapper,args,shapes", [
+    (fu.fused_update_bank, lambda t: (t, t, t, 0.9, 0.1,
+                                      t[:, 0].contiguous()), [(4, 8)] * 3),
+    (gm.gossip_matmul, lambda t: (t[:, :4].contiguous(), t), [(4, 8)]),
+    (gg.gossip_gather, lambda t: (t[:, :2].int().contiguous(),
+                                  t[:, :2].contiguous(), t), [(4, 8)]),
+])
+def test_wrappers_give_meta_tensors_the_kernels_outputs(wrapper, args, shapes):
+    t = torch.empty((4, 8), device="meta")
+    out = wrapper(*args(t))
+    out = out if isinstance(out, tuple) else (out,)
+    assert [tuple(o.shape) for o in out] == shapes
+    assert all(o.device.type == "meta" for o in out)
 
 
 def test_wrappers_build_nothing_on_import():
