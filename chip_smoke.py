@@ -1227,6 +1227,9 @@ def counters() -> dict:
             # the backward's calls at hd 80, also counted above
             "flash_attention_backward_hd80": (fa, "backward_head_dim_launches",
                                               80),
+            # and at hd 256 (gemma3-12b)
+            "flash_attention_backward_hd256": (
+                fa, "backward_head_dim_launches", 256),
             "flash_attention_backward_kernels": (fa, "backward_kernel_launches")}
 
 
@@ -2444,6 +2447,9 @@ def personalized(dev, argv=PERSONAL_ARGV) -> dict:
 TRAIN_SHAPE = (1, 32, 2, 4096, 128)
 # gemma3-12b's attention (hd 256, 16 on 8 heads), local and global layers.
 GEMMA_SHAPE = (1, 16, 8, 2048, 256)
+# gemma3-12b's attention in phase 20's training round: 1 x 4096 tokens a
+# pod a step.
+GEMMA_TRAIN_SHAPE = (1, 16, 8, 4096, 256)
 TRAIN_LAYERS = 4  # glm4-9b's 40 layers cut to 4: 2 replicas fit the card
 # Kernels a backward call launches at the training shape: D, dK / dV (a kv
 # head's 16 query heads in 4 runs of 4), the runs' sum, dQ.
@@ -2458,25 +2464,24 @@ HUBERT_TRAIN_SHAPE = (2, 16, 16, 1500, 80)
 # (GQA group 4), causal.
 LLAVA_TRAIN_SHAPE = (1, 32, 8, 5760, 128)
 # The flash backward's kernels, by the name in their mangled symbols.  The
-# tensor-core passes (bf16, hd 64, 80 and 128) live in namespace tc ("2tc"
-# in the symbol); the SIMT passes run f32 at every head dim and bf16 at hd
-# 256.
+# tensor-core passes (bf16, every head dim) live in namespace tc ("2tc" in
+# the symbol); the SIMT passes run f32 at every head dim.
 BWD_KERNELS = ("flash_bwd_stats_kernel", "flash_bwd_prep_kernel",
                "flash_bwd_dkdv_kernel", "flash_bwd_group_sum_kernel",
                "flash_bwd_dq_kernel")
 # Instantiations: the lse pass 2 dtypes x 4 head dims, the prep pass and
-# the group sum 2 dtypes each, the SIMT dK / dV and dQ passes 5 each (f32 x
-# 4, bf16 at 256), the tensor-core dK / dV and dQ passes 3 each (64, 80,
-# 128).
-BWD_INSTANCES = 8 + 2 + 2 + 5 + 5 + 3 + 3
-BWD_TC_INSTANCES = 6
+# the group sum 2 dtypes each, the SIMT dK / dV and dQ passes 4 each (f32 x
+# 4), the tensor-core dK / dV and dQ passes 4 each (64, 80, 128, 256).
+BWD_INSTANCES = 8 + 2 + 2 + 4 + 4 + 4 + 4
+BWD_TC_INSTANCES = 8
 
 
 def backward_build_evidence() -> None:
     """``nvcc -Xptxas -v``'s registers and spills for every instantiation
     of the flash backward's kernels (none may spill), and the count of
     ``HGMMA`` instructions in each one's SASS: every tensor-core (tc)
-    instantiation must hold them, the SIMT ones none."""
+    instantiation must hold them, hd 256's dK / dV and dQ passes included,
+    the SIMT ones none."""
     import re
 
     from repro_torch.kernels import build
@@ -2522,16 +2527,21 @@ def backward_build_evidence() -> None:
           f"{len(tc)} tensor-core backward kernels in the SASS")
     check(all(hgmma[fn] > 0 for fn in tc),
           "a tensor-core backward kernel holds no HGMMA")
+    for kind in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+        check(hgmma.get(f"tc::{kind}<bf16, 256>", 0) > 0,
+              f"no HGMMA in tc::{kind} at hd 256")
     check(all(n == 0 for fn, n in hgmma.items() if fn not in tc),
           "a SIMT backward kernel holds HGMMA")
 
 
 def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
                          hubert=HUBERT_TRAIN_SHAPE, llava=LLAVA_TRAIN_SHAPE,
-                         iters: int = 5) -> tuple:
+                         gemma_train=GEMMA_TRAIN_SHAPE, iters: int = 5) -> tuple:
     """The flash kernels of training against their plain versions on the
     card: at the training shape, at gemma3-12b's shapes (hd 256, window
-    1024 and 0), at hubert-xlarge's training shape (hd 80, non-causal, f32
+    1024 and 0, at S = 2048 and at its training round's 4096; the
+    tensor-core passes in bf16, also at GQA groups 1, 2 and 16 and ragged
+    lengths), at hubert-xlarge's training shape (hd 80, non-causal, f32
     and bf16) and a causal hd 80 shape at GQA group 4, at
     llava-next-mistral-7b's training shape (bf16, group 4, no share
     split), at GQA groups 1, 4 and 16, in f32 and bf16, at edge lengths.
@@ -2549,17 +2559,19 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
     ``o_err`` the forward's tolerance (what the two o's may differ by moves
     D = rowsum(dO o), and with it dq and dk).  The backward's mask fault
     runs the kernel on q, o, dO and lse moved down one row (each row's mask
-    one key late): its dq must miss the tolerance; at hubert's shape (bf16)
-    the fault is a causal mask on the non-causal inputs.  At the training
-    shape two calls on the same inputs must give the same bits.  Each case
+    one key late): its dq must miss the tolerance, at the training shape
+    and at gemma3-12b's; at hubert's shape (bf16) the fault is a causal
+    mask on the non-causal inputs.  At those shapes two calls on the same
+    inputs must give the same bits.  Each case
     prints the kernels one call launched and the dK / dV shares it summed
     (:func:`backward_shares`).  Then its time at the training
-    shape, at gemma3-12b's global layer and at hubert's training shape
-    beside its bound (10 hd FLOP per open pair at the tensor-core peak of
-    its dtype, bytes of q, k, v, o, dO in and dq, dk, dv out), the plain
-    version's and SDPA's backward (``enable_gqa``, the same mask, on the
-    same inputs).  Returns the JSON rows of the training shape and of hd
-    80 (hubert's)."""
+    shape, at gemma3-12b's local and global layers (S = 2048) and global
+    layer at S = 4096, and at hubert's training shape beside its bound (10
+    hd FLOP per open pair at the tensor-core peak of its dtype, bytes of q,
+    k, v, o, dO in and dq, dk, dv out), the plain version's and SDPA's
+    backward (``enable_gqa``, the same mask, on the same inputs).  Returns
+    the JSON rows of the training shape, of hd 80 (hubert's) and of hd 256
+    (gemma3-12b's global layer at S = 2048)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2570,6 +2582,11 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         (shape, bf16, True, 0),  # the training shape
         (gemma, bf16, True, LOCAL_WINDOW),  # gemma3-12b, a local layer
         (gemma, bf16, True, 0),  # and a global one
+        (gemma_train, bf16, True, LOCAL_WINDOW),  # its training round's
+        (gemma_train, bf16, True, 0),
+        ((1, 16, 1, 33, 256), bf16, True, 0),  # hd 256: group 16, ragged
+        ((2, 8, 4, 2049, 256), bf16, True, 0),  # group 2, ragged
+        ((2, 8, 8, 300, 256), bf16, False, 100),  # group 1
         ((2, 8, 8, 1000, 128), bf16, True, 0),  # group 1, ragged
         ((2, 16, 4, 777, 64), f32, False, 100),  # group 4, non-causal
         ((2, 16, 4, 777, 64), bf16, True, 100),
@@ -2591,6 +2608,7 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         return [torch.randn(b, n, s, hd, generator=gen, device=dev).to(dt)
                 for n in (h, kv, kv, h)]
 
+    faults = (shape, gemma, gemma_train)  # mask fault and determinism
     errs = {}
     for shp, dt, causal, win in cases:
         q, k, v, do = inputs(shp, dt)
@@ -2646,7 +2664,7 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         check(max(ratios) <= 1.0,
               f"flash backward disagrees ({shp}, {dt}, {causal}, {win})")
         errs[shp, dt, causal, win] = e
-        if shp == shape:  # the mask fault must miss
+        if shp in faults:  # the mask fault must miss
             roll = [torch.roll(t, 1, 2) for t in (q, o, do, lse)]
             fault = fa.flash_attention_backward(roll[0], k, v, roll[1],
                                                 roll[2], causal, win,
@@ -2723,9 +2741,12 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
         return r
 
     row = timed(shape, 0, "glm4-9b training")  # the JSON rows
-    timed(gemma, 0, "gemma3-12b global layer")
+    timed(gemma, LOCAL_WINDOW, "gemma3-12b local layer")
+    hd256 = timed(gemma, 0, "gemma3-12b global layer")
+    timed(gemma_train, 0, "gemma3-12b training, global layer")
     timed(llava, 0, "llava-next-mistral-7b training")
-    return row, timed(hubert, 0, "hubert-xlarge training", causal=False)
+    return (row, timed(hubert, 0, "hubert-xlarge training", causal=False),
+            hd256)
 
 
 def round_batches(cfg, rounds: int, batch: int, seq: int,
@@ -4135,6 +4156,27 @@ def backward_passes(shape, dt=torch.bfloat16) -> int:
     return 3 + (shares > 1)
 
 
+def backward_symbols(prof) -> dict:
+    """{(pass, hd): launches} of the tensor-core backward's dK / dV and dQ
+    kernels in a profile, read from the kernels' symbols
+    (``tc::flash_bwd_dkdv_kernel<256>``, demangled or mangled), and under
+    ("simt", 0) the SIMT passes' launches."""
+    import re
+
+    out = {}
+    for e in prof.key_averages():
+        m = (re.search(r"tc::flash_bwd_(dkdv|dq)_kernel<(\d+)>", e.key)
+             or re.search(r"2tc\d+flash_bwd_(dkdv|dq)_kernelILi(\d+)E", e.key))
+        if m:
+            key = (m.group(1), int(m.group(2)))
+        elif re.search(r"flash_bwd_(dkdv|dq)_kernel", e.key):
+            key = ("simt", 0)
+        else:
+            continue
+        out[key] = out.get(key, 0) + e.count
+    return out
+
+
 def pod_training(dev, arch: str, layers, batch_n: int, seq: int, shape,
                  rounds: int = 2, cfg=None, profile: bool = True) -> dict:
     """The pods-as-clients round of ``arch`` on the card through the
@@ -4149,9 +4191,12 @@ def pod_training(dev, arch: str, layers, batch_n: int, seq: int, shape,
     split by kind.  The losses must be finite, w_mass 2 within 1e-3, and
     each round one dense mix and 2 passes x K x 2 pods x layers flash
     backward calls at ``shape`` (twice as many forward launches under
-    remat), each launching :func:`backward_passes` kernels, at hd 80 all of
-    them on the hd 80 kernels.  ``cfg`` replaces the config (a CPU
-    rehearsal passes a reduced one).  Returns the launches."""
+    remat), each launching :func:`backward_passes` kernels, at hd 80 and
+    256 all of them on that head dim's kernels; at hd 256 the profiled
+    round's kernel symbols must show one ``tc::`` dK / dV and one dQ launch
+    a call and no SIMT pass (:func:`backward_symbols`).  ``cfg`` replaces
+    the config (a CPU rehearsal passes a reduced one).  Returns the
+    launches."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -4191,6 +4236,7 @@ def pod_training(dev, arch: str, layers, batch_n: int, seq: int, shape,
     per_round = 2 * k_steps * n_pods * cfg.n_layers  # 2 SAM passes
     want = {"flash_attention_backward": per_round,
             "flash_attention_backward_hd80": per_round if hd == 80 else 0,
+            "flash_attention_backward_hd256": per_round if hd == 256 else 0,
             "flash_attention": per_round * (2 if cfg.remat else 1),
             "gossip_matmul": 1, "gossip_gather": 0, "fused_update_bank": 0}
     if dev.type == "cuda":
@@ -4243,6 +4289,14 @@ def pod_training(dev, arch: str, layers, batch_n: int, seq: int, shape,
             wall = time.perf_counter() - t
         print(f"  profiled round {wall:.3f} s:")
         print_train_split(prof, wall)
+        if dev.type == "cuda" and hd == 256:
+            syms = backward_symbols(prof)
+            print(f"  flash backward kernels by symbol in the profiled round: "
+                  f"{syms}")
+            check(syms == {("dkdv", 256): per_round, ("dq", 256): per_round},
+                  f"{cfg.name}: backward kernels {syms}, expected "
+                  f"{per_round} tc::flash_bwd_dkdv_kernel<256> and "
+                  f"tc::flash_bwd_dq_kernel<256>")
         del prof
     return launches
 
@@ -5264,6 +5318,34 @@ def dryrun_phase(dev, head=print) -> dict:
     return paths
 
 
+# -- phase 20: gemma3-12b's pod round, the flash backward at hd 256 -----------
+
+# gemma3-12b cut to one 5:1 period of its 48 layers (layers 0-4 local,
+# window 1024; layer 5 global), 1 x 4096 tokens a pod a step.
+GEMMA_TRAIN = (6, 1, 4096)
+
+
+def gemma_phase(dev, head=print) -> dict:
+    """Phase 20 whole (``head`` prints each step's heading): reduced
+    gemma3-12b's pod round, card against CPU (f32, hd 64, windowed and
+    global layers), then gemma3-12b at full width cut to one 5:1 period
+    through :func:`pod_training` (48 flash backward calls a round, every one
+    on the hd 256 tensor-core passes).  Returns the launches of its main
+    path.  ``python3 repeat_phase.py --repeat 1 gemma_phase`` runs it
+    alone."""
+    card = card_line() if dev.type == "cuda" else "no card"
+    head("[20] training: reduced gemma3-12b, 2 pods, card against CPU, f32")
+    train_parity(dev, seq=64, arch="gemma3-12b")
+    layers, batch_n, seq = GEMMA_TRAIN
+    head(f"[20] training: gemma3-12b at full width cut to {layers} layers, "
+         f"2 pods, K = 2, {batch_n} x {seq} tokens, {TASK_ROUNDS} rounds; "
+         f"card: {card}")
+    paths = {"gemma3-12b training path": pod_training(
+        dev, "gemma3-12b", layers, batch_n, seq, GEMMA_TRAIN_SHAPE,
+        TASK_ROUNDS)}
+    release()
+    return paths
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -5288,6 +5370,11 @@ REPLACES = {
     # The backward's hd 80 instantiations (hubert-xlarge), timed at hubert's
     # training shape; its launches are the calls at hd 80.
     "flash_attention_backward_hd80": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:70"),
+    # Its hd 256 tensor-core passes (gemma3-12b), timed at gemma3-12b's
+    # global layer; its launches are the calls at hd 256.
+    "flash_attention_backward_hd256": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:70"),
 }
@@ -5371,8 +5458,8 @@ def main() -> int:
     release()
     head(f"[12] training: the flash backward kernel; card: {card}")
     backward_build_evidence()
-    (rows["flash_attention_backward"],
-     rows["flash_attention_backward_hd80"]) = flash_backward_phase(dev)
+    (rows["flash_attention_backward"], rows["flash_attention_backward_hd80"],
+     rows["flash_attention_backward_hd256"]) = flash_backward_phase(dev)
     release()
     head("[12] training: reduced glm4-9b, 2 pods, card against CPU, f32")
     train_parity(dev)
@@ -5411,6 +5498,7 @@ def main() -> int:
     paths.update(lanes_phase(dev, head))
     paths.update(sharding_phase(dev, on_card(), head))
     paths.update(dryrun_phase(dev, head))
+    paths.update(gemma_phase(dev, head))
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

@@ -21,7 +21,7 @@
 // bytes per row, so at S = 4096 it is far above the card's 295 FLOP a byte.
 // The passes below recompute q k^T and dO v^T once more (14 hd FLOP a pair).
 //
-// bf16 at hd 64, 80 and 128: tensor-core passes (namespace tc), fed by TMA.
+// bf16 at every head dim: tensor-core passes (namespace tc), fed by TMA.
 // - lse.  The forward kernel stores each row's logsumexp (natural log,
 //   f32, (B, H, S)); without it, the SIMT lse pass below computes it.
 // - Prep pass (flash_bwd_prep_kernel): one warp a row computes
@@ -67,6 +67,38 @@
 //   m64n80k16 a k16 step, as the forward's P V reads V.  Shared memory:
 //   K and V 40 KB and 4 stages of Q and dO 80 KB (dK / dV); Q and dO 40 KB
 //   and 4 stages of K and V 80 KB (dQ).
+// - hd 256 (gemma3-12b): a consumer warpgroup cannot own 64 keys over the
+//   whole head dim (dK and dV alone would be 256 f32 registers a thread),
+//   and 128-key K and V tiles with a 3-stage ring of Q and dO do not fit
+//   227 KB at 512 bytes a row.  So both passes keep 64-row tiles (four
+//   64-column panels, 32 KB) and split each tile's work two ways between
+//   the consumer warpgroups, in two phases:
+//     dK / dV pass, one block per (b, kv head, 64-key tile, run of query
+//     heads): K and V loaded once (64 KB), Q and dO streamed through 2
+//     stages (128 KB).  Warpgroup w computes S^T = K Q^T and dP^T = V dO^T
+//     on queries 32 w .. 32 w + 31 (wgmma m64n32k16, both operands in
+//     shared memory), forms P^T and dS^T as at hd 128 and stores them in
+//     bf16 (the same rounding) into one 64 x 64 panel each, in the
+//     128-byte swizzle the wgmma descriptors read; after a proxy fence and
+//     a named barrier over the 256 consumer threads, warpgroup w owns hd
+//     columns 128 w .. 128 w + 127: dV[:, half] += P^T dO[:, half] and
+//     dK[:, half] += dS^T Q[:, half] (m64n128k16, A from shared memory,
+//     dO and Q MN-major), 64 + 64 accumulator registers a thread.  The
+//     staged panels alternate between 2 buffers over the open tiles, so a
+//     warpgroup's stores never meet the other's reads of the tile before
+//     and one barrier a tile suffices.  226 KB of shared memory.
+//     dQ pass, one block per (b, h, 64-row query tile): Q and dO loaded
+//     once, K and V streamed through 2 stages; warpgroup w computes S and
+//     dP on keys 32 w .. 32 w + 31, stores dS in bf16, and after the
+//     barrier owns dQ[:, 128 w ..] += dS K[:, half].  209 KB.
+//   At gemma3-12b's shapes (B = 1, 8 kv heads, S = 2048 or 4096) the
+//   64-key tiles give 256 or 512 dK / dV blocks: one run a group, no sum.
+//   A diagnosis build (-DFLASH_BWD_HD256_RS, bwd256_diagnose.py; the
+//   library defines it not) keeps the alternative: each warpgroup computes
+//   the whole tile's S^T and dP^T (or S and dP), twice the score products,
+//   and keeps P^T and dS^T (or dS) in registers as the A fragments, as at
+//   hd 128, with no staging and no barrier.  It measured about 10% slower
+//   at gemma3-12b's shapes.
 // - Masks as the forward's: a block visits only the tiles that the masks
 //   leave partly open for one of its rows; each consumer sorts a tile for
 //   its 64 rows into closed (no wgmma), interior (no mask arithmetic) or an
@@ -77,9 +109,8 @@
 //   f32; P^T before P^T dO and dS before dS K and dS^T Q round to bf16
 //   (relative 2^-8 each).
 //
-// f32 inputs (the f32 parity path, hd 64, 80, 128 and 256) and bf16 at
-// hd 256 run SIMT passes,
-// f32 FMAs on values widened to f32 (every product exact):
+// f32 inputs (the f32 parity path, hd 64, 80, 128 and 256) run SIMT
+// passes, f32 FMAs (every product exact):
 // 1. lse and D: the prep pass computes D; without the forward's lse the
 //    lse pass computes it first;
 // 2. dK, dV: one block per (b, h, key tile) walks the query tiles open to
@@ -102,9 +133,7 @@
 // registers.  Keys and queries at or past S are masked and staged as 0.
 // Tile skipping: a block visits only the tiles that the masks leave at
 // least partly open for one of its rows; inside a tile every pair is masked
-// exactly, so the skipping changes no value.  hd 256 has no tensor-core
-// plan yet: its dK and dV accumulators alone are 256 f32 registers a
-// thread of one warpgroup.
+// exactly, so the skipping changes no value.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -611,7 +640,7 @@ int launch_prep(const PrepArgs& p, cudaStream_t stream, int* launched) {
 
 
 // ---------------------------------------------------------------------------
-// The tensor-core passes (bf16, hd 64, 80 and 128).
+// The tensor-core passes (bf16): hd 64, 80 and 128, then hd 256.
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -1045,17 +1074,524 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// hd 256: both passes with 64-row tiles and the work of a tile split
+// between the two consumer warpgroups (see the note at the top).
+// ---------------------------------------------------------------------------
+
+// The hd 256 plan: a 64-row tile of hd 256 is four 64-column panels in the
+// 128-byte swizzle, 8 KB each; a consumer accumulates one hd half (128
+// columns: 64 f32 registers a thread) of dK and dV, or of dQ.
+struct Wide {
+  static constexpr int COLS = 64, PANELS = 4, PANEL = BM * 128;  // a panel: 8 KB
+  static constexpr int TILE = PANELS * PANEL;                       // 32 KB
+  static constexpr int HALF = 128, STAGES = 2;
+  // Staged bf16 operands (P^T and dS^T, or dS), each one panel, in two
+  // buffers that alternate over the tiles a block computes.
+  static constexpr int XBUF = 2;
+};
+
+// dK / dV shared memory at hd 256, in bytes from a 1024-byte aligned base:
+// K and V (a tile each); STAGES Q tiles and STAGES dO tiles; XBUF pairs of
+// (P^T, dS^T) panels; STAGES (lse2, D) slices; the mbarriers.  226.0 KB.
+struct KVPlan256 : Wide {
+  static constexpr int K = 0, V = TILE, Q = 2 * TILE, DO = Q + STAGES * TILE;
+  static constexpr int X = DO + STAGES * TILE, X_BYTES = 2 * PANEL;
+  static constexpr int VEC = X + XBUF * X_BYTES, VEC_BYTES = 2 * BM * 4;
+  static constexpr int BARS = VEC + STAGES * VEC_BYTES;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+  static_assert(BYTES <= 232448, "dK / dV plan above the 227 KB a block may use");
+};
+
+// dQ shared memory at hd 256: Q and dO (a tile each); STAGES K tiles and
+// STAGES V tiles; XBUF dS panels; the mbarriers.  209.0 KB.
+struct QPlan256 : Wide {
+  static constexpr int Q = 0, DO = TILE, K = 2 * TILE, V = K + STAGES * TILE;
+  static constexpr int X = V + STAGES * TILE, X_BYTES = PANEL;
+  static constexpr int BARS = X + XBUF * X_BYTES;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+  static_assert(BYTES <= 232448, "dQ plan above the 227 KB a block may use");
+};
+
+template <>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkdv_kernel<256>(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo, const Params a) {
+  using P = KVPlan256;
+  constexpr int STAGES = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base + P::K, sV = base + P::V, sQ = base + P::Q, sDO = base + P::DO;
+  const float* vec = reinterpret_cast<const float*>(smem_raw + (base - raw) + P::VEC);
+  const uint32_t bar_kv = base + P::BARS;
+  const auto full = [&](int st) { return bar_kv + 8u * (1 + st); };
+  const auto empty = [&](int st) { return bar_kv + 8u * (1 + STAGES + st); };
+
+  // As at hd 128, with 64-key tiles.
+  const int per_kt = a.B * a.KV * a.split;
+  const int kt = blockIdx.x / per_kt, rest = blockIdx.x % per_kt;
+  const int sp = rest % a.split, bg = rest / a.split;
+  const int b = bg / a.KV, g = bg % a.KV;
+  const int heads = a.group / a.split, h0 = g * a.group + sp * heads;
+  const int k0 = kt * BM;
+  const int k_last = min(k0 + BM, a.S) - 1;
+  const int q_begin = a.causal ? k0 : 0;
+  const int q_end = a.window > 0 ? min(a.S, k_last + a.window) : a.S;
+  const int qt_begin = q_begin / BM, n_qt = (q_end + BM - 1) / BM - qt_begin;
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(bar_kv, 2 * P::TILE);
+#pragma unroll
+      for (int p = 0; p < P::PANELS; ++p) {
+        tma_load(sK + p * P::PANEL, &tk, bar_kv, p * P::COLS, k0, g, b);
+        tma_load(sV + p * P::PANEL, &tv, bar_kv, p * P::COLS, k0, g, b);
+      }
+      int i = 0;
+      for (int hh = 0; hh < heads; ++hh) {
+        const int h = h0 + hh;
+        for (int t = 0; t < n_qt; ++t, ++i) {
+          const int st = i % STAGES, q0 = (qt_begin + t) * BM;
+          mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * P::TILE + P::VEC_BYTES);
+#pragma unroll
+          for (int p = 0; p < P::PANELS; ++p) {
+            const uint32_t off = st * P::TILE + p * P::PANEL;
+            tma_load(sQ + off, &tq, full(st), p * P::COLS, q0, h, b);
+            tma_load(sDO + off, &tdo, full(st), p * P::COLS, q0, h, b);
+          }
+          const int64_t row = ((int64_t)b * a.H + h) * a.S_pad + q0;
+          const uint32_t sv = base + P::VEC + st * P::VEC_BYTES;
+          bulk_load(sv, a.lse2 + row, BM * 4, full(st));
+          bulk_load(sv + BM * 4, a.dsum + row, BM * 4, full(st));
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: S^T and dP^T on queries 32 wg .. 32 wg + 31
+    // of each tile, dK and dV on hd columns 128 wg .. 128 wg + 127.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row = 16 * (t / 32) + lane / 4;  // this thread's keys: row, row + 8
+    const int col = 2 * (lane % 4);            // and queries 32 wg + 8 j + col, + 1
+    const int qw = 32 * wg;
+    const float c = a.scale_log2;
+    float dk[P::HALF / 2], dv[P::HALF / 2], s[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < P::HALF / 2; ++i) dk[i] = dv[i] = 0.0f;
+    mbar_wait(bar_kv, 0);
+
+    int i = 0, n_open = 0;
+    for (int hh = 0; hh < heads; ++hh) {
+      for (int tt = 0; tt < n_qt; ++tt, ++i) {
+        const int st = i % STAGES, q0 = (qt_begin + tt) * BM;
+        const bool closed = block_closed(a, q0, k0), edge = block_edge(a, q0, k0);
+        mbar_wait(full(st), (i / STAGES) & 1);
+        if (!closed) {  // the same for both warpgroups: both meet the barrier
+          const uint32_t sQs = sQ + st * P::TILE, sDOs = sDO + st * P::TILE;
+          const float* lse2 = vec + st * (2 * BM);
+          const float* dsum = lse2 + BM;
+#ifdef FLASH_BWD_HD256_RS
+          // The alternative (a diagnosis build): both warpgroups compute
+          // the whole 64 x 64 S^T and dP^T and keep P^T and dS^T in
+          // registers as A fragments, as at hd 128; no staging, no barrier.
+          float s2[32], dp2[32];
+          uint32_t pa[4][4], da[4][4];
+          pin(s2);
+          pin(dp2);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 256 / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
+            wgmma_ss_m64n64(s2, sw128_desc(sK + off, 16, 1024), sw128_desc(sQs + off, 16, 1024),
+                            kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 256 / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
+            wgmma_ss_m64n64(dp2, sw128_desc(sV + off, 16, 1024),
+                            sw128_desc(sDOs + off, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(s2);
+          pin(dp2);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float pv[8], dv8[8];
+#pragma unroll
+            for (int x = 0; x < 8; ++x) {
+              const int j = 2 * kk + x / 4, e = x % 4, qc = 8 * j + col + (e % 2);
+              float p = ex2(fmaf(s2[4 * j + e], c, -lse2[qc]));
+              if (edge && !pair_open(a, q0 + qc, k0 + row + 8 * (e / 2))) p = 0.0f;
+              pv[x] = p;
+              dv8[x] = p * (dp2[4 * j + e] - dsum[qc]);
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              pa[kk][r] = pack_bf16(pv[2 * r], pv[2 * r + 1]);
+              da[kk][r] = pack_bf16(dv8[2 * r], dv8[2 * r + 1]);
+            }
+          }
+          pin(dv);
+          pin(dk);
+          pin(pa);
+          pin(da);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n<P::HALF>(
+                dv, pa[kk],
+                sw128_desc(sDOs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n<P::HALF>(
+                dk, da[kk], sw128_desc(sQs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(dv);
+          pin(dk);
+          pin(pa);
+          pin(da);
+#else
+          // P^T at sX, dS^T one panel on; the buffers alternate over the
+          // open tiles, so one warpgroup's stores never meet the other's
+          // reads of the tile before.
+          const uint32_t sX = base + P::X + (n_open++ % P::XBUF) * P::X_BYTES;
+          // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 32 queries.
+          pin(s);
+          pin(dp);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 256 / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
+            wgmma_ss_m64n32(s, sw128_desc(sK + off, 16, 1024),
+                            sw128_desc(sQs + off + qw * 128, 16, 1024), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 256 / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
+            wgmma_ss_m64n32(dp, sw128_desc(sV + off, 16, 1024),
+                            sw128_desc(sDOs + off + qw * 128, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(s);
+          pin(dp);
+
+          // P^T and dS^T, element (key k0 + row + 8 (e / 2), query
+          // q0 + qw + 8 j + col + e % 2), rounded to bf16 into their panels.
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float pv[2], dv2[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int qc = qw + 8 * j + col + e, x = 4 * j + 2 * r + e;
+                float p = ex2(fmaf(s[x], c, -lse2[qc]));
+                if (edge && !pair_open(a, q0 + qc, k0 + row + 8 * r)) p = 0.0f;
+                pv[e] = p;
+                dv2[e] = p * (dp[x] - dsum[qc]);
+              }
+              const uint32_t at = sw128_offset(row + 8 * r, qw + 8 * j + col);
+              st_shared_u32(sX + at, pack_bf16(pv[0], pv[1]));
+              st_shared_u32(sX + P::PANEL + at, pack_bf16(dv2[0], dv2[1]));
+            }
+          }
+          fence_async_shared();
+          named_barrier(1, CONSUMERS * 128);  // both halves of P^T and dS^T stored
+
+          // dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half]:
+          // 16 queries a step, dO and Q MN-major from panel 2 wg.
+          pin(dv);
+          pin(dk);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_m64n128_tb(
+                dv, sw128_desc(sX + kk * 32, 16, 1024),
+                sw128_desc(sDOs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_m64n128_tb(
+                dk, sw128_desc(sX + P::PANEL + kk * 32, 16, 1024),
+                sw128_desc(sQs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(dv);
+          pin(dk);
+#endif
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
+      }
+    }
+
+    // Epilogue: this warpgroup's hd half of dK hd^-0.5 and dV, in bf16 for a
+    // group of one run, else this run's f32 share.
+    const int hc = P::HALF * wg + col;
+    if (a.split == 1) {
+      store_bf16_rows<P::HALF>(a.dk, a.dk_sb, a.dk_sh, a.dk_ss, b, g, k0, a.S, row, hc, dk,
+                               a.scale);
+      store_bf16_rows<P::HALF>(a.dv, a.dv_sb, a.dv_sh, a.dv_ss, b, g, k0, a.S, row, hc, dv,
+                               1.0f);
+    } else {
+      const int64_t share = ((int64_t)bg * a.split + sp) * a.S;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int ki = k0 + row + 8 * r;
+        if (ki >= a.S) continue;
+        float* pk = a.dk_part + (share + ki) * 256 + hc;
+        float* pv = a.dv_part + (share + ki) * 256 + hc;
+#pragma unroll
+        for (int j = 0; j < P::HALF / 8; ++j) {
+          *reinterpret_cast<float2*>(pk + 8 * j) =
+              make_float2(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+          *reinterpret_cast<float2*>(pv + 8 * j) =
+              make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel<256>(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo, const Params a) {
+  using P = QPlan256;
+  constexpr int STAGES = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + P::Q, sDO = base + P::DO, sK = base + P::K, sV = base + P::V;
+  const uint32_t bar_q = base + P::BARS;
+  const auto full = [&](int st) { return bar_q + 8u * (1 + st); };
+  const auto empty = [&](int st) { return bar_q + 8u * (1 + STAGES + st); };
+
+  // Numbered as at hd 128, with 64-row query tiles.
+  const int n_bh = a.B * a.H, chunk = blockIdx.x / (CHUNK * a.n_qt);
+  const int pos = blockIdx.x % (CHUNK * a.n_qt), here = min(CHUNK, n_bh - chunk * CHUNK);
+  const int bh = chunk * CHUNK + pos % here;
+  const int qt = a.n_qt - 1 - pos / here;
+  const int b = bh / a.H, h = bh % a.H, g = h / a.group;
+  const int q0 = qt * BM;
+  const int q_last = min(q0 + BM, a.S) - 1;
+  const int k_end = a.causal ? q_last + 1 : a.S;
+  const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt_begin = k_begin / BM, n_kt = (k_end + BM - 1) / BM - kt_begin;
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(bar_q, 2 * P::TILE);
+#pragma unroll
+      for (int p = 0; p < P::PANELS; ++p) {
+        tma_load(sQ + p * P::PANEL, &tq, bar_q, p * P::COLS, q0, h, b);
+        tma_load(sDO + p * P::PANEL, &tdo, bar_q, p * P::COLS, q0, h, b);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int st = i % STAGES, k0 = (kt_begin + i) * BM;
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * P::TILE);
+#pragma unroll
+        for (int p = 0; p < P::PANELS; ++p) {
+          const uint32_t off = st * P::TILE + p * P::PANEL;
+          tma_load(sK + off, &tk, full(st), p * P::COLS, k0, g, b);
+          tma_load(sV + off, &tv, full(st), p * P::COLS, k0, g, b);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: S and dP on keys 32 wg .. 32 wg + 31 of each
+    // tile, dQ on hd columns 128 wg .. 128 wg + 127, all 64 rows.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row = 16 * (t / 32) + lane / 4;  // this thread's rows: row, row + 8
+    const int col = 2 * (lane % 4);            // and keys 32 wg + 8 j + col, + 1
+    const int kw = 32 * wg;
+    const float c = a.scale_log2;
+    float dq[P::HALF / 2], s[16], dp[16], lse2[2], dsum[2];
+#pragma unroll
+    for (int i = 0; i < P::HALF / 2; ++i) dq[i] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + row + 8 * r;
+      const int64_t at = (int64_t)bh * a.S_pad + qi;
+      lse2[r] = qi < a.S ? a.lse2[at] : 0.0f;
+      dsum[r] = qi < a.S ? a.dsum[at] : 0.0f;
+    }
+    mbar_wait(bar_q, 0);
+
+    int n_open = 0;
+    for (int i = 0; i < n_kt; ++i) {
+      const int st = i % STAGES, k0 = (kt_begin + i) * BM;
+      const bool closed = block_closed(a, q0, k0), edge = block_edge(a, q0, k0);
+      mbar_wait(full(st), (i / STAGES) & 1);
+      if (!closed) {  // the same for both warpgroups: both meet the barrier
+        const uint32_t sKs = sK + st * P::TILE, sVs = sV + st * P::TILE;
+#ifdef FLASH_BWD_HD256_RS
+        // The alternative (a diagnosis build): the whole 64 x 64 S and dP
+        // in each warpgroup, dS in registers as the A fragment.
+        float s2[32], dp2[32];
+        uint32_t da[4][4];
+        pin(s2);
+        pin(dp2);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 256 / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
+          wgmma_ss_m64n64(s2, sw128_desc(sQ + off, 16, 1024), sw128_desc(sKs + off, 16, 1024),
+                          kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 256 / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
+          wgmma_ss_m64n64(dp2, sw128_desc(sDO + off, 16, 1024), sw128_desc(sVs + off, 16, 1024),
+                          kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(s2);
+        pin(dp2);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float d8[8];
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int j = 2 * kk + x / 4, e = x % 4, r = e / 2;
+            float p = ex2(fmaf(s2[4 * j + e], c, -lse2[r]));
+            if (edge && !pair_open(a, q0 + row + 8 * r, k0 + 8 * j + col + (e % 2))) p = 0.0f;
+            d8[x] = p * (dp2[4 * j + e] - dsum[r]);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(d8[2 * r], d8[2 * r + 1]);
+        }
+        pin(dq);
+        pin(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_n<P::HALF>(
+              dq, da[kk], sw128_desc(sKs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(dq);
+        pin(da);
+#else
+        const uint32_t sX = base + P::X + (n_open++ % P::XBUF) * P::X_BYTES;
+        // S = Q K^T and dP = dO V^T, this warpgroup's 32 keys.
+        pin(s);
+        pin(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 256 / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
+          wgmma_ss_m64n32(s, sw128_desc(sQ + off, 16, 1024),
+                          sw128_desc(sKs + off + kw * 128, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 256 / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
+          wgmma_ss_m64n32(dp, sw128_desc(sDO + off, 16, 1024),
+                          sw128_desc(sVs + off + kw * 128, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(s);
+        pin(dp);
+
+        // dS = P (dP - D), element (query q0 + row + 8 r, key
+        // k0 + kw + 8 j + col + e), rounded to bf16 into its panel.
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float d2[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kc = kw + 8 * j + col + e, x = 4 * j + 2 * r + e;
+              float p = ex2(fmaf(s[x], c, -lse2[r]));
+              if (edge && !pair_open(a, q0 + row + 8 * r, k0 + kc)) p = 0.0f;
+              d2[e] = p * (dp[x] - dsum[r]);
+            }
+            st_shared_u32(sX + sw128_offset(row + 8 * r, kw + 8 * j + col),
+                          pack_bf16(d2[0], d2[1]));
+          }
+        }
+        fence_async_shared();
+        named_barrier(1, CONSUMERS * 128);  // both halves of dS stored
+
+        // dQ[:, half] += dS K[:, half]: 16 keys a step, K MN-major from
+        // panel 2 wg.
+        pin(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_m64n128_tb(
+              dq, sw128_desc(sX + kk * 32, 16, 1024),
+              sw128_desc(sKs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(dq);
+#endif
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    store_bf16_rows<P::HALF>(a.dq, a.dq_sb, a.dq_sh, a.dq_ss, b, h, q0, a.S, row,
+                             P::HALF * wg + col, dq, a.scale);
+  }
+}
+
+// Rows of the key tile of a dK / dV block (and of the query tile of a dQ
+// block): 128 at hd 64, 80 and 128, 64 at hd 256.
+constexpr int tile_rows(int hd) { return hd == 256 ? BM : BT; }
+
 // The runs a group of query heads is split into: the least divisor of the
-// group that gives the dK / dV pass a block per SM (at the training shape
-// 4 runs of 4 heads, 256 blocks).  More runs balance the key tiles'
+// group that gives the dK / dV pass a block per SM (at glm4-9b's training
+// shape 4 runs of 4 heads, 256 blocks; at gemma3-12b's, 8 kv heads of
+// 64-key tiles, one run).  More runs balance the key tiles'
 // unequal work better but write and sum more f32 shares, which cost more
 // than they gain (measured at 2 and 4 blocks per SM).
-int split_for(int64_t B, int64_t KV, int64_t group, int64_t S) {
+int split_for(int64_t B, int64_t KV, int64_t group, int64_t S, int hd) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     sms = 132;
-  const int64_t blocks = B * KV * ((S + BT - 1) / BT);
+  const int rows = tile_rows(hd);
+  const int64_t blocks = B * KV * ((S + rows - 1) / rows);
   for (int64_t d = 1; d < group; ++d)
     if (group % d == 0 && blocks * d >= sms) return (int)d;
   return (int)group;
@@ -1066,13 +1602,26 @@ struct Launch {
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
 };
 
+// The shared-memory plans of a head dim's dK / dV and dQ passes.
+template <int HD>
+struct Plans {
+  using KV = KVPlan<HD>;
+  using Q = QPlan<HD>;
+};
+template <>
+struct Plans<256> {
+  using KV = KVPlan256;
+  using Q = QPlan256;
+};
+
 template <int HD>
 int launch(const Launch& L, const Params& a, cudaStream_t stream, int* launched) {
-  // Maps with boxes of 64 and 128 rows, a panel wide: the dK / dV pass
-  // streams 64-row Q and dO tiles against 128-row K and V tiles, the dQ
-  // pass the other way.
-  constexpr int COLS = Panels<HD>::COLS;
-  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  // Maps with boxes of 64 rows and of the kept tile's rows (128, or 64 at
+  // hd 256), a panel wide: the dK / dV pass streams 64-row Q and dO tiles
+  // against the kept K and V tiles, the dQ pass the other way.
+  constexpr int COLS = Panels<HD>::COLS, KEEP = tile_rows(HD);
+  constexpr int KV_BYTES = Plans<HD>::KV::BYTES, Q_BYTES = Plans<HD>::Q::BYTES;
+  CUtensorMap q64, do64, k_keep, v_keep, q_keep, do_keep, k64, v64;
   const auto maps = [&](CUtensorMap* mq, CUtensorMap* mdo, CUtensorMap* mk, CUtensorMap* mv,
                         int rows) {
     int e = make_map(mq, L.q, HD, a.S, a.H, a.B, L.q_sb, L.q_sh, L.q_ss, rows, COLS);
@@ -1083,18 +1632,18 @@ int launch(const Launch& L, const Params& a, cudaStream_t stream, int* launched)
     return e;
   };
   int e = maps(&q64, &do64, &k64, &v64, BM);
-  if (e == 0) e = maps(&q128, &do128, &k128, &v128, BT);
+  if (e == 0) e = maps(&q_keep, &do_keep, &k_keep, &v_keep, KEEP);
   if (e != 0) return e;
   const auto dkdv = flash_bwd_dkdv_kernel<HD>;
   const auto dq = flash_bwd_dq_kernel<HD>;
   cudaError_t r;
   if ((r = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                KVPlan<HD>::BYTES)) != cudaSuccess ||
-      (r = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                QPlan<HD>::BYTES)) != cudaSuccess)
+                                KV_BYTES)) != cudaSuccess ||
+      (r = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_BYTES)) !=
+          cudaSuccess)
     return (int)r;
   const int64_t kv_blocks = (int64_t)a.n_kt * a.B * a.KV * a.split;
-  dkdv<<<(unsigned)kv_blocks, THREADS, KVPlan<HD>::BYTES, stream>>>(q64, k128, v128, do64, a);
+  dkdv<<<(unsigned)kv_blocks, THREADS, KV_BYTES, stream>>>(q64, k_keep, v_keep, do64, a);
   if ((r = cudaGetLastError()) != cudaSuccess) return (int)r;
   ++*launched;
   if (a.split > 1) {
@@ -1107,7 +1656,7 @@ int launch(const Launch& L, const Params& a, cudaStream_t stream, int* launched)
     ++*launched;
   }
   const int64_t q_blocks = (int64_t)a.n_qt * a.B * a.H;
-  dq<<<(unsigned)q_blocks, THREADS, QPlan<HD>::BYTES, stream>>>(q128, k64, v64, do128, a);
+  dq<<<(unsigned)q_blocks, THREADS, Q_BYTES, stream>>>(q_keep, k64, v64, do_keep, a);
   if ((r = cudaGetLastError()) != cudaSuccess) return (int)r;
   ++*launched;
   return 0;
@@ -1142,19 +1691,18 @@ int launch_simt(const Args& a, cudaStream_t stream, int* launched) {
   return 0;
 }
 
-// The SIMT passes exist for f32 at every head dim (64, 80, 128, 256) and for
-// bf16 at hd 256.
+// The SIMT passes: f32 at every head dim (64, 80, 128, 256).
 int launch_simt_hd(int dtype, int hd, const Args& a, cudaStream_t stream, int* launched) {
   if (dtype == 0 && hd == 64) return launch_simt<float, 64>(a, stream, launched);
   if (dtype == 0 && hd == 80) return launch_simt<float, 80>(a, stream, launched);
   if (dtype == 0 && hd == 128) return launch_simt<float, 128>(a, stream, launched);
   if (dtype == 0 && hd == 256) return launch_simt<float, 256>(a, stream, launched);
-  if (dtype == 1 && hd == 256) return launch_simt<__nv_bfloat16, 256>(a, stream, launched);
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16 runs the tensor-core passes at every head dim.
 bool on_tensor_cores(int dtype, int hd) {
-  return dtype == 1 && (hd == 64 || hd == 80 || hd == 128);
+  return dtype == 1 && (hd == 64 || hd == 80 || hd == 128 || hd == 256);
 }
 
 }  // namespace
@@ -1165,14 +1713,14 @@ bool on_tensor_cores(int dtype, int hd) {
 extern "C" int64_t flash_attention_backward_shares(int dtype, int hd, int64_t B, int64_t H,
                                                    int64_t KV, int64_t S) {
   if (KV <= 0 || H % KV != 0) return 1;
-  if (on_tensor_cores(dtype, hd)) return tc::split_for(B, KV, H / KV, S);
+  if (on_tensor_cores(dtype, hd)) return tc::split_for(B, KV, H / KV, S, hd);
   return H / KV;
 }
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dO, dQ, dK and dV alike.
 // q, o, dO and dQ are (B, H, S, hd), k, v, dK and dV (B, KV, S, hd), each
 // given by its (b, head, s) element strides with hd contiguous; for bf16 at
-// hd 64, 80 and 128 (the tensor-core passes), q, k, v and dO start on 16 bytes
+// every hd (the tensor-core passes), q, k, v and dO start on 16 bytes
 // and their strides are multiples of 8 elements (TMA).  lse is the
 // forward's (B, H, S) f32 logsumexp, or null: then the lse pass writes it
 // to lse_scratch (B H S f32).  vec is f32 scratch of 2 B H S_pad elements,
@@ -1231,7 +1779,8 @@ extern "C" int flash_attention_backward_launch(
   p.lse2 = static_cast<float*>(vec);
   p.dsum = static_cast<float*>(vec) + B * H * ld;
   if ((e = launch_prep<__nv_bfloat16>(p, st, launched)) != 0) return e;
-  const int64_t n_kt = (S + tc::BT - 1) / tc::BT, n_qt = n_kt;
+  const int rows = tc::tile_rows(hd);
+  const int64_t n_kt = (S + rows - 1) / rows, n_qt = n_kt;
   if (n_kt * B * KV * shares > 0x7fffffff || n_qt * B * H > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   tc::Params t{p.lse2, p.dsum, dq, dk, dv, static_cast<float*>(dk_part),
@@ -1243,5 +1792,6 @@ extern "C" int flash_attention_backward_launch(
                do_sb, do_sh, do_ss};
   if (hd == 64) return tc::launch<64>(L, t, st, launched);
   if (hd == 80) return tc::launch<80>(L, t, st, launched);
-  return tc::launch<128>(L, t, st, launched);
+  if (hd == 128) return tc::launch<128>(L, t, st, launched);
+  return tc::launch<256>(L, t, st, launched);
 }

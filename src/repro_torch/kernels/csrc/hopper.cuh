@@ -3,8 +3,10 @@
 // 4-D tensor maps and 1-D bulk copies, the wgmma shared-memory descriptors
 // of the 128-byte and 32-byte swizzles (panel_desc picks one by the panel's
 // row bytes) and the bf16 wgmma products
-// (m64n64k16 with both operands in shared memory; m64n{64,80,128,256}k16
-// with A in registers and B read MN-major), and the host's tensor maps.
+// (m64n64k16 and m64n32k16 with both operands in shared memory, K-major;
+// m64n128k16 with both in shared memory and B read MN-major;
+// m64n{64,80,128,256}k16 with A in registers and B read MN-major), and the
+// host's tensor maps.
 //
 // Tiles live in shared memory as panels of 64 bf16 columns (128 bytes a
 // row) in the 128-byte swizzle, each panel 1024-byte aligned, as TMA
@@ -120,6 +122,30 @@ __device__ __forceinline__ uint64_t panel_desc(uint32_t addr, uint32_t lbo, uint
   return SW == 128 ? sw128_desc(addr, lbo, sbo) : sw32_desc(addr, lbo, sbo);
 }
 
+// Byte offset of bf16 element (row, col) in a 64-column panel in the
+// 128-byte swizzle (the panel 1024-byte aligned): 16-byte chunk col / 8 of
+// the row sits at chunk (col / 8) ^ (row % 8), as TMA stores it and wgmma
+// reads it.
+__device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// A 32-bit store to shared memory at a shared-space address.
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Make this thread's shared-memory stores visible to the async proxy
+// (a later wgmma reading them as an operand).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -170,6 +196,47 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
       "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32) = a b^T (+ d with scale_d), both operands in shared memory,
+// K-major (a consumer's half of a 64-column score tile at hd 256).
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128) += a b, a in shared memory K-major, b in shared memory
+// MN-major (the transpose bit): a consumer's hd half of dK, dV or dQ at
+// hd 256, with P^T, dS^T or dS staged in shared memory as the A operand.
+__device__ __forceinline__ void wgmma_ss_m64n128_tb(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+      "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],

@@ -38,13 +38,14 @@ masked scores on the CPU) and whose backward is
 on the CPU.  The TPU package has no Pallas backward (its training path
 differentiates the plain attention with JAX); this one computes the
 gradient of the forward's function from q, k, v, the forward's output o,
-its logsumexp and dO.  bf16 at hd 64, 80 and 128 runs tensor-core passes
-(a D pass, a dK / dV pass and a dQ pass on wgmma, fed by TMA, and a
+its logsumexp and dO.  bf16 runs tensor-core passes at every head dim (a
+D pass, a dK / dV pass and a dQ pass on wgmma, fed by TMA, and a
 fixed-order sum of dK / dV shares where a GQA group is split; hd 80 in the
-forward's 16-column panels); f32 at every head dim and bf16 at hd 256 run
-f32 SIMT passes.  It is built for the forward's head dims
-(``BACKWARD_HEAD_DIMS``); at another one it raises ``NotImplementedError``
-on the card.  ``backward_launches`` counts its calls,
+forward's 16-column panels; hd 256 on 64-row tiles whose work the two
+consumer warpgroups split); f32 at every head dim runs f32 SIMT passes.
+It is built for the forward's head dims (``BACKWARD_HEAD_DIMS``); at
+another one it raises ``NotImplementedError`` on the card.
+``backward_launches`` counts its calls,
 ``backward_head_dim_launches`` the same calls by head dim and
 ``backward_kernel_launches`` the kernels those calls launched.
 :func:`backward_tolerance` states how far it may lie from its plain
@@ -341,7 +342,7 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     """Per-element bounds on ``|kernel - plain|`` for (dq, dk, dv), where
     ``ref`` is the plain version's (dq, dk, dv) on the same inputs:
     ``c |ref| + 2 u n mag``, plus ``2^-8 mag`` where the inputs run the
-    tensor-core passes (bf16 at hd 64, 80 and 128, :func:`on_tensor_cores`),
+    tensor-core passes (bf16 at every head dim, :func:`on_tensor_cores`),
     with u = 2^-24, c = 2^-7 for bf16 outputs and 2u for f32,
     n = 2 S + hd (1 + 2 s_max) + 8, and ``mag`` the plain formulas on
     magnitudes: |dS| <= P (|dO| |v|^T + rowsum(|dO| |o|)), then
@@ -375,9 +376,10 @@ def backward_tolerance(q, k, v, o, do, ref, causal: bool = True,
     dv moves by |sum_q d P^T dO| <= 2^-8 P^T |dO| = 2^-8 mag_dv, and dq and
     dk by 2^-8 |dS| |k| hd^-0.5 <= 2^-8 mag_dq and 2^-8 |dS|^T |q| hd^-0.5
     <= 2^-8 mag_dk (|dS| is within the bound above); these are added.
-    The SIMT passes (f32, and bf16 at hd 256) keep P and dS in f32 and get
-    no such term.  This is a worst-case bound: the measured errors are far
-    smaller."""
+    At hd 256 the passes store P^T, dS^T and dS in bf16 in shared memory
+    instead of registers: the same roundings.  The SIMT passes (f32) keep P
+    and dS in f32 and get no such term.  This is a worst-case bound: the
+    measured errors are far smaller."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
     scale = hd ** -0.5
@@ -433,8 +435,8 @@ def _cuda_view(t, tma: bool = False):
 
 def on_tensor_cores(dtype, hd: int) -> bool:
     """Whether the backward of this dtype and head dim runs the tensor-core
-    passes (bf16 at hd 64, 80 and 128); the others run the SIMT passes."""
-    return dtype == torch.bfloat16 and hd in (64, 80, 128)
+    passes (bf16, at every head dim); f32 runs the SIMT passes."""
+    return dtype == torch.bfloat16 and hd in BACKWARD_HEAD_DIMS
 
 
 def flash_attention_backward(q, k, v, o, do, causal: bool = True,
@@ -466,13 +468,14 @@ def backward_shares(dtype, hd: int, b: int, h: int, kv: int, s: int) -> int:
     """The f32 dK / dV shares the backward sums for a GQA group: the C entry
     point ``flash_attention_backward_shares`` (``tc::split_for``) on the
     H100 SXM's 132 SMs: on the tensor cores the least divisor of the group
-    giving a block per SM over the (b, kv head, 128-key tile) blocks, else
-    the whole group."""
+    giving a block per SM over the (b, kv head, key tile) blocks (128-key
+    tiles, 64-key ones at hd 256), else the whole group."""
     sms = 132
     group = h // kv
     if not on_tensor_cores(dtype, hd):
         return group
-    blocks = b * kv * (-(-s // 128))
+    rows = 64 if hd == 256 else 128
+    blocks = b * kv * (-(-s // rows))
     for d in range(1, group):
         if group % d == 0 and blocks * d >= sms:
             return d

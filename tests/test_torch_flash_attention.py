@@ -149,15 +149,16 @@ def test_plain_backward_at_hd_80_matches_the_reference_dot_attn(causal, h, kv):
 
 def test_the_backward_is_built_at_every_forward_head_dim():
     """The backward kernel is built at every head dim of the forward, hd
-    80 (hubert-xlarge) included: bf16 there runs the tensor-core passes
-    (``backward_tolerance`` adds their 2^-8 term), f32 the SIMT ones.  A
+    80 (hubert-xlarge) included: bf16 there and at hd 256 runs the
+    tensor-core passes (``backward_tolerance`` adds their 2^-8 term), f32
+    the SIMT ones.  A
     head dim outside the tuple is refused on the card
     (``tests/test_torch_gpu.py``)."""
     assert fa.BACKWARD_HEAD_DIMS == fa.HEAD_DIMS
     assert 80 in fa.BACKWARD_HEAD_DIMS
     assert fa.on_tensor_cores(torch.bfloat16, 80)
     assert not fa.on_tensor_cores(torch.float32, 80)
-    assert not fa.on_tensor_cores(torch.bfloat16, 256)
+    assert fa.on_tensor_cores(torch.bfloat16, 256)
     assert set(fa.backward_head_dim_launches) == set(fa.BACKWARD_HEAD_DIMS)
 
 

@@ -4,7 +4,8 @@ which the CPU path runs and the CUDA kernel is held to) against autograd of
 the port's plain forward and against ``jax.vjp`` of the reference's
 ``repro.kernels.ref.flash_attention_ref``, on the same numpy inputs, f32,
 causal with and without a window and non-causal with and without one, GQA
-groups 1, 2 and 4, hd 64, 80 (hubert-xlarge's) and 128; an f64
+groups 1, 2 and 4, hd 64, 80 (hubert-xlarge's), 128 and 256 (gemma3-12b's);
+the dispatch, tolerance and share rule of bf16 at hd 256; an f64
 ``gradcheck`` of the plain twin
 through the autograd Function; and the mask fault that the card's check
 uses, which must miss the tolerance.
@@ -27,7 +28,10 @@ from repro_torch.kernels import ops
 
 MODES = [(True, 0), (True, 9), (False, 0), (False, 9)]
 SHAPES = [(2, 4, 4, 40, 64), (1, 4, 2, 33, 128), (2, 8, 2, 40, 64),
-          (2, 4, 4, 30, 80), (1, 8, 2, 33, 80)]
+          (2, 4, 4, 30, 80), (1, 8, 2, 33, 80), (1, 4, 2, 33, 256),
+          (1, 2, 2, 40, 256)]
+# gemma3-12b's attention at S = 2048 (phase 12) and 4096 (its pod round).
+GEMMA_SHAPES = [(1, 16, 8, 2048, 256), (1, 16, 8, 4096, 256)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -152,3 +156,40 @@ def test_the_tolerance_covers_an_o_off_by_o_err(causal, window):
     tol = fa.backward_tolerance(q, k, v, o, do, want, causal, window)
     assert float(((got[0] - want[0]).abs() / tol[0]).max()) > 1.0
     assert torch.equal(got[2], want[2])  # dv does not read o
+
+
+def test_bf16_at_hd_256_runs_the_tensor_core_passes():
+    """bf16 at hd 256 runs the tensor-core passes, so its bound carries
+    their rounding term, 2^-8 of the magnitudes (P^T and dS in bf16), on
+    top of the f32 bound of the same values: the excess is proportional to
+    the f32 bound's own magnitude term, 2 u n mag, in every element (their
+    ratio 2^-8 / (2 u n) is one number).  f32 at hd 256 stays on the SIMT
+    passes."""
+    assert fa.on_tensor_cores(torch.bfloat16, 256)
+    assert not fa.on_tensor_cores(torch.float32, 256)
+    qb, kb, vb, dob = (torch.from_numpy(a).bfloat16()
+                       for a in _inputs((1, 4, 2, 24, 256), seed=7))
+    ob = fa.flash_attention_plain(qb, kb, vb)
+    ref = fa.flash_attention_backward_plain(qb, kb, vb, ob, dob)
+    wide = fa.backward_tolerance(qb, kb, vb, ob, dob, ref)
+    narrow = fa.backward_tolerance(*(t.float() for t in (qb, kb, vb, ob, dob)),
+                                   ref)
+    for w, n, r in zip(wide, narrow, ref):
+        term = n - 2.0 ** -7 * r.float().abs()  # 2 u n mag
+        live = term > 1e-3 * float(term.max())
+        ratio = ((w - n)[live] / term[live]).double()
+        assert float(ratio.min()) > 1.0  # 2^-8 against 2 u n ~ 2^-14
+        assert float(ratio.max() / ratio.min()) < 1.0 + 1e-3
+
+
+@pytest.mark.parametrize("shape", GEMMA_SHAPES)
+def test_gemma_shapes_sum_no_shares(shape):
+    """At gemma3-12b's shapes the dK / dV pass's 64-key tiles give 256 and
+    512 blocks (B = 1, 8 kv heads) for 132 SMs: one run a group, no f32
+    shares to sum; f32 sums the group's 2 heads."""
+    b, h, kv, s, hd = shape
+    assert fa.backward_shares(torch.bfloat16, hd, b, h, kv, s) == 1
+    assert fa.backward_shares(torch.float32, hd, b, h, kv, s) == h // kv
+    # Under a block per SM the group is split: 2 runs at S = 512 (64
+    # blocks of one run).
+    assert fa.backward_shares(torch.bfloat16, hd, b, h, kv, 512) == 2

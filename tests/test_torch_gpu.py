@@ -268,10 +268,20 @@ def test_cuda_flash_backward_matches_its_plain_version(cuda_device, dt, hd):
     :func:`flash_attention.backward_tolerance`, at every head dim it is
     built for (``BACKWARD_HEAD_DIMS``), GQA
     groups 1, 4 and 16, the four mask modes, ragged lengths; and through
-    ``torch.autograd`` on strided views, one backward launch a call."""
+    ``torch.autograd`` on strided views, one backward launch a call.  bf16
+    at hd 256 runs the tensor-core passes (64-row tiles split between the
+    warpgroups) also at ragged S = 33 and 2049 and GQA groups 1, 2 and 16:
+    the lse pass, D, dK / dV, the shares' sum where the group is split,
+    dQ."""
     g = torch.Generator(device=cuda_device).manual_seed(hd + 1)
-    for s in (1, 12, 100, 200):
-        for h, kv in ((4, 4), (8, 2), (16, 1)):
+    wide = dt == torch.bfloat16 and hd == 256
+    if wide:
+        assert fa.on_tensor_cores(dt, hd)
+    lib = build.load_library() if wide else None
+    for s in (1, 12, 100, 200) + ((33, 2049) if wide else ()):
+        groups = ((4, 4), (8, 2), (16, 1)) + (((8, 8), (8, 4))
+                                               if wide else ())
+        for h, kv in groups:
             q, k, v = (torch.randn(2, n, s, hd, generator=g,
                                    device=cuda_device).to(dt)
                        for n in (h, kv, kv))
@@ -283,9 +293,15 @@ def test_cuda_flash_backward_matches_its_plain_version(cuda_device, dt, hd):
                 want = fa.flash_attention_backward_plain(q, k, v, o, do,
                                                          causal, window)
                 before = fa.backward_launches
+                kernels = fa.backward_kernel_launches
                 got = fa.flash_attention_backward(q, k, v, o, do, causal,
                                                   window)
                 assert fa.backward_launches == before + 1
+                if wide:
+                    shares = lib.flash_attention_backward_shares(
+                        1, hd, 2, h, kv, s)
+                    assert (fa.backward_kernel_launches - kernels
+                            == 4 + (shares > 1)), (s, h, kv)
                 tol = fa.backward_tolerance(q, k, v, o, do, want, causal,
                                             window)
                 for a, b, t in zip(got, want, tol):

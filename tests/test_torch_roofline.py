@@ -196,6 +196,29 @@ def test_fl_wrappers_record_their_formulas():
     }
 
 
+def test_a_pod_bank_above_2_31_columns_counts_every_column():
+    """gemma3-12b cut to one 5:1 period (phase 20's pod round, 6 of 48
+    layers) has more than 2^31 parameters a replica: its (2, D) pod bank is
+    the first above 2^31 columns.  The mix's and the update's meta branches
+    give outputs of the bank's shape, and their records count every column
+    (Python integers: nothing wraps at 32 bits)."""
+    cfg = dataclasses.replace(get_config("gemma3-12b"), n_layers=6)
+    d = get_model_api(cfg).num_params()
+    assert d > 2 ** 31
+    P = torch.empty(2, 2, device="meta")
+    X, V, G = (torch.empty(2, d, device="meta") for _ in range(3))
+    w = torch.empty(2, device="meta")
+    with CostMode() as mode:
+        Y = gm.gossip_matmul(P, X)
+        out = fu.fused_update_bank(X, V, G, 0.9, 0.1, w)
+    assert Y.shape == (2, d) and all(t.shape == (2, d) for t in out)
+    r = mode.result()["kernels"]
+    assert r["gossip_matmul"]["flops"] == 2 * 2 * 2 * d
+    assert r["gossip_matmul"]["bytes"] == 4 * 2 * 2 + 4 * 4 * d
+    assert r["fused_update_bank"]["flops"] == 5 * 2 * d
+    assert r["fused_update_bank"]["bytes"] == 24 * 2 * d + 4 * 2
+
+
 STEPS = [("glm4-9b", "train_step", ("t", 32, 1, "train")),
          ("glm4-9b", "round_step", ("t", 32, 2, "train")),
          ("glm4-9b", "serve_step", ("d", 32, 2, "decode")),

@@ -1,7 +1,10 @@
 """The port's pods-as-clients round (``launch.steps.make_round_step``)
 against the JAX reference's, on the CPU at ``reduced`` glm4-9b (f32, 2
 layers, 4 query heads on 2 kv heads, hd 64), 2 pods, K = 2 local steps of
-2 x 16 tokens from ``make_lm_stream``.
+2 x 16 tokens from ``make_lm_stream``; and at ``reduced`` gemma3-12b (the
+same widths, qk-norm, tied embeddings, dual rope thetas) with its window
+cut to 8 tokens, so that layer 0 is a windowed layer over the 16 tokens
+and layer 1 a global one, with the dense mix and the gather.
 
 Each case runs 2 rounds, each restarted from the reference's state (params,
 momentum ``v``, push-sum weights ``w``, the compressor carry ``comp`` and
@@ -45,6 +48,7 @@ from repro_torch.models.registry import get_model_api
 
 ARCH = "glm4-9b"
 N_PODS, K, B, S = 2, 2, 2, 16
+GEMMA_WINDOW = 8  # under S: the local layer's window closes keys
 ROUNDS = 2
 
 CASES = {
@@ -57,6 +61,11 @@ CASES = {
     "drops": dict(link_drop=0.9),
     "drops_delays": dict(link_drop=0.7, link_delay=1),
 }
+
+# (arch, case) pairs; glm4-9b's keep their case names as test ids.
+ARCH_CASES = ([pytest.param(ARCH, c, id=c) for c in sorted(CASES)]
+              + [pytest.param("gemma3-12b", c, id=f"gemma3-12b-{c}")
+                 for c in ("dense", "neighbors")])
 
 _CACHE: dict = {}
 
@@ -72,19 +81,32 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _setup():
-    if not _CACHE:
-        ref_api = ref_get_model_api(ref_registry.get_config(ARCH, smoke=True))
-        api = get_model_api(registry.get_config(ARCH, smoke=True))
+def _configs(arch):
+    """(reference config, port config) of ``arch`` at reduced size."""
+    if arch == "gemma3-12b":
+        from repro.configs.base import reduced as ref_reduced
+        from repro_torch.configs.base import reduced
+
+        return (ref_reduced(ref_registry.get_config(arch),
+                            sliding_window=GEMMA_WINDOW),
+                reduced(registry.get_config(arch), sliding_window=GEMMA_WINDOW))
+    return (ref_registry.get_config(arch, smoke=True),
+            registry.get_config(arch, smoke=True))
+
+
+def _setup(arch=ARCH):
+    if arch not in _CACHE:
+        ref_cfg, cfg = _configs(arch)
+        ref_api, api = ref_get_model_api(ref_cfg), get_model_api(cfg)
         p = ref_api.init(jax.random.PRNGKey(0))
         # Two distinct replicas, so that the first mix already moves them.
         params = jax.tree.map(
             lambda x: jnp.stack([x, x * 0.5]), p)
         toks = np.asarray(ref_make_lm_stream(
             ref_api.cfg.vocab_size, S, ROUNDS * N_PODS * K * B))
-        _CACHE.update(ref_api=ref_api, api=api, params=params,
-                      toks=toks.reshape(ROUNDS, N_PODS, K, B, S))
-    return _CACHE
+        _CACHE[arch] = dict(ref_api=ref_api, api=api, params=params,
+                            toks=toks.reshape(ROUNDS, N_PODS, K, B, S))
+    return _CACHE[arch]
 
 
 def _empty(x) -> bool:
@@ -128,10 +150,13 @@ def _close(got, want, rel, what):
     assert err <= rel * scale, f"{what}: max|err| {err:.3e} > {rel} x {scale:.3e}"
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_round_step_matches_reference(case):
+@pytest.mark.parametrize("arch,case", ARCH_CASES)
+def test_round_step_matches_reference(arch, case):
     kw = CASES[case]
-    c = _setup()
+    c = _setup(arch)
+    if arch == "gemma3-12b":  # a windowed and a global layer
+        assert [c["api"].cfg.window_for_layer(i) for i in range(2)] == [
+            GEMMA_WINDOW, 0]
     ref_api, api = c["ref_api"], c["api"]
     step_kw = dict(lr=0.05, alpha=0.9, rho=0.05, local_steps=K,
                    compressor=kw.get("compressor", "identity"),
