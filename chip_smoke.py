@@ -2565,8 +2565,8 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
     inputs must give the same bits.  Each case
     prints the kernels one call launched and the dK / dV shares it summed
     (:func:`backward_shares`).  Then its time at the training
-    shape, at gemma3-12b's local and global layers (S = 2048) and global
-    layer at S = 4096, and at hubert's training shape beside its bound (10
+    shape, at gemma3-12b's local and global layers (S = 2048 and its
+    training round's 4096), and at hubert's training shape beside its bound (10
     hd FLOP per open pair at the tensor-core peak of its dtype, bytes of q,
     k, v, o, dO in and dq, dk, dv out), the plain version's and SDPA's
     backward (``enable_gqa``, the same mask, on the same inputs).  Returns
@@ -2743,6 +2743,7 @@ def flash_backward_phase(dev, shape=TRAIN_SHAPE, gemma=GEMMA_SHAPE,
     row = timed(shape, 0, "glm4-9b training")  # the JSON rows
     timed(gemma, LOCAL_WINDOW, "gemma3-12b local layer")
     hd256 = timed(gemma, 0, "gemma3-12b global layer")
+    timed(gemma_train, LOCAL_WINDOW, "gemma3-12b training, local layer")
     timed(gemma_train, 0, "gemma3-12b training, global layer")
     timed(llava, 0, "llava-next-mistral-7b training")
     return (row, timed(hubert, 0, "hubert-xlarge training", causal=False),

@@ -93,12 +93,10 @@
 //     barrier owns dQ[:, 128 w ..] += dS K[:, half].  209 KB.
 //   At gemma3-12b's shapes (B = 1, 8 kv heads, S = 2048 or 4096) the
 //   64-key tiles give 256 or 512 dK / dV blocks: one run a group, no sum.
-//   A diagnosis build (-DFLASH_BWD_HD256_RS, bwd256_diagnose.py; the
-//   library defines it not) keeps the alternative: each warpgroup computes
-//   the whole tile's S^T and dP^T (or S and dP), twice the score products,
-//   and keeps P^T and dS^T (or dS) in registers as the A fragments, as at
-//   hd 128, with no staging and no barrier.  It measured about 10% slower
-//   at gemma3-12b's shapes.
+//   The alternative, each warpgroup computing the whole tile's S^T and dP^T
+//   (or S and dP), twice the score products, and keeping P^T and dS^T (or
+//   dS) in registers as the A fragments, as at hd 128, measured 10-12%
+//   slower at gemma3-12b's shapes (PERF.md).
 // - Masks as the forward's: a block visits only the tiles that the masks
 //   leave partly open for one of its rows; each consumer sorts a tile for
 //   its 64 rows into closed (no wgmma), interior (no mask arithmetic) or an
@@ -1207,69 +1205,6 @@ __global__ void __launch_bounds__(THREADS, 1)
           const uint32_t sQs = sQ + st * P::TILE, sDOs = sDO + st * P::TILE;
           const float* lse2 = vec + st * (2 * BM);
           const float* dsum = lse2 + BM;
-#ifdef FLASH_BWD_HD256_RS
-          // The alternative (a diagnosis build): both warpgroups compute
-          // the whole 64 x 64 S^T and dP^T and keep P^T and dS^T in
-          // registers as A fragments, as at hd 128; no staging, no barrier.
-          float s2[32], dp2[32];
-          uint32_t pa[4][4], da[4][4];
-          pin(s2);
-          pin(dp2);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 256 / 16; ++kk) {
-            const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
-            wgmma_ss_m64n64(s2, sw128_desc(sK + off, 16, 1024), sw128_desc(sQs + off, 16, 1024),
-                            kk > 0);
-          }
-#pragma unroll
-          for (int kk = 0; kk < 256 / 16; ++kk) {
-            const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
-            wgmma_ss_m64n64(dp2, sw128_desc(sV + off, 16, 1024),
-                            sw128_desc(sDOs + off, 16, 1024), kk > 0);
-          }
-          wgmma_commit();
-          wgmma_wait_all();
-          pin(s2);
-          pin(dp2);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            float pv[8], dv8[8];
-#pragma unroll
-            for (int x = 0; x < 8; ++x) {
-              const int j = 2 * kk + x / 4, e = x % 4, qc = 8 * j + col + (e % 2);
-              float p = ex2(fmaf(s2[4 * j + e], c, -lse2[qc]));
-              if (edge && !pair_open(a, q0 + qc, k0 + row + 8 * (e / 2))) p = 0.0f;
-              pv[x] = p;
-              dv8[x] = p * (dp2[4 * j + e] - dsum[qc]);
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              pa[kk][r] = pack_bf16(pv[2 * r], pv[2 * r + 1]);
-              da[kk][r] = pack_bf16(dv8[2 * r], dv8[2 * r + 1]);
-            }
-          }
-          pin(dv);
-          pin(dk);
-          pin(pa);
-          pin(da);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n<P::HALF>(
-                dv, pa[kk],
-                sw128_desc(sDOs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n<P::HALF>(
-                dk, da[kk], sw128_desc(sQs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
-          wgmma_commit();
-          wgmma_wait_all();
-          pin(dv);
-          pin(dk);
-          pin(pa);
-          pin(da);
-#else
           // P^T at sX, dS^T one panel on; the buffers alternate over the
           // open tiles, so one warpgroup's stores never meet the other's
           // reads of the tile before.
@@ -1337,7 +1272,6 @@ __global__ void __launch_bounds__(THREADS, 1)
           wgmma_wait_all();
           pin(dv);
           pin(dk);
-#endif
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(st));
@@ -1460,55 +1394,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_wait(full(st), (i / STAGES) & 1);
       if (!closed) {  // the same for both warpgroups: both meet the barrier
         const uint32_t sKs = sK + st * P::TILE, sVs = sV + st * P::TILE;
-#ifdef FLASH_BWD_HD256_RS
-        // The alternative (a diagnosis build): the whole 64 x 64 S and dP
-        // in each warpgroup, dS in registers as the A fragment.
-        float s2[32], dp2[32];
-        uint32_t da[4][4];
-        pin(s2);
-        pin(dp2);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 256 / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
-          wgmma_ss_m64n64(s2, sw128_desc(sQ + off, 16, 1024), sw128_desc(sKs + off, 16, 1024),
-                          kk > 0);
-        }
-#pragma unroll
-        for (int kk = 0; kk < 256 / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32 + (kk / 4) * P::PANEL;
-          wgmma_ss_m64n64(dp2, sw128_desc(sDO + off, 16, 1024), sw128_desc(sVs + off, 16, 1024),
-                          kk > 0);
-        }
-        wgmma_commit();
-        wgmma_wait_all();
-        pin(s2);
-        pin(dp2);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float d8[8];
-#pragma unroll
-          for (int x = 0; x < 8; ++x) {
-            const int j = 2 * kk + x / 4, e = x % 4, r = e / 2;
-            float p = ex2(fmaf(s2[4 * j + e], c, -lse2[r]));
-            if (edge && !pair_open(a, q0 + row + 8 * r, k0 + 8 * j + col + (e % 2))) p = 0.0f;
-            d8[x] = p * (dp2[4 * j + e] - dsum[r]);
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(d8[2 * r], d8[2 * r + 1]);
-        }
-        pin(dq);
-        pin(da);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n<P::HALF>(
-              dq, da[kk], sw128_desc(sKs + 2 * wg * P::PANEL + kk * 16 * 128, P::PANEL, 1024));
-        wgmma_commit();
-        wgmma_wait_all();
-        pin(dq);
-        pin(da);
-#else
         const uint32_t sX = base + P::X + (n_open++ % P::XBUF) * P::X_BYTES;
         // S = Q K^T and dP = dO V^T, this warpgroup's 32 keys.
         pin(s);
@@ -1564,7 +1449,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_commit();
         wgmma_wait_all();
         pin(dq);
-#endif
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(st));

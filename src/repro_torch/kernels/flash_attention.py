@@ -70,7 +70,7 @@ from repro_torch.roofline.cost import (
 )
 from repro_torch.roofline.cost import kernel as kernel_cost
 
-__all__ = ["BACKWARD_HEAD_DIMS", "backward_shares", "backward_tolerance",
+__all__ = ["BACKWARD_HEAD_DIMS", "BWD_TILE_ROWS", "backward_shares", "backward_tolerance",
            "bf16_tolerance", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_plain", "flash_attention_plain",
            "flash_attention_with_lse", "HEAD_DIMS", "head_dim_launches",
@@ -79,6 +79,9 @@ __all__ = ["BACKWARD_HEAD_DIMS", "backward_shares", "backward_tolerance",
 
 HEAD_DIMS = (64, 80, 128, 256)  # the head sizes the forward is built for
 BACKWARD_HEAD_DIMS = HEAD_DIMS  # the backward is built for the forward's
+# Keys in a dK / dV tile (``tc::tile_rows`` in csrc/flash_attention_bwd.cu):
+# 64 at the head dims listed here, else 128.
+BWD_TILE_ROWS = {256: 64}
 NEG = -1.0e30
 
 launches = 0
@@ -468,13 +471,13 @@ def backward_shares(dtype, hd: int, b: int, h: int, kv: int, s: int) -> int:
     """The f32 dK / dV shares the backward sums for a GQA group: the C entry
     point ``flash_attention_backward_shares`` (``tc::split_for``) on the
     H100 SXM's 132 SMs: on the tensor cores the least divisor of the group
-    giving a block per SM over the (b, kv head, key tile) blocks (128-key
-    tiles, 64-key ones at hd 256), else the whole group."""
+    giving a block per SM over the (b, kv head, key tile) blocks (tiles of
+    ``BWD_TILE_ROWS`` keys), else the whole group."""
     sms = 132
     group = h // kv
     if not on_tensor_cores(dtype, hd):
         return group
-    rows = 64 if hd == 256 else 128
+    rows = BWD_TILE_ROWS.get(hd, 128)
     blocks = b * kv * (-(-s // rows))
     for d in range(1, group):
         if group % d == 0 and blocks * d >= sms:

@@ -158,17 +158,18 @@ def test_the_tolerance_covers_an_o_off_by_o_err(causal, window):
     assert torch.equal(got[2], want[2])  # dv does not read o
 
 
-def test_bf16_at_hd_256_runs_the_tensor_core_passes():
+@pytest.mark.parametrize("shape", [(1, 4, 2, 24, 256), (1, 2, 2, 40, 256)])
+def test_bf16_at_hd_256_runs_the_tensor_core_passes(shape):
     """bf16 at hd 256 runs the tensor-core passes, so its bound carries
     their rounding term, 2^-8 of the magnitudes (P^T and dS in bf16), on
     top of the f32 bound of the same values: the excess is proportional to
     the f32 bound's own magnitude term, 2 u n mag, in every element (their
     ratio 2^-8 / (2 u n) is one number).  f32 at hd 256 stays on the SIMT
-    passes."""
+    passes, whose bound has no such term."""
     assert fa.on_tensor_cores(torch.bfloat16, 256)
     assert not fa.on_tensor_cores(torch.float32, 256)
     qb, kb, vb, dob = (torch.from_numpy(a).bfloat16()
-                       for a in _inputs((1, 4, 2, 24, 256), seed=7))
+                       for a in _inputs(shape, seed=7))
     ob = fa.flash_attention_plain(qb, kb, vb)
     ref = fa.flash_attention_backward_plain(qb, kb, vb, ob, dob)
     wide = fa.backward_tolerance(qb, kb, vb, ob, dob, ref)

@@ -260,6 +260,25 @@ def test_cuda_flash_backward_refuses_an_unbuilt_head_dim(cuda_device, dt):
     assert fa.backward_launches == before
 
 
+@pytest.mark.parametrize("hd", fa.BACKWARD_HEAD_DIMS)
+def test_backward_shares_mirror_the_c_entry_point(cuda_device, hd):
+    """:func:`flash_attention.backward_shares` (``BWD_TILE_ROWS``, 132 SMs)
+    gives what ``flash_attention_backward_shares`` (``tc::split_for``) gives
+    on an H100 SXM, at both dtypes, gemma3-12b's and glm4-9b's training
+    shapes and a few small ones."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert sms == 132, f"the mirror assumes an H100 SXM's 132 SMs, not {sms}"
+    lib = build.load_library()
+    for dt in (torch.float32, torch.bfloat16):
+        for b, h, kv, s in ((1, 16, 8, 2048), (1, 16, 8, 4096), (1, 32, 2, 4096),
+                            (2, 16, 1, 200), (1, 8, 4, 33), (4, 25, 5, 2176)):
+            with torch.cuda.device(cuda_device):
+                want = lib.flash_attention_backward_shares(
+                    build.DTYPE_CODES[dt], hd, b, h, kv, s)
+            assert fa.backward_shares(dt, hd, b, h, kv, s) == want, (
+                dt, b, h, kv, s)
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.BACKWARD_HEAD_DIMS)
 def test_cuda_flash_backward_matches_its_plain_version(cuda_device, dt, hd):
