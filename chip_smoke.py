@@ -11,9 +11,10 @@ whose head dim 80 has its own flash instantiations, forward and
 backward), serving and training the recurrent xlstm-350m and the hybrid
 hymba-1.5b, training the masked_lm and vlm tasks (hubert-xlarge,
 llava-next-mistral-7b) with the pods-as-clients round, personalized lanes
-of every family beside the dense decoders, and the two-tier topology family
+of every family beside the dense decoders, the two-tier topology family
 and the row-sharded bank (the all-gather and halo executors over
-``torch.distributed``, NCCL on the card).
+``torch.distributed``, NCCL on the card), and the pod runtime (a replica
+as DTensors over a ``torch.distributed`` mesh).
 
     python3 chip_smoke.py
 
@@ -231,7 +232,19 @@ Phases, each fatal on failure:
    HBM rate, the larger) over the median of 3 timed runs must be at most
    1.05, and the predicted peak within 25% of the measured one; then the
    numbers the kernel table lacked (SDPA at glm4-9b's training forward
-   shape, ``torch.matmul`` at hymba-1.5b's 4-layer pod bank).
+   shape, ``torch.matmul`` at hymba-1.5b's 4-layer pod bank);
+20. gemma3-12b's pod round: reduced card against CPU, then full width cut
+   to one 5:1 period (6 of 48 layers), 2 pods, K = 2, 1 x 4096, 2 rounds,
+   every flash backward call on the hd 256 tensor-core kernels;
+21. the pod runtime on a one-rank NCCL world: glm4-9b at full width cut to
+   4 layers, 2 pods as DTensors on a ``(1, 1, 1)`` ``("pod", "data",
+   "model")`` mesh (``launch.mesh.init_world``, ``launch.steps.place_pods``,
+   ``make_round_step`` under ``launch.sharding.use_mesh``), K = 2, 1 x 4096,
+   2 rounds under ``gossip="xla"`` (dense ring) and ``"halo"`` (its neighbor
+   list), each held to the mesh-less round on the same state and batches
+   (params and w bit for bit or within 1e-5 of each leaf's magnitude, the
+   leaves that differ named; loss and accuracy; launches a round and the
+   kernels' symbols equal); both sides' round times and peak memory.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -5347,6 +5360,248 @@ def gemma_phase(dev, head=print) -> dict:
     release()
     return paths
 
+# -- phase 21: the pod runtime on a one-rank NCCL world -----------------------
+
+# The pod runtime's mesh on one card: (shape, axis names).
+POD_MESH = ((1, 1, 1), ("pod", "data", "model"))
+POD_ROUNDS = 2
+# Each executor with its pod graph: "xla" over the dense ring (the dense
+# mix), "halo" over its neighbor list (the gather).
+POD_RUNS = (("xla", "dense"), ("halo", "neighbors"))
+# The kernels of the path, counted per round on both sides.
+POD_KERNELS = ("flash_attention", "flash_attention_backward",
+               "flash_attention_backward_kernels", "gossip_matmul",
+               "gossip_gather", "fused_update_bank")
+
+
+def kernel_symbols(prof) -> dict:
+    """{kernel symbol: launches} of the flash and mix kernels in a profile
+    (the name up to its argument list, without its return type and
+    anonymous namespaces)."""
+    import re
+
+    out = {}
+    for e in prof.key_averages():
+        if re.search(r"flash|gather_(panels|rows)|mix_(resident|tiled)",
+                     e.key):
+            key = e.key.replace("(anonymous namespace)::", "")
+            key = key.removeprefix("void ").split("(")[0]
+            out[key] = out.get(key, 0) + e.count
+    return out
+
+
+def pod_round_run(dev, api, step_cfg, init, toks, P, gossip: str, mesh,
+                  rounds: int = POD_ROUNDS) -> dict:
+    """``rounds`` rounds of ``make_round_step(gossip=...)`` from the whole
+    pod-stacked ``init`` (copied): mesh-less with ``mesh`` None (every pod
+    stacked on the card), else under the pod runtime on ``mesh`` (the
+    replicas placed by ``place_pods``: DTensors).  Per round the wall time
+    and the launches of :data:`POD_KERNELS`; the last round profiled (the
+    device's events only) for the kernels' symbols; the state after the
+    rounds gathered whole (params, w), the metrics and the peak memory."""
+    import contextlib
+
+    from repro_torch.core.flat import tree_flatten, tree_map
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch import steps
+
+    round_step = steps.make_round_step(api, step_cfg, gossip=gossip)
+    n_pods = toks.shape[1]
+    with torch.no_grad():
+        params = tree_map(torch.clone, init)
+    w = torch.ones(n_pods, dtype=torch.float32, device=dev)
+    if mesh is not None:
+        rows = steps.pod_rows(mesh, n_pods)
+        params = steps.place_pods(api, params, mesh)
+        w = rows.rows(w)
+        check(all(shlib.is_dtensor(x) for x in tree_flatten(params)[1]),
+              "the pod runtime placed plain tensors")
+    v = tree_map(torch.zeros_like, params)
+    on_mesh = (shlib.use_mesh(mesh, fsdp=api.cfg.fsdp) if mesh is not None
+               else contextlib.nullcontext())
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    walls, used, metrics, symbols = [], [], [], {}
+    zero_counts()
+    last = read_counts()
+    with on_mesh:
+        for r in range(rounds):
+            batch = {"tokens": toks[r] if mesh is None else rows.rows(toks[r])}
+            profiled = r == rounds - 1
+            kinds = ([torch.profiler.ProfilerActivity.CUDA]
+                     if dev.type == "cuda" else None)
+            with (torch.profiler.profile(activities=kinds) if profiled
+                  else contextlib.nullcontext()) as prof:
+                t = time.perf_counter()
+                params, v, w, _, _, m = round_step(params, v, w, (), (),
+                                                   batch, P)
+                sync(dev)
+                walls.append(time.perf_counter() - t)
+            if profiled:
+                symbols = kernel_symbols(prof)
+                del prof
+            now = read_counts()
+            used.append({k: now[k] - last[k] for k in POD_KERNELS})
+            last = now
+            metrics.append((float(m["loss"]), float(m["acc"])))
+    launches = read_counts()
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0)
+    if mesh is not None:
+        params = steps.gather_pods(params, mesh, n_pods)
+        w = rows.all_gather(w)
+    del v
+    return {"params": params, "w": w, "walls": walls, "used": used,
+            "metrics": metrics, "symbols": symbols, "peak": peak,
+            "launches": launches}
+
+
+def leaf_errors(got, want) -> dict:
+    """{leaf path: max |got - want| / max |want|}, leaf by leaf on
+    ``got``'s device (``want`` may wait on the host)."""
+    from repro_torch.core.flat import tree_flatten
+
+    paths, a = tree_flatten(got)
+    _, b = tree_flatten(want)
+    out = {}
+    for path, x, y in zip(paths, a, b):
+        y = y.to(x.device)
+        scale = float(y.float().abs().max())
+        err = float((x.float() - y.float()).abs().max())
+        out["/".join(path)] = err / scale if scale else err
+    return out
+
+
+def pod_runtime_phase(dev, head=print, layers: int = TRAIN_LAYERS,
+                      seq: int = 4096, cfg=None,
+                      rounds: int = POD_ROUNDS) -> dict:
+    """Phase 21 whole (``head`` prints each step's heading): the pod runtime
+    (``launch.mesh.init_world`` of a ``(1, 1, 1)`` ``("pod", "data",
+    "model")`` mesh over a one-rank NCCL world; ``launch.steps.place_pods``,
+    ``make_round_step`` under ``launch.sharding.use_mesh``) on glm4-9b at
+    full width cut to ``layers`` layers (bf16), 2 pods stacked on the rank
+    as DTensors (the replicas [x, x / 2] of one draw from seed 0), K = 2,
+    1 x ``seq`` tokens a pod a step from ``make_lm_stream``, lr 0.05,
+    alpha 0.9, rho 0.05, ``rounds`` rounds under "xla" (the dense ring:
+    the dense mix) and "halo" (its neighbor list: the gather; one pod-axis
+    rank, so its all-gather form).  Each against the mesh-less round
+    (phase 12's code: ``make_round_step`` on the stacked pods) on the same
+    state and batches: params and w bit for bit, or each leaf within 1e-5
+    of its magnitude with the leaves that differ named; the loss and
+    accuracy; the launches of the flash forward, its backward (calls and
+    kernels) and the mixes a round, and the kernels' symbols in a profiled
+    round, equal.  Prints both sides' round wall times (the host cost of
+    DTensor dispatch) and peak memory beside the card.  Closes its process
+    group.  ``cfg`` replaces glm4-9b's config (a CPU rehearsal passes a
+    reduced one; it runs gloo).  Returns the launches of the runtime's
+    rounds."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.flat import tree_map
+    from repro_torch.data.synthetic import make_lm_stream
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import close_clients_world, init_world
+    from repro_torch.models.registry import get_model_api
+
+    card = card_line() if dev.type == "cuda" else "no card"
+    cfg = dataclasses.replace(cfg or get_config("glm4-9b"), n_layers=layers)
+    api = get_model_api(cfg)
+    n_pods, k_steps = 2, 2
+    step_cfg = steps.StepConfig(lr=0.05, alpha=0.9, rho=0.05,
+                                local_steps=k_steps)
+    head(f"[21] the pod runtime on a one-rank NCCL world: {cfg.name} at "
+         f"full width cut to {layers} layers, {n_pods} pods on a "
+         f"{POD_MESH[0]} {POD_MESH[1]} mesh, K = {k_steps}, 1 x {seq} "
+         f"tokens, {rounds} rounds a run; card: {card}")
+    t0 = time.perf_counter()
+    mesh = init_world(0, 1, free_port(), dev, *POD_MESH)
+    paths = {}
+    try:
+        with torch.no_grad():
+            p = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+            init = tree_map(lambda x: torch.stack([x, x * 0.5]), p)
+            del p
+        toks = make_lm_stream(cfg.vocab_size, seq,
+                              rounds * n_pods * k_steps).reshape(
+            rounds, n_pods, k_steps, 1, seq).to(dev)
+        print(f"  world and mesh up, {api.num_params() / 1e9:.3f} B "
+              f"parameters a replica in {str(cfg.dtype)[6:]} (fsdp "
+              f"{cfg.fsdp}), state drawn: {time.perf_counter() - t0:.1f} s")
+        total = None
+        for gossip, form in POD_RUNS:
+            P = (steps.pod_mixing_matrix(n_pods, dev) if form == "dense"
+                 else steps.pod_mixing_neighbors(n_pods, dev))
+            base = pod_round_run(dev, api, step_cfg, init, toks, P, "auto",
+                                 None, rounds)
+            # The mesh-less params wait on the host, so that the runtime's
+            # run holds what the mesh-less one held.
+            base["params"] = tree_map(lambda x: x.to("cpu"), base["params"])
+            release_quiet()
+            got = pod_round_run(dev, api, step_cfg, init, toks, P, gossip,
+                                mesh, rounds)
+            errs = leaf_errors(got["params"], base["params"])
+            exact = all(e == 0.0 for e in errs.values())
+            w_err = float((got["w"] - base["w"]).abs().max())
+            worst = max(errs, key=errs.get)
+            print(f"  {gossip} over the {form} pod graph against the "
+                  f"mesh-less round: params "
+                  + ("bit for bit" if exact else
+                     f"max {errs[worst]:.3e} of a leaf's magnitude at "
+                     f"{worst}; leaves that differ: "
+                     + ", ".join(k for k, e in errs.items() if e))
+                  + f"; w max |diff| {w_err:.3e}")
+            for r, (a, b) in enumerate(zip(got["metrics"], base["metrics"])):
+                print(f"    round {r}: loss {a[0]:.6f} (mesh-less "
+                      f"{b[0]:.6f}) acc {a[1]:.6f} ({b[1]:.6f}); wall "
+                      f"{got['walls'][r]:.3f} s (mesh-less "
+                      f"{base['walls'][r]:.3f} s); launches {got['used'][r]}"
+                      f" (mesh-less {base['used'][r]})")
+            print(f"    kernels by symbol in the profiled round: "
+                  f"{got['symbols']} (mesh-less {base['symbols']})")
+            print(f"    peak device memory {got['peak'] / 1e9:.2f} GB "
+                  f"(mesh-less {base['peak'] / 1e9:.2f} GB); card: {card}")
+            check(all(e <= 1e-5 for e in errs.values()),
+                  f"{gossip}: params {errs}")
+            check(w_err <= 1e-6 and abs(float(got["w"].sum()) - n_pods)
+                  <= 1e-3, f"{gossip}: w {got['w']} against {base['w']}")
+            for (la, aa), (lb, ab) in zip(got["metrics"], base["metrics"]):
+                check(math.isfinite(la) and abs(la - lb) <= 1e-5 * abs(lb)
+                      and abs(aa - ab) <= 1e-5,
+                      f"{gossip}: loss {la} acc {aa} against {lb} {ab}")
+            check(got["used"] == base["used"],
+                  f"{gossip}: launches {got['used']} against the mesh-less "
+                  f"{base['used']}")
+            check(got["symbols"] == base["symbols"],
+                  f"{gossip}: kernels {got['symbols']} against the mesh-less"
+                  f" {base['symbols']}")
+            per_round = 2 * k_steps * n_pods * cfg.n_layers  # 2 SAM passes
+            mix = "gossip_matmul" if form == "dense" else "gossip_gather"
+            if dev.type == "cuda":
+                check(all(u["flash_attention_backward"] == per_round
+                          and u["flash_attention"] == per_round * (
+                              2 if cfg.remat else 1) and u[mix] == 1
+                          for u in got["used"]),
+                      f"{gossip}: launches {got['used']}, expected "
+                      f"{per_round} backward calls and one {mix} a round")
+            total = got["launches"] if total is None else {
+                k: total[k] + got["launches"][k] for k in total}
+            del base, got
+            release_quiet()
+        paths["pod runtime path"] = total
+    finally:
+        close_clients_world()
+    print(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    release()
+    return paths
+
+
+def release_quiet() -> None:
+    """:func:`release` without its line."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 REPLACES = {
     "fused_update_bank": ("src/repro_torch/kernels/csrc/fused_update.cu",
                           "src/repro/kernels/fused_update.py:100"),
@@ -5500,6 +5755,7 @@ def main() -> int:
     paths.update(sharding_phase(dev, on_card(), head))
     paths.update(dryrun_phase(dev, head))
     paths.update(gemma_phase(dev, head))
+    paths.update(pod_runtime_phase(dev, head))
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

@@ -10,6 +10,11 @@ hand-written backward (the decoders' flash attention): its CUDA call needs
 real storage, which ``torch.func``'s wrapper tensors do not have, and
 ``cfg.remat``'s ``torch.utils.checkpoint`` needs the saved-tensor hooks
 that ``torch.func`` refuses.
+
+Under the pod runtime the parameters are DTensors over the pod's ("data",
+"model") submesh (``launch.sharding.place_params``): the gradients come
+back in their parameters' placements, and :func:`global_norm` sums every
+shard of the replica, so ``rho g / ||g||`` is the unsharded step's.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 from torch.func import grad, grad_and_value
 
 from repro_torch.core.flat import tree_flatten, tree_map, tree_unflatten
+from repro_torch.launch.sharding import is_dtensor
 
 __all__ = ["global_norm", "sam_perturb", "sam_gradient",
            "sam_gradient_autograd", "momentum_update", "apply_update"]
@@ -28,13 +34,47 @@ _EPS = 1e-12
 
 def global_norm(tree) -> torch.Tensor:
     """Euclidean norm over a whole parameter dict (float32 accumulation,
-    leaves summed in bank order)."""
+    leaves summed in bank order).  DTensor leaves (a replica placed over
+    its pod's submesh) are summed over every shard: a local norm would
+    scale the SAM step by the square root of the shard count."""
     _, leaves = tree_flatten(tree)
+    if any(is_dtensor(x) for x in leaves):
+        return _placed_norm(leaves)
     total = None
     for x in leaves:
         sq = torch.sum(torch.square(x.float()))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def _placed_norm(leaves) -> torch.Tensor:
+    """:func:`global_norm` of DTensor leaves on one mesh: each rank sums the
+    squares of its shard of every leaf (a leaf replicated along a mesh dim
+    counts on that dim's rank 0 only, so every element counts once), in
+    bank order, and one reduction over the mesh (a ``Partial`` sum made
+    ``Replicate``) gives the whole sum on every rank; a plain 0-d tensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = leaves[0].device_mesh
+    total = None
+    for x in leaves:
+        sq = torch.sum(torch.square(x.to_local().float()))
+        for i, pl in enumerate(x.placements):
+            if pl.is_replicate() and mesh.get_local_rank(i) != 0:
+                sq = torch.zeros_like(sq)
+        total = sq if total is None else total + sq
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    total = total.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    return torch.sqrt(total)
+
+
+def _placed_like(g, leaf):
+    """A DTensor gradient in its parameter's placements (the backward
+    leaves sums ``Partial`` and activations' layouts behind)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(leaf.placements):
+        return g.redistribute(leaf.device_mesh, leaf.placements)
+    return g
 
 
 def sam_perturb(params, grads, rho: float):
@@ -79,7 +119,8 @@ def _grad_and_value(loss_fn: Callable, params, batch):
     with torch.enable_grad():
         loss, aux = loss_fn(tree_unflatten(paths, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
-    return tree_unflatten(paths, list(grads)), (loss.detach(), _detach(aux))
+    grads = [_placed_like(g, x) for g, x in zip(grads, leaves)]
+    return tree_unflatten(paths, grads), (loss.detach(), _detach(aux))
 
 
 def sam_gradient_autograd(loss_fn: Callable, params, batch, rho: float):

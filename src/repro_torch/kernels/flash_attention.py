@@ -295,7 +295,24 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _refuse_dtensor(*ts) -> None:
+    """The kernels read raw pointers of whole tensors: a DTensor's would be
+    its rank's shard read as the whole, so a DTensor argument raises.  The
+    pod runtime calls the kernels on the local shards
+    (``models.attention._local_attention``)."""
+    for t in ts:
+        if isinstance(t, torch.Tensor) and type(t) is not torch.Tensor:
+            from torch.distributed.tensor import DTensor
+
+            if isinstance(t, DTensor):
+                raise TypeError(
+                    "flash attention takes plain tensors, not a DTensor: run "
+                    "it on each rank's local shards (to_local) inside a "
+                    "manual region")
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    _refuse_dtensor(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window)[0]
@@ -306,6 +323,7 @@ def flash_attention_with_lse(q, k, v, causal: bool = True, window: int = 0):
     """(o, lse) with no autograd: the forward as training runs it, each
     row's logsumexp (B, H, S) f32 beside the output (the kernel's on the
     card, the plain version's on the CPU)."""
+    _refuse_dtensor(q, k, v)
     return _forward(q, k, v, causal, window, want_lse=True)
 
 
@@ -452,6 +470,7 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     compute it in one more pass.  The gradients are laid out like q, k and
     v (``empty_like``)."""
     global backward_launches, backward_kernel_launches
+    _refuse_dtensor(q, k, v, o, do)
     dev = q.device.type
     if dev not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no flash_attention backward kernel for device "

@@ -77,16 +77,19 @@ from repro_torch.models.pdefs import (
 from repro_torch.models.registry import get_model_api
 from repro_torch.roofline.analysis import (
     CollectiveStats,
+    data_parallel_collectives,
     expert_collectives,
     fsdp_collectives,
     model_flops,
     pod_collectives,
     roofline_terms,
+    step_scalar_collectives,
     tensor_parallel_collectives,
+    vocab_parallel_collectives,
 )
 from repro_torch.roofline.cost import CostMode
 
-__all__ = ["MESHES", "param_counts", "run_one", "step_args",
+__all__ = ["MESHES", "collectives", "param_counts", "run_one", "step_args",
            "step_model_flops", "trace", "main"]
 
 DEFAULT_OUT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -242,52 +245,115 @@ def _blocks(defs: dict) -> list:
     return out
 
 
-def _collectives(api, shape, mesh, multi: bool, placed: list,
-                 passes: int):
-    """The placement's collectives on ``mesh`` (``roofline.analysis``'s four
-    rules) for the step whose arguments ``_placed_args`` placed
-    (``placed``), with ``passes`` gradient passes in a train step."""
+def collectives(api, mesh, kind: str, local_batch: int, seq: int,
+                passes: int, steps: int = 1, n_pods: int = 0,
+                batch_on_data: bool = True,
+                gossip: str = "auto") -> CollectiveStats:
+    """The collectives one device of ``mesh`` issues (``roofline.analysis``'s
+    rules) in a step of ``kind`` with ``local_batch`` rows of ``seq``
+    positions on the device: ``train`` runs ``steps`` local steps of
+    ``passes`` gradient passes (SAM: 2) for each pod the device holds, and
+    with ``n_pods`` (the multi-pod round over the mesh's ``"pod"`` axis) the
+    round's gossip under ``gossip``; other kinds one forward.
+    ``batch_on_data``: the batch rows are split on ``"data"`` (then the
+    gradients and metrics are partial sums there)."""
     cfg = api.cfg
     stats = CollectiveStats()
-    kind = shape.kind
     params = _abstract_params(api, mesh, False, False)  # one replica
-    data_n = mesh.shape["data"]
+    defs = dict(_leaves(api.param_defs()))
+    data_n = mesh.shape.get("data", 1)
+    model_n = mesh.shape.get("model", 1)
+    pod_n = mesh.shape.get("pod", 1)
+    local_pods = n_pods // pod_n if n_pods else 1
+    train = kind == "train"
+    grad_passes = passes * steps * local_pods if train else 1
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-    # FSDP: every leaf placed on "data"
-    blocks = [math.prod(shlib.shard_shape(sh, spec, mesh))
-              * torch.empty((), dtype=dt).element_size()
-              for sh, dt, spec in params.values() if "data" in spec]
-    fsdp_collectives(stats, blocks, data_n, kind, passes)
+
+    def block(sh, dt, spec):
+        return (math.prod(shlib.shard_shape(sh, spec, mesh))
+                * torch.empty((), dtype=dt).element_size())
+
+    # FSDP: every leaf placed on "data", a layer's slice at a time
+    blocks = []
+    for path, (sh, dt, spec) in params.items():
+        if "data" in spec:
+            n = math.prod(s for s, a in zip(sh, defs[path].axes)
+                          if a == "layers")
+            uses = 2 if path == ("embed",) and cfg.tie_embeddings else 1
+            blocks += [block(sh, dt, spec) // n] * (n * uses)
+    fsdp_collectives(stats, blocks, data_n, kind, grad_passes)
     # the device's activations: local batch x S x d_model
-    if kind == "decode":  # the tokens are the third argument
-        sh, _, spec = placed[2][()]
-        local, seq = shlib.shard_shape(sh, spec, mesh)[0], 1
-    else:
-        sh, _, spec = next(iter(placed[3 if kind == "train" else 1].values()))
-        lead = 2 if kind == "train" and multi else 0
-        local, seq = shlib.shard_shape(sh, spec, mesh)[lead], shape.seq_len
-    act = local * seq * cfg.d_model * itemsize
+    act = local_batch * seq * cfg.d_model * itemsize
     on_model = [(path, n) for path, n in _blocks(api.param_defs())
                 if any("model" in spec for p, (_, _, spec) in params.items()
                        if p[:len(path)] == path)]
     tensor_parallel_collectives(stats, sum(n for _, n in on_model), act,
-                                kind, passes)
+                                kind, grad_passes)
+
+    def vocab_on_model(path):
+        return path in params and "model" in params[path][2]
+
+    vocab_parallel_collectives(
+        stats, vocab_on_model(("embed",)),
+        vocab_on_model(("embed",) if cfg.tie_embeddings else ("lm_head",)),
+        act, local_batch * seq * cfg.padded_vocab * itemsize, kind,
+        grad_passes)
     # expert dispatch: the blocks whose experts sit on "model"
-    defs = dict(_leaves(api.param_defs()))
     moe = [n for path, n in on_model
            if any(p[:len(path)] == path and "expert" in defs[p].axes
                   and spec[defs[p].axes.index("expert")] == "model"
                   for p, (_, _, spec) in params.items())]
-    expert_collectives(stats, sum(moe), act * max(cfg.top_k, 1), kind, passes)
-    if kind == "train" and multi:
-        n_pods = mesh.shape["pod"]
-        # the bank's dtype: the leaves' promoted (launch.steps._row_spec)
+    expert_collectives(stats, sum(moe), act * max(cfg.top_k, 1), kind,
+                       grad_passes)
+    if not train:
+        return stats
+    split = batch_on_data and data_n > 1
+    data_parallel_collectives(
+        stats,
+        [block(*v) for v in params.values() if split and "data" not in v[2]],
+        [block(*v) for v in params.values()
+         if model_n > 1 and on_model and "model" not in v[2]],
+        grad_passes)
+    axes = sum(1 for n in (data_n, model_n) if n > 1)
+    step_scalar_collectives(stats, steps * local_pods,
+                            axes if passes > 1 else 0, 1 if split else 0)
+    if n_pods:
+        # each replica's columns gathered (the model axis first), then the
+        # bank's mix in the promoted dtype (launch.steps._row_spec)
+        gathers = []
+        for sh, dt, spec in params.values():
+            out = local_pods * block(sh, dt, spec)
+            for axis, size in (("model", model_n), ("data", data_n)):
+                if axis in spec:
+                    out *= size
+                    gathers.append(out)
         dt = functools.reduce(torch.promote_types,
-                              (d.dtype for _, d in _leaves(api.param_defs())))
-        pod_collectives(stats, pod_comm_plan(n_pods, n_pods),
+                              (d.dtype for d in defs.values()))
+        pod_collectives(stats, pod_comm_plan(n_pods, pod_n),
                         tree_num_params(api.param_defs()),
-                        torch.empty((), dtype=dt).element_size())
+                        torch.empty((), dtype=dt).element_size(), gathers,
+                        halo=gossip == "halo")
     return stats
+
+
+def _collectives(api, shape, mesh, multi: bool, placed: list,
+                 passes: int) -> CollectiveStats:
+    """:func:`collectives` for the step whose arguments ``_placed_args``
+    placed (``placed``): its local batch, local steps (the round's batch is
+    (n_pods, K, local batch, ...)) and batch placement read from there."""
+    kind = shape.kind
+    if kind == "decode":  # the tokens are the third argument
+        sh, _, spec = placed[2][()]
+        local, seq, lead = shlib.shard_shape(sh, spec, mesh)[0], 1, 0
+    else:
+        sh, _, spec = next(iter(placed[3 if kind == "train" else 1].values()))
+        lead = 2 if kind == "train" and multi else 0
+        local, seq = shlib.shard_shape(sh, spec, mesh)[lead], shape.seq_len
+    multi_round = kind == "train" and multi
+    return collectives(api, mesh, kind, local, seq, passes,
+                       steps=sh[1] if multi_round else 1,
+                       n_pods=mesh.shape["pod"] if multi_round else 0,
+                       batch_on_data=spec[lead] == "data")
 
 
 # -- the trace ------------------------------------------------------------------

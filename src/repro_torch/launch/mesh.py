@@ -1,14 +1,22 @@
-"""The clients mesh — the port of ``repro.launch.mesh``'s
-``make_clients_mesh``: a 1-D ``torch.distributed`` device mesh whose one
-axis, ``"clients"``, row-shards the flat bank.
+"""Meshes of the port — the port of ``repro.launch.mesh``: the live
+``torch.distributed`` device meshes (the clients mesh that row-shards the
+flat bank, and the host mesh of the pod runtime), and the reference's
+production meshes as abstract ones.
 
 The reference forces host devices and builds a ``jax`` mesh inside one
-process; the port's row-sharded program is SPMD over ``torch.distributed``,
-one process a shard.  Nothing on the card's machine tells a process of a
-cluster, so :func:`init_clients_world` starts the process group itself from
-an explicit address, world size and rank: NCCL on CUDA, gloo when the caller
-asks for the CPU (as the tests do).  There is no fallback from one to the
-other.
+process; the port is SPMD over ``torch.distributed``, one process a device.
+Nothing on the card's machine tells a process of a cluster, so
+:func:`init_world` starts the process group itself from an explicit address,
+world size and rank, and returns the mesh of any shape over it: NCCL on
+CUDA, gloo when the caller asks for the CPU (as the tests do).  There is no
+fallback from one to the other.  :func:`init_clients_world` is its 1-D
+``"clients"`` case.
+
+:func:`make_host_mesh` is the pod runtime's live mesh (the reference's
+``(2, 2, 2)`` ``("pod", "data", "model")`` on 8 forced host devices; here
+over the running world): each pod's replica is placed over its ``("data",
+"model")`` submesh (``launch.sharding.place_params``) and the pod axis
+carries the gossip (``launch.steps.make_round_step``).
 
 :func:`make_production_mesh` returns the reference's production meshes
 (``(data, model)`` 16 x 16; ``(pod, data, model)`` 2 x 16 x 16) as an
@@ -16,9 +24,7 @@ other.
 or 512 ranks cannot be built on one card; the dry-run
 (``repro_torch.launch.dryrun``) only reads the axes to place parameters
 (``launch.sharding.spec_for``).  ``HARDWARE`` holds the H100 SXM constants
-of the roofline (``repro_torch.roofline``).  ``make_host_mesh``, which
-places a live model across cards, waits for the pod runtime (ROADMAP item
-13.7).
+of the roofline (``repro_torch.roofline``).
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["CLIENTS", "HARDWARE", "AbstractMesh", "card_hardware",
-           "init_clients_world", "close_clients_world", "make_clients_mesh",
-           "make_production_mesh", "mesh_axis_names", "mesh_axis_size"]
+           "init_world", "init_clients_world", "close_clients_world",
+           "make_clients_mesh", "make_host_mesh", "make_production_mesh",
+           "mesh_axis_names", "mesh_axis_size"]
 
 CLIENTS = "clients"
 
@@ -97,38 +104,68 @@ def mesh_axis_size(mesh, axis: str) -> int:
     return int(mesh.shape[axis])
 
 
+def _world_size() -> int:
+    """The running world's size; refuses without a process group."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a live mesh needs a running process group: start it with "
+            "init_world (or torch.distributed.init_process_group with an "
+            "explicit address, world size and rank)"
+        )
+    return dist.get_world_size()
+
+
+def _live_mesh(shape: tuple, axes: tuple, device):
+    """A ``DeviceMesh`` of ``shape`` over every rank of the running world,
+    its dims named ``axes``; refuses a shape whose size is not the world's
+    (each rank holds one device of the mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    world = _world_size()
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    size = 1
+    for n in shape:
+        size *= n
+    if size != world:
+        raise ValueError(
+            f"a mesh of shape {shape} has {size} devices and needs a world "
+            f"of as many ranks, one device each; this world has {world}"
+        )
+    return init_device_mesh(torch.device(device).type, shape,
+                            mesh_dim_names=axes)
+
+
 def make_clients_mesh(n_devices: int | None = None, device="cuda"):
     """1-D ``DeviceMesh`` over every rank of the running process group, its
     one axis named ``"clients"``.  ``n_devices`` defaults to the world size
     and must equal it (each rank holds one shard).  ``make_program`` checks
     that the client count divides by the axis size."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
-    if not dist.is_initialized():
-        raise RuntimeError(
-            "make_clients_mesh needs a running process group: start it "
-            "with init_clients_world (or torch.distributed."
-            "init_process_group with an explicit address, world size and "
-            "rank)"
-        )
-    world = dist.get_world_size()
     if n_devices is None:
-        n_devices = world
-    if n_devices != world:
-        raise ValueError(
-            f"a clients mesh of {n_devices} shards needs a world of as many "
-            f"ranks, one shard each; this world has {world}"
-        )
-    return init_device_mesh(torch.device(device).type, (n_devices,),
-                            mesh_dim_names=(CLIENTS,))
+        n_devices = _world_size()
+    return _live_mesh((n_devices,), (CLIENTS,), device)
 
 
-def init_clients_world(rank: int, world_size: int, port: int,
-                       device="cuda"):
+def make_host_mesh(shape=(2, 2), axes=("data", "model"), device="cuda"):
+    """The pod runtime's live mesh over the running world: ``shape`` named
+    ``axes`` (the reference's host mesh is ``(2, 2, 2)`` ``("pod", "data",
+    "model")``).  Refuses without a process group, and refuses a shape whose
+    size is not the world size."""
+    return _live_mesh(shape, axes, device)
+
+
+def init_world(rank: int, world_size: int, port: int | None = None,
+               device="cuda", shape=None, axes=(CLIENTS,),
+               addr: str = "localhost"):
     """Start the process group of one rank — NCCL for CUDA, gloo for the
-    CPU — at ``tcp://localhost:port``, and return its clients mesh.  On
-    CUDA the rank's card is ``cuda:rank`` (of the cards this host shows)."""
+    CPU — and return the live mesh of ``shape`` (default: the world on one
+    axis) named ``axes`` over it.  The store is ``tcp://addr:port``; with
+    ``port`` None it is read from the environment a launcher such as
+    ``torch.distributed.run`` sets (``env://``).  On CUDA the rank's card is
+    ``cuda:rank`` (of the cards this host shows)."""
     import torch.distributed as dist
 
     dev = torch.device(device)
@@ -138,10 +175,18 @@ def init_clients_world(rank: int, world_size: int, port: int,
     elif dev.type == "cpu":
         backend = "gloo"
     else:
-        raise ValueError(f"no clients mesh for device {dev}")
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+        raise ValueError(f"no mesh for device {dev}")
+    init = "env://" if port is None else f"tcp://{addr}:{port}"
+    dist.init_process_group(backend, init_method=init,
                             world_size=world_size, rank=rank)
-    return make_clients_mesh(world_size, dev)
+    return _live_mesh((world_size,) if shape is None else shape, axes, dev)
+
+
+def init_clients_world(rank: int, world_size: int, port: int,
+                       device="cuda"):
+    """Start the process group of one rank (:func:`init_world`) at
+    ``tcp://localhost:port``, and return its clients mesh."""
+    return init_world(rank, world_size, port, device)
 
 
 def close_clients_world() -> None:

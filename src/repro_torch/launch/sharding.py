@@ -1,16 +1,28 @@
 """Placement on a mesh — the port of ``repro.launch.sharding``: the
 logical-axis rules of model parameters and caches (``spec_for``,
-``sharding_for``, ``use_mesh``), and the row sharding of the flat client
-bank (``bank_row_pins``).
+``sharding_for``, ``use_mesh``), the pod runtime's placement of parameters
+and activations (``place_params``, ``constrain``, ``in_manual_region``), and
+the row sharding of the flat client bank (``bank_row_pins``).
 
 Models declare *logical* axes ("heads", "mlp", "embed", "batch", ...);
 :func:`spec_for` maps them onto the mesh axes ("data", "model"[, "pod"])
 exactly as the reference does, as a tuple of the ``PartitionSpec``'s
-entries.  The port runs a model on one card, so nothing places it yet: the
-dry-run (``repro_torch.launch.dryrun``) reads the specs to count each
-device's bytes and collectives on the reference's production meshes.
-``constrain`` and ``in_manual_region``, which place activations of a model
-running across cards, wait for the pod runtime (ROADMAP item 13.7).
+entries.  The dry-run (``repro_torch.launch.dryrun``) reads the specs to
+count each device's bytes and collectives on the reference's production
+meshes; the pod runtime (``launch.steps.make_round_step`` under
+:func:`use_mesh`) turns them into DTensor placements on each pod's
+``("data", "model")`` submesh (:func:`place_params`), where the GSPMD
+partitioner of the reference becomes DTensor's sharding propagation.
+:func:`constrain` is the reference's activation constraint: it
+redistributes a DTensor activation to the placements its logical names
+resolve to (``ACT_RULES``).  Inside a manual region (:func:`manual_region`:
+the flash kernel's call on each rank's local heads, the pod ring's halo
+exchange) values are per-rank shards, and it returns its input.
+
+Only the dense GQA decoders (``POD_FAMILIES``) run as DTensors, over a
+submesh of any size; every other family runs on a pod-only mesh, each
+replica a plain tensor whole on its pod's rank (:func:`check_pod_family`,
+ROADMAP item 13.7b).
 
 The reference pins every bank-row leaf of its one GSPMD program to the mesh
 axis with sharding constraints.  The port's sharded round is SPMD over
@@ -18,7 +30,8 @@ axis with sharding constraints.  The port's sharded round is SPMD over
 ``[lo, lo + m)`` of every bank-row leaf (params, momentum, w, losses, the
 EF residual, the link buffers, the churn liveness), and :class:`RowShard` is
 the one object that knows which — it slices a whole leaf to the rank's
-rows and gathers the rows of every rank back into a whole leaf.
+rows and gathers the rows of every rank back into a whole leaf.  The pod
+runtime's gossip uses it over the ``"pod"`` axis.
 """
 from __future__ import annotations
 
@@ -27,9 +40,12 @@ import math
 
 import torch
 
-__all__ = ["MODEL_AXES", "FSDP_AXES", "ACT_RULES", "use_mesh", "active_mesh",
-           "spec_for", "sharding_for", "shard_shape", "RowShard",
-           "bank_row_pins", "check_row_mesh"]
+__all__ = ["MODEL_AXES", "FSDP_AXES", "ACT_RULES", "POD_AXES", "use_mesh",
+           "active_mesh", "spec_for", "sharding_for", "shard_shape",
+           "placements_for", "place_tensor", "place_params", "submesh",
+           "is_dtensor", "unshard_data", "full_tensor", "placed_family",
+           "check_pod_family", "manual_region", "in_manual_region",
+           "constrain", "RowShard", "bank_row_pins", "check_row_mesh"]
 
 # Logical axes eligible for tensor/expert parallelism, in priority order —
 # the *first* divisible dim of a param gets the "model" mesh axis.
@@ -38,7 +54,7 @@ MODEL_AXES = ("expert", "vocab", "heads", "kv_heads", "mlp", "head_dim",
 # Logical axes eligible for FSDP-style sharding over "data".
 FSDP_AXES = ("embed", "ffpar", "frontend", "rank")
 # Activation logical names -> mesh axes (the reference's ``constrain``
-# rules; kept for the pod runtime).
+# rules).
 ACT_RULES = {
     "batch": "data",
     "expert": "model",
@@ -52,7 +68,11 @@ ACT_RULES = {
     "embed": None,
 }
 
+# The mesh axes a pod's replica is placed over (the submesh of one pod).
+POD_AXES = ("data", "model")
+
 _STATE: list = []  # stack of (mesh, fsdp: bool)
+_MANUAL: list = []  # stack of the meshes of the open manual regions
 
 
 @contextlib.contextmanager
@@ -138,6 +158,213 @@ def sharding_for(pdef, mesh=None, fsdp: bool = None):
 
     return tuple(Shard(spec.index(name)) if name in spec else Replicate()
                  for name in names)
+
+
+def placements_for(spec: tuple, mesh, lead: int = 0) -> tuple:
+    """The DTensor placements of ``spec`` (:func:`spec_for`'s tuple) on a
+    live mesh: one per mesh dim, ``Shard(lead + i)`` for the dim ``i`` that
+    ``spec`` puts on it, else ``Replicate()`` (a mesh dim of one device
+    too: one shard is the whole, and a view of a dim of size 1 may drop
+    it).  ``lead`` counts leading dims that ``spec`` does not cover (the
+    stacked pods of the pod runtime)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(lead + spec.index(name))
+                 if name in spec and mesh.size(i) > 1 else Replicate()
+                 for i, name in enumerate(mesh.mesh_dim_names))
+
+
+def submesh(mesh):
+    """The pod's ``("data", "model")`` submesh of a live pod-runtime mesh
+    (the axes of :data:`POD_AXES` that ``mesh`` has)."""
+    from repro_torch.launch.mesh import mesh_axis_names
+
+    names = tuple(a for a in POD_AXES if a in mesh_axis_names(mesh))
+    if not names:
+        raise ValueError(f"mesh has none of the axes {POD_AXES}")
+    return mesh[names]
+
+
+def _submesh_size(mesh) -> int:
+    return math.prod(max(_axis_size(mesh, a), 1) for a in POD_AXES)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor``."""
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def full_tensor(x):
+    """The whole tensor of a DTensor (gathered over its mesh), or ``x``."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def unshard_data(x):
+    """FSDP's gather: a DTensor leaf sharded on the "data" axis,
+    all-gathered there for its use (its gradient, a partial sum over the
+    batch shards, is reduce-scattered back by the backward); anything else
+    as it is."""
+    if not is_dtensor(x) or "data" not in x.device_mesh.mesh_dim_names:
+        return x
+    i = x.device_mesh.mesh_dim_names.index("data")
+    if not x.placements[i].is_shard():
+        return x
+    from torch.distributed.tensor import Replicate
+
+    pl = list(x.placements)
+    pl[i] = Replicate()
+    return x.redistribute(x.device_mesh, pl)
+
+
+def place_tensor(x, dmesh, placements):
+    """``x`` (the whole tensor, the same on every rank) as a DTensor of
+    ``placements`` on ``dmesh``: each rank keeps its own block, no
+    collective (a replicated tensor redistributed to shards is sliced)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = DTensor.from_local(x, dmesh, [Replicate()] * dmesh.ndim,
+                             run_check=False)
+    return rep.redistribute(dmesh, placements)
+
+
+def place_params(tree, defs, mesh, fsdp: bool = True, lead: int = 0):
+    """Place a parameter tree (whole tensors, the same on every rank) over
+    the pod's ``("data", "model")`` submesh of ``mesh`` as DTensors: each
+    leaf by its ``PDef``'s :func:`spec_for` tuple on ``mesh``
+    (:func:`placements_for`).  ``lead`` leading dims of every leaf (the
+    pods stacked on one rank) stay whole.  On a pod-only mesh (a submesh of
+    one device) every placement is ``Replicate``: the replica is whole on
+    its pod's rank, and runs as DTensors all the same."""
+    sub = submesh(mesh)
+
+    def one(x, d):
+        if isinstance(x, dict):
+            return {k: one(x[k], d[k]) for k in x}
+        return place_tensor(x, sub, placements_for(spec_for(d, mesh, fsdp),
+                                                   sub, lead))
+
+    return one(tree, defs)
+
+
+# The families the pod runtime places over a submesh wider than one device.
+POD_FAMILIES = "the dense GQA decoders (lm task)"
+
+
+def placed_family(cfg) -> bool:
+    """Whether the pod runtime runs ``cfg``'s replicas as DTensors over the
+    pod's submesh: :data:`POD_FAMILIES` (glm4-9b, gemma3-12b,
+    phi3-medium-14b, codeqwen1.5-7b) on any mesh.  Every other family runs
+    as plain tensors, on a pod-only mesh."""
+    return (cfg.block_kind == "transformer" and cfg.attn_type != "mla"
+            and not cfg.n_experts and cfg.task == "lm")
+
+
+def check_pod_family(cfg, mesh) -> None:
+    """Refuse a model that the pod runtime cannot place over ``mesh``'s
+    ``("data", "model")`` submesh: a data or model axis above 1 takes only
+    :data:`POD_FAMILIES` (:func:`placed_family`).  The MoE and MLA, xlstm,
+    hymba, vlm and masked_lm families wait for ROADMAP item 13.7b; on a
+    pod-only mesh every family runs."""
+    if mesh is None or _submesh_size(mesh) == 1:
+        return
+    if not placed_family(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the pod runtime places only {POD_FAMILIES} over a "
+            "data or model axis above 1; this family (block "
+            f"{cfg.block_kind!r}, attention {cfg.attn_type!r}, "
+            f"{cfg.n_experts} experts, task {cfg.task!r}) waits for ROADMAP "
+            "item 13.7b; run it on a pod-only mesh (data = model = 1)")
+
+
+@contextlib.contextmanager
+def manual_region(mesh=None):
+    """A region whose values are per-rank shards (the reference's
+    ``shard_map`` manual region): a hand-written kernel's call on local
+    shards, the pod ring's halo exchange.  :func:`constrain` returns its
+    input inside."""
+    _MANUAL.append(mesh)
+    try:
+        yield
+    finally:
+        _MANUAL.pop()
+
+
+def in_manual_region(mesh=None) -> bool:
+    """Is the caller inside a :func:`manual_region` (over an axis of
+    ``mesh``, the active mesh when ``None``)?  False without any mesh, as
+    the reference's probe is."""
+    from repro_torch.launch.mesh import mesh_axis_names
+
+    if not _MANUAL:
+        return False
+    if mesh is None:
+        mesh = active_mesh()
+    if mesh is None:
+        return False
+    names = set(mesh_axis_names(mesh))
+    return any(m is None or names & set(mesh_axis_names(m)) for m in _MANUAL)
+
+
+def constrain(x, logical: tuple):
+    """Activation sharding constraint by logical names (no-op without an
+    active mesh).  The names resolve by ``ACT_RULES`` as the reference's
+    do (each mesh axis on the first divisible dim); a DTensor is
+    redistributed to those placements on its own mesh, a plain tensor (a
+    replica whole on its rank) passes through.  Inside a manual region
+    (:func:`in_manual_region`) the value is already per-rank and is
+    returned as it is — but a malformed constraint (a name that is no
+    logical axis, a rank mismatch) raises there too."""
+    if not _STATE:
+        return x
+    mesh, _ = _STATE[-1]
+    if len(logical) != x.dim():
+        raise ValueError(
+            f"constraint {logical} names {len(logical)} dims of a rank-"
+            f"{x.dim()} activation")
+    spec: list = [None] * x.dim()
+    for i, name in enumerate(logical):
+        if name is None:
+            continue
+        if name not in ACT_RULES:
+            raise ValueError(
+                f"unknown logical axis {name!r} (known: {sorted(ACT_RULES)})")
+        mesh_axis = ACT_RULES[name]
+        if mesh_axis in (None, "head_dim_fallback"):
+            continue
+        n = _axis_size(mesh, mesh_axis)
+        if n and x.shape[i] % n == 0 and mesh_axis not in spec:
+            spec[i] = mesh_axis
+    if in_manual_region(mesh) or not is_dtensor(x):
+        return x
+    placements = placements_for(tuple(spec), x.device_mesh)
+    if tuple(x.placements) == placements:
+        return x
+    return _Constrain.apply(x, placements)
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, and its gradient too: the
+    reference's sharding constraint holds for the cotangent, so a partial
+    sum arriving from the layers above is reduced here (the tensor-parallel
+    backward all-reduce) and not carried into the weight gradients."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        ctx.inputs = tuple(x.placements)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.redistribute(g.device_mesh, ctx.placements)
+        # A partial input takes the whole gradient as it is.
+        back = [pc if pi.is_partial() else pi
+                for pi, pc in zip(ctx.inputs, ctx.placements)]
+        return g.redistribute(g.device_mesh, back), None
 
 
 def check_row_mesh(mesh, axis: str, n: int) -> int:

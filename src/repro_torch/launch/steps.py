@@ -12,21 +12,28 @@
 
 The reference shards each replica over its pod's (data, model) submesh and
 vmaps the local steps over a "pod" mesh axis.  Here the pods' replicas are
-stacked on a leading axis of every leaf on one device, and a loop runs the
-pods one after another; sharding a replica waits for ROADMAP queue 1
-items 12 and 13.7.  The gradients are taken with ``torch.autograd``
+stacked on a leading axis of every leaf, and a loop runs a rank's pods one
+after another.  Without a mesh every pod is on the one device.  Under the
+pod runtime's mesh (``launch.sharding.use_mesh`` of a ``("pod", "data",
+"model")`` mesh, ``launch.mesh.make_host_mesh``) each rank holds the rows
+of its pod-axis coordinate (``launch.sharding.RowShard`` over "pod"), each
+replica placed over the pod's (data, model) submesh as DTensors
+(:func:`place_pods`), and the gossip crosses the pod axis.  The gradients
+are taken with ``torch.autograd``
 (:func:`repro_torch.core.sam.sam_gradient_autograd`): the decoders' flash
 attention has a hand-written CUDA backward, which ``torch.func`` cannot
 call.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.comm.plan import HaloBackend
 from repro_torch.core import topology
 from repro_torch.core.flat import (
     BoundDeltaSpec,
@@ -39,6 +46,7 @@ from repro_torch.core.sam import (
     momentum_update,
     sam_gradient_autograd,
 )
+from repro_torch.launch import sharding as shlib
 from repro_torch.models.registry import ModelApi
 
 __all__ = ["StepConfig", "make_train_step", "make_round_step",
@@ -46,7 +54,7 @@ __all__ = ["StepConfig", "make_train_step", "make_round_step",
            "make_personalized_serve_step", "pod_mixing_matrix",
            "pod_mixing_neighbors", "pod_comm_plan", "resolve_compressor",
            "init_pod_comp_state", "resolve_pod_link", "resolve_pod_mixer",
-           "init_pod_link_state"]
+           "init_pod_link_state", "place_pods", "gather_pods", "pod_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +196,7 @@ def init_pod_link_state(mixer, link_model, params, seed: int = 0):
     from repro_torch.core.program import LINK_STREAM, _fold_generator
     from repro_torch.core.stages import LinkState
 
+    params = tree_map(shlib.full_tensor, params)
     device = tree_flatten(params)[1][0].device
     gen = torch.Generator(device=device).manual_seed(seed)
     bank = _row_spec(params).ravel_stacked(params)
@@ -227,6 +236,76 @@ def pod_comm_plan(n_pods: int, n_shards: int):
     )
 
 
+def pod_rows(mesh, n_pods: int):
+    """The :class:`~repro_torch.launch.sharding.RowShard` of this rank's
+    pods on ``mesh``'s "pod" axis (``n_pods`` a multiple of its size: the
+    rest are stacked on the rank), or ``None`` without a mesh or without
+    that axis."""
+    return shlib.bank_row_pins(mesh, "pod", n_pods)
+
+
+def place_pods(api: ModelApi, stacked, mesh):
+    """The pod runtime's placement (the reference's ``train.py``): this
+    rank's pods of the whole pod-stacked tree ``stacked`` (leading dim
+    n_pods, the same on every rank), each replica placed over the pod's
+    ("data", "model") submesh by ``spec_for``: DTensors for the dense GQA
+    decoders (``sharding.placed_family``), plain tensors for the other
+    families, which run on a pod-only mesh.  Refuses a family the submesh
+    cannot take (``sharding.check_pod_family``)."""
+    shlib.check_pod_family(api.cfg, mesh)
+    rows = pod_rows(mesh, _n_pods(stacked))
+    local = tree_map(rows.rows, stacked)
+    if not shlib.placed_family(api.cfg):
+        return local
+    return shlib.place_params(local, api.param_defs(), mesh,
+                              fsdp=api.cfg.fsdp, lead=1)
+
+
+def gather_pods(tree, mesh, n_pods: int):
+    """The whole pod-stacked tree (plain tensors, on every rank) from each
+    rank's placed pods: each replica gathered over its submesh, then the
+    pods over the pod axis (the inverse of :func:`place_pods`)."""
+    rows = pod_rows(mesh, n_pods)
+    return tree_map(lambda x: rows.all_gather(shlib.full_tensor(x)), tree)
+
+
+def _pod_mixer(mixer, gossip: str, mesh, pods, P_pod):
+    """The mixer of the round's gossip over the pod axis — the reference's
+    dispatch: "halo" on a pod axis above 1 with more than one pod runs the
+    pod ring's halo exchange (the neighbor-list ``P_pod`` only), every other
+    case the all-gather form over the pod axis.  Without a pod axis, or on
+    one of a single rank (``pods`` None: its all-gather form is the bank
+    at hand), the mixer as it is."""
+    if pods is None:
+        return mixer
+    backend = "xla" if gossip == "xla" else None
+    if gossip == "halo" and pods.n > 1 and pods.world > 1:
+        if not isinstance(P_pod, topology.NeighborList):
+            raise ValueError(
+                "gossip='halo' needs the neighbor-list pod ring "
+                "(pod_mixing_neighbors), not a dense P_pod")
+        backend = HaloBackend(mesh, "pod", pod_comm_plan(pods.n, pods.world))
+    elif gossip == "halo":
+        backend = "xla"
+    return dataclasses.replace(mixer, backend=backend, shard=pods)
+
+
+def _place_batch(batch: dict, mesh) -> dict:
+    """A pod's batches (K, B, ...) over its submesh: the B rows on "data"
+    where they divide (the reference's ``"batch"`` rule), replicated on
+    "model"."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sub = shlib.submesh(mesh)
+    out = {}
+    for key, x in batch.items():
+        pl = [Shard(1) if name == "data" and sub.size(i) > 1
+              and x.shape[1] % sub.size(i) == 0 else Replicate()
+              for i, name in enumerate(sub.mesh_dim_names)]
+        out[key] = shlib.place_tensor(x, sub, pl)
+    return out
+
+
 def make_round_step(
     api: ModelApi,
     step_cfg: StepConfig,
@@ -260,11 +339,24 @@ def make_round_step(
     from ``link.key``.  Without ``flat_mix`` every leaf is mixed by an f32
     product with ``P_pod``.
 
-    ``gossip`` is the executor knob of the reference: ``"auto"`` and
-    ``"xla"`` run as on a one-device mesh (the mixer's own kernel);
-    ``"halo"`` ships the pod ring's halo exchange over a pod axis sharded
-    across cards, which comes with the pod runtime (ROADMAP item 13.7), and
-    raises.
+    Under the pod runtime's mesh (a ``"pod"`` axis in the active mesh,
+    ``launch.sharding.use_mesh``), ``params``, ``v``, ``w``, ``comp``,
+    ``link`` and ``batch`` are this rank's pods (``pod_rows(mesh,
+    n_pods).rows`` of the whole leaves; the replicas placed by
+    :func:`place_pods`), ``P_pod`` is the whole pod graph, and the metrics
+    are the means over every pod.  Each replica runs its local steps as
+    DTensors over its pod's submesh; the mix gathers each replica's columns
+    to full rows (the reference's ``bank_row_pins``: rows on "pod", columns
+    gathered), mixes the ``(n_pods, D)`` bank over the pod axis and writes
+    each rank's blocks back into its shards.
+
+    ``gossip`` is the executor knob of the reference over the pod axis:
+    ``"auto"`` and ``"xla"`` take the all-gather form; ``"halo"`` ships the
+    pod ring's halo exchange (``pod_comm_plan`` over the pod axis's process
+    group; the neighbor-list ``P_pod`` only, a dense one raises) when the
+    pod axis and the pod count are above 1, else the all-gather form.
+    Without a mesh the mixer's own kernel runs on the stacked bank, and
+    ``"halo"`` runs as ``"auto"``, as the reference's does.
     """
     from repro_torch.core.stages import IdentityCompressor, comm_phase
 
@@ -297,10 +389,6 @@ def make_round_step(
             "delayed / event-triggered mixing is push-sum (directed) only; "
             f"the configured mixer is {mixer.kind!r}"
         )
-    if gossip == "halo":
-        raise NotImplementedError(
-            "gossip='halo' runs the pod ring's halo exchange over a pod "
-            "axis sharded across cards: the pod runtime, ROADMAP item 13.7")
 
     def one_pod(params, v, i, w_i, batches):
         """Pod i's K local steps on its slices of the stacked leaves,
@@ -311,26 +399,36 @@ def make_round_step(
         for k in range(batches[next(iter(batches))].shape[0]):
             p, vv, m = local(p, vv, w_i, {key: b[k]
                                           for key, b in batches.items()})
-            losses.append(m["loss"])
-            accs.append(m["acc"])
+            losses.append(shlib.full_tensor(m["loss"]))
+            accs.append(shlib.full_tensor(m["acc"]))
         tree_map(lambda x, y: x[i].copy_(y), params, p)
         tree_map(lambda x, y: x[i].copy_(y), v, vv)
         return torch.stack(losses).mean(), torch.stack(accs).mean()
 
-    def mix_flat(params, w, comp, link, P_pod, draws):
-        spec = _row_spec(params)
-        bank = spec.ravel_stacked(params)
-        bank, w, comp, link, extras = comm_phase(
-            compressor, mixer, P_pod, bank, w, comp, link,
-            linked=linked, link_model=link_model,
-            symmetric=mixer.kind == "symmetric", draws=draws,
-        )
-        for o, sz, leaf in zip(spec.offsets, spec.sizes,
-                               tree_flatten(params)[1]):
-            leaf.copy_(bank[:, o:o + sz].reshape(leaf.shape))
+    def mix_flat(params, w, comp, link, P_pod, draws, mesh, mx):
+        leaves = tree_flatten(params)[1]
+        # Rows on "pod", columns gathered: each replica's whole row.
+        full = tree_map(shlib.full_tensor, params)
+        spec = _row_spec(full)
+        bank = spec.ravel_stacked(full)
+        del full
+        with (shlib.manual_region(mesh) if isinstance(mx.backend, HaloBackend)
+              else contextlib.nullcontext()):
+            bank, w, comp, link, extras = comm_phase(
+                compressor, mx, P_pod, bank, w, comp, link,
+                linked=linked, link_model=link_model,
+                symmetric=mixer.kind == "symmetric", draws=draws,
+            )
+        for o, sz, leaf in zip(spec.offsets, spec.sizes, leaves):
+            rows = bank[:, o:o + sz].reshape(leaf.shape)
+            if shlib.is_dtensor(leaf):  # back into this rank's blocks
+                rows = shlib.place_tensor(rows.to(leaf.dtype), leaf.device_mesh,
+                                    leaf.placements).to_local()
+                leaf = leaf.to_local()
+            leaf.copy_(rows)
         return w, comp, link, extras
 
-    def mix_leafwise(params, w, comp, link, P_pod, draws):
+    def mix_leafwise(params, w, comp, link, P_pod, draws, mesh, mx):
         if isinstance(P_pod, topology.NeighborList):
             raise ValueError(
                 "neighbor-list P_pod requires flat_mix=True (bank layout)")
@@ -342,13 +440,44 @@ def make_round_step(
 
     @torch.no_grad()
     def round_step(params, v, w, comp, link, batch, P_pod, draws=None):
-        stats = [one_pod(params, v, i, w[i], {k: x[i] for k, x in
-                                              batch.items()})
-                 for i in range(w.shape[0])]
+        mesh = shlib.active_mesh()
+        n_pods = (P_pod.idx if isinstance(P_pod, topology.NeighborList)
+                  else P_pod).shape[0]
+        pods = pod_rows(mesh, n_pods)
+        if pods is not None and not flat_mix:
+            raise ValueError("the pod runtime mixes the flat bank: "
+                             "flat_mix=True under a mesh")
+        if pods is not None and pods.m != w.shape[0]:
+            raise ValueError(
+                f"this rank holds {pods.m} of the {n_pods} pods on the pod "
+                f"axis; got {w.shape[0]} rows of w")
+        # A pod axis of one rank has nothing to exchange: its pods' rows
+        # are the whole bank.
+        across = pods if pods is not None and pods.world > 1 else None
+        mx = _pod_mixer(mixer, gossip, mesh, across, P_pod)
+        placed = any(shlib.is_dtensor(x) for x in tree_flatten(params)[1])
+        if placed:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication,
+            )
+
+            shlib.check_pod_family(api.cfg, mesh)
+            ctx = implicit_replication()
+        else:
+            ctx = contextlib.nullcontext()
+        stats = []
+        with ctx:
+            for i in range(w.shape[0]):
+                b = {k: x[i] for k, x in batch.items()}
+                if placed:
+                    b = _place_batch(b, mesh)
+                stats.append(one_pod(params, v, i, w[i], b))
         loss = torch.stack([s[0] for s in stats])
         acc = torch.stack([s[1] for s in stats])
+        if across is not None:  # the means over every pod
+            loss, acc = across.all_gather(loss), across.all_gather(acc)
         w, comp, link, extras = (mix_flat if flat_mix else mix_leafwise)(
-            params, w, comp, link, P_pod, draws)
+            params, w, comp, link, P_pod, draws, mesh, mx)
         return params, v, w, comp, link, {
             "loss": loss.mean(), "acc": acc.mean(), **extras}
 

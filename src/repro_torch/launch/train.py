@@ -5,10 +5,20 @@ Every pod holds a full replica, runs K local SAM-momentum steps on its own
 token stream and exchanges parameters by directed push-sum gossip (one
 ``launch.steps.make_round_step`` a round).  Both of the reference's meshes
 have a pod axis of 2 (the host mesh (2, 2, 2) and the multi-pod production
-mesh), so the port runs 2 pods, their replicas stacked on one device;
-``--host-mesh`` is accepted and gives the same 2 pods.  Sharding a replica
-over its pod's (data, model) submesh waits for ROADMAP queue 1 items 12
-and 13.7.  ``--superstep N`` runs N rounds between host boundaries, which
+mesh), so the port runs 2 pods.  Without ``--host-mesh`` their replicas are
+stacked on one device.  ``--host-mesh`` runs the reference's (2, 2, 2)
+``("pod", "data", "model")`` mesh over a running 8-rank world started by
+``torch.distributed.run`` (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT`` from its environment): each pod's replica is placed over
+its (data, model) submesh (``launch.steps.place_pods``; the dense GQA
+decoders, any family on a pod-only mesh), rank 0 logs and writes the
+checkpoints, gathered whole, and ``--resume`` places them again:
+
+  python -m torch.distributed.run --nproc-per-node 8 \
+      -m repro_torch.launch.train --host-mesh --arch glm4-9b --smoke \
+      --rounds 2 --device cpu
+
+``--superstep N`` runs N rounds between host boundaries, which
 log and checkpoint; ``--resume`` restarts from the latest round-state
 checkpoint in ``--ckpt-dir`` (the reference's file tree: ``params``,
 ``v``, ``w``, ``round``, and ``comp`` / ``link`` when present).
@@ -43,10 +53,14 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["build_parser", "main", "run", "N_PODS"]
+__all__ = ["build_parser", "main", "run", "N_PODS", "HOST_MESH"]
 
 # The pod axis of both of the reference's meshes.
 N_PODS = 2
+# The reference's host mesh: (shape, axis names).
+HOST_MESH = ((2, 2, 2), ("pod", "data", "model"))
+# What ``--host-mesh`` reads from the launcher's environment.
+_WORLD_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
 def _paged_main(args):
@@ -169,8 +183,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "broadcast (comm_fraction is logged)")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--host-mesh", action="store_true",
-                    help="the reference's (2, 2, 2) host mesh: 2 pods, as "
-                         "without it")
+                    help="the reference's (2, 2, 2) (pod, data, model) mesh "
+                         "over the 8-rank world of torch.distributed.run: "
+                         "each pod's replica placed over its (data, model) "
+                         "submesh")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true",
                     help="warm-restart from the latest checkpoint in "
@@ -222,9 +238,52 @@ def _mass(w, link):
     return w.sum() + inflight
 
 
+def _rows_of(x, fn, lead: int = 0):
+    """``fn(x, lead)`` on a bank-row carry, or an empty carry (``()``) as
+    it is."""
+    return x if isinstance(x, tuple) else fn(x, lead)
+
+
+def _link_rows(link, fn):
+    """``fn`` on the bank rows of a link carry: the in-flight payloads'
+    rows (dim 1) and the last broadcast's (dim 0)."""
+    if link == ():
+        return link
+    return link._replace(bufx=_rows_of(link.bufx, fn, 1),
+                         bufw=_rows_of(link.bufw, fn, 1),
+                         last=_rows_of(link.last, fn))
+
+
+def _dist_rank() -> int:
+    """This process's rank in the running world (0 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _host_mesh(device: torch.device):
+    """The reference's (2, 2, 2) host mesh over the world that
+    ``torch.distributed.run`` started (its environment gives the rank, the
+    world size and the store's address); refuses without that
+    environment."""
+    import os
+
+    from repro_torch.launch.mesh import init_world
+
+    missing = [k for k in _WORLD_ENV if k not in os.environ]
+    if missing:
+        raise SystemExit(
+            f"--host-mesh runs in a world of 8 ranks started by "
+            f"torch.distributed.run (python -m torch.distributed.run "
+            f"--nproc-per-node 8 -m repro_torch.launch.train --host-mesh "
+            f"...); {', '.join(missing)} not set")
+    return init_world(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                      None, device, *HOST_MESH)
 
 
 def run(cfg, args, on_round=None) -> dict:
@@ -232,8 +291,24 @@ def run(cfg, args, on_round=None) -> dict:
     :func:`build_parser`) says.  ``on_round(r, metrics)`` is called after
     each round once its metrics are on the host.  Returns the run's record:
     the per-round ``history`` (round, loss, acc, w_mass, dt), the final
-    ``params``, ``v``, ``w``, ``comp``, ``link``, and what a caller needs to
-    run one more round (``api``, ``round_step``, ``tokens``, ``P_pod``)."""
+    ``params``, ``v``, ``w``, ``comp``, ``link`` (under ``--host-mesh`` this
+    rank's pods, placed), and what a caller needs to run one more round
+    (``api``, ``round_step``, ``tokens``, ``P_pod``, ``mesh``)."""
+    if not getattr(args, "host_mesh", False):
+        return _run(cfg, args, on_round, None)
+    from repro_torch.launch.mesh import close_clients_world
+
+    mesh = _host_mesh(torch.device(args.device))
+    try:
+        return _run(cfg, args, on_round, mesh)
+    finally:
+        close_clients_world()
+
+
+def _run(cfg, args, on_round, mesh) -> dict:
+    import contextlib
+
+    from repro_torch.launch import sharding as shlib
     from repro_torch import checkpoint
     from repro_torch.core.flat import tree_map
     from repro_torch.data.synthetic import make_lm_stream
@@ -241,10 +316,13 @@ def run(cfg, args, on_round=None) -> dict:
     from repro_torch.launch.steps import (
         StepConfig,
         init_pod_comp_state,
+        gather_pods,
         init_pod_link_state,
         make_round_step,
+        place_pods,
         pod_mixing_matrix,
         pod_mixing_neighbors,
+        pod_rows,
         resolve_compressor,
         resolve_pod_link,
         resolve_pod_mixer,
@@ -254,6 +332,9 @@ def run(cfg, args, on_round=None) -> dict:
     device = torch.device(args.device)
     n_pods = N_PODS
     api = get_model_api(cfg)
+    rows = pod_rows(mesh, n_pods)
+    lead = _dist_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     step_cfg = StepConfig(lr=args.lr, alpha=args.alpha, rho=args.rho,
                           local_steps=args.local_steps,
                           microbatches=args.microbatches,
@@ -277,6 +358,24 @@ def run(cfg, args, on_round=None) -> dict:
     w = torch.ones((n_pods,), dtype=torch.float32, device=device)
     comp = init_pod_comp_state(compressor, params)
     link = init_pod_link_state(mixer, link_model, params)
+
+    def place(params, v, w, comp, link):
+        """This rank's pods of the whole state, placed (as it is without a
+        mesh)."""
+        if rows is None:
+            return params, v, w, comp, link
+        return (place_pods(api, params, mesh), place_pods(api, v, mesh),
+                rows.rows(w), _rows_of(comp, rows.rows),
+                _link_rows(link, rows.rows))
+
+    def whole(params, v, w, comp, link):
+        """The whole state from every rank's pods (on every rank)."""
+        if rows is None:
+            return params, v, w, comp, link
+        return (gather_pods(params, mesh, n_pods),
+                gather_pods(v, mesh, n_pods), rows.all_gather(w),
+                _rows_of(comp, rows.all_gather),
+                _link_rows(link, rows.all_gather))
     # Directed pod ring, k_max = 2: neighbor-list form once the pod count
     # clears the device's density rule, dense below it.
     P_pod = (pod_mixing_neighbors(n_pods, device)
@@ -303,12 +402,27 @@ def run(cfg, args, on_round=None) -> dict:
             comp = restored.get("comp", comp)
             link = restored.get("link", link)
             start = int(restored["round"]) + 1
-            print(f"[train] resumed {path} at round {start} "
-                  f"(momentum bank restored)")
+            say(f"[train] resumed {path} at round {start} "
+                f"(momentum bank restored)")
+    params, v, w, comp, link = place(params, v, w, comp, link)
 
-    print(f"[train] {cfg.name} | {n_pods} pods on {device} | "
-          f"K={args.local_steps} rho={args.rho} alpha={args.alpha} "
-          f"superstep={args.superstep}")
+    where = (f"on {device}" if mesh is None else
+             f"x {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {device}")
+    say(f"[train] {cfg.name} | {n_pods} pods {where} | "
+        f"K={args.local_steps} rho={args.rho} alpha={args.alpha} "
+        f"superstep={args.superstep}")
+
+    def on_mesh():
+        return (shlib.use_mesh(mesh, fsdp=cfg.fsdp) if mesh is not None
+                else contextlib.nullcontext())
+
+    def mass(w, link):
+        if rows is None:
+            return _mass(w, link)
+        inflight = (rows.all_gather(link.bufw, 1).sum()
+                    if link != () and not isinstance(link.bufw, tuple)
+                    else 0.0)
+        return rows.all_gather(w).sum() + inflight
     history = []
     r = start
     while r < args.rounds:
@@ -316,10 +430,12 @@ def run(cfg, args, on_round=None) -> dict:
         t0 = time.time()
         ms = []
         for i in range(length):
-            params, v, w, comp, link, m = round_step(
-                params, v, w, comp, link,
-                {"tokens": toks[r + i].to(device)}, P_pod)
-            ms.append((m, _mass(w, link)))
+            tk = toks[r + i].to(device)
+            with on_mesh():
+                params, v, w, comp, link, m = round_step(
+                    params, v, w, comp, link,
+                    {"tokens": tk if rows is None else rows.rows(tk)}, P_pod)
+            ms.append((m, mass(w, link)))
             if args.superstep <= 1:
                 _sync(device)
         _sync(device)
@@ -329,9 +445,9 @@ def run(cfg, args, on_round=None) -> dict:
                    "acc": float(m["acc"]), "w_mass": float(wm), "dt": dt}
             comm = (f" comm={float(m['comm_fraction']):.2f}"
                     if "comm_fraction" in m else "")
-            print(f"[train] round {r + i:4d} loss={rec['loss']:.4f} "
-                  f"acc={rec['acc']:.4f} w_mass={rec['w_mass']:.4f}{comm} "
-                  f"dt={dt:.2f}s", flush=True)
+            say(f"[train] round {r + i:4d} loss={rec['loss']:.4f} "
+                f"acc={rec['acc']:.4f} w_mass={rec['w_mass']:.4f}{comm} "
+                f"dt={dt:.2f}s", flush=True)
             history.append(rec)
             if on_round is not None:
                 on_round(r + i, rec)
@@ -340,21 +456,26 @@ def run(cfg, args, on_round=None) -> dict:
         r += length
         if ckpt_due:
             # Full round state: momentum, round index, and any compressor
-            # residual or link carry, so restarts stay warm.
-            tree = {"params": params, "v": v, "w": w,
+            # residual or link carry, so restarts stay warm; gathered whole
+            # under a mesh (every rank takes part), written by rank 0.
+            wp, wv, ww, wc, wl = whole(params, v, w, comp, link)
+            tree = {"params": wp, "v": wv, "w": ww,
                     "round": np.int32(r - 1)}
             if compressor.stateful:
-                tree["comp"] = comp
+                tree["comp"] = wc
             if link != ():
-                tree["link"] = link
-            checkpoint.save(args.ckpt_dir, r - 1, tree)
+                tree["link"] = wl
+            if lead:
+                checkpoint.save(args.ckpt_dir, r - 1, tree)
+            del wp, wv, tree
     # Exact mass conservation, in-flight shares included.
-    mass = float(_mass(w, link))
-    if abs(mass - n_pods) >= 1e-3:
-        raise RuntimeError(f"push-sum mass {mass} is not {n_pods}")
+    total = float(mass(w, link))
+    if abs(total - n_pods) >= 1e-3:
+        raise RuntimeError(f"push-sum mass {total} is not {n_pods}")
     return {"history": history, "params": params, "v": v, "w": w,
             "comp": comp, "link": link, "api": api,
-            "round_step": round_step, "tokens": toks, "P_pod": P_pod}
+            "round_step": round_step, "tokens": toks, "P_pod": P_pod,
+            "mesh": mesh}
 
 
 def main(argv=None):

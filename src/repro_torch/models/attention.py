@@ -5,7 +5,10 @@ multi-head latent attention (MLA).
 GQA's full-sequence mode (:func:`gqa_forward`, used by prefill and by the
 training forward) computes its attention core through the hand-written
 flash kernel (:func:`repro_torch.kernels.ops.flash_attention`; under
-autograd its backward is the hand-written backward kernel); decode mode
+autograd its backward is the hand-written backward kernel).  Under the pod
+runtime q, k and v are DTensors (batch on "data", heads on "model"): the
+kernel runs on each rank's local batch rows and heads inside a manual
+region (:func:`_local_attention`); decode mode
 (:func:`gqa_decode`) stays plain PyTorch, one query against the cache, as in
 the reference, which has no Pallas kernel there either.
 
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding as shlib
 from repro_torch.models.layers import (
     apply_rope,
     lane_scale,
@@ -190,11 +194,69 @@ def gqa_forward(p, x, cfg: ArchConfig, window: int = 0, theta=None,
     # The kernel applies a window with or without the causal mask, while the
     # reference's mask ignores it for a non-causal model: pass it only when
     # the model is causal.
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=cfg.causal,
-                              window=window if cfg.causal else 0)
-    out = _out_proj(out.transpose(1, 2), p["wo"])
+    window = window if cfg.causal else 0
+    if shlib.is_dtensor(q):
+        out = _local_attention(q, k, v, cfg.causal, window)
+    else:
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=cfg.causal,
+                                  window=window).transpose(1, 2)
+    out = _out_proj(out, p["wo"])
     return (out, (k, v)) if return_kv else out
+
+
+def _local_attention(q, k, v, causal: bool, window: int):
+    """The flash kernel on each rank's shards of DTensor q (B,S,H,hd) and
+    k, v (B,S,KV,hd) -> the DTensor output (B,S,H,hd), laid out as q.
+
+    q keeps its placements (batch rows on "data", heads on "model", as
+    ``constrain`` left them); k and v follow them where KV divides by the
+    axis, and are replicated where it does not (2 kv heads on a 4-wide
+    model axis).  Rank r's query heads ``[r H/m, (r+1) H/m)`` then read kv
+    heads ``h // (H / KV)`` of the replicated k and v: one kv head when its
+    group spans the rank's heads, else one kv head per query head.  The
+    kernel runs inside a manual region on the local tensors (``to_local``
+    in, ``from_local`` out), and its hand-written backward on the same
+    local tensors.  A replicated k's local gradient holds only the rank's
+    heads' share, so it goes back as a ``Partial`` sum over the axis."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    group = q.shape[2] // k.shape[2]
+    q_pl, kv_pl, kv_grad = [], [], []
+    head_dim = None  # the mesh dim that splits q's heads
+    for i, pl in enumerate(q.placements):
+        if pl == Shard(2):
+            head_dim = i
+            split = k.shape[2] % mesh.size(i) == 0
+            q_pl.append(pl)
+            kv_pl.append(pl if split else Replicate())
+            kv_grad.append(pl if split else Partial())
+        else:  # batch rows, or replicated (any other split is undone)
+            pl = pl if pl == Shard(0) else Replicate()
+            q_pl.append(pl)
+            kv_pl.append(pl)
+            kv_grad.append(pl)
+    q = q.redistribute(mesh, q_pl)
+    k = k.redistribute(mesh, kv_pl)
+    v = v.redistribute(mesh, kv_pl)
+    ql = q.to_local(grad_placements=q_pl)
+    kl = k.to_local(grad_placements=kv_grad)
+    vl = v.to_local(grad_placements=kv_grad)
+    if head_dim is not None and kv_pl[head_dim] == Replicate():
+        hl = ql.shape[2]
+        lo = mesh.get_local_rank(head_dim) * hl
+        if group % hl == 0:  # the rank's heads share one kv head
+            j = lo // group
+            kl, vl = kl[:, :, j:j + 1], vl[:, :, j:j + 1]
+        else:  # one kv head per query head
+            kv_of = torch.arange(lo, lo + hl, device=ql.device) // group
+            kl, vl = kl.index_select(2, kv_of), vl.index_select(2, kv_of)
+    with shlib.manual_region(mesh):
+        out = ops.flash_attention(ql.transpose(1, 2), kl.transpose(1, 2),
+                                  vl.transpose(1, 2), causal=causal,
+                                  window=window).transpose(1, 2)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False)
 
 
 def gqa_decode(p, x, cache, cfg: ArchConfig, pos: int, window: int = 0,

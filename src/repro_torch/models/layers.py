@@ -1,18 +1,21 @@
 """Shared model layers: norms, rotary and sinusoidal positions, loss — the
-port of ``repro.models.layers``.  ``shard_act`` is the identity: placing
-activations on a model mesh (the reference's ``constrain``) waits for the
-pod runtime, ROADMAP item 13.7."""
+port of ``repro.models.layers``.  ``shard_act`` is the activation
+constraint of the pod runtime (``launch.sharding.constrain``): the identity
+without an active mesh."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.launch import sharding as shlib
 
 __all__ = ["rms_norm", "lane_scale", "rope", "apply_rope",
            "sinusoidal_positions", "softmax_xent", "shard_act"]
 
 
 def shard_act(x, logical: tuple):
-    """Activation sharding hook of the reference; one device: the identity."""
-    return x
+    """Activation sharding constraint hook: ``launch.sharding.constrain``
+    (the identity without an active mesh)."""
+    return shlib.constrain(x, logical)
 
 
 def rms_norm(x, scale, eps: float = 1e-6):

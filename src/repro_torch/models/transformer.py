@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import sharding as shlib
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
@@ -93,10 +94,11 @@ def _lanes(params) -> bool:
 
 def _layer(tree, i: int, lanes: bool = False):
     """Layer ``i``'s view of a layer-stacked tree (no copy); the layer axis
-    follows the lane axis when there is one."""
+    follows the lane axis when there is one.  Under the pod runtime with
+    FSDP the layer's "data" shards are gathered here, a layer at a time."""
     if isinstance(tree, dict):
         return {k: _layer(v, i, lanes) for k, v in tree.items()}
-    return tree[:, i] if lanes else tree[i]
+    return shlib.unshard_data(tree[:, i] if lanes else tree[i])
 
 
 # ---------------------------------------------------------------------------
@@ -150,14 +152,52 @@ def cache_defs(cfg: ArchConfig, batch: int, length: int) -> dict:
 
 def _embed_tokens(params, tokens, cfg: ArchConfig):
     """Embedding rows times sqrt(d_model), the constant rounded to the model
-    dtype first as the reference does (sqrt(3840) = 61.97 is 62.0 in bf16)."""
+    dtype first as the reference does (sqrt(3840) = 61.97 is 62.0 in bf16).
+    A table placed over the pod runtime's submesh (a DTensor) is looked up
+    vocab-parallel (:func:`_vocab_parallel_rows`)."""
     emb = params["embed"]
     if emb.dim() == 3:  # lanes: row b looks up lane b's table
         lane = torch.arange(emb.shape[0], device=emb.device)[:, None]
         x = emb[lane, tokens.long()]
+    elif shlib.is_dtensor(emb):
+        x = _vocab_parallel_rows(emb, tokens)
     else:
         x = emb[tokens.long()]
     return x * torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.dtype)
+
+
+def _vocab_parallel_rows(emb, tokens):
+    """The rows of DTensor ``emb`` (V, d) at DTensor ``tokens``, as the
+    pod runtime places them: the table's vocab on "model" (its embed dim on
+    "data" under FSDP, gathered first), the tokens' batch on "data".  Each
+    rank looks up the tokens that fall in its vocab block on its local rows
+    (0 elsewhere) and one all-reduce over the vocab axis sums them: the
+    lookup, exactly (each row has one nonzero term).  The backward writes
+    each rank's rows of the table's gradient from the whole activation
+    gradient; it is a partial sum over the batch shards, reduced where the
+    gradient takes the table's placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = emb.device_mesh
+    emb = shlib.unshard_data(emb)
+    out_pl, emb_grad, lo, rows = [], [], 0, emb.shape[0]
+    for i, (pe, pt) in enumerate(zip(emb.placements, tokens.placements)):
+        if pe == Shard(0):  # the vocab block of this rank
+            rows //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * rows
+            out_pl.append(Partial())
+            emb_grad.append(pe)
+        else:
+            out_pl.append(pt)
+            emb_grad.append(Partial() if pt == Shard(0) else pe)
+    tl = tokens.to_local().long() - lo
+    inside = (tl >= 0) & (tl < rows)
+    local = emb.to_local(grad_placements=emb_grad)
+    xl = torch.where(inside[..., None], local[tl.clamp(0, rows - 1)],
+                     torch.zeros((), dtype=local.dtype, device=local.device))
+    x = DTensor.from_local(xl, mesh, out_pl, run_check=False)
+    return x.redistribute(mesh, [Replicate() if isinstance(pl, Partial)
+                                 else pl for pl in out_pl])
 
 
 def embed_inputs(params, batch, cfg: ArchConfig):
@@ -198,8 +238,8 @@ def embed_inputs(params, batch, cfg: ArchConfig):
 
 def _logits(params, x, cfg: ArchConfig):
     x = rms_norm(x, lane_scale(params["final_norm"], x), cfg.norm_eps)
-    head = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
-            else params["lm_head"])
+    head = shlib.unshard_data(params["embed"].transpose(-1, -2)
+                       if cfg.tie_embeddings else params["lm_head"])
     return x @ head
 
 
@@ -268,6 +308,9 @@ def loss(params, batch, cfg: ArchConfig):
     else:
         labels = batch["tokens"]
         n_prefix = logits.shape[1] - labels.shape[1]  # the vlm's image rows
+        # Each row's softmax reads every vocab entry: under the pod runtime
+        # the logits' vocab shards are gathered first (one all-gather).
+        logits = shard_act(logits, ("batch", "seq", None))
         lg = (logits[:, n_prefix:-1] if labels.shape[1] > 1
               else logits[:, n_prefix:])
         ce, acc = softmax_xent(lg, labels[:, 1:], None)

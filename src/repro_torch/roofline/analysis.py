@@ -12,13 +12,18 @@ bytes come from the step's counted cost (``repro_torch.roofline.cost``).
 
 The port has no HLO to parse, so :class:`CollectiveStats` (the reference's
 class: bytes and counts by kind, all-reduce weighted 2x) is derived from
-the placement and the port's own plan by four rules, each a function below:
+the placement and the port's own plan by the rules below, each a function:
 :func:`fsdp_collectives`, :func:`tensor_parallel_collectives`,
-:func:`expert_collectives` and :func:`pod_collectives`.  Bytes are per
-device and, as the reference's parser counts them, the size of each
-collective's output on one device (the gathered block of an all-gather, the
-kept shard of a reduce-scatter, the operand of an all-reduce or
-all-to-all).
+:func:`vocab_parallel_collectives`, :func:`data_parallel_collectives`,
+:func:`step_scalar_collectives`, :func:`expert_collectives` and
+:func:`pod_collectives`.  They are the traffic of the pod runtime
+(``launch.steps.make_round_step`` over DTensors, ``launch.sharding``), and
+``tests/test_torch_pod_runtime.py`` holds them to the bytes and counts that
+runtime issues in an 8-rank world (the expert rule has no runtime yet:
+ROADMAP item 13.7b).  Bytes are per device and, as the reference's parser
+counts them, the size of each collective's output on one device (the
+gathered block of an all-gather, the kept shard of a reduce-scatter, the
+operand of an all-reduce or all-to-all, the sent block of a permute).
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ from repro_torch.launch.mesh import HARDWARE
 
 __all__ = ["CollectiveStats", "roofline_terms", "model_flops",
            "fsdp_collectives", "tensor_parallel_collectives",
-           "expert_collectives", "pod_collectives"]
+           "vocab_parallel_collectives", "data_parallel_collectives",
+           "step_scalar_collectives", "expert_collectives",
+           "pod_collectives"]
 
 
 @dataclass
@@ -57,15 +64,17 @@ class CollectiveStats:
 def fsdp_collectives(stats: CollectiveStats, blocks: list, data_n: int,
                      kind: str, passes: int) -> None:
     """FSDP.  ``blocks`` holds one device's block (bytes) of each parameter
-    leaf that the placement puts on the ``data`` axis (size ``data_n``).
-    Each such leaf is all-gathered once in every forward (the gathered
-    block is ``data_n`` times the device's); in ``train`` it is gathered
-    again in every backward, and its gradient reduce-scattered (to the
-    device's block).  ``passes`` is the step's gradient passes (2 under
-    SAM); forward-only kinds run one forward."""
+    that the placement puts on the ``data`` axis (size ``data_n``), a
+    layer's slice of a layer-stacked leaf counted as its own (the runtime
+    gathers a layer at a time; a tied embedding table twice: the lookup and
+    the head).  Each is all-gathered once in every forward (the gathered
+    block is ``data_n`` times the device's, and the backward reuses it); in
+    ``train`` its gradient, a partial sum over the batch shards, is
+    reduce-scattered back to the block in every gradient pass.  ``passes``
+    counts the gradient passes (forward-only kinds run one forward)."""
     for block in blocks:
         if kind == "train":
-            stats.add("all-gather", 2 * passes * data_n * block, 2 * passes)
+            stats.add("all-gather", passes * data_n * block, passes)
             stats.add("reduce-scatter", passes * block, passes)
         else:
             stats.add("all-gather", data_n * block)
@@ -79,9 +88,54 @@ def tensor_parallel_collectives(stats: CollectiveStats, layers: int,
     or experts, hymba's SSM branch, xlstm's blocks); each ends in one
     all-reduce of its output, the device's activations (local batch x S x
     d_model, ``act_bytes``).  In ``train`` every gradient pass runs it
-    forward and backward (twice as many)."""
+    forward and backward (twice as many): the activation constraint holds
+    for the gradient, whose partial sum is reduced there."""
     n = layers * (2 * passes if kind == "train" else 1)
     stats.add("all-reduce", n * act_bytes, n)
+
+
+def vocab_parallel_collectives(stats: CollectiveStats, embed_on_model: bool,
+                               head_on_model: bool, act_bytes: int,
+                               logits_bytes: int, kind: str,
+                               passes: int) -> None:
+    """The vocabulary on the ``model`` axis.  A table placed there is looked
+    up vocab-parallel: each device's rows, then one all-reduce of the
+    activations (``act_bytes``) in every forward.  A head placed there
+    leaves the logits split by vocabulary; in ``train`` the loss gathers
+    them (one all-gather, ``logits_bytes`` the gathered logits: local batch
+    x S x padded vocabulary) and the head's input gradient, a partial sum
+    over the vocabulary shards, is all-reduced (``act_bytes``), in every
+    gradient pass."""
+    n = passes if kind == "train" else 1
+    if embed_on_model:
+        stats.add("all-reduce", n * act_bytes, n)
+    if head_on_model and kind == "train":
+        stats.add("all-gather", passes * logits_bytes, passes)
+        stats.add("all-reduce", passes * act_bytes, passes)
+
+
+def data_parallel_collectives(stats: CollectiveStats, data_blocks: list,
+                              model_blocks: list, passes: int) -> None:
+    """The gradients of parameters that the shards read whole, in every
+    gradient pass.  With the batch split on ``data``, each parameter
+    replicated there (``data_blocks``: its device block, bytes) has its
+    gradient, a partial sum over the batch shards, all-reduced over
+    ``data``; each parameter replicated on ``model`` while the activations
+    it scales are split there (a norm scale: ``model_blocks``) is
+    all-reduced over ``model`` too."""
+    for block in list(data_blocks) + list(model_blocks):
+        stats.add("all-reduce", passes * block, passes)
+
+
+def step_scalar_collectives(stats: CollectiveStats, steps: int,
+                            norm_axes: int, metric_axes: int) -> None:
+    """Per local step, 4-byte all-reduces: SAM's gradient norm, summed over
+    every shard of the replica (one over each of ``norm_axes``, the
+    submesh's axes above 1; 0 without SAM), and the step's loss and
+    accuracy, means over the batch shards (one each over each of
+    ``metric_axes``)."""
+    n = steps * (norm_axes + 2 * metric_axes)
+    stats.add("all-reduce", 4 * n, n)
 
 
 def expert_collectives(stats: CollectiveStats, moe_layers: int,
@@ -95,15 +149,30 @@ def expert_collectives(stats: CollectiveStats, moe_layers: int,
     stats.add("all-to-all", n * routed_bytes, n)
 
 
-def pod_collectives(stats: CollectiveStats, plan, d: int,
-                    itemsize: int) -> None:
-    """Pod gossip in the multi-pod round step: one mix of the ``(n_pods,
-    D)`` replica bank over the pod ring's ``CommPlan`` (``plan``, as
-    ``launch.steps.pod_comm_plan(n_pods, n_pods)`` builds it, one pod a
-    shard), whose all-gather receives ``plan.allgather_bytes`` a device.
-    (The halo executor's ``plan.halo_bytes`` comes with the pod runtime,
-    ROADMAP item 13.7: the port's round step refuses ``gossip="halo"``.)"""
-    stats.add("all-gather", plan.allgather_bytes(d, itemsize))
+def pod_collectives(stats: CollectiveStats, plan, d: int, itemsize: int,
+                    gathers: list = (), halo: bool = False) -> None:
+    """Pod gossip in the multi-pod round step.  Each replica's columns are
+    gathered to whole rows first (``gathers``: the output bytes of each
+    all-gather, one for each mesh axis a leaf sits on).  Then one mix of
+    the ``(n_pods, D)`` replica bank over the pod ring's ``CommPlan``
+    (``plan``, ``launch.steps.pod_comm_plan(n_pods, pod axis size)``): the
+    all-gather form receives the whole bank (``n_pods x D x itemsize``);
+    the halo form (``halo``: ``gossip="halo"`` on a pod axis above 1) ships
+    ``plan.halo_bytes`` instead, one point-to-point leg a ``ShiftLeg``.
+    The push-sum weights and the round's loss and accuracy are gathered
+    over the pods too (three all-gathers of ``n_pods`` f32).  A pod axis
+    of one rank exchanges nothing: its rows are the whole bank."""
+    for out in gathers:
+        stats.add("all-gather", out)
+    if plan.n_shards == 1:
+        return
+    n_pods = plan.n_shards * plan.m
+    if halo and plan.n_shards > 1:
+        stats.add("collective-permute", plan.halo_bytes(d, itemsize),
+                  len(plan.legs))
+    else:
+        stats.add("all-gather", n_pods * d * itemsize)
+    stats.add("all-gather", 3 * n_pods * 4, 3)
 
 
 def roofline_terms(cost: dict, coll: CollectiveStats, hw=None) -> dict:

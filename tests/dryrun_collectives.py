@@ -8,7 +8,10 @@ the collectives out of the compiled HLO; it runs in a subprocess, as
 ``tests/test_launch.py`` runs its multi-device checks, and the swap is a
 monkeypatch there (no reference file changes).  The port's rules
 (``repro_torch.roofline.analysis``) count the same meshes, given as
-abstract meshes.  No bound holds one to the other.
+abstract meshes.  No bound holds one to the other: the rules describe the
+port's pod runtime, whose measured traffic
+``tests/test_torch_pod_runtime.py`` holds them to, and XLA partitions
+differently.
 
     PYTHONPATH=src python tests/dryrun_collectives.py
 

@@ -194,27 +194,39 @@ def test_card_argument_bytes_are_every_argument(records):
 # Reduced glm4-9b (f32, 2 layers, d_model 256, 4 heads of 64 on 2 kv heads,
 # d_ff 512, vocab 512) with FSDP on.  On the single mesh every weight matrix
 # sits on "data" and "model" (16 x 16): FSDP gathers 1/16 of each leaf a
-# device (embed, wq, wo, lm_head 32768 bytes; wk, wv 16384; wi, wg, mlp's wo
-# 65536: 360448 over 9 leaves).  Both layers' attention and MLP sit on
-# "model": 4 all-reduces of 32 / 16 x 16 positions x 256 x 4 B = 32768.
-GLM4_PREFILL = ({"all-gather": 360448, "all-reduce": 131072},
-                {"all-gather": 9, "all-reduce": 4})
+# device, a layer's slice at a time (embed, lm_head 32768 bytes; wq, wo
+# 16384 a layer; wk, wv 8192; wi, wg, mlp's wo 32768: 360448 over 16
+# gathers).  Both layers' attention and MLP sit on "model": 4 all-reduces
+# of 32 / 16 x 16 positions x 256 x 4 B = 32768, and the vocab-parallel
+# embedding's one.
+GLM4_PREFILL = ({"all-gather": 360448, "all-reduce": 5 * 32768},
+                {"all-gather": 16, "all-reduce": 5})
 # The multi round at 32 x 16: 1 row a device (16 a pod over 16 data
-# shards).  SAM's two gradient passes each gather every leaf forward and
-# backward (36 gathers) and reduce-scatter its gradient (18, to the 1/256
-# blocks: 2 x 22528 B); 4 all-reduces a pass each way (16 x 16384 B); the
-# pod ring's all-gather of the other pod's (1, D) f32 row, D = 1443072.
-GLM4_ROUND = ({"all-gather": 4 * 360448 + 4 * 1443072,
-               "reduce-scatter": 2 * 22528, "all-reduce": 16 * 16384},
-              {"all-gather": 37, "reduce-scatter": 18, "all-reduce": 16})
+# shards), K = 1, SAM's 2 gradient passes.  Each pass gathers every FSDP
+# slice once (2 x 16 x 22528 B over 32) and reduce-scatters its gradient
+# (2 x 22528 over 32); 4 tensor-parallel all-reduces a pass each way, the
+# embedding's and the head's input gradient's (20 x 16384 B), the logits'
+# gather (2 x 1 x 16 x 512 x 4 B); the norm scales' gradients (5120 B a
+# pass) all-reduced over "data" and over "model" (12); SAM's norm over
+# both axes and the loss and accuracy over "data" (4 x 4 B).  The pod
+# round gathers each replica's 9 sharded leaves over "model" then "data"
+# (5767168 / 16 + 5767168 B), receives the whole (2, D) f32 bank, D =
+# 1443072, and gathers w, the loss and the accuracy (3 x 8 B).
+GLM4_ROUND = ({"all-gather": (2 * 16 * 22528 + 2 * 32768 + 5767168 // 16
+                              + 5767168 + 2 * 4 * 1443072 + 24),
+               "reduce-scatter": 2 * 22528,
+               "all-reduce": 20 * 16384 + 4 * 5120 + 16},
+              {"all-gather": 32 + 2 + 18 + 1 + 3, "reduce-scatter": 32,
+               "all-reduce": 36})
 # Reduced dbrx-132b widened to 16 experts (top 2), FSDP on: the experts sit
 # on "model" by their expert axis and on "data" by embed (wi, wg, wo: 2 x 16
-# x 256 x 512 x 4 B over 16 model shards, 1048576 B gathered each), the
-# router on "data" (32768), the rest as glm4's (163840 + 32768); 4
-# all-reduces, and 2 all-to-alls an MoE layer of 32768 x 2 (top_k) bytes.
-DBRX_PREFILL = ({"all-gather": 3342336, "all-reduce": 131072,
+# x 256 x 512 x 4 B over 16 model shards, 1048576 B gathered each, a layer
+# at a time), the router on "data" (32768), the rest as glm4's (163840 +
+# 32768); 4 all-reduces and the vocab-parallel embedding's, and 2
+# all-to-alls an MoE layer of 32768 x 2 (top_k) bytes.
+DBRX_PREFILL = ({"all-gather": 3342336, "all-reduce": 5 * 32768,
                  "all-to-all": 4 * 65536},
-                {"all-gather": 10, "all-reduce": 4, "all-to-all": 4})
+                {"all-gather": 18, "all-reduce": 5, "all-to-all": 4})
 
 
 @pytest.mark.parametrize("arch,kind,mesh,overrides,want", [

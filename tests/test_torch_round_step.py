@@ -267,8 +267,6 @@ def test_pod_mixers_and_plan_match_reference():
 def test_round_step_refusals():
     api = _setup()["api"]
     cfg = steps.StepConfig()
-    with pytest.raises(NotImplementedError, match="item 13.7"):
-        steps.make_round_step(api, cfg, gossip="halo")
     with pytest.raises(ValueError, match="auto|xla|halo"):
         steps.make_round_step(api, cfg, gossip="nccl")
     with pytest.raises(ValueError, match="flat_mix"):
@@ -283,3 +281,60 @@ def test_round_step_refusals():
         steps.make_round_step(api, cfg, mixer=SymmetricMixer(), gossip="halo")
     # "xla" runs as "auto" on one device.
     steps.make_round_step(api, cfg, gossip="xla")
+
+
+def test_halo_without_a_mesh_runs_as_auto():
+    """The reference's rule: without a mesh ``gossip="halo"`` builds, and
+    its round is the ``"auto"`` round bit for bit (no pod axis to ship
+    a halo over)."""
+    c = _setup()
+    cfg = steps.StepConfig(lr=0.05, alpha=0.9, rho=0.05, local_steps=K)
+    P = steps.pod_mixing_neighbors(N_PODS)
+    outs = {}
+    for gossip in ("auto", "halo"):
+        state = _port_state(jax.tree.map(np.asarray, (
+            c["params"], jax.tree.map(jnp.zeros_like, c["params"]),
+            jnp.ones((N_PODS,)), (), ())))
+        round_step = steps.make_round_step(c["api"], cfg, gossip=gossip)
+        outs[gossip] = round_step(*state, {"tokens": torch.from_numpy(
+            c["toks"][0])}, P)
+    from repro_torch.core.flat import tree_flatten
+
+    a, b = outs["auto"], outs["halo"]
+    for x, y in zip(tree_flatten(a[0])[1], tree_flatten(b[0])[1]):
+        assert torch.equal(x, y)
+    assert torch.equal(a[2], b[2])
+    assert float(a[5]["loss"]) == float(b[5]["loss"])
+
+
+def test_halo_refuses_a_dense_pod_graph_on_a_pod_axis():
+    """Under a mesh whose pod axis is above 1, ``gossip="halo"`` ships the
+    pod ring's halo rows: a dense ``P_pod`` has none, and the round raises
+    before its local steps (a fake 2-rank world: no traffic)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+
+    c = _setup()
+    dist.init_process_group("fake", store=FakeStore(), rank=1, world_size=2)
+    try:
+        mesh = make_host_mesh((2, 1, 1), ("pod", "data", "model"),
+                              device="cpu")
+        state = _port_state(jax.tree.map(np.asarray, (
+            c["params"], jax.tree.map(jnp.zeros_like, c["params"]),
+            jnp.ones((N_PODS,)), (), ())))
+        rows = steps.pod_rows(mesh, N_PODS)
+        params, v, w = (steps.place_pods(c["api"], state[0], mesh),
+                        steps.place_pods(c["api"], state[1], mesh),
+                        rows.rows(state[2]))
+        round_step = steps.make_round_step(c["api"], steps.StepConfig(),
+                                           gossip="halo")
+        batch = {"tokens": rows.rows(torch.from_numpy(c["toks"][0]))}
+        with sharding.use_mesh(mesh):
+            with pytest.raises(ValueError, match="dense P_pod"):
+                round_step(params, v, w, (), (), batch,
+                           steps.pod_mixing_matrix(N_PODS))
+    finally:
+        dist.destroy_process_group()

@@ -6,8 +6,12 @@ uninterrupted run bit for bit; the rounds after a checkpoint equal the
 reference's ``make_round_step`` run from that checkpoint (restored by the
 reference's ``checkpoint.restore(like=...)``); pod checkpoints (params,
 ``v``, ``w``, ``round``, ``comp``, ``link``) cross both ways between the
-packages' ``checkpoint.save`` / ``restore(like=...)``; and ``--paged`` runs
-and resumes its store.
+packages' ``checkpoint.save`` / ``restore(like=...)``; ``--paged`` runs
+and resumes its store; and ``--host-mesh`` runs the pod runtime on the
+reference's (2, 2, 2) mesh in an 8-rank world under
+``torch.distributed.run`` (gloo), its log and its checkpoint (gathered
+whole by rank 0) equal to the mesh-less run's within the pod runtime's
+tolerance (``test_torch_pod_runtime.py``).
 
 Tolerance: the port's rounds against the reference's: f32 sums in their
 own orders, params and ``v`` to 1e-5 of each leaf's largest magnitude
@@ -16,6 +20,9 @@ within the port is deterministic on the CPU: bit for bit.
 """
 import os
 import shutil
+import socket
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -241,3 +248,60 @@ def test_paged_driver_runs_and_resumes(tmp_path):
     rec = train.main(argv + ["--rounds", "1", "--resume"])
     assert rec["trainer"].runner.round_index == 2
     assert abs(rec["mass"] - 64) < 1e-3
+
+
+def test_host_mesh_under_torch_distributed_run(tmp_path):
+    """``--host-mesh`` in the 8-rank world of ``torch.distributed.run``,
+    resumed from a mesh-less run's round-1 checkpoint (the shards placed
+    from the whole file) for round 2: the mesh-less run's metrics (to the 4
+    printed digits), ``w_mass=2.0000``, and rank 0's round-2 checkpoint
+    (the reference's file tree, the shards gathered whole) within 1e-5 of
+    each leaf's magnitude of the mesh-less run's."""
+    base = ["--smoke", "--device", "cpu", "--arch", "glm4-9b", "--seq", "16",
+            "--batch", "4", "--rounds", "3", "--superstep", "2"]
+    meshless, ckpt = str(tmp_path / "meshless"), str(tmp_path / "mesh")
+    train.main(base[:-4] + ["--rounds", "2", "--superstep", "2",
+                            "--ckpt-dir", meshless])
+    shutil.copytree(meshless, ckpt)
+    want = train.main(base + ["--ckpt-dir", meshless, "--resume"])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": src}
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+         "--nproc-per-node", "8", "--master-port", str(port), "-m",
+         "repro_torch.launch.train", "--host-mesh"] + base
+        + ["--ckpt-dir", ckpt, "--resume"],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("[train]")]
+    assert "resumed" in lines[0]
+    assert "2 pods x {'pod': 2, 'data': 2, 'model': 2}" in lines[1]
+    rounds = [ln for ln in lines if "] round" in ln]
+    assert len(rounds) == 1  # rank 0 logs, the others do not
+    h = want["history"][0]
+    assert h["round"] == 2 and "round    2" in rounds[0]
+    assert f"loss={h['loss']:.4f} acc={h['acc']:.4f}" in rounds[0], (
+        rounds[0], h)
+    assert "w_mass=2.0000" in rounds[0]
+    assert sorted(os.listdir(ckpt)) == ["ckpt_1.npz", "ckpt_2.npz"]
+    like = {"params": want["params"], "v": want["v"], "w": want["w"],
+            "round": np.zeros((), np.int32)}
+    saved = checkpoint.restore(os.path.join(ckpt, "ckpt_2.npz"), like=like)
+    assert int(saved["round"]) == 2
+    for key in ("params", "v"):
+        for a, b in zip(tree_flatten(saved[key])[1],
+                        tree_flatten(want[key])[1]):
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    assert (saved["w"] - want["w"]).abs().max() <= 1e-6
+
+
+def test_host_mesh_refuses_without_a_launcher(monkeypatch):
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(SystemExit, match="torch.distributed.run"):
+        train.main(["--host-mesh", "--smoke", "--device", "cpu", "--arch",
+                    "glm4-9b", "--rounds", "1"])
