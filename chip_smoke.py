@@ -5390,12 +5390,14 @@ def kernel_symbols(prof) -> dict:
     return out
 
 
-def pod_round_run(dev, api, step_cfg, init, toks, P, gossip: str, mesh,
+def pod_round_run(dev, api, step_cfg, init, data, P, gossip: str, mesh,
                   rounds: int = POD_ROUNDS) -> dict:
     """``rounds`` rounds of ``make_round_step(gossip=...)`` from the whole
-    pod-stacked ``init`` (copied): mesh-less with ``mesh`` None (every pod
-    stacked on the card), else under the pod runtime on ``mesh`` (the
-    replicas placed by ``place_pods``: DTensors).  Per round the wall time
+    pod-stacked ``init`` (copied) on ``data``, the task's batches (a dict
+    of arrays of shape (rounds, pods, K, B, ...), :func:`round_batches`):
+    mesh-less with ``mesh`` None (every pod stacked on the card), else
+    under the pod runtime on ``mesh`` (the replicas placed by
+    ``place_pods``: DTensors).  Per round the wall time
     and the launches of :data:`POD_KERNELS`; the last round profiled (the
     device's events only) for the kernels' symbols; the state after the
     rounds gathered whole (params, w), the metrics and the peak memory."""
@@ -5406,7 +5408,7 @@ def pod_round_run(dev, api, step_cfg, init, toks, P, gossip: str, mesh,
     from repro_torch.launch import steps
 
     round_step = steps.make_round_step(api, step_cfg, gossip=gossip)
-    n_pods = toks.shape[1]
+    n_pods = next(iter(data.values())).shape[1]
     with torch.no_grad():
         params = tree_map(torch.clone, init)
     w = torch.ones(n_pods, dtype=torch.float32, device=dev)
@@ -5426,7 +5428,8 @@ def pod_round_run(dev, api, step_cfg, init, toks, P, gossip: str, mesh,
     last = read_counts()
     with on_mesh:
         for r in range(rounds):
-            batch = {"tokens": toks[r] if mesh is None else rows.rows(toks[r])}
+            batch = {k: x[r] if mesh is None else rows.rows(x[r])
+                     for k, x in data.items()}
             profiled = r == rounds - 1
             kinds = ([torch.profiler.ProfilerActivity.CUDA]
                      if dev.type == "cuda" else None)
@@ -5531,14 +5534,14 @@ def pod_runtime_phase(dev, head=print, layers: int = TRAIN_LAYERS,
         for gossip, form in POD_RUNS:
             P = (steps.pod_mixing_matrix(n_pods, dev) if form == "dense"
                  else steps.pod_mixing_neighbors(n_pods, dev))
-            base = pod_round_run(dev, api, step_cfg, init, toks, P, "auto",
-                                 None, rounds)
+            base = pod_round_run(dev, api, step_cfg, init, {"tokens": toks},
+                                 P, "auto", None, rounds)
             # The mesh-less params wait on the host, so that the runtime's
             # run holds what the mesh-less one held.
             base["params"] = tree_map(lambda x: x.to("cpu"), base["params"])
             release_quiet()
-            got = pod_round_run(dev, api, step_cfg, init, toks, P, gossip,
-                                mesh, rounds)
+            got = pod_round_run(dev, api, step_cfg, init, {"tokens": toks},
+                                P, gossip, mesh, rounds)
             errs = leaf_errors(got["params"], base["params"])
             exact = all(e == 0.0 for e in errs.values())
             w_err = float((got["w"] - base["w"]).abs().max())
@@ -5591,6 +5594,148 @@ def pod_runtime_phase(dev, head=print, layers: int = TRAIN_LAYERS,
     finally:
         close_clients_world()
     print(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    release()
+    return paths
+
+
+# -- phase 22: the pod runtime for every other family ---------------------------
+
+# Each family on the one-rank mesh: (arch, layers kept (None: the reduced
+# config, f32), rows a pod a step, positions a row).  Full width, bf16,
+# cut in depth as phases 15 and 16 cut them; dbrx-132b and
+# deepseek-v3-671b at their reduced configs (one full replica's layer and
+# its round state do not fit one card: ROADMAP item 13.9).
+POD_FAMILIES = (("xlstm-350m", 6, 1, 128),
+                ("hymba-1.5b", 2, 1, 1024),
+                ("llava-next-mistral-7b", 2, 1, 1024),
+                ("hubert-xlarge", 2, 1, 1500),
+                ("dbrx-132b", None, 2, 256),
+                ("deepseek-v3-671b", None, 2, 256))
+
+
+def pod_family_run(dev, mesh, arch: str, layers, batch_n: int, seq: int,
+                   rounds: int = POD_ROUNDS) -> dict:
+    """One family of phase 22: its replicas as DTensors under the pod
+    runtime on ``mesh`` against the mesh-less round, from the same state
+    (the replicas [x, x / 2] of one draw from seed 0) and batches
+    (:func:`round_batches`), 2 pods, K = 2, lr 0.05, alpha 0.9, rho 0.05,
+    ``rounds`` rounds under "xla" over the dense ring.  Params and w bit for
+    bit, or each leaf within 1e-5 of its magnitude with the leaves that
+    differ named; the loss and accuracy; the launches of the flash
+    forward, its backward and the dense mix a round, equal (the flash
+    kernels launched on the families with GQA attention), and the kernels'
+    symbols in a profiled round the same; every leaf of the runtime's
+    replicas a DTensor.  Returns the launches of the runtime's rounds."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.flat import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import get_model_api
+
+    card = card_line() if dev.type == "cuda" else "no card"
+    cfg = (get_config(arch, smoke=True) if layers is None
+           else dataclasses.replace(get_config(arch), n_layers=layers))
+    api = get_model_api(cfg)
+    n_pods, k_steps = 2, 2
+    step_cfg = steps.StepConfig(lr=0.05, alpha=0.9, rho=0.05,
+                                local_steps=k_steps)
+    with torch.no_grad():
+        p = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+        init = tree_map(lambda x: torch.stack([x, x * 0.5]), p)
+        del p
+    data = round_batches(cfg, rounds, batch_n, seq, k_steps, device=dev)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, "
+          f"{api.num_params() / 1e9:.3f} B parameters a replica in "
+          f"{str(cfg.dtype)[6:]}; {batch_n} x {seq} positions a pod a step; "
+          "a step's batch: " + ", ".join(
+              f"{k} {tuple(x.shape[3:])}" for k, x in data.items()))
+    P = steps.pod_mixing_matrix(n_pods, dev)
+    base = pod_round_run(dev, api, step_cfg, init, data, P, "auto", None,
+                         rounds)
+    base["params"] = tree_map(lambda x: x.to("cpu"), base["params"])
+    release_quiet()
+    got = pod_round_run(dev, api, step_cfg, init, data, P, "xla", mesh,
+                        rounds)
+    del init
+    errs = leaf_errors(got["params"], base["params"])
+    exact = all(e == 0.0 for e in errs.values())
+    w_err = float((got["w"] - base["w"]).abs().max())
+    worst = max(errs, key=errs.get)
+    print("    params " + ("bit for bit" if exact else
+                           f"max {errs[worst]:.3e} of a leaf's magnitude at "
+                           f"{worst}; leaves that differ: "
+                           + ", ".join(k for k, e in errs.items() if e))
+          + f"; w max |diff| {w_err:.3e}")
+    for r, (a, b) in enumerate(zip(got["metrics"], base["metrics"])):
+        print(f"    round {r}: loss {a[0]:.6f} (mesh-less {b[0]:.6f}) acc "
+              f"{a[1]:.6f} ({b[1]:.6f}); wall {got['walls'][r]:.3f} s "
+              f"(mesh-less {base['walls'][r]:.3f} s); launches "
+              f"{got['used'][r]} (mesh-less {base['used'][r]})")
+    print(f"    kernels by symbol in the profiled round: {got['symbols']} "
+          f"(mesh-less {base['symbols']})")
+    print(f"    peak device memory {got['peak'] / 1e9:.2f} GB (mesh-less "
+          f"{base['peak'] / 1e9:.2f} GB); card: {card}")
+    check(all(e <= 1e-5 for e in errs.values()), f"{arch}: params {errs}")
+    check(w_err <= 1e-6 and abs(float(got["w"].sum()) - n_pods) <= 1e-3,
+          f"{arch}: w {got['w']} against {base['w']}")
+    for (la, aa), (lb, ab) in zip(got["metrics"], base["metrics"]):
+        check(math.isfinite(la) and abs(la - lb) <= 1e-5 * abs(lb)
+              and abs(aa - ab) <= 1e-5,
+              f"{arch}: loss {la} acc {aa} against {lb} {ab}")
+    check(got["used"] == base["used"],
+          f"{arch}: launches {got['used']} against the mesh-less "
+          f"{base['used']}")
+    # The launches are the wrappers' exact counts; the profiler can drop a
+    # kernel's event (one of 16 once), so the profiled round is held by
+    # which kernels ran.
+    check(set(got["symbols"]) == set(base["symbols"]),
+          f"{arch}: kernels {got['symbols']} against the mesh-less "
+          f"{base['symbols']}")
+    if dev.type == "cuda":
+        per_round = 2 * k_steps * n_pods * flash_layers(cfg)  # 2 SAM passes
+        check(all(u["gossip_matmul"] == 1
+                  and u["flash_attention_backward"] == per_round
+                  and u["flash_attention"] == per_round * (
+                      2 if cfg.remat else 1) for u in got["used"]),
+              f"{arch}: launches {got['used']}, expected {per_round} flash "
+              "backward calls and one dense mix a round")
+    return got["launches"]
+
+
+def pod_families_phase(dev, head=print, families=POD_FAMILIES,
+                       rounds: int = POD_ROUNDS) -> dict:
+    """Phase 22 whole (``head`` prints each step's heading): the pod
+    runtime on a one-rank NCCL world's ``(1, 1, 1)`` mesh (gloo on the
+    CPU) for xlstm-350m, hymba-1.5b, llava-next-mistral-7b and
+    hubert-xlarge at full width cut in depth, and dbrx-132b and
+    deepseek-v3-671b at their reduced configs (:data:`POD_FAMILIES`), each
+    through :func:`pod_family_run`.  Closes its process group.  Returns
+    the launches of each family's runtime rounds.  ``python3
+    repeat_phase.py --repeat 1 pod_families_phase`` runs it alone."""
+    from repro_torch.launch.mesh import close_clients_world, init_world
+
+    card = card_line() if dev.type == "cuda" else "no card"
+    t0 = time.perf_counter()
+    mesh = init_world(0, 1, free_port(), dev, *POD_MESH)
+    paths = {}
+    try:
+        for arch, layers, batch_n, seq in families:
+            width = ("at its reduced config (one full replica's layer and "
+                     "its round state do not fit one card)" if layers is None
+                     else f"at full width cut to {layers} layers")
+            head(f"[22] the pod runtime on a one-rank NCCL world: {arch} "
+                 f"{width}, 2 pods on a {POD_MESH[0]} {POD_MESH[1]} mesh, "
+                 f"K = 2, {batch_n} x {seq} positions, {rounds} rounds under "
+                 f"xla, against the mesh-less round; card: {card}")
+            t = time.perf_counter()
+            paths[f"{arch} pod runtime path"] = pod_family_run(
+                dev, mesh, arch, layers, batch_n, seq, rounds)
+            release_quiet()
+            print(f"  {arch} took {time.perf_counter() - t:.1f} s")
+    finally:
+        close_clients_world()
+    print(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
     release()
     return paths
 
@@ -5756,6 +5901,7 @@ def main() -> int:
     paths.update(dryrun_phase(dev, head))
     paths.update(gemma_phase(dev, head))
     paths.update(pod_runtime_phase(dev, head))
+    paths.update(pod_families_phase(dev, head))
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

@@ -80,9 +80,14 @@ from repro_torch.roofline.analysis import (
     data_parallel_collectives,
     expert_collectives,
     fsdp_collectives,
+    mlstm_collectives,
     model_flops,
     pod_collectives,
+    prefix_collectives,
+    projector_collectives,
     roofline_terms,
+    slstm_collectives,
+    ssm_collectives,
     step_scalar_collectives,
     tensor_parallel_collectives,
     vocab_parallel_collectives,
@@ -282,8 +287,14 @@ def collectives(api, mesh, kind: str, local_batch: int, seq: int,
             uses = 2 if path == ("embed",) and cfg.tie_embeddings else 1
             blocks += [block(sh, dt, spec) // n] * (n * uses)
     fsdp_collectives(stats, blocks, data_n, kind, grad_passes)
-    # the device's activations: local batch x S x d_model
-    act = local_batch * seq * cfg.d_model * itemsize
+    # The device's positions: the layers run hymba's meta tokens before the
+    # text; the vlm's text follows its image rows.
+    prefix = cfg.n_meta_tokens if cfg.block_kind == "hymba" else 0
+    text = (seq - min(cfg.n_frontend_tokens, max(seq // 2, 1))
+            if cfg.task == "vlm" else seq)
+    # the device's activations: local batch x positions x d_model
+    row_bytes = local_batch * cfg.d_model * itemsize
+    act = (seq + prefix) * row_bytes
     on_model = [(path, n) for path, n in _blocks(api.param_defs())
                 if any("model" in spec for p, (_, _, spec) in params.items()
                        if p[:len(path)] == path)]
@@ -296,27 +307,44 @@ def collectives(api, mesh, kind: str, local_batch: int, seq: int,
     vocab_parallel_collectives(
         stats, vocab_on_model(("embed",)),
         vocab_on_model(("embed",) if cfg.tie_embeddings else ("lm_head",)),
-        act, local_batch * seq * cfg.padded_vocab * itemsize, kind,
-        grad_passes)
-    # expert dispatch: the blocks whose experts sit on "model"
-    moe = [n for path, n in on_model
-           if any(p[:len(path)] == path and "expert" in defs[p].axes
-                  and spec[defs[p].axes.index("expert")] == "model"
-                  for p, (_, _, spec) in params.items())]
-    expert_collectives(stats, sum(moe), act * max(cfg.top_k, 1), kind,
-                       grad_passes)
+        text * row_bytes, local_batch * seq * cfg.padded_vocab * itemsize,
+        kind, grad_passes)
+    prefix_collectives(stats, prefix * row_bytes, model_n, kind, grad_passes)
+    # The parameters whose gradient arrives whole on "model" (made whole at
+    # the prefix's join or the projector's hidden).
+    whole = {("meta_tokens",)} if prefix else set()
+    if cfg.task == "vlm" and vocab_on_model(("projector", "w2")):
+        projector_collectives(stats, (seq - text) * row_bytes, kind,
+                              grad_passes)
+        whole.add(("projector", "w1"))
+    split = batch_on_data and data_n > 1
+    expert_collectives(stats, cfg.n_layers if cfg.n_experts else 0,
+                       cfg.n_experts, kind, grad_passes, split)
+    if cfg.block_kind == "xlstm":
+        blocks = dict(_blocks(api.param_defs()))
+        inner = 2 * cfg.d_model  # the mLSTM's up-projection factor 2
+        mlstm_collectives(stats, blocks.get(("mlstm",), 0), local_batch * seq,
+                          inner, cfg.n_heads, model_n, itemsize, kind,
+                          grad_passes)
+        slstm_collectives(stats, blocks.get(("slstm",), 0), act, model_n,
+                          kind, grad_passes)
+    if cfg.block_kind == "hymba":
+        ssm_collectives(stats, cfg.n_layers, local_batch * (seq + prefix),
+                        cfg.ssm_expand * cfg.d_model, cfg.ssm_state, model_n,
+                        itemsize, kind, grad_passes)
     if not train:
         return stats
-    split = batch_on_data and data_n > 1
     data_parallel_collectives(
         stats,
         [block(*v) for v in params.values() if split and "data" not in v[2]],
-        [block(*v) for v in params.values()
-         if model_n > 1 and on_model and "model" not in v[2]],
+        [block(*v) for path, v in params.items()
+         if model_n > 1 and on_model and "model" not in v[2]
+         and path not in whole],
         grad_passes)
     axes = sum(1 for n in (data_n, model_n) if n > 1)
     step_scalar_collectives(stats, steps * local_pods,
-                            axes if passes > 1 else 0, 1 if split else 0)
+                            axes if passes > 1 else 0, 1 if split else 0,
+                            grad_passes if cfg.task == "masked_lm" else 0)
     if n_pods:
         # each replica's columns gathered (the model axis first), then the
         # bank's mix in the promoted dtype (launch.steps._row_spec)

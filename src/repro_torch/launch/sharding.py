@@ -19,10 +19,15 @@ resolve to (``ACT_RULES``).  Inside a manual region (:func:`manual_region`:
 the flash kernel's call on each rank's local heads, the pod ring's halo
 exchange) values are per-rank shards, and it returns its input.
 
-Only the dense GQA decoders (``POD_FAMILIES``) run as DTensors, over a
-submesh of any size; every other family runs on a pod-only mesh, each
-replica a plain tensor whole on its pod's rank (:func:`check_pod_family`,
-ROADMAP item 13.7b).
+Every family's replica runs as DTensors over its pod's submesh, the
+experts of a mixture on the "model" axis (``"expert"`` leads
+``MODEL_AXES``).  The cores that DTensor has no sharding rule for, or whose
+rule would move more than the layer needs, run in a manual region on each
+rank's local block (:func:`local_part` in, :func:`from_local` out): the
+flash kernel on local heads, xlstm's mLSTM and sLSTM on local heads,
+hymba's SSM on local channels, MLA's scores on local heads and a mixture's
+routing, dispatch, experts and combine on local experts (the combine then a
+partial sum over "model", :func:`sum_partial`).
 
 The reference pins every bank-row leaf of its one GSPMD program to the mesh
 axis with sharding constraints.  The port's sharded round is SPMD over
@@ -43,8 +48,9 @@ import torch
 __all__ = ["MODEL_AXES", "FSDP_AXES", "ACT_RULES", "POD_AXES", "use_mesh",
            "active_mesh", "spec_for", "sharding_for", "shard_shape",
            "placements_for", "place_tensor", "place_params", "submesh",
-           "is_dtensor", "unshard_data", "full_tensor", "placed_family",
-           "check_pod_family", "manual_region", "in_manual_region",
+           "is_dtensor", "unshard_data", "full_tensor", "model_block",
+           "local_part", "from_local", "sum_partial", "whole_grad",
+           "gather_model", "shared_grad", "manual_region", "in_manual_region",
            "constrain", "RowShard", "bank_row_pins", "check_row_mesh"]
 
 # Logical axes eligible for tensor/expert parallelism, in priority order —
@@ -185,10 +191,6 @@ def submesh(mesh):
     return mesh[names]
 
 
-def _submesh_size(mesh) -> int:
-    return math.prod(max(_axis_size(mesh, a), 1) for a in POD_AXES)
-
-
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a ``torch.distributed.tensor.DTensor``."""
     if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
@@ -250,34 +252,107 @@ def place_params(tree, defs, mesh, fsdp: bool = True, lead: int = 0):
     return one(tree, defs)
 
 
-# The families the pod runtime places over a submesh wider than one device.
-POD_FAMILIES = "the dense GQA decoders (lm task)"
+def model_block(mesh) -> tuple:
+    """(this rank's index on ``mesh``'s "model" dim, its size): (0, 1) on a
+    mesh without one."""
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return 0, 1
+    i = names.index("model")
+    return int(mesh.get_local_rank(i)), mesh.size(i)
 
 
-def placed_family(cfg) -> bool:
-    """Whether the pod runtime runs ``cfg``'s replicas as DTensors over the
-    pod's submesh: :data:`POD_FAMILIES` (glm4-9b, gemma3-12b,
-    phi3-medium-14b, codeqwen1.5-7b) on any mesh.  Every other family runs
-    as plain tensors, on a pod-only mesh."""
-    return (cfg.block_kind == "transformer" and cfg.attn_type != "mla"
-            and not cfg.n_experts and cfg.task == "lm")
+def local_part(x, act, own_model: bool = True):
+    """The local block of DTensor ``x`` for a manual region whose work on
+    each rank is its own: the gradient of the block comes back as a
+    ``Partial`` sum on every mesh dim where ``x`` is replicated but the
+    ranks' work differs — "model" (each rank takes its own heads, channels
+    or experts; not with ``own_model`` False, where every rank of the dim
+    does the same work), and "data" where the activation ``act`` splits the
+    batch there (each rank reads its own rows)."""
+    from torch.distributed.tensor import Partial
+
+    mesh = x.device_mesh
+    grads = []
+    for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, x.placements)):
+        split = (own_model if name == "model"
+                 else act.placements[i].is_shard())
+        grads.append(Partial() if pl.is_replicate() and mesh.size(i) > 1
+                     and split else pl)
+    return x.to_local(grad_placements=grads)
 
 
-def check_pod_family(cfg, mesh) -> None:
-    """Refuse a model that the pod runtime cannot place over ``mesh``'s
-    ``("data", "model")`` submesh: a data or model axis above 1 takes only
-    :data:`POD_FAMILIES` (:func:`placed_family`).  The MoE and MLA, xlstm,
-    hymba, vlm and masked_lm families wait for ROADMAP item 13.7b; on a
-    pod-only mesh every family runs."""
-    if mesh is None or _submesh_size(mesh) == 1:
-        return
-    if not placed_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the pod runtime places only {POD_FAMILIES} over a "
-            "data or model axis above 1; this family (block "
-            f"{cfg.block_kind!r}, attention {cfg.attn_type!r}, "
-            f"{cfg.n_experts} experts, task {cfg.task!r}) waits for ROADMAP "
-            "item 13.7b; run it on a pod-only mesh (data = model = 1)")
+def from_local(xl, act, model=None):
+    """A manual region's local result ``xl`` as a DTensor on ``act``'s mesh:
+    the batch placed as ``act``'s, and on "model" ``model`` (a placement:
+    ``Shard(i)`` for a block of dim i, ``Partial()`` for a rank's partial
+    sum; ``Replicate()`` when None)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = act.device_mesh
+    pls = [(model or Replicate()) if name == "model" and mesh.size(i) > 1
+           else act.placements[i] if name != "model" else Replicate()
+           for i, name in enumerate(mesh.mesh_dim_names)]
+    return DTensor.from_local(xl, mesh, pls, run_check=False)
+
+
+def sum_partial(x):
+    """A DTensor that is a partial sum on some mesh dims, summed there (one
+    all-reduce a dim) as :func:`constrain` does: its gradient is made whole
+    there too (a partial sum arriving from the layers above is reduced
+    here, the tensor-parallel backward all-reduce); anything else as it
+    is."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return _Constrain.apply(x, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def whole_grad(x):
+    """DTensor ``x`` as it is, its gradient made whole in ``x``'s placements
+    (a partial sum arriving from a column-parallel projection above is
+    all-reduced here, Megatron's input operator); anything else as it
+    is."""
+    return _Constrain.apply(x, tuple(x.placements)) if is_dtensor(x) else x
+
+
+def gather_model(x):
+    """DTensor ``x`` replicated on the "model" dim (an all-gather of its
+    blocks there; its gradient, each rank's share, is reduce-scattered
+    back); anything else as it is."""
+    if not is_dtensor(x) or "model" not in x.device_mesh.mesh_dim_names:
+        return x
+    from torch.distributed.tensor import Replicate
+
+    i = x.device_mesh.mesh_dim_names.index("model")
+    if x.placements[i].is_replicate():
+        return x
+    pls = list(x.placements)
+    pls[i] = Replicate()
+    return x.redistribute(x.device_mesh, pls)
+
+
+class _SharedGrad(torch.autograd.Function):
+    """The identity, its gradient divided by ``n``."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def shared_grad(x, n: int):
+    """A manual region's value that every one of ``n`` ranks computes alike
+    from inputs whose gradient is a ``Partial`` sum over them
+    (:func:`local_part`): the value as it is, its gradient divided by ``n``,
+    so that the sum counts it once."""
+    return x if n == 1 else _SharedGrad.apply(x, n)
 
 
 @contextlib.contextmanager

@@ -248,15 +248,10 @@ def place_pods(api: ModelApi, stacked, mesh):
     """The pod runtime's placement (the reference's ``train.py``): this
     rank's pods of the whole pod-stacked tree ``stacked`` (leading dim
     n_pods, the same on every rank), each replica placed over the pod's
-    ("data", "model") submesh by ``spec_for``: DTensors for the dense GQA
-    decoders (``sharding.placed_family``), plain tensors for the other
-    families, which run on a pod-only mesh.  Refuses a family the submesh
-    cannot take (``sharding.check_pod_family``)."""
-    shlib.check_pod_family(api.cfg, mesh)
+    ("data", "model") submesh by ``spec_for`` as DTensors, every family
+    alike (a mixture's experts on "model")."""
     rows = pod_rows(mesh, _n_pods(stacked))
     local = tree_map(rows.rows, stacked)
-    if not shlib.placed_family(api.cfg):
-        return local
     return shlib.place_params(local, api.param_defs(), mesh,
                               fsdp=api.cfg.fsdp, lead=1)
 
@@ -461,7 +456,6 @@ def make_round_step(
                 implicit_replication,
             )
 
-            shlib.check_pod_family(api.cfg, mesh)
             ctx = implicit_replication()
         else:
             ctx = contextlib.nullcontext()

@@ -10,13 +10,19 @@ stacked on one device.  ``--host-mesh`` runs the reference's (2, 2, 2)
 ``("pod", "data", "model")`` mesh over a running 8-rank world started by
 ``torch.distributed.run`` (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
 ``MASTER_PORT`` from its environment): each pod's replica is placed over
-its (data, model) submesh (``launch.steps.place_pods``; the dense GQA
-decoders, any family on a pod-only mesh), rank 0 logs and writes the
-checkpoints, gathered whole, and ``--resume`` places them again:
+its (data, model) submesh (``launch.steps.place_pods``; every family, a
+mixture's experts on "model"), rank 0 logs and writes the checkpoints,
+gathered whole, and ``--resume`` places them again.  The default arch,
+xlstm-350m, as the reference's own test runs it:
 
   python -m torch.distributed.run --nproc-per-node 8 \
-      -m repro_torch.launch.train --host-mesh --arch glm4-9b --smoke \
-      --rounds 2 --device cpu
+      -m repro_torch.launch.train --host-mesh --smoke --device cpu \
+      --rounds 2 --batch 4 --seq 32
+
+Like the reference's, the launcher feeds token batches: it trains the lm
+task's archs (the dense decoders, dbrx-132b, deepseek-v3-671b, xlstm-350m,
+hymba-1.5b); the vlm and masked_lm archs train through
+``launch.steps.make_round_step`` with their tasks' batches.
 
 ``--superstep N`` runs N rounds between host boundaries, which
 log and checkpoint; ``--resume`` restarts from the latest round-state

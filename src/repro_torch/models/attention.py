@@ -13,7 +13,8 @@ region (:func:`_local_attention`); decode mode
 the reference, which has no Pallas kernel there either.
 
 MLA (:func:`mla_forward`, :func:`mla_decode`) is plain PyTorch in both
-modes, as the reference's plain ``jnp``: f32 scores ``(B, H, Sq, Sk)``
+modes, as the reference's plain ``jnp`` (under the pod runtime its scores
+on each rank's local heads, :func:`_mla_local`): f32 scores ``(B, H, Sq, Sk)``
 from a 128-wide no-rope part and a 64-wide rope part shared by the heads,
 and 128-wide values; the cache holds the latent ``ckv`` and the rope key
 ``kpe``, and every step expands the whole cache through ``wkv_b``.
@@ -305,13 +306,21 @@ def _mla_kv_latent(p, x, cfg: ArchConfig, positions):
 
 
 def _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg: ArchConfig, bias):
+    """The attention of MLA's queries on the latent keys and values, and
+    its output projection.  Under the pod runtime (DTensor q, heads on
+    "model") the scores run on each rank's local heads (:func:`_mla_local`)."""
+    dn = cfg.qk_nope_head_dim
+    kvb = _project(ckv, p["wkv_b"])
+    k_nope, v = kvb[..., :dn], kvb[..., dn:]
+    core = _mla_local if shlib.is_dtensor(q_nope) else _mla_core
+    return _out_proj(core(q_nope, q_pe, k_nope, v, kpe, cfg, bias), p["wo"])
+
+
+def _mla_core(q_nope, q_pe, k_nope, v, kpe, cfg: ArchConfig, bias):
     """Scores in f32 from q scaled in the model dtype first, as the
     reference: the scale (dn + dr)^-0.5 = 192^-0.5 is not a power of two,
     so in bf16 the order of the scaling and the cast matters."""
-    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
-    kvb = _project(ckv, p["wkv_b"])
-    k_nope, v = kvb[..., :dn], kvb[..., dn:]
-    scale = (dn + cfg.qk_rope_head_dim) ** -0.5
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     scores = torch.einsum("bqhd,bshd->bhqs", (q_nope * scale).float(),
                           k_nope.float())
     scores += torch.einsum("bqhd,bsd->bhqs", (q_pe * scale).float(),
@@ -320,8 +329,26 @@ def _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg: ArchConfig, bias):
         scores += bias
     probs = scores.softmax(-1)
     del scores
-    out = torch.einsum("bhqs,bshd->bqhd", probs, v.float()).to(v.dtype)
-    return _out_proj(out, p["wo"])
+    return torch.einsum("bhqs,bshd->bqhd", probs, v.float()).to(v.dtype)
+
+
+def _mla_local(q_nope, q_pe, k_nope, v, kpe, cfg: ArchConfig, bias):
+    """:func:`_mla_core` on each rank's shards of the DTensors: its batch
+    rows and, where "model" splits the heads (dim 2), its heads, reading
+    the whole rope key ``kpe`` that the heads share (its gradient a partial
+    sum over "model"), in a manual region.  Without a head split every rank
+    runs every head, whose gradient then counts once."""
+    mesh = q_nope.device_mesh
+    rank_heads = q_nope.placements[mesh.mesh_dim_names.index("model")] \
+        if "model" in mesh.mesh_dim_names else None
+    split = rank_heads is not None and rank_heads.is_shard()
+    local = [shlib.local_part(t, q_nope)
+             for t in (q_nope, q_pe, k_nope, v, kpe)]
+    with shlib.manual_region(mesh):
+        out = _mla_core(*local, cfg, bias[:local[0].shape[0]])
+        if not split:
+            out = shlib.shared_grad(out, shlib.model_block(mesh)[1])
+    return shlib.from_local(out, q_nope, rank_heads if split else None)
 
 
 def mla_forward(p, x, cfg: ArchConfig, window: int = 0, theta=None,

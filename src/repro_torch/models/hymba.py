@@ -26,6 +26,13 @@ one lane per batch row; see ``models.transformer``): each lane puts its own
 ``(n_meta, d)`` meta tokens before its row, the projections are batched
 matmuls, and the norm scales and the SSM's per-channel ``b_dt``,
 ``A_log`` and ``D`` broadcast per lane; :func:`_scan` has no weights.
+
+Under the pod runtime (DTensor activations and weights placed by
+``spec_for``) the attention runs on each rank's local heads
+(``attention.gqa_forward``) and the SSM branch on each rank's
+``"ssm_inner"`` channels, in a manual region (:func:`_ssm_placed`); each
+branch's output, a partial sum over "model", is summed there before its
+norm.
 """
 from __future__ import annotations
 
@@ -34,8 +41,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import sharding as shlib
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import lane_scale, softmax_xent
+from repro_torch.models.layers import lane_scale, shard_act, softmax_xent
 from repro_torch.models.moe import swiglu_defs, swiglu_forward
 from repro_torch.models.pdefs import PDef
 from repro_torch.models.transformer import (
@@ -142,7 +150,9 @@ def _scan(decay, contrib):
 def _ssm_scan(pl, xn, cfg: ArchConfig, state=None):
     """The SSM branch over xn ``(B, S, D)``: from h = 0 over the sequence,
     or one step (S = 1) from ``state`` ``(B, di, N)`` -> (y ``(B, S, D)``,
-    the last h)."""
+    the last h; None for a DTensor ``xn``)."""
+    if shlib.is_dtensor(xn) and state is None:
+        return _ssm_placed(pl, xn, cfg), None
     xm, z, decay, Bm, Cm, u = _ssm_proj(pl, xn, cfg)
     contrib = u[..., None] * Bm[:, :, None, :]  # (B, S, di, N)
     if state is None:
@@ -155,6 +165,58 @@ def _ssm_scan(pl, xn, cfg: ArchConfig, state=None):
     return y @ pl["w_out"], h[:, -1]
 
 
+def _ssm_placed(pl, xn, cfg: ArchConfig):
+    """The SSM branch over DTensor ``xn`` (batch rows on "data") with its
+    weights placed by ``spec_for`` (``"ssm_inner"`` on "model") -> its
+    output, replicated.
+
+    The up-projection's columns are gathered over "model" (its gradient
+    reduce-scattered back), and each rank takes its channels ``[r di/m,
+    (r+1) di/m)`` of ``xm`` and ``z``.  The projections by the rows of
+    ``w_dt``, ``w_B`` and ``w_C`` it holds are partial sums over "model":
+    dt is reduce-scattered to the rank's channels, B and C (``2N`` columns)
+    all-reduced whole.  The scan runs over the sequence on the rank's
+    channels, and its rows of ``w_out`` give a partial sum of the output,
+    summed by one all-reduce.  Where "model" does not split the channels,
+    every rank runs them all, whose gradient then counts once."""
+    from torch.distributed.tensor import Partial, Shard
+
+    di, n = _di(cfg), cfg.ssm_state
+    up = xn @ pl["w_in"]
+    mesh = up.device_mesh
+    rank, m = shlib.model_block(mesh)
+    upl = shlib.local_part(shlib.gather_model(up), up)
+    loc = {k: shlib.local_part(pl[k], up) for k in (
+        "w_dt", "b_dt", "A_log", "w_B", "w_C", "D", "w_out")}
+    c = loc["A_log"].shape[-1]  # the rank's channels
+    split = c < di
+    lo = rank * c if split else 0
+    with shlib.manual_region(mesh):
+        xm, z = upl[..., lo:lo + c], upl[..., di + lo:di + lo + c]
+        x32 = xm.float()
+        dt = x32 @ loc["w_dt"].float()
+        bc = torch.cat([x32 @ loc["w_B"].float(), x32 @ loc["w_C"].float()],
+                       -1)
+    if split:
+        dt = shlib.from_local(dt, up, Partial())
+        dt = shlib.local_part(dt.redistribute(mesh, [
+            Shard(2) if p.is_partial() else p for p in dt.placements]), up)
+        bc = shlib.local_part(shlib.sum_partial(
+            shlib.from_local(bc, up, Partial())), up)
+    with shlib.manual_region(mesh):
+        dt = F.softplus(dt + loc["b_dt"][lo:lo + c])
+        decay = torch.exp(dt * -torch.exp(loc["A_log"]))
+        contrib = (dt * x32)[..., None] * bc[:, :, None, :n]
+        h = _scan(decay, contrib)
+        y = (torch.einsum("bsen,bsn->bse", h, bc[..., n:])
+             + loc["D"] * xm.float())
+        out = (y.to(cfg.dtype) * F.silu(z)) @ loc["w_out"]
+        if not split:
+            out = shlib.shared_grad(out, m)
+    return shlib.sum_partial(shlib.from_local(out, up,
+                                              Partial() if split else None))
+
+
 # ---------------------------------------------------------------------------
 # Hybrid layer + stack.
 # ---------------------------------------------------------------------------
@@ -163,18 +225,25 @@ def _with_meta(params, tokens, cfg: ArchConfig, lanes: bool):
     """The meta tokens, then the token embeddings: ``(B, n_meta + S, D)``;
     with ``lanes``, each row's own lane's meta tokens."""
     x = _embed_tokens(params, tokens, cfg)
-    meta = params["meta_tokens"]
+    meta = shlib.unshard_data(params["meta_tokens"])
+    if shlib.is_dtensor(x):  # the meta tokens of the rank's rows
+        ml = shlib.local_part(meta, x, own_model=False)
+        return torch.cat([shlib.from_local(ml[None].expand(
+            x.to_local().shape[:1] + ml.shape), x), x], dim=1)
     if not lanes:
         meta = meta[None].expand((x.shape[0],) + meta.shape)
     return torch.cat([meta, x], dim=1)
 
 
 def _mix(pl, x, a, s_out, cfg: ArchConfig):
-    """The residual update of a layer from its attention and SSM outputs."""
-    mix = 0.5 * (_norm(a, pl["norm_attn"], cfg)
+    """The residual update of a layer from its attention and SSM outputs
+    (under the pod runtime each a partial sum over "model" until summed
+    here)."""
+    mix = 0.5 * (_norm(shlib.sum_partial(a), pl["norm_attn"], cfg)
                  + _norm(s_out, pl["norm_ssm"], cfg))
-    x = x + mix
-    return x + swiglu_forward(pl["mlp"], _norm(x, pl["ln2"], cfg))
+    x = x + shard_act(mix, ("batch", "seq", "embed"))
+    return x + shlib.sum_partial(swiglu_forward(pl["mlp"],
+                                                _norm(x, pl["ln2"], cfg)))
 
 
 def _hybrid(pl, x, cfg: ArchConfig, window, theta, positions,
@@ -189,13 +258,15 @@ def _hybrid(pl, x, cfg: ArchConfig, window, theta, positions,
 
 
 def _head(params, x, cfg: ArchConfig):
-    return _norm(x, params["final_norm"], cfg) @ params["lm_head"]
+    return (_norm(x, params["final_norm"], cfg)
+            @ shlib.unshard_data(params["lm_head"]))
 
 
 def forward(params, batch, cfg: ArchConfig):
     """Full-sequence forward -> (logits of the text positions, {})."""
     lanes = _lanes(params)
-    x = _with_meta(params, batch["tokens"], cfg, lanes)
+    x = shard_act(_with_meta(params, batch["tokens"], cfg, lanes),
+                  ("batch", "seq", "embed"))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -204,11 +275,15 @@ def forward(params, batch, cfg: ArchConfig):
             return _hybrid(pl, x, cfg, win, th, positions)[0]
 
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
-    return _head(params, x[:, cfg.n_meta_tokens:], cfg), {}
+    return shard_act(_head(params, x[:, cfg.n_meta_tokens:], cfg),
+                     ("batch", "seq", "vocab")), {}
 
 
 def loss(params, batch, cfg: ArchConfig):
     logits, _ = forward(params, batch, cfg)
+    # Each row's softmax reads every vocab entry: under the pod runtime the
+    # logits' vocab shards are gathered first (one all-gather).
+    logits = shard_act(logits, ("batch", "seq", None))
     ce, acc = softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
     return ce, (ce, acc)
 

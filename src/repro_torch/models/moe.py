@@ -25,6 +25,19 @@ contiguous block of the ``(B, L, E, d, f)`` leaf (``B`` calls and no copy
 of the weights), and the aux loss is per lane, ``(B,)``.  Capacity and
 positions are per batch row as without lanes, which under the reference's
 vmap with an inner batch of 1 is per lane.
+
+Under the pod runtime (DTensor activations, ``launch.sharding``) the
+experts sit on the "model" axis and the tokens are replicated there (the
+batch rows are on "data"): each rank routes its whole local token set,
+fills only its own experts' slots, runs its experts and combines their
+outputs in a manual region (:func:`_moe_placed`); the combine is then a
+partial sum over the experts, summed over "model" by one all-reduce — what
+the reference's combine einsum over an expert dim sharded on "model"
+amounts to.  The aux loss is the mean over every data shard's rows.  The
+reference's constraints on its one-hot ``(B, S, E, C)`` dispatch and
+combine tensors have no counterpart here (the slot arrays carry them);
+those on its expert buffers stand on :func:`_moe_gshard`'s ``(E, B, C,
+d)`` buffers, where, in the manual region, they are the identity.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import sharding as shlib
 from repro_torch.models.layers import shard_act
 from repro_torch.models.pdefs import PDef
 
@@ -110,10 +124,13 @@ def _aux_loss(sel, probs, cfg: ArchConfig, lanes: bool = False):
     return e * (frac * imp).sum()
 
 
-def _moe_dense(p, x, w, sel, cfg: ArchConfig, lanes: bool = False):
-    """Exact reference: every expert on every token, mask-combined."""
+def _moe_dense(p, x, w, sel, cfg: ArchConfig, lanes: bool = False,
+               e_lo: int = 0):
+    """Exact reference: every expert on every token, mask-combined; the
+    experts of ``p`` are experts ``e_lo ..`` of the router's."""
     e = cfg.n_experts
     gates = (_one_hot(sel, e) * w[..., None]).sum(2)  # (B,S,E)
+    gates = gates[..., e_lo:e_lo + p["wi"].shape[-3]]
     ln = "b" if lanes else ""
     h = torch.einsum(f"bsd,{ln}edf->bsef", x, p["wi"])
     g = torch.einsum(f"bsd,{ln}edf->bsef", x, p["wg"])
@@ -199,8 +216,12 @@ def _combine(out, slot, keep, w, ddt, dtype):
     return y.view(b, s, -1)
 
 
-def _moe_gshard(p, x, w, sel, cfg: ArchConfig, lanes: bool = False):
-    """Capacity-based dispatch and combine (see the module docstring)."""
+def _moe_gshard(p, x, w, sel, cfg: ArchConfig, lanes: bool = False,
+                e_lo: int = 0):
+    """Capacity-based dispatch and combine (see the module docstring).
+    Without lanes the experts of ``p`` may be a block of the router's,
+    experts ``e_lo ..``: only the assignments to them are dispatched and
+    combined (a rank's partial sum under the pod runtime)."""
     b, s, d = x.shape
     e = cfg.n_experts
     capacity = moe_capacity(s, cfg)
@@ -216,16 +237,92 @@ def _moe_gshard(p, x, w, sel, cfg: ArchConfig, lanes: bool = False):
             _expert_products({k: p[k][i] for k in ("wi", "wg", "wo")},
                              xin[i]) for i in range(b)])
     else:
-        # Slot (e, b, c) of the (E, B, C) buffer, in row-major order.
-        slot = (sel * b + rows) * capacity + pos
-        xin = _dispatch(x, slot, keep, e * b * capacity)
+        # Slot (e, b, c) of the (E, B, C) buffer, in row-major order, for
+        # the experts at hand.
+        e = p["wi"].shape[0]
+        keep = keep & (sel >= e_lo) & (sel < e_lo + e)
+        slot = ((sel - e_lo) * b + rows) * capacity + pos
+        xin = shard_act(_dispatch(x, slot, keep, e * b * capacity).view(
+            e, b, capacity, d), ("expert", "batch", None, None))
         out = _expert_products(p, xin.view(e, b * capacity, d))
+        out = shard_act(out.view(e, b, capacity, d),
+                        ("expert", "batch", None, None))
     return _combine(out.view(e * b * capacity, d), slot, keep, w, ddt, x.dtype)
+
+
+def _placed_aux(terms, x, cfg: ArchConfig):
+    """:func:`_aux_loss` of the whole batch from ``terms``, a rank's
+    ``(2, E)`` fractions and mean probabilities over its rows: their mean
+    over the mesh dims where DTensor ``x`` splits the batch (one all-reduce
+    of the ``2 x E`` means each; equal rows a shard) -> a replicated 0-d
+    DTensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = x.device_mesh
+    split = [i for i, pl in enumerate(x.placements)
+             if pl.is_shard() and mesh.size(i) > 1]
+    n = 1
+    for i in split:
+        n *= mesh.size(i)
+    t = DTensor.from_local(terms / n, mesh, [
+        Partial() if i in split else Replicate() for i in range(mesh.ndim)],
+        run_check=False)
+    t = t.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return cfg.n_experts * (t[0] * t[1]).sum()
+
+
+def _moe_placed(p, x, cfg: ArchConfig):
+    """:func:`moe_forward` of DTensor ``x`` (batch rows on "data",
+    replicated on "model") with the experts placed by ``spec_for``: the
+    routing, the dispatch to this rank's experts, their products, the
+    combine and the shared expert (:func:`swiglu_forward` on the rank's
+    ``"mlp"`` columns) in a manual region on the local tokens and weights,
+    the output a partial sum over "model".  A part whose leaves "model"
+    does not split counts on the axis's rank 0 only; where it splits
+    neither, every rank computes the whole output, whose gradient then
+    counts once."""
+    from torch.distributed.tensor import Partial
+
+    mesh = x.device_mesh
+    rank, m = shlib.model_block(mesh)
+
+    def split(leaf):
+        return m > 1 and leaf.placements[
+            mesh.mesh_dim_names.index("model")].is_shard()
+
+    xl = shlib.local_part(x, x)
+    local = {k: shlib.local_part(p[k], x) for k in ("router", "wi", "wg",
+                                                     "wo")}
+    e_n = local["wi"].shape[0]
+    e_lo = rank * e_n if e_n < cfg.n_experts else 0
+    with shlib.manual_region(mesh):
+        w, sel, probs = _router_probs(local, xl, cfg)
+        impl = _moe_dense if cfg.moe_impl == "dense" else _moe_gshard
+        parts = [(impl(local, xl, w, sel, cfg, e_lo=e_lo), split(p["wi"]))]
+        if cfg.n_shared_experts:
+            shared = {k: shlib.local_part(v, x)
+                      for k, v in p["shared"].items()}
+            parts.append((swiglu_forward(shared, xl),
+                          split(p["shared"]["wi"])))
+        partial = any(sp for _, sp in parts)
+        y = None
+        for part, sp in parts:
+            if not partial:
+                part = shlib.shared_grad(part, m)
+            elif not sp and rank:
+                part = torch.zeros_like(part)
+            y = part if y is None else y + part
+        terms = torch.stack([_one_hot(sel, cfg.n_experts).mean((0, 1, 2)),
+                             shlib.shared_grad(probs.mean((0, 1)), m)])
+    y = shlib.from_local(y, x, Partial() if partial else None)
+    return y, _placed_aux(terms, x, cfg)
 
 
 def moe_forward(p, x, cfg: ArchConfig, lanes: bool = False):
     """Returns (y, aux_loss); with ``lanes`` (lane-stacked weights) the aux
     loss is per lane."""
+    if shlib.is_dtensor(x):
+        return _moe_placed(p, x, cfg)
     w, sel, probs = _router_probs(p, x, cfg)
     impl = _moe_dense if cfg.moe_impl == "dense" else _moe_gshard
     y = impl(p, x, w, sel, cfg, lanes)

@@ -216,7 +216,11 @@ def embed_inputs(params, batch, cfg: ArchConfig):
     elif cfg.task == "vlm":
         proj = params["projector"]
         img = batch["image_feats"].to(cfg.dtype) @ proj["w1"]
-        img = F.gelu(img, approximate="tanh") @ proj["w2"]
+        # Under the pod runtime w2's columns are on "model": the hidden's
+        # gradient is summed there, and the image rows are gathered there
+        # before they join the text.
+        img = shlib.whole_grad(F.gelu(img, approximate="tanh")) @ proj["w2"]
+        img = shard_act(img, ("batch", "seq", "embed"))
         txt = _embed_tokens(params, batch["tokens"], cfg)
         x = torch.cat([img, txt], dim=1)
         mask = torch.cat([
@@ -303,14 +307,14 @@ def loss(params, batch, cfg: ArchConfig):
     the last against text tokens 1..St-1 (a vlm's image positions are
     skipped); masked_lm: ``targets`` at the masked frames."""
     logits, aux = forward(params, batch, cfg)
+    # Each row's softmax reads every vocab entry: under the pod runtime the
+    # logits' vocab shards are gathered first (one all-gather).
+    logits = shard_act(logits, ("batch", "seq", None))
     if cfg.task == "masked_lm":
         ce, acc = softmax_xent(logits, batch["targets"], aux["loss_mask"])
     else:
         labels = batch["tokens"]
         n_prefix = logits.shape[1] - labels.shape[1]  # the vlm's image rows
-        # Each row's softmax reads every vocab entry: under the pod runtime
-        # the logits' vocab shards are gathered first (one all-gather).
-        logits = shard_act(logits, ("batch", "seq", None))
         lg = (logits[:, n_prefix:-1] if labels.shape[1] > 1
               else logits[:, n_prefix:])
         ce, acc = softmax_xent(lg, labels[:, 1:], None)

@@ -35,6 +35,14 @@ parameters (a leading lane axis, one lane per batch row; see
 (``(B, groups, n, ...)`` leaves), the projections are batched matmuls,
 norm scales and biases broadcast per lane, and the sLSTM's block-diagonal
 recurrence reads each lane's own ``r``.
+
+Under the pod runtime (DTensor activations and weights placed by
+``spec_for``: batch rows on "data", the up-projections' columns and the
+heads on "model") the mLSTM's parallel form and the sLSTM's time loop run
+in a manual region on each rank's local heads (:func:`_mlstm_placed`,
+:func:`_slstm_local`); each block's output is then summed over "model" (a
+row-parallel ``w_down`` or ``ffn_wo``) or gathered there (the sLSTM's
+heads).
 """
 from __future__ import annotations
 
@@ -46,7 +54,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import lane_scale, softmax_xent
+from repro_torch.launch import sharding as shlib
+from repro_torch.models.layers import lane_scale, shard_act, softmax_xent
 from repro_torch.models.pdefs import PDef
 from repro_torch.models.transformer import _embed_tokens, _lanes, _norm
 
@@ -149,10 +158,11 @@ def cache_defs(cfg: ArchConfig, batch: int, length: int) -> dict:
 
 def _block(tree: dict, gi: int, j: int, lanes: bool = False) -> dict:
     """Block j of group gi: views of the doubly stacked leaves (behind the
-    lane axis when there is one)."""
+    lane axis when there is one); under the pod runtime with FSDP a block's
+    "data" shards are gathered here, a block at a time."""
     if lanes:
         return {k: t[:, gi, j] for k, t in tree.items()}
-    return {k: t[gi, j] for k, t in tree.items()}
+    return {k: shlib.unshard_data(t[gi, j]) for k, t in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +231,10 @@ def _mlstm_block(pl, x, cfg: ArchConfig, state=None):
     d, di, h, hd = _dims(cfg)
     b, s, _ = x.shape
     up = _norm(x, pl["ln"], cfg) @ pl["w_up"]
+    if shlib.is_dtensor(up):
+        return x + _mlstm_placed(pl, up, cfg), None
     xm, z = up[..., :di], up[..., di:]
+    xm = shard_act(xm, ("batch", "seq", "mlp"))
     q, k, v, i_pre, f_pre = _mlstm_qkvif(pl, xm, cfg)
     if state is None:
         hcell, new_state = mlstm_parallel(q, k, v, i_pre, f_pre), None
@@ -232,6 +245,52 @@ def _mlstm_block(pl, x, cfg: ArchConfig, state=None):
     hcell = _norm(hcell, pl["out_norm"], cfg)
     hflat = hcell.reshape(b, s, di).to(cfg.dtype) * F.silu(z)
     return x + hflat @ pl["w_down"], new_state
+
+
+def _mlstm_placed(pl, up, cfg: ArchConfig):
+    """The mLSTM block after its up-projection, on DTensor ``up`` ``(B, S,
+    2 di)`` (its columns on "model") -> the block's output, replicated.
+
+    ``up`` is gathered over "model" (its gradient reduce-scattered back),
+    then each rank runs its heads in a manual region: q, k and v from its
+    columns of ``wq``, ``wk``, ``wv`` (the heads ``[r H/m, (r+1) H/m)``),
+    the gates from its rows of ``w_if`` (a partial sum over "model",
+    summed by one all-reduce of ``(B, S, 2H)``), the parallel form, and its
+    rows of ``w_down`` (a partial sum of the output, summed by one
+    all-reduce)."""
+    from torch.distributed.tensor import Partial
+
+    d, di, h, hd = _dims(cfg)
+    mesh = up.device_mesh
+    rank, m = shlib.model_block(mesh)
+    if h % m or pl["wq"].to_local().shape[-1] != di // m:
+        raise ValueError(
+            f"{cfg.name}: the mLSTM runs whole heads a rank; {h} heads of "
+            f"{hd} columns do not split over a {m}-wide model axis")
+    hl = h // m
+    cols = slice(rank * hl * hd, (rank + 1) * hl * hd)
+    upl = shlib.local_part(shlib.gather_model(up), up)
+    loc = {k: shlib.local_part(pl[k], up) for k in (
+        "wq", "wk", "wv", "w_if", "b_if", "out_norm", "w_down")}
+    with shlib.manual_region(mesh):
+        xm, z = upl[..., :di], upl[..., di:]
+        xm = shard_act(xm, ("batch", "seq", "mlp"))
+        b, s, _ = xm.shape
+        q = (xm @ loc["wq"]).reshape(b, s, hl, hd)
+        k = (xm @ loc["wk"]).reshape(b, s, hl, hd)
+        v = (xm @ loc["wv"]).reshape(b, s, hl, hd)
+        gates = xm[..., cols].float() @ loc["w_if"]
+    gates = shlib.sum_partial(shlib.from_local(gates, up, Partial()))
+    gates = shlib.local_part(gates, up)
+    with shlib.manual_region(mesh):
+        gates = gates + lane_scale(loc["b_if"], gates)
+        i_pre = gates[..., rank * hl:(rank + 1) * hl]
+        f_pre = gates[..., h + rank * hl:h + (rank + 1) * hl]
+        hcell = _norm(mlstm_parallel(q, k, v, i_pre, f_pre),
+                      loc["out_norm"], cfg)
+        hflat = hcell.reshape(b, s, hl * hd).to(cfg.dtype) * F.silu(z[..., cols])
+        out = hflat @ loc["w_down"]
+    return shlib.sum_partial(shlib.from_local(out, up, Partial()))
 
 
 # ---------------------------------------------------------------------------
@@ -258,14 +317,56 @@ def _slstm_cell(pre, state):
     return (c_new, n_new, m_new, h_new)
 
 
-def _slstm_recur(pl, px, h_prev, cfg: ArchConfig, lanes: bool):
+def _slstm_recur(r, px, h_prev, lanes: bool):
     """The recurrent gate contribution added to one step's precomputed
-    input projection px ``(B, H, hd, 4)``; h_prev ``(B, H, hd)``; with
-    ``lanes`` each row's own ``r`` of the ``(B, H, hd, 4 hd)`` stack."""
-    d, _, h, _ = _dims(cfg)
+    input projection px ``(B, H, hd, 4)``; h_prev ``(B, H, hd)``; ``r`` the
+    ``(H, hd, 4 hd)`` block-diagonal weights, with ``lanes`` each row's own
+    of the ``(B, H, hd, 4 hd)`` stack."""
     pr = torch.einsum("bhe,bheg->bhg" if lanes else "bhe,heg->bhg",
-                      h_prev, pl["r"].float())
-    return px + _gates(pr.flatten(-2), h, d // h)
+                      h_prev, r.float())
+    return px + pr.reshape(px.shape)
+
+
+def _slstm_scan(r, px_all, lanes: bool):
+    """The sLSTM's time loop (the reference's ``lax.scan``) over the input
+    projections ``px_all`` ``(B, S, H, hd, 4)`` from the zero state with
+    the stabilizer at -2e38 -> h ``(B, S, H, hd)``."""
+    zeros = px_all.new_zeros(px_all.shape[:1] + px_all.shape[2:4])
+    st = (zeros, zeros, torch.full_like(zeros, _NEG), zeros)
+    hs = []
+    for t in range(px_all.shape[1]):
+        st = _slstm_cell(_slstm_recur(r, px_all[:, t], st[3], lanes), st)
+        hs.append(st[3])
+    return torch.stack(hs, dim=1)
+
+
+def _slstm_local(pl, px, cfg: ArchConfig):
+    """The sLSTM's gates and :func:`_slstm_scan` from DTensor ``px`` ``(B,
+    S, 4d)``, its input projection without the bias (the columns, one head
+    after another, on "model" where the heads divide it), on each rank's
+    local heads and batch rows, in a manual region: the recurrence is
+    block-diagonal, one block a head, so a rank's heads need no other
+    rank's.  -> h ``(B, S, H, hd)``, the heads placed as ``px``'s columns.
+    Without a head split every rank runs every head, whose gradient then
+    counts once."""
+    from torch.distributed.tensor import Shard
+
+    hd = cfg.d_model // cfg.n_heads
+    mesh = px.device_mesh
+    rank, m = shlib.model_block(mesh)
+    split = m > 1 and px.placements[
+        mesh.mesh_dim_names.index("model")].is_shard()
+    r = shlib.local_part(pl["r"], px)
+    b = shlib.local_part(pl["b"], px)
+    pxl = shlib.local_part(px, px)
+    with shlib.manual_region(mesh):
+        w = pxl.shape[-1]
+        lo = rank * w if split else 0
+        gates = pxl + b[lo:lo + w]
+        hs = _slstm_scan(r, _gates(gates, w // (4 * hd), hd), False)
+        if not split:
+            hs = shlib.shared_grad(hs, m)
+    return shlib.from_local(hs, px, Shard(2) if split else None)
 
 
 def _slstm_input_proj(pl, xn, cfg: ArchConfig):
@@ -278,31 +379,27 @@ def _slstm_input_proj(pl, xn, cfg: ArchConfig):
 
 
 def _slstm_block(pl, x, cfg: ArchConfig, state=None, lanes: bool = False):
-    d, _, h, _ = _dims(cfg)
-    hd = d // h
+    d = cfg.d_model
     b, s, _ = x.shape
     xn = _norm(x, pl["ln"], cfg)
-    if state is None:
-        px_all = _slstm_input_proj(pl, xn, cfg)
-        zeros = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
-        st = (zeros, zeros, torch.full_like(zeros, _NEG), zeros)
-        hs = []
-        for t in range(s):  # the reference's lax.scan over time
-            st = _slstm_cell(_slstm_recur(pl, px_all[:, t], st[3], cfg,
-                                           lanes), st)
-            hs.append(st[3])
-        hs = torch.stack(hs, dim=1)  # (B, S, H, hd)
+    if state is None and shlib.is_dtensor(xn):
+        hs = _slstm_local(pl, xn.float() @ pl["wx"].float(), cfg)
+        new_state = None
+    elif state is None:
+        hs = _slstm_scan(pl["r"], _slstm_input_proj(pl, xn, cfg),
+                         lanes)  # (B, S, H, hd)
         new_state = None
     else:
         px = _slstm_input_proj(pl, xn[:, :1], cfg)[:, 0]
-        new_state = _slstm_cell(_slstm_recur(pl, px, state[3], cfg, lanes),
+        new_state = _slstm_cell(_slstm_recur(pl["r"], px, state[3], lanes),
                                 state)
         hs = new_state[3][:, None]
     hs = _norm(hs, pl["out_norm"], cfg)
-    x = x + hs.reshape(b, s, d).to(cfg.dtype)
+    # A rank's heads under the pod runtime: gathered over "model".
+    x = x + shlib.gather_model(hs.reshape(b, s, d).to(cfg.dtype))
     xn2 = _norm(x, pl["ln_ffn"], cfg)  # post-FFN (pf 4/3)
     hmid = F.silu(xn2 @ pl["ffn_wi"]) * (xn2 @ pl["ffn_wg"])
-    return x + hmid @ pl["ffn_wo"], new_state
+    return x + shlib.sum_partial(hmid @ pl["ffn_wo"]), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -310,13 +407,15 @@ def _slstm_block(pl, x, cfg: ArchConfig, state=None, lanes: bool = False):
 # ---------------------------------------------------------------------------
 
 def _logits(params, x, cfg: ArchConfig):
-    return _norm(x, params["final_norm"], cfg) @ params["lm_head"]
+    return (_norm(x, params["final_norm"], cfg)
+            @ shlib.unshard_data(params["lm_head"]))
 
 
 def forward(params, batch, cfg: ArchConfig):
     """Full-sequence forward (the parallel mLSTM form) -> (logits, {})."""
     lanes = _lanes(params)
-    x = _embed_tokens(params, batch["tokens"], cfg)
+    x = shard_act(_embed_tokens(params, batch["tokens"], cfg),
+                  ("batch", "seq", "embed"))
     n_m, g, n_s = _groups(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     for gi in range(g):
@@ -330,11 +429,14 @@ def forward(params, batch, cfg: ArchConfig):
             return x
 
         x = checkpoint(group, x, use_reentrant=False) if remat else group(x)
-    return _logits(params, x, cfg), {}
+    return shard_act(_logits(params, x, cfg), ("batch", "seq", "vocab")), {}
 
 
 def loss(params, batch, cfg: ArchConfig):
     logits, _ = forward(params, batch, cfg)
+    # Each row's softmax reads every vocab entry: under the pod runtime the
+    # logits' vocab shards are gathered first (one all-gather).
+    logits = shard_act(logits, ("batch", "seq", None))
     ce, acc = softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
     return ce, (ce, acc)
 

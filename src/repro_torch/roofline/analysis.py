@@ -15,12 +15,16 @@ class: bytes and counts by kind, all-reduce weighted 2x) is derived from
 the placement and the port's own plan by the rules below, each a function:
 :func:`fsdp_collectives`, :func:`tensor_parallel_collectives`,
 :func:`vocab_parallel_collectives`, :func:`data_parallel_collectives`,
-:func:`step_scalar_collectives`, :func:`expert_collectives` and
+:func:`step_scalar_collectives`, :func:`expert_collectives`,
+:func:`mlstm_collectives`, :func:`slstm_collectives`,
+:func:`ssm_collectives`, :func:`prefix_collectives`,
+:func:`projector_collectives` and
 :func:`pod_collectives`.  They are the traffic of the pod runtime
 (``launch.steps.make_round_step`` over DTensors, ``launch.sharding``), and
-``tests/test_torch_pod_runtime.py`` holds them to the bytes and counts that
-runtime issues in an 8-rank world (the expert rule has no runtime yet:
-ROADMAP item 13.7b).  Bytes are per device and, as the reference's parser
+``tests/test_torch_pod_runtime.py`` (a dense GQA decoder) and
+``tests/test_torch_pod_families.py`` (xlstm, hymba and the MoE's expert
+rule) hold them to the bytes and counts that runtime issues in an 8-rank
+world.  Bytes are per device and, as the reference's parser
 counts them, the size of each collective's output on one device (the
 gathered block of an all-gather, the kept shard of a reduce-scatter, the
 operand of an all-reduce or all-to-all, the sent block of a permute).
@@ -100,18 +104,21 @@ def vocab_parallel_collectives(stats: CollectiveStats, embed_on_model: bool,
                                passes: int) -> None:
     """The vocabulary on the ``model`` axis.  A table placed there is looked
     up vocab-parallel: each device's rows, then one all-reduce of the
-    activations (``act_bytes``) in every forward.  A head placed there
-    leaves the logits split by vocabulary; in ``train`` the loss gathers
-    them (one all-gather, ``logits_bytes`` the gathered logits: local batch
-    x S x padded vocabulary) and the head's input gradient, a partial sum
-    over the vocabulary shards, is all-reduced (``act_bytes``), in every
-    gradient pass."""
+    looked-up activations (``act_bytes``) in every forward; in ``train``
+    the gradient arriving there, a partial sum over ``model`` (the head's
+    and the column-parallel projections' input gradients, summed on the way
+    down by the sub-blocks' all-reduces), is all-reduced once more in every
+    gradient pass.  A head placed there leaves the logits split by
+    vocabulary; in ``train`` the loss gathers them (one all-gather,
+    ``logits_bytes`` the gathered logits: local batch x S x padded
+    vocabulary) in every gradient pass."""
     n = passes if kind == "train" else 1
     if embed_on_model:
         stats.add("all-reduce", n * act_bytes, n)
+        if kind == "train":
+            stats.add("all-reduce", passes * act_bytes, passes)
     if head_on_model and kind == "train":
         stats.add("all-gather", passes * logits_bytes, passes)
-        stats.add("all-reduce", passes * act_bytes, passes)
 
 
 def data_parallel_collectives(stats: CollectiveStats, data_blocks: list,
@@ -128,25 +135,129 @@ def data_parallel_collectives(stats: CollectiveStats, data_blocks: list,
 
 
 def step_scalar_collectives(stats: CollectiveStats, steps: int,
-                            norm_axes: int, metric_axes: int) -> None:
+                            norm_axes: int, metric_axes: int,
+                            masked_passes: int = 0) -> None:
     """Per local step, 4-byte all-reduces: SAM's gradient norm, summed over
     every shard of the replica (one over each of ``norm_axes``, the
     submesh's axes above 1; 0 without SAM), and the step's loss and
     accuracy, means over the batch shards (one each over each of
-    ``metric_axes``)."""
-    n = steps * (norm_axes + 2 * metric_axes)
+    ``metric_axes``); and, in each of ``masked_passes`` gradient passes of
+    a masked loss, the count of its masked positions over the batch shards
+    (one over each of ``metric_axes``)."""
+    n = steps * (norm_axes + 2 * metric_axes) + masked_passes * metric_axes
     stats.add("all-reduce", 4 * n, n)
 
 
 def expert_collectives(stats: CollectiveStats, moe_layers: int,
-                       routed_bytes: int, kind: str, passes: int) -> None:
-    """Expert dispatch over the ``model`` axis.  Each MoE layer whose
-    experts are placed there sends its routed tokens (local tokens x top_k
-    x d_model, ``routed_bytes``) to their experts with one all-to-all and
-    brings the combined tokens back with another; ``train`` doubles them in
-    every gradient pass, as above."""
-    n = 2 * moe_layers * (2 * passes if kind == "train" else 1)
-    stats.add("all-to-all", n * routed_bytes, n)
+                       n_experts: int, kind: str, passes: int,
+                       split: bool) -> None:
+    """Expert parallelism.  The tokens are replicated on ``model`` (the batch
+    rows are on ``data``), so each device routes all of its tokens, fills
+    its own experts' slots and combines their outputs: a partial sum over
+    the experts, summed by the sub-block's tensor-parallel all-reduce
+    (:func:`tensor_parallel_collectives`) — no all-to-all.  The aux
+    load-balance loss is a mean over the whole batch: where the batch is
+    split on ``data`` (``split``), each MoE layer averages its devices' 2 x
+    ``n_experts`` f32 means (routed fractions, mean probabilities) with one
+    all-reduce in every forward (every gradient pass in ``train``; the
+    backward needs none)."""
+    n = moe_layers * (passes if kind == "train" else 1) if split else 0
+    stats.add("all-reduce", n * 2 * n_experts * 4, n)
+
+
+def mlstm_collectives(stats: CollectiveStats, blocks: int, rows: int,
+                      inner: int, heads: int, model_n: int, itemsize: int,
+                      kind: str, passes: int) -> None:
+    """xLSTM's mLSTM blocks with their heads on ``model`` (``model_n`` above
+    1).  Each gathers its up-projection's ``rows x 2 inner`` columns (model
+    dtype) so that every device holds its heads' q, k and v inputs and z,
+    and all-reduces its input and forget gates (``rows x 2 heads`` f32, a
+    partial sum over the row-split ``w_if``) in every forward; in ``train``
+    the backward all-reduces the gates' gradient and reduce-scatters the
+    up-projection's (``rows x 2 inner / model_n``) in every gradient pass.
+    The block's output all-reduce is the tensor-parallel rule's."""
+    if model_n == 1:
+        return
+    n = passes if kind == "train" else 1
+    stats.add("all-gather", n * blocks * rows * 2 * inner * itemsize,
+              n * blocks)
+    stats.add("all-reduce", n * blocks * rows * 2 * heads * 4, n * blocks)
+    if kind == "train":
+        stats.add("all-reduce", n * blocks * rows * 2 * heads * 4, n * blocks)
+        stats.add("reduce-scatter",
+                  n * blocks * rows * 2 * inner // model_n * itemsize,
+                  n * blocks)
+
+
+def slstm_collectives(stats: CollectiveStats, blocks: int, act_bytes: int,
+                      model_n: int, kind: str, passes: int) -> None:
+    """xLSTM's sLSTM blocks with their heads on ``model``: each device runs
+    its heads' recurrence and the heads' outputs are gathered before the
+    residual (one all-gather of the activations, ``act_bytes``) in every
+    forward; in ``train`` their gradient is reduce-scattered back in every
+    gradient pass.  The post-FFN's all-reduce is the tensor-parallel
+    rule's."""
+    if model_n == 1:
+        return
+    n = passes if kind == "train" else 1
+    stats.add("all-gather", n * blocks * act_bytes, n * blocks)
+    if kind == "train":
+        stats.add("reduce-scatter", n * blocks * act_bytes // model_n,
+                  n * blocks)
+
+
+def ssm_collectives(stats: CollectiveStats, layers: int, rows: int,
+                    inner: int, state: int, model_n: int, itemsize: int,
+                    kind: str, passes: int) -> None:
+    """hymba's SSM branch with its ``inner`` channels on ``model``.  In every
+    forward a layer gathers its up-projection's ``rows x 2 inner`` columns
+    (model dtype), reduce-scatters dt (``rows x inner`` f32 partial sums to
+    each device's channels) and all-reduces B and C (``rows x 2 state``
+    f32); in ``train`` the backward all-reduces B and C's gradient,
+    gathers dt's (``rows x inner`` f32) and reduce-scatters the
+    up-projection's (``rows x 2 inner / model_n``) in every gradient pass.
+    The branch's output all-reduce is the tensor-parallel rule's."""
+    if model_n == 1:
+        return
+    n = passes if kind == "train" else 1
+    stats.add("all-gather", n * layers * rows * 2 * inner * itemsize,
+              n * layers)
+    stats.add("reduce-scatter", n * layers * rows * inner // model_n * 4,
+              n * layers)
+    stats.add("all-reduce", n * layers * rows * 2 * state * 4, n * layers)
+    if kind == "train":
+        stats.add("all-reduce", n * layers * rows * 2 * state * 4,
+                  n * layers)
+        stats.add("all-gather", n * layers * rows * inner * 4, n * layers)
+        stats.add("reduce-scatter",
+                  n * layers * rows * 2 * inner // model_n * itemsize,
+                  n * layers)
+
+
+def projector_collectives(stats: CollectiveStats, image_bytes: int,
+                          kind: str, passes: int) -> None:
+    """The vlm's projector with its second weight's columns on ``model``:
+    the image rows (``image_bytes`` of activations a device) are gathered
+    before they join the text in every forward; in ``train`` the backward
+    all-reduces their gradient there and the projector hidden's (the same
+    size), a partial sum over the second weight's columns, in every
+    gradient pass."""
+    n = passes if kind == "train" else 1
+    stats.add("all-gather", n * image_bytes, n)
+    if kind == "train":
+        stats.add("all-reduce", 2 * n * image_bytes, 2 * n)
+
+
+def prefix_collectives(stats: CollectiveStats, prefix_bytes: int,
+                       model_n: int, kind: str, passes: int) -> None:
+    """Learned rows put before the sequence (hymba's meta tokens,
+    ``prefix_bytes`` of activations a device): in ``train`` their input
+    gradient, a partial sum over ``model`` as the text rows' is, is
+    all-reduced where they join the sequence in every gradient pass; the
+    prefix's parameter, whole on every device of ``model``, then needs no
+    all-reduce there."""
+    if model_n > 1 and kind == "train" and prefix_bytes:
+        stats.add("all-reduce", passes * prefix_bytes, passes)
 
 
 def pod_collectives(stats: CollectiveStats, plan, d: int, itemsize: int,

@@ -313,10 +313,12 @@ def case_kv_replicated(mesh):
 
 def case_xlstm(rank, port):
     """Reduced xlstm-350m on a pod-only (2, 1, 1) mesh of 2 ranks: each
-    rank's replica whole, "halo" against "xla" over 2 rounds."""
+    rank's replica whole (DTensors over a one-device submesh), "halo"
+    against "xla" over 2 rounds."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.flat import tree_flatten, tree_map
     from repro_torch.data.synthetic import make_lm_stream
+    from repro_torch.launch import sharding as shlib
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import close_clients_world, init_world
     from repro_torch.models.registry import get_model_api
@@ -337,9 +339,10 @@ def case_xlstm(rank, port):
                     tree_flatten(a["params"])[1], tree_flatten(b["params"])[1])),
                 "w_rel": float(((a["w"] - b["w"]) / a["w"]).abs().max()),
                 "mass": float(b["w"].sum()),
-                "placed": not any(type(x) is not torch.Tensor for x in
-                                  tree_flatten(steps.place_pods(
-                                      api, whole, mesh))[1])}
+                "placed": all(shlib.is_dtensor(x)
+                              and x.to_local().shape == x.shape
+                              for x in tree_flatten(steps.place_pods(
+                                  api, whole, mesh))[1])}
     finally:
         close_clients_world()
 

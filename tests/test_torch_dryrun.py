@@ -222,11 +222,13 @@ GLM4_ROUND = ({"all-gather": (2 * 16 * 22528 + 2 * 32768 + 5767168 // 16
 # on "model" by their expert axis and on "data" by embed (wi, wg, wo: 2 x 16
 # x 256 x 512 x 4 B over 16 model shards, 1048576 B gathered each, a layer
 # at a time), the router on "data" (32768), the rest as glm4's (163840 +
-# 32768); 4 all-reduces and the vocab-parallel embedding's, and 2
-# all-to-alls an MoE layer of 32768 x 2 (top_k) bytes.
-DBRX_PREFILL = ({"all-gather": 3342336, "all-reduce": 5 * 32768,
-                 "all-to-all": 4 * 65536},
-                {"all-gather": 18, "all-reduce": 5, "all-to-all": 4})
+# 32768); 4 all-reduces and the vocab-parallel embedding's.  The tokens
+# are replicated on "model", so the experts' combine is summed by the MLP's
+# all-reduce and no all-to-all runs; each MoE layer averages its aux
+# loss's 2 x 16 f32 means over the 16 data shards (one all-reduce of 128
+# B).
+DBRX_PREFILL = ({"all-gather": 3342336, "all-reduce": 5 * 32768 + 2 * 128},
+                {"all-gather": 18, "all-reduce": 7})
 
 
 @pytest.mark.parametrize("arch,kind,mesh,overrides,want", [

@@ -2,8 +2,8 @@
 (``launch.sharding.place_params``) on live meshes of a fake 8-rank world
 (``torch.testing``'s fake process group: every rank's mesh coordinates,
 no traffic) held to the reference's ``spec_for`` and its shard-shape
-arithmetic, the layer axis never split, ``make_host_mesh``'s refusals, the
-refusal of the families that wait for ROADMAP item 13.7b, and the
+arithmetic, the layer axis never split, ``make_host_mesh``'s refusals,
+every family placed by ``spec_for`` (the experts on "model"), and the
 reference's ``constrain`` / ``in_manual_region`` rules.  All exact.
 
 Meshes: the reference's host mesh (2, 2, 2) and two others of 8 devices,
@@ -36,8 +36,8 @@ SHAPES = [(2, 2, 2), (2, 1, 4), (1, 4, 2)]
 RANKS = (0, 5)  # a first and a middle rank: different coordinates
 N_PODS = 2
 DENSE_GQA = ("glm4-9b", "gemma3-12b", "phi3-medium-14b", "codeqwen1.5-7b")
-WAITING = ("dbrx-132b", "deepseek-v3-671b", "xlstm-350m", "hymba-1.5b",
-           "llava-next-mistral-7b", "hubert-xlarge")
+OTHERS = ("dbrx-132b", "deepseek-v3-671b", "xlstm-350m", "hymba-1.5b",
+          "llava-next-mistral-7b", "hubert-xlarge")
 
 
 class Duck:
@@ -149,36 +149,35 @@ def test_make_host_mesh_refuses_without_a_world_or_a_wrong_size(fake_world):
         meshlib.make_host_mesh((2, 4), AXES, device="cpu")
 
 
-@pytest.mark.parametrize("arch", WAITING + DENSE_GQA)
-def test_other_families_wait_for_item_13_7b(fake_world, arch):
-    """A data or model axis above 1 takes only the dense GQA decoders; on a
-    pod-only mesh every family runs, its replica whole on the rank (the
-    dense GQA decoders as DTensors, the others as plain tensors)."""
-    cfg = get_config(arch, smoke=True)
-    for shape in ((2, 2, 2), (2, 1, 4), (2, 4, 1)):
-        if arch in WAITING:
-            with pytest.raises(NotImplementedError, match="13.7b"):
-                sharding.check_pod_family(cfg, Duck(shape))
-        else:
-            sharding.check_pod_family(cfg, Duck(shape))
-    sharding.check_pod_family(cfg, Duck((8, 1, 1)))
-    fake_world(3)
+@pytest.mark.parametrize("arch", OTHERS + DENSE_GQA)
+def test_every_family_is_placed_by_spec_for(fake_world, arch):
+    """Every family's replica runs as DTensors over its pod's submesh: on
+    (2, 2, 2) each rank's local block of every leaf is the reference's
+    ``spec_for`` block (a mixture's experts on "model"); on a pod-only mesh
+    the replica is whole on its pod's rank, as DTensors all the same."""
+    ref_cfg, cfg = _reduced(arch, False)
+    ref_defs = dict(leaves(ref_api(ref_cfg).param_defs()))
     api = get_model_api(cfg)
-    if arch in WAITING:
-        mesh = meshlib.make_host_mesh((2, 2, 2), AXES, device="cpu")
-        with pytest.raises(NotImplementedError, match="13.7b"):
-            steps.place_pods(api, _zeros(api.param_defs()), mesh)
+    duck = Duck((2, 2, 2))
+    fake_world(3)
+    mesh = meshlib.make_host_mesh((2, 2, 2), AXES, device="cpu")
+    placed = steps.place_pods(api, _zeros(api.param_defs()), mesh)
+    for path, x in leaves(placed):
+        d = ref_defs[path]
+        spec = tuple(ref_sharding.spec_for(d, duck, fsdp=ref_cfg.fsdp))
+        spec += (None,) * (len(d.shape) - len(spec))
+        assert sharding.is_dtensor(x), path
+        assert tuple(x.to_local().shape) == (1,) + tuple(
+            n // (duck.shape[a] if a else 1) for n, a in zip(d.shape, spec))
+        if "expert" in d.axes:
+            assert spec[d.axes.index("expert")] == "model", path
     mesh = meshlib.make_host_mesh((8, 1, 1), AXES, device="cpu")
     stacked = tree_map(lambda d: torch.zeros((8,) + tuple(d.shape[1:]),
                                              dtype=d.dtype),
                        _zeros(api.param_defs()))
-    placed = steps.place_pods(api, stacked, mesh)
-    for _, x in leaves(placed):  # one pod a rank, whole
-        if arch in WAITING:  # plain tensors
-            assert type(x) is torch.Tensor and x.shape[0] == 1
-        else:  # DTensors over the one-device submesh, whole
-            assert sharding.is_dtensor(x) and x.device_mesh.size() == 1
-            assert x.to_local().shape == x.shape
+    for _, x in leaves(steps.place_pods(api, stacked, mesh)):
+        assert sharding.is_dtensor(x) and x.device_mesh.size() == 1
+        assert x.to_local().shape == x.shape and x.shape[0] == 1
 
 
 def _act(mesh, shape=(4, 8, 4, 64)):

@@ -237,7 +237,7 @@ def test_xlstm_on_a_pod_only_world_halo_matches_xla(world):
     (``tests/test_launch.py``: err < 1e-5, w rtol 1e-6, mass within
     1e-4)."""
     r = world["xlstm"]
-    assert r["placed"], r  # plain tensors: the submesh is one device
+    assert r["placed"], r  # DTensors, whole: the submesh is one device
     assert r["err"] < 1e-5, r
     assert r["w_rel"] <= 1e-6, r
     assert abs(r["mass"] - N_PODS) < 1e-4, r

@@ -11,7 +11,8 @@ and resumes its store; and ``--host-mesh`` runs the pod runtime on the
 reference's (2, 2, 2) mesh in an 8-rank world under
 ``torch.distributed.run`` (gloo), its log and its checkpoint (gathered
 whole by rank 0) equal to the mesh-less run's within the pod runtime's
-tolerance (``test_torch_pod_runtime.py``).
+tolerance (``test_torch_pod_runtime.py``), for glm4-9b and for the
+launcher's default arch, xlstm-350m.
 
 Tolerance: the port's rounds against the reference's: f32 sums in their
 own orders, params and ``v`` to 1e-5 of each leaf's largest magnitude
@@ -297,6 +298,41 @@ def test_host_mesh_under_torch_distributed_run(tmp_path):
                         tree_flatten(want[key])[1]):
             assert (a - b).abs().max() <= 1e-5 * b.abs().max()
     assert (saved["w"] - want["w"]).abs().max() <= 1e-6
+
+
+def test_host_mesh_default_arch_under_torch_distributed_run():
+    """The reference's ``test_train_cli_host_mesh`` command: ``--host-mesh``
+    with no ``--arch`` runs the launcher's default, xlstm-350m, its replicas
+    placed over the (data, model) submeshes of the 8-rank world (its heads
+    and up-projections on "model"): each round prints the mesh-less run's
+    loss and accuracy (to the 4 printed digits; the pod runtime's rounds
+    differ from them by about 1e-7, ``test_torch_pod_families.py``) and
+    ``w_mass=2.0000``."""
+    args = ["--smoke", "--device", "cpu", "--rounds", "2", "--batch", "4",
+            "--seq", "32"]
+    want = train.main(args)["history"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": src}
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+         "--nproc-per-node", "8", "--master-port", str(port), "-m",
+         "repro_torch.launch.train", "--host-mesh"] + args,
+        capture_output=True, text=True, env=env, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("[train]")]
+    assert lines[0].startswith("[train] xlstm-350m | 2 pods x {'pod': 2, "
+                               "'data': 2, 'model': 2}"), lines[0]
+    rounds = [ln for ln in lines if "] round" in ln]
+    assert len(rounds) == 2
+    for line, h in zip(rounds, want):
+        got = dict(kv.split("=") for kv in line.split()[3:6])
+        assert abs(float(got["loss"]) - h["loss"]) <= 1.5e-4, (line, h)
+        assert abs(float(got["acc"]) - h["acc"]) <= 1.5e-4, (line, h)
+        assert got["w_mass"] == "2.0000", line
 
 
 def test_host_mesh_refuses_without_a_launcher(monkeypatch):
