@@ -5143,69 +5143,61 @@ def sharding_phase(dev, data=None, head=print) -> dict:
 
 # -- phase 19: the dry-run against the card -----------------------------------
 
-# The records the card checks, each traced on meta by the dry-run's own
-# ``run_one`` at the configuration the card then runs: glm4-9b at full width
+# The whole steps the card checks, each traced on meta by the dry-run's
+# ``trace`` at the configuration the card then runs: glm4-9b at full width
 # cut to 4 of its 40 layers (as phase 12) and hubert-xlarge whole.
 DRYRUN_RECORDS = (
-    # (arch, layers or None for all, (shape name, S, B, kind), mesh)
-    ("glm4-9b", TRAIN_LAYERS, ("prefill_2x4096", 4096, 2, "prefill"), "card"),
-    ("glm4-9b", TRAIN_LAYERS, ("decode_2x4096", 4096, 2, "decode"), "card"),
-    ("glm4-9b", TRAIN_LAYERS, ("train_1x4096", 4096, 1, "train"), "card"),
-    ("glm4-9b", TRAIN_LAYERS, ("train_2x4096", 4096, 2, "train"), "multi"),
-    ("hubert-xlarge", None, ("prefill_8x1500", 1500, 8, "prefill"), "card"),
+    # (arch, layers or None for all, (shape name, S, B, kind), step)
+    ("glm4-9b", TRAIN_LAYERS, ("prefill_2x4096", 4096, 2, "prefill"),
+     "forward"),
+    ("glm4-9b", TRAIN_LAYERS, ("decode_2x4096", 4096, 2, "decode"),
+     "serve_step"),
+    ("glm4-9b", TRAIN_LAYERS, ("train_1x4096", 4096, 1, "train"),
+     "train_step"),
+    ("glm4-9b", TRAIN_LAYERS, ("train_2x4096", 4096, 2, "train"),
+     "round_step"),
+    ("hubert-xlarge", None, ("prefill_8x1500", 1500, 8, "prefill"),
+     "forward"),
+)
+# The production mesh's rank-0 steps the card runs as rank 0 of a fake world
+# of 256 ranks (``launch.mesh.fake_world``), each traced on meta by the
+# dry-run's ``run_one`` on "single": glm4-9b at full width cut to 4 layers,
+# 16 x 4096 tokens (a local batch of 1 x 4096, 2 of its 32 query heads,
+# both kv heads gathered whole; train_4k's 16 x 4096 a rank does not fit:
+# the loss gathers the whole vocabulary's logits, 40 GB a copy in f32), and
+# xlstm-350m's first group of 6 layers (5 mLSTM, each rank a quarter of a
+# head; 1 sLSTM, every head on every rank) at 256 x 64 tokens (16 x 64 a
+# rank: the sLSTM's time loop, one position at a time, sets its length).
+PLACED_RECORDS = (
+    # (arch, layers, (shape name, S, B, kind), timed)
+    ("glm4-9b", TRAIN_LAYERS, ("train_16x4096", 4096, 16, "train"), True),
+    ("xlstm-350m", 6, ("train_256x64", 64, 256, "train"), False),
 )
 # A roofline time longer than the measured one overstates the work.
 SHARE_LIMIT = 1.05
 PEAK_TOLERANCE = 0.25  # predicted peak within 25% of the measured one
 DRYRUN_RUNS = 3
+# The kernels whose records a counted run holds to the launch counters.
+RECORDED = ("flash_attention", "flash_attention_backward", "gossip_matmul",
+            "gossip_gather", "fused_update_bank")
 
 
-def dryrun_record(dev, arch: str, layers, shape, mesh: str,
-                  runs: int = DRYRUN_RUNS) -> None:
-    """One dry-run record against the card: the meta trace of
-    ``dryrun.run_one``, then the same step on the card with drawn values
-    (``dryrun.step_args``).  (a) The counting mode around the card's run
-    counts the trace's FLOPs and bytes, and as many kernel records as the
-    wrappers' launch counters moved; (b) the roofline time max(t_compute,
-    t_memory) of the whole step over its median time (CUDA events around
-    each of ``runs`` runs after a warm-up) is at most ``SHARE_LIMIT``; (c)
-    the predicted peak (arguments + the trace's high-water mark) is within
-    ``PEAK_TOLERANCE`` of ``torch.cuda.max_memory_allocated()`` over one
-    run from a reset with the arguments resident."""
-    import dataclasses
-
-    from repro_torch.configs.base import InputShape
-    from repro_torch.configs.registry import get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.models.registry import get_model_api
+def counted_run(dev, what: str, meta: dict, args, run, base: int,
+                runs: int = DRYRUN_RUNS) -> None:
+    """One step (``run(*args)``) on the card against its meta trace
+    ``meta``: (a) the counting mode around the card's run counts the
+    trace's FLOPs, bytes and collectives, and as many kernel records as the
+    wrappers' launch counters moved; (b) with ``runs``, the roofline time
+    max(t_compute, t_memory) of the trace over the step's median time (CUDA
+    events around each of ``runs`` runs after a warm-up) is at most
+    ``SHARE_LIMIT``; (c) the predicted peak (arguments + the trace's
+    high-water mark) is within ``PEAK_TOLERANCE`` of
+    ``torch.cuda.max_memory_allocated()`` less ``base`` over one run from a
+    reset with the arguments resident."""
     from repro_torch.roofline.cost import CostMode
 
-    shape = InputShape(*shape)
-    overrides = {"n_layers": layers} if layers else None
-    traces = {}
-    rec = dryrun.run_one(arch, shape, mesh, overrides=overrides,
-                         traces=traces)
-    check(rec["status"] == "ok", f"the dry-run of {arch} {shape.name} "
-                                 f"{mesh} failed: {rec.get('error')}")
-    (meta,) = traces.values()
-    what = f"{arch} {shape.name} {mesh} ({rec['step']})"
     t_roof = max(meta["flops"] / BF16_FLOP_PER_S,
                  meta["bytes accessed"] / HBM_BYTES_PER_S)
-    print(f"  {what}: traced on meta in {meta['compile_s']} s, "
-          f"{meta['aten_ops']} aten ops, {meta['flops']:.6g} FLOP, "
-          f"{meta['bytes accessed']:.6g} bytes, kernels "
-          f"{ {k: v['launches'] for k, v in meta['kernels'].items()} }, "
-          f"roofline {1e3 * t_roof:.4f} ms ({rec['roofline']['bottleneck']}"
-          f" per device on {rec['n_chips']} chips), predicted peak "
-          f"{meta['memory']['peak_estimate'] / 2 ** 30:.3f} GiB")
-    cfg = get_config(arch)
-    if overrides:
-        cfg = dataclasses.replace(cfg, **overrides)
-    api = get_model_api(cfg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(dev)
-    args, run = dryrun.step_args(api, shape, rec["step"], device=dev, seed=0)
     sync(dev)
     before = read_counts()
     with CostMode(args) as mode:
@@ -5216,34 +5208,41 @@ def dryrun_record(dev, arch: str, layers, shape, mesh: str,
     print(f"  {what}: counted on the card: {got['aten_ops']} aten ops, "
           f"{got['flops']:.6g} FLOP, {got['bytes accessed']:.6g} bytes, "
           f"kernel records { {k: v['launches'] for k, v in got['kernels'].items()} }"
-          f", launches {moved}")
+          f", launches {moved}, collectives {got['collectives']}")
     check(got["flops"] == meta["flops"]
           and got["bytes accessed"] == meta["bytes accessed"],
           f"{what}: the card's run counts other FLOPs or bytes than the meta "
           f"trace")
-    for name in ("flash_attention", "flash_attention_backward",
-                 "gossip_matmul", "gossip_gather", "fused_update_bank"):
+    check(got["collectives"] == meta["collectives"],
+          f"{what}: the card's run makes other collectives than the meta "
+          f"trace: {got['collectives']} against {meta['collectives']}")
+    for name in RECORDED:
         n_rec = got["kernels"].get(name, {}).get("launches", 0)
         n_meta = meta["kernels"].get(name, {}).get("launches", 0)
         check(n_rec == moved[name] == n_meta,
               f"{what}: {n_rec} {name} records on the card, {n_meta} on "
               f"meta, {moved[name]} launches")
-    run(*args)  # warm-up
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run(*args)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = statistics.median(times)
-    share = 1e3 * t_roof / ms
-    print(f"  {what}: measured {', '.join(f'{t:.3f}' for t in times)} ms, "
-          f"median {ms:.3f} ms")
-    print(f"  {what}: roofline share {share:.4f} (roofline "
-          f"{1e3 * t_roof:.4f} ms over the median; at most {SHARE_LIMIT})")
+    if runs:
+        run(*args)  # warm-up
+        times = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        share = 1e3 * t_roof / ms
+        print(f"  {what}: measured {', '.join(f'{t:.3f}' for t in times)} "
+              f"ms, median {ms:.3f} ms")
+        print(f"  {what}: roofline share {share:.4f} (roofline "
+              f"{1e3 * t_roof:.4f} ms over the median; at most "
+              f"{SHARE_LIMIT})")
+        check(share <= SHARE_LIMIT,
+              f"{what}: the roofline time is {share:.3f} of the measured "
+              f"time: the count overstates the work")
     torch.cuda.reset_peak_memory_stats(dev)
     run(*args)
     sync(dev)
@@ -5254,12 +5253,101 @@ def dryrun_record(dev, arch: str, layers, shape, mesh: str,
           f"{meta['memory']['argument'] / 2 ** 30:.3f} + temporaries "
           f"{meta['memory']['temp'] / 2 ** 30:.3f}; measured "
           f"{measured / 2 ** 30:.3f} GiB; within {PEAK_TOLERANCE:.0%})")
-    check(share <= SHARE_LIMIT, f"{what}: the roofline time is {share:.3f} "
-                                f"of the measured time: the count overstates "
-                                f"the work")
     check(abs(ratio - 1) <= PEAK_TOLERANCE,
           f"{what}: predicted peak {ratio:.3f} of the measured one")
+
+
+def trimmed_api(arch: str, layers):
+    """``arch``'s model at full width, cut to ``layers`` layers (all with
+    None)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import get_model_api
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return get_model_api(cfg)
+
+
+def dryrun_record(dev, arch: str, layers, shape, step: str,
+                  runs: int = DRYRUN_RUNS) -> None:
+    """One whole step against the card: its meta trace (``dryrun.trace``,
+    the ``card`` record's), then the same step on the card with drawn
+    values (``dryrun.step_args``), through :func:`counted_run`."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+
+    shape = InputShape(*shape)
+    api = trimmed_api(arch, layers)
+    meta = dryrun.trace(api, shape, step)
+    what = f"{arch} {shape.name} (the whole {step})"
+    t_roof = max(meta["flops"] / BF16_FLOP_PER_S,
+                 meta["bytes accessed"] / HBM_BYTES_PER_S)
+    print(f"  {what}: traced on meta in {meta['compile_s']} s, "
+          f"{meta['aten_ops']} aten ops, {meta['flops']:.6g} FLOP, "
+          f"{meta['bytes accessed']:.6g} bytes, kernels "
+          f"{ {k: v['launches'] for k, v in meta['kernels'].items()} }, "
+          f"roofline {1e3 * t_roof:.4f} ms, predicted peak "
+          f"{meta['memory']['peak_estimate'] / 2 ** 30:.3f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    args, run = dryrun.step_args(api, shape, step, device=dev, seed=0)
+    counted_run(dev, what, meta, args, run, base, runs)
     del args, run
+
+
+def placed_record(dev, arch: str, layers, shape, timed: bool) -> float:
+    """One production-mesh record against the card: ``dryrun.run_one`` on
+    "single" traces rank 0's own step on meta, as rank 0 of a fake world
+    of 256 ranks; then the card runs the same step as rank 0 of a fake world
+    of 256 ranks on CUDA (``launch.mesh.fake_world``, whose collectives move
+    nothing and leave their outputs as allocated), its arguments drawn
+    from seed 0 and placed by the runtime's code
+    (``dryrun.placed_step_args``), through :func:`counted_run`
+    (with ``timed`` the time and its share of the roofline, communication
+    excluded).  A fake world that fails to start fails the phase.  Returns
+    the seconds it took."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    t0 = time.perf_counter()
+    shape = InputShape(*shape)
+    traces = {}
+    rec = dryrun.run_one(arch, shape, "single",
+                         overrides={"n_layers": layers}, traces=traces)
+    check(rec["status"] == "ok" and rec["per_device"] == "rank 0",
+          f"the rank-0 record of {arch} {shape.name} failed: "
+          f"{rec.get('error')}")
+    meta = traces[(arch, shape, rec["step"], "single")]
+    terms = rec["roofline"]
+    what = (f"{arch} {shape.name} at {layers} layers, rank 0 of 256 "
+            f"({rec['step']}, communication excluded)")
+    print(f"  {what}: traced on meta in {meta['compile_s']} s, "
+          f"{meta['aten_ops']} aten ops, {meta['flops']:.6g} FLOP, "
+          f"{meta['bytes accessed']:.6g} bytes, kernels "
+          f"{ {k: v['launches'] for k, v in meta['kernels'].items()} }, "
+          f"collectives {meta['collectives']}, roofline "
+          f"{1e3 * max(terms['t_compute_s'], terms['t_memory_s']):.4f} ms "
+          f"({terms['bottleneck']} with the collectives), "
+          f"predicted peak {meta['memory']['peak_estimate'] / 2 ** 30:.3f} "
+          f"GiB")
+    api = trimmed_api(arch, layers)
+    mesh = make_production_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    with fake_world(tuple(mesh.shape[a] for a in mesh.axis_names),
+                    mesh.axis_names, dev) as dmesh:
+        args, run = dryrun.placed_step_args(api, shape, rec["step"], dmesh,
+                                            device=dev, seed=0)
+        counted_run(dev, what, meta, args, run, base,
+                    DRYRUN_RUNS if timed else 0)
+        del args, run
+    return time.perf_counter() - t0
 
 
 def table_rows(dev, iters: int = 10) -> None:
@@ -5307,9 +5395,10 @@ def table_rows(dev, iters: int = 10) -> None:
 
 
 def dryrun_phase(dev, head=print) -> dict:
-    """Phase 19 whole (``head`` prints each step's heading): each record of
-    ``DRYRUN_RECORDS`` against the card (:func:`dryrun_record`), then the
-    kernel table's missing numbers (:func:`table_rows`).  Returns the
+    """Phase 19 whole (``head`` prints each step's heading): each whole
+    step of ``DRYRUN_RECORDS`` against the card (:func:`dryrun_record`),
+    each rank-0 step of ``PLACED_RECORDS`` (:func:`placed_record`), then
+    the kernel table's missing numbers (:func:`table_rows`).  Returns the
     launches of its path.  ``python3 repeat_phase.py --repeat 1
     dryrun_phase`` runs it alone."""
     from repro_torch.launch.mesh import card_hardware
@@ -5322,8 +5411,15 @@ def dryrun_phase(dev, head=print) -> dict:
           + ("none" if hbm is None else f"{hbm / 2 ** 30:.2f} GiB, "
              f"{hbm} bytes; the data sheet's {HARDWARE['hbm_bytes']}"))
     zero_counts()
-    for arch, layers, shape, mesh in DRYRUN_RECORDS:
-        dryrun_record(dev, arch, layers, shape, mesh)
+    for arch, layers, shape, step in DRYRUN_RECORDS:
+        dryrun_record(dev, arch, layers, shape, step)
+        release()
+    head(f"[19] the production mesh's rank-0 steps: "
+         f"{len(PLACED_RECORDS)} records traced on meta, then run as rank 0 "
+         f"of a fake world of 256 ranks; card: {card}")
+    for arch, layers, shape, timed in PLACED_RECORDS:
+        secs = placed_record(dev, arch, layers, shape, timed)
+        print(f"  {arch} took {secs:.1f} s")
         release()
     paths = {"dry-run path": read_counts()}
     head("[19] the kernel table's missing numbers")
@@ -5803,12 +5899,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    starts = {"[1]": 0.0}  # each phase's first heading, seconds from start
 
     def head(line: str) -> None:
-        print(f"{line} (at {time.perf_counter() - t_start:.1f} s)")
+        at = time.perf_counter() - t_start
+        starts.setdefault(line.split(" ", 1)[0], at)
+        print(f"{line} (at {at:.1f} s)")
 
     card = card_line()
     print(f"[1] card: {card}")
+    starts["[2]"] = time.perf_counter() - t_start
     t = time.perf_counter()
     build.load_library()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t:.1f} s; "
@@ -5906,7 +6006,11 @@ def main() -> int:
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}
     print("launches: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    total = time.perf_counter() - t_start
+    ends = list(starts.values())[1:] + [total]
+    print("phase times: " + ", ".join(
+        f"{k} {end - at:.1f} s" for (k, at), end in zip(starts.items(), ends)))
+    print(f"total {total:.1f} s")
     print(card)
     kernels = []
     for name, (source, replaces) in REPLACES.items():

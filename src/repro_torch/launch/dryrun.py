@@ -4,6 +4,9 @@ device — the port of ``repro.launch.dryrun``.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh card,single,multi
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-12b \\
       --shape train_4k --mesh card
+  PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+      --arch xlstm-350m,glm4-9b --shape train_4k,prefill_32k \\
+      --mesh single,multi --set n_layers=2
 
 The reference lowers and compiles each step for the TPU production mesh on
 ``ShapeDtypeStruct`` stand-ins.  Here the stand-ins are meta tensors (shapes
@@ -15,22 +18,41 @@ and every hand-written kernel's record: the train step
 ``forward`` (prefill) and the serve step (decode).  The port runs eagerly
 and counts every layer, so it traces once: the reference's second lowering
 and its extrapolation over the layer loop's trip count are not needed.
-One trace per (arch, shape, step function) serves every mesh that runs that
-step; ``compile_s`` is its time.
+``compile_s`` is a trace's time.
 
 Meshes:
 
-- ``card``: one H100, nothing placed; the whole step's cost, the only
-  record a card can check (``chip_smoke.py`` phase 19 does).
+- ``card``: one H100, nothing placed; the whole step's cost
+  (``"per_device": "whole step"``; ``chip_smoke.py`` phase 19 checks it
+  on the card).
 - ``single`` and ``multi``: the reference's production meshes (16 x 16 and
-  2 x 16 x 16, ``launch.mesh.make_production_mesh``).  The argument bytes
-  a device holds are exact, from ``launch.sharding.spec_for`` of every
-  parameter, cache and batch leaf (with :func:`_pod_spec` and
-  :func:`_model_axes` as the reference's).  FLOPs, bytes and temporaries
-  are the whole step's divided by the chip count (``"per_device":
-  "ideal"``): a lower bound of the reference's per-device counts.  The
-  collectives come from the placement and the pod plan
-  (``roofline.analysis``'s four rules).
+  2 x 16 x 16, ``launch.mesh.make_production_mesh``).  A ``train`` or
+  ``prefill`` record is rank 0's own step, as the reference counts one
+  device's sharded program (``"per_device": "rank 0"``,
+  :func:`trace_placed`): a ``launch.mesh.fake_world`` of 256 or 512 ranks
+  is started in this process, the pod runtime's own placement code places
+  the step's arguments over it (:func:`placed_step_args`: the replica
+  over the pod's ``(data, model)`` submesh by ``place_params`` /
+  ``place_pods`` with :func:`_model_axes`, the experts on "model", the
+  batch by ``place_batch``, its rows on ``("pod", "data")`` as
+  :func:`_pod_spec` puts them), and the step runs
+  on meta under ``CostMode``: its FLOPs, bytes, temporaries, peak and the
+  collectives DTensor and the pod gossip run are that rank's, the work
+  the runtime replicates included (kv heads and heads that do not divide
+  "model", norms, the mLSTM's and the SSM's gathered up-projections, the
+  tokens around the experts, the gathered logits).  The world is
+  destroyed after the trace; one that fails to start, or a step that
+  raises, is an error record.  A ``decode`` record stays the whole serve
+  step divided by the chip count (``"ideal"``): the runtime has no placed
+  decode yet (``long_500k`` splits its cache along the sequence).  The
+  argument bytes a device holds are exact either way, from
+  ``launch.sharding.spec_for`` of every parameter, cache and batch leaf,
+  and a rank-0 trace must hold exactly those.  :func:`collectives` (the
+  rules of ``roofline.analysis``) gives the decode records' collectives
+  and is held equal to the rank-0 traces' by the tests.
+
+Traces are cached by (arch, shape, step, mesh), the mesh ``None`` for the
+whole step that the ``card`` and the decode records share.
 
 Records take the reference's keys, against the H100's constants
 (``launch.mesh.HARDWARE``); those that cannot run are marked ``skip`` as in
@@ -40,6 +62,7 @@ and its traceback (the CLI then exits non-zero).  No card is needed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -80,11 +103,13 @@ from repro_torch.roofline.analysis import (
     data_parallel_collectives,
     expert_collectives,
     fsdp_collectives,
+    head_dim_collectives,
     mlstm_collectives,
     model_flops,
     pod_collectives,
     prefix_collectives,
     projector_collectives,
+    replicated_block_collectives,
     roofline_terms,
     slstm_collectives,
     ssm_collectives,
@@ -94,8 +119,9 @@ from repro_torch.roofline.analysis import (
 )
 from repro_torch.roofline.cost import CostMode
 
-__all__ = ["MESHES", "collectives", "param_counts", "run_one", "step_args",
-           "step_model_flops", "trace", "main"]
+__all__ = ["MESHES", "collectives", "param_counts", "placed_step_args",
+           "run_one", "step_args", "step_model_flops", "trace",
+           "trace_placed", "main"]
 
 DEFAULT_OUT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "experiments", "dryrun_torch")
@@ -311,8 +337,27 @@ def collectives(api, mesh, kind: str, local_batch: int, seq: int,
         kind, grad_passes)
     prefix_collectives(stats, prefix * row_bytes, model_n, kind, grad_passes)
     # The parameters whose gradient arrives whole on "model" (made whole at
-    # the prefix's join or the projector's hidden).
+    # the prefix's join or the projector's hidden, or computed alike by
+    # every device).
     whole = {("meta_tokens",)} if prefix else set()
+    # GQA heads that do not divide "model": q, or k and v, gathered there.
+    for path, n in on_model:
+        wq, wk = defs.get(path + ("wq",)), defs.get(path + ("wk",))
+        if wq is None or wk is None or "head_dim" not in wq.axes:
+            continue
+
+        def gathered(name):
+            d = defs[path + (name,)]
+            if params[path + (name,)][2][d.axes.index("head_dim")] != "model":
+                return 0
+            return ((seq + prefix) * local_batch * math.prod(d.shape[-2:])
+                    * itemsize)
+
+        q_bytes = gathered("wq")
+        head_dim_collectives(stats, n, q_bytes, gathered("wk"), model_n,
+                             kind, grad_passes)
+        if q_bytes:  # every device runs every head: whole qk-norm grads
+            whole |= {path + ("q_norm",), path + ("k_norm",)}
     if cfg.task == "vlm" and vocab_on_model(("projector", "w2")):
         projector_collectives(stats, (seq - text) * row_bytes, kind,
                               grad_passes)
@@ -321,17 +366,35 @@ def collectives(api, mesh, kind: str, local_batch: int, seq: int,
     expert_collectives(stats, cfg.n_layers if cfg.n_experts else 0,
                        cfg.n_experts, kind, grad_passes, split)
     if cfg.block_kind == "xlstm":
+        if cfg.n_heads % model_n:  # every sLSTM rank runs every head
+            whole |= {("slstm", "r"), ("slstm", "b")}
         blocks = dict(_blocks(api.param_defs()))
         inner = 2 * cfg.d_model  # the mLSTM's up-projection factor 2
         mlstm_collectives(stats, blocks.get(("mlstm",), 0), local_batch * seq,
                           inner, cfg.n_heads, model_n, itemsize, kind,
                           grad_passes)
-        slstm_collectives(stats, blocks.get(("slstm",), 0), act, model_n,
-                          kind, grad_passes)
+        slstm_collectives(stats, blocks.get(("slstm",), 0),
+                          local_batch * seq, cfg.d_model, cfg.n_heads,
+                          model_n, itemsize, kind, grad_passes)
     if cfg.block_kind == "hymba":
         ssm_collectives(stats, cfg.n_layers, local_batch * (seq + prefix),
                         cfg.ssm_expand * cfg.d_model, cfg.ssm_state, model_n,
                         itemsize, kind, grad_passes)
+    # A layer's attention with nothing on "model" (MLA's 4 heads on 16)
+    # beside sub-blocks that are: every device runs it alike, and its
+    # output's gradient arrives as a partial sum over "model".
+    off_model = [(path, n) for path, n in _blocks(api.param_defs())
+                 if path[-1] == "attn" and on_model
+                 and (path, n) not in on_model]
+    for path, n in off_model:
+        wo = defs[path + ("wo",)]
+        replicated_block_collectives(
+            stats, n, (seq + prefix) * local_batch
+            * math.prod(wo.shape[-3:-1]) * itemsize, kind, grad_passes)
+        # its weights' gradients are whole there but the output
+        # projection's, and so is its input norm's
+        whole |= {p for p in params if p[:len(path)] == path
+                  and p[-1] != "wo"} | {path[:-1] + ("ln1",)}
     if not train:
         return stats
     data_parallel_collectives(
@@ -381,7 +444,7 @@ def _collectives(api, shape, mesh, multi: bool, placed: list,
     return collectives(api, mesh, kind, local, seq, passes,
                        steps=sh[1] if multi_round else 1,
                        n_pods=mesh.shape["pod"] if multi_round else 0,
-                       batch_on_data=spec[lead] == "data")
+                       batch_on_data=spec[lead] in ("data", ("pod", "data")))
 
 
 # -- the trace ------------------------------------------------------------------
@@ -410,7 +473,8 @@ def step_args(api, shape, step: str, step_cfg=None, device="meta",
     """(arguments, function) of one step of ``api``'s model at ``shape``:
     ``"train_step"`` (params, momentum, the push-sum weight and the
     batch), ``"round_step"`` (``N_PODS`` replicas stacked on a leading
-    axis, the batch split among them, the pod ring's dense ``P_pod``),
+    axis, the batch split among them into ``step_cfg.local_steps``
+    batches each, the pod ring's dense ``P_pod``),
     ``"forward"`` (params and batch) or ``"serve_step"`` (one token a
     request against a cache of ``shape.seq_len`` positions, at the last).
     Without ``seed`` the arguments are empty tensors on ``device``; with
@@ -443,14 +507,14 @@ def step_args(api, shape, step: str, step_cfg=None, device="meta",
 
     empty = torch.ones if real else torch.empty
     if step == "round_step":
-        n_pods = N_PODS
+        n_pods, k = N_PODS, step_cfg.local_steps
         params = tree(defs, (n_pods,))
         v = zeros(tree(defs, (n_pods,)))
         w = empty((n_pods,), device=device)
-        batch = {k: x.reshape((n_pods, 1, x.shape[0] // n_pods)
-                              + tuple(x.shape[1:]))
-                 for k, x in batch_of(shape.global_batch,
-                                      shape.seq_len).items()}
+        batch = {key: x.reshape((n_pods, k, x.shape[0] // (n_pods * k))
+                                + tuple(x.shape[1:]))
+                 for key, x in batch_of(shape.global_batch,
+                                        shape.seq_len).items()}
         P = pod_mixing_matrix(n_pods, device=device)
         fn = make_round_step(api, step_cfg)
         return (params, v, w, (), (), batch, P), fn
@@ -470,6 +534,113 @@ def step_args(api, shape, step: str, step_cfg=None, device="meta",
     serve = make_serve_step(api)
     return (params, cache, toks), lambda p, c, t: serve(p, c, t,
                                                         shape.seq_len - 1)
+
+
+# -- one rank's own step, placed as the pod runtime places it -----------------
+
+def placed_step_args(api, shape, step: str, mesh, step_cfg=None,
+                     device="meta", seed: int | None = None):
+    """(arguments, function) of this rank's own step on the live pod-runtime
+    mesh ``mesh`` (``("data", "model")`` or ``("pod", "data", "model")``;
+    a :func:`launch.mesh.fake_world`'s, or a real one's): :func:`step_args`'
+    whole arguments placed by the pod runtime's own code.
+
+    - ``"train_step"``: ``make_train_step`` on the replica placed over the
+      submesh (``launch.sharding.place_params`` with :func:`_model_axes`,
+      the experts on "model"), the batch's rows on "data"
+      (``launch.steps.place_batch``);
+    - ``"round_step"``: ``make_round_step`` over the "pod" axis on this
+      rank's pods of ``N_PODS`` (``launch.steps.place_pods``), their
+      batches (``step_cfg.local_steps`` a pod) placed as ``launch.train``
+      places them, and the dense pod ring ``P_pod``;
+    - ``"forward"``: ``forward`` on the replica over the submesh (every pod
+      holds it whole) and this rank's pod's rows of the batch (on
+      ``("pod", "data")`` where they divide, :func:`_pod_spec`), placed as
+      the train step's.
+
+    Without ``seed`` the arguments are empty tensors on ``device`` (on meta
+    the whole ones cost nothing); with one, drawn as :func:`step_args`
+    draws them, and the whole tensors freed once placed."""
+    from repro_torch.launch.steps import place_batch, place_pods, pod_rows
+
+    cfg = api.cfg
+    step_cfg = step_cfg or StepConfig()
+    maxes = _model_axes(cfg)
+    args, fn = step_args(api, shape, step, step_cfg, device, seed)
+    if step == "round_step":
+        p, v, w, comp, link, batch, P = args
+        rows = pod_rows(mesh, N_PODS)
+        w = rows.rows(w)
+        batch = place_batch({k: rows.rows(x) for k, x in batch.items()},
+                            mesh, 2)
+        p, v = (place_pods(api, t, mesh, maxes) for t in (p, v))
+        return (p, v, w, comp, link, batch, P), _on_mesh(fn, mesh, cfg.fsdp,
+                                                         implicit=False)
+    if step not in ("train_step", "forward"):
+        raise ValueError(f"no placed form of {step!r}: the pod runtime places "
+                         f"train_step, round_step and forward")
+    size = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    pod_n, b = size.get("pod", 1), shape.global_batch
+    pods = (pod_rows(mesh, pod_n)
+            if pod_n > 1 and b % (size.get("data", 1) * pod_n) == 0 else None)
+
+    def pod_batch(x):  # this pod's rows
+        if pods is None:
+            return x
+        return pods.rows(x.reshape((pod_n, -1) + tuple(x.shape[1:])))[0]
+
+    def place(t):
+        return shlib.place_params(t, api.param_defs(), mesh, cfg.fsdp,
+                                  model_axes=maxes)
+
+    batch = place_batch({k: pod_batch(x) for k, x in args[-1].items()}, mesh,
+                        0)
+    if step == "forward":
+        return (place(args[0]), batch), _on_mesh(fn, mesh, cfg.fsdp)
+    p, v, w, _ = args
+
+    def train(*a):  # the metrics made whole, as the round's pods do
+        new_p, new_v, metrics = fn(*a)
+        return new_p, new_v, {k: shlib.full_tensor(x)
+                              for k, x in metrics.items()}
+
+    return (place(p), place(v), w, batch), _on_mesh(train, mesh, cfg.fsdp)
+
+
+def _on_mesh(fn, mesh, fsdp: bool, implicit: bool = True):
+    """``fn`` under the pod runtime's ``mesh``; a pod's step takes its plain
+    tensors (the push-sum weight, positions) as replicated, as the round
+    runs it."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def run(*args):
+        with shlib.use_mesh(mesh, fsdp=fsdp), (
+                implicit_replication() if implicit
+                else contextlib.nullcontext()):
+            return fn(*args)
+
+    return run
+
+
+def trace_placed(api, shape, step: str, mesh, step_cfg=None) -> dict:
+    """:func:`trace` of rank 0's own step on ``mesh`` (an
+    :class:`~repro_torch.launch.mesh.AbstractMesh`): a
+    :func:`launch.mesh.fake_world` of the mesh's size is started, the step
+    placed on it by :func:`placed_step_args` on meta and counted under a
+    ``CostMode`` — rank 0's FLOPs, bytes, memory, kernel records and
+    collectives — and the world destroyed."""
+    from repro_torch.launch.mesh import fake_world
+
+    dims = tuple(mesh.shape[a] for a in mesh.axis_names)
+    with fake_world(dims, mesh.axis_names, "meta") as dmesh:
+        args, run = placed_step_args(api, shape, step, dmesh, step_cfg)
+        t0 = time.perf_counter()
+        with CostMode(args) as mode:
+            out = run(*args)
+        rec = mode.result(out)
+        del args, out
+    rec["compile_s"] = round(time.perf_counter() - t0, 1)
+    return rec
 
 
 def param_counts(api) -> tuple[int, int]:
@@ -497,9 +668,13 @@ def run_one(arch: str, shape, mesh_kind: str, step_cfg=None,
             traces: dict = None) -> dict:
     """One record: ``arch`` (reduced with ``smoke``) at ``shape`` (an
     ``INPUT_SHAPES`` name or an ``InputShape``) on ``mesh_kind`` (``card``,
-    ``single`` or ``multi``).  ``traces`` caches the step traces by (arch,
-    shape, step) across calls, so that meshes running the same step share
-    one."""
+    ``single`` or ``multi``).  A train or prefill record on a production
+    mesh is rank 0's own step (:func:`trace_placed`, ``"per_device": "rank
+    0"``); a decode record there is the whole step's trace divided by the
+    chip count (``"ideal"``), and the ``card`` record the whole step.
+    ``traces`` caches the traces by (arch, shape, step, mesh: ``None`` for
+    the whole step) across calls, so that the records of one whole step
+    share it."""
     base_cfg = get_config(arch, smoke=smoke)
     if overrides:
         base_cfg = dataclasses.replace(base_cfg, **overrides)
@@ -518,24 +693,38 @@ def run_one(arch: str, shape, mesh_kind: str, step_cfg=None,
     multi = mesh_kind == "multi"
     step = _step_name(shape, multi)
     traces = {} if traces is None else traces
-    key = (arch, shape, step)
-    if key not in traces:
-        traces[key] = trace(api, shape, step, step_cfg)
-    cost = traces[key]
-    passes = 2 if step_cfg.rho > 0 else 1
+    placed_step = mesh_kind != "card" and shape.kind != "decode"
+    key = (arch, shape, step, mesh_kind if placed_step else None)
     if mesh_kind == "card":
-        n_chips, coll = 1, CollectiveStats()
-        mem = dict(cost["memory"])
+        n_chips = 1
     else:
         mesh = make_production_mesh(multi_pod=multi)
         n_chips = mesh.size
         placed = _placed_args(api, shape, mesh, multi)
+    if key not in traces:
+        traces[key] = (trace_placed(api, shape, step, mesh, step_cfg)
+                       if placed_step else trace(api, shape, step, step_cfg))
+    cost = traces[key]
+    share = 1 if placed_step else n_chips  # the whole step's share
+    if mesh_kind == "card":
+        coll = CollectiveStats()
+        mem = dict(cost["memory"])
+    elif placed_step:
+        coll = CollectiveStats(dict(cost["collectives"]["bytes"]),
+                               dict(cost["collectives"]["count"]))
+        mem = dict(cost["memory"])
+        if mem["argument"] != _device_bytes(placed, mesh):
+            raise RuntimeError(
+                f"rank 0 holds {mem['argument']} bytes of arguments; their "
+                f"placement gives {_device_bytes(placed, mesh)}")
+    else:
+        passes = 2 if step_cfg.rho > 0 else 1
         coll = _collectives(api, shape, mesh, multi, placed, passes)
         mem = {k: v / n_chips for k, v in cost["memory"].items()}
         mem["argument"] = _device_bytes(placed, mesh)
         mem["peak_estimate"] = mem["argument"] + mem["temp"]
-    terms = roofline_terms({"flops": cost["flops"] / n_chips,
-                            "bytes accessed": cost["bytes accessed"] / n_chips},
+    terms = roofline_terms({"flops": cost["flops"] / share,
+                            "bytes accessed": cost["bytes accessed"] / share},
                            coll)
 
     n_params, active = param_counts(api)
@@ -548,7 +737,8 @@ def run_one(arch: str, shape, mesh_kind: str, step_cfg=None,
         n_params=n_params,
         n_params_active=active,
         bytes_per_device=mem,
-        per_device="whole step" if mesh_kind == "card" else "ideal",
+        per_device=("whole step" if mesh_kind == "card"
+                    else "rank 0" if placed_step else "ideal"),
         roofline=terms,
         collectives={"bytes": coll.bytes_by_kind, "count": coll.count_by_kind},
         model_flops=mf,

@@ -20,20 +20,25 @@ carries the gossip (``launch.steps.make_round_step``).
 
 :func:`make_production_mesh` returns the reference's production meshes
 (``(data, model)`` 16 x 16; ``(pod, data, model)`` 2 x 16 x 16) as an
-:class:`AbstractMesh`: axis names and sizes, no devices.  A live mesh of 256
-or 512 ranks cannot be built on one card; the dry-run
-(``repro_torch.launch.dryrun``) only reads the axes to place parameters
-(``launch.sharding.spec_for``).  ``HARDWARE`` holds the H100 SXM constants
-of the roofline (``repro_torch.roofline``).
+:class:`AbstractMesh`: axis names and sizes, no devices.  :func:`fake_world`
+makes a live mesh of any size in one process: rank 0 of a world of
+``torch.distributed``'s ``"fake"`` backend, whose collectives move nothing
+and leave their outputs as they were allocated.  The dry-run
+(``repro_torch.launch.dryrun``) traces one rank's own step on it, on meta
+tensors or (``chip_smoke.py``) on the card.  ``HARDWARE`` holds the H100
+SXM constants of the roofline (``repro_torch.roofline``).
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import NamedTuple
 
 import torch
 
 __all__ = ["CLIENTS", "HARDWARE", "AbstractMesh", "card_hardware",
-           "init_world", "init_clients_world", "close_clients_world",
+           "fake_world", "init_world", "init_clients_world",
+           "close_clients_world",
            "make_clients_mesh", "make_host_mesh", "make_production_mesh",
            "mesh_axis_names", "mesh_axis_size"]
 
@@ -180,6 +185,35 @@ def init_world(rank: int, world_size: int, port: int | None = None,
     dist.init_process_group(backend, init_method=init,
                             world_size=world_size, rank=rank)
     return _live_mesh((world_size,) if shape is None else shape, axes, dev)
+
+
+@contextlib.contextmanager
+def fake_world(shape, axes, device="meta"):
+    """Rank 0 of a world of ``prod(shape)`` ranks of the ``"fake"`` backend,
+    in this process: yields the live mesh of ``shape`` named ``axes`` over
+    it, and destroys the process group on leaving.  The collectives of the
+    world move nothing: their outputs keep what they were allocated with,
+    so only counts, memory and time mean anything under it.  ``device``
+    is where the rank's tensors live: ``"meta"`` (the mesh then names the
+    CPU) or a card.  Refuses to start while a process group runs.
+
+    The backend's store, ``FakeStore``, is importable only from torch's
+    private ``torch.testing._internal.distributed.fake_pg`` (torch 2.11 and
+    2.13 alike): a pinned dependency on that module."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(
+            "a fake world needs this process without a process group; one "
+            f"of {dist.get_world_size()} ranks is running")
+    dev = torch.device(device)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(int(n) for n in shape))
+    try:
+        yield _live_mesh(shape, axes, "cpu" if dev.type == "meta" else dev)
+    finally:
+        dist.destroy_process_group()
 
 
 def init_clients_world(rank: int, world_size: int, port: int,

@@ -50,7 +50,8 @@ __all__ = ["MODEL_AXES", "FSDP_AXES", "ACT_RULES", "POD_AXES", "use_mesh",
            "placements_for", "place_tensor", "place_params", "submesh",
            "is_dtensor", "unshard_data", "full_tensor", "model_block",
            "local_part", "from_local", "sum_partial", "whole_grad",
-           "gather_model", "shared_grad", "manual_region", "in_manual_region",
+           "gather_model", "gathered_local", "shared_grad", "manual_region",
+           "in_manual_region",
            "constrain", "RowShard", "bank_row_pins", "check_row_mesh"]
 
 # Logical axes eligible for tensor/expert parallelism, in priority order —
@@ -233,21 +234,22 @@ def place_tensor(x, dmesh, placements):
     return rep.redistribute(dmesh, placements)
 
 
-def place_params(tree, defs, mesh, fsdp: bool = True, lead: int = 0):
+def place_params(tree, defs, mesh, fsdp: bool = True, lead: int = 0,
+                 model_axes: tuple = None):
     """Place a parameter tree (whole tensors, the same on every rank) over
     the pod's ``("data", "model")`` submesh of ``mesh`` as DTensors: each
-    leaf by its ``PDef``'s :func:`spec_for` tuple on ``mesh``
-    (:func:`placements_for`).  ``lead`` leading dims of every leaf (the
-    pods stacked on one rank) stay whole.  On a pod-only mesh (a submesh of
-    one device) every placement is ``Replicate``: the replica is whole on
-    its pod's rank, and runs as DTensors all the same."""
+    leaf by its ``PDef``'s :func:`spec_for` tuple on ``mesh`` (with
+    ``model_axes``; :func:`placements_for`).  ``lead`` leading dims of every
+    leaf (the pods stacked on one rank) stay whole.  On a pod-only mesh (a
+    submesh of one device) every placement is ``Replicate``: the replica is
+    whole on its pod's rank, and runs as DTensors all the same."""
     sub = submesh(mesh)
 
     def one(x, d):
         if isinstance(x, dict):
             return {k: one(x[k], d[k]) for k in x}
-        return place_tensor(x, sub, placements_for(spec_for(d, mesh, fsdp),
-                                                   sub, lead))
+        spec = spec_for(d, mesh, fsdp, model_axes)
+        return place_tensor(x, sub, placements_for(spec, sub, lead))
 
     return one(tree, defs)
 
@@ -332,6 +334,26 @@ def gather_model(x):
     pls = list(x.placements)
     pls[i] = Replicate()
     return x.redistribute(x.device_mesh, pls)
+
+
+def gathered_local(x, act):
+    """The whole of DTensor ``x`` (a weight replicated on "data") as a plain
+    tensor for a manual region whose ranks use it each for their own part
+    of the work: its blocks on "model" gathered by one all-gather (whose
+    backward reduce-scatters the ranks' partial gradients back to each
+    block), its gradient otherwise a partial sum where the activation
+    ``act`` splits the batch (reduced where it takes ``x``'s placements, as
+    every replicated weight's is)."""
+    xl = local_part(x, act, own_model=False)
+    if "model" not in x.device_mesh.mesh_dim_names:
+        return xl
+    i = x.device_mesh.mesh_dim_names.index("model")
+    if not x.placements[i].is_shard():
+        return xl
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.all_gather_tensor_autograd(xl, x.placements[i].dim,
+                                             (x.device_mesh, i))
 
 
 class _SharedGrad(torch.autograd.Function):
@@ -476,8 +498,12 @@ class RowShard:
 
     def rows(self, x, lead: int = 0):
         """This rank's rows of a whole leaf (dim ``lead`` is the client
-        dim), as a tensor of its own."""
-        return x.narrow(lead, self.lo, self.m).contiguous()
+        dim), as a tensor of its own: a block of the leading dim, contiguous
+        as it is, is copied too, so that it keeps no other rank's rows
+        alive."""
+        rows = x.narrow(lead, self.lo, self.m)
+        return (rows.clone(memory_format=torch.contiguous_format)
+                if self.m < self.n else rows.contiguous())
 
     def all_gather(self, x, lead: int = 0):
         """The whole leaf from every rank's rows (dim ``lead``)."""

@@ -54,7 +54,8 @@ __all__ = ["StepConfig", "make_train_step", "make_round_step",
            "make_personalized_serve_step", "pod_mixing_matrix",
            "pod_mixing_neighbors", "pod_comm_plan", "resolve_compressor",
            "init_pod_comp_state", "resolve_pod_link", "resolve_pod_mixer",
-           "init_pod_link_state", "place_pods", "gather_pods", "pod_rows"]
+           "init_pod_link_state", "place_pods", "place_batch", "gather_pods",
+           "pod_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,16 +245,17 @@ def pod_rows(mesh, n_pods: int):
     return shlib.bank_row_pins(mesh, "pod", n_pods)
 
 
-def place_pods(api: ModelApi, stacked, mesh):
+def place_pods(api: ModelApi, stacked, mesh, model_axes: tuple = None):
     """The pod runtime's placement (the reference's ``train.py``): this
     rank's pods of the whole pod-stacked tree ``stacked`` (leading dim
     n_pods, the same on every rank), each replica placed over the pod's
-    ("data", "model") submesh by ``spec_for`` as DTensors, every family
-    alike (a mixture's experts on "model")."""
+    ("data", "model") submesh by ``spec_for`` (with ``model_axes``) as
+    DTensors, every family alike (a mixture's experts on "model")."""
     rows = pod_rows(mesh, _n_pods(stacked))
     local = tree_map(rows.rows, stacked)
     return shlib.place_params(local, api.param_defs(), mesh,
-                              fsdp=api.cfg.fsdp, lead=1)
+                              fsdp=api.cfg.fsdp, lead=1,
+                              model_axes=model_axes)
 
 
 def gather_pods(tree, mesh, n_pods: int):
@@ -285,17 +287,22 @@ def _pod_mixer(mixer, gossip: str, mesh, pods, P_pod):
     return dataclasses.replace(mixer, backend=backend, shard=pods)
 
 
-def _place_batch(batch: dict, mesh) -> dict:
-    """A pod's batches (K, B, ...) over its submesh: the B rows on "data"
-    where they divide (the reference's ``"batch"`` rule), replicated on
-    "model"."""
+def place_batch(batch: dict, mesh, dim: int = 1) -> dict:
+    """Batches over a pod's submesh: the rows (dim ``dim``; a pod's
+    (K, B, ...) batches by default, this rank's pods' (m, K, B, ...) with
+    2) on "data" where they divide (the reference's ``"batch"`` rule),
+    replicated on "model".  A batch placed already (``launch.train``
+    places each round's before the round) is taken as it is."""
     from torch.distributed.tensor import Replicate, Shard
 
     sub = shlib.submesh(mesh)
     out = {}
     for key, x in batch.items():
-        pl = [Shard(1) if name == "data" and sub.size(i) > 1
-              and x.shape[1] % sub.size(i) == 0 else Replicate()
+        if shlib.is_dtensor(x):
+            out[key] = x
+            continue
+        pl = [Shard(dim) if name == "data" and sub.size(i) > 1
+              and x.shape[dim] % sub.size(i) == 0 else Replicate()
               for i, name in enumerate(sub.mesh_dim_names)]
         out[key] = shlib.place_tensor(x, sub, pl)
     return out
@@ -338,7 +345,7 @@ def make_round_step(
     ``launch.sharding.use_mesh``), ``params``, ``v``, ``w``, ``comp``,
     ``link`` and ``batch`` are this rank's pods (``pod_rows(mesh,
     n_pods).rows`` of the whole leaves; the replicas placed by
-    :func:`place_pods`), ``P_pod`` is the whole pod graph, and the metrics
+    :func:`place_pods`, the batch here or by :func:`place_batch`), ``P_pod`` is the whole pod graph, and the metrics
     are the means over every pod.  Each replica runs its local steps as
     DTensors over its pod's submesh; the mix gathers each replica's columns
     to full rows (the reference's ``bank_row_pins``: rows on "pod", columns
@@ -464,7 +471,7 @@ def make_round_step(
             for i in range(w.shape[0]):
                 b = {k: x[i] for k, x in batch.items()}
                 if placed:
-                    b = _place_batch(b, mesh)
+                    b = place_batch(b, mesh)
                 stats.append(one_pod(params, v, i, w[i], b))
         loss = torch.stack([s[0] for s in stats])
         acc = torch.stack([s[1] for s in stats])

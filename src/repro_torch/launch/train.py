@@ -325,6 +325,7 @@ def _run(cfg, args, on_round, mesh) -> dict:
         gather_pods,
         init_pod_link_state,
         make_round_step,
+        place_batch,
         place_pods,
         pod_mixing_matrix,
         pod_mixing_neighbors,
@@ -436,11 +437,13 @@ def _run(cfg, args, on_round, mesh) -> dict:
         t0 = time.time()
         ms = []
         for i in range(length):
-            tk = toks[r + i].to(device)
+            batch = {"tokens": toks[r + i].to(device)}
+            if rows is not None:  # this rank's blocks of its pods' rows
+                batch = place_batch({k: rows.rows(x)
+                                     for k, x in batch.items()}, mesh, 2)
             with on_mesh():
                 params, v, w, comp, link, m = round_step(
-                    params, v, w, comp, link,
-                    {"tokens": tk if rows is None else rows.rows(tk)}, P_pod)
+                    params, v, w, comp, link, batch, P_pod)
             ms.append((m, mass(w, link)))
             if args.superstep <= 1:
                 _sync(device)

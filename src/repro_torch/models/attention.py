@@ -138,18 +138,42 @@ def _split_heads(x, kv, g):
 
 def _project(x, w):
     """``einsum("bsd,dhk->bshk", x, w)`` as one matmul (a batched one when
-    ``w`` carries a leading lane axis, one lane per batch row)."""
+    ``w`` carries a leading lane axis, one lane per batch row).  Under the
+    pod runtime with ``w``'s last dim (head_dim) on "model", the product
+    takes head_dim as the outer of the two flattened dims, so that the
+    split stays one DTensor can place."""
+    if _on_model(w) == w.dim() - 1:
+        y = x @ w.transpose(-1, -2).flatten(-2)
+        return y.unflatten(-1, (w.shape[-1], w.shape[-2])).transpose(-1, -2)
     return (x @ w.flatten(-2)).unflatten(-1, w.shape[-2:])
+
+
+def _on_model(t):
+    """The dim of DTensor ``t`` that the "model" mesh dim splits, or None
+    (a plain tensor, or no split there)."""
+    if not shlib.is_dtensor(t) or "model" not in t.device_mesh.mesh_dim_names:
+        return None
+    pl = t.placements[t.device_mesh.mesh_dim_names.index("model")]
+    return pl.dim if pl.is_shard() else None
 
 
 # ---------------------------------------------------------------------------
 # GQA.
 # ---------------------------------------------------------------------------
 
+def _whole_heads(t):
+    """Under the pod runtime, a projection whose head_dim is on "model"
+    (its heads do not divide the axis) gathered there (one all-gather; the
+    gradient's slice comes back, or its partial sum is reduce-scattered):
+    the norms, the rope and the attention read whole heads.  Anything else
+    as it is."""
+    return shlib.gather_model(t) if _on_model(t) == t.dim() - 1 else t
+
+
 def _gqa_qkv(p, x, cfg: ArchConfig, positions, theta):
-    q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    q = _whole_heads(_project(x, p["wq"]))
+    k = _whole_heads(_project(x, p["wk"]))
+    v = _whole_heads(_project(x, p["wv"]))
     if cfg.qk_norm:
         q = rms_norm(q, lane_scale(p["q_norm"], q), cfg.norm_eps)
         k = rms_norm(k, lane_scale(p["k_norm"], k), cfg.norm_eps)
@@ -162,7 +186,20 @@ def _gqa_qkv(p, x, cfg: ArchConfig, positions, theta):
 
 def _out_proj(out, wo):
     """``einsum("bshk,hkd->bsd", out, wo)`` as one matmul (batched over a
-    leading lane axis of ``wo``)."""
+    leading lane axis of ``wo``).  Under the pod runtime with ``wo``'s
+    head_dim rows on "model" (heads that do not divide it), each rank takes
+    its head_dim block of ``out`` (a slice; the gradient is gathered back)
+    against its rows: a partial sum over "model", as a row-parallel
+    projection's."""
+    if _on_model(wo) == wo.dim() - 2:
+        from torch.distributed.tensor import Shard
+
+        mesh = wo.device_mesh
+        pls = list(out.placements)
+        pls[mesh.mesh_dim_names.index("model")] = Shard(out.dim() - 1)
+        out = out.redistribute(mesh, pls)
+        return (out.transpose(-1, -2).flatten(2)
+                @ wo.transpose(-3, -2).flatten(-3, -2))
     return out.flatten(2) @ wo.flatten(-3, -2)
 
 
@@ -337,17 +374,15 @@ def _mla_local(q_nope, q_pe, k_nope, v, kpe, cfg: ArchConfig, bias):
     rows and, where "model" splits the heads (dim 2), its heads, reading
     the whole rope key ``kpe`` that the heads share (its gradient a partial
     sum over "model"), in a manual region.  Without a head split every rank
-    runs every head, whose gradient then counts once."""
+    runs every head alike, and the inputs' gradients are whole there."""
     mesh = q_nope.device_mesh
     rank_heads = q_nope.placements[mesh.mesh_dim_names.index("model")] \
         if "model" in mesh.mesh_dim_names else None
     split = rank_heads is not None and rank_heads.is_shard()
-    local = [shlib.local_part(t, q_nope)
+    local = [shlib.local_part(t, q_nope, own_model=split)
              for t in (q_nope, q_pe, k_nope, v, kpe)]
     with shlib.manual_region(mesh):
         out = _mla_core(*local, cfg, bias[:local[0].shape[0]])
-        if not split:
-            out = shlib.shared_grad(out, shlib.model_block(mesh)[1])
     return shlib.from_local(out, q_nope, rank_heads if split else None)
 
 

@@ -71,7 +71,14 @@ def sinusoidal_positions(positions, dim: int):
 def softmax_xent(logits, labels, mask=None):
     """Mean CE over (optionally masked) positions; returns (loss, acc)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    if shlib.is_dtensor(logp):
+        # Each rank gathers from its own rows (gather's backward on the
+        # DTensor makes its zeros at the whole batch's shape on every rank).
+        lab = labels.to_local() if shlib.is_dtensor(labels) else labels
+        ll = shlib.from_local(shlib.local_part(logp, logp, own_model=False)
+                              .gather(-1, lab[..., None].long())[..., 0], logp)
+    else:
+        ll = logp.gather(-1, labels[..., None].long())[..., 0]
     correct = (logits.argmax(-1) == labels).float()
     if mask is None:
         return -ll.mean(), correct.mean()

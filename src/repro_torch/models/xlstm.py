@@ -42,7 +42,9 @@ heads on "model") the mLSTM's parallel form and the sLSTM's time loop run
 in a manual region on each rank's local heads (:func:`_mlstm_placed`,
 :func:`_slstm_local`); each block's output is then summed over "model" (a
 row-parallel ``w_down`` or ``ffn_wo``) or gathered there (the sLSTM's
-heads).
+heads).  Where the heads do not divide "model", an mLSTM rank computes the
+whole heads its columns fall in (:func:`_mlstm_sub_head`) and every sLSTM
+rank runs every head.
 """
 from __future__ import annotations
 
@@ -264,9 +266,7 @@ def _mlstm_placed(pl, up, cfg: ArchConfig):
     mesh = up.device_mesh
     rank, m = shlib.model_block(mesh)
     if h % m or pl["wq"].to_local().shape[-1] != di // m:
-        raise ValueError(
-            f"{cfg.name}: the mLSTM runs whole heads a rank; {h} heads of "
-            f"{hd} columns do not split over a {m}-wide model axis")
+        return _mlstm_sub_head(pl, up, cfg)
     hl = h // m
     cols = slice(rank * hl * hd, (rank + 1) * hl * hd)
     upl = shlib.local_part(shlib.gather_model(up), up)
@@ -291,6 +291,54 @@ def _mlstm_placed(pl, up, cfg: ArchConfig):
         hflat = hcell.reshape(b, s, hl * hd).to(cfg.dtype) * F.silu(z[..., cols])
         out = hflat @ loc["w_down"]
     return shlib.sum_partial(shlib.from_local(out, up, Partial()))
+
+
+def _mlstm_sub_head(pl, up, cfg: ArchConfig):
+    """:func:`_mlstm_placed` where the heads do not divide "model": a rank's
+    columns of ``wq``, ``wk``, ``wv`` and ``w_down`` are part of a head
+    (16 ranks over 4 heads: a quarter each), or the block is not on
+    "model" at all.  ``wq``, ``wk`` and ``wv`` are gathered over "model"
+    (one all-gather each; their gradients, partial sums over the ranks
+    that share a head, are reduce-scattered back), and each rank computes
+    the whole parallel form and ``out_norm`` of the heads its columns fall
+    in, then keeps its own columns of h before its rows of ``w_down``: the
+    output a partial sum over "model", summed by one all-reduce as the
+    whole-heads path's.  The gates come whole from the same all-reduce of
+    the rank's rows of ``w_if``.  Without the block on "model" every rank
+    runs every head alike and nothing is summed."""
+    from torch.distributed.tensor import Partial
+
+    d, di, h, hd = _dims(cfg)
+    mesh = up.device_mesh
+    rank, m = shlib.model_block(mesh)
+    width = pl["w_down"].to_local().shape[-2]  # the rank's columns of h
+    split = m > 1 and width != di
+    lo = rank * width if split else 0
+    h0, h1 = lo // hd, -(-(lo + width) // hd)  # the heads the columns meet
+    cols = slice(lo, lo + width)
+    upl = shlib.local_part(shlib.gather_model(up), up, own_model=split)
+    loc = {k: shlib.gathered_local(pl[k], up) for k in ("wq", "wk", "wv")}
+    loc.update({k: shlib.local_part(pl[k], up, own_model=split) for k in (
+        "w_if", "b_if", "out_norm", "w_down")})
+    with shlib.manual_region(mesh):
+        xm, z = upl[..., :di], upl[..., di:]
+        b, s, _ = xm.shape
+        heads = slice(h0 * hd, h1 * hd)
+        q, k, v = ((xm @ loc[w][:, heads]).reshape(b, s, h1 - h0, hd)
+                   for w in ("wq", "wk", "wv"))
+        gates = xm[..., cols].float() @ loc["w_if"]
+    gates = shlib.from_local(gates, up, Partial() if split else None)
+    gates = shlib.local_part(shlib.sum_partial(gates), up, own_model=split)
+    with shlib.manual_region(mesh):
+        gates = gates + lane_scale(loc["b_if"], gates)
+        hcell = _norm(mlstm_parallel(q, k, v, gates[..., h0:h1],
+                                     gates[..., h + h0:h + h1]),
+                      loc["out_norm"], cfg)
+        hflat = hcell.reshape(b, s, (h1 - h0) * hd)[
+            ..., lo - h0 * hd:lo - h0 * hd + width]
+        out = (hflat.to(cfg.dtype) * F.silu(z[..., cols])) @ loc["w_down"]
+    return shlib.sum_partial(
+        shlib.from_local(out, up, Partial() if split else None))
 
 
 # ---------------------------------------------------------------------------
@@ -347,25 +395,27 @@ def _slstm_local(pl, px, cfg: ArchConfig):
     local heads and batch rows, in a manual region: the recurrence is
     block-diagonal, one block a head, so a rank's heads need no other
     rank's.  -> h ``(B, S, H, hd)``, the heads placed as ``px``'s columns.
-    Without a head split every rank runs every head, whose gradient then
-    counts once."""
+    Where the heads do not divide "model" (4 heads on 16 ranks), the
+    recurrence cannot be split inside a head without a collective every
+    position: ``px``'s columns are gathered there (one all-gather) and
+    every rank runs every head alike, its inputs' gradients whole."""
     from torch.distributed.tensor import Shard
 
     hd = cfg.d_model // cfg.n_heads
     mesh = px.device_mesh
     rank, m = shlib.model_block(mesh)
-    split = m > 1 and px.placements[
+    split = m > 1 and cfg.n_heads % m == 0 and px.placements[
         mesh.mesh_dim_names.index("model")].is_shard()
-    r = shlib.local_part(pl["r"], px)
-    b = shlib.local_part(pl["b"], px)
-    pxl = shlib.local_part(px, px)
+    if not split:  # every head on every rank: the columns gathered first
+        px = shlib.gather_model(px)
+    r = shlib.local_part(pl["r"], px, own_model=split)
+    b = shlib.local_part(pl["b"], px, own_model=split)
+    pxl = shlib.local_part(px, px, own_model=split)
     with shlib.manual_region(mesh):
         w = pxl.shape[-1]
         lo = rank * w if split else 0
         gates = pxl + b[lo:lo + w]
         hs = _slstm_scan(r, _gates(gates, w // (4 * hd), hd), False)
-        if not split:
-            hs = shlib.shared_grad(hs, m)
     return shlib.from_local(hs, px, Shard(2) if split else None)
 
 

@@ -14,7 +14,8 @@ The port has no HLO to parse, so :class:`CollectiveStats` (the reference's
 class: bytes and counts by kind, all-reduce weighted 2x) is derived from
 the placement and the port's own plan by the rules below, each a function:
 :func:`fsdp_collectives`, :func:`tensor_parallel_collectives`,
-:func:`vocab_parallel_collectives`, :func:`data_parallel_collectives`,
+:func:`vocab_parallel_collectives`, :func:`head_dim_collectives`,
+:func:`replicated_block_collectives`, :func:`data_parallel_collectives`,
 :func:`step_scalar_collectives`, :func:`expert_collectives`,
 :func:`mlstm_collectives`, :func:`slstm_collectives`,
 :func:`ssm_collectives`, :func:`prefix_collectives`,
@@ -24,8 +25,10 @@ the placement and the port's own plan by the rules below, each a function:
 ``tests/test_torch_pod_runtime.py`` (a dense GQA decoder) and
 ``tests/test_torch_pod_families.py`` (xlstm, hymba and the MoE's expert
 rule) hold them to the bytes and counts that runtime issues in an 8-rank
-world.  Bytes are per device and, as the reference's parser
-counts them, the size of each collective's output on one device (the
+world, and ``tests/test_torch_dryrun_placed.py`` to rank 0's trace on the
+production meshes (``launch.dryrun.trace_placed``) for every arch.  Bytes
+are per device and, as the reference's parser counts them, the size of
+each collective's output on one device (the
 gathered block of an all-gather, the kept shard of a reduce-scatter, the
 operand of an all-reduce or all-to-all, the sent block of a permute).
 """
@@ -37,7 +40,8 @@ from repro_torch.launch.mesh import HARDWARE
 
 __all__ = ["CollectiveStats", "roofline_terms", "model_flops",
            "fsdp_collectives", "tensor_parallel_collectives",
-           "vocab_parallel_collectives", "data_parallel_collectives",
+           "vocab_parallel_collectives", "head_dim_collectives",
+           "replicated_block_collectives", "data_parallel_collectives",
            "step_scalar_collectives", "expert_collectives",
            "pod_collectives"]
 
@@ -121,6 +125,50 @@ def vocab_parallel_collectives(stats: CollectiveStats, embed_on_model: bool,
         stats.add("all-gather", passes * logits_bytes, passes)
 
 
+def head_dim_collectives(stats: CollectiveStats, layers: int, q_bytes: int,
+                         kv_bytes: int, model_n: int, kind: str,
+                         passes: int) -> None:
+    """GQA attention whose heads do not divide the ``model`` axis (size
+    ``model_n``), placed on its head_dim instead (``models.attention``).
+    Where the query heads do not divide it (``q_bytes``, the device's
+    whole q: local batch x positions x heads x head_dim, model dtype; 0
+    where they divide), q, k and v are gathered there (``kv_bytes`` each
+    of k and v) in every forward, every device runs every head, and the
+    output projection takes the device's head_dim block of the output; in
+    ``train`` the output's gradient is gathered back (one all-gather of
+    ``q_bytes``) in every gradient pass, and q, k and v's come back as
+    slices.  Where only the kv heads do not divide it, k and v are
+    gathered in every forward, and in ``train`` their gradients, partial
+    sums over the devices' query heads, are reduce-scattered back in
+    every gradient pass.  ``layers`` counts the attention layers."""
+    n = layers * (passes if kind == "train" else 1)
+    if q_bytes:
+        stats.add("all-gather", n * (q_bytes + 2 * kv_bytes), 3 * n)
+        if kind == "train":
+            stats.add("all-gather", n * q_bytes, n)
+    elif kv_bytes:
+        stats.add("all-gather", n * 2 * kv_bytes, 2 * n)
+        if kind == "train":
+            stats.add("reduce-scatter", n * 2 * kv_bytes // model_n, 2 * n)
+
+
+def replicated_block_collectives(stats: CollectiveStats, layers: int,
+                                 core_bytes: int, kind: str,
+                                 passes: int) -> None:
+    """A layer's sub-block with nothing on the ``model`` axis in a stack
+    whose other sub-blocks are there (MLA whose heads do not divide it):
+    every device runs it alike, so it adds no collective to the forward.
+    In ``train`` its output's gradient arrives as a partial sum over
+    ``model`` (the column-parallel input gradients of the layers above):
+    the output projection's weight gradient is then partial too (the
+    data-parallel rule's ``model_blocks``), and the gradient entering its
+    core (``core_bytes``: local batch x positions x heads x value width)
+    is all-reduced once in every gradient pass, whole from there down."""
+    if kind == "train":
+        stats.add("all-reduce", layers * passes * core_bytes,
+                  layers * passes)
+
+
 def data_parallel_collectives(stats: CollectiveStats, data_blocks: list,
                               model_blocks: list, passes: int) -> None:
     """The gradients of parameters that the shards read whole, in every
@@ -168,38 +216,65 @@ def expert_collectives(stats: CollectiveStats, moe_layers: int,
 def mlstm_collectives(stats: CollectiveStats, blocks: int, rows: int,
                       inner: int, heads: int, model_n: int, itemsize: int,
                       kind: str, passes: int) -> None:
-    """xLSTM's mLSTM blocks with their heads on ``model`` (``model_n`` above
-    1).  Each gathers its up-projection's ``rows x 2 inner`` columns (model
-    dtype) so that every device holds its heads' q, k and v inputs and z,
-    and all-reduces its input and forget gates (``rows x 2 heads`` f32, a
-    partial sum over the row-split ``w_if``) in every forward; in ``train``
-    the backward all-reduces the gates' gradient and reduce-scatters the
-    up-projection's (``rows x 2 inner / model_n``) in every gradient pass.
-    The block's output all-reduce is the tensor-parallel rule's."""
+    """xLSTM's mLSTM blocks with their columns on ``model`` (``model_n``
+    above 1).  Each gathers its up-projection's ``rows x 2 inner`` columns
+    (model dtype) so that every device holds its heads' q, k and v inputs
+    and z, and all-reduces its input and forget gates (``rows x 2 heads``
+    f32, a partial sum over the row-split ``w_if``) in every forward; in
+    ``train`` the backward all-reduces the gates' gradient and
+    reduce-scatters the up-projection's (``rows x 2 inner / model_n``) in
+    every gradient pass.  Where the ``heads`` do not divide ``model_n``, a
+    device's columns are part of a head: ``wq``, ``wk`` and ``wv`` (``inner
+    x inner`` each) are gathered too in every forward, and in ``train``
+    their gradients, partial sums over the devices that share a head, are
+    reduce-scattered back in every gradient pass.  The block's output
+    all-reduce is the tensor-parallel rule's."""
     if model_n == 1:
         return
     n = passes if kind == "train" else 1
     stats.add("all-gather", n * blocks * rows * 2 * inner * itemsize,
               n * blocks)
     stats.add("all-reduce", n * blocks * rows * 2 * heads * 4, n * blocks)
+    if heads % model_n:
+        stats.add("all-gather", n * blocks * 3 * inner * inner * itemsize,
+                  3 * n * blocks)
     if kind == "train":
         stats.add("all-reduce", n * blocks * rows * 2 * heads * 4, n * blocks)
         stats.add("reduce-scatter",
                   n * blocks * rows * 2 * inner // model_n * itemsize,
                   n * blocks)
+        if heads % model_n:
+            stats.add("reduce-scatter",
+                      n * blocks * 3 * inner * inner // model_n * itemsize,
+                      3 * n * blocks)
 
 
-def slstm_collectives(stats: CollectiveStats, blocks: int, act_bytes: int,
-                      model_n: int, kind: str, passes: int) -> None:
-    """xLSTM's sLSTM blocks with their heads on ``model``: each device runs
-    its heads' recurrence and the heads' outputs are gathered before the
-    residual (one all-gather of the activations, ``act_bytes``) in every
-    forward; in ``train`` their gradient is reduce-scattered back in every
-    gradient pass.  The post-FFN's all-reduce is the tensor-parallel
-    rule's."""
+def slstm_collectives(stats: CollectiveStats, blocks: int, rows: int,
+                      d_model: int, heads: int, model_n: int, itemsize: int,
+                      kind: str, passes: int) -> None:
+    """xLSTM's sLSTM blocks (``rows`` positions of ``d_model`` a device) with
+    their input projection's columns on ``model``.  Where the ``heads``
+    divide ``model_n``, each device runs its heads' recurrence and the
+    heads' outputs are gathered before the residual (one all-gather of the
+    activations, model dtype) in every forward; in ``train`` their
+    gradient is reduce-scattered back in every gradient pass.  Where they
+    do not, a head's recurrence would need a collective every position:
+    the input projection (``rows x 4 d_model``, f32) is gathered and every
+    device runs every head in every forward, and in ``train`` the heads'
+    output gradient, a partial sum over ``model`` (``rows x d_model``,
+    f32), is all-reduced in every gradient pass.  The post-FFN's
+    all-reduce is the tensor-parallel rule's."""
     if model_n == 1:
         return
     n = passes if kind == "train" else 1
+    if heads % model_n:
+        stats.add("all-gather", n * blocks * rows * 4 * d_model * 4,
+                  n * blocks)
+        if kind == "train":
+            stats.add("all-reduce", n * blocks * rows * d_model * 4,
+                      n * blocks)
+        return
+    act_bytes = rows * d_model * itemsize
     stats.add("all-gather", n * blocks * act_bytes, n * blocks)
     if kind == "train":
         stats.add("reduce-scatter", n * blocks * act_bytes // model_n,

@@ -24,7 +24,20 @@ records:
   formula (below) and counts none of the aten ops inside the wrapper a
   second time (their allocations still count towards the peak).  The
   wrappers record on every device, so a meta trace, a CPU run (the plain
-  versions) and a card run of one step count the same.
+  versions) and a card run of one step count the same;
+- **collectives**, by kind (``roofline.analysis.CollectiveStats``): each
+  ``_c10d_functional`` op (DTensor's redistributions) and ``c10d`` op (the
+  process-group calls of the pod gossip), with the bytes of its output on
+  this rank as ``roofline.analysis`` counts them (the gathered block of an
+  all-gather, the kept shard of a reduce-scatter, the operand of an
+  all-reduce or all-to-all, the sent block of a permute).  They, and the
+  bookkeeping ops around them (``wait_tensor``, ``_wrap_tensor_autograd``),
+  count no HBM bytes and no aten op; their outputs count towards the peak.
+
+A DTensor step (the pod runtime, ``launch.sharding``) is counted at its
+local shapes: the mode lets DTensor's dispatch run first and counts the
+local ops and collectives it runs, so one rank's own cost is what it
+sees, and its arguments' bytes are their local blocks'.
 
 The kernel formulas: each input read once and each output written once for
 bytes; ``4 hd B H open_pairs`` FLOP for the flash forward and ``10 hd B H
@@ -127,6 +140,45 @@ def update_cost(n: int, d: int, itemsize: int) -> KernelCost:
     return KernelCost(5.0 * n * d, (4.0 * itemsize + 8.0) * n * d + 4.0 * n)
 
 
+# Collective ops -> their kind in ``roofline.analysis``'s terms.
+COLLECTIVE_KINDS = {
+    "all_gather_into_tensor": "all-gather", "allgather_": "all-gather",
+    "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "allreduce_": "all-reduce",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "send": "collective-permute"}
+# The process-group calls whose first argument is what they count (the
+# operand, or the preallocated output); the functional ops count their
+# output, and ``alltoall_base_`` its input (its second argument).
+_FIRST_ARG = {"allreduce_", "send", "allgather_", "_allgather_base_",
+              "reduce_scatter_", "_reduce_scatter_base_",
+              "allgather_into_tensor_coalesced_"}
+_COUNTED_NAMESPACES = ("_c10d_functional", "c10d")
+# Communication ops, counted as collectives or not at all: the autograd
+# wrappers reach the mode as the functional ops they call.
+_COMM_NAMESPACES = _COUNTED_NAMESPACES + ("_c10d_functional_autograd",)
+
+
+def _collective_bytes(name: str, args, out) -> int:
+    if name == "alltoall_base_":
+        return _unique_bytes(_tensors(args[1]))
+    if name in _FIRST_ARG:
+        return sum(_nbytes(t) for t in _tensors(args[0]))
+    return sum(_nbytes(t) for t in _tensors(out))
+
+
+def _faking() -> bool:
+    """Whether a ``FakeTensorMode`` is running (DTensor's sharding
+    propagation makes its outputs' shapes with one)."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 # Modes counting right now, innermost last: a kernel wrapper records into
 # each of them.
 _ACTIVE: list = []
@@ -162,6 +214,10 @@ _FREE = {aten.empty, aten.empty_strided, aten.empty_like, aten.new_empty,
 _WRITE_ONLY = {aten.zeros, aten.ones, aten.full, aten.arange, aten.zeros_like,
                aten.ones_like, aten.full_like, aten.new_zeros, aten.new_ones,
                aten.new_full, aten.fill_, aten.zero_, aten.scalar_tensor}
+# Their last output is a scratch buffer, full size on the CPU and empty on
+# CUDA: neither its bytes nor its memory count, so that every device counts
+# the same.
+_SCRATCH_LAST = {aten.log_sigmoid_forward}
 # Read the rows they name (the size of their output), not their source.
 _ROWS_READ = {aten.embedding, aten.index_select, aten.gather, aten.index}
 # Write the slice their values fill, not their whole destination: (values
@@ -175,9 +231,11 @@ _SLICE_WRITE = {aten.index_put_: ("values", None),
 
 
 def _tensors(tree) -> list:
-    """The tensors of nested lists, tuples and dicts."""
+    """The tensors of nested lists, tuples and dicts (a DTensor's local
+    block in its place)."""
     if isinstance(tree, torch.Tensor):
-        return [tree]
+        local = getattr(tree, "_local_tensor", None)
+        return [tree if local is None else local]
     if isinstance(tree, dict):
         tree = list(tree.values())
     if isinstance(tree, (list, tuple)):
@@ -213,6 +271,8 @@ def op_bytes(func, args, kwargs, out) -> int:
     packet = func.overloadpacket
     if func.is_view or packet in _FREE:
         return 0
+    if packet is aten.log_sigmoid_backward:  # its buffer is scratch
+        return _unique_bytes(args[:2]) + _unique_bytes(_tensors(out))
     outs = _tensors(out)
     if packet in _WRITE_ONLY:
         return _unique_bytes(outs)
@@ -234,17 +294,21 @@ def op_bytes(func, args, kwargs, out) -> int:
 
 
 class CostMode(TorchDispatchMode):
-    """Counts the FLOPs, bytes, peak live bytes and kernel records of what
-    runs inside it (see the module docstring).  ``args`` are the step's
-    arguments, resident before it runs: their bytes are the peak's base,
-    and their storages are not counted again when an op writes into them
-    in place.  Read the totals with :meth:`result` after the block."""
+    """Counts the FLOPs, bytes, peak live bytes, kernel records and
+    collectives of what runs inside it (see the module docstring).
+    ``args`` are the step's arguments, resident before it runs: their
+    bytes are the peak's base, and their storages are not counted again
+    when an op writes into them in place.  Read the totals with
+    :meth:`result` after the block."""
 
     def __init__(self, args=()):
         super().__init__()
         from torch.utils.flop_counter import FlopCounterMode
 
+        from repro_torch.roofline.analysis import CollectiveStats
+
         self._formulas = FlopCounterMode(display=False).flop_registry
+        self.collectives = CollectiveStats()
         self._args = {}
         for t in _tensors(args):
             st = t.untyped_storage()
@@ -290,19 +354,37 @@ class CostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        subs = [t for t in types if t is not torch.Tensor]
+        fake = _faking() or any(t.__name__ == "FakeTensor" for t in subs)
+        if subs and not fake:
+            # A tensor subclass (DTensor, a collective's async result)
+            # lowers to plain ops first, which come back here.
+            return NotImplemented
+        if fake:
+            # The fake tensors of DTensor's sharding propagation (whole
+            # shapes, once per cached signature): not the step's work.
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
-        if not self._inside:
+        made = out[0] if func.overloadpacket in _SCRATCH_LAST else out
+        if func.namespace in _COMM_NAMESPACES:
+            kind = COLLECTIVE_KINDS.get(func._opname)
+            if kind is not None and func.namespace in _COUNTED_NAMESPACES:
+                self.collectives.add(
+                    kind, _collective_bytes(func._opname, args, out))
+        elif not self._inside:
             formula = self._formulas.get(func.overloadpacket)
             if formula is not None:
                 self.aten_flops += formula(*args, **kwargs, out_val=out)
-            self.aten_bytes += op_bytes(func, args, kwargs, out)
+            self.aten_bytes += op_bytes(func, args, kwargs, made)
             self.aten_ops += 1
-        self._track(out)
+        self._track(made)
         return out
 
     def result(self, outputs=()) -> dict:
         """The totals: ``flops`` and ``bytes accessed`` (aten ops and kernel
-        records), each part, the kernel records by name, and the memory:
+        records), each part, the kernel records by name, the
+        ``collectives`` (``{"bytes": ..., "count": ...}`` by kind), and the
+        memory:
         ``argument`` bytes, ``temp`` (the high-water mark of the step's
         allocations), ``output`` (``outputs``' storages the step allocated,
         still live), ``alias`` (``outputs``' storages that are arguments,
@@ -318,6 +400,9 @@ class CostMode(TorchDispatchMode):
             "aten_bytes": self.aten_bytes,
             "aten_ops": self.aten_ops,
             "kernels": {k: dict(v) for k, v in sorted(self.kernels.items())},
+            "collectives": {
+                "bytes": dict(self.collectives.bytes_by_kind),
+                "count": dict(self.collectives.count_by_kind)},
             "memory": {
                 "argument": self.argument_bytes,
                 "output": sum(st.nbytes() for k, st in out_st.items()

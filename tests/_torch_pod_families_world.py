@@ -5,7 +5,9 @@
 llava-next-mistral-7b, hubert-xlarge, dbrx-132b and deepseek-v3-671b, and
 a reduced hymba-1.5b with 5 heads on 5 kv heads; 2 pods, K = 2 local steps
 (one for the 5-head hymba) of B = 4 rows of S = 16 positions, one round
-under ``gossip`` "xla".
+under ``gossip`` "xla".  A second mesh of the same world, ``(2, 1, 4)``,
+runs a reduced xlstm-350m with 2 heads (each head's columns on 2 ranks of
+"model") the same way.
 
     python tests/_torch_pod_families_world.py --rank R --port P \
         --out DIR --initial FILE
@@ -24,6 +26,10 @@ runs the mesh-less port round from the same state.  Each rank writes
   that the rank issues in the round (``_torch_pod_world.CountingMode``);
 * ``norm``: ``core.sam.global_norm`` of the placed pods against the whole
   ones;
+* ``counts`` (rank 0): the FLOPs, bytes, kernel records and collectives
+  that ``roofline.cost.CostMode`` counts on the rank in one round of the
+  2-head xlstm on each mesh, its arguments made by
+  ``launch.dryrun.placed_step_args`` (:func:`count`);
 
 and rank 0 also ``run``: params (the largest of each leaf's error, and
 that leaf), w, loss, accuracy and mass against the mesh-less round, and
@@ -59,7 +65,15 @@ STEP = dict(lr=0.05, alpha=0.9, rho=0.05, local_steps=K)
 ARCHS = ("xlstm-350m", "hymba-1.5b", "llava-next-mistral-7b",
          "hubert-xlarge", "dbrx-132b", "deepseek-v3-671b")
 HYMBA_5 = "hymba-1.5b-5q5kv"  # 5 heads on 5 kv heads: no head split
+XLSTM_2 = "xlstm-350m-2h"  # 2 heads, run on WIDE too: 4 ranks over 2 heads
 HELD = ("xlstm-350m", "dbrx-132b")  # held to the reference's round too
+# The second mesh of the same world: a model axis wider than XLSTM_2's
+# heads, each head's columns on 2 ranks.
+WIDE = ((2, 1, 4), ("pod", "data", "model"))
+# rank 0's counts under a CostMode, against the fake world's meta trace:
+# XLSTM_2's round on each mesh (whole heads a rank on MESH, half a head on
+# WIDE).
+COUNTED = {"(2, 2, 2)": MESH, "(2, 1, 4)": WIDE}
 
 
 def local_steps(name) -> int:
@@ -75,7 +89,44 @@ def config(name):
     if name == HYMBA_5:
         return dataclasses.replace(get_config("hymba-1.5b", smoke=True),
                                    n_heads=5, n_kv_heads=5)
+    if name == XLSTM_2:
+        return dataclasses.replace(get_config("xlstm-350m", smoke=True),
+                                   n_heads=2, n_kv_heads=2)
     return get_config(name, smoke=True)
+
+
+# The round :func:`count` runs: one local step a pod (K = 1) of B rows of S
+# positions, 2 SAM passes.
+COUNTED_STEP = {**STEP, "local_steps": 1}
+
+
+def counted_shape():
+    """The step :func:`count` runs: one round of N_PODS pods, one step of
+    B rows of S positions each."""
+    from repro_torch.configs.base import InputShape
+
+    return InputShape("round", S, N_PODS * B, "train")
+
+
+def count(name, mesh):
+    """FLOPs, bytes and collectives that this rank counts under a
+    ``CostMode`` around one round of ``name`` on ``mesh``, its arguments
+    made as the dry-run makes them (``launch.dryrun.placed_step_args``,
+    values drawn from seed 0) and the step run for real over gloo."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import get_model_api
+    from repro_torch.roofline.cost import CostMode
+
+    api = get_model_api(config(name))
+    args, run = dryrun.placed_step_args(
+        api, counted_shape(), "round_step", mesh,
+        steps.StepConfig(**COUNTED_STEP), device="cpu", seed=0)
+    with CostMode(args) as mode:
+        out = run(*args)
+    rec = mode.result(out)
+    return {k: rec[k] for k in ("flops", "bytes accessed", "kernels",
+                                "collectives")}
 
 
 def _run(api, whole, batches, mesh=None, count=False):
@@ -153,7 +204,7 @@ def case(name, mesh, rank, initial):
             "acc": max(abs(a["acc"] - b["acc"]) for a, b in
                        zip(run["metrics"], base["metrics"])),
             "mass": float(run["w"].sum())}
-        if name in HELD:
+        if name in HELD or name == XLSTM_2:
             out["state"] = {"params": {"/".join(p): x.numpy()
                                        for p, x in _walk(run["params"])},
                             "w": run["w"].numpy(), "metrics": run["metrics"]}
@@ -175,12 +226,25 @@ def main(argv=None) -> int:
         initial = pickle.load(f)
     names = args.only.split(",") if args.only else list(initial)
     mesh = init_world(args.rank, WORLD, args.port, "cpu", *MESH)
-    results = {}
+    results, counts = {}, {}
     try:
         for name in names:
+            if name == XLSTM_2:
+                continue
             results[name] = case(name, mesh, args.rank, initial[name])
+        if XLSTM_2 in names:
+            from repro_torch.launch.mesh import make_host_mesh
+
+            wide = make_host_mesh(*WIDE, device="cpu")
+            results[XLSTM_2] = case(XLSTM_2, wide, args.rank,
+                                    initial[XLSTM_2])
+            for label, (shape, axes) in COUNTED.items():
+                m = mesh if (shape, axes) == MESH else wide
+                counts[label] = count(XLSTM_2, m)
     finally:
         close_clients_world()
+    if counts and args.rank == 0:
+        results["counts"] = counts
     states = {n: r.pop("state") for n, r in results.items() if "state" in r}
     if states:
         with open(os.path.join(args.out, "states.pkl"), "wb") as f:

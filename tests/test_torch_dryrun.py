@@ -65,12 +65,14 @@ def test_records_are_well_formed(records, arch, kind, mesh):
     assert r["step"] == {"train": "round_step" if mesh == "multi"
                          else "train_step", "prefill": "forward",
                          "decode": "serve_step"}[kind]
-    assert r["per_device"] == ("whole step" if mesh == "card" else "ideal")
+    assert r["per_device"] == ("whole step" if mesh == "card" else "ideal"
+                               if kind == "decode" else "rank 0")
     b = r["bytes_per_device"]
     assert set(b) == {"argument", "output", "temp", "alias", "peak_estimate"}
     assert b["peak_estimate"] == b["argument"] + b["temp"] > 0
     t = r["roofline"]
-    n = r["n_chips"]
+    # rank 0's own counts, or the whole step's share
+    n = r["n_chips"] if r["per_device"] != "rank 0" else 1
     assert t["flops_per_device"] == r["cost"]["flops"] / n > 0
     assert t["bytes_per_device"] == r["cost"]["bytes accessed"] / n > 0
     assert t["t_compute_s"] == t["flops_per_device"] / HARDWARE["peak_flops_bf16"]
@@ -78,7 +80,8 @@ def test_records_are_well_formed(records, arch, kind, mesh):
     assert t["bottleneck"] in ("compute", "memory", "collective")
     assert (t["t_collective_s"] == 0) == (mesh == "card")
     assert r["n_params_active"] <= r["n_params"]
-    assert r["useful_flops_ratio"] == r["model_flops"] / r["cost"]["flops"]
+    assert r["useful_flops_ratio"] == r["model_flops"] / (
+        r["cost"]["flops"] * r["n_chips"] / n)
     assert r["hbm_bytes"] == HARDWARE["hbm_bytes"]
     json.dumps(r)
     uses_flash = arch not in ("deepseek-v3-671b", "xlstm-350m")
@@ -198,9 +201,11 @@ def test_card_argument_bytes_are_every_argument(records):
 # 16384 a layer; wk, wv 8192; wi, wg, mlp's wo 32768: 360448 over 16
 # gathers).  Both layers' attention and MLP sit on "model": 4 all-reduces
 # of 32 / 16 x 16 positions x 256 x 4 B = 32768, and the vocab-parallel
-# embedding's one.
-GLM4_PREFILL = ({"all-gather": 360448, "all-reduce": 5 * 32768},
-                {"all-gather": 16, "all-reduce": 5})
+# embedding's one.  The 4 heads do not divide "model", so the attention
+# sits there by head_dim: q (2 x 16 x 4 x 64 x 4 B = 32768), k and v
+# (16384 each) are gathered whole in each layer (6 gathers, 131072 B).
+GLM4_PREFILL = ({"all-gather": 360448 + 131072, "all-reduce": 5 * 32768},
+                {"all-gather": 16 + 6, "all-reduce": 5})
 # The multi round at 32 x 16: 1 row a device (16 a pod over 16 data
 # shards), K = 1, SAM's 2 gradient passes.  Each pass gathers every FSDP
 # slice once (2 x 16 x 22528 B over 32) and reduce-scatters its gradient
@@ -211,12 +216,16 @@ GLM4_PREFILL = ({"all-gather": 360448, "all-reduce": 5 * 32768},
 # both axes and the loss and accuracy over "data" (4 x 4 B).  The pod
 # round gathers each replica's 9 sharded leaves over "model" then "data"
 # (5767168 / 16 + 5767168 B), receives the whole (2, D) f32 bank, D =
-# 1443072, and gathers w, the loss and the accuracy (3 x 8 B).
+# 1443072, and gathers w, the loss and the accuracy (3 x 8 B).  The
+# head_dim attention gathers q (16384 B), k and v (8192 each) in each layer
+# of each pass, and its output's gradient (16384 B) on the way back (4 x
+# 49152 B over 16 gathers).
 GLM4_ROUND = ({"all-gather": (2 * 16 * 22528 + 2 * 32768 + 5767168 // 16
-                              + 5767168 + 2 * 4 * 1443072 + 24),
+                              + 5767168 + 2 * 4 * 1443072 + 24
+                              + 4 * 49152),
                "reduce-scatter": 2 * 22528,
                "all-reduce": 20 * 16384 + 4 * 5120 + 16},
-              {"all-gather": 32 + 2 + 18 + 1 + 3, "reduce-scatter": 32,
+              {"all-gather": 32 + 2 + 18 + 1 + 3 + 16, "reduce-scatter": 32,
                "all-reduce": 36})
 # Reduced dbrx-132b widened to 16 experts (top 2), FSDP on: the experts sit
 # on "model" by their expert axis and on "data" by embed (wi, wg, wo: 2 x 16
@@ -225,10 +234,10 @@ GLM4_ROUND = ({"all-gather": (2 * 16 * 22528 + 2 * 32768 + 5767168 // 16
 # 32768); 4 all-reduces and the vocab-parallel embedding's.  The tokens
 # are replicated on "model", so the experts' combine is summed by the MLP's
 # all-reduce and no all-to-all runs; each MoE layer averages its aux
-# loss's 2 x 16 f32 means over the 16 data shards (one all-reduce of 128
-# B).
-DBRX_PREFILL = ({"all-gather": 3342336, "all-reduce": 5 * 32768 + 2 * 128},
-                {"all-gather": 18, "all-reduce": 7})
+# B).  The head_dim attention gathers q, k and v as glm4's (131072 B).
+DBRX_PREFILL = ({"all-gather": 3342336 + 131072,
+                 "all-reduce": 5 * 32768 + 2 * 128},
+                {"all-gather": 18 + 6, "all-reduce": 7})
 
 
 @pytest.mark.parametrize("arch,kind,mesh,overrides,want", [
@@ -239,24 +248,50 @@ DBRX_PREFILL = ({"all-gather": 3342336, "all-reduce": 5 * 32768 + 2 * 128},
 ])
 def test_collective_rules_against_a_hand_count(arch, kind, mesh, overrides,
                                                want):
+    """The rules (``dryrun.collectives``) and the record, rank 0's trace,
+    both against the hand count."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.registry import get_model_api
+
     r = dryrun.run_one(arch, SHAPES[kind], mesh, overrides=overrides,
                        smoke=True)
     assert (r["collectives"]["bytes"], r["collectives"]["count"]) == want
+    api = get_model_api(dataclasses.replace(get_config(arch, smoke=True),
+                                            **overrides))
+    m = make_production_mesh(multi_pod=mesh == "multi")
+    rules = dryrun._collectives(api, SHAPES[kind], m, mesh == "multi",
+                                dryrun._placed_args(api, SHAPES[kind], m,
+                                                    mesh == "multi"), 2)
+    assert (rules.bytes_by_kind, rules.count_by_kind) == want
     weighted = sum(b * (2 if k == "all-reduce" else 1)
                    for k, b in want[0].items())
     assert r["roofline"]["collective_bytes_per_device"] == weighted
 
 
-def test_meshes_of_one_shape_share_their_trace():
+def test_traces_are_cached_by_arch_shape_step_and_mesh():
+    """A trace is kept under (arch, shape, step, mesh), the mesh ``None``
+    for the whole step: the card's and the decode records share it, while
+    each production mesh's train and prefill records are rank 0's own."""
     traces = {}
     recs = [dryrun.run_one("glm4-9b", SHAPES["prefill"], m, smoke=True,
                            traces=traces) for m in dryrun.MESHES]
-    assert len(traces) == 1
-    assert len({r["cost"]["flops"] for r in recs}) == 1
+    assert sorted(k[3] or "" for k in traces) == ["", "multi", "single"]
+    assert len({r["cost"]["flops"] for r in recs}) == 3
+    recs = [dryrun.run_one("glm4-9b", SHAPES["decode"], m, smoke=True,
+                           traces=traces) for m in dryrun.MESHES]
+    assert len(traces) == 4  # one whole serve step for the three meshes
+    assert len({r["compile_s"] for r in recs}) == 1
     recs = [dryrun.run_one("glm4-9b", SHAPES["train"], m, smoke=True,
                            traces=traces) for m in dryrun.MESHES]
-    assert len(traces) == 3  # the train step, and the multi round step
-    assert recs[0]["compile_s"] == recs[1]["compile_s"]
+    assert {k[2:] for k in traces if k[1] == SHAPES["train"]} == {
+        ("train_step", None), ("train_step", "single"),
+        ("round_step", "multi")}
+    again = dryrun.run_one("glm4-9b", SHAPES["train"], "single", smoke=True,
+                           traces=traces)
+    assert len(traces) == 7 and again["cost"] == recs[1]["cost"]
 
 
 def test_sharding_for_on_abstract_and_live_meshes():

@@ -62,7 +62,11 @@ N_PODS, K, B, S, ROUNDS = (world_script.N_PODS, world_script.K,
                            world_script.ROUNDS)
 ARCHS = world_script.ARCHS
 CONFIGS = ARCHS + (world_script.HYMBA_5,)
+XLSTM_2 = world_script.XLSTM_2
 HELD = world_script.HELD
+# Each reference round's configs and host mesh.
+REFERENCES = {arch: "2,2,2" for arch in HELD}
+REFERENCES[XLSTM_2] = ",".join(map(str, world_script.WIDE[0]))
 TIMEOUT = 600
 
 _REFERENCE = r"""
@@ -79,12 +83,18 @@ from repro.models.registry import get_model_api
 
 with open(sys.argv[1], "rb") as f:
     initial = pickle.load(f)
-mesh = make_host_mesh((2, 2, 2), ("pod", "data", "model"))
+mesh = make_host_mesh(tuple(int(n) for n in sys.argv[4].split(",")),
+                      ("pod", "data", "model"))
 step_cfg = StepConfig(lr=0.05, alpha=0.9, rho=0.05, local_steps=2)
 nl = pod_mixing_neighbors(2)
 out = {}
 for arch in sys.argv[3].split(","):
-    cfg = get_config(arch, smoke=True)
+    if arch == "xlstm-350m-2h":
+        import dataclasses
+        cfg = dataclasses.replace(get_config("xlstm-350m", smoke=True),
+                                  n_heads=2, n_kv_heads=2)
+    else:
+        cfg = get_config(arch, smoke=True)
     api = get_model_api(cfg)
     ref = initial[arch]
     with shlib.use_mesh(mesh, fsdp=cfg.fsdp):
@@ -121,6 +131,9 @@ def _ref_cfg(name):
     if name == world_script.HYMBA_5:
         return dataclasses.replace(ref_config("hymba-1.5b", smoke=True),
                                    n_heads=5, n_kv_heads=5)
+    if name == XLSTM_2:
+        return dataclasses.replace(ref_config("xlstm-350m", smoke=True),
+                                   n_heads=2, n_kv_heads=2)
     return ref_config(name, smoke=True)
 
 
@@ -138,7 +151,7 @@ def _initial(path):
     from repro_torch.models.registry import get_model_api
 
     out = {}
-    for name in CONFIGS:
+    for name in CONFIGS + (XLSTM_2,):
         cfg = _ref_cfg(name)
         p = get_model_api(world_script.config(name)).init(
             torch.Generator().manual_seed(0), "cpu")
@@ -167,9 +180,10 @@ def world(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
     reference = [subprocess.Popen(
         [sys.executable, "-c", _REFERENCE, str(initial),
-         str(out / f"reference_{arch}.pkl"), arch],
+         str(out / f"reference_{arch}.pkl"), arch, shape],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env={**env, "JAX_PLATFORMS": "cpu"}) for arch in HELD]
+        env={**env, "JAX_PLATFORMS": "cpu"})
+        for arch, shape in REFERENCES.items()]
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "_torch_pod_families_world.py"),
@@ -196,7 +210,7 @@ def world(tmp_path_factory):
     with open(out / "states.pkl", "rb") as f:
         results["states"] = pickle.load(f)
     results["reference"] = {}
-    for arch in HELD:
+    for arch in REFERENCES:
         with open(out / f"reference_{arch}.pkl", "rb") as f:
             results["reference"].update(pickle.load(f))
     return results
@@ -288,3 +302,75 @@ def test_the_dry_run_rules_equal_the_measured_collectives(world, name):
     got = world["ranks"][0][name]["collectives"]
     assert got["bytes"] == want.bytes_by_kind, (got, want)
     assert got["count"] == want.count_by_kind, (got, want)
+
+
+# The reduced xlstm with 2 heads on the (2, 1, 4) mesh: each head's
+# columns on 2 ranks of "model" (``models.xlstm._mlstm_sub_head``, and
+# every sLSTM head on every rank).  Held as the six families are (the
+# module docstring): params to 1e-5 of each leaf's largest magnitude.  The
+# largest errors measured are on ``mlstm/ln``, the zeros-initialised leaf
+# whose gradient sums cancelling terms: 3.8e-6 against the mesh-less round
+# and 6.6e-6 against the reference's, beside the six families' 3.3e-6 and
+# 4.7e-6 (a head's q, k and v gradients summed over 2 ranks, and 4 ranks'
+# output rows, add two partial sums to the whole-heads path).
+SUB_HEAD_MESHLESS = 1e-5
+SUB_HEAD_REFERENCE = 1e-5
+
+
+def test_xlstm_over_a_model_axis_wider_than_its_heads(world):
+    """The sub-head mLSTM round against the mesh-less port round, and every
+    rank's blocks: a quarter of ``wq``'s columns (half a head), the sLSTM's
+    recurrent weights whole."""
+    r = world["ranks"][0][XLSTM_2]["run"]
+    assert r["params"] <= SUB_HEAD_MESHLESS, (r["worst"], r["params"])
+    assert r["w"] <= 1e-6, r
+    assert r["loss"] <= 1e-5 and r["acc"] <= 1e-5, r
+    assert abs(r["mass"] - N_PODS) <= 1e-4, r
+    for rank in world["ranks"]:
+        shards = rank[XLSTM_2]["shards"]
+        assert shards["mlstm/wq"][-1] == shards["mlstm/wq"][-2] // 4
+        assert shards["slstm/r"][-3] == 2  # both heads
+
+
+def test_xlstm_over_a_model_axis_wider_than_its_heads_equals_the_reference(
+        world):
+    """The same round against the reference's ``make_round_step`` on its
+    (2, 1, 4) host mesh."""
+    ref = world["reference"][XLSTM_2]
+    got = world["states"][XLSTM_2]
+    ref_params = {"/".join(p): x for p, x in leaves(ref["params"])}
+    assert sorted(ref_params) == sorted(got["params"])
+    for path, a in got["params"].items():
+        b = ref_params[path].astype(np.float64)
+        assert np.abs(a - b).max() <= SUB_HEAD_REFERENCE * np.abs(b).max(), \
+            path
+    np.testing.assert_allclose(got["w"], ref["w"], rtol=0, atol=1e-6)
+    for a, b in zip(got["metrics"], ref["metrics"]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+        assert abs(a["acc"] - b["acc"]) <= 1e-5
+
+
+@pytest.mark.parametrize("label", list(world_script.COUNTED))
+def test_a_rank_counts_what_the_fake_world_traces(world, label):
+    """What ``roofline.cost.CostMode`` counts on rank 0 of the gloo world in
+    one real round of the 2-head xlstm (FLOPs, bytes, kernel records and
+    collectives; K = 1, 2 SAM passes) equals the dry-run's meta trace of
+    rank 0 of a fake world of the same mesh
+    (``launch.dryrun.trace_placed``): the same sizes, the same step
+    configuration.  Exact."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.registry import get_model_api
+
+    shape, axes = world_script.COUNTED[label]
+    api = get_model_api(world_script.config(XLSTM_2))
+    want = dryrun.trace_placed(api, world_script.counted_shape(),
+                               "round_step",
+                               AbstractMesh(axes, dict(zip(axes, shape))),
+                               StepConfig(**world_script.COUNTED_STEP))
+    got = world["ranks"][0]["counts"][label]
+    assert got["collectives"] == want["collectives"]
+    assert got["kernels"] == want["kernels"]
+    assert (got["flops"], got["bytes accessed"]) == (
+        want["flops"], want["bytes accessed"])
