@@ -89,19 +89,20 @@ Phases, each fatal on failure:
    then one round from each bit for bit (``cudnn.deterministic`` set for
    the phase); A's file into A without its link scenario must raise;
    bytes written and save and restore seconds;
-10. the paged store at the README's setting: ``FLTrainer(paged=True)``
-   with mnist_2nn (D = 199,210) on synthetic MNIST split by
-   Dirichlet(0.3) over n = 4096 clients, k_active = 256, kout k_out = 4:
+10. the paged store at the README's setting with half its population:
+   ``FLTrainer(paged=True)`` with mnist_2nn (D = 199,210) on synthetic MNIST
+   split by Dirichlet(0.3) over n = 2048 clients, k_active = 256, kout
+   k_out = 4:
    the update and the gather at the paged shapes against their plain
    versions and bounds; c_max = 1280 resident and 2560 staging rows; a
    clean chunk corrupted before the cold round, which that round must
-   rebuild from the template; one cold and 3 timed rounds with launches
+   rebuild from the template; one cold and 1 timed round with launches
    (5 updates at (256, D), 1 gather at (1280, D) with 5 slots), closure
    mass error, wall time and pager counters, then the write-back's drain
-   and the time a round including it; store-wide mass 4096 within 1e-3;
+   and the time a round including it; store-wide mass n within 1e-3;
    ``save()``, and a reopen of the saved store under ``ChurnModel`` and a
    ``FaultInjector`` (a transient EIO on every file's first read): the
-   last round's rows bit for bit, 2 rounds retrying the EIOs with the mass
+   last round's rows bit for bit, a round retrying the EIOs with the mass
    exact, and a corrupted chunk of trained rows that a read must refuse;
    the phase's wall time by step;
 11. personalized serving: ``serve.main --clients 2 --rank 8`` with glm4-9b
@@ -232,7 +233,12 @@ Phases, each fatal on failure:
    HBM rate, the larger) over the median of 3 timed runs must be at most
    1.05, and the predicted peak within 25% of the measured one; then the
    numbers the kernel table lacked (SDPA at glm4-9b's training forward
-   shape, ``torch.matmul`` at hymba-1.5b's 4-layer pod bank);
+   shape, ``torch.matmul`` at hymba-1.5b's 4-layer pod bank); and rank 0's
+   own steps of the 256-rank ``single`` mesh, run on the card as rank 0 of
+   a fake world (glm4-9b's train step and xlstm-350m's; decode steps on a
+   placed cache: glm4-9b at 4 layers, 128 x 32,768, and gemma3-12b at 6
+   layers, long_500k's 1 x 524,288), each held to the meta trace as the
+   whole steps are;
 20. gemma3-12b's pod round: reduced card against CPU, then full width cut
    to one 5:1 period (6 of 48 layers), 2 pods, K = 2, 1 x 4096, 2 rounds,
    every flash backward call on the hd 256 tensor-core kernels;
@@ -244,7 +250,19 @@ Phases, each fatal on failure:
    list), each held to the mesh-less round on the same state and batches
    (params and w bit for bit or within 1e-5 of each leaf's magnitude, the
    leaves that differ named; loss and accuracy; launches a round and the
-   kernels' symbols equal); both sides' round times and peak memory.
+   kernels' symbols equal, or only which kernels ran where a profile
+   missed events); both sides' round times and peak memory;
+22. the pod runtime for every other family (xlstm-350m, hymba-1.5b, llava,
+   hubert at full width cut in depth, dbrx-132b and deepseek-v3-671b
+   reduced), held as phase 21's;
+23. serving on the pod runtime's mesh (one NCCL rank): ``launch.serve.
+   generate`` on the placed replica, its prefill building the cache as
+   DTensors and its steps reading and writing the rank's blocks, for
+   glm4-9b at full width cut to 4 layers (8 x 2048, 16 new tokens) and
+   phase 22's decoding families, each held to the mesh-less ``generate``
+   (tokens and logits bit for bit, the flash launches and the prefill's
+   kernel symbols equal, as phase 21's); both sides' prefill s, decode ms a step and
+   peak memory.
 
 The line before the last is the JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -2050,8 +2068,11 @@ def checkpoint_phase(dev, data, trainers=None, rounds: int = 1,
 # -- phase 10: the paged store -------------------------------------------------
 
 # README "Scenario: virtual client population" and round_bench.paged_bench's
-# defaults; the model is the paper's MNIST 2NN (784-200-200-10).
-PAGED_N, PAGED_K_ACTIVE, PAGED_K_OUT = 4096, 256, 4
+# defaults, the population cut from 4096 to 2048 clients (8 chunks of 256
+# rows): the phase's time is the store's host I/O, about half of it gone,
+# which keeps the whole script inside its time; the model is the paper's
+# MNIST 2NN (784-200-200-10).
+PAGED_N, PAGED_K_ACTIVE, PAGED_K_OUT = 2048, 256, 4
 MNIST_2NN_DIM = 199_210
 
 
@@ -2144,7 +2165,8 @@ def paged_phase(dev, n: int = PAGED_N, k_active: int = PAGED_K_ACTIVE,
                 k_out: int = PAGED_K_OUT, rounds: int = 1,
                 local_steps: int = 5, per_client: int = 32,
                 dim: int = MNIST_2NN_DIM) -> dict:
-    """``FLTrainer(paged=True)`` at the README's setting: n clients on disk,
+    """``FLTrainer(paged=True)`` at the README's setting (n cut to
+    :data:`PAGED_N`): n clients on disk,
     k_active a round, kout k_out, mnist_2nn (DFedSGPSM, 5 local steps).
     Before the cold round the store's last chunk is made clean and
     corrupted: the cold round must rebuild it from the template and never
@@ -5168,10 +5190,17 @@ DRYRUN_RECORDS = (
 # xlstm-350m's first group of 6 layers (5 mLSTM, each rank a quarter of a
 # head; 1 sLSTM, every head on every rank) at 256 x 64 tokens (16 x 64 a
 # rank: the sLSTM's time loop, one position at a time, sets its length).
+# Then two decode steps on a placed cache: glm4-9b at 4 layers, decode_32k's
+# 128 requests on a 32,768-position cache (8 rows a rank, head_dim on
+# "model"), and gemma3-12b at one 5:1 period of 6 layers, long_500k's one
+# request on 524,288 positions (32,768 a rank on "data", head_dim on
+# "model"; the step writes on the last rank's block).
 PLACED_RECORDS = (
     # (arch, layers, (shape name, S, B, kind), timed)
     ("glm4-9b", TRAIN_LAYERS, ("train_16x4096", 4096, 16, "train"), True),
     ("xlstm-350m", 6, ("train_256x64", 64, 256, "train"), False),
+    ("glm4-9b", TRAIN_LAYERS, ("decode_32k", 32768, 128, "decode"), True),
+    ("gemma3-12b", 6, ("long_500k", 524288, 1, "decode"), True),
 )
 # A roofline time longer than the measured one overstates the work.
 SHARE_LIMIT = 1.05
@@ -5486,6 +5515,55 @@ def kernel_symbols(prof) -> dict:
     return out
 
 
+PROFILE_PAD_S = 0.05  # idle seconds inside each end of a profile
+# Profiled runs a side (rounds, prefills), until one holds every launch.
+PROFILE_TRIES = 3
+
+
+@contextlib.contextmanager
+def device_profile(dev):
+    """``torch.profiler`` over the device's events (the CPU's off a card),
+    the work inside it kept :data:`PROFILE_PAD_S` of idle device time away
+    from both ends of the profile's window: late in the script profiles
+    missed kernels at their ends (a round's last kernel, a prefill's first
+    flash launch), which the profiler keeps only inside its window on the
+    host's clock."""
+    kinds = ([torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda"
+             else None)
+    with torch.profiler.profile(activities=kinds) as prof:
+        sync(dev)
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        sync(dev)
+        time.sleep(PROFILE_PAD_S)
+
+
+# The wrappers' counts of the kernels :func:`kernel_symbols` names.
+PROFILED = ("flash_attention", "flash_attention_backward_kernels",
+            "gossip_matmul", "gossip_gather")
+
+
+def profiled(pair: tuple) -> str:
+    """A (:func:`kernel_symbols`, complete) pair as printed."""
+    return f"{pair[0]}" + ("" if pair[1] else " (the profile missed events)")
+
+
+def check_same_kernels(what: str, got: tuple, base: tuple) -> None:
+    """Hold two runs' kernels by symbol, each a (:func:`kernel_symbols`,
+    complete) pair: complete where the profile holds every launch the
+    wrappers counted in it.  Two complete profiles must name the same
+    kernels the same number of times; otherwise the same kernels.  Late in
+    the script the profiler has dropped kernels' events (1 of a round's 64
+    flash launches, a round's only mix, 1 of a prefill's 2 flash
+    launches); the wrappers' counts are exact and held apart."""
+    (a, full_a), (b, full_b) = got, base
+    if full_a and full_b:
+        check(a == b, f"{what}: kernels {a} against the mesh-less {b}")
+    else:
+        check(set(a) == set(b), f"{what}: kernels {a} against the mesh-less "
+              f"{b} (a profile missed events)")
+
+
 def pod_round_run(dev, api, step_cfg, init, data, P, gossip: str, mesh,
                   rounds: int = POD_ROUNDS) -> dict:
     """``rounds`` rounds of ``make_round_step(gossip=...)`` from the whole
@@ -5494,9 +5572,15 @@ def pod_round_run(dev, api, step_cfg, init, data, P, gossip: str, mesh,
     mesh-less with ``mesh`` None (every pod stacked on the card), else
     under the pod runtime on ``mesh`` (the replicas placed by
     ``place_pods``: DTensors).  Per round the wall time
-    and the launches of :data:`POD_KERNELS`; the last round profiled (the
-    device's events only) for the kernels' symbols; the state after the
-    rounds gathered whole (params, w), the metrics and the peak memory."""
+    and the launches of :data:`POD_KERNELS`; every round profiled (the
+    device's events only) for the kernels' symbols, and ``symbols`` those
+    of the last round whose profile holds all its launches, with
+    ``complete`` saying whether one did.  Where no round's profile held
+    them all, the state after the rounds is kept on the host and up to
+    :data:`PROFILE_TRIES` - 1 more rounds on the last round's batch are
+    profiled until one does (their state discarded, their launches counted
+    nowhere).  Returns the state after the rounds gathered whole (params,
+    w), the metrics and the peak memory."""
     import contextlib
 
     from repro_torch.core.flat import tree_flatten, tree_map
@@ -5515,43 +5599,59 @@ def pod_round_run(dev, api, step_cfg, init, data, P, gossip: str, mesh,
         check(all(shlib.is_dtensor(x) for x in tree_flatten(params)[1]),
               "the pod runtime placed plain tensors")
     v = tree_map(torch.zeros_like, params)
-    on_mesh = (shlib.use_mesh(mesh, fsdp=api.cfg.fsdp) if mesh is not None
-               else contextlib.nullcontext())
+    on_mesh = ((lambda: shlib.use_mesh(mesh, fsdp=api.cfg.fsdp))
+               if mesh is not None else contextlib.nullcontext)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    walls, used, metrics, symbols = [], [], [], {}
+
+    def profiled_round(r):
+        """Round ``r``'s batch through one profiled round on the state:
+        (symbols, launches, complete, wall, metrics)."""
+        nonlocal params, v, w
+        batch = {k: x[r] if mesh is None else rows.rows(x[r])
+                 for k, x in data.items()}
+        before = read_counts()
+        with device_profile(dev) as prof:
+            t = time.perf_counter()
+            params, v, w, _, _, m = round_step(params, v, w, (), (), batch, P)
+            sync(dev)
+            wall = time.perf_counter() - t
+        syms = kernel_symbols(prof)
+        del prof
+        now = read_counts()
+        used = {k: now[k] - before[k] for k in POD_KERNELS}
+        full = sum(syms.values()) == sum(used[k] for k in PROFILED)
+        return syms, used, full, wall, (float(m["loss"]), float(m["acc"]))
+
+    walls, used, metrics, symbols, complete = [], [], [], {}, False
     zero_counts()
-    last = read_counts()
-    with on_mesh:
+    with on_mesh():
         for r in range(rounds):
-            batch = {k: x[r] if mesh is None else rows.rows(x[r])
-                     for k, x in data.items()}
-            profiled = r == rounds - 1
-            kinds = ([torch.profiler.ProfilerActivity.CUDA]
-                     if dev.type == "cuda" else None)
-            with (torch.profiler.profile(activities=kinds) if profiled
-                  else contextlib.nullcontext()) as prof:
-                t = time.perf_counter()
-                params, v, w, _, _, m = round_step(params, v, w, (), (),
-                                                   batch, P)
-                sync(dev)
-                walls.append(time.perf_counter() - t)
-            if profiled:
-                symbols = kernel_symbols(prof)
-                del prof
-            now = read_counts()
-            used.append({k: now[k] - last[k] for k in POD_KERNELS})
-            last = now
-            metrics.append((float(m["loss"]), float(m["acc"])))
+            syms, u, full, wall, m = profiled_round(r)
+            walls.append(wall)
+            used.append(u)
+            metrics.append(m)
+            if full or not complete:
+                symbols, complete = syms, full
     launches = read_counts()
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0)
+    out, out_w = params, w
     if mesh is not None:
-        params = steps.gather_pods(params, mesh, n_pods)
-        w = rows.all_gather(w)
+        out = steps.gather_pods(params, mesh, n_pods)
+        out_w = rows.all_gather(w)
+    if not complete:  # the rounds' end kept: the extra rounds write in place
+        out = tree_map(lambda x: x.to("cpu", copy=True), out)
+        out_w = out_w.clone()
+        with on_mesh():
+            for _ in range(PROFILE_TRIES - 1):
+                syms, _, complete, _, _ = profiled_round(rounds - 1)
+                if complete:
+                    symbols = syms
+                    break
     del v
-    return {"params": params, "w": w, "walls": walls, "used": used,
-            "metrics": metrics, "symbols": symbols, "peak": peak,
-            "launches": launches}
+    return {"params": out, "w": out_w, "walls": walls, "used": used,
+            "metrics": metrics, "symbols": symbols, "complete": complete,
+            "peak": peak, "launches": launches}
 
 
 def leaf_errors(got, want) -> dict:
@@ -5655,8 +5755,9 @@ def pod_runtime_phase(dev, head=print, layers: int = TRAIN_LAYERS,
                       f"{got['walls'][r]:.3f} s (mesh-less "
                       f"{base['walls'][r]:.3f} s); launches {got['used'][r]}"
                       f" (mesh-less {base['used'][r]})")
-            print(f"    kernels by symbol in the profiled round: "
-                  f"{got['symbols']} (mesh-less {base['symbols']})")
+            print(f"    kernels by symbol in a profiled round: "
+                  f"{profiled((got['symbols'], got['complete']))} (mesh-less "
+                  f"{profiled((base['symbols'], base['complete']))})")
             print(f"    peak device memory {got['peak'] / 1e9:.2f} GB "
                   f"(mesh-less {base['peak'] / 1e9:.2f} GB); card: {card}")
             check(all(e <= 1e-5 for e in errs.values()),
@@ -5670,9 +5771,8 @@ def pod_runtime_phase(dev, head=print, layers: int = TRAIN_LAYERS,
             check(got["used"] == base["used"],
                   f"{gossip}: launches {got['used']} against the mesh-less "
                   f"{base['used']}")
-            check(got["symbols"] == base["symbols"],
-                  f"{gossip}: kernels {got['symbols']} against the mesh-less"
-                  f" {base['symbols']}")
+            check_same_kernels(gossip, (got["symbols"], got["complete"]),
+                               (base["symbols"], base["complete"]))
             per_round = 2 * k_steps * n_pods * cfg.n_layers  # 2 SAM passes
             mix = "gossip_matmul" if form == "dense" else "gossip_gather"
             if dev.type == "cuda":
@@ -5768,8 +5868,9 @@ def pod_family_run(dev, mesh, arch: str, layers, batch_n: int, seq: int,
               f"{a[1]:.6f} ({b[1]:.6f}); wall {got['walls'][r]:.3f} s "
               f"(mesh-less {base['walls'][r]:.3f} s); launches "
               f"{got['used'][r]} (mesh-less {base['used'][r]})")
-    print(f"    kernels by symbol in the profiled round: {got['symbols']} "
-          f"(mesh-less {base['symbols']})")
+    print(f"    kernels by symbol in a profiled round: "
+          f"{profiled((got['symbols'], got['complete']))} (mesh-less "
+          f"{profiled((base['symbols'], base['complete']))})")
     print(f"    peak device memory {got['peak'] / 1e9:.2f} GB (mesh-less "
           f"{base['peak'] / 1e9:.2f} GB); card: {card}")
     check(all(e <= 1e-5 for e in errs.values()), f"{arch}: params {errs}")
@@ -5782,12 +5883,8 @@ def pod_family_run(dev, mesh, arch: str, layers, batch_n: int, seq: int,
     check(got["used"] == base["used"],
           f"{arch}: launches {got['used']} against the mesh-less "
           f"{base['used']}")
-    # The launches are the wrappers' exact counts; the profiler can drop a
-    # kernel's event (one of 16 once), so the profiled round is held by
-    # which kernels ran.
-    check(set(got["symbols"]) == set(base["symbols"]),
-          f"{arch}: kernels {got['symbols']} against the mesh-less "
-          f"{base['symbols']}")
+    check_same_kernels(arch, (got["symbols"], got["complete"]),
+                       (base["symbols"], base["complete"]))
     if dev.type == "cuda":
         per_round = 2 * k_steps * n_pods * flash_layers(cfg)  # 2 SAM passes
         check(all(u["gossip_matmul"] == 1
@@ -5832,6 +5929,159 @@ def pod_families_phase(dev, head=print, families=POD_FAMILIES,
     finally:
         close_clients_world()
     print(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+    release()
+    return paths
+
+
+# -- phase 23: serving on the pod runtime's mesh -------------------------------
+
+# Each decoding family on the one-rank mesh: (arch, layers kept (None: the
+# reduced config, f32), requests, prompt positions).  glm4-9b at full width
+# cut to TRAIN_LAYERS with 8 requests of 2048 tokens, the others at phase
+# 22's configs.
+PLACED_SERVE = (("glm4-9b", TRAIN_LAYERS, 8, 2048),) + tuple(
+    f for f in POD_FAMILIES if f[0] != "hubert-xlarge")
+PLACED_NEW = 16  # new tokens a request: one from the prefill, 15 steps
+
+
+def placed_serve_run(dev, mesh, arch: str, layers, batch_n: int, seq: int,
+                     new: int = PLACED_NEW) -> dict:
+    """One family of phase 23: ``launch.serve.generate`` on the replica
+    placed over the one-rank mesh's ``(data, model)`` submesh
+    (``launch.sharding.place_params``, the requests by
+    ``launch.steps.place_batch``, under ``sharding.use_mesh``: the prefill
+    builds the cache as DTensors, each step reads and writes the rank's
+    blocks) against the mesh-less ``generate``, from the same params (seed
+    0) and prompts (``serve.prompts``, seed 0).  Equal tokens, and the
+    logits bit for bit; the launches of the flash forward over the whole
+    generate (every counter) equal, and the kernels by symbol in one more
+    profiled prefill (of a family with flash layers; up to
+    :data:`PROFILE_TRIES` until a profile holds every launch) held by
+    :func:`check_same_kernels`.  Prints both sides'
+    prefill seconds, decode ms a step and peak memory.  Returns the
+    launches of the placed generate."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.flat import tree_flatten
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch.steps import place_batch
+    from repro_torch.models.registry import get_model_api
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    card = card_line() if dev.type == "cuda" else "no card"
+    cfg = (get_config(arch, smoke=True) if layers is None
+           else dataclasses.replace(get_config(arch), n_layers=layers))
+    api = get_model_api(cfg)
+    with torch.no_grad():
+        params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = serve.prompts(cfg, batch_n, seq, 0, dev)
+    n_prefix = serve.N_IMAGE if cfg.task == "vlm" else 0
+    print(f"  {cfg.name}: {cfg.n_layers} layers, "
+          f"{api.num_params() / 1e9:.3f} B parameters in "
+          f"{str(cfg.dtype)[6:]}; {batch_n} requests of {seq} tokens"
+          + (f" after {n_prefix} image embeddings" if n_prefix else "")
+          + f", {new} new tokens each")
+    def one(p, b, on_mesh):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with on_mesh():
+            rec = serve.generate(api, p, b, new)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        del rec["cache"]  # not held through the other side's run
+        if not flash_layers(cfg):  # no kernel to name (xlstm, MLA)
+            return rec, launches, peak, ({}, True)
+        placed = (implicit_replication if shlib.is_dtensor(b["tokens"])
+                  else contextlib.nullcontext)
+        for _ in range(PROFILE_TRIES):  # until a profile holds every launch
+            before = read_counts()["flash_attention"]
+            with on_mesh(), placed(), torch.no_grad(), \
+                    device_profile(dev) as prof:
+                api.prefill(p, b, n_prefix + seq + new)
+            symbols = kernel_symbols(prof)
+            del prof
+            full = (sum(symbols.values())
+                    == read_counts()["flash_attention"] - before)
+            if full:
+                break
+        return rec, launches, peak, (symbols, full)
+
+    base, base_n, base_peak, base_sym = one(params, batch,
+                                            contextlib.nullcontext)
+    release_quiet()
+    placed = shlib.place_params(params, api.param_defs(), mesh, cfg.fsdp,
+                                model_axes=shlib.model_axes_for(cfg))
+    del params
+    check(all(shlib.is_dtensor(x) for x in tree_flatten(placed)[1]),
+          f"{arch}: the placement left plain tensors")
+    pbatch = place_batch(batch, mesh, 0)
+    got, got_n, got_peak, got_sym = one(
+        placed, pbatch, lambda: shlib.use_mesh(mesh, fsdp=cfg.fsdp))
+    same_logits = torch.equal(got["logits"], base["logits"])
+    err = (float((got["logits"].float() - base["logits"].float()).abs().max())
+           / float(base["logits"].float().abs().max()))
+    steps = max(base["steps"], 1)
+    print(f"    tokens {'equal' if torch.equal(got['tokens'], base['tokens']) else 'DIFFER'}; "
+          f"logits {'bit for bit' if same_logits else f'max {err:.3e} of their magnitude'}")
+    print(f"    prefill {got['prefill_s']:.3f} s (mesh-less "
+          f"{base['prefill_s']:.3f} s); decode "
+          f"{1e3 * got['decode_s'] / steps:.2f} ms a step (mesh-less "
+          f"{1e3 * base['decode_s'] / steps:.2f} ms: DTensor's host "
+          f"dispatch); peak device memory {got_peak / 1e9:.2f} GB (mesh-less "
+          f"{base_peak / 1e9:.2f} GB); card: {card}")
+    print(f"    flash launches {got_n['flash_attention']} (mesh-less "
+          f"{base_n['flash_attention']}); kernels by symbol in a prefill: "
+          f"{profiled(got_sym)} (mesh-less {profiled(base_sym)})")
+    check(got["finite"] and base["finite"], f"{arch}: logits not finite")
+    check(torch.equal(got["tokens"], base["tokens"]),
+          f"{arch}: tokens {got['tokens']} against {base['tokens']}")
+    check(same_logits, f"{arch}: logits differ, {err:.3e} of their "
+          "magnitude")
+    check(got_n == base_n,
+          f"{arch}: launches {got_n} against the mesh-less {base_n}")
+    check_same_kernels(arch, got_sym, base_sym)
+    if dev.type == "cuda":
+        check(got_n["flash_attention"] == flash_layers(cfg),
+              f"{arch}: {got_n['flash_attention']} flash launches, expected "
+              f"{flash_layers(cfg)} in the prefill")
+    del got, base, placed, pbatch
+    return got_n
+
+
+def placed_serving_phase(dev, head=print, families=PLACED_SERVE,
+                         new: int = PLACED_NEW) -> dict:
+    """Phase 23 whole (``head`` prints each step's heading): serving on the
+    pod runtime's mesh, a one-rank NCCL world's ``(1, 1, 1)`` mesh (gloo on
+    the CPU), for every decoding family of :data:`PLACED_SERVE`, each
+    through :func:`placed_serve_run`.  Closes its process group.  Returns
+    the launches of each family's placed generate.  ``python3
+    repeat_phase.py --repeat 1 placed_serving_phase`` runs it alone."""
+    from repro_torch.launch.mesh import close_clients_world, init_world
+
+    card = card_line() if dev.type == "cuda" else "no card"
+    t0 = time.perf_counter()
+    mesh = init_world(0, 1, free_port(), dev, *POD_MESH)
+    paths = {}
+    try:
+        for arch, layers, batch_n, seq in families:
+            width = ("at its reduced config" if layers is None
+                     else f"at full width cut to {layers} layers")
+            head(f"[23] placed serving on a one-rank NCCL world: {arch} "
+                 f"{width}, {batch_n} x {seq} tokens, {new} new, the cache "
+                 f"placed on a {POD_MESH[0]} {POD_MESH[1]} mesh, against the "
+                 f"mesh-less generate; card: {card}")
+            t = time.perf_counter()
+            paths[f"{arch} placed serving path"] = placed_serve_run(
+                dev, mesh, arch, layers, batch_n, seq, new)
+            release_quiet()
+            print(f"  {arch} took {time.perf_counter() - t:.1f} s")
+    finally:
+        close_clients_world()
+    print(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
     release()
     return paths
 
@@ -6002,6 +6252,7 @@ def main() -> int:
     paths.update(gemma_phase(dev, head))
     paths.update(pod_runtime_phase(dev, head))
     paths.update(pod_families_phase(dev, head))
+    paths.update(placed_serving_phase(dev, head))
     # Each path's counts run from 0 just before it to just after it.
     names = counters()
     launches = {k: sum(p[k] for p in paths.values()) for k in names}

@@ -26,33 +26,37 @@ Meshes:
   (``"per_device": "whole step"``; ``chip_smoke.py`` phase 19 checks it
   on the card).
 - ``single`` and ``multi``: the reference's production meshes (16 x 16 and
-  2 x 16 x 16, ``launch.mesh.make_production_mesh``).  A ``train`` or
-  ``prefill`` record is rank 0's own step, as the reference counts one
-  device's sharded program (``"per_device": "rank 0"``,
-  :func:`trace_placed`): a ``launch.mesh.fake_world`` of 256 or 512 ranks
-  is started in this process, the pod runtime's own placement code places
-  the step's arguments over it (:func:`placed_step_args`: the replica
-  over the pod's ``(data, model)`` submesh by ``place_params`` /
-  ``place_pods`` with :func:`_model_axes`, the experts on "model", the
-  batch by ``place_batch``, its rows on ``("pod", "data")`` as
-  :func:`_pod_spec` puts them), and the step runs
-  on meta under ``CostMode``: its FLOPs, bytes, temporaries, peak and the
-  collectives DTensor and the pod gossip run are that rank's, the work
-  the runtime replicates included (kv heads and heads that do not divide
-  "model", norms, the mLSTM's and the SSM's gathered up-projections, the
-  tokens around the experts, the gathered logits).  The world is
-  destroyed after the trace; one that fails to start, or a step that
-  raises, is an error record.  A ``decode`` record stays the whole serve
-  step divided by the chip count (``"ideal"``): the runtime has no placed
-  decode yet (``long_500k`` splits its cache along the sequence).  The
-  argument bytes a device holds are exact either way, from
-  ``launch.sharding.spec_for`` of every parameter, cache and batch leaf,
-  and a rank-0 trace must hold exactly those.  :func:`collectives` (the
-  rules of ``roofline.analysis``) gives the decode records' collectives
-  and is held equal to the rank-0 traces' by the tests.
+  2 x 16 x 16, ``launch.mesh.make_production_mesh``).  Every record is
+  rank 0's own step, as the reference counts one device's sharded program
+  (``"per_device": "rank 0"``, :func:`trace_placed`): a
+  ``launch.mesh.fake_world`` of 256 or 512 ranks is started in this
+  process, the pod runtime's own placement code places the step's
+  arguments over it (:func:`placed_step_args`: the replica over the pod's
+  ``(data, model)`` submesh by ``place_params`` / ``place_pods`` with
+  ``launch.sharding.model_axes_for``, the experts on "model", the batch
+  by ``place_batch``, its rows on ``("pod", "data")`` as
+  ``launch.sharding.pod_spec`` puts them, a serving cache by
+  ``launch.sharding.place_cache``), and the step runs on meta under
+  ``CostMode``: its FLOPs, bytes, temporaries, peak and the collectives
+  DTensor and the pod gossip run are that rank's, the work the runtime
+  replicates included (kv heads and heads that do not divide "model",
+  norms, the mLSTM's and the SSM's gathered up-projections, the tokens
+  around the experts, the gathered logits).  A
+  ``decode`` record is the serve step on rank 0's blocks of the cache
+  (``launch.sharding.cache_spec``: kv heads, else head_dim, or an SSM
+  state's channels on "model"; the batch on "data", else, as
+  ``long_500k``'s batch of 1, the positions), its attention summing
+  partial scores over "model" and combining the softmax over "data"
+  (``models.attention``).  The world is destroyed after the trace; one
+  that fails to start, or a step that raises, is an error record.  The
+  argument bytes a device holds, from ``launch.sharding.spec_for`` of
+  every parameter, cache and batch leaf, are exact, and a rank-0 trace
+  must hold exactly those (the serve step's ``pos`` aside, a host int).
+  :func:`collectives` (the rules of ``roofline.analysis``) is held equal
+  to the rank-0 traces' by the tests.
 
 Traces are cached by (arch, shape, step, mesh), the mesh ``None`` for the
-whole step that the ``card`` and the decode records share.
+``card``'s whole step.
 
 Records take the reference's keys, against the H100's constants
 (``launch.mesh.HARDWARE``); those that cannot run are marked ``skip`` as in
@@ -101,6 +105,7 @@ from repro_torch.models.registry import get_model_api
 from repro_torch.roofline.analysis import (
     CollectiveStats,
     data_parallel_collectives,
+    decode_attention_collectives,
     expert_collectives,
     fsdp_collectives,
     head_dim_collectives,
@@ -138,25 +143,6 @@ def _skip_reason(cfg, shape) -> str | None:
     return None
 
 
-def _pod_spec(spec: tuple, batch_dims: tuple, shape_tuple: tuple,
-              n_pods: int) -> tuple:
-    """Widen a single-pod spec: shard batch over ("pod","data") when it
-    divides; leave everything else untouched (=> replicated over pod)."""
-    if n_pods <= 1:
-        return tuple(spec)
-    out = list(spec) + [None] * (len(shape_tuple) - len(spec))
-    for i in batch_dims:
-        if out[i] == "data" and shape_tuple[i] % (16 * n_pods) == 0:
-            out[i] = ("pod", "data")
-    return tuple(out)
-
-
-def _model_axes(cfg):
-    if cfg.attn_fallback == "replicate":
-        return tuple(a for a in shlib.MODEL_AXES if a != "head_dim")
-    return shlib.MODEL_AXES
-
-
 def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -171,7 +157,7 @@ def _leaves(tree, prefix=()):
 
 def _abstract_params(api, mesh, multi_pod: bool, replicate_pods: bool) -> dict:
     n_pods = mesh.shape.get("pod", 1)
-    maxes = _model_axes(api.cfg)
+    maxes = shlib.model_axes_for(api.cfg)
     out = {}
     for path, d in _leaves(api.param_defs()):
         spec = shlib.spec_for(d, mesh, fsdp=api.cfg.fsdp, model_axes=maxes)
@@ -196,31 +182,19 @@ def _abstract_batch(cfg, shape, mesh, multi_pod: bool, stacked: bool) -> dict:
                             ("pod", None, "data" if local[0] % 16 == 0
                              else None) + (None,) * (len(sh) - 1))
         elif multi_pod:
-            out[(name,)] = (sh, t.dtype, _pod_spec(spec, (0,), sh, n_pods))
+            out[(name,)] = (sh, t.dtype,
+                            shlib.pod_spec(spec, (0,), sh, n_pods))
         else:
             out[(name,)] = (sh, t.dtype, spec)
     return out
 
 
-def _abstract_cache(api, mesh, batch: int, length: int,
-                    multi_pod: bool) -> dict:
-    n_pods = mesh.shape.get("pod", 1)
-    maxes = _model_axes(api.cfg)
-    seq_shard = api.cfg.serve_cache_shard == "seq"
-    out = {}
-    for path, d in _leaves(api.cache_defs(batch, length)):
-        if seq_shard and "seq" in d.axes:
-            # distributed flash-decode layout: batch->data, seq->model
-            spec = tuple("data" if a == "batch" and n % 16 == 0
-                         else "model" if a == "seq" and n % 16 == 0
-                         else None for a, n in zip(d.axes, d.shape))
-        else:
-            spec = shlib.spec_for(d, mesh, fsdp=False, model_axes=maxes)
-        if multi_pod:
-            bdims = tuple(i for i, a in enumerate(d.axes) if a == "batch")
-            spec = _pod_spec(spec, bdims, d.shape, n_pods)
-        out[path] = (d.shape, d.dtype, spec)
-    return out
+def _abstract_cache(api, mesh, batch: int, length: int) -> dict:
+    """The serving cache, each leaf by ``launch.sharding.cache_spec`` (the
+    batch widened over the pods where ``mesh`` has them): the placement the
+    pod runtime's ``place_cache`` and prefill give it."""
+    return {path: (d.shape, d.dtype, shlib.cache_spec(d, mesh, api.cfg))
+            for path, d in _leaves(api.cache_defs(batch, length))}
 
 
 def _placed_args(api, shape, mesh, multi: bool) -> list:
@@ -243,9 +217,9 @@ def _placed_args(api, shape, mesh, multi: bool) -> list:
         return [params, _abstract_batch(cfg, shape, mesh, multi,
                                         stacked=False)]
     b = shape.global_batch
-    toks = _pod_spec(("data" if b % 16 == 0 else None,), (0,), (b,),
-                     mesh.shape.get("pod", 1))
-    return [params, _abstract_cache(api, mesh, b, shape.seq_len, multi),
+    toks = shlib.pod_spec(("data" if b % 16 == 0 else None,), (0,), (b,),
+                          mesh.shape.get("pod", 1))
+    return [params, _abstract_cache(api, mesh, b, shape.seq_len),
             {(): ((b,), torch.int32, toks)}, {(): ((), torch.int32, ())}]
 
 
@@ -279,7 +253,7 @@ def _blocks(defs: dict) -> list:
 def collectives(api, mesh, kind: str, local_batch: int, seq: int,
                 passes: int, steps: int = 1, n_pods: int = 0,
                 batch_on_data: bool = True,
-                gossip: str = "auto") -> CollectiveStats:
+                gossip: str = "auto", cache: dict = None) -> CollectiveStats:
     """The collectives one device of ``mesh`` issues (``roofline.analysis``'s
     rules) in a step of ``kind`` with ``local_batch`` rows of ``seq``
     positions on the device: ``train`` runs ``steps`` local steps of
@@ -287,7 +261,10 @@ def collectives(api, mesh, kind: str, local_batch: int, seq: int,
     with ``n_pods`` (the multi-pod round over the mesh's ``"pod"`` axis) the
     round's gossip under ``gossip``; other kinds one forward.
     ``batch_on_data``: the batch rows are split on ``"data"`` (then the
-    gradients and metrics are partial sums there)."""
+    gradients and metrics are partial sums there).  A ``decode`` step (one
+    token a row, ``seq`` 1) reads its attention's placement from ``cache``
+    (the placed cache, ``_abstract_cache``'s {path: (shape, dtype,
+    spec)})."""
     cfg = api.cfg
     stats = CollectiveStats()
     params = _abstract_params(api, mesh, False, False)  # one replica
@@ -314,10 +291,13 @@ def collectives(api, mesh, kind: str, local_batch: int, seq: int,
             blocks += [block(sh, dt, spec) // n] * (n * uses)
     fsdp_collectives(stats, blocks, data_n, kind, grad_passes)
     # The device's positions: the layers run hymba's meta tokens before the
-    # text; the vlm's text follows its image rows.
-    prefix = cfg.n_meta_tokens if cfg.block_kind == "hymba" else 0
+    # text; the vlm's text follows its image rows (both are in a decode
+    # step's cache, not in its one position).
+    decode = kind == "decode"
+    prefix = cfg.n_meta_tokens if cfg.block_kind == "hymba" and not decode \
+        else 0
     text = (seq - min(cfg.n_frontend_tokens, max(seq // 2, 1))
-            if cfg.task == "vlm" else seq)
+            if cfg.task == "vlm" and not decode else seq)
     # the device's activations: local batch x positions x d_model
     row_bytes = local_batch * cfg.d_model * itemsize
     act = (seq + prefix) * row_bytes
@@ -358,7 +338,11 @@ def collectives(api, mesh, kind: str, local_batch: int, seq: int,
                              kind, grad_passes)
         if q_bytes:  # every device runs every head: whole qk-norm grads
             whole |= {path + ("q_norm",), path + ("k_norm",)}
-    if cfg.task == "vlm" and vocab_on_model(("projector", "w2")):
+    if decode:
+        _decode_attention(stats, api, mesh, params, cache, local_batch,
+                          itemsize)
+    if (cfg.task == "vlm" and not decode
+            and vocab_on_model(("projector", "w2"))):
         projector_collectives(stats, (seq - text) * row_bytes, kind,
                               grad_passes)
         whole.add(("projector", "w1"))
@@ -427,6 +411,43 @@ def collectives(api, mesh, kind: str, local_batch: int, seq: int,
     return stats
 
 
+def _decode_attention(stats, api, mesh, params: dict, cache: dict,
+                      rows: int, itemsize: int) -> None:
+    """:func:`decode_attention_collectives` of one decode step from the
+    placement of its cache (``cache``) and of its query projection
+    (``params``): ``rows`` requests on the device."""
+    cfg = api.cfg
+    data_n = mesh.shape.get("data", 1)
+    model_n = mesh.shape.get("model", 1)
+    key = ("ckv",) if cfg.attn_type == "mla" else ("k",)
+    if key not in cache:  # xlstm: a recurrent state, no attention
+        return
+    shape, _, spec = cache[key]  # (layers, batch, positions, ...)
+    length = shape[2]
+    spec = tuple(spec[1:]) + (None,) * (len(shape) - len(spec))
+    h = cfg.n_heads
+    seq_split = spec[1] == "data"
+    s_loc = length // data_n if seq_split else length
+    if cfg.attn_type == "mla":
+        wq = params[("layers", "attn", "wq_b")][2]
+        h_loc = h // model_n if wq[2] == "model" else h
+        width = cfg.v_head_dim
+        score = q_bytes = 0
+    else:
+        hd = cfg.resolved_head_dim
+        hd_split, kv_split = spec[3] == "model", spec[2] == "model"
+        wq = params[("layers", "attn", "wq")][2]
+        q_heads = wq[2] == "model"
+        h_loc = h // model_n if kv_split or (q_heads and not hd_split) else h
+        width = hd // model_n if hd_split else hd
+        score = rows * h * s_loc * 4 if hd_split else 0
+        q_bytes = rows * h * hd * itemsize if hd_split and q_heads else 0
+    combine = ((rows * h_loc * 4, rows * h_loc * (width + 1) * 4)
+               if seq_split else (0, 0))
+    decode_attention_collectives(stats, cfg.n_layers, score, q_bytes,
+                                 combine)
+
+
 def _collectives(api, shape, mesh, multi: bool, placed: list,
                  passes: int) -> CollectiveStats:
     """:func:`collectives` for the step whose arguments ``_placed_args``
@@ -444,7 +465,8 @@ def _collectives(api, shape, mesh, multi: bool, placed: list,
     return collectives(api, mesh, kind, local, seq, passes,
                        steps=sh[1] if multi_round else 1,
                        n_pods=mesh.shape["pod"] if multi_round else 0,
-                       batch_on_data=spec[lead] in ("data", ("pod", "data")))
+                       batch_on_data=spec[lead] in ("data", ("pod", "data")),
+                       cache=placed[1] if kind == "decode" else None)
 
 
 # -- the trace ------------------------------------------------------------------
@@ -546,17 +568,23 @@ def placed_step_args(api, shape, step: str, mesh, step_cfg=None,
     whole arguments placed by the pod runtime's own code.
 
     - ``"train_step"``: ``make_train_step`` on the replica placed over the
-      submesh (``launch.sharding.place_params`` with :func:`_model_axes`,
-      the experts on "model"), the batch's rows on "data"
-      (``launch.steps.place_batch``);
+      submesh (``launch.sharding.place_params`` with
+      ``launch.sharding.model_axes_for``, the experts on "model"), the
+      batch's rows on "data" (``launch.steps.place_batch``);
     - ``"round_step"``: ``make_round_step`` over the "pod" axis on this
       rank's pods of ``N_PODS`` (``launch.steps.place_pods``), their
       batches (``step_cfg.local_steps`` a pod) placed as ``launch.train``
       places them, and the dense pod ring ``P_pod``;
     - ``"forward"``: ``forward`` on the replica over the submesh (every pod
       holds it whole) and this rank's pod's rows of the batch (on
-      ``("pod", "data")`` where they divide, :func:`_pod_spec`), placed as
-      the train step's.
+      ``("pod", "data")`` where they divide,
+      ``launch.sharding.pod_spec``), placed as the train step's;
+    - ``"serve_step"``: the serve step on the replica placed as
+      ``"forward"``'s, the cache placed by ``launch.sharding.place_cache``
+      (``cache_spec``: kv heads, head_dim or an SSM state's channels on
+      "model", the batch on "data", else a long cache's positions; the
+      pod's rows where the batch is on ``("pod", "data")``), the tokens as
+      the forward's batch, ``pos`` a plain int.
 
     Without ``seed`` the arguments are empty tensors on ``device`` (on meta
     the whole ones cost nothing); with one, drawn as :func:`step_args`
@@ -565,7 +593,7 @@ def placed_step_args(api, shape, step: str, mesh, step_cfg=None,
 
     cfg = api.cfg
     step_cfg = step_cfg or StepConfig()
-    maxes = _model_axes(cfg)
+    maxes = shlib.model_axes_for(cfg)
     args, fn = step_args(api, shape, step, step_cfg, device, seed)
     if step == "round_step":
         p, v, w, comp, link, batch, P = args
@@ -576,9 +604,6 @@ def placed_step_args(api, shape, step: str, mesh, step_cfg=None,
         p, v = (place_pods(api, t, mesh, maxes) for t in (p, v))
         return (p, v, w, comp, link, batch, P), _on_mesh(fn, mesh, cfg.fsdp,
                                                          implicit=False)
-    if step not in ("train_step", "forward"):
-        raise ValueError(f"no placed form of {step!r}: the pod runtime places "
-                         f"train_step, round_step and forward")
     size = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     pod_n, b = size.get("pod", 1), shape.global_batch
     pods = (pod_rows(mesh, pod_n)
@@ -593,6 +618,12 @@ def placed_step_args(api, shape, step: str, mesh, step_cfg=None,
         return shlib.place_params(t, api.param_defs(), mesh, cfg.fsdp,
                                   model_axes=maxes)
 
+    if step == "serve_step":
+        p, cache, toks = args
+        toks = place_batch({"tokens": pod_batch(toks)}, mesh, 0)["tokens"]
+        return ((place(p), shlib.place_cache(cache, api.cache_defs(
+            shape.global_batch, shape.seq_len), mesh, cfg), toks),
+            _on_mesh(fn, mesh, cfg.fsdp))
     batch = place_batch({k: pod_batch(x) for k, x in args[-1].items()}, mesh,
                         0)
     if step == "forward":
@@ -668,13 +699,12 @@ def run_one(arch: str, shape, mesh_kind: str, step_cfg=None,
             traces: dict = None) -> dict:
     """One record: ``arch`` (reduced with ``smoke``) at ``shape`` (an
     ``INPUT_SHAPES`` name or an ``InputShape``) on ``mesh_kind`` (``card``,
-    ``single`` or ``multi``).  A train or prefill record on a production
-    mesh is rank 0's own step (:func:`trace_placed`, ``"per_device": "rank
-    0"``); a decode record there is the whole step's trace divided by the
-    chip count (``"ideal"``), and the ``card`` record the whole step.
+    ``single`` or ``multi``).  Every record on a production mesh is rank 0's
+    own step (:func:`trace_placed`, ``"per_device": "rank 0"``), its
+    argument bytes held to the placement's (``pos`` aside: the port's serve
+    step takes it as a host int); the ``card`` record is the whole step.
     ``traces`` caches the traces by (arch, shape, step, mesh: ``None`` for
-    the whole step) across calls, so that the records of one whole step
-    share it."""
+    the card's whole step) across calls."""
     base_cfg = get_config(arch, smoke=smoke)
     if overrides:
         base_cfg = dataclasses.replace(base_cfg, **overrides)
@@ -693,8 +723,7 @@ def run_one(arch: str, shape, mesh_kind: str, step_cfg=None,
     multi = mesh_kind == "multi"
     step = _step_name(shape, multi)
     traces = {} if traces is None else traces
-    placed_step = mesh_kind != "card" and shape.kind != "decode"
-    key = (arch, shape, step, mesh_kind if placed_step else None)
+    key = (arch, shape, step, None if mesh_kind == "card" else mesh_kind)
     if mesh_kind == "card":
         n_chips = 1
     else:
@@ -702,30 +731,24 @@ def run_one(arch: str, shape, mesh_kind: str, step_cfg=None,
         n_chips = mesh.size
         placed = _placed_args(api, shape, mesh, multi)
     if key not in traces:
-        traces[key] = (trace_placed(api, shape, step, mesh, step_cfg)
-                       if placed_step else trace(api, shape, step, step_cfg))
+        traces[key] = (trace(api, shape, step, step_cfg) if mesh_kind == "card"
+                       else trace_placed(api, shape, step, mesh, step_cfg))
     cost = traces[key]
-    share = 1 if placed_step else n_chips  # the whole step's share
+    mem = dict(cost["memory"])
     if mesh_kind == "card":
         coll = CollectiveStats()
-        mem = dict(cost["memory"])
-    elif placed_step:
+    else:
         coll = CollectiveStats(dict(cost["collectives"]["bytes"]),
                                dict(cost["collectives"]["count"]))
-        mem = dict(cost["memory"])
-        if mem["argument"] != _device_bytes(placed, mesh):
+        # The port's serve step takes pos as a host int, not a device scalar.
+        want = _device_bytes(placed, mesh) - (4 if shape.kind == "decode"
+                                              else 0)
+        if mem["argument"] != want:
             raise RuntimeError(
                 f"rank 0 holds {mem['argument']} bytes of arguments; their "
-                f"placement gives {_device_bytes(placed, mesh)}")
-    else:
-        passes = 2 if step_cfg.rho > 0 else 1
-        coll = _collectives(api, shape, mesh, multi, placed, passes)
-        mem = {k: v / n_chips for k, v in cost["memory"].items()}
-        mem["argument"] = _device_bytes(placed, mesh)
-        mem["peak_estimate"] = mem["argument"] + mem["temp"]
-    terms = roofline_terms({"flops": cost["flops"] / share,
-                            "bytes accessed": cost["bytes accessed"] / share},
-                           coll)
+                f"placement gives {want}")
+    terms = roofline_terms({"flops": cost["flops"],
+                            "bytes accessed": cost["bytes accessed"]}, coll)
 
     n_params, active = param_counts(api)
     mf = step_model_flops(active, shape)
@@ -737,8 +760,7 @@ def run_one(arch: str, shape, mesh_kind: str, step_cfg=None,
         n_params=n_params,
         n_params_active=active,
         bytes_per_device=mem,
-        per_device=("whole step" if mesh_kind == "card"
-                    else "rank 0" if placed_step else "ideal"),
+        per_device="whole step" if mesh_kind == "card" else "rank 0",
         roofline=terms,
         collectives={"bytes": coll.bytes_by_kind, "count": coll.count_by_kind},
         model_flops=mf,

@@ -38,12 +38,14 @@ those lanes serve the base model.  On the CPU, at smoke size:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.launch import sharding as shlib
 from repro_torch.launch.steps import (
     make_personalized_serve_step,
     make_serve_step,
@@ -87,8 +89,9 @@ def _sync(device: torch.device) -> None:
 
 def _finite(t: torch.Tensor) -> torch.Tensor:
     """Whether every element is finite, as a device bool, without a
-    full-size temporary: NaN propagates through min and max."""
-    lo, hi = torch.aminmax(t)
+    full-size temporary: NaN propagates through min and max.  Of a DTensor,
+    the rank's own block."""
+    lo, hi = torch.aminmax(t.to_local() if shlib.is_dtensor(t) else t)
     return torch.isfinite(lo) & torch.isfinite(hi)
 
 
@@ -103,18 +106,50 @@ def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
     new_tokens, V) on the device (the last-position logits each token was
     picked from), ``prefill_s`` and ``decode_s`` (host clock, synchronized
     with the device), ``steps``, ``n_prefix`` (n_img, 0 without image
-    features) and ``finite`` (every prefill and decode logit finite)."""
+    features), ``finite`` (every prefill and decode logit finite) and
+    ``cache``, the cache after the last step.
+
+    On a placed replica (the pod runtime's: params by
+    ``launch.sharding.place_params``, the batch by ``launch.steps.
+    place_batch``, under ``sharding.use_mesh``) the prefill builds the cache
+    in its placement (``sharding.cache_spec``) and each step reads and
+    writes the rank's blocks of it; each token's logits are gathered over
+    the vocabulary before the argmax, and the tokens and logits returned
+    are the pod's whole rows (``finite`` covers the rank's blocks)."""
+    tokens = batch["tokens"]
+    n_prefix = batch["image_feats"].shape[1] if "image_feats" in batch else 0
+    cache_len = n_prefix + tokens.shape[1] + new_tokens
+    serve_step = make_serve_step(api)
+    placed = shlib.is_dtensor(tokens)
+    on_mesh = contextlib.nullcontext()
+    if placed:  # plain tensors (positions, masks) meet DTensors
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        on_mesh = implicit_replication()
+    with on_mesh:
+        rec = _generate(api, params, batch, new_tokens, serve_step,
+                        cache_len, n_prefix)
+    if placed:
+        rec["tokens"] = shlib.full_tensor(rec["tokens"])
+        rec["logits"] = shlib.full_tensor(rec["logits"])
+    rec["tokens"] = rec["tokens"].cpu()
+    print(rec["tokens"])
+    return rec
+
+
+def _generate(api, params, batch, new_tokens, serve_step, cache_len,
+              n_prefix) -> dict:
+    """:func:`generate`'s prefill and decode loop."""
     tokens = batch["tokens"]
     device = tokens.device
     b, s = tokens.shape
-    n_prefix = batch["image_feats"].shape[1] if "image_feats" in batch else 0
-    cache_len = n_prefix + s + new_tokens
-    serve_step = make_serve_step(api)
-
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = api.prefill(params, batch, cache_len)
-    last = [logits[:, -1].clone()]  # a view would keep all of them alive
+    # A clone, or a gather over the vocabulary: a view would keep all of
+    # the prefill's logits alive.
+    last = [shlib.gather_model(logits[:, -1]) if shlib.is_dtensor(logits)
+            else logits[:, -1].clone()]
     toks = last[0].argmax(-1).to(torch.int32)
     finite = _finite(logits)
     del logits
@@ -129,6 +164,7 @@ def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
     t0 = time.perf_counter()
     for i in range(steps):
         logits_i, cache = serve_step(params, cache, toks, n_prefix + s + i)
+        logits_i = shlib.gather_model(logits_i)
         toks = logits_i.argmax(-1).to(torch.int32)
         finite = finite & _finite(logits_i)
         last.append(logits_i)
@@ -136,17 +172,16 @@ def generate(api: ModelApi, params: dict, batch: dict, new_tokens: int) -> dict:
     _sync(device)
     decode_s = time.perf_counter() - t0
     print(f"[serve] {steps} steps: {1e3 * decode_s / max(steps, 1):.1f} ms/step")
-    tokens_out = torch.stack(out, dim=1).cpu()
-    print(tokens_out)
-    return {"tokens": tokens_out, "logits": torch.stack(last, dim=1),
-            "prefill_s": prefill_s, "decode_s": decode_s, "steps": steps,
-            "n_prefix": n_prefix, "finite": bool(finite)}
+    return {"tokens": torch.stack(out, dim=1),
+            "logits": torch.stack(last, dim=1), "prefill_s": prefill_s,
+            "decode_s": decode_s, "steps": steps, "n_prefix": n_prefix,
+            "finite": bool(finite), "cache": cache}
 
 
 def main(argv=None) -> dict:
     """Build the model, its parameters and the prompts, then
-    :func:`generate`; returns its record together with the ``api``,
-    ``params`` and ``batch`` it served."""
+    :func:`generate`; returns its record (without the cache) together with
+    the ``api``, ``params`` and ``batch`` it served."""
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -160,6 +195,7 @@ def main(argv=None) -> dict:
         return _serve_personalized(args, cfg, api, params, device)
     batch = prompts(cfg, args.batch, args.prompt_len, args.seed, device)
     rec = generate(api, params, batch, args.new_tokens)
+    del rec["cache"]
     return {**rec, "api": api, "params": params, "batch": batch}
 
 
@@ -206,8 +242,9 @@ def client_bank(params: dict, n: int, rank: int, zero_clients: int = 0,
 @torch.no_grad()
 def _serve_personalized(args, cfg, api, params, device) -> dict:
     """``--clients``: one delta-bank row per client, one lane per client.
-    Returns :func:`generate`'s record with ``expand_s``, and the ``api``,
-    ``spec``, ``bank``, ``w``, lane-stacked ``params`` and ``batch``."""
+    Returns :func:`generate`'s record (without the cache) with
+    ``expand_s``, and the ``api``, ``spec``, ``bank``, ``w``, lane-stacked
+    ``params`` and ``batch``."""
     n = args.clients
     spec, bank, w = client_bank(params, n, args.rank, args.zero_clients,
                                 args.seed)
@@ -224,6 +261,7 @@ def _serve_personalized(args, cfg, api, params, device) -> dict:
     print(f"[serve] expand {n} clients (d_delta={dspec.dim}, "
           f"{100 * dspec.dim / dspec.full.dim:.1f}% of D): {expand_s:.2f}s")
     rec = generate(api, stacked, batch, args.new_tokens)
+    del rec["cache"]
     return {**rec, "expand_s": expand_s, "api": api, "spec": spec,
             "bank": bank, "w": w, "params": stacked, "batch": batch}
 

@@ -46,7 +46,9 @@ import math
 import torch
 
 __all__ = ["MODEL_AXES", "FSDP_AXES", "ACT_RULES", "POD_AXES", "use_mesh",
-           "active_mesh", "spec_for", "sharding_for", "shard_shape",
+           "active_mesh", "spec_for", "model_axes_for", "pod_spec",
+           "cache_spec", "place_cache", "cache_zeros", "sharding_for",
+           "shard_shape",
            "placements_for", "place_tensor", "place_params", "submesh",
            "is_dtensor", "unshard_data", "full_tensor", "model_block",
            "local_part", "from_local", "sum_partial", "whole_grad",
@@ -133,6 +135,102 @@ def spec_for(pdef, mesh, fsdp: bool = True, model_axes: tuple = None) -> tuple:
     # long-context caches with unshardable batch: shard the sequence dim
     place("data", data_n, ("seq",))
     return tuple(spec)
+
+
+def model_axes_for(cfg) -> tuple:
+    """The logical axes a config's leaves may put on "model", in priority
+    order: ``MODEL_AXES``, without head_dim under ``attn_fallback =
+    "replicate"``."""
+    if cfg.attn_fallback == "replicate":
+        return tuple(a for a in MODEL_AXES if a != "head_dim")
+    return MODEL_AXES
+
+
+def pod_spec(spec: tuple, batch_dims: tuple, shape: tuple, n_pods: int,
+             data_n: int = 16) -> tuple:
+    """Widen a single-pod spec over the pods, as the reference's dry-run
+    does: a batch dim on "data" that divides by ``data_n * n_pods`` goes on
+    ``("pod", "data")``; everything else is left as it is (replicated over
+    the pods)."""
+    if n_pods <= 1:
+        return tuple(spec)
+    out = list(spec) + [None] * (len(shape) - len(spec))
+    for i in batch_dims:
+        if out[i] == "data" and shape[i] % (data_n * n_pods) == 0:
+            out[i] = ("pod", "data")
+    return tuple(out)
+
+
+def cache_spec(pdef, mesh, cfg) -> tuple:
+    """A serving cache leaf's ``PartitionSpec`` entries on ``mesh``, as the
+    reference's dry-run places the cache (``_abstract_cache``): by
+    :func:`spec_for` without FSDP (kv heads, else head_dim, or an SSM
+    state's channels on "model"; the batch on "data", else a long cache's
+    sequence), or with ``cfg.serve_cache_shard == "seq"`` the batch on
+    "data" and the sequence on "model"; on a mesh with pods the batch dims
+    widened over them (:func:`pod_spec`)."""
+    model_n = _axis_size(mesh, "model")
+    data_n = _axis_size(mesh, "data")
+    if cfg.serve_cache_shard == "seq" and "seq" in pdef.axes:
+        spec = tuple("data" if a == "batch" and data_n and n % data_n == 0
+                     else "model" if a == "seq" and model_n
+                     and n % model_n == 0 else None
+                     for a, n in zip(pdef.axes, pdef.shape))
+    else:
+        spec = spec_for(pdef, mesh, fsdp=False, model_axes=model_axes_for(cfg))
+    bdims = tuple(i for i, a in enumerate(pdef.axes) if a == "batch")
+    return pod_spec(spec, bdims, pdef.shape, _axis_size(mesh, "pod"),
+                    data_n or 1)
+
+
+def _sub_spec(spec: tuple) -> tuple:
+    """A spec on the pod-runtime mesh as its submesh sees it: a dim on
+    ``("pod", "data")`` is on "data" (the pod's rows taken first)."""
+    return tuple("data" if a == ("pod", "data") else a for a in spec)
+
+
+def place_cache(cache, defs, mesh, cfg):
+    """Place a serving cache (whole tensors, the same on every rank) over the
+    pod runtime's ``mesh`` as DTensors on the pod's ``("data", "model")``
+    submesh, each leaf by :func:`cache_spec`: where it puts a batch dim on
+    ``("pod", "data")`` the rank's pod takes its rows of it first (as its
+    requests' tokens are), and the rest is replicated over the pods."""
+    sub = submesh(mesh)
+
+    def one(x, d):
+        if isinstance(x, dict):
+            return {k: one(x[k], d[k]) for k in x}
+        spec = cache_spec(d, mesh, cfg)
+        for i, a in enumerate(spec):
+            if a == ("pod", "data"):
+                x = RowShard(mesh, "pod", x.shape[i]).rows(x, i)
+        return place_tensor(x, sub, placements_for(_sub_spec(spec), sub))
+
+    return one(cache, defs)
+
+
+def cache_zeros(defs, mesh, cfg, device=None):
+    """A zero serving cache placed as :func:`place_cache` places one, built
+    on each rank from its own blocks: ``defs`` are the cache of the pod's
+    requests (their rows only) and ``mesh`` is the pod's ``("data",
+    "model")`` submesh, the mesh of the prefill's activations."""
+    from torch.distributed.tensor import DTensor
+
+    def one(d):
+        if not hasattr(d, "axes"):
+            return {k: one(d[k]) for k in d}
+        pls = placements_for(cache_spec(d, mesh, cfg), mesh)
+        local = list(d.shape)
+        for i, pl in enumerate(pls):
+            if pl.is_shard():
+                local[pl.dim] //= mesh.size(i)
+        z = torch.zeros(local, dtype=d.dtype, device=device)
+        return DTensor.from_local(z, mesh, pls, run_check=False,
+                                  shape=torch.Size(d.shape),
+                                  stride=torch.empty(d.shape,
+                                                     device="meta").stride())
+
+    return one(defs)
 
 
 def shard_shape(shape: tuple, spec: tuple, mesh) -> tuple:

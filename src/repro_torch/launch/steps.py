@@ -8,7 +8,11 @@
                 mixes replicas and weights across pods (one
                 ``stages.comm_phase``, as the flat-bank round program).
   serve_step  — one-token decode against the KV cache, and the personalized
-                serving step over the client bank.
+                serving step over the client bank.  On a placed replica
+                and cache (``launch.sharding.place_params``,
+                ``place_cache``; the requests by :func:`place_batch`)
+                under ``sharding.use_mesh`` it reads and writes each rank's
+                blocks of the cache.
 
 The reference shards each replica over its pod's (data, model) submesh and
 vmaps the local steps over a "pod" mesh axis.  Here the pods' replicas are

@@ -10,7 +10,12 @@ runtime q, k and v are DTensors (batch on "data", heads on "model"): the
 kernel runs on each rank's local batch rows and heads inside a manual
 region (:func:`_local_attention`); decode mode
 (:func:`gqa_decode`) stays plain PyTorch, one query against the cache, as in
-the reference, which has no Pallas kernel there either.
+the reference, which has no Pallas kernel there either.  On a cache placed
+by the pod runtime (``launch.sharding.cache_spec``) decode reads and writes
+each rank's blocks (:func:`_gqa_decode_placed`, :func:`_mla_decode_placed`):
+partial scores over a split head_dim summed over "model", and the softmax
+over positions split on "data" combined as flash-decode does
+(:func:`_attend`).
 
 MLA (:func:`mla_forward`, :func:`mla_decode`) is plain PyTorch in both
 modes, as the reference's plain ``jnp`` (under the pod runtime its scores
@@ -40,7 +45,8 @@ from repro_torch.models.layers import (
 from repro_torch.models.pdefs import PDef
 
 __all__ = ["gqa_defs", "mla_defs", "gqa_cache_defs", "mla_cache_defs",
-           "gqa_forward", "gqa_decode", "mla_forward", "mla_decode"]
+           "gqa_forward", "gqa_decode", "mla_forward", "mla_decode",
+           "write_positions"]
 
 _NEG = -2.0e38
 
@@ -105,18 +111,26 @@ def mla_cache_defs(cfg: ArchConfig, batch: int, length: int, stacked: tuple = ()
 # Masking + core dot-product attention (the decode path).
 # ---------------------------------------------------------------------------
 
-def _full_mask(q_pos, k_pos, window: int, causal: bool):
-    """Additive f32 bias (..., Sq, Sk); window 0 = full.  A non-causal
-    model gets no mask at all: the window is ignored, as in the reference."""
+def _open_keys(q_pos, k_pos, window: int, causal: bool):
+    """Bool (..., Sq, Sk): the keys each query may read; window 0 = full.
+    A non-causal model reads every key: the window is ignored, as in the
+    reference."""
     dq = q_pos[..., :, None]
     dk = k_pos[..., None, :]
-    ok = torch.ones(torch.broadcast_shapes(dq.shape, dk.shape), dtype=torch.bool,
-                    device=dq.device)
-    if causal:
-        ok = dk <= dq
-        if window > 0:
-            ok = ok & (dq - dk < window)
-    return torch.where(ok, 0.0, _NEG).float()
+    if not causal:
+        return torch.ones(torch.broadcast_shapes(dq.shape, dk.shape),
+                          dtype=torch.bool, device=dq.device)
+    ok = dk <= dq
+    if window > 0:
+        ok = ok & (dq - dk < window)
+    return ok
+
+
+def _full_mask(q_pos, k_pos, window: int, causal: bool):
+    """Additive f32 bias (..., Sq, Sk) of :func:`_open_keys`: 0 on an open
+    key, -2e38 on a closed one."""
+    return torch.where(_open_keys(q_pos, k_pos, window, causal), 0.0,
+                       _NEG).float()
 
 
 def _dot_attn(q, k, v, bias, scale):
@@ -302,21 +316,178 @@ def gqa_decode(p, x, cache, cfg: ArchConfig, pos: int, window: int = 0,
     """One-token decode.  x: (B,1,D); cache slice {"k","v"}: (B,S,kv,hd).
 
     Writes the new key and value into the cache IN PLACE at ``pos`` (the
-    reference returns an updated copy) and returns that same dict."""
+    reference returns an updated copy) and returns that same dict.  A
+    placed cache (DTensors, ``launch.sharding.place_cache``) is read and
+    written on each rank's own block (:func:`_gqa_decode_placed`)."""
+    pos = int(pos)
     b = x.shape[0]
     kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     hd = cfg.resolved_head_dim
-    pos = int(pos)
     positions = torch.full((b, 1), pos, device=x.device)
     q, k_new, v_new = _gqa_qkv(p, x, cfg, positions, theta)
     k, v = cache["k"], cache["v"]
-    k[:, pos] = k_new[:, 0].to(k.dtype)
-    v[:, pos] = v_new[:, 0].to(v.dtype)
+    write_positions(k, k_new, pos)
+    write_positions(v, v_new, pos)
+    if shlib.is_dtensor(k):
+        return _gqa_decode_placed(q, cache, p["wo"], cfg, pos, window)
     k_pos = torch.arange(k.shape[1], device=x.device).expand(b, k.shape[1])
     bias = _full_mask(positions, k_pos, window, True)[:, None, None]
     out = _dot_attn(_split_heads(q, kv, g), k, v, bias, hd ** -0.5)
     out = out.reshape(b, 1, cfg.n_heads, hd)
     return _out_proj(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode on a placed cache (the pod runtime's serving).
+# ---------------------------------------------------------------------------
+
+def _split_dims(t) -> dict:
+    """{dim: mesh dim} of the dims that DTensor ``t`` splits."""
+    return {pl.dim: i for i, pl in enumerate(t.placements) if pl.is_shard()}
+
+
+def _block_of(t, dim: int) -> tuple:
+    """(first index, length) of this rank's block of DTensor ``t``'s dim."""
+    i = _split_dims(t).get(dim)
+    n = t.to_local().shape[dim]
+    return (0, n) if i is None else (t.device_mesh.get_local_rank(i) * n, n)
+
+
+def write_positions(cache_t, new, pos: int) -> None:
+    """Write ``new`` (B, s, ...) into the cache leaf ``cache_t`` (B, S, ...)
+    at positions ``pos .. pos + s``, in place.  A placed cache (DTensors) is
+    written on each rank's block: ``new`` takes the cache's placements
+    (whole along the positions), and where "data" splits the positions each
+    rank writes those its block holds (none, if it holds none)."""
+    from torch.distributed.tensor import Replicate
+
+    if not shlib.is_dtensor(cache_t):
+        cache_t[:, pos:pos + new.shape[1]] = new.to(cache_t.dtype)
+        return
+    pls = [Replicate() if pl.is_shard() and pl.dim == 1 else pl
+           for pl in cache_t.placements]
+    nl = new.redistribute(cache_t.device_mesh, pls).to_local()
+    lo, n = _block_of(cache_t, 1)
+    a, b = max(lo, pos), min(lo + n, pos + nl.shape[1])
+    if a < b:
+        cache_t.to_local()[:, a - lo:b - lo] = nl[:, a - pos:b - pos].to(
+            cache_t.dtype)
+
+
+def _attend(scores, ok, pv, mesh, seq_axis):
+    """softmax(scores) V over the keys of each rank's cache block: ``scores``
+    (f32, the keys last, the query second to last) and ``ok`` (the open
+    keys, broadcast to them), ``pv(probs)`` the rank's f32 product with its
+    values, ``(B, 1, ..., width)``.  Without a split of the positions
+    (``seq_axis`` None) it is the mesh-less decode's softmax.  With the
+    positions on mesh dim ``seq_axis``, a flash-decode combine: each rank's
+    row maximum over its open keys (-inf where it has none) is all-reduced
+    to the global one, the exponentials taken against it (0 on closed
+    keys), and one all-reduce sums each rank's row sums and P V."""
+    from torch.distributed import _functional_collectives as funcol
+
+    if seq_axis is None:
+        return pv((scores + torch.where(ok, 0.0, _NEG)).softmax(-1))
+    s = scores.masked_fill(~ok, float("-inf"))
+    m = funcol.all_reduce(s.amax(-1, keepdim=True), "max", (mesh, seq_axis))
+    p = torch.exp(s - m)
+    ol = torch.cat([pv(p), p.sum(-1).movedim(-1, 1)[..., None]], -1)
+    ol = funcol.all_reduce(ol, "sum", (mesh, seq_axis))
+    return ol[..., :-1] / ol[..., -1:]
+
+
+def _q_layout(q, cache_t) -> list:
+    """The placements of the one-token q ``(B, 1, H, hd)`` against a placed
+    kv cache leaf ``(B, S, KV, hd)``: its batch rows and its heads (by kv
+    head) or head_dim columns split as the cache's, whole where the cache
+    splits its positions; where the cache splits neither on a mesh dim, q's
+    heads stay as they are there."""
+    from torch.distributed.tensor import Replicate
+
+    out = []
+    for qp, cp in zip(q.placements, cache_t.placements):
+        if cp.is_shard():
+            out.append(Replicate() if cp.dim == 1 else cp)
+        else:
+            out.append(qp if qp.is_shard() and qp.dim == 2 else Replicate())
+    return out
+
+
+def _reshard(t, pls):
+    """DTensor ``t`` redistributed to ``pls``; a split moved from one dim to
+    another on a mesh dim goes through the whole (one all-gather of the
+    small one-token tensor, then a local slice), the same collective in
+    every torch version."""
+    from torch.distributed.tensor import Replicate
+
+    mid = [Replicate() if a.is_shard() and b.is_shard() and a.dim != b.dim
+           else a for a, b in zip(t.placements, pls)]
+    if mid != list(t.placements):
+        t = t.redistribute(t.device_mesh, mid)
+    return t.redistribute(t.device_mesh, pls)
+
+
+def _as_wo_rows(out, wo):
+    """The attention output ``(B, 1, H, hd)`` split on "model" as ``wo``'s
+    rows are: its heads, its head_dim, or whole (:func:`_reshard`)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = out.device_mesh
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return out
+    i = names.index("model")
+    pl = wo.placements[i]
+    dim = pl.dim - wo.dim() + 5 if pl.is_shard() else None  # (H, hd, d)
+    want = Shard(dim) if dim in (2, 3) else Replicate()
+    pls = list(out.placements)
+    pls[i] = want
+    return _reshard(out, pls)
+
+
+def _gqa_decode_placed(q, cache, wo, cfg: ArchConfig, pos: int, window: int):
+    """:func:`gqa_decode` on a placed cache (``launch.sharding.cache_spec``:
+    its batch on "data", else its positions; its kv heads on "model", else
+    its head_dim).  The one token's q, k and v are computed as the forward's
+    (whole heads where head_dim is split); k and v are written on each
+    rank's block and q redistributed to the cache's layout — the cache is
+    never moved.  Each rank scores its q against its keys: on its kv heads
+    and their query heads, or, with head_dim split, partial dot products
+    over its columns summed by one all-reduce of the ``(B_local, H, 1,
+    S_local)`` f32 scores over "model" (as GSPMD lowers a contraction over a
+    split dim); then the softmax (the combine of :func:`_attend` over
+    "data" where the positions are split) and P V on its own columns.  The
+    output goes to the output projection split as ``wo``'s rows are."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    k, v = cache["k"], cache["v"]
+    mesh = k.device_mesh
+    q = _reshard(q, _q_layout(q, k))
+    on = _split_dims(k)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    with shlib.manual_region(mesh):
+        bl, hq = ql.shape[0], ql.shape[2]
+        if kl.shape[2] * g != hq:  # the kv heads whole, q's a block of them
+            lo = mesh.get_local_rank(_split_dims(q)[2]) * hq
+            kv_of = torch.arange(lo, lo + hq, device=ql.device) // g
+            kl, vl = kl.index_select(2, kv_of), vl.index_select(2, kv_of)
+        qs = ql.reshape(bl, 1, kl.shape[2], -1, ql.shape[-1])
+        scores = torch.einsum("bqkgd,bskd->bkgqs",
+                              (qs * hd ** -0.5).float(), kl.float())
+        if 3 in on:
+            scores = funcol.all_reduce(scores, "sum", (mesh, on[3]))
+        s_lo, s_n = _block_of(k, 1)
+        k_pos = torch.arange(s_lo, s_lo + s_n, device=ql.device)
+        ok = _open_keys(torch.full((bl, 1), pos, device=ql.device),
+                        k_pos.expand(bl, s_n), window, True)[:, None, None]
+        out = _attend(scores, ok, lambda pr: torch.einsum(
+            "bkgqs,bskd->bqkgd", pr, vl.float()), mesh, on.get(1))
+        out = out.to(vl.dtype).reshape(bl, 1, hq, -1)
+    out = DTensor.from_local(out, mesh, q.placements, run_check=False)
+    return _out_proj(_as_wo_rows(out, wo), wo), cache
 
 
 # ---------------------------------------------------------------------------
@@ -404,16 +575,53 @@ def mla_decode(p, x, cache, cfg: ArchConfig, pos: int, window: int = 0,
                theta=None):
     """Decode against the latent cache (ckv + kpe).  Writes the new entries
     IN PLACE at ``pos`` (the reference returns an updated copy) and returns
-    that same dict."""
+    that same dict.  A placed cache is read and written on each rank's own
+    block (:func:`_mla_decode_placed`)."""
     b = x.shape[0]
     pos = int(pos)
     positions = torch.full((b, 1), pos, device=x.device)
     q_nope, q_pe = _mla_q(p, x, cfg, positions)
     ckv_new, kpe_new = _mla_kv_latent(p, x, cfg, positions)
     ckv, kpe = cache["ckv"], cache["kpe"]
-    ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
-    kpe[:, pos] = kpe_new[:, 0].to(kpe.dtype)
+    write_positions(ckv, ckv_new, pos)
+    write_positions(kpe, kpe_new, pos)
+    if shlib.is_dtensor(ckv):
+        return _mla_decode_placed(p, q_nope, q_pe, cache, cfg, pos)
     k_pos = torch.arange(ckv.shape[1], device=x.device).expand(b, ckv.shape[1])
     bias = _full_mask(positions, k_pos, 0, True)[:, None]
     out = _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg, bias)
     return out, cache
+
+
+def _mla_decode_placed(p, q_nope, q_pe, cache, cfg: ArchConfig, pos: int):
+    """:func:`mla_decode` on a placed latent cache (its batch on "data",
+    else its positions; nothing on "model"), the new entries written: the
+    rank's cache block expanded through ``wkv_b`` on
+    the rank's heads (those of ``wq_b`` and ``wkv_b``'s columns on
+    "model"), the scores, softmax (:func:`_attend`'s combine over "data"
+    where the positions are split) and P V on those heads, the output
+    split by head for ``wo``'s rows."""
+    from torch.distributed.tensor import DTensor
+
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    mesh = ckv.device_mesh
+    dn = cfg.qk_nope_head_dim
+    kvb = _project(ckv, p["wkv_b"])
+    scale = (dn + cfg.qk_rope_head_dim) ** -0.5
+    ql, qpl, kvl, kpel = (t.to_local() for t in (q_nope, q_pe, kvb, kpe))
+    with shlib.manual_region(mesh):
+        k_nope, v = kvl[..., :dn], kvl[..., dn:]
+        scores = torch.einsum("bqhd,bshd->bhqs", (ql * scale).float(),
+                              k_nope.float())
+        scores += torch.einsum("bqhd,bsd->bhqs", (qpl * scale).float(),
+                               kpel.float())
+        bl = ql.shape[0]
+        s_lo, s_n = _block_of(ckv, 1)
+        k_pos = torch.arange(s_lo, s_lo + s_n, device=ql.device)
+        ok = _open_keys(torch.full((bl, 1), pos, device=ql.device),
+                        k_pos.expand(bl, s_n), 0, True)[:, None]
+        out = _attend(scores, ok, lambda pr: torch.einsum(
+            "bhqs,bshd->bqhd", pr, v.float()), mesh,
+            _split_dims(ckv).get(1)).to(v.dtype)
+    out = DTensor.from_local(out, mesh, q_nope.placements, run_check=False)
+    return _out_proj(out, p["wo"]), cache

@@ -52,6 +52,7 @@ from repro_torch.models.transformer import (
     _layer,
     _layer_meta,
     _norm,
+    new_cache,
 )
 
 __all__ = ["param_defs", "cache_defs", "forward", "loss", "prefill",
@@ -147,12 +148,15 @@ def _scan(decay, contrib):
     return h
 
 
-def _ssm_scan(pl, xn, cfg: ArchConfig, state=None):
+def _ssm_scan(pl, xn, cfg: ArchConfig, state=None, last: bool = False):
     """The SSM branch over xn ``(B, S, D)``: from h = 0 over the sequence,
     or one step (S = 1) from ``state`` ``(B, di, N)`` -> (y ``(B, S, D)``,
-    the last h; None for a DTensor ``xn``)."""
-    if shlib.is_dtensor(xn) and state is None:
-        return _ssm_placed(pl, xn, cfg), None
+    the last h).  Under the pod runtime (a DTensor ``xn``) the branch runs
+    on each rank's channels (:func:`_ssm_placed`): the last h comes back as
+    a DTensor with ``last`` (None without), and a step's ``state`` (a
+    placed cache leaf) is updated in place."""
+    if shlib.is_dtensor(xn):
+        return _ssm_placed(pl, xn, cfg, state, last)
     xm, z, decay, Bm, Cm, u = _ssm_proj(pl, xn, cfg)
     contrib = u[..., None] * Bm[:, :, None, :]  # (B, S, di, N)
     if state is None:
@@ -165,10 +169,11 @@ def _ssm_scan(pl, xn, cfg: ArchConfig, state=None):
     return y @ pl["w_out"], h[:, -1]
 
 
-def _ssm_placed(pl, xn, cfg: ArchConfig):
+def _ssm_placed(pl, xn, cfg: ArchConfig, state=None, last: bool = False):
     """The SSM branch over DTensor ``xn`` (batch rows on "data") with its
-    weights placed by ``spec_for`` (``"ssm_inner"`` on "model") -> its
-    output, replicated.
+    weights placed by ``spec_for`` (``"ssm_inner"`` on "model") -> (its
+    output, replicated; with ``last`` the last h on the rank's channels, a
+    DTensor, else None).
 
     The up-projection's columns are gathered over "model" (its gradient
     reduce-scattered back), and each rank takes its channels ``[r di/m,
@@ -178,7 +183,10 @@ def _ssm_placed(pl, xn, cfg: ArchConfig):
     all-reduced whole.  The scan runs over the sequence on the rank's
     channels, and its rows of ``w_out`` give a partial sum of the output,
     summed by one all-reduce.  Where "model" does not split the channels,
-    every rank runs them all, whose gradient then counts once."""
+    every rank runs them all, whose gradient then counts once.  With
+    ``state`` (the placed ``(B, di, N)`` cache leaf of one layer, split as
+    the channels are) the branch takes one step from it instead of the
+    scan, and writes the new h into the rank's block."""
     from torch.distributed.tensor import Partial, Shard
 
     di, n = _di(cfg), cfg.ssm_state
@@ -207,14 +215,21 @@ def _ssm_placed(pl, xn, cfg: ArchConfig):
         dt = F.softplus(dt + loc["b_dt"][lo:lo + c])
         decay = torch.exp(dt * -torch.exp(loc["A_log"]))
         contrib = (dt * x32)[..., None] * bc[:, :, None, :n]
-        h = _scan(decay, contrib)
+        if state is None:
+            h = _scan(decay, contrib)
+        else:
+            hl = state.to_local()
+            h = (decay[:, 0, :, None] * hl + contrib[:, 0])[:, None]
+            hl.copy_(h[:, 0])
         y = (torch.einsum("bsen,bsn->bse", h, bc[..., n:])
              + loc["D"] * xm.float())
         out = (y.to(cfg.dtype) * F.silu(z)) @ loc["w_out"]
         if not split:
             out = shlib.shared_grad(out, m)
-    return shlib.sum_partial(shlib.from_local(out, up,
-                                              Partial() if split else None))
+    h_last = (shlib.from_local(h[:, -1], up, Shard(1) if split else None)
+              if last else None)
+    return shlib.sum_partial(shlib.from_local(
+        out, up, Partial() if split else None)), h_last
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +268,7 @@ def _hybrid(pl, x, cfg: ArchConfig, window, theta, positions,
     a = attn.gqa_forward(pl["attn"], xn, cfg, window=window, theta=theta,
                          positions=positions, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
-    s_out, h_last = _ssm_scan(pl["ssm"], xn, cfg)
+    s_out, h_last = _ssm_scan(pl["ssm"], xn, cfg, last=return_kv)
     return _mix(pl, x, a, s_out, cfg), kv, h_last
 
 
@@ -299,31 +314,37 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
         raise ValueError(f"prompt length {s - cfg.n_meta_tokens} exceeds "
                          f"cache_len {cache_len}")
     positions = torch.arange(s, device=x.device).expand(b, s)
-    cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=x.device)
-             for k, d in cache_defs(cfg, b, cache_len).items()}
+    cache = new_cache(cache_defs(cfg, b, cache_len), x, cfg)
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         x, (k, v), h_last = _hybrid(_layer(params["layers"], i, lanes), x,
                                     cfg, win, th, positions, return_kv=True)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        cache["ssm_h"][i] = h_last
+        attn.write_positions(cache["k"][i], k, 0)
+        attn.write_positions(cache["v"][i], v, 0)
+        h = cache["ssm_h"][i]
+        if shlib.is_dtensor(h):  # the rank's block
+            h.to_local().copy_(h_last.redistribute(
+                h.device_mesh, h.placements).to_local())
+        else:
+            h.copy_(h_last)
     return _head(params, x[:, cfg.n_meta_tokens:], cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     """One token (B,) at text position ``pos`` -> (logits (B, V), cache);
     the cache is read and written at ``pos + n_meta`` (its head holds the
-    meta tokens), IN PLACE."""
+    meta tokens), IN PLACE; under the pod runtime on each rank's blocks."""
     lanes = _lanes(params)
-    x = _embed_tokens(params, tokens[:, None], cfg)
+    x = shard_act(_embed_tokens(params, tokens[:, None], cfg),
+                  ("batch", None, "embed"))
     cache_pos = int(pos) + cfg.n_meta_tokens
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         pl = _layer(params["layers"], i, lanes)
         xn = _norm(x, pl["ln1"], cfg)
-        a, _ = attn.gqa_decode(pl["attn"], xn, _layer(
-            {"k": cache["k"], "v": cache["v"]}, i), cfg, cache_pos,
+        a, _ = attn.gqa_decode(pl["attn"], xn, {
+            "k": cache["k"][i], "v": cache["v"][i]}, cfg, cache_pos,
             window=win, theta=th)
         s_out, h_new = _ssm_scan(pl["ssm"], xn, cfg, state=cache["ssm_h"][i])
-        cache["ssm_h"][i] = h_new
+        if h_new is not None:  # a placed state is written in place
+            cache["ssm_h"][i] = h_new
         x = _mix(pl, x, a, s_out, cfg)
     return _head(params, x, cfg)[:, 0], cache

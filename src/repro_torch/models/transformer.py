@@ -26,7 +26,11 @@ entropy plus ``router_aux_coef`` times it.
 :func:`prefill` of a vlm batch puts the image prefix in the cache first:
 the caller sizes the cache as prefix + prompt + new tokens and decodes at
 position prefix + prompt + i (``launch.serve.generate`` does).
-:func:`decode_step` takes tokens only, as in the reference.
+:func:`decode_step` takes tokens only, as in the reference.  Under the pod
+runtime (params, tokens placed over a pod's submesh) :func:`prefill` builds
+the cache in the placement ``launch.sharding.cache_spec`` gives it
+(:func:`new_cache`), and :func:`decode_step` reads and writes each rank's
+blocks of it.
 
 **Lanes.**  Every entry point also takes parameters stacked on a leading
 *lane* axis, one lane per batch row (``final_norm`` of shape ``(B, d)``):
@@ -71,6 +75,7 @@ __all__ = [
     "loss",
     "prefill",
     "decode_step",
+    "new_cache",
 ]
 
 
@@ -334,29 +339,43 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
         raise ValueError(f"prompt length {s} (an image prefix included) "
                          f"exceeds cache_len {cache_len}")
     positions = torch.arange(s, device=x.device).expand(b, s)
-    cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=x.device)
-             for k, d in cache_defs(cfg, b, cache_len).items()}
+    cache = new_cache(cache_defs(cfg, b, cache_len), x, cfg)
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         x, kv, _ = _block(_layer(params["layers"], i, lanes), x, cfg, win,
                           th, positions, lanes, return_kv=True)
         for name, t in zip(cache, kv):  # ("k", "v") or ("ckv", "kpe")
-            cache[name][i, :, :s] = t
+            attn.write_positions(cache[name][i], t, 0)
     return _logits(params, x, cfg), cache
+
+
+def new_cache(defs: dict, x, cfg: ArchConfig) -> dict:
+    """A zero cache of ``defs`` for the activations ``x``: on their device,
+    or under the pod runtime (a DTensor ``x``) placed over its mesh as
+    ``launch.sharding.cache_spec`` places a cache, each rank holding its
+    own blocks."""
+    if shlib.is_dtensor(x):
+        return shlib.cache_zeros(defs, x.device_mesh, cfg, x.device)
+    return {k: torch.zeros(d.shape, dtype=d.dtype, device=x.device)
+            for k, d in defs.items()}
 
 
 def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig):
     """One-token decode: tokens (B,), cache from :func:`cache_defs` ->
     (logits (B, V), cache).  The cache is updated IN PLACE at ``pos`` and
-    returned (the reference returns a new cache)."""
+    returned (the reference returns a new cache).  Under the pod runtime
+    (placed params, tokens and cache) each attention reads and writes the
+    rank's cache blocks, and each sub-block's output is summed over "model"
+    as the forward's is."""
     x = _embed_tokens(params, tokens[:, None], cfg)
     x = shard_act(x, ("batch", None, "embed"))
     lanes = _lanes(params)
     dec = attn.mla_decode if cfg.attn_type == "mla" else attn.gqa_decode
     for i, (win, th) in enumerate(zip(*_layer_meta(cfg))):
         pl = _layer(params["layers"], i, lanes)
-        h, _ = dec(pl["attn"], _norm(x, pl["ln1"], cfg), _layer(cache, i),
-                   cfg, pos, window=win, theta=th)
-        x = x + h
+        h, _ = dec(pl["attn"], _norm(x, pl["ln1"], cfg),
+                   {k: t[i] for k, t in cache.items()}, cfg, pos, window=win,
+                   theta=th)
+        x = x + shard_act(h, ("batch", None, "embed"))
         y, _ = _mlp(pl, x, cfg, lanes)
-        x = x + y
+        x = x + shard_act(y, ("batch", None, "embed"))
     return _logits(params, x, cfg)[:, 0], cache

@@ -59,7 +59,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import sharding as shlib
 from repro_torch.models.layers import lane_scale, shard_act, softmax_xent
 from repro_torch.models.pdefs import PDef
-from repro_torch.models.transformer import _embed_tokens, _lanes, _norm
+from repro_torch.models.transformer import (
+    _embed_tokens,
+    _lanes,
+    _norm,
+    new_cache,
+)
 
 __all__ = ["param_defs", "cache_defs", "forward", "loss", "prefill",
            "decode_step", "mlstm_parallel", "mlstm_step"]
@@ -233,8 +238,8 @@ def _mlstm_block(pl, x, cfg: ArchConfig, state=None):
     d, di, h, hd = _dims(cfg)
     b, s, _ = x.shape
     up = _norm(x, pl["ln"], cfg) @ pl["w_up"]
-    if shlib.is_dtensor(up):
-        return x + _mlstm_placed(pl, up, cfg), None
+    if shlib.is_dtensor(up):  # a placed state is written in place
+        return x + _mlstm_placed(pl, up, cfg, state), None
     xm, z = up[..., :di], up[..., di:]
     xm = shard_act(xm, ("batch", "seq", "mlp"))
     q, k, v, i_pre, f_pre = _mlstm_qkvif(pl, xm, cfg)
@@ -249,7 +254,7 @@ def _mlstm_block(pl, x, cfg: ArchConfig, state=None):
     return x + hflat @ pl["w_down"], new_state
 
 
-def _mlstm_placed(pl, up, cfg: ArchConfig):
+def _mlstm_placed(pl, up, cfg: ArchConfig, state=None):
     """The mLSTM block after its up-projection, on DTensor ``up`` ``(B, S,
     2 di)`` (its columns on "model") -> the block's output, replicated.
 
@@ -259,14 +264,16 @@ def _mlstm_placed(pl, up, cfg: ArchConfig):
     the gates from its rows of ``w_if`` (a partial sum over "model",
     summed by one all-reduce of ``(B, S, 2H)``), the parallel form, and its
     rows of ``w_down`` (a partial sum of the output, summed by one
-    all-reduce)."""
+    all-reduce).  With ``state`` (one block's placed decode state, its
+    heads split as q's) the recurrent step runs instead of the parallel
+    form, and the new state is written into the rank's blocks."""
     from torch.distributed.tensor import Partial
 
     d, di, h, hd = _dims(cfg)
     mesh = up.device_mesh
     rank, m = shlib.model_block(mesh)
     if h % m or pl["wq"].to_local().shape[-1] != di // m:
-        return _mlstm_sub_head(pl, up, cfg)
+        return _mlstm_sub_head(pl, up, cfg, state)
     hl = h // m
     cols = slice(rank * hl * hd, (rank + 1) * hl * hd)
     upl = shlib.local_part(shlib.gather_model(up), up)
@@ -286,14 +293,14 @@ def _mlstm_placed(pl, up, cfg: ArchConfig):
         gates = gates + lane_scale(loc["b_if"], gates)
         i_pre = gates[..., rank * hl:(rank + 1) * hl]
         f_pre = gates[..., h + rank * hl:h + (rank + 1) * hl]
-        hcell = _norm(mlstm_parallel(q, k, v, i_pre, f_pre),
+        hcell = _norm(_mlstm_core(q, k, v, i_pre, f_pre, state),
                       loc["out_norm"], cfg)
         hflat = hcell.reshape(b, s, hl * hd).to(cfg.dtype) * F.silu(z[..., cols])
         out = hflat @ loc["w_down"]
     return shlib.sum_partial(shlib.from_local(out, up, Partial()))
 
 
-def _mlstm_sub_head(pl, up, cfg: ArchConfig):
+def _mlstm_sub_head(pl, up, cfg: ArchConfig, state=None):
     """:func:`_mlstm_placed` where the heads do not divide "model": a rank's
     columns of ``wq``, ``wk``, ``wv`` and ``w_down`` are part of a head
     (16 ranks over 4 heads: a quarter each), or the block is not on
@@ -305,7 +312,10 @@ def _mlstm_sub_head(pl, up, cfg: ArchConfig):
     output a partial sum over "model", summed by one all-reduce as the
     whole-heads path's.  The gates come whole from the same all-reduce of
     the rank's rows of ``w_if``.  Without the block on "model" every rank
-    runs every head alike and nothing is summed."""
+    runs every head alike and nothing is summed.  With ``state`` (one
+    block's decode state, whole on every rank of "model") the one token's
+    q, k and v are cheaper to gather than the weights
+    (:func:`_mlstm_sub_head_step`)."""
     from torch.distributed.tensor import Partial
 
     d, di, h, hd = _dims(cfg)
@@ -317,6 +327,8 @@ def _mlstm_sub_head(pl, up, cfg: ArchConfig):
     h0, h1 = lo // hd, -(-(lo + width) // hd)  # the heads the columns meet
     cols = slice(lo, lo + width)
     upl = shlib.local_part(shlib.gather_model(up), up, own_model=split)
+    if state is not None:
+        return _mlstm_sub_head_step(pl, up, upl, cfg, state, split, cols)
     loc = {k: shlib.gathered_local(pl[k], up) for k in ("wq", "wk", "wv")}
     loc.update({k: shlib.local_part(pl[k], up, own_model=split) for k in (
         "w_if", "b_if", "out_norm", "w_down")})
@@ -336,6 +348,56 @@ def _mlstm_sub_head(pl, up, cfg: ArchConfig):
                       loc["out_norm"], cfg)
         hflat = hcell.reshape(b, s, (h1 - h0) * hd)[
             ..., lo - h0 * hd:lo - h0 * hd + width]
+        out = (hflat.to(cfg.dtype) * F.silu(z[..., cols])) @ loc["w_down"]
+    return shlib.sum_partial(
+        shlib.from_local(out, up, Partial() if split else None))
+
+
+def _mlstm_core(q, k, v, i_pre, f_pre, state):
+    """The parallel form over the sequence, or with ``state`` (placed, the
+    rank's blocks a match for the heads given) one recurrent step whose
+    new state is written into the rank's blocks -> h ``(B, S, H, hd)``."""
+    if state is None:
+        return mlstm_parallel(q, k, v, i_pre, f_pre)
+    st = tuple(t.to_local() for t in state)
+    new, hcell = mlstm_step(st, q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0],
+                            f_pre[:, 0])
+    for old, t in zip(st, new):
+        old.copy_(t)
+    return hcell[:, None]
+
+
+def _mlstm_sub_head_step(pl, up, upl, cfg: ArchConfig, state, split: bool,
+                         cols: slice):
+    """One decode step of :func:`_mlstm_sub_head`: each rank projects the
+    token on its columns of ``wq``, ``wk`` and ``wv``, one all-gather over
+    "model" makes q, k and v whole (``3 x B x di`` values, where the
+    forward gathers ``3 x di x di`` of weights), and every rank steps the
+    whole state alike; its columns of h then meet its rows of ``w_down``
+    (a partial sum over "model", summed by one all-reduce)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial
+
+    d, di, h, hd = _dims(cfg)
+    mesh = up.device_mesh
+    loc = {k: shlib.local_part(pl[k], up, own_model=split) for k in (
+        "wq", "wk", "wv", "w_if", "b_if", "out_norm", "w_down")}
+    with shlib.manual_region(mesh):
+        xm, z = upl[..., :di], upl[..., di:]
+        qkv = torch.stack([xm @ loc[w] for w in ("wq", "wk", "wv")])
+        if qkv.shape[-1] != di:
+            qkv = funcol.all_gather_tensor(
+                qkv, 3, (mesh, mesh.mesh_dim_names.index("model")))
+        gates = xm[..., cols].float() @ loc["w_if"]
+    gates = shlib.from_local(gates, up, Partial() if split else None)
+    gates = shlib.local_part(shlib.sum_partial(gates), up, own_model=split)
+    with shlib.manual_region(mesh):
+        gates = gates + lane_scale(loc["b_if"], gates)
+        b = xm.shape[0]
+        q, k, v = (t.reshape(b, 1, h, hd) for t in qkv)
+        hcell = _norm(_mlstm_core(q, k, v, gates[..., :h], gates[..., h:],
+                                  state), loc["out_norm"], cfg)
+        hflat = hcell.reshape(b, 1, di)[..., cols]
         out = (hflat.to(cfg.dtype) * F.silu(z[..., cols])) @ loc["w_down"]
     return shlib.sum_partial(
         shlib.from_local(out, up, Partial() if split else None))
@@ -388,7 +450,7 @@ def _slstm_scan(r, px_all, lanes: bool):
     return torch.stack(hs, dim=1)
 
 
-def _slstm_local(pl, px, cfg: ArchConfig):
+def _slstm_local(pl, px, cfg: ArchConfig, state=None):
     """The sLSTM's gates and :func:`_slstm_scan` from DTensor ``px`` ``(B,
     S, 4d)``, its input projection without the bias (the columns, one head
     after another, on "model" where the heads divide it), on each rank's
@@ -398,7 +460,10 @@ def _slstm_local(pl, px, cfg: ArchConfig):
     Where the heads do not divide "model" (4 heads on 16 ranks), the
     recurrence cannot be split inside a head without a collective every
     position: ``px``'s columns are gathered there (one all-gather) and
-    every rank runs every head alike, its inputs' gradients whole."""
+    every rank runs every head alike, its inputs' gradients whole.  With
+    ``state`` (one block's placed decode state, its heads split as the
+    columns are) one step runs from it, and the new state is written into
+    the rank's blocks."""
     from torch.distributed.tensor import Shard
 
     hd = cfg.d_model // cfg.n_heads
@@ -414,8 +479,15 @@ def _slstm_local(pl, px, cfg: ArchConfig):
     with shlib.manual_region(mesh):
         w = pxl.shape[-1]
         lo = rank * w if split else 0
-        gates = pxl + b[lo:lo + w]
-        hs = _slstm_scan(r, _gates(gates, w // (4 * hd), hd), False)
+        gates = _gates(pxl + b[lo:lo + w], w // (4 * hd), hd)
+        if state is None:
+            hs = _slstm_scan(r, gates, False)
+        else:
+            st = tuple(t.to_local() for t in state)
+            new = _slstm_cell(_slstm_recur(r, gates[:, 0], st[3], False), st)
+            for old, t in zip(st, new):
+                old.copy_(t)
+            hs = new[3][:, None]
     return shlib.from_local(hs, px, Shard(2) if split else None)
 
 
@@ -432,8 +504,8 @@ def _slstm_block(pl, x, cfg: ArchConfig, state=None, lanes: bool = False):
     d = cfg.d_model
     b, s, _ = x.shape
     xn = _norm(x, pl["ln"], cfg)
-    if state is None and shlib.is_dtensor(xn):
-        hs = _slstm_local(pl, xn.float() @ pl["wx"].float(), cfg)
+    if shlib.is_dtensor(xn):  # a placed state is written in place
+        hs = _slstm_local(pl, xn.float() @ pl["wx"].float(), cfg, state)
         new_state = None
     elif state is None:
         hs = _slstm_scan(pl["r"], _slstm_input_proj(pl, xn, cfg),
@@ -498,8 +570,7 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: int):
     del cache_len
     tokens = batch["tokens"]
     b, s = tokens.shape
-    cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=tokens.device)
-             for k, d in cache_defs(cfg, b, 0).items()}
+    cache = new_cache(cache_defs(cfg, b, 0), tokens, cfg)
     out = []
     for t in range(s):
         logits, cache = decode_step(params, cache, tokens[:, t], 0, cfg)
@@ -513,22 +584,24 @@ _S_STATE = ("s_c", "s_n", "s_m", "s_h")
 
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     """One token (B,) -> (logits (B, V), cache); the recurrent state is
-    position-free (``pos`` is unused) and updated IN PLACE."""
+    position-free (``pos`` is unused) and updated IN PLACE; under the pod
+    runtime on each rank's blocks (the blocks write their own)."""
     del pos
     lanes = _lanes(params)
-    x = _embed_tokens(params, tokens[:, None], cfg)
+    x = shard_act(_embed_tokens(params, tokens[:, None], cfg),
+                  ("batch", None, "embed"))
     n_m, g, n_s = _groups(cfg)
     for gi in range(g):
         for j in range(n_m):
             st = tuple(cache[k][gi, j] for k in _M_STATE)
             x, new = _mlstm_block(_block(params["mlstm"], gi, j, lanes), x,
                                   cfg, st)
-            for old, t in zip(st, new):
+            for old, t in zip(st, new or ()):
                 old.copy_(t)
         for j in range(n_s):
             st = tuple(cache[k][gi, j] for k in _S_STATE)
             x, new = _slstm_block(_block(params["slstm"], gi, j, lanes), x,
                                   cfg, st, lanes)
-            for old, t in zip(st, new):
+            for old, t in zip(st, new or ()):
                 old.copy_(t)
     return _logits(params, x, cfg)[:, 0], cache

@@ -19,7 +19,7 @@ the placement and the port's own plan by the rules below, each a function:
 :func:`step_scalar_collectives`, :func:`expert_collectives`,
 :func:`mlstm_collectives`, :func:`slstm_collectives`,
 :func:`ssm_collectives`, :func:`prefix_collectives`,
-:func:`projector_collectives` and
+:func:`projector_collectives`, :func:`decode_attention_collectives` and
 :func:`pod_collectives`.  They are the traffic of the pod runtime
 (``launch.steps.make_round_step`` over DTensors, ``launch.sharding``), and
 ``tests/test_torch_pod_runtime.py`` (a dense GQA decoder) and
@@ -43,7 +43,7 @@ __all__ = ["CollectiveStats", "roofline_terms", "model_flops",
            "vocab_parallel_collectives", "head_dim_collectives",
            "replicated_block_collectives", "data_parallel_collectives",
            "step_scalar_collectives", "expert_collectives",
-           "pod_collectives"]
+           "decode_attention_collectives", "pod_collectives"]
 
 
 @dataclass
@@ -227,15 +227,20 @@ def mlstm_collectives(stats: CollectiveStats, blocks: int, rows: int,
     device's columns are part of a head: ``wq``, ``wk`` and ``wv`` (``inner
     x inner`` each) are gathered too in every forward, and in ``train``
     their gradients, partial sums over the devices that share a head, are
-    reduce-scattered back in every gradient pass.  The block's output
-    all-reduce is the tensor-parallel rule's."""
+    reduce-scattered back in every gradient pass.  A ``decode`` step (one
+    token a row, the recurrent state whole on every device of ``model``)
+    gathers the token's q, k and v instead (``3 x rows x inner``, one
+    all-gather).  The block's output all-reduce is the tensor-parallel
+    rule's."""
     if model_n == 1:
         return
     n = passes if kind == "train" else 1
     stats.add("all-gather", n * blocks * rows * 2 * inner * itemsize,
               n * blocks)
     stats.add("all-reduce", n * blocks * rows * 2 * heads * 4, n * blocks)
-    if heads % model_n:
+    if heads % model_n and kind == "decode":
+        stats.add("all-gather", blocks * 3 * rows * inner * itemsize, blocks)
+    elif heads % model_n:
         stats.add("all-gather", n * blocks * 3 * inner * inner * itemsize,
                   3 * n * blocks)
     if kind == "train":
@@ -333,6 +338,29 @@ def prefix_collectives(stats: CollectiveStats, prefix_bytes: int,
     all-reduce there."""
     if model_n > 1 and kind == "train" and prefix_bytes:
         stats.add("all-reduce", passes * prefix_bytes, passes)
+
+
+def decode_attention_collectives(stats: CollectiveStats, layers: int,
+                                 score_bytes: int, q_bytes: int,
+                                 combine_bytes: tuple = (0, 0)) -> None:
+    """One decode step's attention against a placed cache, in each of
+    ``layers`` attention layers (``models.attention``'s placed decode).
+    With the cache's head_dim on ``model``, each device's partial scores
+    over its columns (``score_bytes``: local batch x heads x its positions,
+    f32) are all-reduced there; where the query heads sit on ``model``
+    besides, the token's q is gathered whole there to be cut into the
+    cache's head_dim columns, and the output likewise back into heads (two
+    all-gathers of ``q_bytes``: local batch x heads x head_dim, model
+    dtype).  With the cache's positions on ``data`` (a
+    batch that does not divide it), the softmax is combined over the
+    devices: one all-reduce of the row maxima and one of the row sums with
+    the P V numerators (``combine_bytes``: their f32 bytes on a device)."""
+    if score_bytes:
+        stats.add("all-reduce", layers * score_bytes, layers)
+    if q_bytes:
+        stats.add("all-gather", 2 * layers * q_bytes, 2 * layers)
+    if combine_bytes[0]:
+        stats.add("all-reduce", layers * sum(combine_bytes), 2 * layers)
 
 
 def pod_collectives(stats: CollectiveStats, plan, d: int, itemsize: int,

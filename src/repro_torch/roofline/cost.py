@@ -162,6 +162,11 @@ _COUNTED_NAMESPACES = ("_c10d_functional", "c10d")
 # Communication ops, counted as collectives or not at all: the autograd
 # wrappers reach the mode as the functional ops they call.
 _COMM_NAMESPACES = _COUNTED_NAMESPACES + ("_c10d_functional_autograd",)
+# The functional collectives' wrappers of an output already allocated: on
+# a device they hold their input's memory; on meta they come back as new
+# tensors.  Either way they share their input's allocation, which lives
+# while any of them does.
+_WRAPPERS = {"_wrap_tensor_autograd", "wait_tensor"}
 
 
 def _collective_bytes(name: str, args, out) -> int:
@@ -339,17 +344,29 @@ class CostMode(TorchDispatchMode):
         rec["bytes"] += cost.bytes
 
     def _freed(self, key: int) -> None:
-        self._now -= self._live.pop(key)
+        alloc = self._live.pop(key)  # [bytes, live storages sharing them]
+        alloc[1] -= 1
+        if not alloc[1]:
+            self._now -= alloc[0]
 
-    def _track(self, out) -> None:
+    def _track(self, out, share=None) -> None:
+        """Count each new storage of ``out`` as an allocation, or with
+        ``share`` (a storage) as one more holder of that storage's."""
+        alloc = self._live.get(id(share)) if share is not None else None
         for t in _tensors(out):
             st = t.untyped_storage()
             key = id(st)
             if key in self._args or key in self._live:
                 continue
-            self._live[key] = st.nbytes()
-            self._now += self._live[key]
-            self.temp_bytes = max(self.temp_bytes, self._now)
+            if share is not None and alloc is None:
+                continue  # an argument's, or uncounted
+            if alloc is None:
+                self._live[key] = [st.nbytes(), 1]
+                self._now += st.nbytes()
+                self.temp_bytes = max(self.temp_bytes, self._now)
+            else:
+                alloc[1] += 1
+                self._live[key] = alloc
             weakref.finalize(st, self._freed, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -377,7 +394,9 @@ class CostMode(TorchDispatchMode):
                 self.aten_flops += formula(*args, **kwargs, out_val=out)
             self.aten_bytes += op_bytes(func, args, kwargs, made)
             self.aten_ops += 1
-        self._track(made)
+        wrapped = (func.namespace in _COMM_NAMESPACES
+                   and func._opname in _WRAPPERS)
+        self._track(made, args[0].untyped_storage() if wrapped else None)
         return out
 
     def result(self, outputs=()) -> dict:

@@ -49,6 +49,7 @@ from repro_torch.core import make_algo
 from repro_torch.core.flat import make_spec
 from repro_torch.interop import program_with_delta_base
 from repro_torch.models.small import mnist_2nn
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 TOL = 1e-5  # draw-exact round parity, as tests/test_torch_round_*.py
 ALGO_KW = dict(local_steps=2, batch_size=32)

@@ -15,6 +15,7 @@ from repro.comm import plan as ref_plan
 from repro.core import TopologyConfig as RefTopo
 from repro_torch.comm import plan
 from repro_torch.core import TopologyConfig
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 GOSSIP = ("auto", "sparse", "dense", "xla", "halo", "nccl")
 N = 64

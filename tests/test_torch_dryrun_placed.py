@@ -1,8 +1,12 @@
 """The dry-run's per-device records (``repro_torch.launch.dryrun``): the
-train and prefill records on the ``single`` and ``multi`` production meshes
-are rank 0's own step, placed by the pod runtime and traced on meta as rank
-0 of a fake world of 256 or 512 ranks (``launch.mesh.fake_world``,
-``dryrun.trace_placed``).  For every arch of the zoo at reduced size: the
+train, prefill and decode records on the ``single`` and ``multi``
+production meshes are rank 0's own step, placed by the pod runtime and
+traced on meta as rank 0 of a fake world of 256 or 512 ranks
+(``launch.mesh.fake_world``, ``dryrun.trace_placed``).  Two decode shapes:
+a batch that divides "data" (the cache's rows split there) and a batch of
+1 (its positions split there, as ``long_500k``'s; hymba with 16 meta
+tokens, so that its cache of meta tokens and positions divides).  For
+every arch of the zoo at reduced size (every decoding arch for decode): the
 record reads ``"per_device": "rank 0"``, its FLOPs times the chips are at
 least the whole step's (what the runtime replicates), its collectives equal
 the rules of ``roofline.analysis`` (``dryrun.collectives``), its argument
@@ -21,9 +25,21 @@ from repro_torch.launch.mesh import AbstractMesh, fake_world
 from repro_torch.models.registry import get_model_api
 
 SHAPES = {"train": InputShape("train_16", 16, 32, "train"),
-          "prefill": InputShape("prefill_16", 16, 32, "prefill")}
+          "prefill": InputShape("prefill_16", 16, 32, "prefill"),
+          "decode": InputShape("decode_16", 16, 32, "decode"),
+          "long": InputShape("long_32", 32, 1, "decode")}
 PLACED = ("single", "multi")
-CASES = [(a, k, m) for a in ARCH_IDS for k in SHAPES for m in PLACED]
+DECODING = tuple(a for a in ARCH_IDS if get_config(a, smoke=True)
+                 .supports_decode())
+CASES = [(a, k, m) for k in SHAPES for a in (
+    DECODING if SHAPES[k].kind == "decode" else ARCH_IDS) for m in PLACED]
+
+
+def _overrides(arch, kind):
+    """hymba's long shape: 16 meta tokens (its cache of 48 positions then
+    splits over "data")."""
+    return ({"n_meta_tokens": 16} if kind == "long" and arch == "hymba-1.5b"
+            else None)
 ONE = AbstractMesh(("pod", "data", "model"), {"pod": 1, "data": 1, "model": 1})
 
 
@@ -40,16 +56,19 @@ def records():
     """Each arch's records on the three meshes, sharing one traces dict:
     the card's whole steps and the production meshes' rank-0 steps."""
     out, traces = {}, {}
-    for arch in ARCH_IDS:
-        for kind, shape in SHAPES.items():
-            for mesh in ("card",) + PLACED:
-                out[arch, kind, mesh] = dryrun.run_one(
-                    arch, shape, mesh, smoke=True, traces=traces)
+    for arch, kind, _ in CASES[::2]:
+        for mesh in ("card",) + PLACED:
+            out[arch, kind, mesh] = dryrun.run_one(
+                arch, SHAPES[kind], mesh, smoke=True, traces=traces,
+                overrides=_overrides(arch, kind))
     return out, traces
 
 
-def _api(arch):
-    return get_model_api(get_config(arch, smoke=True))
+def _api(arch, kind="train"):
+    import dataclasses
+
+    return get_model_api(dataclasses.replace(get_config(arch, smoke=True),
+                                             **(_overrides(arch, kind) or {})))
 
 
 @pytest.mark.parametrize("arch,kind,mesh", CASES)
@@ -62,9 +81,10 @@ def test_the_record_is_rank_0_s_own_step(records, arch, kind, mesh):
     b = r["bytes_per_device"]
     assert b["peak_estimate"] == b["argument"] + b["temp"]
     m = dryrun.make_production_mesh(multi_pod=mesh == "multi")
-    api = _api(arch)
+    api = _api(arch, kind)
     placed = dryrun._placed_args(api, SHAPES[kind], m, mesh == "multi")
-    assert b["argument"] == dryrun._device_bytes(placed, m)
+    pos = 4 if SHAPES[kind].kind == "decode" else 0  # a host int
+    assert b["argument"] == dryrun._device_bytes(placed, m) - pos
 
 
 @pytest.mark.parametrize("arch,kind,mesh", CASES)
@@ -83,7 +103,7 @@ def test_the_chips_do_at_least_the_whole_step_s_work(records, arch, kind,
 def test_the_trace_s_collectives_equal_the_rules(records, arch, kind, mesh):
     r = records[0][arch, kind, mesh]
     m = dryrun.make_production_mesh(multi_pod=mesh == "multi")
-    api = _api(arch)
+    api = _api(arch, kind)
     placed = dryrun._placed_args(api, SHAPES[kind], m, mesh == "multi")
     rules = dryrun._collectives(api, SHAPES[kind], m, mesh == "multi",
                                 placed, 2)
@@ -159,13 +179,29 @@ def test_a_failing_rank_0_trace_is_an_error_record(tmp_path, monkeypatch,
     assert not dist.is_initialized()
 
 
-def test_decode_records_stay_ideal(records):
-    """The runtime has no placed decode: decode records divide the whole
-    serve step's trace (``"ideal"``)."""
-    r = dryrun.run_one("glm4-9b", InputShape("decode_16", 16, 32, "decode"),
-                       "single", smoke=True, traces=records[1])
-    assert r["per_device"] == "ideal"
-    assert r["roofline"]["flops_per_device"] == r["cost"]["flops"] / 256
+def test_decode_records_are_rank_0_s_own_step(records):
+    """Every decoding arch's decode records on both production meshes are
+    rank 0's serve step on its blocks of the placed cache, its argument
+    bytes exactly the placement's (``pos`` is a host int): the batch of 32
+    split over "data" (and the pods on ``multi``), the batch of 1's
+    positions split over "data"."""
+    for arch in DECODING:
+        for kind in ("decode", "long"):
+            for mesh in PLACED:
+                r = records[0][arch, kind, mesh]
+                assert r["per_device"] == "rank 0", (arch, kind, mesh)
+                m = dryrun.make_production_mesh(multi_pod=mesh == "multi")
+                api = _api(arch, kind)
+                placed = dryrun._placed_args(api, SHAPES[kind], m,
+                                             mesh == "multi")
+                assert r["bytes_per_device"]["argument"] == \
+                    dryrun._device_bytes(placed, m) - 4
+                key = next(iter(placed[1]))  # a cache leaf with positions
+                spec = placed[1][key][2]
+                if kind == "long" and arch != "xlstm-350m":
+                    assert spec[2] == "data", (arch, mesh, spec)
+                elif arch != "xlstm-350m":
+                    assert spec[1] in ("data", ("pod", "data")), spec
 
 
 def test_cost_mode_counts_a_dtensor_step_at_its_local_shapes():

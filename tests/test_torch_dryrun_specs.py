@@ -80,7 +80,7 @@ def test_spec_for_places_every_leaf_as_the_reference(arch, mesh, fsdp,
     ref_cfg = dataclasses.replace(ref_config(arch), attn_fallback=fallback)
     cfg = dataclasses.replace(get_config(arch), attn_fallback=fallback)
     ref_axes = reference_dryrun()._model_axes(ref_cfg)
-    axes = dryrun._model_axes(cfg)
+    axes = sharding.model_axes_for(cfg)
     assert axes == ref_axes
     shape = INPUT_SHAPES["decode_32k"]
     ra, ga = ref_api(ref_cfg), get_model_api(cfg)
@@ -96,7 +96,7 @@ def test_spec_for_places_every_leaf_as_the_reference(arch, mesh, fsdp,
         assert spec == tuple(want), path
         bdims = tuple(i for i, a in enumerate(r.axes) if a == "batch")
         n_pods = m.shape.get("pod", 1)
-        assert dryrun._pod_spec(spec, bdims, g.shape, n_pods) == tuple(
+        assert sharding.pod_spec(spec, bdims, g.shape, n_pods) == tuple(
             reference_dryrun()._pod_spec(want, bdims, r.shape, n_pods)), path
 
 
@@ -105,7 +105,7 @@ def test_spec_for_places_every_leaf_as_the_reference(arch, mesh, fsdp,
 def test_pod_spec_widens_the_batch_as_the_reference(rows, n_pods):
     spec = ("data" if rows % 16 == 0 else None, None)
     want = reference_dryrun()._pod_spec(P(*spec), (0,), (rows, 8), n_pods)
-    assert dryrun._pod_spec(spec, (0,), (rows, 8), n_pods) == tuple(want)
+    assert sharding.pod_spec(spec, (0,), (rows, 8), n_pods) == tuple(want)
 
 
 @pytest.mark.parametrize("arch,shape", COMBOS)

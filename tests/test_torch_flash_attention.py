@@ -47,6 +47,7 @@ from repro.models import attention as ref_attn
 from repro_torch.interop import tensor_from_numpy
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 MODES = [(True, 0), (True, 64), (False, 0)]
 BQ, BK = 128, 64  # the bf16 kernel's query and key tiles

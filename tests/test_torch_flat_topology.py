@@ -22,6 +22,7 @@ from repro.core import flat as ref_flat
 from repro.core import topology as ref_topo
 from repro_torch.core import flat, topology
 from repro_torch.models import small
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 MODELS = {
     "mnist_2nn": lambda m: m.mnist_2nn(),

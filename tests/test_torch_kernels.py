@@ -32,6 +32,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import gossip_gather as gg
 from repro_torch.kernels import gossip_matmul as gm
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 F32_ULP = 2.0 ** -23
 BF16_ULP = 2.0 ** -7

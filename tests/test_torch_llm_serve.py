@@ -38,6 +38,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.registry import get_model_api
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 ARCHS = ("codeqwen1.5-7b", "gemma3-12b", "glm4-9b", "phi3-medium-14b",
          "dbrx-132b", "deepseek-v3-671b")

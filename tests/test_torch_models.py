@@ -29,6 +29,7 @@ from repro_torch.core.flat import tree_flatten
 from repro_torch.data import dirichlet, synthetic
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import small
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 MODELS = {
     "mnist_2nn": (lambda m: m.mnist_2nn(), (784,)),

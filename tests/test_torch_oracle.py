@@ -51,6 +51,7 @@ from repro_torch.core import (ChurnModel, DeltaConfig, FLState, FLTrainer,
 from repro_torch.core.flat import tree_flatten, tree_map
 from repro_torch.interop import params_from_numpy
 from repro_torch.models.small import mnist_2nn
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ from repro_torch.core import FLTrainer, LinkModel, TopologyConfig
 from repro_torch.core import make_algo, make_program, topology
 from repro_torch.models.small import tiny_mlp
 from repro_torch.store import ClientStore, PagedRunner, ResidentDriver
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 N = 16
 K_ACTIVE = 4

@@ -30,6 +30,7 @@ from repro_torch.core import TopologyConfig, make_algo, make_program
 from repro_torch.models.small import mnist_2nn
 from repro_torch.store import ResidentDriver
 from test_torch_paged import ref_round_draws
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 N, K_ACTIVE, K_OUT, ROUNDS = 512, 32, 4, 4
 

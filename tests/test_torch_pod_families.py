@@ -53,6 +53,7 @@ from repro.models.registry import get_model_api as ref_api
 
 from _torch_dryrun_ref import leaves
 import _torch_pod_families_world as world_script
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")

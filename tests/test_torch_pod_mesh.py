@@ -30,6 +30,7 @@ from repro_torch.core.flat import tree_map
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import sharding, steps
 from repro_torch.models.registry import get_model_api
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 AXES = ("pod", "data", "model")
 SHAPES = [(2, 2, 2), (2, 1, 4), (1, 4, 2)]

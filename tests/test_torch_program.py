@@ -30,6 +30,7 @@ from repro_torch.interop import (
     tensor_from_numpy,
 )
 from repro_torch.models import small
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import golden_data, run_scenario_parity
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 WARM = dict(fail_prob=0.3, recover_prob=0.5)
 COLD = dict(fail_prob=0.3, recover_prob=0.5, permanent_frac=0.2,

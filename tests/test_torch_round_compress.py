@@ -46,6 +46,7 @@ from _torch_parity import (
     golden_data,
     run_scenario_parity,
 )
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

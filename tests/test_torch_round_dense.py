@@ -15,6 +15,7 @@ import pytest
 
 from _torch_parity import golden_data, run_parity
 from repro.core import ALGORITHMS
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 GOSSIP = "dense"
 

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from _torch_parity import golden_data, run_scenario_parity
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 MARGIN = 1e-3
 

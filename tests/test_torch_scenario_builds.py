@@ -25,6 +25,7 @@ from repro.core import topology as ref_topo
 from repro_torch.core import pushsum, sam, stages, topology
 from repro_torch.core.flat import tree_flatten
 from repro_torch.interop import params_from_numpy, tensor_from_numpy
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 
 def _t(a):

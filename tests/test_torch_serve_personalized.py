@@ -35,6 +35,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.launch.steps import make_personalized_serve_step
 from repro_torch.models.registry import get_model_api
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 ARCHS = ("codeqwen1.5-7b", "gemma3-12b", "glm4-9b", "phi3-medium-14b")
 S, STEPS, RANK = 40, 3, 2

@@ -60,6 +60,7 @@ from _torch_sharded_world import (
     WORLD,
     world_data,
 )
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TIMEOUT = 300

@@ -41,6 +41,7 @@ from repro_torch.store import (
     make_plan,
 )
 from repro_torch.store import layout
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 
 def _toy_fields(F=FieldSpec):

@@ -21,6 +21,7 @@ from repro.models.small import tiny_mlp as ref_tiny
 import repro_torch.core as T
 from repro_torch.core import stages, topology
 from repro_torch.models.small import tiny_mlp
+from _torch_threads import one_thread  # noqa: F401,E402  (an autouse fixture)
 
 N = 8
 
